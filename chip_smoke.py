@@ -13,7 +13,18 @@ Phases (any failure raises and the exit code is not 0):
      weights; random positive BN running stats, so the BN fold matters,
      sized so the activations neither vanish nor blow up), in
      bf16 and f32, counting the kernels' launches; then run the same model
-     on the plain path on the same card and compare the logits.
+     on the plain path on the same card and compare the logits;
+  4. training, f32, B=16 clouds of N=1024 points (``Trainer`` defaults:
+     Adam, the LR and BN-momentum schedules, y-rotation + jitter, dropout
+     0.5): hold the training kernels against their plain versions at the
+     step's shapes (ball group SA1 and SA2, plus empty balls and duplicated
+     points; the SA2 neighbour gather and its scatter-add backward, which
+     must also be bit-stable) and time them and FPS indices-only; run a few
+     ``train_step``s of a ``Trainer`` built from ``get_model`` (seeded
+     weights) on synthetic batches, counting the launches; run one step on
+     the kernel path and one on the plain path from the same weights,
+     batch and random draws, and compare the loss, every gradient and the
+     BN running stats; time a step on both paths.
 
 f32 products run in full f32: TF32 is switched off for matmuls and cuDNN.
 Prints the card's name and power limit, the build time, per-kernel times,
@@ -43,6 +54,20 @@ F32_LOGIT_TOL = 1e-4  # x max(1, |ref|max)
 BF16_SA_ULPS, BF16_LOGIT_ULPS = 1, 2
 BF16_MAX_DIFFERING = 1e-3
 BF16_CLASS_AGREEMENT = 0.99
+# Training (f32).  Ball group and gather: equal.  Scatter-add against
+# index_add_: both sum exact f32 in other orders, within SCATTER_TOL x
+# max(1, |ref|max).  One step, kernel path against plain path: the forward
+# is the same arithmetic (loss within TRAIN_LOSS_RTOL); the gradients differ
+# only through the scatter's summation order (TRAIN_GRAD_TOL x max(1,
+# |ref|max) per tensor, as the f32 SA bound).  A Dense bias that feeds a
+# training-mode BN has a gradient of exactly 0 (BN subtracts the batch
+# mean): the step computes rounding noise there, up to 1.4e-4 in SA1, and a
+# one-ulp change of the scatter's output moves it by 1.9e-4 (CPU, at these
+# shapes), while every other tensor moves by less than 3e-6 of its scale.
+# Those biases are held to |g| <= ZERO_GRAD_TOL on both paths instead.
+TRAIN_BATCH, TRAIN_POINT, TRAIN_STEPS = 16, 1024, 3
+SCATTER_TOL = 1e-5
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, ZERO_GRAD_TOL = 1e-6, 1e-4, 1e-3
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -59,6 +84,29 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time per call: the union of the intervals of the device
+    kernels and copies that ``fn`` launches, traced by torch.profiler
+    (``profile_forward.busy_us``, the device busy time of the profile).
+    Unlike ``cuda_ms`` it leaves out the gaps in which the card waits for
+    the host to launch, which dominate a call of a few microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_forward import busy_us, device_spans
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = device_spans(prof)
+    require(bool(spans), "the profiler recorded no device time")
+    return busy_us(spans) / 1e3 / iters
 
 
 def scale_of(ref) -> float:
@@ -109,6 +157,207 @@ def check_sa(args, dtype, label, sa, sa_plain) -> float:
             f"SA pooled differs from the plain version ({label}): max abs err {err}")
     print(f"sa {label}: idx equal, pooled max abs err {err:.3e} (bound rtol {F32_RTOL} atol {F32_ATOL})")
     return err
+
+
+def feeds_train_bn(param_name: str) -> bool:
+    """A Dense bias followed by a BatchNorm in ``pointnet2_cls_ssg``: every
+    SA MLP layer (``dense_i``) and the head's fc1 and fc2."""
+    *_, layer, leaf = param_name.split(".")
+    return leaf == "bias" and (layer.startswith("dense_") or layer in ("fc1", "fc2"))
+
+
+def fps_plain_entry(xyz, npoint, with_coords=True):
+    """``fps_plain`` behind the signature of the ``fps`` wrapper."""
+    from scanobjectnn_torch.ops.cuda.fps_kernel import fps_plain
+
+    idx, new_xyz = fps_plain(xyz, npoint)
+    return (idx, new_xyz) if with_coords else idx
+
+
+def plain_training_path():
+    """Patches that swap every training kernel's wrapper for its plain
+    version, at the names the training path calls them by."""
+    from contextlib import ExitStack
+
+    from scanobjectnn_torch.ops import fps as ops_fps
+    from scanobjectnn_torch.ops.cuda import ballgroup_kernel, gather_kernel
+
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(ops_fps, "fps", fps_plain_entry))
+    stack.enter_context(mock.patch.object(
+        ballgroup_kernel, "query_ball_group", ballgroup_kernel.query_ball_group_plain))
+    stack.enter_context(mock.patch.object(gather_kernel, "gather_rows", gather_kernel.gather_rows_plain))
+    stack.enter_context(mock.patch.object(
+        gather_kernel, "scatter_add_rows", gather_kernel.scatter_add_rows_plain))
+    return stack
+
+
+def train_phase(smi: str, dev) -> dict:
+    """Phase 4 (module doc).  Returns, per training kernel, its main-path
+    launches, max abs error against its plain version, and kernel and plain
+    ms summed over the calls one training step makes."""
+    import numpy as np
+    import torch
+
+    from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group, query_ball_group_plain
+    from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
+    from scanobjectnn_torch.ops.cuda.gather_kernel import (
+        gather_rows, gather_rows_plain, scatter_add_rows, scatter_add_rows_plain,
+    )
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    names = ("query_ball_group", "gather_rows", "scatter_add_rows")
+    out = {k: {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in names}
+
+    def record(kname, label, fn, plain_fn, in_step=True, plain_iters=10):
+        """Time the kernel and its plain version: device time (kept) and CUDA
+        events around back-to-back calls (host launch cost included)."""
+        ms, plain_ms = device_ms(fn), device_ms(plain_fn, iters=plain_iters)
+        print(f"time {kname} {label}: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; CUDA events per call "
+              f"kernel {cuda_ms(fn):.4f} ms, plain {cuda_ms(plain_fn, iters=plain_iters):.4f} ms ({smi})")
+        if in_step:
+            out[kname]["ms"] += ms
+            out[kname]["plain_ms"] += plain_ms
+
+    data, labels = make_synthetic_dataset(
+        num_per_class=8, num_classes=NUM_CLASSES, num_points=2 * TRAIN_POINT, seed=0
+    )
+    sampler = EpochSampler(data, labels, num_points=TRAIN_POINT, seed=0)
+    batches = list(Batches(sampler.epoch(), TRAIN_BATCH))
+    require(len(batches) >= 2 * TRAIN_STEPS, f"only {len(batches)} training batches")
+
+    # 4a. The training kernels against their plain versions, at the step's shapes.
+    x = torch.from_numpy(batches[0]["points"]).to(dev)
+    _, x1 = fps_plain(x, 512)
+    _, x2 = fps_plain(x1, 128)
+    for xyz, npoint, label in ((x, 512, f"B={TRAIN_BATCH} 1024->512"), (x1, 128, f"B={TRAIN_BATCH} 512->128")):
+        require(torch.equal(fps(xyz, npoint, with_coords=False), fps_plain(xyz, npoint)[0]),
+                f"FPS indices-only differ from fps_plain ({label})")
+        record("fps indices-only", label, lambda: fps(xyz, npoint, with_coords=False),
+               lambda: fps_plain(xyz, npoint), in_step=False, plain_iters=3)
+    g = torch.Generator().manual_seed(3)
+    lattice = torch.randint(-3, 4, (TRAIN_BATCH, 128, 3), generator=g).float() * 0.25
+    dup = lattice.repeat(1, 8, 1)[:, torch.randperm(TRAIN_POINT, generator=g)].contiguous().to(dev)
+    far = x1.clone()
+    far[:, ::2] += 100.0
+    sa2_idx = None
+    for label, (radius, k, xyz, q), in_step in (
+        (f"SA1 B={TRAIN_BATCH} N1024 M512 K32 r0.2", (0.2, 32, x, x1), True),
+        (f"SA2 B={TRAIN_BATCH} N512 M128 K64 r0.4", (0.4, 64, x1, x2), True),
+        ("empty balls (half the queries moved away)", (0.2, 32, x, far), False),
+        ("duplicated lattice points", (0.3, 32, dup, fps_plain(dup, 512)[1]), False),
+    ):
+        got = query_ball_group(radius, k, xyz, q)
+        want = query_ball_group_plain(radius, k, xyz, q)
+        torch.cuda.synchronize()
+        for what, a, b in zip(("grouped", "idx", "cnt"), got, want):
+            require(a.dtype == b.dtype and torch.equal(a, b), f"ball group {what} differs from the plain version ({label})")
+        if "empty" in label:
+            require(bool((got[2][:, ::2] == 0).all()), "the moved queries found hits")
+        print(f"ball group {label}: grouped, idx and cnt equal to the plain version "
+              f"(mean cnt {float(got[2].float().mean()):.2f})")
+        record("query_ball_group", label, lambda: query_ball_group(radius, k, xyz, q),
+               lambda: query_ball_group_plain(radius, k, xyz, q), in_step)
+        if label.startswith("SA2"):
+            sa2_idx = got[1].reshape(TRAIN_BATCH, -1)
+
+    rng = np.random.RandomState(4)
+    vals = torch.from_numpy(rng.randn(TRAIN_BATCH, 512, 128).astype(np.float32)).to(dev)
+    upd = torch.from_numpy(rng.randn(TRAIN_BATCH, sa2_idx.shape[1], 128).astype(np.float32)).to(dev)
+    require(torch.equal(gather_rows(vals, sa2_idx), gather_rows_plain(vals, sa2_idx)),
+            "gather differs from the plain version")
+    shapes = f"[{TRAIN_BATCH},512,128] by [{TRAIN_BATCH},{sa2_idx.shape[1]}]"
+    print(f"gather SA2 {shapes}: equal to the plain version")
+    record("gather_rows", f"SA2 {shapes}", lambda: gather_rows(vals, sa2_idx),
+           lambda: gather_rows_plain(vals, sa2_idx))
+    got, again = scatter_add_rows(sa2_idx, upd, 512), scatter_add_rows(sa2_idx, upd, 512)
+    want = scatter_add_rows_plain(sa2_idx, upd, 512)
+    torch.cuda.synchronize()
+    require(torch.equal(got, again), "the scatter-add kernel is not bit-stable")
+    err, tol = float((got - want).abs().max()), SCATTER_TOL * scale_of(want)
+    print(f"scatter-add SA2 {shapes}: identical bits on two calls, "
+          f"max abs err {err:.3e} against index_add_ (bound {tol:.3e})")
+    require(err <= tol, f"scatter-add differs from index_add_: {err} > {tol}")
+    out["scatter_add_rows"]["max_abs_err"] = err
+    record("scatter_add_rows", f"SA2 {shapes}", lambda: scatter_add_rows(sa2_idx, upd, 512),
+           lambda: scatter_add_rows_plain(sa2_idx, upd, 512))
+
+    # 4b. The main path: Trainer(get_model) -> train_step, counting launches.
+    trainer = Trainer(TrainerConfig(batch_size=TRAIN_BATCH, device=str(dev)))
+    state = trainer.init_state(seed=0)
+    counters = (fps, query_ball_group, gather_rows, scatter_add_rows)
+    for fn in counters:
+        fn.launches = 0
+    losses = []
+    for batch in batches[:TRAIN_STEPS]:
+        state, metrics = trainer.train_step(state, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    losses = [float(v) for v in losses]
+    print(f"training main path: {TRAIN_STEPS} steps, losses {[round(v, 6) for v in losses]}, launches {launches}")
+    require(all(n > 0 for n in launches.values()), f"a training kernel never launched: {launches}")
+    require(all(math.isfinite(v) for v in losses), f"non-finite training loss: {losses}")
+    for k in names:
+        out[k]["launches"] = launches[k]
+    out["fps_train_launches"] = launches["fps"]
+
+    # 4c. One step on the kernel path and on the plain path, from the same
+    # weights, batch and generator state.
+    steps = {}
+    for path in ("kernel", "plain"):
+        s = trainer.init_state(seed=1)
+        before = [fn.launches for fn in counters]
+        if path == "plain":
+            with plain_training_path():
+                s, metrics = trainer.train_step(s, batches[TRAIN_STEPS])
+            torch.cuda.synchronize()
+            require([fn.launches for fn in counters] == before, "the plain training path launched a kernel")
+        else:
+            s, metrics = trainer.train_step(s, batches[TRAIN_STEPS])
+        steps[path] = (float(metrics["loss"]), {n: p.grad for n, p in s.model.named_parameters()},
+                       dict(s.model.named_buffers()))
+    (loss_k, grads_k, stats_k), (loss_p, grads_p, stats_p) = steps["kernel"], steps["plain"]
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    zero = [n for n in grads_p if feeds_train_bn(n)]
+    require(len(zero) == 11, f"expected the 11 Dense biases that feed a BN, found {zero}")
+    grad_err, worst = max(
+        (float((grads_k[n] - grads_p[n]).abs().max()) / scale_of(grads_p[n]), n) for n in grads_p if n not in zero
+    )
+    zero_max = max(float(g[n].abs().max()) for g in (grads_k, grads_p) for n in zero)
+    stat_err = max(float((stats_k[n] - stats_p[n]).abs().max()) / scale_of(stats_p[n]) for n in stats_p)
+    print(f"train step, kernel path against plain path: loss {loss_k:.7f} vs {loss_p:.7f} "
+          f"(rel err {loss_err:.3e}, bound {TRAIN_LOSS_RTOL}); largest error / scale: gradients {grad_err:.3e} "
+          f"({worst}), BN stats {stat_err:.3e} (bound {TRAIN_GRAD_TOL}); the 11 Dense biases before a BN: "
+          f"max |grad| {zero_max:.3e} on either path (bound {ZERO_GRAD_TOL})")
+    require(loss_err <= TRAIN_LOSS_RTOL, "training loss differs from the plain path")
+    require(grad_err <= TRAIN_GRAD_TOL and stat_err <= TRAIN_GRAD_TOL,
+            "training gradients or BN stats differ from the plain path")
+    require(zero_max <= ZERO_GRAD_TOL, "a Dense bias before a BN has a gradient far from 0")
+
+    # 4d. Step time, host clock around steps that end in a synchronize, in
+    # turns: kernel, plain, plain, kernel.
+    def step_ms(path: str, n: int = 3) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches[:n]:
+            if path == "plain":
+                with plain_training_path():
+                    trainer.train_step(state, batch)
+            else:
+                trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    times = {"kernel": [], "plain": []}
+    for path in ("kernel", "plain", "plain", "kernel"):
+        times[path].append(step_ms(path))
+    for path, ms in times.items():
+        print(f"time train step {path} path B={TRAIN_BATCH} N={TRAIN_POINT} f32: {sum(ms) / len(ms):.4f} ms "
+              f"(rounds {', '.join(f'{v:.4f}' for v in ms)}) ({smi})")
+    return out
 
 
 def main() -> None:
@@ -225,10 +474,6 @@ def main() -> None:
 
     # The same model on the plain path, same card: the wrappers swapped for
     # the plain versions inside the two modules that call them.
-    def fps_plain_entry(xyz, npoint, with_coords=True):
-        idx, new_xyz = fps_plain(xyz, npoint)
-        return (idx, new_xyz) if with_coords else idx
-
     with torch.no_grad(), mock.patch.object(ops_fps, "fps", fps_plain_entry), mock.patch.object(
         pointnet_modules, "sa_ball_mlp_pool", sa_ball_mlp_pool_plain
     ):
@@ -258,20 +503,33 @@ def main() -> None:
             print(f"time forward {name} B={BATCH} N={NUM_POINT}: kernel path {ms:.4f} ms "
                   f"({BATCH / ms * 1e3:.1f} clouds/s), plain path {plain_fwd_ms[name]:.4f} ms ({smi})")
 
+    # 4. Training.
+    train = train_phase(smi, dev)
+    launches["fps"] += train.pop("fps_train_launches")
+    print(f"launches, inference and training main paths together: fps {launches['fps']}")
+
     require(not {"jax", "scanobjectnn_tpu"} & set(sys.modules), "JAX or the JAX package was imported")
 
+    pallas = "scanobjectnn_tpu/ops/pallas/"
     sources = {
-        "fps": ("scanobjectnn_torch/csrc/fps.cu", "scanobjectnn_tpu/ops/pallas/fps_kernel.py:151"),
-        "sa_ball_mlp_pool": (
-            "scanobjectnn_torch/csrc/safused.cu", "scanobjectnn_tpu/ops/pallas/safused_kernel.py:354",
-        ),
+        "fps": ("scanobjectnn_torch/csrc/fps.cu", pallas + "fps_kernel.py:151"),
+        "sa_ball_mlp_pool": ("scanobjectnn_torch/csrc/safused.cu", pallas + "safused_kernel.py:354"),
+        "query_ball_group": ("scanobjectnn_torch/csrc/ballgroup.cu", pallas + "ballquery_kernel.py:381"),
+        "gather_rows": ("scanobjectnn_torch/csrc/gather.cu", pallas + "onehot.py:223"),
+        "scatter_add_rows": ("scanobjectnn_torch/csrc/gather.cu", pallas + "onehot.py:245"),
     }
+    measured = {
+        k: {"launches": launches[k], "max_abs_err": errs[k], "ms": per_forward[k][0], "plain_ms": per_forward[k][1]}
+        for k in ("fps", "sa_ball_mlp_pool")
+    }
+    measured.update(train)
     kernels = [
-        {"name": k, "route": "cuda", "source": src, "replaces": tpu, "launches": launches[k],
-         "max_abs_err": errs[k], "ms": per_forward[k][0], "plain_ms": per_forward[k][1]}
+        {"name": k, "route": "cuda", "source": src, "replaces": tpu, **measured[k]}
         for k, (src, tpu) in sources.items()
     ]
-    print("kernel ms / plain_ms: summed over one bf16 forward's calls at B=128 (FPS both layers, SA1+SA2)")
+    print("kernel ms / plain_ms: fps and sa_ball_mlp_pool summed over one bf16 inference forward's calls "
+          "at B=128 (FPS both layers, SA1+SA2; CUDA events); the others over one f32 training step's calls "
+          "at B=16 (ball group SA1+SA2, gather and scatter-add SA2; device time, torch.profiler)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

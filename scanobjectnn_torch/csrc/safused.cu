@@ -10,7 +10,8 @@
 // One block handles QPB = max(1, 64 / K) queries of one cloud, i.e. R = QPB*K
 // <= 64 (query, slot) rows:
 //   1. ball select: one warp per query scans the candidates 32 at a time in
-//      point order (ballot + popc keep the order) and stops after K hits;
+//      point order (ballot + popc keep the order) and stops after K hits
+//      (ball_scan in ballscan.cuh, shared with ballgroup.cu);
 //   2. the rows [c3 | feat[idx]] are staged in shared memory (c3 rounded to
 //      the compute type, features converted to f32 exactly);
 //   3. each hidden layer maps 8 rows x 1 output column to a thread (one
@@ -21,14 +22,13 @@
 //      running max, so its activations are never stored.
 // Bound: the MLP's FLOPs on CUDA cores (tensor cores are later work).
 //
-// Distances use __fmul_rn/__fadd_rn so nvcc cannot contract them into FMAs:
-// the bits of d2 decide ball-boundary hits.
-
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
 #include <cstdint>
+
+#include "ballscan.cuh"
 
 namespace {
 
@@ -141,7 +141,7 @@ __global__ void __launch_bounds__(kThreads)
   const int nwarps = kThreads / 32;
   const float* cloud = a.xyz + static_cast<size_t>(b) * a.n * 3;
 
-  // 1. Ball select, one warp per query.
+  // 1. Ball select, one warp per query (csrc/ballscan.cuh).
   for (int ql = warp; ql < qpb; ql += nwarps) {
     int* row = sidx + ql * k;
     const int q = q0 + ql;
@@ -150,28 +150,7 @@ __global__ void __launch_bounds__(kThreads)
       continue;
     }
     const float* qp = a.new_xyz + (static_cast<size_t>(b) * a.m + q) * 3;
-    const float qx = qp[0], qy = qp[1], qz = qp[2];
-    int cnt = 0;
-    for (int base = 0; base < a.n && cnt < k; base += 32) {
-      const int p = base + lane;
-      bool hit = false;
-      if (p < a.n) {
-        const float dx = qx - cloud[3 * p], dy = qy - cloud[3 * p + 1],
-                    dz = qz - cloud[3 * p + 2];
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                   __fmul_rn(dz, dz));
-        hit = d2 < a.r2;
-      }
-      const unsigned mask = __ballot_sync(0xffffffffu, hit);
-      const int pos = cnt + __popc(mask & ((1u << lane) - 1u));
-      if (hit && pos < k) row[pos] = p;
-      cnt += __popc(mask);
-    }
-    __syncwarp();
-    const int filled = min(cnt, k);
-    const int first = filled > 0 ? row[0] : 0;  // no hit: point 0
-    for (int s = filled + lane; s < k; s += 32) row[s] = first;
-    __syncwarp();
+    ball_scan(cloud, a.n, qp[0], qp[1], qp[2], a.r2, k, row);
     int32_t* out = a.idx + (static_cast<size_t>(b) * a.m + q) * k;
     for (int s = lane; s < k; s += 32) out[s] = row[s];
   }

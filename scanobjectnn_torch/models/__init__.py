@@ -1,8 +1,10 @@
 """Model registry (counterpart of ``scanobjectnn_tpu/models/__init__.py``).
 
-Only ``pointnet2_cls_ssg`` is ported; every other name raises ``KeyError``
-saying it is not ported yet.  Inference only, so ``get_model`` returns the
-module alone (the JAX one also returns the loss and the model's kind).
+Only ``pointnet2_cls_ssg`` is ported, for inference and f32 training;
+every other name raises ``KeyError`` saying it is not ported yet.
+``get_model`` returns the module alone; its loss is the static
+``loss(outputs, batch)`` on the module's class (the JAX one returns the
+module, the loss and the model's kind).
 """
 
 from __future__ import annotations

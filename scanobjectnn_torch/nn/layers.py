@@ -7,13 +7,18 @@ Semantics kept from the JAX package, which ``torch.nn`` does not give:
     f32, the f32 bias added, then ONE cast.  A bf16 ``torch.matmul`` would
     round its product to bf16 before the bias (a second rounding), so the
     product runs on the bf16-rounded operands upcast to f32 (``matmul_f32``).
-  * ``BatchNorm`` eval is ``(x - mean) * rsqrt(var + 1e-3) * scale + bias``
-    in f32, cast to the compute dtype (eps 1e-3, not torch's 1e-5).
+  * ``BatchNorm`` normalizes as ``(x - mean) * rsqrt(var + 1e-3) * scale +
+    bias`` in f32, cast to the compute dtype (eps 1e-3, not torch's 1e-5).
+    Eval reads the running stats.  Training takes the batch statistics in
+    f32 over every axis but the last, with the BIASED variance
+    ``max(E[x²] - E[x]², 0)``, and updates the running stats with the
+    call-time momentum ``m`` as ``ra = m·ra + (1-m)·batch`` (``bn_decay``;
+    ``F.batch_norm`` keeps an unbiased running var and the opposite
+    momentum convention, so it is not used).
+  * The max-pool is ``torch.amax``, which splits the gradient evenly across
+    ties as ``jnp.max`` does.
   * Init is Glorot-uniform kernels and zero biases (``reset_parameters``
     with an explicit ``torch.Generator``).
-
-Only inference is ported: training-mode BatchNorm (batch statistics with
-the call-time EMA momentum) raises until the training step is ported.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -58,7 +64,8 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch normalization over the last axis, eps 1e-3.
+    """Batch normalization over the last axis, eps 1e-3, with a call-time
+    momentum in training (module doc).
 
     ``scale``/``bias`` are parameters and ``mean``/``var`` buffers, named as
     the JAX ``params``/``batch_stats`` leaves."""
@@ -80,19 +87,35 @@ class BatchNorm(nn.Module):
             self.mean.zero_()
             self.var.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum: float | None = None) -> torch.Tensor:
+        """In training, ``bn_momentum`` (the scheduled ``bn_decay``) is
+        required; eval ignores it."""
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm is not ported yet; call .eval()"
-            )
-        y = (x.float() - self.mean) * torch.rsqrt(self.var + self.epsilon)
+            if bn_momentum is None:
+                raise ValueError("training-mode BatchNorm needs the call-time bn_momentum")
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp(torch.square(xf).mean(dim=axes) - torch.square(mean), min=0.0)
+            # m and 1 - m in f32, as JAX takes them, but as Python scalars:
+            # a tensor made from m would be a host-to-device copy, which
+            # waits for the card on every call.
+            m = np.float32(bn_momentum)
+            m, rest = float(m), float(np.float32(1.0) - m)
+            with torch.no_grad():
+                self.mean.copy_(self.mean * m + mean * rest)
+                self.var.copy_(self.var * m + var * rest)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         y = y * self.scale + self.bias
         return y.to(self.dtype or x.dtype)
 
 
 class MLP(nn.Module):
     """Dense→BN→ReLU stack over the last axis (a reference "shared MLP"),
-    with children ``dense_i``/``bn_i`` as in the JAX param tree."""
+    with children ``dense_i``/``bn_i`` as in the JAX param tree.
+    ``bn_momentum`` is the BN call-time momentum, required in training."""
 
     def __init__(self, in_features: int, features: Sequence[int], dtype: torch.dtype | None = None):
         super().__init__()
@@ -102,19 +125,23 @@ class MLP(nn.Module):
             self.add_module(f"bn_{i}", BatchNorm(f, dtype))
             in_features = f
 
-    def layer(self, i: int, x: torch.Tensor) -> torch.Tensor:
+    def layer(self, i: int, x: torch.Tensor, bn_momentum: float | None = None) -> torch.Tensor:
         """Dense_i → BN_i → relu."""
         x = getattr(self, f"dense_{i}")(x)
-        return torch.relu(getattr(self, f"bn_{i}")(x))
+        return torch.relu(getattr(self, f"bn_{i}")(x, bn_momentum))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum: float | None = None) -> torch.Tensor:
         for i in range(len(self.features)):
-            x = self.layer(i, x)
+            x = self.layer(i, x, bn_momentum)
         return x
 
 
-def mlp_final_max(mdl: MLP, x: torch.Tensor, index: int, dim: int) -> torch.Tensor:
-    """Final Dense→BN→relu→max-pool step of a shared-MLP stack: the eval
-    branch (pool_f32 mode "0") of the JAX ``mlp_final_max``.  Returns the
-    pooled tensor in the compute dtype."""
-    return torch.amax(mdl.layer(index, x), dim=dim)
+def mlp_final_max(
+    mdl: MLP, x: torch.Tensor, index: int, dim: int, bn_momentum: float | None = None
+) -> torch.Tensor:
+    """Final Dense→BN→relu→max-pool step of a shared-MLP stack: pool_f32
+    mode "0" of the JAX ``mlp_final_max`` (every eval call, and f32
+    training, where the other modes are no-ops).  ``torch.amax`` splits the
+    gradient evenly across ties.  Returns the pooled tensor in the compute
+    dtype."""
+    return torch.amax(mdl.layer(index, x, bn_momentum), dim=dim)

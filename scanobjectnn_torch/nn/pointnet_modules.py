@@ -1,12 +1,15 @@
-"""PointNet++ set abstraction for inference (counterpart of
+"""PointNet++ set abstraction (counterpart of
 ``scanobjectnn_tpu/nn/pointnet_modules.py``).
 
-Ported: ``_fused_ball_scale``, ``sample_and_group_all``, the eval fused
-branch and the group-all branch of ``SAModule``, and the eval path of
-``GroupMLPPool``.  A ball-grouped SA layer at eval runs two kernels: FPS
-for the centroids, then the fused ball-select + MLP + max-pool layer.
-The unfused grouping path, kNN grouping, pooling modes other than max,
-``mlp2`` and training are not ported yet.
+Ported: ``_fused_ball_scale``, ``sample_and_group``,
+``sample_and_group_all``, ``SAModule`` (the fused eval branch, the unfused
+training branch and the group-all branch) and ``GroupMLPPool`` (eval and
+the unfused training path).  A ball-grouped SA layer at eval runs two
+kernels: FPS for the centroids, then the fused ball-select + MLP + max-pool
+layer.  In training it runs FPS (indices only), the ball group, the
+neighbour gather (whose backward is the scatter-add kernel) and the MLP in
+plain PyTorch with batch-statistics BN.  kNN grouping, pooling modes other
+than max, ``mlp2`` and the fused training tail are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,22 +21,24 @@ from torch import nn
 
 from scanobjectnn_torch import ops
 from scanobjectnn_torch.nn.layers import MLP, mlp_final_max
+from scanobjectnn_torch.ops.cuda.gather_kernel import gather_neighbors
 from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool
 from scanobjectnn_torch.ops.cuda.samlp_kernel import fold_bn_mlp_params
 
-__all__ = ["sample_and_group_all", "SAModule", "GroupMLPPool"]
+__all__ = ["sample_and_group", "sample_and_group_all", "SAModule", "GroupMLPPool"]
 
 
 class GroupMLPPool(MLP):
     """Grouped shared MLP + max-pool over the neighbour axis (dim 2).  Same
     children as ``MLP`` (``dense_i``/``bn_i``), so the eval BN fold reads
-    them directly.  Eval only (the fused training tail is not ported)."""
+    them directly.  Training runs the unfused chain with batch-statistics
+    BN (the fused training tail is not ported)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bn_momentum: float | None = None) -> torch.Tensor:
         n = len(self.features)
         for i in range(n - 1):
-            x = self.layer(i, x)
-        return mlp_final_max(self, x, n - 1, dim=2)
+            x = self.layer(i, x, bn_momentum)
+        return mlp_final_max(self, x, n - 1, 2, bn_momentum)
 
     def folded(self) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
         """Eval-mode BN folded into the Dense params (f32)."""
@@ -64,6 +69,22 @@ def _fused_ball_scale(
     return pooled
 
 
+def sample_and_group(
+    npoint: int, radius: float, nsample: int, xyz: torch.Tensor, points: torch.Tensor | None
+):
+    """FPS → ball query with centred grouping → feature gather →
+    concat [xyz, feats] (coordinates first, the JAX ``use_xyz=True``).
+    Returns (new_xyz [B,np,3], new_points [B,np,ns,3+C]); the JAX function
+    also returns the indices and the grouped coordinates, which no caller
+    here reads."""
+    fps_idx = ops.farthest_point_sample(xyz, npoint)
+    new_xyz = ops.gather_point(xyz, fps_idx)
+    grouped_xyz, idx, _ = ops.query_ball_group(radius, nsample, xyz, new_xyz)
+    if points is None:
+        return new_xyz, grouped_xyz
+    return new_xyz, torch.cat([grouped_xyz, gather_neighbors(points.contiguous(), idx)], dim=-1)
+
+
 def sample_and_group_all(xyz: torch.Tensor, points: torch.Tensor | None):
     """Single group holding every point, centroid (0, 0, 0), coordinates
     concatenated before the features.  Returns (new_xyz [B,1,3], new_points
@@ -75,7 +96,7 @@ def sample_and_group_all(xyz: torch.Tensor, points: torch.Tensor | None):
 
 
 class SAModule(nn.Module):
-    """PointNet set abstraction with max pooling, inference only.
+    """PointNet set abstraction with max pooling.
 
     ``in_channels`` is the width of ``points`` (0 when there are none); the
     MLP's input adds the 3 centred coordinates (the JAX ``use_xyz=True``)."""
@@ -95,13 +116,15 @@ class SAModule(nn.Module):
         self.group_all, self.dtype = group_all, dtype
         self.mlp = GroupMLPPool(3 + in_channels, mlp, dtype=dtype)
 
-    def forward(self, xyz: torch.Tensor, points: torch.Tensor | None):
-        """Returns (new_xyz [B, npoint, 3], pooled [B, npoint, C])."""
-        if self.training:
-            raise NotImplementedError("SAModule training is not ported yet; call .eval()")
+    def forward(self, xyz: torch.Tensor, points: torch.Tensor | None, bn_momentum: float | None = None):
+        """Returns (new_xyz [B, npoint, 3], pooled [B, npoint, C]).
+        ``bn_momentum`` is required in training."""
         if self.group_all:
             new_xyz, new_points = sample_and_group_all(xyz, points)
-            return new_xyz, self.mlp(new_points)
+            return new_xyz, self.mlp(new_points, bn_momentum)
+        if self.training:
+            new_xyz, new_points = sample_and_group(self.npoint, self.radius, self.nsample, xyz, points)
+            return new_xyz, self.mlp(new_points, bn_momentum)
         # idx + centroid coordinates in one FPS kernel pass.
         _, new_xyz = ops.farthest_point_sample_with_coords(xyz, self.npoint)
         pooled = _fused_ball_scale(

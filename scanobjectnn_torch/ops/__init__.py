@@ -6,3 +6,8 @@ from scanobjectnn_torch.ops.fps import (  # noqa: F401
     farthest_point_sample_with_coords,
     gather_point,
 )
+from scanobjectnn_torch.ops.grouping import (  # noqa: F401
+    batched_index_gather,
+    group_point,
+    query_ball_group,
+)

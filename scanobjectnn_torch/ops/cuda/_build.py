@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels.
 
 On first use, ``library()`` compiles every ``scanobjectnn_torch/csrc/*.cu``
-with nvcc for Hopper (``sm_90a``) into one shared library with a plain C
+with nvcc for Hopper (``sm_90a``), one nvcc process per source, all started
+together, links the objects into one shared library with a plain C
 interface under ``scanobjectnn_torch/_build/`` and loads it with ``ctypes``.
-The file name carries a hash of the sources and flags, so an edited source
-never loads a stale library.  Nothing is built or loaded at import time.
+The file name carries a hash of the sources, headers and flags, so an
+edited source never loads a stale library.  Nothing is built or loaded at
+import time.
 
 Every pointer and the stream cross the boundary as ``c_void_p`` (a bare
 Python int would be cut to 32 bits); each entry point returns the
@@ -26,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -40,6 +42,12 @@ _SIGNATURES = {
         _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _I, _I,
         _I, _P, _P, _P, _P, _P, _P,
     ),
+    # xyz, new_xyz, b, n, m, k, r2, grouped, idx, cnt, stream
+    "ballgroup_launch": (_P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P),
+    # vals, idx, b, n, r, c, out, stream
+    "gather_launch": (_P, _P, _I, _I, _I, _I, _P, _P),
+    # idx, upd, b, n, r, c, offsets, perm, out, stream
+    "scatter_add_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
 }
 
 _lib = None
@@ -71,12 +79,28 @@ def library() -> ctypes.CDLL:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{lib_path}.{os.getpid()}.tmp"
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed:\n{proc.stdout}\n{proc.stderr}")
+        nvcc = _nvcc()
+        objects = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources, objects)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [f"{src}:\n{log}" for src, proc, log in zip(sources, procs, logs) if proc.returncode]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objects], capture_output=True, text=True,
+            )
+            if link.returncode:
+                failed.append(f"link:\n{link.stdout}\n{link.stderr}")
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, lib_path)  # atomic: a concurrent build never loads half a file
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(lib_path)

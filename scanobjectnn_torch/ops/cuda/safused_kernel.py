@@ -6,12 +6,10 @@ Replaces ``scanobjectnn_tpu/ops/pallas/safused_kernel.py``:
 K <= 64, with and without point features.
 
 Semantics (kept from the TPU kernel):
-  * ball select scans the N candidates in original order; a point is a hit
-    when ``d2 < r2`` with ``d2 = ((qx-x)² + (qy-y)²) + (qz-z)²`` from direct
-    differences (no FMA) and ``r2 = radius*radius`` taken in Python double
-    and rounded once to f32; the first K hits are kept (the scan stops after
-    K); short rows are padded with the first hit, a row with no hits uses
-    point 0;
+  * ball select is the ball query of ``ballgroup_kernel.py`` (the same
+    device function, ``csrc/ballscan.cuh``, and the same plain version):
+    the first K hits of ``d2 < r2`` in point order, padded with the first
+    hit, point 0 for a row with no hits;
   * per (query, slot) row, layer 0 is ``c3·W0x + feat[idx]·W0f + b0`` where
     ``c3`` are the point's coordinates minus the query's (``xyz_first``
     splits W0 as [xyz(3), feats(C)], otherwise [feats(C), xyz(3)]); then
@@ -44,6 +42,7 @@ import torch
 
 from scanobjectnn_torch.nn.layers import matmul_f32
 from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda.ballgroup_kernel import ball_query_plain
 
 __all__ = ["sa_ball_mlp_pool", "sa_ball_mlp_pool_plain"]
 
@@ -93,21 +92,6 @@ def _prepare(src_feats, weights, biases, use_xyz, xyz_first, dtype) -> _Prepared
     return _Prepared(src, cast(w0x), cast(w0f), layers, cdtype)
 
 
-def _ball_select(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> torch.Tensor:
-    """First ``nsample`` hits in point order, padded: int64 [B, M, K]."""
-    x, q = xyz.float(), new_xyz.float()
-    n = x.shape[1]
-    diff = [q[:, :, None, c] - x[:, None, :, c] for c in range(3)]
-    d2 = (diff[0] * diff[0] + diff[1] * diff[1]) + diff[2] * diff[2]  # [B, M, N]
-    hit = d2 < torch.tensor(radius * radius, dtype=torch.float32)
-    key = torch.where(hit, torch.arange(n, device=x.device), n)
-    first = torch.topk(key, min(nsample, n), dim=-1, largest=False).values
-    if nsample > n:
-        first = torch.cat([first, first.new_full((*first.shape[:2], nsample - n), n)], -1)
-    pad = torch.where(first[..., :1] < n, first[..., :1], 0)  # first hit, else point 0
-    return torch.where(first < n, first, pad)
-
-
 def sa_ball_mlp_pool_plain(
     radius: float,
     nsample: int,
@@ -123,7 +107,7 @@ def sa_ball_mlp_pool_plain(
     """Plain PyTorch version of the fused SA layer (module doc):
     returns (pooled [B, M, Cout] in the compute dtype, idx int32 [B, M, K])."""
     p = _prepare(src_feats, weights, biases, use_xyz, xyz_first, dtype)
-    idx = _ball_select(radius, nsample, xyz, new_xyz)
+    idx, _ = ball_query_plain(radius, nsample, xyz, new_xyz)
     rows = torch.arange(xyz.shape[0], device=xyz.device)[:, None, None]
     c3 = (xyz.float()[rows, idx] - new_xyz.float()[:, :, None, :]).to(p.cdtype)
     h = None

@@ -4,7 +4,8 @@
 FPS seeds with point 0, keeps a running min squared distance (init 1e38)
 and takes the argmax with ties to the lowest index.  Dispatch follows the
 tensor: a CUDA tensor runs the CUDA kernel (``ops/cuda/fps_kernel.py``),
-a CPU tensor its plain version.  FPS has no gradient.
+a CPU tensor its plain version.  FPS has no gradient: it reads detached
+coordinates, and only ``gather_point`` of its indices is differentiable.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ __all__ = ["farthest_point_sample", "farthest_point_sample_with_coords", "gather
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """[B, N, 3] -> int32 [B, npoint]."""
-    return fps(xyz.float().contiguous(), npoint, with_coords=False)
+    return fps(xyz.detach().float().contiguous(), npoint, with_coords=False)
 
 
 def farthest_point_sample_with_coords(
@@ -27,8 +28,7 @@ def farthest_point_sample_with_coords(
     """FPS returning (idx [B, npoint], new_xyz [B, npoint, 3]) in one pass;
     ``new_xyz`` equals ``gather_point(xyz, idx)`` bit for bit, in
     ``xyz.dtype``.  For inference: neither output carries a gradient."""
-    with torch.no_grad():
-        idx, new_xyz = fps(xyz.float().contiguous(), npoint, with_coords=True)
+    idx, new_xyz = fps(xyz.detach().float().contiguous(), npoint, with_coords=True)
     return idx, new_xyz.to(xyz.dtype)
 
 

@@ -1,0 +1,142 @@
+"""The training step (counterpart of ``scanobjectnn_tpu/train/trainer.py``).
+
+One ``train_step`` is augmentation (y-rotation, then jitter) → forward in
+training mode (batch-statistics BN with the scheduled momentum, dropout
+from the state's generator) → softmax cross-entropy → backward → Adam with
+the scheduled LR → metrics ``correct``/``count``.  The BN running stats are
+updated during the forward.  As in optax, the LR of an update is
+``schedule(step)`` taken BEFORE the step, counting from 0; Adam uses
+eps 1e-8 and no weight decay (``pointnet2_cls_ssg`` ships no recipe).
+
+Differences from the JAX ``Trainer``, on purpose:
+  * the state is mutable (the model, its optimizer and a generator), and
+    ``train_step`` updates it in place;
+  * the random bits come from a ``torch.Generator`` on the training device,
+    seeded from ``config.seed``; they are not the JAX package's bits;
+  * nothing is process-global: the JAX ``Trainer`` writes its kernel
+    configuration into ``kernelconfig``; f32 training here has one pool
+    (``torch.amax``) and no setting to write.
+Ported: f32 training of ``pointnet2_cls_ssg``.  ``dtype="bfloat16"``
+raises: it needs exact-key pooling (``ops/exactpool``), the next slice.
+Evaluation, checkpoints and ``fit`` wait for the CLI slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from scanobjectnn_torch.augment.transforms import standard_train_augment
+from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
+from scanobjectnn_torch.models import get_model
+from scanobjectnn_torch.train import schedules
+
+__all__ = ["TrainState", "Trainer", "TrainerConfig"]
+
+ADAM_EPS = 1e-8
+
+
+@dataclass
+class TrainerConfig:
+    """The fields of the JAX ``TrainerConfig`` that this path reads
+    (reference flags: pointnet2/train.py:25-47), and the device."""
+
+    model: str = "pointnet2_cls_ssg"
+    num_classes: int = 15
+    batch_size: int = 16
+    learning_rate: float = 1e-3
+    decay_step: int = 200_000
+    decay_rate: float = 0.7
+    dtype: str = "float32"
+    seed: int = 0
+    device: str = "cuda"
+
+
+@dataclass
+class TrainState:
+    step: int
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator  # augmentation and dropout draws
+
+
+class Trainer:
+    """Builds and trains a registered model on one device."""
+
+    def __init__(self, config: TrainerConfig):
+        if config.dtype == "bfloat16":
+            raise NotImplementedError(
+                "bf16 training needs exact-key pooling (pool_precision='keys', "
+                "ops/exactpool.dense_bn_exactkey_pool), the next slice of the port"
+            )
+        if config.dtype != "float32":
+            raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {config.dtype!r}")
+        self.config = config
+        self.device = torch.device(config.device)
+        self.lr_schedule = schedules.exponential_decay_lr(
+            config.learning_rate, config.batch_size, config.decay_step, config.decay_rate
+        )
+        self.bn_schedule = schedules.bn_momentum_schedule(config.batch_size, config.decay_step)
+
+    # ------------------------------------------------------------------ setup
+
+    def init_state(self, seed: int | None = None) -> TrainState:
+        """Model with the reference init drawn from ``seed`` (default
+        ``config.seed``), its Adam optimizer, and the step's generator."""
+        seed = self.config.seed if seed is None else seed
+        model = get_model(
+            self.config.model, generator=torch.Generator().manual_seed(seed),
+            num_classes=self.config.num_classes,
+        ).to(self.device)
+        generator = torch.Generator(device=self.device).manual_seed(seed)
+        return TrainState(0, model, self.make_optimizer(model.parameters()), generator)
+
+    def make_optimizer(self, params) -> torch.optim.Optimizer:
+        return torch.optim.Adam(params, lr=self.lr_schedule(0), eps=ADAM_EPS)
+
+    def optimizer_step(self, optimizer: torch.optim.Optimizer, step: int) -> None:
+        """One Adam update at LR ``schedule(step)`` (optax's count)."""
+        for group in optimizer.param_groups:
+            group["lr"] = self.lr_schedule(step)
+        optimizer.step()
+
+    # ------------------------------------------------------------- train step
+
+    def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
+        """One step on ``batch`` ({"points" [B, N, 3], "labels" [B]}, numpy
+        or torch).  Updates ``state`` in place and returns it with the
+        step's metrics as device tensors (``loss``, ``classify_loss``,
+        ``correct``, ``count``)."""
+        points = torch.as_tensor(batch["points"], dtype=torch.float32, device=self.device)
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        points = standard_train_augment(points, state.generator)
+        model = state.model.train()
+        outputs = model(points, bn_momentum=self.bn_schedule(state.step), generator=state.generator)
+        loss, metrics = type(model).loss(outputs, {"labels": labels})
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer_step(state.optimizer, state.step)
+        state.step += 1
+        with torch.no_grad():
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["correct"] = (outputs["logits"].argmax(-1) == labels).sum()
+            metrics["count"] = labels.new_full((), labels.shape[0])  # no host-to-device copy
+        return state, metrics
+
+    def train_epoch(self, state: TrainState, sampler: EpochSampler) -> tuple[TrainState, dict]:
+        """One epoch of ``sampler`` in fixed-size batches; returns the state
+        and {"mean_loss", "accuracy"} (read back once, at the end)."""
+        totals: dict[str, torch.Tensor] = {}
+        n_batches = 0
+        for batch in Batches(sampler.epoch(), self.config.batch_size):
+            state, metrics = self.train_step(state, batch)
+            n_batches += 1
+            for k, v in metrics.items():
+                totals[k] = totals.get(k, 0) + v.float()
+        totals = {k: float(v) for k, v in totals.items()}
+        summary = {"mean_loss": totals.get("loss", 0.0) / max(n_batches, 1)}
+        if "correct" in totals:
+            summary["accuracy"] = totals["correct"] / max(totals["count"], 1.0)
+        return state, summary

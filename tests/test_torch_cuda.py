@@ -11,6 +11,11 @@ bf16-rounded products in f32 and round at the same points, so they agree
 bit for bit on an H100: ``pooled`` may differ by at most one bf16 ulp of
 max(1, |ref|max), on at most 0.1% of its elements.  A kernel that skipped a
 bf16 rounding between layers differs on far more.
+
+Training kernels: the ball group (``grouped``, ``idx``, ``cnt``) and the
+row gather must be equal to their plain versions.  The scatter-add must be
+within 1e-5 x max(1, |ref|max) of ``index_add_`` (both sum exact f32, in
+other orders), and two calls on the same input must give the same bits.
 """
 
 import math
@@ -19,8 +24,18 @@ import numpy as np
 import pytest
 import torch
 
+from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group, query_ball_group_plain
 from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
+from scanobjectnn_torch.ops.cuda.gather_kernel import (
+    gather_neighbors,
+    gather_rows,
+    gather_rows_plain,
+    scatter_add_rows,
+    scatter_add_rows_plain,
+)
 from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool, sa_ball_mlp_pool_plain
+
+SCATTER_TOL = 1e-5  # x max(1, |ref|max)
 
 pytestmark = pytest.mark.cuda
 
@@ -134,3 +149,114 @@ def test_safused_kernel_refuses_what_it_does_not_take(dev):
         sa_ball_mlp_pool(radius, k, xyz, new_xyz, src, weights, [biases[0], biases[1][:-1]], **kw)
     with pytest.raises(ValueError, match="weights"):
         sa_ball_mlp_pool(radius, k, xyz, new_xyz, src, [weights[0], weights[1][1:]], biases, **kw)
+
+
+# (b, n, m, k, radius, cloud): the SSG training shapes, MSG's K=128, a ragged
+# one, an empty-ball case (queries far from the cloud) and duplicated points.
+BALL_CASES = {
+    "sa1": (16, 1024, 512, 32, 0.2, "normal"),
+    "sa2": (16, 512, 128, 64, 0.4, "normal"),
+    "k128": (2, 1024, 128, 128, 0.4, "normal"),
+    "ragged": (3, 100, 37, 7, 0.5, "normal"),
+    "empty_balls": (2, 256, 64, 16, 0.2, "far"),
+    "duplicates": (4, 1024, 256, 32, 0.3, "lattice"),
+}
+
+
+def ball_inputs(spec, rng):
+    """numpy (xyz [b, n, 3], new_xyz [b, m, 3]) of one ball-group case: the
+    queries are cloud points moved off the points; "far" moves half of them
+    out of every ball, "lattice" repeats each point of a coarse grid."""
+    b, n, m, _, _, cloud = spec
+    if cloud == "lattice":
+        base = rng.randint(-3, 4, (b, n // 8, 3)).astype(np.float32) * 0.25
+        xyz = np.stack([c[rng.permutation(n)] for c in np.tile(base, (1, 8, 1))])
+    else:
+        xyz = (rng.randn(b, n, 3) * 0.5).astype(np.float32)
+    new_xyz = np.stack([x[rng.choice(n, m, replace=False)] for x in xyz])
+    new_xyz += (0.05 * rng.randn(*new_xyz.shape)).astype(np.float32)
+    if cloud == "far":
+        new_xyz[:, ::2] += 100.0
+    return xyz, new_xyz
+
+
+@pytest.mark.parametrize("case", sorted(BALL_CASES))
+def test_ballgroup_kernel_matches_plain(dev, case):
+    spec = BALL_CASES[case]
+    xyz, new_xyz = (torch.from_numpy(a).to(dev) for a in ball_inputs(spec, np.random.RandomState(spec[1])))
+    radius, k = spec[4], spec[3]
+    before = query_ball_group.launches
+    got = query_ball_group(radius, k, xyz, new_xyz)
+    want = query_ball_group_plain(radius, k, xyz, new_xyz)
+    torch.cuda.synchronize()
+    assert query_ball_group.launches == before + 1
+    for name, g, w in zip(("grouped", "idx", "cnt"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    if case == "empty_balls":
+        assert (got[2][:, ::2] == 0).all() and (got[1][:, ::2] == 0).all()
+
+
+def test_ballgroup_kernel_refuses_what_it_does_not_take(dev):
+    xyz = torch.zeros(1, 8, 3, device=dev)
+    with pytest.raises(ValueError, match="K <= 1024"):
+        query_ball_group(0.2, 1025, xyz, xyz)
+    with pytest.raises(ValueError, match="float32"):
+        query_ball_group(0.2, 4, xyz.double(), xyz)
+    with pytest.raises(ValueError, match="contiguous"):
+        query_ball_group(0.2, 4, torch.zeros(1, 3, 8, device=dev).transpose(1, 2), xyz)
+
+
+def _scatter_inputs(dev, b, n, m, k, c, seed):
+    """SA2-like indices (padding repeats each row's first hit) and values."""
+    rng = np.random.RandomState(seed)
+    idx = rng.randint(0, n, size=(b, m, k)).astype(np.int32)
+    idx[:, :, k // 3:] = idx[:, :, :1]
+    vals = torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(dev)
+    upd = torch.from_numpy(rng.randn(b, m * k, c).astype(np.float32)).to(dev)
+    return vals, torch.from_numpy(idx.reshape(b, m * k)).to(dev), upd
+
+
+# (b, n, m, k, c): the SSG SA2 gather, a width that is not a multiple of 4,
+# and a cloud whose inverse index needs more than 48 KB of shared memory.
+GATHER_CASES = {"sa2": (16, 512, 128, 64, 128), "c5": (3, 100, 20, 8, 5), "n16k": (2, 16384, 64, 32, 8)}
+
+
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_gather_and_scatter_kernels_match_plain(dev, case):
+    b, n, m, k, c = GATHER_CASES[case]
+    vals, idx, upd = _scatter_inputs(dev, b, n, m, k, c, seed=n + c)
+    before = (gather_rows.launches, scatter_add_rows.launches)
+    assert torch.equal(gather_rows(vals, idx), gather_rows_plain(vals, idx))
+    got = scatter_add_rows(idx, upd, n)
+    again = scatter_add_rows(idx, upd, n)
+    want = scatter_add_rows_plain(idx, upd, n)
+    torch.cuda.synchronize()
+    assert (gather_rows.launches, scatter_add_rows.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(got, again), "the scatter is not deterministic"
+    assert got.dtype == torch.float32 and got.shape == (b, n, c)
+    scale = max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= SCATTER_TOL * scale, (err, scale)
+
+
+def test_gather_neighbors_backward_is_the_scatter_kernel(dev):
+    vals, idx, upd = _scatter_inputs(dev, 4, 512, 128, 64, 32, seed=1)
+    vals.requires_grad_()
+    before = (gather_rows.launches, scatter_add_rows.launches)
+    out = gather_neighbors(vals, idx.reshape(4, 128, 64))
+    (grad,) = torch.autograd.grad(out, vals, upd.reshape(out.shape))
+    torch.cuda.synchronize()
+    assert (gather_rows.launches, scatter_add_rows.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out.detach().reshape(upd.shape), gather_rows_plain(vals.detach(), idx))
+    want = scatter_add_rows_plain(idx, upd, 512)
+    assert float((grad - want).abs().max()) <= SCATTER_TOL * max(1.0, float(want.abs().max()))
+
+
+def test_gather_kernels_refuse_what_they_do_not_take(dev):
+    vals, idx, upd = _scatter_inputs(dev, 2, 64, 8, 4, 8, seed=2)
+    with pytest.raises(ValueError, match="int32"):
+        gather_rows(vals, idx.long())
+    with pytest.raises(ValueError, match="float32"):
+        scatter_add_rows(idx, upd.double(), 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_rows(vals.transpose(1, 2).contiguous().transpose(1, 2), idx)

@@ -79,7 +79,9 @@ def test_batchnorm_eval_matches_flax(rng, jdtype, tdtype):
 
 
 def test_batchnorm_training_mode_raises():
-    with pytest.raises(NotImplementedError):
+    # Training BN updates its running stats with the scheduled momentum,
+    # which has no default (test_torch_train_layers.py holds the update).
+    with pytest.raises(ValueError, match="bn_momentum"):
         tlayers.BatchNorm(4)(torch.zeros(2, 4))
 
 

@@ -120,6 +120,8 @@ def test_get_model_refuses_unported_names():
 
 
 def test_training_mode_raises(points):
+    # Training draws the dropout mask from an explicit generator
+    # (test_torch_train_step.py holds the training forward).
     model = get_model("pointnet2_cls_ssg")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="Generator"):
         model(torch.from_numpy(points[:1, :128]))
