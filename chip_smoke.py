@@ -24,7 +24,29 @@ Phases (any failure raises and the exit code is not 0):
      weights) on synthetic batches, counting the launches; run one step on
      the kernel path and one on the plain path from the same weights,
      batch and random draws, and compare the loss, every gradient and the
-     BN running stats; time a step on both paths.
+     BN running stats; time a step on both paths;
+  5. BGA and part segmentation (``pointnet2_cls_bga``,
+     ``pointnet2_cls_partseg``, N=1024 clouds of the synthetic dataset with
+     background points):
+     a. the kNN kernel against its plain version (indices and squared
+        distances equal) at the FP decoder's three shapes (fp1, fp2, fp3) at
+        B=32 and B=16, on a cloud with duplicated points, at k=16 with a
+        bias and at C=64; timed;
+     b. BGA inference at B=32 in f32 and bf16 from ``get_model`` (on the
+        card), counting launches, against the plain path on the same card
+        (``logits`` and ``seg_logits``), and the fused SA kernel at BGA's
+        SA1 shape (K=64, no features); the forward timed;
+     c. BGA training, f32, B=16 (``TrainerConfig(model="pointnet2_cls_bga")``,
+        seg_weight 0.5): three steps with finite losses, counting launches;
+        one step on the kernel path against the plain path; a step timed;
+     d. part segmentation at B=8: one forward and one training step, kernel
+        path against plain path.
+
+Every kernel's line in the ``{"kernels": [...]}`` record carries its
+bound: the larger of the bytes it must move over 3.35 TB/s and the
+operations it must do over the peak rate of their type (67 TFLOP/s f32,
+989 TFLOP/s bf16), counted from this run's inputs (a scan that stops after
+K hits counts the points it reaches), for the same calls as its ``ms``.
 
 f32 products run in full f32: TF32 is switched off for matmuls and cuDNN.
 Prints the card's name and power limit, the build time, per-kernel times,
@@ -68,6 +90,15 @@ BF16_CLASS_AGREEMENT = 0.99
 TRAIN_BATCH, TRAIN_POINT, TRAIN_STEPS = 16, 1024, 3
 SCATTER_TOL = 1e-5
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, ZERO_GRAD_TOL = 1e-6, 1e-4, 1e-3
+# BGA and part segmentation (phase 5): inference at the JAX package's
+# "Inference by family" batch, training at its training table's batches.
+# The kNN kernel must equal its plain version (the same f32 operations in
+# the same order, the same tie rule); the model paths are held to the SSG
+# bounds above, and the per-point argmax of seg_logits to SEG_AGREEMENT.
+SEG_BATCH, SEG_POINT, SEG_TRAIN_BATCH, PARTSEG_BATCH = 32, 1024, 16, 8
+SEG_AGREEMENT = 0.99
+# Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds.
+HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 989e12
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -100,13 +131,16 @@ def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = device_spans(prof)
-    require(bool(spans), "the profiler recorded no device time")
-    return busy_us(spans) / 1e3 / iters
+    for _ in range(3):  # a trace now and then comes back empty: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = device_spans(prof)
+        if spans:
+            return busy_us(spans) / 1e3 / iters
+        print("device_ms: the profiler recorded no device time; tracing again")
+    raise AssertionError("chip_smoke: the profiler recorded no device time")
 
 
 def scale_of(ref) -> float:
@@ -128,6 +162,62 @@ def check_bf16(got, want, ulps: int, what: str) -> tuple[float, float]:
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(f"chip_smoke: {what}")
+
+
+class Work:
+    """Operations and bytes of a kernel's calls, as the least time the card
+    could take for them (module doc)."""
+
+    def __init__(self):
+        self.ops_s = self.bytes_s = 0.0
+
+    def add(self, ops: float, nbytes: float, peak: float = F32_OPS_PER_S) -> None:
+        self.ops_s += ops / peak
+        self.bytes_s += nbytes / HBM_BYTES_PER_S
+
+    def record(self) -> dict:
+        return {"bound_ms": max(self.ops_s, self.bytes_s) * 1e3,
+                "bound_by": "operations" if self.ops_s >= self.bytes_s else "bytes"}
+
+
+def scanned_points(radius: float, k: int, xyz, new_xyz) -> int:
+    """Points a ball scan reaches: up to each query's K-th hit, or all N."""
+    import torch
+
+    from scanobjectnn_torch.ops.cuda.ballgroup_kernel import ball_query_plain
+
+    idx, cnt = ball_query_plain(radius, k, xyz, new_xyz)
+    return int(torch.where(cnt >= k, idx[..., k - 1] + 1, xyz.shape[1]).sum())
+
+
+def fps_work(work: Work, b: int, n: int, m: int, with_coords: bool = True) -> None:
+    # Per step and point: a distance (3 sub, 3 mul, 2 add), a min, a compare.
+    work.add(10.0 * b * n * m, 12 * b * n + b * m * (16 if with_coords else 4))
+
+
+def sa_work(work: Work, args, dtype) -> None:
+    """The fused SA layer: its ball scan, its folded MLP on every (query,
+    slot) row, the max-pool; operands of the compute dtype."""
+    import torch
+
+    radius, k, xyz, new_xyz, src, weights, _ = args
+    b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
+    rows = b * m * k
+    mlp = sum(2 * w.shape[0] * w.shape[1] + 2 * w.shape[1] for w in weights) + weights[-1].shape[1]
+    elt = 2 if dtype == torch.bfloat16 else 4
+    nbytes = 12 * (b * n + b * m) + (0 if src is None else src.numel() * elt) + 4 * rows
+    nbytes += sum(w.numel() * elt + 4 * w.shape[1] for w in weights) + b * m * weights[-1].shape[1] * elt
+    work.add(9.0 * scanned_points(radius, k, xyz, new_xyz) + rows * mlp, nbytes,
+             BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S)
+
+
+def knn_work(work: Work, queries, keys, k: int, with_bias: bool = False) -> None:
+    # Per (query, key) pair: the inner product (2C - 1), the expansion (3),
+    # the clamp, a compare, and the bias add.
+    b, m, c = queries.shape
+    n = keys.shape[1]
+    work.add(b * m * n * (2 * c + 4 + with_bias) + 2 * c * b * (m + n),
+             4 * (b * m * c + b * n * c + with_bias * b * n) + 8 * b * m * k)
 
 
 def check_fps(xyz, npoint, label, fps, fps_plain) -> float:
@@ -160,8 +250,8 @@ def check_sa(args, dtype, label, sa, sa_plain) -> float:
 
 
 def feeds_train_bn(param_name: str) -> bool:
-    """A Dense bias followed by a BatchNorm in ``pointnet2_cls_ssg``: every
-    SA MLP layer (``dense_i``) and the head's fc1 and fc2."""
+    """A Dense bias followed by a training BatchNorm: every MLP layer
+    (``dense_i``: SA, FP, seg_fc1) and the class heads' fc1 and fc2."""
     *_, layer, leaf = param_name.split(".")
     return leaf == "bias" and (layer.startswith("dense_") or layer in ("fc1", "fc2"))
 
@@ -174,28 +264,114 @@ def fps_plain_entry(xyz, npoint, with_coords=True):
     return (idx, new_xyz) if with_coords else idx
 
 
-def plain_training_path():
-    """Patches that swap every training kernel's wrapper for its plain
-    version, at the names the training path calls them by."""
+def plain_path():
+    """Patches that swap every kernel's wrapper for its plain version, at
+    the names the model paths call them by."""
     from contextlib import ExitStack
 
+    from scanobjectnn_torch.nn import pointnet_modules
     from scanobjectnn_torch.ops import fps as ops_fps
-    from scanobjectnn_torch.ops.cuda import ballgroup_kernel, gather_kernel
+    from scanobjectnn_torch.ops.cuda import ballgroup_kernel, gather_kernel, knn_kernel, safused_kernel
 
     stack = ExitStack()
-    stack.enter_context(mock.patch.object(ops_fps, "fps", fps_plain_entry))
-    stack.enter_context(mock.patch.object(
-        ballgroup_kernel, "query_ball_group", ballgroup_kernel.query_ball_group_plain))
-    stack.enter_context(mock.patch.object(gather_kernel, "gather_rows", gather_kernel.gather_rows_plain))
-    stack.enter_context(mock.patch.object(
-        gather_kernel, "scatter_add_rows", gather_kernel.scatter_add_rows_plain))
+    for module, name, plain in (
+        (ops_fps, "fps", fps_plain_entry),
+        (pointnet_modules, "sa_ball_mlp_pool", safused_kernel.sa_ball_mlp_pool_plain),
+        (ballgroup_kernel, "query_ball_group", ballgroup_kernel.query_ball_group_plain),
+        (gather_kernel, "gather_rows", gather_kernel.gather_rows_plain),
+        (gather_kernel, "scatter_add_rows", gather_kernel.scatter_add_rows_plain),
+        (knn_kernel, "knn_point_kernel", knn_kernel.knn_point_plain),
+    ):
+        stack.enter_context(mock.patch.object(module, name, plain))
     return stack
+
+
+def counted_run(counters, fn):
+    """``fn()`` with every counter set to 0 just before and read just after:
+    (its result, {kernel: launches})."""
+    import torch
+
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {c.__name__: c.launches for c in counters}
+
+
+def compare_steps(trainer, batch, n_zero: int, label: str) -> None:
+    """One step on the kernel path and one on the plain path, from the same
+    weights, batch and generator state: the loss, every gradient and the BN
+    running stats (the bounds above); the ``n_zero`` Dense biases before a
+    training BN near 0 on both paths."""
+    import torch
+
+    from scanobjectnn_torch.ops.cuda import fps_kernel, gather_kernel, knn_kernel
+    from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group
+
+    counters = (fps_kernel.fps, query_ball_group, gather_kernel.gather_rows, gather_kernel.scatter_add_rows,
+                knn_kernel.knn_point_kernel)
+    steps = {}
+    for path in ("kernel", "plain"):
+        s = trainer.init_state(seed=1)
+        before = [fn.launches for fn in counters]
+        if path == "plain":
+            with plain_path():
+                s, metrics = trainer.train_step(s, batch)
+            torch.cuda.synchronize()
+            require([fn.launches for fn in counters] == before, f"the plain training path launched a kernel ({label})")
+        else:
+            s, metrics = trainer.train_step(s, batch)
+        steps[path] = (float(metrics["loss"]), {n: p.grad for n, p in s.model.named_parameters()},
+                       dict(s.model.named_buffers()))
+    (loss_k, grads_k, stats_k), (loss_p, grads_p, stats_p) = steps["kernel"], steps["plain"]
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    zero = [n for n in grads_p if feeds_train_bn(n)]
+    require(len(zero) == n_zero, f"expected the {n_zero} Dense biases that feed a BN, found {zero}")
+    grad_err, worst = max(
+        (float((grads_k[n] - grads_p[n]).abs().max()) / scale_of(grads_p[n]), n) for n in grads_p if n not in zero
+    )
+    zero_max = max(float(g[n].abs().max()) for g in (grads_k, grads_p) for n in zero)
+    stat_err = max(float((stats_k[n] - stats_p[n]).abs().max()) / scale_of(stats_p[n]) for n in stats_p)
+    print(f"train step {label}, kernel path against plain path: loss {loss_k:.7f} vs {loss_p:.7f} "
+          f"(rel err {loss_err:.3e}, bound {TRAIN_LOSS_RTOL}); largest error / scale: gradients {grad_err:.3e} "
+          f"({worst}), BN stats {stat_err:.3e} (bound {TRAIN_GRAD_TOL}); the {n_zero} Dense biases before a BN: "
+          f"max |grad| {zero_max:.3e} on either path (bound {ZERO_GRAD_TOL})")
+    require(loss_err <= TRAIN_LOSS_RTOL, f"training loss differs from the plain path ({label})")
+    require(grad_err <= TRAIN_GRAD_TOL and stat_err <= TRAIN_GRAD_TOL,
+            f"training gradients or BN stats differ from the plain path ({label})")
+    require(zero_max <= ZERO_GRAD_TOL, f"a Dense bias before a BN has a gradient far from 0 ({label})")
+
+
+def time_steps(trainer, state, batches, smi: str, label: str, n: int = 3) -> None:
+    """Step time, host clock around ``n`` steps that end in a synchronize,
+    in turns: kernel, plain, plain, kernel."""
+    import torch
+
+    def step_ms(path: str) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches[:n]:
+            if path == "plain":
+                with plain_path():
+                    trainer.train_step(state, batch)
+            else:
+                trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    times = {"kernel": [], "plain": []}
+    for path in ("kernel", "plain", "plain", "kernel"):
+        times[path].append(step_ms(path))
+    for path, ms in times.items():
+        print(f"time train step {label} {path} path: {sum(ms) / len(ms):.4f} ms "
+              f"(rounds {', '.join(f'{v:.4f}' for v in ms)}) ({smi})")
 
 
 def train_phase(smi: str, dev) -> dict:
     """Phase 4 (module doc).  Returns, per training kernel, its main-path
-    launches, max abs error against its plain version, and kernel and plain
-    ms summed over the calls one training step makes."""
+    launches, max abs error against its plain version, kernel, plain and
+    library ms and its bound, summed over the calls one training step
+    makes."""
     import numpy as np
     import torch
 
@@ -209,7 +385,8 @@ def train_phase(smi: str, dev) -> dict:
     from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
 
     names = ("query_ball_group", "gather_rows", "scatter_add_rows")
-    out = {k: {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for k in names}
+    out = {k: {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None} for k in names}
+    work = {k: Work() for k in names}
 
     def record(kname, label, fn, plain_fn, in_step=True, plain_iters=10):
         """Time the kernel and its plain version: device time (kept) and CUDA
@@ -260,18 +437,27 @@ def train_phase(smi: str, dev) -> dict:
               f"(mean cnt {float(got[2].float().mean()):.2f})")
         record("query_ball_group", label, lambda: query_ball_group(radius, k, xyz, q),
                lambda: query_ball_group_plain(radius, k, xyz, q), in_step)
+        if in_step:
+            b, m = q.shape[0], q.shape[1]
+            work["query_ball_group"].add(9.0 * scanned_points(radius, k, xyz, q),
+                                         12 * (xyz.shape[0] * xyz.shape[1] + b * m) + b * m * (16 * k + 4))
         if label.startswith("SA2"):
             sa2_idx = got[1].reshape(TRAIN_BATCH, -1)
 
     rng = np.random.RandomState(4)
     vals = torch.from_numpy(rng.randn(TRAIN_BATCH, 512, 128).astype(np.float32)).to(dev)
     upd = torch.from_numpy(rng.randn(TRAIN_BATCH, sa2_idx.shape[1], 128).astype(np.float32)).to(dev)
+    b, r, c = upd.shape
     require(torch.equal(gather_rows(vals, sa2_idx), gather_rows_plain(vals, sa2_idx)),
             "gather differs from the plain version")
-    shapes = f"[{TRAIN_BATCH},512,128] by [{TRAIN_BATCH},{sa2_idx.shape[1]}]"
+    shapes = f"[{TRAIN_BATCH},512,128] by [{TRAIN_BATCH},{r}]"
     print(f"gather SA2 {shapes}: equal to the plain version")
     record("gather_rows", f"SA2 {shapes}", lambda: gather_rows(vals, sa2_idx),
            lambda: gather_rows_plain(vals, sa2_idx))
+    # The one PyTorch call that computes the same gather (timed here only).
+    expanded = sa2_idx.long()[..., None].expand(b, r, c)
+    out["gather_rows"]["library_ms"] = device_ms(lambda: torch.gather(vals, 1, expanded))
+    work["gather_rows"].add(0.0, vals.numel() * 4 + 4 * b * r + 4 * b * r * c)
     got, again = scatter_add_rows(sa2_idx, upd, 512), scatter_add_rows(sa2_idx, upd, 512)
     want = scatter_add_rows_plain(sa2_idx, upd, 512)
     torch.cuda.synchronize()
@@ -283,20 +469,21 @@ def train_phase(smi: str, dev) -> dict:
     out["scatter_add_rows"]["max_abs_err"] = err
     record("scatter_add_rows", f"SA2 {shapes}", lambda: scatter_add_rows(sa2_idx, upd, 512),
            lambda: scatter_add_rows_plain(sa2_idx, upd, 512))
+    flat = (sa2_idx.long() + 512 * torch.arange(b, device=dev)[:, None]).reshape(-1)
+    target, rows = torch.zeros(b * 512, c, device=dev), upd.reshape(b * r, c)
+    out["scatter_add_rows"]["library_ms"] = device_ms(lambda: target.index_add_(0, flat, rows))
+    work["scatter_add_rows"].add(float(b * r * c), 4 * b * r + 4 * b * r * c + 4 * b * 512 * c)
+    for k in names:
+        out[k].update(work[k].record())
 
     # 4b. The main path: Trainer(get_model) -> train_step, counting launches.
     trainer = Trainer(TrainerConfig(batch_size=TRAIN_BATCH, device=str(dev)))
     state = trainer.init_state(seed=0)
-    counters = (fps, query_ball_group, gather_rows, scatter_add_rows)
-    for fn in counters:
-        fn.launches = 0
-    losses = []
-    for batch in batches[:TRAIN_STEPS]:
-        state, metrics = trainer.train_step(state, batch)
-        losses.append(metrics["loss"])
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    losses = [float(v) for v in losses]
+
+    def steps():
+        return [float(trainer.train_step(state, batch)[1]["loss"]) for batch in batches[:TRAIN_STEPS]]
+
+    losses, launches = counted_run((fps, query_ball_group, gather_rows, scatter_add_rows), steps)
     print(f"training main path: {TRAIN_STEPS} steps, losses {[round(v, 6) for v in losses]}, launches {launches}")
     require(all(n > 0 for n in launches.values()), f"a training kernel never launched: {launches}")
     require(all(math.isfinite(v) for v in losses), f"non-finite training loss: {losses}")
@@ -304,60 +491,178 @@ def train_phase(smi: str, dev) -> dict:
         out[k]["launches"] = launches[k]
     out["fps_train_launches"] = launches["fps"]
 
-    # 4c. One step on the kernel path and on the plain path, from the same
-    # weights, batch and generator state.
-    steps = {}
-    for path in ("kernel", "plain"):
-        s = trainer.init_state(seed=1)
-        before = [fn.launches for fn in counters]
-        if path == "plain":
-            with plain_training_path():
-                s, metrics = trainer.train_step(s, batches[TRAIN_STEPS])
-            torch.cuda.synchronize()
-            require([fn.launches for fn in counters] == before, "the plain training path launched a kernel")
-        else:
-            s, metrics = trainer.train_step(s, batches[TRAIN_STEPS])
-        steps[path] = (float(metrics["loss"]), {n: p.grad for n, p in s.model.named_parameters()},
-                       dict(s.model.named_buffers()))
-    (loss_k, grads_k, stats_k), (loss_p, grads_p, stats_p) = steps["kernel"], steps["plain"]
-    loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    zero = [n for n in grads_p if feeds_train_bn(n)]
-    require(len(zero) == 11, f"expected the 11 Dense biases that feed a BN, found {zero}")
-    grad_err, worst = max(
-        (float((grads_k[n] - grads_p[n]).abs().max()) / scale_of(grads_p[n]), n) for n in grads_p if n not in zero
-    )
-    zero_max = max(float(g[n].abs().max()) for g in (grads_k, grads_p) for n in zero)
-    stat_err = max(float((stats_k[n] - stats_p[n]).abs().max()) / scale_of(stats_p[n]) for n in stats_p)
-    print(f"train step, kernel path against plain path: loss {loss_k:.7f} vs {loss_p:.7f} "
-          f"(rel err {loss_err:.3e}, bound {TRAIN_LOSS_RTOL}); largest error / scale: gradients {grad_err:.3e} "
-          f"({worst}), BN stats {stat_err:.3e} (bound {TRAIN_GRAD_TOL}); the 11 Dense biases before a BN: "
-          f"max |grad| {zero_max:.3e} on either path (bound {ZERO_GRAD_TOL})")
-    require(loss_err <= TRAIN_LOSS_RTOL, "training loss differs from the plain path")
-    require(grad_err <= TRAIN_GRAD_TOL and stat_err <= TRAIN_GRAD_TOL,
-            "training gradients or BN stats differ from the plain path")
-    require(zero_max <= ZERO_GRAD_TOL, "a Dense bias before a BN has a gradient far from 0")
-
-    # 4d. Step time, host clock around steps that end in a synchronize, in
-    # turns: kernel, plain, plain, kernel.
-    def step_ms(path: str, n: int = 3) -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for batch in batches[:n]:
-            if path == "plain":
-                with plain_training_path():
-                    trainer.train_step(state, batch)
-            else:
-                trainer.train_step(state, batch)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3 / n
-
-    times = {"kernel": [], "plain": []}
-    for path in ("kernel", "plain", "plain", "kernel"):
-        times[path].append(step_ms(path))
-    for path, ms in times.items():
-        print(f"time train step {path} path B={TRAIN_BATCH} N={TRAIN_POINT} f32: {sum(ms) / len(ms):.4f} ms "
-              f"(rounds {', '.join(f'{v:.4f}' for v in ms)}) ({smi})")
+    # 4c. One step on the kernel path and on the plain path.
+    compare_steps(trainer, batches[TRAIN_STEPS], 11, f"SSG B={TRAIN_BATCH}")
+    # 4d. Step time.
+    time_steps(trainer, state, batches, smi, f"SSG B={TRAIN_BATCH} N={TRAIN_POINT} f32")
     return out
+
+
+def seg_phase(smi: str, dev) -> dict:
+    """Phase 5 (module doc).  Returns the kNN kernel's record (max abs
+    error, and kernel, plain and bound ms summed over the three FP calls of
+    one f32 BGA forward at B=32) and every kernel's launches on the BGA and
+    part segmentation main paths."""
+    import numpy as np
+    import torch
+
+    from scanobjectnn_torch.data.io import convert_to_binary_mask
+    from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.models import get_model
+    from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group
+    from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
+    from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows, scatter_add_rows
+    from scanobjectnn_torch.ops.cuda.knn_kernel import knn_point_kernel, knn_point_plain
+    from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool, sa_ball_mlp_pool_plain
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    data, labels, masks, parts = make_synthetic_dataset(
+        num_per_class=5, num_classes=NUM_CLASSES, num_points=2 * SEG_POINT, seed=1, with_mask=True, with_parts=True
+    )
+    view = EpochSampler(data, labels, masks=convert_to_binary_mask(masks).astype(np.int64), parts=parts,
+                        num_points=SEG_POINT, seed=0).epoch()
+    knn = {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None}
+    knn_bound = Work()
+    launches = {}
+
+    def add_launches(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    # 5a. The kNN kernel against its plain version: the FP decoder's shapes
+    # on the levels FPS gives (l3 is the group-all centroid at the origin).
+    x = torch.from_numpy(view["points"][:SEG_BATCH]).to(dev)
+    levels = [x, fps_plain(x, 512)[1]]
+    levels += [fps_plain(levels[1], 128)[1], torch.zeros(SEG_BATCH, 1, 3, device=dev)]
+    g = torch.Generator().manual_seed(5)
+    lattice = torch.randint(-3, 4, (SEG_TRAIN_BATCH, 128, 3), generator=g).float() * 0.25
+    dup = lattice.repeat(1, 8, 1)[:, torch.randperm(SEG_POINT, generator=g)].contiguous().to(dev)
+    rng = np.random.RandomState(6)
+    bias = torch.from_numpy((0.1 * rng.rand(SEG_TRAIN_BATCH, SEG_POINT)).astype(np.float32)).to(dev)
+    wide = [torch.from_numpy(rng.randn(SEG_TRAIN_BATCH, n, 64).astype(np.float32)).to(dev) for n in (512, 1024)]
+    cases = [
+        (f"fp{i + 1} B={b} M{levels[fine].shape[1]} N{levels[fine + 1].shape[1]} k3",
+         (levels[fine][:b].contiguous(), levels[fine + 1][:b].contiguous(), 3, None), b == SEG_BATCH)
+        for b in (SEG_BATCH, SEG_TRAIN_BATCH) for i, fine in enumerate((2, 1, 0))
+    ] + [
+        ("duplicated lattice points, M1024 N512 k3", (dup, fps_plain(dup, 512)[1], 3, None), False),
+        (f"k16 with a bias, B={SEG_TRAIN_BATCH} M1024 N1024", (levels[0][:SEG_TRAIN_BATCH].contiguous(),
+                                                             levels[0][:SEG_TRAIN_BATCH].contiguous(), 16, bias), False),
+        (f"C=64, B={SEG_TRAIN_BATCH} M512 N1024 k16", (wide[0], wide[1], 16, None), False),
+    ]
+    for label, args, in_forward in cases:
+        d, i = knn_point_kernel(*args)
+        ref_d, ref_i = knn_point_plain(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(i, ref_i) and torch.equal(d, ref_d), f"kNN differs from its plain version ({label})")
+        diff = torch.where(torch.isfinite(ref_d), (d - ref_d).abs(), 0.0)
+        knn["max_abs_err"] = max(knn["max_abs_err"], float(diff.max()))
+        if "fp1" in label:
+            require(bool(torch.isinf(d[..., 1:]).all()) and bool((i[..., 1:] == 0).all()), "fp1 padding")
+        ms, plain_ms = device_ms(lambda: knn_point_kernel(*args)), device_ms(lambda: knn_point_plain(*args), iters=3)
+        print(f"knn {label}: idx and d2 equal to the plain version; time device kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms ({smi})")
+        if in_forward:
+            knn["ms"] += ms
+            knn["plain_ms"] += plain_ms
+            knn_work(knn_bound, args[0], args[1], args[2], args[3] is not None)
+    knn.update(knn_bound.record())
+
+    # 5b. BGA inference at B=32, f32 and bf16, from get_model (on the card).
+    models = {}
+    stats_rng = np.random.RandomState(7)
+    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        models[name] = get_model("pointnet2_cls_bga", generator=torch.Generator().manual_seed(0), dtype=dtype).eval()
+    with torch.no_grad():
+        for key, buf in models["f32"].named_buffers():
+            vals = stats_rng.randn(*buf.shape)
+            stat = torch.from_numpy(0.1 + 0.1 * np.abs(vals) if key.endswith(".var") else 0.05 * np.abs(vals))
+            for m in models.values():
+                dict(m.named_buffers())[key].copy_(stat)
+    with torch.no_grad():
+        for name, m in models.items():
+            dtype = torch.float32 if name == "f32" else torch.bfloat16
+            w1, b1 = m.sa1.mlp.folded()
+            check_sa((0.2, 64, x, levels[1], None, w1, b1), dtype, f"BGA SA1 {name} B={SEG_BATCH} K64",
+                     sa_ball_mlp_pool, sa_ball_mlp_pool_plain)
+    counters = (fps, sa_ball_mlp_pool, knn_point_kernel, gather_rows)
+    with torch.no_grad():
+        outputs, counts = counted_run(counters, lambda: {n: m(x) for n, m in models.items()})
+        print(f"BGA inference main path launches: {counts}")
+        require(all(n > 0 for n in counts.values()), f"a kernel of the BGA inference path never launched: {counts}")
+        add_launches(counts)
+        before = [c.launches for c in counters]
+        with plain_path():
+            ref = {n: m(x) for n, m in models.items()}
+            plain_ms = {n: cuda_ms(lambda: m(x), iters=3) for n, m in models.items()}
+        require([c.launches for c in counters] == before, "the plain BGA path launched a kernel")
+    for name in models:
+        for key in ("logits", "seg_logits"):
+            got, want = outputs[name][key], ref[name][key]
+            shape = (SEG_BATCH, NUM_CLASSES) if key == "logits" else (SEG_BATCH, SEG_POINT, 2)
+            require(tuple(got.shape) == shape and bool(torch.isfinite(got.float()).all()), f"BGA {key} ({name})")
+            require(float(want.float().abs().max()) > 0.1, f"BGA {key} vanished ({name})")
+            if name == "bf16":
+                check_bf16(got, want, BF16_LOGIT_ULPS, f"BGA bf16: {key}")
+            else:
+                err, tol = float((got - want).abs().max()), F32_LOGIT_TOL * scale_of(want)
+                print(f"BGA f32: {key} max abs err {err:.3e} (bound {tol:.3e})")
+                require(err <= tol, f"BGA f32 {key} differs from the plain path: {err} > {tol}")
+            agree = float((got.float().argmax(-1) == want.float().argmax(-1)).float().mean())
+            need = SEG_AGREEMENT if key == "seg_logits" else (1.0 if name == "f32" else BF16_CLASS_AGREEMENT)
+            print(f"BGA {name}: {key} argmax agreement {agree:.4f} (bound {need})")
+            require(agree >= need, f"BGA {name} {key} agreement {agree}")
+    with torch.no_grad():
+        for name, m in models.items():
+            ms = cuda_ms(lambda: m(x))
+            print(f"time forward BGA {name} B={SEG_BATCH} N={SEG_POINT}: kernel path {ms:.4f} ms "
+                  f"({SEG_BATCH / ms * 1e3:.1f} clouds/s), plain path {plain_ms[name]:.4f} ms ({smi})")
+
+    # 5c. BGA training, f32, B=16.
+    batches = list(Batches(view, SEG_TRAIN_BATCH))
+    trainer = Trainer(TrainerConfig(model="pointnet2_cls_bga", batch_size=SEG_TRAIN_BATCH, device=str(dev)))
+    state = trainer.init_state(seed=0)
+    counters = (fps, query_ball_group, gather_rows, scatter_add_rows, knn_point_kernel)
+
+    def steps():
+        return [float(trainer.train_step(state, batch)[1]["loss"]) for batch in batches[:TRAIN_STEPS]]
+
+    losses, counts = counted_run(counters, steps)
+    print(f"BGA training main path: {TRAIN_STEPS} steps, losses {[round(v, 6) for v in losses]}, launches {counts}")
+    require(all(n > 0 for n in counts.values()), f"a kernel of the BGA training path never launched: {counts}")
+    require(all(math.isfinite(v) for v in losses), f"non-finite BGA training loss: {losses}")
+    add_launches(counts)
+    compare_steps(trainer, batches[TRAIN_STEPS], 19, f"BGA B={SEG_TRAIN_BATCH}")
+    time_steps(trainer, state, batches, smi, f"BGA B={SEG_TRAIN_BATCH} N={SEG_POINT} f32")
+
+    # 5d. Part segmentation, B=8: one forward and one step.
+    part_batch = {k: v[:PARTSEG_BATCH] for k, v in batches[0].items()}
+    trainer = Trainer(TrainerConfig(model="pointnet2_cls_partseg", batch_size=PARTSEG_BATCH, device=str(dev)))
+    model = trainer.init_state(seed=0).model.eval()
+    xp = torch.from_numpy(part_batch["points"]).to(dev)
+    with torch.no_grad():
+        got, counts = counted_run((fps, sa_ball_mlp_pool, knn_point_kernel, gather_rows), lambda: model(xp))
+        with plain_path():
+            want = model(xp)
+    got, want = got["seg_logits"], want["seg_logits"]
+    err, tol = float((got - want).abs().max()), F32_LOGIT_TOL * scale_of(want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    print(f"partseg inference B={PARTSEG_BATCH}: launches {counts}; seg_logits max abs err {err:.3e} "
+          f"(bound {tol:.3e}), argmax agreement {agree:.4f}")
+    require(tuple(got.shape) == (PARTSEG_BATCH, SEG_POINT, NUM_CLASSES) and bool(torch.isfinite(got).all()),
+            "partseg seg_logits")
+    require(all(n > 0 for n in counts.values()), f"a kernel of the partseg inference path never launched: {counts}")
+    require(err <= tol and agree >= SEG_AGREEMENT, "partseg seg_logits differ from the plain path")
+    add_launches(counts)
+    _, counts = counted_run(counters, lambda: trainer.train_step(trainer.init_state(seed=2), part_batch))
+    print(f"partseg training main path: launches {counts}")
+    require(all(n > 0 for n in counts.values()), f"a kernel of the partseg training path never launched: {counts}")
+    add_launches(counts)
+    compare_steps(trainer, part_batch, 17, f"partseg B={PARTSEG_BATCH}")
+
+    knn["launches"] = launches["knn_point_kernel"]
+    return {"knn_point": knn, "launches": launches}
 
 
 def main() -> None:
@@ -373,11 +678,9 @@ def main() -> None:
 
     from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
     from scanobjectnn_torch.models import get_model
-    from scanobjectnn_torch.ops import fps as ops_fps
     from scanobjectnn_torch.ops.cuda import _build
     from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
     from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool, sa_ball_mlp_pool_plain
-    from scanobjectnn_torch.nn import pointnet_modules
 
     dev = torch.device("cuda:0")
     smi = subprocess.run(
@@ -409,13 +712,15 @@ def main() -> None:
                 buf.copy_(torch.from_numpy(
                     0.1 + 0.1 * np.abs(vals) if key.endswith(".var") else 0.05 * np.abs(vals)
                 ))
-        models[name] = model.to(dev).eval()
+        models[name] = model.eval()
 
     # 2. Kernels against their plain versions, at the main path's shapes.
-    # errs: max abs error per kernel; per_forward: [kernel ms, plain ms]
-    # summed over the calls one bf16 forward makes (FPS both layers, SA1+SA2).
+    # errs: max abs error per kernel; per_forward: [kernel ms, plain ms] and
+    # work: the bound, over the calls one bf16 forward makes (FPS both
+    # layers, SA1+SA2).
     errs = {"fps": 0.0, "sa_ball_mlp_pool": 0.0}
     per_forward = {"fps": [0.0, 0.0], "sa_ball_mlp_pool": [0.0, 0.0]}
+    work = {"fps": Work(), "sa_ball_mlp_pool": Work()}
 
     def record(kname, label, ms, plain_ms, in_bf16_forward):
         print(f"time {kname} {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
@@ -439,6 +744,7 @@ def main() -> None:
     for xyz, npoint, label in ((x0, 512, "2048->512"), (sa1_xyz, 128, "512->128")):
         record("fps", label, cuda_ms(lambda: fps(xyz, npoint)),
                cuda_ms(lambda: fps_plain(xyz, npoint), iters=3), True)
+        fps_work(work["fps"], *xyz.shape[:2], npoint)
 
     for name in ("f32", "bf16"):
         model = models[name]
@@ -459,24 +765,19 @@ def main() -> None:
                        cuda_ms(lambda: sa_ball_mlp_pool(*args, dtype=dtype)),
                        cuda_ms(lambda: sa_ball_mlp_pool_plain(*args, dtype=dtype), iters=3),
                        name == "bf16")
+                if name == "bf16":
+                    sa_work(work["sa_ball_mlp_pool"], args, dtype)
 
     # 3. The main path: get_model -> model(points), counting kernel launches.
-    fps.launches = 0
-    sa_ball_mlp_pool.launches = 0
-    logits = {}
     with torch.no_grad():
-        for name, model in models.items():
-            logits[name] = [model(x)["logits"] for x in batches]
-    torch.cuda.synchronize()
-    launches = {"fps": fps.launches, "sa_ball_mlp_pool": sa_ball_mlp_pool.launches}
+        logits, launches = counted_run(
+            (fps, sa_ball_mlp_pool), lambda: {n: [m(x)["logits"] for x in batches] for n, m in models.items()}
+        )
     print(f"main path launches: {launches}")
     require(all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}")
 
-    # The same model on the plain path, same card: the wrappers swapped for
-    # the plain versions inside the two modules that call them.
-    with torch.no_grad(), mock.patch.object(ops_fps, "fps", fps_plain_entry), mock.patch.object(
-        pointnet_modules, "sa_ball_mlp_pool", sa_ball_mlp_pool_plain
-    ):
+    # The same model on the plain path, same card.
+    with torch.no_grad(), plain_path():
         ref = {name: [m(x)["logits"] for x in batches] for name, m in models.items()}
         plain_fwd_ms = {name: cuda_ms(lambda: m(batches[0]), iters=3) for name, m in models.items()}
     require(fps.launches == launches["fps"] and sa_ball_mlp_pool.launches == launches["sa_ball_mlp_pool"],
@@ -506,7 +807,15 @@ def main() -> None:
     # 4. Training.
     train = train_phase(smi, dev)
     launches["fps"] += train.pop("fps_train_launches")
-    print(f"launches, inference and training main paths together: fps {launches['fps']}")
+    # 5. BGA and part segmentation.
+    seg = seg_phase(smi, dev)
+    for k in ("fps", "sa_ball_mlp_pool"):
+        launches[k] += seg["launches"][k]
+    for k in ("query_ball_group", "gather_rows", "scatter_add_rows"):
+        train[k]["launches"] += seg["launches"][k]
+    print(f"launches, every main path together: fps {launches['fps']}, sa_ball_mlp_pool "
+          f"{launches['sa_ball_mlp_pool']}, " + ", ".join(f"{k} {train[k]['launches']}" for k in train)
+          + f", knn_point {seg['knn_point']['launches']}")
 
     require(not {"jax", "scanobjectnn_tpu"} & set(sys.modules), "JAX or the JAX package was imported")
 
@@ -517,19 +826,26 @@ def main() -> None:
         "query_ball_group": ("scanobjectnn_torch/csrc/ballgroup.cu", pallas + "ballquery_kernel.py:381"),
         "gather_rows": ("scanobjectnn_torch/csrc/gather.cu", pallas + "onehot.py:223"),
         "scatter_add_rows": ("scanobjectnn_torch/csrc/gather.cu", pallas + "onehot.py:245"),
+        "knn_point": ("scanobjectnn_torch/csrc/knn.cu", pallas + "knn_kernel.py:196"),
     }
     measured = {
-        k: {"launches": launches[k], "max_abs_err": errs[k], "ms": per_forward[k][0], "plain_ms": per_forward[k][1]}
+        k: {"launches": launches[k], "max_abs_err": errs[k], "ms": per_forward[k][0], "plain_ms": per_forward[k][1],
+            **work[k].record(), "library_ms": None}
         for k in ("fps", "sa_ball_mlp_pool")
     }
     measured.update(train)
+    measured["knn_point"] = seg["knn_point"]
     kernels = [
         {"name": k, "route": "cuda", "source": src, "replaces": tpu, **measured[k]}
         for k, (src, tpu) in sources.items()
     ]
-    print("kernel ms / plain_ms: fps and sa_ball_mlp_pool summed over one bf16 inference forward's calls "
-          "at B=128 (FPS both layers, SA1+SA2; CUDA events); the others over one f32 training step's calls "
-          "at B=16 (ball group SA1+SA2, gather and scatter-add SA2; device time, torch.profiler)")
+    print("kernel ms / plain_ms / bound_ms: fps and sa_ball_mlp_pool summed over one bf16 SSG forward's calls "
+          "at B=128 (FPS both layers, SA1+SA2; CUDA events); ball group, gather and scatter-add over one f32 SSG "
+          "training step's calls at B=16 (ball group SA1+SA2, gather and scatter-add SA2; device time, "
+          "torch.profiler); knn_point over one f32 BGA forward's calls at B=32 (fp1+fp2+fp3; device time). "
+          "library_ms: torch.gather for the gather, index_add_ for the scatter-add (device time); launches: "
+          "every main path's run together")
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's PointNet++ SSG forward, or its training step,
-on one NVIDIA GPU.
+"""Profile the PyTorch port's PointNet++ forward, or its training step, on
+one NVIDIA GPU.
 
     python3 profile_forward.py [--batch 128] [--num-point 2048] [--iters 5]
     python3 profile_forward.py --train [--batch 16] [--num-point 1024]
+    python3 profile_forward.py --model pointnet2_cls_bga [--train]
 
-Forward: for bf16 and f32 in turn, builds ``pointnet2_cls_ssg`` with
-``get_model`` (seed 0) and answers one batch of the 15-class synthetic
-dataset (seed 0).  ``--train``: an f32 ``Trainer`` (seed 0, its default
-augmentation, dropout and Adam) takes ``train_step``s on one such batch.
+``--model`` is ``pointnet2_cls_ssg`` (default) or ``pointnet2_cls_bga``;
+BGA's defaults are its configurations: B=32, N=1024 for the forward, B=16,
+N=1024 for ``--train``.  Forward: for bf16 and f32 in turn, builds the
+model with ``get_model`` (seed 0, on the card) and answers one batch of the
+15-class synthetic dataset (seed 0; with background points and binary
+masks for BGA).  ``--train``: an f32 ``Trainer`` (seed 0, its default
+augmentation, dropout and Adam; BGA's seg_weight 0.5) takes
+``train_step``s on one such batch.
 Each runs a few times to warm up, then ``--iters`` runs are traced with
 ``torch.profiler``.  Prints, per run: host wall time, the number of device
 kernels, device busy time (the union of kernel intervals), the kernel window
@@ -83,18 +88,21 @@ def main() -> None:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model", default="pointnet2_cls_ssg", choices=("pointnet2_cls_ssg", "pointnet2_cls_bga"))
     parser.add_argument("--train", action="store_true", help="profile f32 train_step instead of the forward")
-    parser.add_argument("--batch", type=int, help="default 128, or 16 with --train")
-    parser.add_argument("--num-point", type=int, help="default 2048, or 1024 with --train")
+    parser.add_argument("--batch", type=int, help="default 128 (BGA 32), or 16 with --train")
+    parser.add_argument("--num-point", type=int, help="default 2048 (BGA 1024), or 1024 with --train")
     parser.add_argument("--iters", type=int, default=5)
     args = parser.parse_args()
-    args.batch = args.batch or (16 if args.train else 128)
-    args.num_point = args.num_point or (1024 if args.train else 2048)
+    bga = args.model == "pointnet2_cls_bga"
+    args.batch = args.batch or (16 if args.train else 32 if bga else 128)
+    args.num_point = args.num_point or (1024 if args.train or bga else 2048)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: torch.cuda.is_available() is False; needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from scanobjectnn_torch.data.io import convert_to_binary_mask
     from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
     from scanobjectnn_torch.models import get_model
 
@@ -102,22 +110,25 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    data, labels = make_synthetic_dataset(
-        num_per_class=-(-args.batch // 15), num_classes=15, num_points=args.num_point, seed=0
+    arrays = make_synthetic_dataset(
+        num_per_class=-(-args.batch // 15), num_classes=15, num_points=args.num_point, seed=0, with_mask=bga
     )
-    out = {"card": card, "batch": args.batch, "num_point": args.num_point, "iters": args.iters}
+    data, labels = arrays[:2]
+    out = {"card": card, "model": args.model, "batch": args.batch, "num_point": args.num_point, "iters": args.iters}
     runs = {}
     if args.train:
         from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
 
-        trainer = Trainer(TrainerConfig(batch_size=args.batch))
+        trainer = Trainer(TrainerConfig(model=args.model, batch_size=args.batch))
         state = trainer.init_state(seed=0)
         batch = {"points": data[: args.batch], "labels": labels[: args.batch]}
+        if bga:
+            batch["masks"] = convert_to_binary_mask(arrays[2][: args.batch]).astype("int64")
         runs["train_f32"] = lambda: trainer.train_step(state, batch)
     else:
         points = torch.from_numpy(data[: args.batch]).cuda()
         for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
-            model = get_model("pointnet2_cls_ssg", dtype=dtype).cuda().eval()
+            model = get_model(args.model, dtype=dtype).eval()
             runs[name] = torch.no_grad()(lambda model=model: model(points))
     for name, run in runs.items():
         res = out[name] = profile_one(run, args.iters)

@@ -1,13 +1,13 @@
 """Epoch and batch pipeline, numpy only (counterpart of
 ``scanobjectnn_tpu/data/pipeline.py``).
 
-Reference semantics (data_utils.py:171-186), kept exactly so that the port
+Reference semantics (data_utils.py:171-233), kept exactly so that the port
 visits clouds and points in the JAX package's order under the same seed:
   * each epoch draws ONE point permutation shared by every cloud and keeps
-    its first ``num_points`` points;
+    its first ``num_points`` points; masks and parts take the same points;
   * then the cloud order is shuffled;
   * batches are fixed-size and drop the remainder (pointnet2/train.py:237).
-Ported: rectangular point clouds with labels.  Masks, parts, types and
+Ported: rectangular point clouds with labels, masks and parts.  Types and
 ragged (per-cloud size) input wait for the slices that read them.
 """
 
@@ -23,10 +23,14 @@ __all__ = ["Batches", "EpochSampler"]
 
 @dataclass
 class EpochSampler:
-    """Draws reference-faithful epoch views of an in-memory dataset."""
+    """Draws reference-faithful epoch views of an in-memory dataset.  The
+    fields come in the JAX order, so ``num_points`` and later are passed by
+    keyword."""
 
     data: np.ndarray  # [B, N_total, 3]
     labels: np.ndarray  # [B]
+    masks: np.ndarray | None = None  # [B, N_total]
+    parts: np.ndarray | None = None  # [B, N_total]
     num_points: int = 1024
     shuffle: bool = True
     seed: int | None = None
@@ -37,15 +41,22 @@ class EpochSampler:
         self._rng = np.random.RandomState(self.seed) if self.seed is not None else np.random
 
     def epoch(self) -> dict[str, np.ndarray]:
-        """One epoch view: {"points" [B, num_points, 3], "labels" [B]}."""
+        """One epoch view: {"points" [B, num_points, 3], "labels" [B]} and,
+        where given, "masks" and "parts" [B, num_points]."""
         idx_pts = np.arange(self.data.shape[1])
         if self.shuffle:
             self._rng.shuffle(idx_pts)
-        points = self.data[:, idx_pts[: self.num_points], :]
+        take = idx_pts[: self.num_points]
+        out = {"points": self.data[:, take, :]}
+        for key in ("masks", "parts"):
+            if getattr(self, key) is not None:
+                out[key] = getattr(self, key)[:, take]
         idx = np.arange(len(self.labels))
         if self.shuffle:
             self._rng.shuffle(idx)
-        return {"points": points[idx], "labels": self.labels[idx]}
+        out = {k: v[idx] for k, v in out.items()}
+        out["labels"] = self.labels[idx]
+        return out
 
 
 class Batches:

@@ -2,17 +2,19 @@
 ``scanobjectnn_tpu/data/synthetic.py``).
 
 ``make_synthetic_dataset`` gives class-separable clouds, one geometric
-prototype per class (up to 15, as ScanObjectNN has).  It draws from the same
+prototype per class (up to 15, as ScanObjectNN has), optionally with
+background masks (-1 = background) and part ids.
+``make_hard_synthetic_dataset`` gives near-confusable ellipsoid classes in
+clutter, the regime BGA models are for.  Both draw from the same
 ``np.random.RandomState`` stream as the reference, so equal arguments give
-bit-identical clouds.  Masks, part ids and the hard (cluttered) variant are
-not ported yet.
+bit-identical arrays.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["make_synthetic_dataset"]
+__all__ = ["make_hard_synthetic_dataset", "make_synthetic_dataset"]
 
 _PROTOTYPES = (
     "sphere", "cube", "plane", "line", "two_clusters", "cylinder", "torus", "cone",
@@ -81,20 +83,107 @@ def _sample_prototype(kind: str, n: int, rng: np.random.RandomState) -> np.ndarr
 
 
 def make_synthetic_dataset(
-    num_per_class: int = 8, num_classes: int = 4, num_points: int = 128, seed: int = 0
-) -> tuple[np.ndarray, np.ndarray]:
-    """Class-separable clouds: (data [B, N, 3] float32, labels [B] int64),
-    ``num_per_class`` clouds of each class in class order."""
+    num_per_class: int = 8,
+    num_classes: int = 4,
+    num_points: int = 128,
+    seed: int = 0,
+    with_mask: bool = False,
+    with_parts: bool = False,
+) -> tuple[np.ndarray, ...]:
+    """Class-separable clouds: (data [B, N, 3] float32, labels [B] int64
+    [, masks [B, N] int64] [, parts [B, N] int64]), ``num_per_class``
+    clouds of each class in class order.
+
+    With ``with_mask``, a quarter of each cloud's points are replaced by
+    far-away background points with mask -1; the others keep a mask id in
+    0..2 (the h5 convention: -1 is background).  Part ids are 0..2."""
     if not 1 <= num_classes <= len(_PROTOTYPES):
         raise ValueError(f"num_classes must be 1..{len(_PROTOTYPES)}, got {num_classes}")
     rng = np.random.RandomState(seed)
-    data = []
+    data, masks, parts = [], [], []
     for label in range(num_classes):
         for _ in range(num_per_class):
-            data.append(_sample_prototype(_PROTOTYPES[label], num_points, rng).astype(np.float32))
-            # The reference draws a mask id and a part id per point here;
-            # drawing them keeps the stream, and so the next clouds, the same.
-            rng.randint(0, 3, num_points)
-            rng.randint(0, 3, num_points)
-    labels = np.repeat(np.arange(num_classes, dtype=np.int64), num_per_class)
-    return np.stack(data), labels
+            pc = _sample_prototype(_PROTOTYPES[label], num_points, rng).astype(np.float32)
+            mask = rng.randint(0, 3, num_points).astype(np.int64)
+            part = rng.randint(0, 3, num_points).astype(np.int64)
+            if with_mask:
+                n_bg = num_points // 4
+                bg_idx = rng.choice(num_points, n_bg, replace=False)
+                pc[bg_idx] = rng.uniform(2.0, 3.0, (n_bg, 3)).astype(np.float32)
+                mask[bg_idx] = -1
+            data.append(pc)
+            masks.append(mask)
+            parts.append(part)
+    out = [np.stack(data), np.repeat(np.arange(num_classes, dtype=np.int64), num_per_class)]
+    if with_mask:
+        out.append(np.stack(masks))
+    if with_parts:
+        out.append(np.stack(parts))
+    return tuple(out)
+
+
+# Axis ratios of the hard dataset's classes: a grid of confusable ellipsoids.
+_PROTO_RATIOS = np.array([
+    [1.00, 0.85, 0.65],
+    [1.00, 0.85, 0.45],
+    [1.00, 0.72, 0.65],
+    [1.00, 0.72, 0.45],
+    [1.00, 0.59, 0.65],
+    [1.00, 0.59, 0.45],
+    [1.00, 0.46, 0.65],
+    [1.00, 0.46, 0.45],
+])
+
+
+def make_hard_synthetic_dataset(
+    num_per_class: int = 50,
+    num_classes: int = 6,
+    num_points: int = 256,
+    clutter_frac: float = 0.5,
+    seed: int = 0,
+    return_parts: bool = False,
+) -> tuple[np.ndarray, ...]:
+    """Near-confusable classes in background clutter: (points [B, N, 3]
+    float32, labels [B] int64, masks [B, N] int64 (-1 = background)
+    [, parts [B, N] int64]).
+
+    Each class is an ellipsoid with its own axis ratios under a per-cloud
+    ±10% scale jitter.  ``clutter_frac`` of each cloud is background: half a
+    distractor (a whole ellipsoid of another class, offset from the object)
+    and half uniform clutter in the enclosing ball.  Part ids: 0 the object,
+    1 the distractor, 2 the clutter.  The points of a cloud are shuffled."""
+    protos = [_PROTO_RATIOS[c % len(_PROTO_RATIOS)] for c in range(num_classes)]
+    rng = np.random.RandomState(seed)
+    n_clutter = int(round(num_points * clutter_frac))
+    n_fg = num_points - n_clutter
+    n_distract = n_clutter // 2
+    n_uniform = n_clutter - n_distract
+
+    def ellipsoid(n, ratios):
+        v = _unit(rng.randn(n, 3))
+        jitter = 1.0 + 0.10 * rng.randn(3)
+        return (v * ratios * jitter * 0.5).astype(np.float32)
+
+    data, labels, masks, parts = [], [], [], []
+    for label in range(num_classes):
+        for _ in range(num_per_class):
+            fg = ellipsoid(n_fg, protos[label])
+            other = (label + rng.randint(1, num_classes)) % num_classes
+            frag = ellipsoid(n_distract, protos[other])
+            offset = rng.randn(3)
+            offset *= rng.uniform(0.70, 1.00) / np.linalg.norm(offset)
+            frag = frag + offset.astype(np.float32)
+            clutter = _unit(rng.randn(n_uniform, 3))
+            clutter = (clutter * rng.uniform(0.0, 1.0, (n_uniform, 1)) ** (1 / 3)).astype(np.float32)
+            pc = np.concatenate([fg, frag, clutter], axis=0)
+            mask = np.concatenate([np.zeros(n_fg, np.int64), -np.ones(n_clutter, np.int64)])
+            part = np.concatenate([
+                np.zeros(n_fg, np.int64), np.ones(n_distract, np.int64), np.full(n_uniform, 2, np.int64),
+            ])
+            perm = rng.permutation(num_points)
+            data.append(pc[perm])
+            masks.append(mask[perm])
+            parts.append(part[perm])
+            labels.append(label)
+    out = (np.stack(data), np.array(labels, dtype=np.int64), np.stack(masks))
+    return out + (np.stack(parts),) if return_parts else out

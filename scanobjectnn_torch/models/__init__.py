@@ -1,10 +1,12 @@
 """Model registry (counterpart of ``scanobjectnn_tpu/models/__init__.py``).
 
-Only ``pointnet2_cls_ssg`` is ported, for inference and f32 training;
-every other name raises ``KeyError`` saying it is not ported yet.
-``get_model`` returns the module alone; its loss is the static
-``loss(outputs, batch)`` on the module's class (the JAX one returns the
-module, the loss and the model's kind).
+Ported: ``pointnet2_cls_ssg`` ("cls"), ``pointnet2_cls_bga`` ("seg") and
+``pointnet2_cls_partseg`` ("partseg"), for inference and f32 training;
+every other name raises ``KeyError`` saying it is not ported yet.  The
+registry maps a name to its class; the class carries the model's ``kind``
+and its static ``loss(outputs, batch)`` (the JAX ``get_model`` returns the
+module, the loss and the kind).  ``get_model`` returns the module alone, on
+``device``.
 """
 
 from __future__ import annotations
@@ -12,16 +14,23 @@ from __future__ import annotations
 import torch
 
 from scanobjectnn_torch.convert import init_params
-from scanobjectnn_torch.models.pointnet2 import PointNet2ClsSSG
+from scanobjectnn_torch.models.pointnet2 import PointNet2BGA, PointNet2ClsSSG, PointNet2PartSeg
 
-__all__ = ["MODEL_REGISTRY", "PointNet2ClsSSG", "get_model"]
+__all__ = ["MODEL_REGISTRY", "PointNet2BGA", "PointNet2ClsSSG", "PointNet2PartSeg", "get_model"]
 
-MODEL_REGISTRY = {"pointnet2_cls_ssg": PointNet2ClsSSG}
+MODEL_REGISTRY = {
+    "pointnet2_cls_ssg": PointNet2ClsSSG,
+    "pointnet2_cls_bga": PointNet2BGA,
+    "pointnet2_cls_partseg": PointNet2PartSeg,
+}
 
 
-def get_model(name: str, generator: torch.Generator | None = None, **overrides) -> torch.nn.Module:
+def get_model(
+    name: str, generator: torch.Generator | None = None, device: str | torch.device = "cuda", **overrides
+) -> torch.nn.Module:
     """Instantiate a registered model with the reference init drawn from
-    ``generator`` (a generator seeded 0 when None)."""
+    ``generator`` (a generator seeded 0 when None) and move it to
+    ``device`` (the card unless the caller asks for the CPU)."""
     if name not in MODEL_REGISTRY:
         raise KeyError(
             f"model {name!r} is not ported to scanobjectnn_torch yet; "
@@ -29,4 +38,4 @@ def get_model(name: str, generator: torch.Generator | None = None, **overrides) 
         )
     module = MODEL_REGISTRY[name](**overrides)
     init_params(module, generator if generator is not None else torch.Generator().manual_seed(0))
-    return module
+    return module.to(device)

@@ -1,6 +1,7 @@
 """Loss components (counterpart of ``scanobjectnn_tpu/models/losses.py``).
 
-Only the classification loss of the SSG slice is ported.
+Ported: the classification loss, the per-point segmentation loss and the
+BGA joint loss.
 """
 
 from __future__ import annotations
@@ -8,10 +9,34 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["softmax_cross_entropy"]
+__all__ = ["joint_cls_seg_loss", "per_point_cross_entropy", "softmax_cross_entropy"]
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean sparse softmax cross-entropy over the batch, in f32
     (tf.nn.sparse_softmax_cross_entropy)."""
     return F.cross_entropy(logits.float(), labels.long())
+
+
+def per_point_cross_entropy(seg_logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-point softmax cross-entropy [B, N, C], [B, N] in f32, averaged
+    over the points of each cloud, then over the clouds (the JAX
+    ``mean(mean(per_point, axis=1))``)."""
+    b, n, c = seg_logits.shape
+    per_point = F.cross_entropy(seg_logits.float().reshape(b * n, c), targets.long().reshape(b * n), reduction="none")
+    return per_point.reshape(b, n).mean(dim=1).mean()
+
+
+def joint_cls_seg_loss(
+    cls_logits: torch.Tensor,
+    seg_logits: torch.Tensor,
+    labels: torch.Tensor,
+    masks: torch.Tensor,
+    seg_weight: float = 0.5,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """BGA joint loss (1 - w)·CE_cls + w·CE_seg (pointnet2_cls_bga.py:78-93):
+    returns (total, classify_loss, seg_loss)."""
+    classify_loss = softmax_cross_entropy(cls_logits, labels)
+    seg_loss = per_point_cross_entropy(seg_logits, masks)
+    total = (1.0 - seg_weight) * classify_loss + seg_weight * seg_loss
+    return total, classify_loss, seg_loss

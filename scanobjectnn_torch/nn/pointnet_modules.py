@@ -1,12 +1,13 @@
-"""PointNet++ set abstraction (counterpart of
+"""PointNet++ set abstraction and feature propagation (counterpart of
 ``scanobjectnn_tpu/nn/pointnet_modules.py``).
 
 Ported: ``_fused_ball_scale``, ``sample_and_group``,
 ``sample_and_group_all``, ``SAModule`` (the fused eval branch, the unfused
-training branch and the group-all branch) and ``GroupMLPPool`` (eval and
-the unfused training path).  A ball-grouped SA layer at eval runs two
-kernels: FPS for the centroids, then the fused ball-select + MLP + max-pool
-layer.  In training it runs FPS (indices only), the ball group, the
+training branch and the group-all branch), ``GroupMLPPool`` (eval and
+the unfused training path) and ``FPModule`` (3-NN through the kNN
+kernel, inverse-distance interpolation through the gather kernel, then a
+unit MLP).  A ball-grouped SA layer at eval runs two kernels: FPS for the
+centroids, then the fused ball-select + MLP + max-pool layer.  In training it runs FPS (indices only), the ball group, the
 neighbour gather (whose backward is the scatter-add kernel) and the MLP in
 plain PyTorch with batch-statistics BN.  kNN grouping, pooling modes other
 than max, ``mlp2`` and the fused training tail are not ported yet.
@@ -25,7 +26,7 @@ from scanobjectnn_torch.ops.cuda.gather_kernel import gather_neighbors
 from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool
 from scanobjectnn_torch.ops.cuda.samlp_kernel import fold_bn_mlp_params
 
-__all__ = ["sample_and_group", "sample_and_group_all", "SAModule", "GroupMLPPool"]
+__all__ = ["sample_and_group", "sample_and_group_all", "FPModule", "SAModule", "GroupMLPPool"]
 
 
 class GroupMLPPool(MLP):
@@ -132,3 +133,30 @@ class SAModule(nn.Module):
             dtype=self.dtype or xyz.dtype,
         )
         return new_xyz, pooled
+
+
+class FPModule(nn.Module):
+    """Feature propagation: 3-NN inverse-distance upsampling of ``points2``
+    from ``xyz2`` to ``xyz1``, concatenated with ``points1`` when given,
+    then a unit MLP (Dense→BN→relu per layer; ref pointnet_util.py:199-229).
+    ``in_channels`` is the width of ``points2`` plus that of ``points1``."""
+
+    def __init__(self, mlp: Sequence[int], in_channels: int, dtype: torch.dtype | None = None):
+        super().__init__()
+        self.mlp = MLP(in_channels, mlp, dtype=dtype)
+
+    def forward(
+        self,
+        xyz1: torch.Tensor,
+        xyz2: torch.Tensor,
+        points1: torch.Tensor | None,
+        points2: torch.Tensor,
+        bn_momentum: float | None = None,
+    ) -> torch.Tensor:
+        """xyz1 [B, N, 3], xyz2 [B, M, 3], points1 [B, N, C1] or None,
+        points2 [B, M, C2] -> [B, N, mlp[-1]]."""
+        dist, idx = ops.three_nn(xyz1, xyz2)
+        interpolated = ops.three_interpolate(points2, idx, ops.three_interpolate_weights(dist))
+        if points1 is not None:
+            interpolated = torch.cat([interpolated, points1], dim=-1)
+        return self.mlp(interpolated, bn_momentum)

@@ -9,5 +9,12 @@ from scanobjectnn_torch.ops.fps import (  # noqa: F401
 from scanobjectnn_torch.ops.grouping import (  # noqa: F401
     batched_index_gather,
     group_point,
+    knn_point,
+    pairwise_squared_distance,
     query_ball_group,
+)
+from scanobjectnn_torch.ops.interpolate import (  # noqa: F401
+    three_interpolate,
+    three_interpolate_weights,
+    three_nn,
 )

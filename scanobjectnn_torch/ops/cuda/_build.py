@@ -48,6 +48,8 @@ _SIGNATURES = {
     "gather_launch": (_P, _P, _I, _I, _I, _I, _P, _P),
     # idx, upd, b, n, r, c, offsets, perm, out, stream
     "scatter_add_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # queries, keys, bias (nullable), b, m, n, c, k, dist, idx, stream
+    "knn_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lib = None

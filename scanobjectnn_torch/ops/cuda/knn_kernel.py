@@ -1,0 +1,129 @@
+"""General k-nearest-neighbour search: the CUDA kernel (``csrc/knn.cu``)
+beside its plain PyTorch version.
+
+Replaces ``scanobjectnn_tpu/ops/pallas/knn_kernel.py``: ``knn_point_pallas``
+(``_knn_general_kernel``, ``pl.pallas_call``), which the FP decoder's
+``three_nn`` runs with k=3 and PointCNN's kNN with a duplicate bias.
+
+Semantics (the contract of ``knn_point_pallas``):
+  * ``knn_point_kernel(queries [B, M, C], keys [B, N, C], k, bias [B, N] or
+    None) -> (d2 [B, M, k] f32, idx [B, M, k] int32)``, ascending;
+  * ``d2 = max(qq - 2·inner + kk, 0) + bias[key]`` with ``qq = |q|²``,
+    ``kk = |key|²`` and ``inner = q·key``, each a sum over the channels in
+    ascending order, evaluated elementwise in f32 (no matmul, so no cuBLAS
+    order and no TF32); the returned distances include the bias;
+  * ties go to the lowest key index (the TPU's ``argmin_rows`` rule);
+  * a slot that no key fills holds ``(+inf, 0)``: when N < k (the JAX
+    ``three_nn`` pads so from one key), and for keys whose distance is +inf
+    or NaN, which are never selected.
+Any C, M and N; 1 <= k <= ``MAX_K``.  The outputs carry no gradient.
+
+What bounds it on the H100: operations, about 2C + 4 per (query, key) pair;
+at fp3 (B=32, 1024 queries, 512 keys, C=3) about 2.5 us of f32 work against
+0.4 us of bytes, so in practice the launch.  One thread per query scans its
+cloud's keys, staged in shared memory in tiles, in ascending index and keeps
+its k best in registers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from scanobjectnn_torch.ops.cuda import _build
+
+__all__ = ["MAX_K", "knn_point_kernel", "knn_point_plain", "squared_distance_plain"]
+
+MAX_K = 32  # kMaxK in csrc/knn.cu
+
+
+def _sum_of_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum over the last axis of a * b (broadcast), in ascending channel
+    order, as separate f32 multiplies and adds (no contraction)."""
+    s = a[..., 0] * b[..., 0]
+    for i in range(1, a.shape[-1]):
+        s = s + a[..., i] * b[..., i]
+    return s
+
+
+def squared_distance_plain(queries: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """``max(|q|² - 2 q·k + |k|², 0)`` [..., M, N] between queries [..., M, C]
+    and keys [..., N, C], in f32, in the kernel's order of operations."""
+    q, k = queries.float(), keys.float()
+    qq = _sum_of_products(q, q)[..., :, None]
+    kk = _sum_of_products(k, k)[..., None, :]
+    inner = _sum_of_products(q[..., :, None, :], k[..., None, :, :])
+    return torch.clamp((qq - 2.0 * inner) + kk, min=0.0)
+
+
+def knn_point_plain(
+    queries: torch.Tensor, keys: torch.Tensor, k: int, bias: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch kNN (module doc): (d2 f32 [B, M, k], idx int32 [B, M, k])."""
+    d2 = squared_distance_plain(queries.detach(), keys.detach())
+    if bias is not None:
+        d2 = d2 + bias.detach().float()[:, None, :]
+    # A stable sort keeps equal distances in key order (torch.topk promises
+    # no order among equal values); +inf and NaN sort last.
+    vals, order = torch.sort(d2, dim=-1, stable=True)
+    vals, order = vals[..., :k], order[..., :k]
+    if vals.shape[-1] < k:
+        pad = (*vals.shape[:-1], k - vals.shape[-1])
+        vals = torch.cat([vals, vals.new_full(pad, float("inf"))], -1)
+        order = torch.cat([order, order.new_zeros(pad)], -1)
+    chosen = vals < float("inf")
+    vals = torch.where(chosen, vals, float("inf"))
+    return vals, torch.where(chosen, order, 0).to(torch.int32)
+
+
+def _check_cuda(name: str, t: torch.Tensor, shape: tuple, device) -> None:
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape:
+        raise ValueError(
+            f"knn_point_kernel: {name} must be float32 {shape} on {device}, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"knn_point_kernel: {name} must be contiguous")
+
+
+def knn_point_kernel(
+    queries: torch.Tensor, keys: torch.Tensor, k: int, bias: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """k nearest keys of every query: queries [B, M, C] f32, keys [B, N, C]
+    f32, bias [B, N] f32 or None -> (d2 [B, M, k] f32, idx [B, M, k] int32),
+    ascending.
+
+    A CPU tensor takes ``knn_point_plain``; a CUDA tensor launches the kernel
+    (counted in ``knn_point_kernel.launches``) or raises."""
+    if queries.device.type == "cpu":
+        return knn_point_plain(queries, keys, k, bias)
+    if queries.device.type != "cuda":
+        raise ValueError(f"knn_point_kernel: unsupported device {queries.device}")
+    if queries.dim() != 3 or keys.dim() != 3:
+        raise ValueError(
+            f"knn_point_kernel: need [B, M, C] and [B, N, C], got {tuple(queries.shape)}, {tuple(keys.shape)}"
+        )
+    b, m, c = queries.shape
+    n = keys.shape[1]
+    dev = queries.device
+    _check_cuda("queries", queries, (b, m, c), dev)
+    _check_cuda("keys", keys, (b, n, c), dev)
+    if bias is not None:
+        _check_cuda("bias", bias, (b, n), dev)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"knn_point_kernel: kernel takes 1 <= k <= {MAX_K}, got {k}")
+    if min(b, m, n, c) < 1:
+        raise ValueError(f"knn_point_kernel: empty input {tuple(queries.shape)}, {tuple(keys.shape)}")
+    dist = torch.empty(b, m, k, dtype=torch.float32, device=dev)
+    idx = torch.empty(b, m, k, dtype=torch.int32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.knn_launch(
+            queries.data_ptr(), keys.data_ptr(), None if bias is None else bias.data_ptr(),
+            b, m, n, c, k, dist.data_ptr(), idx.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "knn_point_kernel")
+    knn_point_kernel.launches += 1
+    return dist, idx
+
+
+knn_point_kernel.launches = 0

@@ -1,13 +1,18 @@
-"""Ball query and grouping (counterpart of ``scanobjectnn_tpu/ops/grouping.py``).
+"""Ball query, grouping and kNN (counterpart of
+``scanobjectnn_tpu/ops/grouping.py``).
 
-``query_ball_group`` dispatches on the tensor's device, as ``ops/fps.py``
-does: a CUDA tensor runs the CUDA kernel (``ops/cuda/ballgroup_kernel.py``),
-a CPU tensor its plain version.  The ball query takes the first K hits of
+``query_ball_group`` and ``knn_point`` dispatch on the tensor's device, as
+``ops/fps.py`` does: a CUDA tensor runs the CUDA kernel
+(``ops/cuda/ballgroup_kernel.py``, ``ops/cuda/knn_kernel.py``), a CPU
+tensor its plain version.  The ball query takes the first K hits of
 ``d2 < radius²`` in point order and pads with the first hit (point 0 where
-there is none); its outputs carry no gradient, since in the SA stack the
-coordinates are data leaves.  ``group_point`` and ``batched_index_gather``
+there is none); kNN returns ascending squared distances from the
+``|a|² - 2a·b + |b|²`` expansion, ties to the lowest index.  Neither
+output carries a gradient, since in the point stack the coordinates are
+data leaves.  ``pairwise_squared_distance`` is that expansion as plain
+tensor ops, differentiable.  ``group_point`` and ``batched_index_gather``
 are plain indexing, differentiable in ``points`` (the backward is
-PyTorch's own scatter-add); the SA layers gather features with
+PyTorch's own scatter-add); the SA and FP layers gather features with
 ``ops/cuda/gather_kernel.gather_neighbors`` instead.
 """
 
@@ -15,9 +20,30 @@ from __future__ import annotations
 
 import torch
 
-from scanobjectnn_torch.ops.cuda import ballgroup_kernel
+from scanobjectnn_torch.ops.cuda import ballgroup_kernel, knn_kernel
 
-__all__ = ["batched_index_gather", "group_point", "query_ball_group"]
+__all__ = [
+    "batched_index_gather",
+    "group_point",
+    "knn_point",
+    "pairwise_squared_distance",
+    "query_ball_group",
+]
+
+
+def pairwise_squared_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Squared distances [..., M, N] between a [..., M, C] and b [..., N, C]
+    as ``max(|a|² - 2a·b + |b|², 0)`` in f32 (the expansion of the JAX
+    function, summed in ascending channel order without a matmul)."""
+    return knn_kernel.squared_distance_plain(a, b)
+
+
+def knn_point(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """k nearest points of ``xyz`` [B, N, C] for each query of ``new_xyz``
+    [B, M, C]: (d2 [B, M, k] f32 ascending, idx [B, M, k] int32)."""
+    return knn_kernel.knn_point_kernel(
+        new_xyz.detach().float().contiguous(), xyz.detach().float().contiguous(), k
+    )
 
 
 def query_ball_group(

@@ -2,8 +2,14 @@
 
 One ``train_step`` is augmentation (y-rotation, then jitter) → forward in
 training mode (batch-statistics BN with the scheduled momentum, dropout
-from the state's generator) → softmax cross-entropy → backward → Adam with
-the scheduled LR → metrics ``correct``/``count``.  The BN running stats are
+from the state's generator) → the model's loss → backward → Adam with the
+scheduled LR → metrics ``correct``/``count`` (models with class logits)
+and ``seg_correct``/``seg_count`` (models with per-point logits, against
+the batch's ``masks`` or ``parts``).  The model's ``kind`` (registry) says
+which targets the batch carries: "cls" labels, "seg" labels and masks,
+"partseg" parts; a "partseg" model is built with ``num_parts =
+num_classes``, as the JAX ``Trainer`` does.  A loss that declares
+``seg_weight`` receives the config's.  The BN running stats are
 updated during the forward.  As in optax, the LR of an update is
 ``schedule(step)`` taken BEFORE the step, counting from 0; Adam uses
 eps 1e-8 and no weight decay (``pointnet2_cls_ssg`` ships no recipe).
@@ -16,13 +22,16 @@ Differences from the JAX ``Trainer``, on purpose:
   * nothing is process-global: the JAX ``Trainer`` writes its kernel
     configuration into ``kernelconfig``; f32 training here has one pool
     (``torch.amax``) and no setting to write.
-Ported: f32 training of ``pointnet2_cls_ssg``.  ``dtype="bfloat16"``
-raises: it needs exact-key pooling (``ops/exactpool``), the next slice.
-Evaluation, checkpoints and ``fit`` wait for the CLI slice.
+Ported: f32 training of ``pointnet2_cls_ssg``, ``pointnet2_cls_bga`` and
+``pointnet2_cls_partseg``.  ``dtype="bfloat16"`` raises: it needs
+exact-key pooling (``ops/exactpool``), not ported yet.  Evaluation,
+checkpoints and ``fit`` wait for the CLI slice.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
 from dataclasses import dataclass
 
 import torch
@@ -30,7 +39,7 @@ from torch import nn
 
 from scanobjectnn_torch.augment.transforms import standard_train_augment
 from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
-from scanobjectnn_torch.models import get_model
+from scanobjectnn_torch.models import MODEL_REGISTRY, get_model
 from scanobjectnn_torch.train import schedules
 
 __all__ = ["TrainState", "Trainer", "TrainerConfig"]
@@ -49,6 +58,7 @@ class TrainerConfig:
     learning_rate: float = 1e-3
     decay_step: int = 200_000
     decay_rate: float = 0.7
+    seg_weight: float = 0.5
     dtype: str = "float32"
     seed: int = 0
     device: str = "cuda"
@@ -69,12 +79,19 @@ class Trainer:
         if config.dtype == "bfloat16":
             raise NotImplementedError(
                 "bf16 training needs exact-key pooling (pool_precision='keys', "
-                "ops/exactpool.dense_bn_exactkey_pool), the next slice of the port"
+                "ops/exactpool.dense_bn_exactkey_pool), which the port does not have yet"
             )
         if config.dtype != "float32":
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {config.dtype!r}")
+        if config.model not in MODEL_REGISTRY:
+            raise KeyError(f"model {config.model!r} is not ported to scanobjectnn_torch yet")
         self.config = config
         self.device = torch.device(config.device)
+        model_cls = MODEL_REGISTRY[config.model]
+        self.kind = model_cls.kind
+        self.loss_fn = model_cls.loss
+        if "seg_weight" in inspect.signature(model_cls.loss).parameters:
+            self.loss_fn = functools.partial(model_cls.loss, seg_weight=config.seg_weight)
         self.lr_schedule = schedules.exponential_decay_lr(
             config.learning_rate, config.batch_size, config.decay_step, config.decay_rate
         )
@@ -86,10 +103,11 @@ class Trainer:
         """Model with the reference init drawn from ``seed`` (default
         ``config.seed``), its Adam optimizer, and the step's generator."""
         seed = self.config.seed if seed is None else seed
+        width = "num_parts" if self.kind == "partseg" else "num_classes"
         model = get_model(
-            self.config.model, generator=torch.Generator().manual_seed(seed),
-            num_classes=self.config.num_classes,
-        ).to(self.device)
+            self.config.model, generator=torch.Generator().manual_seed(seed), device=self.device,
+            **{width: self.config.num_classes},
+        )
         generator = torch.Generator(device=self.device).manual_seed(seed)
         return TrainState(0, model, self.make_optimizer(model.parameters()), generator)
 
@@ -105,29 +123,41 @@ class Trainer:
     # ------------------------------------------------------------- train step
 
     def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
-        """One step on ``batch`` ({"points" [B, N, 3], "labels" [B]}, numpy
-        or torch).  Updates ``state`` in place and returns it with the
-        step's metrics as device tensors (``loss``, ``classify_loss``,
-        ``correct``, ``count``)."""
+        """One step on ``batch`` ({"points" [B, N, 3], "labels" [B], and
+        "masks" or "parts" [B, N] as the model's kind needs}, numpy or
+        torch).  Updates ``state`` in place and returns it with the step's
+        metrics as device tensors (the loss's terms, then ``correct`` and
+        ``count`` and/or ``seg_correct`` and ``seg_count``)."""
         points = torch.as_tensor(batch["points"], dtype=torch.float32, device=self.device)
-        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        targets = {
+            k: torch.as_tensor(batch[k], device=self.device).long()
+            for k in ("labels", "masks", "parts") if k in batch
+        }
         points = standard_train_augment(points, state.generator)
         model = state.model.train()
         outputs = model(points, bn_momentum=self.bn_schedule(state.step), generator=state.generator)
-        loss, metrics = type(model).loss(outputs, {"labels": labels})
+        loss, metrics = self.loss_fn(outputs, targets)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer_step(state.optimizer, state.step)
         state.step += 1
         with torch.no_grad():
             metrics = {k: v.detach() for k, v in metrics.items()}
-            metrics["correct"] = (outputs["logits"].argmax(-1) == labels).sum()
-            metrics["count"] = labels.new_full((), labels.shape[0])  # no host-to-device copy
+            if "logits" in outputs:
+                labels = targets["labels"]
+                metrics["correct"] = (outputs["logits"].argmax(-1) == labels).sum()
+                metrics["count"] = labels.new_full((), labels.shape[0])  # no host-to-device copy
+            target = targets.get("masks", targets.get("parts"))
+            if "seg_logits" in outputs and target is not None:
+                metrics["seg_correct"] = (outputs["seg_logits"].argmax(-1) == target).sum()
+                metrics["seg_count"] = target.new_full((), target.numel())
         return state, metrics
 
     def train_epoch(self, state: TrainState, sampler: EpochSampler) -> tuple[TrainState, dict]:
-        """One epoch of ``sampler`` in fixed-size batches; returns the state
-        and {"mean_loss", "accuracy"} (read back once, at the end)."""
+        """One epoch of ``sampler`` in fixed-size batches (every key of its
+        view, masks and parts included, goes to ``train_step``); returns the
+        state and {"mean_loss", "accuracy", "seg_accuracy"}, each where the
+        model gives it (read back once, at the end)."""
         totals: dict[str, torch.Tensor] = {}
         n_batches = 0
         for batch in Batches(sampler.epoch(), self.config.batch_size):
@@ -139,4 +169,6 @@ class Trainer:
         summary = {"mean_loss": totals.get("loss", 0.0) / max(n_batches, 1)}
         if "correct" in totals:
             summary["accuracy"] = totals["correct"] / max(totals["count"], 1.0)
+        if "seg_correct" in totals:
+            summary["seg_accuracy"] = totals["seg_correct"] / max(totals["seg_count"], 1.0)
         return state, summary

@@ -16,6 +16,9 @@ Training kernels: the ball group (``grouped``, ``idx``, ``cnt``) and the
 row gather must be equal to their plain versions.  The scatter-add must be
 within 1e-5 x max(1, |ref|max) of ``index_add_`` (both sum exact f32, in
 other orders), and two calls on the same input must give the same bits.
+
+kNN: indices and squared distances equal to ``knn_point_plain`` (the same
+f32 operations in the same order, and the same tie rule).
 """
 
 import math
@@ -26,6 +29,7 @@ import torch
 
 from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group, query_ball_group_plain
 from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
+from scanobjectnn_torch.ops import interpolate
 from scanobjectnn_torch.ops.cuda.gather_kernel import (
     gather_neighbors,
     gather_rows,
@@ -33,6 +37,7 @@ from scanobjectnn_torch.ops.cuda.gather_kernel import (
     scatter_add_rows,
     scatter_add_rows_plain,
 )
+from scanobjectnn_torch.ops.cuda.knn_kernel import knn_point_kernel, knn_point_plain
 from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool, sa_ball_mlp_pool_plain
 
 SCATTER_TOL = 1e-5  # x max(1, |ref|max)
@@ -260,3 +265,79 @@ def test_gather_kernels_refuse_what_they_do_not_take(dev):
         scatter_add_rows(idx, upd.double(), 64)
     with pytest.raises(ValueError, match="contiguous"):
         gather_rows(vals.transpose(1, 2).contiguous().transpose(1, 2), idx)
+
+
+# (b, m queries, n keys, c, k, bias, cloud): the FP decoder's three_nn at
+# fp1 (one key: padded slots), fp2 and fp3; PointCNN-like k=16 with a bias;
+# C=64 (keys in several shared-memory tiles); k=32; ragged counts;
+# duplicated keys; a NaN key.
+KNN_CASES = {
+    "fp1": (4, 128, 1, 3, 3, False, "normal"),
+    "fp2": (4, 512, 128, 3, 3, False, "subset"),
+    "fp3": (4, 1024, 512, 3, 3, False, "subset"),
+    "k16_bias": (2, 300, 700, 3, 16, True, "normal"),
+    "c64": (2, 200, 512, 64, 8, False, "normal"),
+    "k32": (2, 130, 257, 5, 32, True, "normal"),
+    "duplicates": (3, 256, 512, 3, 5, False, "lattice"),
+    "nan_key": (2, 64, 100, 3, 4, False, "nan"),
+}
+
+
+def knn_inputs(spec, rng):
+    """numpy (queries [b, m, c], keys [b, n, c], bias [b, n] or None) of one
+    kNN case: "subset" keys are queries (as FPS picks them), "lattice" keys
+    repeat coarse grid points, "nan" puts a NaN in one key."""
+    b, m, n, c, _, with_bias, cloud = spec
+    if cloud == "lattice":
+        keys = np.tile(rng.randint(-2, 3, (b, n // 8, c)).astype(np.float32) * 0.5, (1, 8, 1))
+        queries = keys[:, rng.choice(n, m, replace=m > n)] + np.float32(0.25)
+    else:
+        queries = (rng.rand(b, m, c) * 2 - 1).astype(np.float32)
+        keys = queries[:, :n].copy() if cloud == "subset" else (rng.rand(b, n, c) * 2 - 1).astype(np.float32)
+    if cloud == "nan":
+        keys[1, 7, 0] = np.nan
+    bias = (0.1 * rng.rand(b, n)).astype(np.float32) if with_bias else None
+    return np.ascontiguousarray(queries), keys, bias
+
+
+@pytest.mark.parametrize("case", sorted(KNN_CASES))
+def test_knn_kernel_matches_plain(dev, case):
+    spec = KNN_CASES[case]
+    q, keys, bias = (None if a is None else torch.from_numpy(a).to(dev)
+                     for a in knn_inputs(spec, np.random.RandomState(spec[1] + spec[2])))
+    k = spec[4]
+    before = knn_point_kernel.launches
+    d, i = knn_point_kernel(q, keys, k, bias)
+    ref_d, ref_i = knn_point_plain(q, keys, k, bias)
+    torch.cuda.synchronize()
+    assert knn_point_kernel.launches == before + 1
+    assert d.dtype == torch.float32 and i.dtype == torch.int32 and d.shape == (spec[0], spec[1], k)
+    assert torch.equal(i, ref_i) and torch.equal(d, ref_d)
+    if case == "fp1":
+        assert bool(torch.isinf(d[..., 1:]).all()) and bool((i[..., 1:] == 0).all())
+    if case == "fp3":
+        assert bool((d[:, :512, 0] == 0).all())  # a query equal to a key: exactly 0
+    if case == "nan_key":
+        assert not bool((i[1] == 7).any())
+
+
+def test_three_nn_launches_the_knn_kernel(dev):
+    q, keys, _ = (torch.from_numpy(a).to(dev) if a is not None else None
+                  for a in knn_inputs(KNN_CASES["fp2"], np.random.RandomState(0)))
+    before = knn_point_kernel.launches
+    d, i = interpolate.three_nn(q, keys)
+    ref_d, ref_i = knn_point_plain(q, keys, 3)
+    torch.cuda.synchronize()
+    assert knn_point_kernel.launches == before + 1 and torch.equal(i, ref_i) and torch.equal(d, ref_d)
+
+
+def test_knn_kernel_refuses_what_it_does_not_take(dev):
+    q = torch.zeros(1, 8, 3, device=dev)
+    with pytest.raises(ValueError, match="k <= 32"):
+        knn_point_kernel(q, q, 33)
+    with pytest.raises(ValueError, match="float32"):
+        knn_point_kernel(q.double(), q, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        knn_point_kernel(torch.zeros(1, 3, 8, device=dev).transpose(1, 2), q, 3)
+    with pytest.raises(ValueError, match="bias"):
+        knn_point_kernel(q, q, 3, torch.zeros(1, 9, device=dev))

@@ -60,7 +60,7 @@ def _jax_model(dtype):
 
 
 def _torch_model(variables, tdtype):
-    model = get_model("pointnet2_cls_ssg", dtype=tdtype)
+    model = get_model("pointnet2_cls_ssg", device="cpu", dtype=tdtype)
     return load_jax_variables(model, variables).eval()
 
 
@@ -109,19 +109,19 @@ def test_ssg_matches_jax_unfused_f32(monkeypatch, points, variables):
 
 
 def test_state_dict_names_match_jax_tree(variables):
-    tmodel = get_model("pointnet2_cls_ssg")
+    tmodel = get_model("pointnet2_cls_ssg", device="cpu")
     load_jax_variables(tmodel, variables)  # strict: every name and shape matches
     assert tmodel.sa2.mlp.dense_0.kernel.shape == (131, 128)
 
 
 def test_get_model_refuses_unported_names():
     with pytest.raises(KeyError, match="not ported"):
-        get_model("pointnet2_cls_msg")
+        get_model("pointnet2_cls_msg", device="cpu")
 
 
 def test_training_mode_raises(points):
     # Training draws the dropout mask from an explicit generator
     # (test_torch_train_step.py holds the training forward).
-    model = get_model("pointnet2_cls_ssg")
+    model = get_model("pointnet2_cls_ssg", device="cpu")
     with pytest.raises(ValueError, match="Generator"):
         model(torch.from_numpy(points[:1, :128]))
