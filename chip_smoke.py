@@ -40,7 +40,31 @@ Phases (any failure raises and the exit code is not 0):
         seg_weight 0.5): three steps with finite losses, counting launches;
         one step on the kernel path against the plain path; a step timed;
      d. part segmentation at B=8: one forward and one training step, kernel
-        path against plain path.
+        path against plain path;
+  6. DGCNN and DGCNN-BGA (``dgcnn``, ``dgcnn_bga``: k=20, EdgeConv 64, 64,
+     64, 128, agg 1024), B=32 clouds of N=1024 points of the synthetic
+     dataset with background points, on the layer inputs that one forward
+     of the f32 ``dgcnn`` hands its kernels:
+     a. the self-kNN graph kernel against its plain version (indices equal)
+        on the T-Net's and EdgeConv 1-4's inputs (C = 3, 3, 64, 64, 64) and
+        on clouds of duplicated points at C=3 and C=64; timed;
+     b. the edge-reduce forward kernel against its plain version at
+        EdgeConv 1-4's (Cf, Cv) = (3, 64), (64, 64), (64, 64), (64, 128):
+        every output equal; timed;
+     c. its backward kernel against autograd through the plain version, and
+        bit-stable across two calls; timed;
+     d. the T-Net's neighbour gather (graph kernel + gather kernel) against
+        its plain version, forward equal and backward (the scatter-add);
+        timed;
+     e. ``dgcnn`` inference in f32 and bf16 from ``get_model``, counting
+        launches, against the plain path on the same card; the forward
+        timed;
+     f. ``dgcnn`` training, f32 (``TrainerConfig(model="dgcnn",
+        batch_size=32)``): three steps with finite losses, counting
+        launches; one step on the kernel path against the plain path; a
+        step timed;
+     g. ``dgcnn_bga``: inference in f32 and bf16 and one training step, each
+        against the plain path; timed.
 
 Every kernel's line in the ``{"kernels": [...]}`` record carries its
 bound: the larger of the bytes it must move over 3.35 TB/s and the
@@ -97,6 +121,15 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL, ZERO_GRAD_TOL = 1e-6, 1e-4, 1e-3
 # bounds above, and the per-point argmax of seg_logits to SEG_AGREEMENT.
 SEG_BATCH, SEG_POINT, SEG_TRAIN_BATCH, PARTSEG_BATCH = 32, 1024, 16, 8
 SEG_AGREEMENT = 0.99
+# DGCNN (phase 6): inference at the JAX package's "Inference by family"
+# batch and training at its training table's, B=32, N=1024, k=20.  The graph
+# kernel, the reduce kernel and the gather must equal their plain versions
+# (the same f32 operations in the same order, the same tie rule).  The
+# reduce backward sums the same per-edge coefficients as autograd through
+# the plain version, in another order: within EDGE_BWD_TOL x max(1,
+# |ref|max), and bit-stable.  The model paths are held to the SSG bounds.
+DGCNN_BATCH, DGCNN_POINT, DGCNN_K = 32, 1024, 20
+EDGE_BWD_TOL = 1e-5
 # Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds.
 HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 989e12
 
@@ -269,9 +302,10 @@ def plain_path():
     the names the model paths call them by."""
     from contextlib import ExitStack
 
+    from scanobjectnn_torch.models import dgcnn
     from scanobjectnn_torch.nn import pointnet_modules
     from scanobjectnn_torch.ops import fps as ops_fps
-    from scanobjectnn_torch.ops.cuda import ballgroup_kernel, gather_kernel, knn_kernel, safused_kernel
+    from scanobjectnn_torch.ops.cuda import ballgroup_kernel, edge_kernel, gather_kernel, knn_kernel, safused_kernel
 
     stack = ExitStack()
     for module, name, plain in (
@@ -281,21 +315,39 @@ def plain_path():
         (gather_kernel, "gather_rows", gather_kernel.gather_rows_plain),
         (gather_kernel, "scatter_add_rows", gather_kernel.scatter_add_rows_plain),
         (knn_kernel, "knn_point_kernel", knn_kernel.knn_point_plain),
+        (knn_kernel, "knn_graph_kernel", knn_kernel.knn_graph_plain),
+        (dgcnn, "edge_reduce", edge_kernel.edge_reduce_plain),
+        (dgcnn, "edge_gather_knn", edge_kernel.edge_gather_knn_plain),
     ):
         stack.enter_context(mock.patch.object(module, name, plain))
     return stack
 
 
+# Every main path's launches together, by counter (``counted_run``); FPS's
+# are split into "fps" (with coordinates) and "fps_indices" (indices only).
+LAUNCHES: dict[str, int] = {}
+
+
 def counted_run(counters, fn):
     """``fn()`` with every counter set to 0 just before and read just after:
-    (its result, {kernel: launches})."""
+    (its result, {kernel: launches}).  Adds the counts to ``LAUNCHES``."""
     import torch
 
     for c in counters:
         c.launches = 0
+        if hasattr(c, "index_launches"):
+            c.index_launches = 0
     out = fn()
     torch.cuda.synchronize()
-    return out, {c.__name__: c.launches for c in counters}
+    counts = {c.__name__: c.launches for c in counters}
+    split = dict(counts)
+    for c in counters:
+        if hasattr(c, "index_launches"):
+            split[c.__name__] -= c.index_launches
+            split[c.__name__ + "_indices"] = c.index_launches
+    for k, v in split.items():
+        LAUNCHES[k] = LAUNCHES.get(k, 0) + v
+    return out, counts
 
 
 def compare_steps(trainer, batch, n_zero: int, label: str) -> None:
@@ -305,11 +357,12 @@ def compare_steps(trainer, batch, n_zero: int, label: str) -> None:
     training BN near 0 on both paths."""
     import torch
 
-    from scanobjectnn_torch.ops.cuda import fps_kernel, gather_kernel, knn_kernel
+    from scanobjectnn_torch.ops.cuda import edge_kernel, fps_kernel, gather_kernel, knn_kernel
     from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group
 
     counters = (fps_kernel.fps, query_ball_group, gather_kernel.gather_rows, gather_kernel.scatter_add_rows,
-                knn_kernel.knn_point_kernel)
+                knn_kernel.knn_point_kernel, knn_kernel.knn_graph_kernel, edge_kernel.edge_reduce_fwd_kernel,
+                edge_kernel.edge_reduce_bwd_kernel, edge_kernel.edge_gather_knn)
     steps = {}
     for path in ("kernel", "plain"):
         s = trainer.init_state(seed=1)
@@ -342,6 +395,69 @@ def compare_steps(trainer, batch, n_zero: int, label: str) -> None:
     require(zero_max <= ZERO_GRAD_TOL, f"a Dense bias before a BN has a gradient far from 0 ({label})")
 
 
+def eval_models(name: str, stats_rng) -> dict:
+    """``name`` in f32 and bf16 from ``get_model`` (seed 0, on the card), in
+    eval mode, with random positive BN running stats drawn from
+    ``stats_rng`` (the same in both), so the BNs matter."""
+    import numpy as np
+    import torch
+
+    from scanobjectnn_torch.models import get_model
+
+    models = {n: get_model(name, generator=torch.Generator().manual_seed(0), dtype=dtype).eval()
+              for n, dtype in (("f32", None), ("bf16", torch.bfloat16))}
+    with torch.no_grad():
+        for key, buf in models["f32"].named_buffers():
+            vals = stats_rng.randn(*buf.shape)
+            stat = torch.from_numpy(0.1 + 0.1 * np.abs(vals) if key.endswith(".var") else 0.05 * np.abs(vals))
+            for m in models.values():
+                dict(m.named_buffers())[key].copy_(stat)
+    return models
+
+
+def check_inference(models: dict, x, counters, smi: str, label: str) -> None:
+    """Run ``models`` ({"f32", "bf16"}) on ``x`` counting the ``counters``'
+    launches (each must launch), then on the plain path (none may launch),
+    and hold ``logits`` (and ``seg_logits``) to the plain path's: f32 within
+    F32_LOGIT_TOL x max(1, |ref|max), bf16 by the bf16 rule, the predicted
+    classes (and points) agreeing.  Times the forward on both paths."""
+    import torch
+
+    b, n, _ = x.shape
+    with torch.no_grad():
+        outputs, counts = counted_run(counters, lambda: {name: m(x) for name, m in models.items()})
+        print(f"{label} inference main path launches: {counts}")
+        require(all(c > 0 for c in counts.values()), f"a kernel of the {label} inference path never launched: {counts}")
+        before = [c.launches for c in counters]
+        with plain_path():
+            ref = {name: m(x) for name, m in models.items()}
+            plain_ms = {name: cuda_ms(lambda: m(x), iters=3) for name, m in models.items()}
+        require([c.launches for c in counters] == before, f"the plain {label} path launched a kernel")
+    for name in models:
+        for key in ("logits", "seg_logits"):
+            if key not in ref[name]:
+                continue
+            got, want = outputs[name][key], ref[name][key]
+            shape = (b, NUM_CLASSES) if key == "logits" else (b, n, 2)
+            require(tuple(got.shape) == shape and bool(torch.isfinite(got.float()).all()), f"{label} {key} ({name})")
+            require(float(want.float().abs().max()) > 0.1, f"{label} {key} vanished ({name})")
+            if name == "bf16":
+                check_bf16(got, want, BF16_LOGIT_ULPS, f"{label} bf16: {key}")
+            else:
+                err, tol = float((got - want).abs().max()), F32_LOGIT_TOL * scale_of(want)
+                print(f"{label} f32: {key} max abs err {err:.3e} (bound {tol:.3e})")
+                require(err <= tol, f"{label} f32 {key} differs from the plain path: {err} > {tol}")
+            agree = float((got.float().argmax(-1) == want.float().argmax(-1)).float().mean())
+            need = SEG_AGREEMENT if key == "seg_logits" else (1.0 if name == "f32" else BF16_CLASS_AGREEMENT)
+            print(f"{label} {name}: {key} argmax agreement {agree:.4f} (bound {need})")
+            require(agree >= need, f"{label} {name} {key} agreement {agree}")
+    with torch.no_grad():
+        for name, m in models.items():
+            ms = cuda_ms(lambda: m(x))
+            print(f"time forward {label} {name} B={b} N={n}: kernel path {ms:.4f} ms "
+                  f"({b / ms * 1e3:.1f} clouds/s), plain path {plain_ms[name]:.4f} ms ({smi})")
+
+
 def time_steps(trainer, state, batches, smi: str, label: str, n: int = 3) -> None:
     """Step time, host clock around ``n`` steps that end in a synchronize,
     in turns: kernel, plain, plain, kernel."""
@@ -368,10 +484,9 @@ def time_steps(trainer, state, batches, smi: str, label: str, n: int = 3) -> Non
 
 
 def train_phase(smi: str, dev) -> dict:
-    """Phase 4 (module doc).  Returns, per training kernel, its main-path
-    launches, max abs error against its plain version, kernel, plain and
-    library ms and its bound, summed over the calls one training step
-    makes."""
+    """Phase 4 (module doc).  Returns, per training kernel, its max abs
+    error against its plain version, kernel, plain and library ms and its
+    bound, summed over the calls one training step makes."""
     import numpy as np
     import torch
 
@@ -384,8 +499,8 @@ def train_phase(smi: str, dev) -> dict:
     )
     from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
 
-    names = ("query_ball_group", "gather_rows", "scatter_add_rows")
-    out = {k: {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None} for k in names}
+    names = ("fps_indices", "query_ball_group", "gather_rows", "scatter_add_rows")
+    out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None} for k in names}
     work = {k: Work() for k in names}
 
     def record(kname, label, fn, plain_fn, in_step=True, plain_iters=10):
@@ -412,8 +527,9 @@ def train_phase(smi: str, dev) -> dict:
     for xyz, npoint, label in ((x, 512, f"B={TRAIN_BATCH} 1024->512"), (x1, 128, f"B={TRAIN_BATCH} 512->128")):
         require(torch.equal(fps(xyz, npoint, with_coords=False), fps_plain(xyz, npoint)[0]),
                 f"FPS indices-only differ from fps_plain ({label})")
-        record("fps indices-only", label, lambda: fps(xyz, npoint, with_coords=False),
-               lambda: fps_plain(xyz, npoint), in_step=False, plain_iters=3)
+        record("fps_indices", label, lambda: fps(xyz, npoint, with_coords=False),
+               lambda: fps_plain(xyz, npoint), plain_iters=3)
+        fps_work(work["fps_indices"], *xyz.shape[:2], npoint, with_coords=False)
     g = torch.Generator().manual_seed(3)
     lattice = torch.randint(-3, 4, (TRAIN_BATCH, 128, 3), generator=g).float() * 0.25
     dup = lattice.repeat(1, 8, 1)[:, torch.randperm(TRAIN_POINT, generator=g)].contiguous().to(dev)
@@ -487,9 +603,6 @@ def train_phase(smi: str, dev) -> dict:
     print(f"training main path: {TRAIN_STEPS} steps, losses {[round(v, 6) for v in losses]}, launches {launches}")
     require(all(n > 0 for n in launches.values()), f"a training kernel never launched: {launches}")
     require(all(math.isfinite(v) for v in losses), f"non-finite training loss: {losses}")
-    for k in names:
-        out[k]["launches"] = launches[k]
-    out["fps_train_launches"] = launches["fps"]
 
     # 4c. One step on the kernel path and on the plain path.
     compare_steps(trainer, batches[TRAIN_STEPS], 11, f"SSG B={TRAIN_BATCH}")
@@ -501,8 +614,7 @@ def train_phase(smi: str, dev) -> dict:
 def seg_phase(smi: str, dev) -> dict:
     """Phase 5 (module doc).  Returns the kNN kernel's record (max abs
     error, and kernel, plain and bound ms summed over the three FP calls of
-    one f32 BGA forward at B=32) and every kernel's launches on the BGA and
-    part segmentation main paths."""
+    one f32 BGA forward at B=32)."""
     import numpy as np
     import torch
 
@@ -522,13 +634,8 @@ def seg_phase(smi: str, dev) -> dict:
     )
     view = EpochSampler(data, labels, masks=convert_to_binary_mask(masks).astype(np.int64), parts=parts,
                         num_points=SEG_POINT, seed=0).epoch()
-    knn = {"launches": 0, "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None}
+    knn = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None}
     knn_bound = Work()
-    launches = {}
-
-    def add_launches(counts):
-        for k, v in counts.items():
-            launches[k] = launches.get(k, 0) + v
 
     # 5a. The kNN kernel against its plain version: the FP decoder's shapes
     # on the levels FPS gives (l3 is the group-all centroid at the origin).
@@ -570,54 +677,14 @@ def seg_phase(smi: str, dev) -> dict:
     knn.update(knn_bound.record())
 
     # 5b. BGA inference at B=32, f32 and bf16, from get_model (on the card).
-    models = {}
-    stats_rng = np.random.RandomState(7)
-    for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
-        models[name] = get_model("pointnet2_cls_bga", generator=torch.Generator().manual_seed(0), dtype=dtype).eval()
-    with torch.no_grad():
-        for key, buf in models["f32"].named_buffers():
-            vals = stats_rng.randn(*buf.shape)
-            stat = torch.from_numpy(0.1 + 0.1 * np.abs(vals) if key.endswith(".var") else 0.05 * np.abs(vals))
-            for m in models.values():
-                dict(m.named_buffers())[key].copy_(stat)
+    models = eval_models("pointnet2_cls_bga", np.random.RandomState(7))
     with torch.no_grad():
         for name, m in models.items():
             dtype = torch.float32 if name == "f32" else torch.bfloat16
             w1, b1 = m.sa1.mlp.folded()
             check_sa((0.2, 64, x, levels[1], None, w1, b1), dtype, f"BGA SA1 {name} B={SEG_BATCH} K64",
                      sa_ball_mlp_pool, sa_ball_mlp_pool_plain)
-    counters = (fps, sa_ball_mlp_pool, knn_point_kernel, gather_rows)
-    with torch.no_grad():
-        outputs, counts = counted_run(counters, lambda: {n: m(x) for n, m in models.items()})
-        print(f"BGA inference main path launches: {counts}")
-        require(all(n > 0 for n in counts.values()), f"a kernel of the BGA inference path never launched: {counts}")
-        add_launches(counts)
-        before = [c.launches for c in counters]
-        with plain_path():
-            ref = {n: m(x) for n, m in models.items()}
-            plain_ms = {n: cuda_ms(lambda: m(x), iters=3) for n, m in models.items()}
-        require([c.launches for c in counters] == before, "the plain BGA path launched a kernel")
-    for name in models:
-        for key in ("logits", "seg_logits"):
-            got, want = outputs[name][key], ref[name][key]
-            shape = (SEG_BATCH, NUM_CLASSES) if key == "logits" else (SEG_BATCH, SEG_POINT, 2)
-            require(tuple(got.shape) == shape and bool(torch.isfinite(got.float()).all()), f"BGA {key} ({name})")
-            require(float(want.float().abs().max()) > 0.1, f"BGA {key} vanished ({name})")
-            if name == "bf16":
-                check_bf16(got, want, BF16_LOGIT_ULPS, f"BGA bf16: {key}")
-            else:
-                err, tol = float((got - want).abs().max()), F32_LOGIT_TOL * scale_of(want)
-                print(f"BGA f32: {key} max abs err {err:.3e} (bound {tol:.3e})")
-                require(err <= tol, f"BGA f32 {key} differs from the plain path: {err} > {tol}")
-            agree = float((got.float().argmax(-1) == want.float().argmax(-1)).float().mean())
-            need = SEG_AGREEMENT if key == "seg_logits" else (1.0 if name == "f32" else BF16_CLASS_AGREEMENT)
-            print(f"BGA {name}: {key} argmax agreement {agree:.4f} (bound {need})")
-            require(agree >= need, f"BGA {name} {key} agreement {agree}")
-    with torch.no_grad():
-        for name, m in models.items():
-            ms = cuda_ms(lambda: m(x))
-            print(f"time forward BGA {name} B={SEG_BATCH} N={SEG_POINT}: kernel path {ms:.4f} ms "
-                  f"({SEG_BATCH / ms * 1e3:.1f} clouds/s), plain path {plain_ms[name]:.4f} ms ({smi})")
+    check_inference(models, x, (fps, sa_ball_mlp_pool, knn_point_kernel, gather_rows), smi, "BGA")
 
     # 5c. BGA training, f32, B=16.
     batches = list(Batches(view, SEG_TRAIN_BATCH))
@@ -632,7 +699,6 @@ def seg_phase(smi: str, dev) -> dict:
     print(f"BGA training main path: {TRAIN_STEPS} steps, losses {[round(v, 6) for v in losses]}, launches {counts}")
     require(all(n > 0 for n in counts.values()), f"a kernel of the BGA training path never launched: {counts}")
     require(all(math.isfinite(v) for v in losses), f"non-finite BGA training loss: {losses}")
-    add_launches(counts)
     compare_steps(trainer, batches[TRAIN_STEPS], 19, f"BGA B={SEG_TRAIN_BATCH}")
     time_steps(trainer, state, batches, smi, f"BGA B={SEG_TRAIN_BATCH} N={SEG_POINT} f32")
 
@@ -654,15 +720,187 @@ def seg_phase(smi: str, dev) -> dict:
             "partseg seg_logits")
     require(all(n > 0 for n in counts.values()), f"a kernel of the partseg inference path never launched: {counts}")
     require(err <= tol and agree >= SEG_AGREEMENT, "partseg seg_logits differ from the plain path")
-    add_launches(counts)
     _, counts = counted_run(counters, lambda: trainer.train_step(trainer.init_state(seed=2), part_batch))
     print(f"partseg training main path: launches {counts}")
     require(all(n > 0 for n in counts.values()), f"a kernel of the partseg training path never launched: {counts}")
-    add_launches(counts)
     compare_steps(trainer, part_batch, 17, f"partseg B={PARTSEG_BATCH}")
+    return knn
 
-    knn["launches"] = launches["knn_point_kernel"]
-    return {"knn_point": knn, "launches": launches}
+
+def graph_work(work: Work, feats, k: int) -> None:
+    # The self-kNN: every (query, key) pair as in knn_work, |x|² once per
+    # point; the cloud read once, the indices written.
+    b, n, c = feats.shape
+    work.add(b * n * n * (2 * c + 4) + 2 * c * b * n, 4 * b * n * c + 4 * b * n * k)
+
+
+def dgcnn_phase(smi: str, dev) -> dict:
+    """Phase 6 (module doc).  Returns, per DGCNN kernel, its max abs error
+    against its plain version, kernel and plain ms and its bound, summed
+    over the calls one f32 ``dgcnn`` forward (and, for the backward kernel,
+    its backward) makes at B=32: five graphs, EdgeConv 1-4's reductions, the
+    T-Net's gather."""
+    import numpy as np
+    import torch
+
+    from scanobjectnn_torch.data.io import convert_to_binary_mask
+    from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.models import dgcnn
+    from scanobjectnn_torch.ops.cuda.edge_kernel import (
+        REDUCTIONS, edge_gather_knn, edge_gather_knn_plain, edge_reduce, edge_reduce_bwd_kernel,
+        edge_reduce_fwd_kernel, edge_reduce_plain, reduce_neighbors_plain,
+    )
+    from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows, scatter_add_rows
+    from scanobjectnn_torch.ops.cuda.knn_kernel import knn_graph_kernel, knn_graph_plain
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    b, n, k = DGCNN_BATCH, DGCNN_POINT, DGCNN_K
+    names = ("knn_graph", "edge_reduce", "edge_reduce_bwd", "edge_gather_knn")
+    out = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None} for name in names}
+    work = {name: Work() for name in names}
+
+    def record(kname, label, fn, plain_fn, in_forward=True):
+        ms, plain_ms = device_ms(fn), device_ms(plain_fn, iters=3)
+        print(f"time {kname} {label}: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
+        if in_forward:
+            out[kname]["ms"] += ms
+            out[kname]["plain_ms"] += plain_ms
+
+    data, labels, masks = make_synthetic_dataset(
+        num_per_class=9, num_classes=NUM_CLASSES, num_points=2 * n, seed=2, with_mask=True
+    )
+    view = EpochSampler(data, labels, masks=convert_to_binary_mask(masks).astype(np.int64), num_points=n,
+                        seed=0).epoch()
+    batches = list(Batches(view, b))
+    require(len(batches) > TRAIN_STEPS, f"only {len(batches)} DGCNN batches")
+    x = torch.from_numpy(batches[0]["points"]).to(dev)
+    models = eval_models("dgcnn", np.random.RandomState(8))
+
+    # The layer inputs of the main path: what one f32 forward hands the
+    # T-Net's gather and EdgeConv 1-4's reductions.
+    calls = {"gather": [], "reduce": []}
+
+    def recorder(kind, fn):
+        def call(feats, vals, kk):
+            calls[kind].append((feats.detach().float().contiguous(), vals.detach().float().contiguous()))
+            return fn(feats, vals, kk)
+        return call
+
+    with torch.no_grad(), mock.patch.object(dgcnn, "edge_gather_knn", recorder("gather", edge_gather_knn)), \
+            mock.patch.object(dgcnn, "edge_reduce", recorder("reduce", edge_reduce)):
+        models["f32"](x)
+    require(len(calls["gather"]) == 1 and len(calls["reduce"]) == 4, f"DGCNN kernel calls {calls.keys()}")
+
+    # 6a. The graph kernel: the five graphs of a forward, and duplicated points.
+    g = torch.Generator().manual_seed(8)
+    lattice = torch.randint(-3, 4, (b, n // 8, 3), generator=g).float() * 0.25
+    wide = torch.randn(b, n // 4, 64, generator=g)
+    graphs = [("T-Net C=3", calls["gather"][0][0], True)]
+    graphs += [(f"EdgeConv{i + 1} C={f.shape[-1]}", f, True) for i, (f, _) in enumerate(calls["reduce"])]
+    graphs += [("duplicated lattice points C=3", lattice.repeat(1, 8, 1)[:, torch.randperm(n, generator=g)], False),
+               ("duplicated points C=64", wide.repeat(1, 4, 1)[:, torch.randperm(n, generator=g)], False)]
+    for label, feats, in_forward in graphs:
+        feats = feats.contiguous().to(dev)
+        idx, want = knn_graph_kernel(feats, k), knn_graph_plain(feats, k)
+        torch.cuda.synchronize()
+        require(torch.equal(idx, want), f"the graph kernel differs from its plain version ({label})")
+        print(f"knn_graph {label} B={b} N={n} k={k}: indices equal to the plain version")
+        record("knn_graph", label, lambda: knn_graph_kernel(feats, k), lambda: knn_graph_plain(feats, k), in_forward)
+        if in_forward:
+            graph_work(work["knn_graph"], feats, k)
+
+    # 6b, 6c. The reduce kernels at EdgeConv 1-4.
+    cg = torch.Generator(device=dev).manual_seed(9)
+    for i, (feats, vals) in enumerate(calls["reduce"]):
+        cv = vals.shape[-1]
+        label = f"EdgeConv{i + 1} (Cf, Cv)=({feats.shape[-1]}, {cv})"
+        got, want = edge_reduce(feats, vals, k), edge_reduce_plain(feats, vals, k)
+        torch.cuda.synchronize()
+        for key in ("idx",) + REDUCTIONS:
+            require(torch.equal(got[key], want[key]), f"edge_reduce {key} differs from the plain version ({label})")
+        print(f"edge_reduce {label}: idx and the six reductions equal to the plain version")
+        idx = got["idx"]
+        record("edge_reduce", label, lambda: edge_reduce_fwd_kernel(vals, idx),
+               lambda: reduce_neighbors_plain(vals, idx))
+        work["edge_reduce"].add(7.0 * b * n * k * cv, 4 * (b * n * cv + b * n * k) + 6 * 4 * b * n * cv)
+
+        v = vals.clone().requires_grad_()
+        red = edge_reduce(feats, v, k)
+        cot = [torch.randn(b, n, cv, device=dev, generator=cg) for _ in range(4)]
+        diff = ("mmax", "mmin", "s", "q2")
+        (grad,) = torch.autograd.grad([red[key] for key in diff], v, cot)
+        saved = (vals, idx, red["mmax"], red["mmin"], red["cntmax"], red["cntmin"])
+        again = edge_reduce_bwd_kernel(*saved, *cot)
+        vp = vals.clone().requires_grad_()
+        plain = reduce_neighbors_plain(vp, idx)
+        plain_outs = [plain[key] for key in diff]
+        (ref,) = torch.autograd.grad(plain_outs, vp, cot, retain_graph=True)
+        torch.cuda.synchronize()
+        require(torch.equal(grad, again), f"the edge_reduce backward is not bit-stable ({label})")
+        err, tol = float((grad - ref).abs().max()), EDGE_BWD_TOL * scale_of(ref)
+        print(f"edge_reduce backward {label}: identical bits on two calls, max abs err {err:.3e} against "
+              f"autograd of the plain version (bound {tol:.3e})")
+        require(err <= tol, f"the edge_reduce backward differs from autograd: {err} > {tol} ({label})")
+        out["edge_reduce_bwd"]["max_abs_err"] = max(out["edge_reduce_bwd"]["max_abs_err"], err)
+        record("edge_reduce_bwd", label, lambda: edge_reduce_bwd_kernel(*saved, *cot),
+               lambda: torch.autograd.grad(plain_outs, vp, cot, retain_graph=True))
+        work["edge_reduce_bwd"].add(10.0 * b * n * k * cv, 4 * (10 * b * n * cv + b * n * k))
+
+    # 6d. The T-Net's neighbour gather, forward and backward.
+    points, c2 = calls["gather"][0]
+    rows, idx = edge_gather_knn(points, c2, k)
+    want, want_idx = edge_gather_knn_plain(points, c2, k)
+    v = c2.clone().requires_grad_()
+    cot = torch.randn(b, n, k, c2.shape[-1], device=dev, generator=cg)
+    (grad,) = torch.autograd.grad(edge_gather_knn(points, v, k)[0], v, cot)
+    vp = c2.clone().requires_grad_()
+    (ref,) = torch.autograd.grad(edge_gather_knn_plain(points, vp, k)[0], vp, cot)
+    torch.cuda.synchronize()
+    require(torch.equal(idx, want_idx) and torch.equal(rows, want), "edge_gather_knn differs from its plain version")
+    err, tol = float((grad - ref).abs().max()), SCATTER_TOL * scale_of(ref)
+    print(f"edge_gather_knn T-Net B={b} N={n} k={k} Cv={c2.shape[-1]}: rows and idx equal to the plain version; "
+          f"backward max abs err {err:.3e} (bound {tol:.3e})")
+    require(err <= tol, f"the edge_gather_knn backward differs from the plain version: {err} > {tol}")
+    record("edge_gather_knn", "T-Net", lambda: edge_gather_knn(points, c2, k),
+           lambda: edge_gather_knn_plain(points, c2, k))
+    graph_work(work["edge_gather_knn"], points, k)
+    work["edge_gather_knn"].add(0.0, 4 * b * n * c2.shape[-1] + 4 * b * n * k * c2.shape[-1])
+    for name in names:
+        out[name].update(work[name].record())
+
+    # 6e. dgcnn inference from get_model, f32 and bf16.
+    check_inference(models, x, (knn_graph_kernel, edge_reduce_fwd_kernel, edge_gather_knn, gather_rows), smi,
+                    "dgcnn")
+
+    # 6f. dgcnn training, f32: a few steps, one against the plain path, a step timed.
+    counters = (knn_graph_kernel, edge_reduce_fwd_kernel, edge_reduce_bwd_kernel, edge_gather_knn, gather_rows,
+                scatter_add_rows)
+    trainer = Trainer(TrainerConfig(model="dgcnn", batch_size=b, device=str(dev)))
+    state = trainer.init_state(seed=0)
+
+    def steps():
+        return [float(trainer.train_step(state, batch)[1]["loss"]) for batch in batches[:TRAIN_STEPS]]
+
+    losses, counts = counted_run(counters, steps)
+    print(f"dgcnn training main path: {TRAIN_STEPS} steps, losses {[round(v, 6) for v in losses]}, launches {counts}")
+    require(all(c > 0 for c in counts.values()), f"a kernel of the dgcnn training path never launched: {counts}")
+    require(all(math.isfinite(v) for v in losses), f"non-finite dgcnn training loss: {losses}")
+    compare_steps(trainer, batches[TRAIN_STEPS], 12, f"dgcnn B={b}")
+    time_steps(trainer, state, batches, smi, f"dgcnn B={b} N={n} f32")
+
+    # 6g. dgcnn_bga: inference (f32, bf16) and a training step, against the plain path.
+    check_inference(eval_models("dgcnn_bga", np.random.RandomState(10)), x,
+                    (knn_graph_kernel, edge_reduce_fwd_kernel, edge_gather_knn, gather_rows), smi, "dgcnn_bga")
+    trainer = Trainer(TrainerConfig(model="dgcnn_bga", batch_size=b, device=str(dev)))
+    state = trainer.init_state(seed=0)
+    losses, counts = counted_run(counters, lambda: [float(trainer.train_step(state, batches[0])[1]["loss"])])
+    print(f"dgcnn_bga training main path: loss {losses}, launches {counts}")
+    require(all(c > 0 for c in counts.values()), f"a kernel of the dgcnn_bga training path never launched: {counts}")
+    require(all(math.isfinite(v) for v in losses), f"non-finite dgcnn_bga training loss: {losses}")
+    compare_steps(trainer, batches[1], 14, f"dgcnn_bga B={b}")
+    time_steps(trainer, state, batches, smi, f"dgcnn_bga B={b} N={n} f32", n=1)
+    return out
 
 
 def main() -> None:
@@ -804,47 +1042,48 @@ def main() -> None:
             print(f"time forward {name} B={BATCH} N={NUM_POINT}: kernel path {ms:.4f} ms "
                   f"({BATCH / ms * 1e3:.1f} clouds/s), plain path {plain_fwd_ms[name]:.4f} ms ({smi})")
 
-    # 4. Training.
-    train = train_phase(smi, dev)
-    launches["fps"] += train.pop("fps_train_launches")
-    # 5. BGA and part segmentation.
-    seg = seg_phase(smi, dev)
-    for k in ("fps", "sa_ball_mlp_pool"):
-        launches[k] += seg["launches"][k]
-    for k in ("query_ball_group", "gather_rows", "scatter_add_rows"):
-        train[k]["launches"] += seg["launches"][k]
-    print(f"launches, every main path together: fps {launches['fps']}, sa_ball_mlp_pool "
-          f"{launches['sa_ball_mlp_pool']}, " + ", ".join(f"{k} {train[k]['launches']}" for k in train)
-          + f", knn_point {seg['knn_point']['launches']}")
-
-    require(not {"jax", "scanobjectnn_tpu"} & set(sys.modules), "JAX or the JAX package was imported")
-
-    pallas = "scanobjectnn_tpu/ops/pallas/"
-    sources = {
-        "fps": ("scanobjectnn_torch/csrc/fps.cu", pallas + "fps_kernel.py:151"),
-        "sa_ball_mlp_pool": ("scanobjectnn_torch/csrc/safused.cu", pallas + "safused_kernel.py:354"),
-        "query_ball_group": ("scanobjectnn_torch/csrc/ballgroup.cu", pallas + "ballquery_kernel.py:381"),
-        "gather_rows": ("scanobjectnn_torch/csrc/gather.cu", pallas + "onehot.py:223"),
-        "scatter_add_rows": ("scanobjectnn_torch/csrc/gather.cu", pallas + "onehot.py:245"),
-        "knn_point": ("scanobjectnn_torch/csrc/knn.cu", pallas + "knn_kernel.py:196"),
-    }
+    # 4. Training.  5. BGA and part segmentation.  6. DGCNN and DGCNN-BGA.
     measured = {
-        k: {"launches": launches[k], "max_abs_err": errs[k], "ms": per_forward[k][0], "plain_ms": per_forward[k][1],
+        k: {"max_abs_err": errs[k], "ms": per_forward[k][0], "plain_ms": per_forward[k][1],
             **work[k].record(), "library_ms": None}
         for k in ("fps", "sa_ball_mlp_pool")
     }
-    measured.update(train)
-    measured["knn_point"] = seg["knn_point"]
-    kernels = [
-        {"name": k, "route": "cuda", "source": src, "replaces": tpu, **measured[k]}
-        for k, (src, tpu) in sources.items()
-    ]
+    measured.update(train_phase(smi, dev))
+    measured["knn_point"] = seg_phase(smi, dev)
+    measured.update(dgcnn_phase(smi, dev))
+
+    require(not {"jax", "scanobjectnn_tpu"} & set(sys.modules), "JAX or the JAX package was imported")
+
+    pallas, csrc = "scanobjectnn_tpu/ops/pallas/", "scanobjectnn_torch/csrc/"
+    # name: (source, TPU kernel replaced, counter in LAUNCHES)
+    sources = {
+        "fps": (csrc + "fps.cu", pallas + "fps_kernel.py:151", "fps"),
+        "fps_indices": (csrc + "fps.cu", pallas + "fps_kernel.py:126", "fps_indices"),
+        "sa_ball_mlp_pool": (csrc + "safused.cu", pallas + "safused_kernel.py:354", "sa_ball_mlp_pool"),
+        "query_ball_group": (csrc + "ballgroup.cu", pallas + "ballquery_kernel.py:381", "query_ball_group"),
+        "gather_rows": (csrc + "gather.cu", pallas + "onehot.py:223", "gather_rows"),
+        "scatter_add_rows": (csrc + "gather.cu", pallas + "onehot.py:245", "scatter_add_rows"),
+        "knn_point": (csrc + "knn.cu", pallas + "knn_kernel.py:196", "knn_point_kernel"),
+        "knn_graph": (csrc + "knn.cu", pallas + "knn_kernel.py:81", "knn_graph_kernel"),
+        "edge_reduce": (csrc + "edge.cu", pallas + "edge_kernel.py:210", "edge_reduce_fwd_kernel"),
+        "edge_reduce_bwd": (csrc + "edge.cu", pallas + "edge_kernel.py:280", "edge_reduce_bwd_kernel"),
+        "edge_gather_knn": ("scanobjectnn_torch/ops/cuda/edge_kernel.py", pallas + "edge_kernel.py:469",
+                            "edge_gather_knn"),
+    }
+    print("launches, every main path together: " + ", ".join(f"{k} {v}" for k, v in sorted(LAUNCHES.items())))
+    kernels = []
+    for k, (src, tpu, counter) in sources.items():
+        require(LAUNCHES.get(counter, 0) > 0, f"{k} never launched on a main path")
+        kernels.append({"name": k, "route": "cuda", "source": src, "replaces": tpu,
+                        "launches": LAUNCHES[counter], **measured[k]})
     print("kernel ms / plain_ms / bound_ms: fps and sa_ball_mlp_pool summed over one bf16 SSG forward's calls "
-          "at B=128 (FPS both layers, SA1+SA2; CUDA events); ball group, gather and scatter-add over one f32 SSG "
-          "training step's calls at B=16 (ball group SA1+SA2, gather and scatter-add SA2; device time, "
-          "torch.profiler); knn_point over one f32 BGA forward's calls at B=32 (fp1+fp2+fp3; device time). "
-          "library_ms: torch.gather for the gather, index_add_ for the scatter-add (device time); launches: "
-          "every main path's run together")
+          "at B=128 (FPS both layers, SA1+SA2; CUDA events); fps_indices, ball group, gather and scatter-add over "
+          "one f32 SSG training step's calls at B=16 (FPS both layers, ball group SA1+SA2, gather and scatter-add "
+          "SA2; device time, torch.profiler); knn_point over one f32 BGA forward's calls at B=32 (fp1+fp2+fp3; "
+          "device time); knn_graph, edge_reduce, edge_reduce_bwd and edge_gather_knn over one f32 dgcnn "
+          "forward's (and its backward's) calls at B=32 (5 graphs, EdgeConv 1-4, the T-Net gather; device "
+          "time). library_ms: torch.gather for the gather, index_add_ for the scatter-add (device time); "
+          "launches: every main path's run together")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

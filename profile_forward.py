@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's PointNet++ forward, or its training step, on
-one NVIDIA GPU.
+"""Profile the PyTorch port's forward, or its training step, on one NVIDIA
+GPU.
 
     python3 profile_forward.py [--batch 128] [--num-point 2048] [--iters 5]
     python3 profile_forward.py --train [--batch 16] [--num-point 1024]
     python3 profile_forward.py --model pointnet2_cls_bga [--train]
+    python3 profile_forward.py --model dgcnn [--train]
 
-``--model`` is ``pointnet2_cls_ssg`` (default) or ``pointnet2_cls_bga``;
-BGA's defaults are its configurations: B=32, N=1024 for the forward, B=16,
-N=1024 for ``--train``.  Forward: for bf16 and f32 in turn, builds the
-model with ``get_model`` (seed 0, on the card) and answers one batch of the
-15-class synthetic dataset (seed 0; with background points and binary
-masks for BGA).  ``--train``: an f32 ``Trainer`` (seed 0, its default
-augmentation, dropout and Adam; BGA's seg_weight 0.5) takes
-``train_step``s on one such batch.
+``--model`` is ``pointnet2_cls_ssg`` (default), ``pointnet2_cls_bga``,
+``dgcnn`` or ``dgcnn_bga``.  The defaults are each model's configurations:
+SSG B=128, N=2048 for the forward and B=16, N=1024 for ``--train``; BGA
+B=32, N=1024 and B=16; both DGCNNs B=32, N=1024 for both.  Forward: for
+bf16 and f32 in turn, builds the model with ``get_model`` (seed 0, on the
+card) and answers one batch of the 15-class synthetic dataset (seed 0; with
+background points and binary masks for the BGA models).  ``--train``: an
+f32 ``Trainer`` (seed 0, its default augmentation, dropout and Adam; the
+BGA models' seg_weight 0.5) takes ``train_step``s on one such batch.
 Each runs a few times to warm up, then ``--iters`` runs are traced with
 ``torch.profiler``.  Prints, per run: host wall time, the number of device
 kernels, device busy time (the union of kernel intervals), the kernel window
@@ -30,6 +32,14 @@ import json
 import subprocess
 import time
 from collections import defaultdict
+
+# model: ((forward batch, points), (training batch, points))
+DEFAULTS = {
+    "pointnet2_cls_ssg": ((128, 2048), (16, 1024)),
+    "pointnet2_cls_bga": ((32, 1024), (16, 1024)),
+    "dgcnn": ((32, 1024), (32, 1024)),
+    "dgcnn_bga": ((32, 1024), (32, 1024)),
+}
 
 
 def device_spans(prof) -> list[tuple[float, float, str]]:
@@ -88,15 +98,16 @@ def main() -> None:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--model", default="pointnet2_cls_ssg", choices=("pointnet2_cls_ssg", "pointnet2_cls_bga"))
+    parser.add_argument("--model", default="pointnet2_cls_ssg", choices=sorted(DEFAULTS))
     parser.add_argument("--train", action="store_true", help="profile f32 train_step instead of the forward")
-    parser.add_argument("--batch", type=int, help="default 128 (BGA 32), or 16 with --train")
-    parser.add_argument("--num-point", type=int, help="default 2048 (BGA 1024), or 1024 with --train")
+    parser.add_argument("--batch", type=int, help="default: the model's configuration (module doc)")
+    parser.add_argument("--num-point", type=int, help="default: the model's configuration (module doc)")
     parser.add_argument("--iters", type=int, default=5)
     args = parser.parse_args()
-    bga = args.model == "pointnet2_cls_bga"
-    args.batch = args.batch or (16 if args.train else 32 if bga else 128)
-    args.num_point = args.num_point or (1024 if args.train or bga else 2048)
+    bga = args.model.endswith("bga")
+    batch, num_point = DEFAULTS[args.model][args.train]
+    args.batch = args.batch or batch
+    args.num_point = args.num_point or num_point
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: torch.cuda.is_available() is False; needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False

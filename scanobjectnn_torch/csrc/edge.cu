@@ -1,0 +1,261 @@
+// DGCNN's EdgeConv neighbour reductions, forward and backward, for Hopper
+// (sm_90a).
+//
+// Replaces scanobjectnn_tpu/ops/pallas/edge_kernel.py: edge_reduce_pallas,
+// forward body _fwd_kernel and backward _er_bwd_kernel/_er_bwd.  Semantics
+// are documented in scanobjectnn_torch/ops/cuda/edge_kernel.py.  The TPU
+// kernel fused the kNN with the gather because its one-hot MXU gather cost
+// nothing beside the argmin rounds; it split the values into three bf16
+// terms to gather them exactly, and saved the gathered [B, k, N, Cv] rows
+// for the backward.  On the card the kNN graph is knn_graph_kernel (knn.cu),
+// a gather is a load, and nothing per edge is stored: the backward reads the
+// values again.
+//
+// Forward: one warp per query, its lanes across the channels (float2 at
+// Cv = 64, float4 at Cv = 128), walks the query's k neighbours in slot order
+// and keeps max, min, their tie counts, the sum and the sum of squares in
+// registers.  The rows it reads are one cloud's values (512 KB at N = 1024,
+// Cv = 128), which stay in L2.  Sums run in slot order with
+// __fmul_rn/__fadd_rn, the order of the plain version's explicit adds, so
+// kernel and plain version agree bit for bit.
+//
+// Backward: dvals[j] = sum over the edges (q, r) with idx[q, r] == j of
+//   ds[q] + 2 g dq2[q] + [g == mmax[q]] dmax[q] / max(cntmax[q], 1)
+//                      + [g == mmin[q]] dmin[q] / max(cntmin[q], 1)
+// with g = vals[j], the value the forward gathered for that edge, bit for
+// bit.  It runs in gather form over the graph's inverse index: the counting
+// sort of countsort.cuh lists each point's incoming edges in ascending
+// (query, slot) order, and one warp per point sums them in that order.  No
+// float atomics: two calls give the same bits.
+//
+// Bound: bytes.  The forward reads the values and the indices once and
+// writes six [B, N, Cv] outputs; the backward reads the values, the indices
+// and eight per-query tensors and writes dvals.  At B=32, N=1024, Cv=128,
+// k=20 that is 120 MB forward (36 us at 3.35 TB/s) and 170 MB backward (51
+// us); the backward reads a query's rows again for each of its k edges, from
+// L2.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <initializer_list>
+
+#include "countsort.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+
+// VEC consecutive floats at p (p aligned to 4 * VEC bytes).
+template <int VEC>
+__device__ __forceinline__ void load(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// One warp per query row = b * n + i: the six reductions of vals[b, idx[row, r]]
+// over the slots r = 0..k-1, in slot order.  max and min keep a NaN, as
+// torch.amax does; a tie count is the number of slots equal to the max.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+    edge_reduce_fwd_kernel(const float* __restrict__ vals, const int32_t* __restrict__ idx,
+                           int n, int k, int cv, long long rows, float* __restrict__ mmax,
+                           float* __restrict__ mmin, float* __restrict__ sum,
+                           float* __restrict__ sumsq, float* __restrict__ cntmax,
+                           float* __restrict__ cntmin) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  for (long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+       row < rows; row += stride) {
+    const long long b = row / n;
+    const int32_t* nb = idx + row * k;  // warp-uniform reads
+    const float* cloud = vals + b * n * cv;
+    for (int c0 = lane * VEC; c0 < cv; c0 += 32 * VEC) {
+      float g[VEC], mx[VEC], mn[VEC], s[VEC], q[VEC], cx[VEC], cn[VEC];
+      load<VEC>(cloud + static_cast<size_t>(nb[0]) * cv + c0, g);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) {
+        mx[v] = mn[v] = s[v] = g[v];
+        q[v] = __fmul_rn(g[v], g[v]);
+        cx[v] = cn[v] = 1.f;
+      }
+      for (int r = 1; r < k; ++r) {
+        load<VEC>(cloud + static_cast<size_t>(nb[r]) * cv + c0, g);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          const float x = g[v];
+          cx[v] = x > mx[v] ? 1.f : cx[v] + (x == mx[v] ? 1.f : 0.f);
+          mx[v] = (x > mx[v] || x != x) ? x : mx[v];
+          cn[v] = x < mn[v] ? 1.f : cn[v] + (x == mn[v] ? 1.f : 0.f);
+          mn[v] = (x < mn[v] || x != x) ? x : mn[v];
+          s[v] = __fadd_rn(s[v], x);
+          q[v] = __fadd_rn(q[v], __fmul_rn(x, x));
+        }
+      }
+      const size_t o = static_cast<size_t>(row) * cv + c0;
+      store<VEC>(mmax + o, mx);
+      store<VEC>(mmin + o, mn);
+      store<VEC>(sum + o, s);
+      store<VEC>(sumsq + o, q);
+      store<VEC>(cntmax + o, cx);
+      store<VEC>(cntmin + o, cn);
+    }
+  }
+}
+
+// One warp per point row = b * n + j: dvals[row] = the sum, in ascending
+// edge order, of the coefficients of the edges aimed at j (module doc).
+// offsets/perm come from count_sort_kernel over idx [b, n * k]; an edge e is
+// slot e % k of query e / k.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+    edge_reduce_bwd_kernel(const float* __restrict__ vals, const int32_t* __restrict__ offsets,
+                           const int32_t* __restrict__ perm, int n, int k, int cv, long long rows,
+                           const float* __restrict__ mmax, const float* __restrict__ mmin,
+                           const float* __restrict__ cntmax, const float* __restrict__ cntmin,
+                           const float* __restrict__ dmax, const float* __restrict__ dmin,
+                           const float* __restrict__ ds, const float* __restrict__ dq2,
+                           float* __restrict__ dvals) {
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
+  const long long r = static_cast<long long>(n) * k;
+  for (long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+       row < rows; row += stride) {
+    const long long b = row / n;
+    const int j = static_cast<int>(row - b * n);
+    const int32_t* off = offsets + b * (n + 1);
+    const int start = off[j], end = off[j + 1];
+    const int32_t* edges = perm + b * r;
+    for (int c0 = lane * VEC; c0 < cv; c0 += 32 * VEC) {
+      float g[VEC], acc[VEC];
+      load<VEC>(vals + static_cast<size_t>(row) * cv + c0, g);
+#pragma unroll
+      for (int v = 0; v < VEC; ++v) acc[v] = 0.f;
+      for (int t = start; t < end; ++t) {
+        const size_t o = (static_cast<size_t>(b) * n + edges[t] / k) * cv + c0;
+        float d_s[VEC], d_q[VEC], mx[VEC], mn[VEC], cx[VEC], cn[VEC], dx[VEC], dn[VEC];
+        load<VEC>(ds + o, d_s);
+        load<VEC>(dq2 + o, d_q);
+        load<VEC>(mmax + o, mx);
+        load<VEC>(mmin + o, mn);
+        load<VEC>(cntmax + o, cx);
+        load<VEC>(cntmin + o, cn);
+        load<VEC>(dmax + o, dx);
+        load<VEC>(dmin + o, dn);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) {
+          float coeff = __fadd_rn(d_s[v], __fmul_rn(__fmul_rn(2.f, g[v]), d_q[v]));
+          if (g[v] == mx[v]) coeff = __fadd_rn(coeff, __fdiv_rn(dx[v], fmaxf(cx[v], 1.f)));
+          if (g[v] == mn[v]) coeff = __fadd_rn(coeff, __fdiv_rn(dn[v], fmaxf(cn[v], 1.f)));
+          acc[v] = __fadd_rn(acc[v], coeff);
+        }
+      }
+      store<VEC>(dvals + static_cast<size_t>(row) * cv + c0, acc);
+    }
+  }
+}
+
+int blocks_for(long long rows) {
+  const long long blocks = (rows + kWarps - 1) / kWarps;
+  return static_cast<int>(blocks < 132 * 64 ? blocks : 132 * 64);
+}
+
+// Floats per lane: 4 at widths that are multiples of 128, 2 at multiples of
+// 64, else 1; every pointer must be aligned to the vector.
+int vec_for(int cv, std::initializer_list<const void*> ptrs) {
+  int vec = cv % 128 == 0 ? 4 : cv % 64 == 0 ? 2 : 1;
+  for (const void* p : ptrs) {
+    while (vec > 1 && reinterpret_cast<uintptr_t>(p) % (4 * vec) != 0) vec /= 2;
+  }
+  return vec;
+}
+
+}  // namespace
+
+// vals [b, n, cv] f32, idx [b, n, k] int32 in [0, n), contiguous -> mmax,
+// mmin, sum, sumsq, cntmax, cntmin [b, n, cv] f32.
+extern "C" int edge_reduce_fwd_launch(const void* vals, const void* idx, int b, int n, int k,
+                                      int cv, void* mmax, void* mmin, void* sum, void* sumsq,
+                                      void* cntmax, void* cntmin, void* stream) {
+  if (b < 1 || n < 1 || k < 1 || cv < 1) return cudaErrorInvalidValue;
+  const long long rows = static_cast<long long>(b) * n;
+  auto* v = static_cast<const float*>(vals);
+  auto* i = static_cast<const int32_t*>(idx);
+  auto* o0 = static_cast<float*>(mmax);
+  auto* o1 = static_cast<float*>(mmin);
+  auto* o2 = static_cast<float*>(sum);
+  auto* o3 = static_cast<float*>(sumsq);
+  auto* o4 = static_cast<float*>(cntmax);
+  auto* o5 = static_cast<float*>(cntmin);
+  auto s = static_cast<cudaStream_t>(stream);
+  const int grid = blocks_for(rows);
+  switch (vec_for(cv, {vals, mmax, mmin, sum, sumsq, cntmax, cntmin})) {
+    case 4:
+      edge_reduce_fwd_kernel<4><<<grid, kThreads, 0, s>>>(v, i, n, k, cv, rows, o0, o1, o2, o3, o4, o5);
+      break;
+    case 2:
+      edge_reduce_fwd_kernel<2><<<grid, kThreads, 0, s>>>(v, i, n, k, cv, rows, o0, o1, o2, o3, o4, o5);
+      break;
+    default:
+      edge_reduce_fwd_kernel<1><<<grid, kThreads, 0, s>>>(v, i, n, k, cv, rows, o0, o1, o2, o3, o4, o5);
+  }
+  return cudaGetLastError();
+}
+
+// The backward of edge_reduce_fwd_launch in vals: the forward's vals, idx
+// and mmax, mmin, cntmax, cntmin, and the cotangents dmax, dmin, ds, dq2
+// [b, n, cv] f32 -> dvals [b, n, cv] f32.  offsets [b, n + 1] and perm
+// [b, n * k] int32 are scratch.
+extern "C" int edge_reduce_bwd_launch(const void* vals, const void* idx, const void* mmax,
+                                      const void* mmin, const void* cntmax, const void* cntmin,
+                                      const void* dmax, const void* dmin, const void* ds,
+                                      const void* dq2, int b, int n, int k, int cv, void* offsets,
+                                      void* perm, void* dvals, void* stream) {
+  if (b < 1 || n < 1 || k < 1 || cv < 1) return cudaErrorInvalidValue;
+  if (static_cast<long long>(n) * k > 0x7fffffffLL) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* off = static_cast<int32_t*>(offsets);
+  auto* p = static_cast<int32_t*>(perm);
+  cudaError_t err = launch_count_sort(static_cast<const int32_t*>(idx), b, n, n * k, off, p, s);
+  if (err != cudaSuccess) return err;
+  const long long rows = static_cast<long long>(b) * n;
+  const int grid = blocks_for(rows);
+  auto f = [](const void* q) { return static_cast<const float*>(q); };
+  auto* out = static_cast<float*>(dvals);
+  switch (vec_for(cv, {vals, mmax, mmin, cntmax, cntmin, dmax, dmin, ds, dq2, dvals})) {
+    case 4:
+      edge_reduce_bwd_kernel<4><<<grid, kThreads, 0, s>>>(f(vals), off, p, n, k, cv, rows, f(mmax), f(mmin),
+                                                          f(cntmax), f(cntmin), f(dmax), f(dmin), f(ds),
+                                                          f(dq2), out);
+      break;
+    case 2:
+      edge_reduce_bwd_kernel<2><<<grid, kThreads, 0, s>>>(f(vals), off, p, n, k, cv, rows, f(mmax), f(mmin),
+                                                          f(cntmax), f(cntmin), f(dmax), f(dmin), f(ds),
+                                                          f(dq2), out);
+      break;
+    default:
+      edge_reduce_bwd_kernel<1><<<grid, kThreads, 0, s>>>(f(vals), off, p, n, k, cv, rows, f(mmax), f(mmin),
+                                                          f(cntmax), f(cntmin), f(dmax), f(dmin), f(ds),
+                                                          f(dq2), out);
+  }
+  return cudaGetLastError();
+}

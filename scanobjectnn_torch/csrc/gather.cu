@@ -15,23 +15,21 @@
 // aligned), so a row moves as whole 128-byte lines.
 //
 // The scatter is deterministic: it uses no float atomics.  Per cloud, one
-// block sorts the R row indices by target with a stable counting sort
-// (integer counts in shared memory, a block scan into offsets, then one warp
-// assigns the positions in row order with __match_any_sync).  A second
-// kernel gives each output row one warp, which sums the row's contributions
-// in ascending row order.  Two calls on the same input give the same bits,
-// in the order of a sequential index_add_.
+// block sorts the R row indices by target with the stable counting sort of
+// countsort.cuh.  A second kernel gives each output row one warp, which sums
+// the row's contributions in ascending row order.  Two calls on the same
+// input give the same bits, in the order of a sequential index_add_.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "countsort.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSortThreads = 512;
-constexpr size_t kMaxSmem = 227 * 1024;
 
 // out[row] = vals[b, idx[row]] for row = b * r + i; a row whose index is
 // outside [0, n) is written as NaN (never a stray read).
@@ -58,81 +56,6 @@ __global__ void __launch_bounds__(kThreads)
     } else {
       for (int ch = lane; ch < c; ch += 32) dst[ch] = src[ch];
     }
-  }
-}
-
-// One block per cloud b.  offsets[b, 0..n]: exclusive prefix sums of the
-// number of rows aimed at each point; perm[b, offsets[j]..offsets[j+1]): the
-// rows aimed at point j, in ascending order.  Rows whose index is outside
-// [0, n) are left out.
-__global__ void __launch_bounds__(kSortThreads)
-    scatter_sort_kernel(const int32_t* __restrict__ idx, int n, int r,
-                        int32_t* __restrict__ offsets, int32_t* __restrict__ perm) {
-  extern __shared__ int cursor[];  // [n]: counts, then each point's next free slot
-  __shared__ int warp_sums[kSortThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int32_t* row_idx = idx + static_cast<size_t>(blockIdx.x) * r;
-  int32_t* off = offsets + static_cast<size_t>(blockIdx.x) * (n + 1);
-  int32_t* out_perm = perm + static_cast<size_t>(blockIdx.x) * r;
-
-  for (int j = tid; j < n; j += kSortThreads) cursor[j] = 0;
-  __syncthreads();
-  for (int i = tid; i < r; i += kSortThreads) {
-    const int j = row_idx[i];
-    if (j >= 0 && j < n) atomicAdd(&cursor[j], 1);  // integer: order-free
-  }
-  __syncthreads();
-
-  // Exclusive scan of the counts: each thread sums one contiguous chunk, and
-  // a block scan of the chunk sums gives every chunk its base.
-  const int per = (n + kSortThreads - 1) / kSortThreads;
-  const int lo = min(tid * per, n), hi = min(lo + per, n);
-  int sum = 0;
-  for (int j = lo; j < hi; ++j) sum += cursor[j];
-  int incl = sum;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += v;
-  }
-  if (lane == 31) warp_sums[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < kSortThreads / 32 ? warp_sums[lane] : 0;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += v;
-    }
-    if (lane < kSortThreads / 32) warp_sums[lane] = w;  // inclusive per warp
-  }
-  __syncthreads();
-  int run = incl - sum + (warp > 0 ? warp_sums[warp - 1] : 0);
-  for (int j = lo; j < hi; ++j) {
-    const int cnt = cursor[j];
-    cursor[j] = run;
-    off[j] = run;
-    run += cnt;
-  }
-  if (tid == kSortThreads - 1) off[n] = run;
-  __syncthreads();
-
-  // Stable fill: one warp walks the rows in order, 32 at a time.  Lanes aimed
-  // at the same point take consecutive slots in lane order; the highest of
-  // them advances the point's cursor.
-  if (warp != 0) return;
-  const unsigned below = (1u << lane) - 1u;
-  for (int base = 0; base < r; base += 32) {
-    const int i = base + lane;
-    int j = i < r ? row_idx[i] : -1;
-    const bool valid = j >= 0 && j < n;
-    if (!valid) j = -1;
-    const unsigned peers = __match_any_sync(0xffffffffu, j);
-    const int slot = valid ? cursor[j] + __popc(peers & below) : 0;
-    __syncwarp();
-    if (valid) {
-      out_perm[slot] = i;
-      if ((peers >> lane) == 1u) cursor[j] += __popc(peers);
-    }
-    __syncwarp();
   }
 }
 
@@ -204,18 +127,10 @@ extern "C" int gather_launch(const void* vals, const void* idx, int b, int n, in
 extern "C" int scatter_add_launch(const void* idx, const void* upd, int b, int n, int r, int c,
                                   void* offsets, void* perm, void* out, void* stream) {
   if (b < 1 || n < 1 || r < 1 || c < 1) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(int) * static_cast<size_t>(n);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        scatter_sort_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
   auto s = static_cast<cudaStream_t>(stream);
   auto* off = static_cast<int32_t*>(offsets);
   auto* p = static_cast<int32_t*>(perm);
-  scatter_sort_kernel<<<b, kSortThreads, smem, s>>>(static_cast<const int32_t*>(idx), n, r, off, p);
-  const cudaError_t err = cudaGetLastError();
+  const cudaError_t err = launch_count_sort(static_cast<const int32_t*>(idx), b, n, r, off, p, s);
   if (err != cudaSuccess) return err;
   const long long rows = static_cast<long long>(b) * n;
   auto* u = static_cast<const float*>(upd);

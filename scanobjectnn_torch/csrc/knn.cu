@@ -1,27 +1,35 @@
-// General k-nearest-neighbour search for Hopper (sm_90a).
+// k-nearest-neighbour search for Hopper (sm_90a): the general kNN and the
+// self-kNN graph.
 //
-// Replaces scanobjectnn_tpu/ops/pallas/knn_kernel.py: knn_point_pallas
-// (body _knn_general_kernel).  Semantics are documented in
-// scanobjectnn_torch/ops/cuda/knn_kernel.py.  The TPU kernel builds a
-// [T, N] distance block with one MXU matmul and runs k argmin rounds over
-// it; on the card each thread owns one query, scans the keys in ascending
-// index and keeps its k best in registers, so no distance row is stored.
+// knn_kernel replaces scanobjectnn_tpu/ops/pallas/knn_kernel.py:
+// knn_point_pallas (body _knn_general_kernel); knn_graph_kernel replaces
+// knn_graph_pallas (body _knn_kernel), DGCNN's per-layer feature-space graph
+// with the self edge included.  Semantics are documented in
+// scanobjectnn_torch/ops/cuda/knn_kernel.py.  The TPU kernels build a
+// [T, N] distance block with one MXU matmul and run k argmin rounds over it;
+// on the card each thread owns one query, scans the keys in ascending index
+// and keeps its k best in registers, so no distance row is stored.
 //
 // Distance: max(qq - 2*inner + kk, 0) + bias, every sum in ascending channel
 // order with __fmul_rn/__fadd_rn (nvcc may not contract them into FMAs), so
-// the bits equal the plain version's elementwise tensor ops.  Ties: a key
-// enters the list only when strictly below an entry, and keys come in
-// ascending index, so the lowest index wins a tie.  Slots no key filled
+// the bits equal the plain version's elementwise tensor ops.  A query's
+// distance to itself is exactly 0 (inner == qq, bit for bit).  Ties: a key
+// enters the list only when strictly below an entry (insert), and keys come
+// in ascending index, so the lowest index wins a tie.  Slots no key filled
 // (N < k, or distances that are +inf or NaN) stay (+inf, 0).
 //
 // Bound: operations.  A (query, key) pair costs about 2C + 4 f32 operations
 // (the inner product, the expansion, the clamp, one compare); the bytes are
-// the points read once and the [B, M, k] outputs.  At the FP decoder's fp3
-// (B=32, M=1024 queries, N=512 keys, C=3) that is 16.8M pairs, about 168
-// MFLOP, 2.5 us at the card's 67 TFLOP/s f32 rate, against 1.4 MB, 0.4 us at
-// 3.35 TB/s.  Each block stages a tile of its cloud's keys, their |k|^2 and
-// bias in shared memory, where every thread reads the same key at once (a
-// broadcast); the top-k list is fully unrolled into registers.
+// the points read once and the outputs.  At the FP decoder's fp3 (B=32,
+// M=1024 queries, N=512 keys, C=3) that is 16.8M pairs, 2.5 us at the card's
+// 67 TFLOP/s f32 rate; DGCNN's C=64 graph at B=32, N=1024 is 33.6M pairs of
+// 132 operations, 66 us.  Each block stages a tile of its cloud's keys and
+// their |k|^2 (and bias) in shared memory, where every thread reads the same
+// key at once (a broadcast); the top-k list is fully unrolled into
+// registers.  The graph kernel keeps the query row in registers at the
+// compile-time widths 3 and 64 (the generic width re-reads it from memory
+// for every key), and evaluates two keys per step, two independent chains of
+// dependent adds, before inserting them in index order.
 
 #include <cuda_runtime.h>
 
@@ -30,7 +38,7 @@
 namespace {
 
 constexpr int kThreads = 128;            // queries per block
-constexpr int kMaxK = 32;                // knn_point_kernel's MAX_K
+constexpr int kMaxK = 32;                // MAX_K of knn_kernel.py
 constexpr int kSmemFloats = 12 * 1024;   // 48 KB: a key tile, its |k|^2 and bias
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
@@ -46,13 +54,92 @@ __device__ __forceinline__ float dot(const float* a, const float* b, int w) {
   return s;
 }
 
+// dot<W> of a query row in registers with a key row in shared memory; a
+// width that is a multiple of 4 reads the key as float4 (16-byte aligned),
+// in the same ascending order.
+template <int W>
+__device__ __forceinline__ float dot_row(const float (&q)[W], const float* kp) {
+  if constexpr (W % 4 == 0) {
+    const float4* k4 = reinterpret_cast<const float4*>(kp);
+    float s = 0.f;
+#pragma unroll
+    for (int v = 0; v < W / 4; ++v) {
+      const float4 kv = k4[v];
+      s = v == 0 ? __fmul_rn(q[0], kv.x) : __fadd_rn(s, __fmul_rn(q[4 * v], kv.x));
+      s = __fadd_rn(s, __fmul_rn(q[4 * v + 1], kv.y));
+      s = __fadd_rn(s, __fmul_rn(q[4 * v + 2], kv.z));
+      s = __fadd_rn(s, __fmul_rn(q[4 * v + 3], kv.w));
+    }
+    return s;
+  } else {
+    return dot<W>(q, kp, W);
+  }
+}
+
+// max(qq - 2 * inner + kk, 0), keeping a NaN.
+__device__ __forceinline__ float expand(float qq, float inner, float kk) {
+  const float d = __fadd_rn(__fsub_rn(qq, __fmul_rn(2.f, inner)), kk);
+  return d < 0.f ? 0.f : d;
+}
+
+// Strict insertion of (d, j) into the ascending list (bd, bi), unrolled so
+// the list stays in registers.  At step p bd[p] and bd[p - 1] still hold
+// their values from before this key.
+template <int KCAP>
+__device__ __forceinline__ void insert(float (&bd)[KCAP], int (&bi)[KCAP], float d, int j) {
+  if (!(d < bd[KCAP - 1])) return;
+#pragma unroll
+  for (int p = KCAP - 1; p > 0; --p) {
+    if (d < bd[p - 1]) {
+      bd[p] = bd[p - 1];
+      bi[p] = bi[p - 1];
+    } else if (d < bd[p]) {
+      bd[p] = d;
+      bi[p] = j;
+    }
+  }
+  if (d < bd[0]) {
+    bd[0] = d;
+    bi[0] = j;
+  }
+}
+
+template <int KCAP>
+__device__ __forceinline__ void clear(float (&bd)[KCAP], int (&bi)[KCAP]) {
+#pragma unroll
+  for (int p = 0; p < KCAP; ++p) {
+    bd[p] = inf_f();
+    bi[p] = 0;
+  }
+}
+
+// Stage keys [base, base + count) of a cloud [n, width], their |k|^2 and,
+// where cbias is not null, their bias in shared memory.  Every thread of the
+// block must call it.
+__device__ __forceinline__ void stage_tile(const float* __restrict__ cloud,
+                                           const float* __restrict__ cbias, int base, int count,
+                                           int width, float* skeys, float* skk, float* sbias) {
+  __syncthreads();  // the last tile is no longer read
+  for (int e = threadIdx.x; e < count * width; e += kThreads) {
+    skeys[e] = cloud[static_cast<size_t>(base) * width + e];
+  }
+  if (cbias != nullptr) {
+    for (int t = threadIdx.x; t < count; t += kThreads) sbias[t] = cbias[base + t];
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < count; t += kThreads) {
+    skk[t] = dot<0>(skeys + t * width, skeys + t * width, width);
+  }
+  __syncthreads();
+}
+
 // KCAP >= k entries are kept (the first k are written); W as in dot.
 template <int KCAP, int W>
 __global__ void __launch_bounds__(kThreads)
     knn_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
                const float* __restrict__ bias, int m, int n, int c, int k, int tile,
                float* __restrict__ dist, int32_t* __restrict__ idx) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int width = W > 0 ? W : c;
   float* skeys = smem;                // [tile, width]
   float* skk = skeys + tile * width;  // [tile]
@@ -73,28 +160,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   float bd[KCAP];
   int bi[KCAP];
-#pragma unroll
-  for (int p = 0; p < KCAP; ++p) {
-    bd[p] = inf_f();
-    bi[p] = 0;
-  }
+  clear(bd, bi);
   const float* cloud = keys + static_cast<size_t>(b) * n * width;
   const float* cbias = bias != nullptr ? bias + static_cast<size_t>(b) * n : nullptr;
 
   for (int base = 0; base < n; base += tile) {
     const int count = min(tile, n - base);
-    __syncthreads();  // the last tile is no longer read
-    for (int e = threadIdx.x; e < count * width; e += kThreads) {
-      skeys[e] = cloud[static_cast<size_t>(base) * width + e];
-    }
-    for (int t = threadIdx.x; t < count; t += kThreads) {
-      sbias[t] = cbias != nullptr ? cbias[base + t] : 0.f;
-    }
-    __syncthreads();
-    for (int t = threadIdx.x; t < count; t += kThreads) {
-      skk[t] = dot<W>(skeys + t * width, skeys + t * width, width);
-    }
-    __syncthreads();
+    stage_tile(cloud, cbias, base, count, width, skeys, skk, sbias);
     if (!active) continue;
     for (int t = 0; t < count; ++t) {
       const float* kp = skeys + t * width;
@@ -104,27 +176,9 @@ __global__ void __launch_bounds__(kThreads)
       } else {
         inner = dot<0>(q, kp, width);
       }
-      float d = __fadd_rn(__fsub_rn(qq, __fmul_rn(2.f, inner)), skk[t]);
-      d = d < 0.f ? 0.f : d;  // max(d, 0) that keeps a NaN
+      float d = expand(qq, inner, skk[t]);
       if (cbias != nullptr) d = __fadd_rn(d, sbias[t]);
-      if (!(d < bd[KCAP - 1])) continue;
-      // Strict insertion, unrolled so the list stays in registers.  At step p
-      // bd[p] and bd[p - 1] still hold their values from before this key.
-      const int j = base + t;
-#pragma unroll
-      for (int p = KCAP - 1; p > 0; --p) {
-        if (d < bd[p - 1]) {
-          bd[p] = bd[p - 1];
-          bi[p] = bi[p - 1];
-        } else if (d < bd[p]) {
-          bd[p] = d;
-          bi[p] = j;
-        }
-      }
-      if (d < bd[0]) {
-        bd[0] = d;
-        bi[0] = j;
-      }
+      insert(bd, bi, d, base + t);
     }
   }
   if (!active) return;
@@ -135,6 +189,65 @@ __global__ void __launch_bounds__(kThreads)
       dist[row + p] = bd[p];
       idx[row + p] = bi[p];
     }
+  }
+}
+
+// Self-kNN over a cloud [n, c]: every point is a query and a key; writes
+// the indices only.  KCAP >= k; W as in dot.
+template <int KCAP, int W>
+__global__ void __launch_bounds__(kThreads)
+    knn_graph_kernel(const float* __restrict__ feats, int n, int c, int k, int tile,
+                     int32_t* __restrict__ idx) {
+  extern __shared__ __align__(16) float smem[];
+  const int width = W > 0 ? W : c;
+  float* skeys = smem;                // [tile, width]
+  float* skk = skeys + tile * width;  // [tile]
+  const int b = blockIdx.y;
+  const int qi = blockIdx.x * kThreads + threadIdx.x;
+  const bool active = qi < n;  // no early return: every thread joins the barriers
+  const float* cloud = feats + static_cast<size_t>(b) * n * width;
+  const float* q = cloud + static_cast<size_t>(active ? qi : 0) * width;
+  float qr[W > 0 ? W : 1];
+  float qq;
+  if constexpr (W > 0) {
+#pragma unroll
+    for (int i = 0; i < W; ++i) qr[i] = q[i];
+    qq = dot<W>(qr, qr, W);
+  } else {
+    qr[0] = 0.f;
+    qq = dot<0>(q, q, width);
+  }
+  float bd[KCAP];
+  int bi[KCAP];
+  clear(bd, bi);
+
+  for (int base = 0; base < n; base += tile) {
+    const int count = min(tile, n - base);
+    stage_tile(cloud, nullptr, base, count, width, skeys, skk, nullptr);
+    if (!active) continue;
+    for (int t = 0; t < count; t += 2) {
+      // Two keys per step (the second repeats the last key of an odd tile
+      // and is then not inserted): independent chains the SM interleaves.
+      const int u = min(t + 1, count - 1);
+      float i0, i1;
+      if constexpr (W > 0) {
+        i0 = dot_row<W>(qr, skeys + t * width);
+        i1 = dot_row<W>(qr, skeys + u * width);
+      } else {
+        i0 = dot<0>(q, skeys + t * width, width);
+        i1 = dot<0>(q, skeys + u * width, width);
+      }
+      const float d0 = expand(qq, i0, skk[t]);
+      const float d1 = expand(qq, i1, skk[u]);
+      insert(bd, bi, d0, base + t);
+      if (u > t) insert(bd, bi, d1, base + u);
+    }
+  }
+  if (!active) return;
+  const size_t row = (static_cast<size_t>(b) * n + qi) * k;
+#pragma unroll
+  for (int p = 0; p < KCAP; ++p) {
+    if (p < k) idx[row + p] = bi[p];
   }
 }
 
@@ -154,6 +267,26 @@ cudaError_t launch_c(const float* q, const float* keys, const float* bias, int b
                      int c, int k, float* dist, int32_t* idx, cudaStream_t s) {
   return c == 3 ? launch<KCAP, 3>(q, keys, bias, b, m, n, c, k, dist, idx, s)
                 : launch<KCAP, 0>(q, keys, bias, b, m, n, c, k, dist, idx, s);
+}
+
+template <int KCAP, int W>
+cudaError_t launch_graph(const float* feats, int b, int n, int c, int k, int32_t* idx,
+                         cudaStream_t s) {
+  // Rows of 64 floats start 256 bytes apart: dot_row's float4 reads stay aligned.
+  const int fit = kSmemFloats / (c + 1);
+  const int tile = n < fit ? n : fit;
+  const size_t smem = sizeof(float) * static_cast<size_t>(tile) * (c + 1);
+  const dim3 grid((n + kThreads - 1) / kThreads, b);
+  knn_graph_kernel<KCAP, W><<<grid, kThreads, smem, s>>>(feats, n, c, k, tile, idx);
+  return cudaGetLastError();
+}
+
+template <int KCAP>
+cudaError_t launch_graph_c(const float* feats, int b, int n, int c, int k, int32_t* idx,
+                           cudaStream_t s) {
+  if (c == 3) return launch_graph<KCAP, 3>(feats, b, n, c, k, idx, s);
+  if (c == 64) return launch_graph<KCAP, 64>(feats, b, n, c, k, idx, s);
+  return launch_graph<KCAP, 0>(feats, b, n, c, k, idx, s);
 }
 
 }  // namespace
@@ -176,4 +309,20 @@ extern "C" int knn_launch(const void* queries, const void* keys, const void* bia
   if (k <= 8) return launch_c<8>(q, kp, bp, b, m, n, c, k, d, i, s);
   if (k <= 16) return launch_c<16>(q, kp, bp, b, m, n, c, k, d, i, s);
   return launch_c<32>(q, kp, bp, b, m, n, c, k, d, i, s);
+}
+
+// feats [b, n, c] f32, contiguous -> idx [b, n, k] int32: each point's k
+// nearest points, itself included, ascending.
+extern "C" int knn_graph_launch(const void* feats, int b, int n, int c, int k, void* idx,
+                                void* stream) {
+  if (b < 1 || b > 65535 || n < 1 || c < 1 || c + 1 > kSmemFloats || k < 1 || k > kMaxK) {
+    return cudaErrorInvalidValue;
+  }
+  auto* f = static_cast<const float*>(feats);
+  auto* i = static_cast<int32_t*>(idx);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (k <= 8) return launch_graph_c<8>(f, b, n, c, k, i, s);
+  if (k <= 16) return launch_graph_c<16>(f, b, n, c, k, i, s);
+  if (k <= 20) return launch_graph_c<20>(f, b, n, c, k, i, s);
+  return launch_graph_c<32>(f, b, n, c, k, i, s);
 }

@@ -1,7 +1,8 @@
 """Model registry (counterpart of ``scanobjectnn_tpu/models/__init__.py``).
 
-Ported: ``pointnet2_cls_ssg`` ("cls"), ``pointnet2_cls_bga`` ("seg") and
-``pointnet2_cls_partseg`` ("partseg"), for inference and f32 training;
+Ported: ``pointnet2_cls_ssg`` ("cls"), ``pointnet2_cls_bga`` ("seg"),
+``pointnet2_cls_partseg`` ("partseg"), ``dgcnn`` ("cls") and ``dgcnn_bga``
+("seg"), for inference and f32 training;
 every other name raises ``KeyError`` saying it is not ported yet.  The
 registry maps a name to its class; the class carries the model's ``kind``
 and its static ``loss(outputs, batch)`` (the JAX ``get_model`` returns the
@@ -14,14 +15,25 @@ from __future__ import annotations
 import torch
 
 from scanobjectnn_torch.convert import init_params
+from scanobjectnn_torch.models.dgcnn import DGCNN, DGCNNBGA
 from scanobjectnn_torch.models.pointnet2 import PointNet2BGA, PointNet2ClsSSG, PointNet2PartSeg
 
-__all__ = ["MODEL_REGISTRY", "PointNet2BGA", "PointNet2ClsSSG", "PointNet2PartSeg", "get_model"]
+__all__ = [
+    "DGCNN",
+    "DGCNNBGA",
+    "MODEL_REGISTRY",
+    "PointNet2BGA",
+    "PointNet2ClsSSG",
+    "PointNet2PartSeg",
+    "get_model",
+]
 
 MODEL_REGISTRY = {
     "pointnet2_cls_ssg": PointNet2ClsSSG,
     "pointnet2_cls_bga": PointNet2BGA,
     "pointnet2_cls_partseg": PointNet2PartSeg,
+    "dgcnn": DGCNN,
+    "dgcnn_bga": DGCNNBGA,
 }
 
 

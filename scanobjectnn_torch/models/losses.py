@@ -1,7 +1,7 @@
 """Loss components (counterpart of ``scanobjectnn_tpu/models/losses.py``).
 
-Ported: the classification loss, the per-point segmentation loss and the
-BGA joint loss.
+Ported: the classification loss, DGCNN's label-smoothed loss, the
+per-point segmentation loss and the BGA joint loss.
 """
 
 from __future__ import annotations
@@ -9,13 +9,26 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["joint_cls_seg_loss", "per_point_cross_entropy", "softmax_cross_entropy"]
+__all__ = [
+    "joint_cls_seg_loss",
+    "label_smoothed_cross_entropy",
+    "per_point_cross_entropy",
+    "softmax_cross_entropy",
+]
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean sparse softmax cross-entropy over the batch, in f32
     (tf.nn.sparse_softmax_cross_entropy)."""
     return F.cross_entropy(logits.float(), labels.long())
+
+
+def label_smoothed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, smoothing: float = 0.2) -> torch.Tensor:
+    """DGCNN's loss (dgcnn get_loss): the mean cross-entropy in f32 against
+    ``(1 - s)·onehot + s/K``."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    soft = F.one_hot(labels.long(), logits.shape[-1]).float() * (1.0 - smoothing) + smoothing / logits.shape[-1]
+    return -(soft * logp).sum(-1).mean()
 
 
 def per_point_cross_entropy(seg_logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,9 @@ Semantics kept from the JAX package, which ``torch.nn`` does not give:
   * The max-pool is ``torch.amax``, which splits the gradient evenly across
     ties as ``jnp.max`` does.
   * Init is Glorot-uniform kernels and zero biases (``reset_parameters``
-    with an explicit ``torch.Generator``).
+    with an explicit ``torch.Generator``); ``Dense(zero_init=True)`` starts
+    its kernel at zero too (the JAX ``kernel_init=zeros``, DGCNN's T-Net
+    ``transform``).
 """
 
 from __future__ import annotations
@@ -43,9 +45,12 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 class Dense(nn.Module):
     """Linear layer over the last axis; kernel ``[in, out]``."""
 
-    def __init__(self, in_features: int, features: int, dtype: torch.dtype | None = None):
+    def __init__(
+        self, in_features: int, features: int, dtype: torch.dtype | None = None, zero_init: bool = False
+    ):
         super().__init__()
         self.dtype = dtype
+        self.zero_init = zero_init
         self.kernel = nn.Parameter(torch.empty(in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.reset_parameters()
@@ -54,7 +59,10 @@ class Dense(nn.Module):
         fan_in, fan_out = self.kernel.shape
         limit = math.sqrt(6.0 / (fan_in + fan_out))  # flax glorot_uniform
         with torch.no_grad():
-            self.kernel.uniform_(-limit, limit, generator=generator)
+            if self.zero_init:
+                self.kernel.zero_()
+            else:
+                self.kernel.uniform_(-limit, limit, generator=generator)
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -87,6 +95,17 @@ class BatchNorm(nn.Module):
             self.mean.zero_()
             self.var.fill_(1.0)
 
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor, bn_momentum: float) -> None:
+        """``ra = m·ra + (1-m)·batch`` for the running mean and var."""
+        # m and 1 - m in f32, as JAX takes them, but as Python scalars: a
+        # tensor made from m would be a host-to-device copy, which waits for
+        # the card on every call.
+        m = np.float32(bn_momentum)
+        m, rest = float(m), float(np.float32(1.0) - m)
+        with torch.no_grad():
+            self.mean.copy_(self.mean * m + mean * rest)
+            self.var.copy_(self.var * m + var * rest)
+
     def forward(self, x: torch.Tensor, bn_momentum: float | None = None) -> torch.Tensor:
         """In training, ``bn_momentum`` (the scheduled ``bn_decay``) is
         required; eval ignores it."""
@@ -97,14 +116,7 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.dim() - 1))
             mean = xf.mean(dim=axes)
             var = torch.clamp(torch.square(xf).mean(dim=axes) - torch.square(mean), min=0.0)
-            # m and 1 - m in f32, as JAX takes them, but as Python scalars:
-            # a tensor made from m would be a host-to-device copy, which
-            # waits for the card on every call.
-            m = np.float32(bn_momentum)
-            m, rest = float(m), float(np.float32(1.0) - m)
-            with torch.no_grad():
-                self.mean.copy_(self.mean * m + mean * rest)
-                self.var.copy_(self.var * m + var * rest)
+            self.update_running(mean, var, bn_momentum)
         else:
             mean, var = self.mean, self.var
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)

@@ -9,6 +9,7 @@ from scanobjectnn_torch.ops.fps import (  # noqa: F401
 from scanobjectnn_torch.ops.grouping import (  # noqa: F401
     batched_index_gather,
     group_point,
+    knn_graph,
     knn_point,
     pairwise_squared_distance,
     query_ball_group,

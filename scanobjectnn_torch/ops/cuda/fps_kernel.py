@@ -69,7 +69,8 @@ def fps(xyz: torch.Tensor, npoint: int, with_coords: bool = True):
     also new_xyz f32 [B, npoint, 3].
 
     A CPU tensor takes ``fps_plain``; a CUDA tensor launches the kernel
-    (counted in ``fps.launches``) or raises."""
+    (counted in ``fps.launches``; a launch without coordinates, the TPU's
+    ``fps_pallas``, also in ``fps.index_launches``) or raises."""
     if xyz.device.type == "cpu":
         idx, new_xyz = fps_plain(xyz, npoint)
         return (idx, new_xyz) if with_coords else idx
@@ -96,7 +97,9 @@ def fps(xyz: torch.Tensor, npoint: int, with_coords: bool = True):
         )
     _build.check(err, "fps")
     fps.launches += 1
+    fps.index_launches += not with_coords
     return (idx, new_xyz) if with_coords else idx
 
 
 fps.launches = 0
+fps.index_launches = 0

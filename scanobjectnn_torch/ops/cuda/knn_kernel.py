@@ -1,9 +1,11 @@
-"""General k-nearest-neighbour search: the CUDA kernel (``csrc/knn.cu``)
-beside its plain PyTorch version.
+"""k-nearest-neighbour search: the CUDA kernels (``csrc/knn.cu``) beside
+their plain PyTorch versions.
 
 Replaces ``scanobjectnn_tpu/ops/pallas/knn_kernel.py``: ``knn_point_pallas``
 (``_knn_general_kernel``, ``pl.pallas_call``), which the FP decoder's
-``three_nn`` runs with k=3 and PointCNN's kNN with a duplicate bias.
+``three_nn`` runs with k=3 and PointCNN's kNN with a duplicate bias, and
+``knn_graph_pallas`` (``_knn_kernel``), DGCNN's self-kNN graph: five graphs
+per forward, at C = 3 (the T-Net, EdgeConv 1) and C = 64 (EdgeConv 2-4).
 
 Semantics (the contract of ``knn_point_pallas``):
   * ``knn_point_kernel(queries [B, M, C], keys [B, N, C], k, bias [B, N] or
@@ -18,11 +20,18 @@ Semantics (the contract of ``knn_point_pallas``):
     or NaN, which are never selected.
 Any C, M and N; 1 <= k <= ``MAX_K``.  The outputs carry no gradient.
 
+``knn_graph_kernel(features [B, N, C], k) -> idx [B, N, k] int32`` is the
+self-kNN: every point is a query and a key, so each point's first neighbour
+is itself (its distance is exactly 0).  It is ``knn_point_kernel(x, x,
+k)[1]`` bit for bit, with the cloud read once and, at C = 3 and 64, the
+query row held in registers.
+
 What bounds it on the H100: operations, about 2C + 4 per (query, key) pair;
 at fp3 (B=32, 1024 queries, 512 keys, C=3) about 2.5 us of f32 work against
-0.4 us of bytes, so in practice the launch.  One thread per query scans its
-cloud's keys, staged in shared memory in tiles, in ascending index and keeps
-its k best in registers.
+0.4 us of bytes, so in practice the launch.  DGCNN's C=64 graph at B=32,
+N=1024 is 33.6M pairs of about 132 operations: 66 us.  One thread per query
+scans its cloud's keys, staged in shared memory in tiles, in ascending index
+and keeps its k best in registers.
 """
 
 from __future__ import annotations
@@ -31,7 +40,14 @@ import torch
 
 from scanobjectnn_torch.ops.cuda import _build
 
-__all__ = ["MAX_K", "knn_point_kernel", "knn_point_plain", "squared_distance_plain"]
+__all__ = [
+    "MAX_K",
+    "knn_graph_kernel",
+    "knn_graph_plain",
+    "knn_point_kernel",
+    "knn_point_plain",
+    "squared_distance_plain",
+]
 
 MAX_K = 32  # kMaxK in csrc/knn.cu
 
@@ -75,14 +91,19 @@ def knn_point_plain(
     return vals, torch.where(chosen, order, 0).to(torch.int32)
 
 
-def _check_cuda(name: str, t: torch.Tensor, shape: tuple, device) -> None:
+def knn_graph_plain(features: torch.Tensor, k: int) -> torch.Tensor:
+    """Plain PyTorch self-kNN: ``knn_point_plain(features, features, k)[1]``."""
+    return knn_point_plain(features, features, k)[1]
+
+
+def _check_cuda(name: str, t: torch.Tensor, shape: tuple, device, fn: str = "knn_point_kernel") -> None:
     if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape:
         raise ValueError(
-            f"knn_point_kernel: {name} must be float32 {shape} on {device}, "
+            f"{fn}: {name} must be float32 {shape} on {device}, "
             f"got {t.dtype} {tuple(t.shape)} on {t.device}"
         )
     if not t.is_contiguous():
-        raise ValueError(f"knn_point_kernel: {name} must be contiguous")
+        raise ValueError(f"{fn}: {name} must be contiguous")
 
 
 def knn_point_kernel(
@@ -127,3 +148,35 @@ def knn_point_kernel(
 
 
 knn_point_kernel.launches = 0
+
+
+def knn_graph_kernel(features: torch.Tensor, k: int) -> torch.Tensor:
+    """Self-kNN, self edge included: features [B, N, C] f32 -> idx [B, N, k]
+    int32, ascending.
+
+    A CPU tensor takes ``knn_graph_plain``; a CUDA tensor launches the
+    kernel (counted in ``knn_graph_kernel.launches``) or raises."""
+    if features.device.type == "cpu":
+        return knn_graph_plain(features, k)
+    if features.device.type != "cuda":
+        raise ValueError(f"knn_graph_kernel: unsupported device {features.device}")
+    if features.dim() != 3:
+        raise ValueError(f"knn_graph_kernel: need [B, N, C], got {tuple(features.shape)}")
+    b, n, c = features.shape
+    _check_cuda("features", features, (b, n, c), features.device, "knn_graph_kernel")
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"knn_graph_kernel: kernel takes 1 <= k <= {MAX_K}, got {k}")
+    if min(b, n, c) < 1:
+        raise ValueError(f"knn_graph_kernel: empty input {tuple(features.shape)}")
+    idx = torch.empty(b, n, k, dtype=torch.int32, device=features.device)
+    lib = _build.library()
+    with torch.cuda.device(features.device):
+        err = lib.knn_graph_launch(
+            features.data_ptr(), b, n, c, k, idx.data_ptr(), torch.cuda.current_stream().cuda_stream
+        )
+    _build.check(err, "knn_graph_kernel")
+    knn_graph_kernel.launches += 1
+    return idx
+
+
+knn_graph_kernel.launches = 0

@@ -1,10 +1,11 @@
 """Ball query, grouping and kNN (counterpart of
 ``scanobjectnn_tpu/ops/grouping.py``).
 
-``query_ball_group`` and ``knn_point`` dispatch on the tensor's device, as
-``ops/fps.py`` does: a CUDA tensor runs the CUDA kernel
+``query_ball_group``, ``knn_point`` and ``knn_graph`` dispatch on the
+tensor's device, as ``ops/fps.py`` does: a CUDA tensor runs the CUDA kernel
 (``ops/cuda/ballgroup_kernel.py``, ``ops/cuda/knn_kernel.py``), a CPU
-tensor its plain version.  The ball query takes the first K hits of
+tensor its plain version.  ``knn_graph`` is DGCNN's self-kNN: each point's
+first neighbour is itself.  The ball query takes the first K hits of
 ``d2 < radius²`` in point order and pads with the first hit (point 0 where
 there is none); kNN returns ascending squared distances from the
 ``|a|² - 2a·b + |b|²`` expansion, ties to the lowest index.  Neither
@@ -25,6 +26,7 @@ from scanobjectnn_torch.ops.cuda import ballgroup_kernel, knn_kernel
 __all__ = [
     "batched_index_gather",
     "group_point",
+    "knn_graph",
     "knn_point",
     "pairwise_squared_distance",
     "query_ball_group",
@@ -44,6 +46,12 @@ def knn_point(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor) -> tuple[torch.T
     return knn_kernel.knn_point_kernel(
         new_xyz.detach().float().contiguous(), xyz.detach().float().contiguous(), k
     )
+
+
+def knn_graph(features: torch.Tensor, k: int) -> torch.Tensor:
+    """Self-kNN over a feature cloud [B, N, C] -> idx [B, N, k] int32, the
+    self edge included, ascending (ties to the lowest index)."""
+    return knn_kernel.knn_graph_kernel(features.detach().float().contiguous(), k)
 
 
 def query_ball_group(

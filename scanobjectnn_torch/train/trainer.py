@@ -9,10 +9,11 @@ the batch's ``masks`` or ``parts``).  The model's ``kind`` (registry) says
 which targets the batch carries: "cls" labels, "seg" labels and masks,
 "partseg" parts; a "partseg" model is built with ``num_parts =
 num_classes``, as the JAX ``Trainer`` does.  A loss that declares
-``seg_weight`` receives the config's.  The BN running stats are
-updated during the forward.  As in optax, the LR of an update is
-``schedule(step)`` taken BEFORE the step, counting from 0; Adam uses
-eps 1e-8 and no weight decay (``pointnet2_cls_ssg`` ships no recipe).
+``seg_weight`` receives the config's; every other loss argument keeps its
+default (``dgcnn``'s label smoothing 0.2, as in the JAX ``Trainer``).  The
+BN running stats are updated during the forward.  As in optax, the LR of an
+update is ``schedule(step)`` taken BEFORE the step, counting from 0; Adam
+uses eps 1e-8 and no weight decay (``pointnet2_cls_ssg`` ships no recipe).
 
 Differences from the JAX ``Trainer``, on purpose:
   * the state is mutable (the model, its optimizer and a generator), and
@@ -22,10 +23,11 @@ Differences from the JAX ``Trainer``, on purpose:
   * nothing is process-global: the JAX ``Trainer`` writes its kernel
     configuration into ``kernelconfig``; f32 training here has one pool
     (``torch.amax``) and no setting to write.
-Ported: f32 training of ``pointnet2_cls_ssg``, ``pointnet2_cls_bga`` and
-``pointnet2_cls_partseg``.  ``dtype="bfloat16"`` raises: it needs
-exact-key pooling (``ops/exactpool``), not ported yet.  Evaluation,
-checkpoints and ``fit`` wait for the CLI slice.
+Ported: f32 training of ``pointnet2_cls_ssg``, ``pointnet2_cls_bga``,
+``pointnet2_cls_partseg``, ``dgcnn`` and ``dgcnn_bga`` (none of them ships
+a recipe: Adam, as the JAX ``Trainer`` gives them).  ``dtype="bfloat16"``
+raises: it needs exact-key pooling (``ops/exactpool``), not ported yet.
+Evaluation, checkpoints and ``fit`` wait for the CLI slice.
 """
 
 from __future__ import annotations

@@ -18,7 +18,16 @@ within 1e-5 x max(1, |ref|max) of ``index_add_`` (both sum exact f32, in
 other orders), and two calls on the same input must give the same bits.
 
 kNN: indices and squared distances equal to ``knn_point_plain`` (the same
-f32 operations in the same order, and the same tie rule).
+f32 operations in the same order, and the same tie rule).  The self-kNN
+graph: indices equal to ``knn_graph_plain``, for the same reason.
+
+DGCNN's edge reductions: every forward output equal to ``edge_reduce_plain``
+(the same neighbours, max and min exact, the sums in the same slot order
+without contraction).  The backward within 1e-5 x max(1, |ref|max) of
+autograd through the plain version (the same coefficients, summed in
+another order), and bit-stable across two calls (no float atomics).  The
+neighbour gather ``edge_gather_knn``: rows and indices equal; its backward
+is the scatter-add, held as above.
 """
 
 import math
@@ -37,10 +46,25 @@ from scanobjectnn_torch.ops.cuda.gather_kernel import (
     scatter_add_rows,
     scatter_add_rows_plain,
 )
-from scanobjectnn_torch.ops.cuda.knn_kernel import knn_point_kernel, knn_point_plain
+from scanobjectnn_torch.ops.cuda.edge_kernel import (
+    REDUCTIONS,
+    edge_gather_knn,
+    edge_gather_knn_plain,
+    edge_reduce,
+    edge_reduce_bwd_kernel,
+    edge_reduce_fwd_kernel,
+    edge_reduce_plain,
+)
+from scanobjectnn_torch.ops.cuda.knn_kernel import (
+    knn_graph_kernel,
+    knn_graph_plain,
+    knn_point_kernel,
+    knn_point_plain,
+)
 from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool, sa_ball_mlp_pool_plain
 
 SCATTER_TOL = 1e-5  # x max(1, |ref|max)
+EDGE_BWD_TOL = 1e-5  # x max(1, |ref|max)
 
 pytestmark = pytest.mark.cuda
 
@@ -341,3 +365,132 @@ def test_knn_kernel_refuses_what_it_does_not_take(dev):
         knn_point_kernel(torch.zeros(1, 3, 8, device=dev).transpose(1, 2), q, 3)
     with pytest.raises(ValueError, match="bias"):
         knn_point_kernel(q, q, 3, torch.zeros(1, 9, device=dev))
+
+
+def lattice_cloud(rng, b, n, c, copies=4):
+    """Dyadic lattice points, each repeated ``copies`` times, shuffled: the
+    distances tie exactly (duplicates at d² = 0)."""
+    base = rng.randint(-3, 4, (b, n // copies, c)).astype(np.float32) * 0.25
+    return np.stack([p[rng.permutation(n)] for p in np.tile(base, (1, copies, 1))])
+
+
+# (b, n, c, k, cloud): DGCNN's graphs at C=3 (T-Net, EdgeConv 1) and C=64
+# (EdgeConv 2-4) at k=20, over several shared-memory tiles at C=64; a
+# generic width; k=8 and k=32; a ragged N; duplicated points.
+GRAPH_CASES = {
+    "c3_k20": (4, 1024, 3, 20, "normal"),
+    "c64_k20": (4, 1024, 64, 20, "normal"),
+    "c16_k8": (2, 300, 16, 8, "normal"),
+    "c64_k32": (2, 257, 64, 32, "normal"),
+    "c5_k3": (3, 37, 5, 3, "normal"),
+    "duplicates_c3": (4, 1024, 3, 20, "lattice"),
+    "duplicates_c64": (2, 512, 64, 20, "lattice"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_knn_graph_kernel_matches_plain(dev, case):
+    b, n, c, k, cloud = GRAPH_CASES[case]
+    rng = np.random.RandomState(n + c)
+    x = lattice_cloud(rng, b, n, c) if cloud == "lattice" else rng.randn(b, n, c).astype(np.float32)
+    x = torch.from_numpy(x).to(dev)
+    before = knn_graph_kernel.launches
+    idx = knn_graph_kernel(x, k)
+    want = knn_graph_plain(x, k)
+    torch.cuda.synchronize()
+    assert knn_graph_kernel.launches == before + 1
+    assert idx.dtype == torch.int32 and idx.shape == (b, n, k)
+    assert torch.equal(idx, want)
+    if cloud == "normal":
+        assert bool((idx[..., 0] == torch.arange(n, device=dev)).all())  # the self edge first
+
+
+def test_knn_graph_kernel_refuses_what_it_does_not_take(dev):
+    x = torch.zeros(1, 8, 3, device=dev)
+    with pytest.raises(ValueError, match="k <= 32"):
+        knn_graph_kernel(x, 33)
+    with pytest.raises(ValueError, match="float32"):
+        knn_graph_kernel(x.double(), 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        knn_graph_kernel(torch.zeros(1, 3, 8, device=dev).transpose(1, 2), 3)
+
+
+def _edge_inputs(dev, b, n, cf, cv, lattice, seed):
+    rng = np.random.RandomState(seed)
+    if lattice:
+        feats = lattice_cloud(rng, b, n, cf)
+        vals = np.concatenate([lattice_cloud(rng, b, n, cv - 2), np.zeros((b, n, 2), np.float32)], -1)
+    else:
+        feats = rng.randn(b, n, cf).astype(np.float32)
+        vals = rng.randn(b, n, cv).astype(np.float32)
+    return torch.from_numpy(feats).to(dev), torch.from_numpy(vals).to(dev)
+
+
+# (b, n, cf, cv, k, lattice): EdgeConv 1-4's (Cf, Cv) at k=20, a width that
+# takes the scalar path, and duplicated points whose values tie in max/min.
+EDGE_CASES = {
+    "ec1": (4, 1024, 3, 64, 20, False),
+    "ec2": (4, 1024, 64, 64, 20, False),
+    "ec4": (4, 1024, 64, 128, 20, False),
+    "cv24_k8": (2, 300, 16, 24, 8, False),
+    "ties": (2, 512, 3, 34, 20, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_edge_reduce_kernels_match_plain(dev, case):
+    b, n, cf, cv, k, lattice = EDGE_CASES[case]
+    feats, vals = _edge_inputs(dev, b, n, cf, cv, lattice, seed=n + cv)
+    before = (knn_graph_kernel.launches, edge_reduce_fwd_kernel.launches, edge_reduce_bwd_kernel.launches)
+    v = vals.clone().requires_grad_()
+    got = edge_reduce(feats, v, k)
+    vp = vals.clone().requires_grad_()
+    want = edge_reduce_plain(feats, vp, k)
+    for key in ("idx",) + REDUCTIONS:
+        assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key].detach()), key
+    if lattice:
+        assert float(got["cntmax"].max()) > 1 and bool((got["cntmin"][..., -2:] == k).all())
+    rng = np.random.RandomState(1)
+    cot = [torch.from_numpy(rng.randn(b, n, cv).astype(np.float32)).to(dev) for _ in range(4)]
+    outs = [got[key] for key in ("mmax", "mmin", "s", "q2")]
+    (grad,) = torch.autograd.grad(outs, v, cot)
+    again = edge_reduce_bwd_kernel(vals, got["idx"], got["mmax"], got["mmin"], got["cntmax"], got["cntmin"], *cot)
+    (ref,) = torch.autograd.grad([want[key] for key in ("mmax", "mmin", "s", "q2")], vp, cot)
+    torch.cuda.synchronize()
+    after = (knn_graph_kernel.launches, edge_reduce_fwd_kernel.launches, edge_reduce_bwd_kernel.launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2] + 2)
+    assert torch.equal(grad, again), "the backward is not bit-stable"
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((grad - ref).abs().max()) <= EDGE_BWD_TOL * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_edge_gather_knn_matches_plain(dev, dtype):
+    feats, vals = _edge_inputs(dev, 4, 1024, 3, 64, False, seed=9)
+    vals = vals.to(dtype)
+    before = (edge_gather_knn.launches, knn_graph_kernel.launches, gather_rows.launches, scatter_add_rows.launches)
+    v = vals.clone().requires_grad_()
+    rows, idx = edge_gather_knn(feats, v, 20)
+    vp = vals.clone().requires_grad_()
+    want, want_idx = edge_gather_knn_plain(feats, vp, 20)
+    assert rows.dtype == want.dtype == dtype and torch.equal(idx, want_idx) and torch.equal(rows, want)
+    cot = torch.from_numpy(np.random.RandomState(2).randn(*rows.shape).astype(np.float32)).to(dev).to(dtype)
+    (grad,) = torch.autograd.grad(rows, v, cot)
+    (ref,) = torch.autograd.grad(want, vp, cot)
+    torch.cuda.synchronize()
+    after = (edge_gather_knn.launches, knn_graph_kernel.launches, gather_rows.launches, scatter_add_rows.launches)
+    assert after == tuple(n + 1 for n in before)
+    assert grad.dtype == dtype
+    if dtype == torch.float32:
+        assert float((grad - ref).abs().max()) <= SCATTER_TOL * max(1.0, float(ref.abs().max()))
+
+
+def test_edge_reduce_kernels_refuse_what_they_do_not_take(dev):
+    vals = torch.zeros(1, 8, 4, device=dev)
+    idx = torch.zeros(1, 8, 3, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        edge_reduce_fwd_kernel(vals, idx.long())
+    with pytest.raises(ValueError, match="float32"):
+        edge_reduce_fwd_kernel(vals.double(), idx)
+    with pytest.raises(ValueError, match="contiguous"):
+        edge_reduce_fwd_kernel(torch.zeros(1, 4, 8, device=dev).transpose(1, 2), idx)
