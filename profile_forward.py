@@ -6,11 +6,13 @@ GPU.
     python3 profile_forward.py --train [--batch 16] [--num-point 1024]
     python3 profile_forward.py --model pointnet2_cls_bga [--train]
     python3 profile_forward.py --model dgcnn [--train]
+    python3 profile_forward.py --model spidercnn_cls_xyz [--train]
 
 ``--model`` is ``pointnet2_cls_ssg`` (default), ``pointnet2_cls_bga``,
-``dgcnn`` or ``dgcnn_bga``.  The defaults are each model's configurations:
-SSG B=128, N=2048 for the forward and B=16, N=1024 for ``--train``; BGA
-B=32, N=1024 and B=16; both DGCNNs B=32, N=1024 for both.  Forward: for
+``dgcnn``, ``dgcnn_bga`` or ``spidercnn_cls_xyz``.  The defaults are each
+model's configurations: SSG B=128, N=2048 for the forward and B=16, N=1024
+for ``--train``; BGA B=32, N=1024 and B=16; both DGCNNs and SpiderCNN
+B=32, N=1024 for both.  Forward: for
 bf16 and f32 in turn, builds the model with ``get_model`` (seed 0, on the
 card) and answers one batch of the 15-class synthetic dataset (seed 0; with
 background points and binary masks for the BGA models).  ``--train``: an
@@ -39,6 +41,7 @@ DEFAULTS = {
     "pointnet2_cls_bga": ((32, 1024), (16, 1024)),
     "dgcnn": ((32, 1024), (32, 1024)),
     "dgcnn_bga": ((32, 1024), (32, 1024)),
+    "spidercnn_cls_xyz": ((32, 1024), (32, 1024)),
 }
 
 

@@ -1,8 +1,8 @@
 """Model registry (counterpart of ``scanobjectnn_tpu/models/__init__.py``).
 
 Ported: ``pointnet2_cls_ssg`` ("cls"), ``pointnet2_cls_bga`` ("seg"),
-``pointnet2_cls_partseg`` ("partseg"), ``dgcnn`` ("cls") and ``dgcnn_bga``
-("seg"), for inference and f32 training;
+``pointnet2_cls_partseg`` ("partseg"), ``dgcnn`` ("cls"), ``dgcnn_bga``
+("seg") and ``spidercnn_cls_xyz`` ("cls"), for inference and f32 training;
 every other name raises ``KeyError`` saying it is not ported yet.  The
 registry maps a name to its class; the class carries the model's ``kind``
 and its static ``loss(outputs, batch)`` (the JAX ``get_model`` returns the
@@ -17,6 +17,7 @@ import torch
 from scanobjectnn_torch.convert import init_params
 from scanobjectnn_torch.models.dgcnn import DGCNN, DGCNNBGA
 from scanobjectnn_torch.models.pointnet2 import PointNet2BGA, PointNet2ClsSSG, PointNet2PartSeg
+from scanobjectnn_torch.models.spidercnn import SpiderCNNCls
 
 __all__ = [
     "DGCNN",
@@ -25,6 +26,7 @@ __all__ = [
     "PointNet2BGA",
     "PointNet2ClsSSG",
     "PointNet2PartSeg",
+    "SpiderCNNCls",
     "get_model",
 ]
 
@@ -34,6 +36,7 @@ MODEL_REGISTRY = {
     "pointnet2_cls_partseg": PointNet2PartSeg,
     "dgcnn": DGCNN,
     "dgcnn_bga": DGCNNBGA,
+    "spidercnn_cls_xyz": SpiderCNNCls,
 }
 
 

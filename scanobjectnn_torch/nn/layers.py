@@ -15,6 +15,13 @@ Semantics kept from the JAX package, which ``torch.nn`` does not give:
     call-time momentum ``m`` as ``ra = m·ra + (1-m)·batch`` (``bn_decay``;
     ``F.batch_norm`` keeps an unbiased running var and the opposite
     momentum convention, so it is not used).
+  * ``GroupNorm`` is flax's ``nn.GroupNorm`` on channels-last [B, N, C]
+    input (``torch.nn.GroupNorm`` wants channels first and takes the
+    two-pass variance): each of G groups of C/G channels takes its
+    statistics over (N, C/G) in f32, even for a bf16 input, with flax's
+    fast variance ``max(E[x²] - E[x]², 0)``, then ``y = (x - mean) *
+    (rsqrt(var + eps) * scale) + bias`` in f32 and one cast
+    (``flax.linen.normalization._compute_stats`` and ``_normalize``).
   * The max-pool is ``torch.amax``, which splits the gradient evenly across
     ties as ``jnp.max`` does.
   * Init is Glorot-uniform kernels and zero biases (``reset_parameters``
@@ -32,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["BatchNorm", "Dense", "MLP", "matmul_f32", "mlp_final_max"]
+__all__ = ["BatchNorm", "Dense", "GroupNorm", "MLP", "matmul_f32", "mlp_final_max"]
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -122,6 +129,38 @@ class BatchNorm(nn.Module):
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         y = y * self.scale + self.bias
         return y.to(self.dtype or x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """Group normalization over the last axis of [B, ..., C], flax's
+    semantics (module doc): no running statistics; ``scale``/``bias``
+    parameters initialised to 1 and 0.  The output dtype is ``dtype``, or
+    the input's promoted to at least f32, as flax's with ``dtype=None``."""
+
+    def __init__(self, features: int, num_groups: int = 16, epsilon: float = 1e-5, dtype: torch.dtype | None = None):
+        super().__init__()
+        if features % num_groups:
+            raise ValueError(f"GroupNorm: {features} channels do not split into {num_groups} groups")
+        self.num_groups, self.epsilon, self.dtype = num_groups, epsilon, dtype
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[0], x.shape[-1]
+        xf = x.float()
+        grouped = xf.reshape(b, -1, self.num_groups, c // self.num_groups)
+        mean = grouped.mean(dim=(1, 3))  # [B, G]
+        var = torch.clamp(torch.square(grouped).mean(dim=(1, 3)) - torch.square(mean), min=0.0)
+        shape = (b,) + (1,) * (x.dim() - 2) + (c,)
+        mean = mean.repeat_interleave(c // self.num_groups, dim=-1).reshape(shape)
+        var = var.repeat_interleave(c // self.num_groups, dim=-1).reshape(shape)
+        y = (xf - mean) * (torch.rsqrt(var + self.epsilon) * self.scale) + self.bias
+        return y.to(self.dtype or torch.promote_types(x.dtype, torch.float32))
 
 
 class MLP(nn.Module):

@@ -57,6 +57,14 @@ _SIGNATURES = {
     # vals, idx, mmax, mmin, cntmax, cntmin, dmax, dmin, ds, dq2, b, n, k, cv,
     # offsets, perm, dvals, stream
     "edge_reduce_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # feat, idx, g, w, b, n, k, c, t, o, out, stream
+    "spider_fwd_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    # feat, idx, g, w, dout, b, n, k, c, t, o, dgath, dg, stream
+    "spider_bwd_data_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # rows, k * c * t, o -> the weight backward's number of row slices
+    "spider_bwd_weight_slices": (_I, _I, _I),
+    # feat, idx, g, dout, b, n, k, c, t, o, slices, part, dw, stream
+    "spider_bwd_weight_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
 }
 
 _lib = None

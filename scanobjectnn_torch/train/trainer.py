@@ -24,8 +24,9 @@ Differences from the JAX ``Trainer``, on purpose:
     configuration into ``kernelconfig``; f32 training here has one pool
     (``torch.amax``) and no setting to write.
 Ported: f32 training of ``pointnet2_cls_ssg``, ``pointnet2_cls_bga``,
-``pointnet2_cls_partseg``, ``dgcnn`` and ``dgcnn_bga`` (none of them ships
-a recipe: Adam, as the JAX ``Trainer`` gives them).  ``dtype="bfloat16"``
+``pointnet2_cls_partseg``, ``dgcnn``, ``dgcnn_bga`` and
+``spidercnn_cls_xyz`` (none of them ships a recipe: Adam, as the JAX
+``Trainer`` gives them).  ``dtype="bfloat16"``
 raises: it needs exact-key pooling (``ops/exactpool``), not ported yet.
 Evaluation, checkpoints and ``fit`` wait for the CLI slice.
 """

@@ -28,6 +28,13 @@ autograd through the plain version (the same coefficients, summed in
 another order), and bit-stable across two calls (no float atomics).  The
 neighbour gather ``edge_gather_knn``: rows and indices equal; its backward
 is the scatter-add, held as above.
+
+SpiderConv (#16): the forward within ``SPIDER_FWD_TOL`` x max(1, |ref|max)
+of ``spider_conv_plain`` (the same f32 products feat·g, summed against the
+kernel in another order than cuBLAS's); the backward (dfeat, dg, dkernel)
+within ``SPIDER_BWD_TOL`` x max(1, |ref|max) of autograd through the plain
+version, per tensor, and bit-stable across two calls (fixed summation
+orders, no float atomics).
 """
 
 import math
@@ -62,9 +69,16 @@ from scanobjectnn_torch.ops.cuda.knn_kernel import (
     knn_point_plain,
 )
 from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool, sa_ball_mlp_pool_plain
+from scanobjectnn_torch.ops.cuda.spider_kernel import (
+    spider_conv,
+    spider_conv_bwd_kernel,
+    spider_conv_fwd_kernel,
+    spider_conv_plain,
+)
 
 SCATTER_TOL = 1e-5  # x max(1, |ref|max)
 EDGE_BWD_TOL = 1e-5  # x max(1, |ref|max)
+SPIDER_FWD_TOL, SPIDER_BWD_TOL = 1e-5, 1e-5  # x max(1, |ref|max)
 
 pytestmark = pytest.mark.cuda
 
@@ -494,3 +508,78 @@ def test_edge_reduce_kernels_refuse_what_they_do_not_take(dev):
         edge_reduce_fwd_kernel(vals.double(), idx)
     with pytest.raises(ValueError, match="contiguous"):
         edge_reduce_fwd_kernel(torch.zeros(1, 4, 8, device=dev).transpose(1, 2), idx)
+
+
+# (b, n, k, c, t, o): SpiderCNN's conv1-4 at k=20 (O < 64 takes the narrow
+# tile), a ragged case (rows, r and o not multiples of any tile; T=3), and
+# k=32 with a wide T.
+SPIDER_CASES = {
+    "conv1": (2, 1024, 20, 3, 5, 32),
+    "conv2": (2, 1024, 20, 32, 5, 64),
+    "conv3": (2, 1024, 20, 64, 5, 128),
+    "conv4": (2, 1024, 20, 128, 5, 256),
+    "ragged": (3, 77, 7, 11, 3, 70),
+    "k32_t9": (1, 300, 32, 16, 9, 48),
+}
+
+
+def _spider_inputs(dev, spec, seed):
+    b, n, k, c, t, o = spec
+    rng = np.random.RandomState(seed)
+    feat = rng.randn(b, n, c).astype(np.float32)
+    idx = rng.randint(0, n, (b, n, k)).astype(np.int32)
+    idx[..., 0] = np.arange(n)  # the self edge, as the kNN gives it
+    g = rng.randn(b, n, k, t).astype(np.float32)
+    kernel = (rng.randn(k * c * t, o) * np.sqrt(2.0 / (k * c * t + o))).astype(np.float32)
+    dout = rng.randn(b, n, o).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (feat, idx, g, kernel, dout)]
+
+
+@pytest.mark.parametrize("case", sorted(SPIDER_CASES))
+def test_spider_conv_kernels_match_plain(dev, case):
+    feat, idx, g, kernel, dout = _spider_inputs(dev, SPIDER_CASES[case], seed=len(case))
+    before = (spider_conv_fwd_kernel.launches, spider_conv_bwd_kernel.launches, scatter_add_rows.launches)
+    leaves = [t.clone().requires_grad_() for t in (feat, g, kernel)]
+    out = spider_conv(leaves[0], idx, leaves[1], leaves[2])
+    grads = torch.autograd.grad(out, leaves, dout)
+    again = spider_conv_bwd_kernel(feat, idx, g, kernel, dout)
+    plain = [t.clone().requires_grad_() for t in (feat, g, kernel)]
+    ref = spider_conv_plain(plain[0], idx, plain[1], plain[2])
+    ref_grads = torch.autograd.grad(ref, plain, dout)
+    torch.cuda.synchronize()
+    after = (spider_conv_fwd_kernel.launches, spider_conv_bwd_kernel.launches, scatter_add_rows.launches)
+    assert after == (before[0] + 1, before[1] + 2, before[2] + 2)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    scale = max(1.0, float(ref.detach().abs().max()))
+    assert float((out - ref).detach().abs().max()) <= SPIDER_FWD_TOL * scale
+    for name, got, twice, want in zip(("dfeat", "dg", "dkernel"), grads, again, ref_grads):
+        assert got.dtype == torch.float32 and got.shape == want.shape, name
+        assert torch.equal(got, twice), f"{name}: the backward is not bit-stable"
+        err = float((got - want).abs().max())
+        assert err <= SPIDER_BWD_TOL * max(1.0, float(want.abs().max())), (name, err)
+
+
+def test_spider_conv_skips_dfeat_without_a_gradient(dev):
+    feat, idx, g, kernel, dout = _spider_inputs(dev, SPIDER_CASES["ragged"], seed=3)
+    kernel.requires_grad_()
+    before = (spider_conv_bwd_kernel.launches, scatter_add_rows.launches)
+    (grad,) = torch.autograd.grad(spider_conv(feat, idx, g, kernel), kernel, dout)
+    torch.cuda.synchronize()
+    assert (spider_conv_bwd_kernel.launches, scatter_add_rows.launches) == (before[0] + 1, before[1])
+    assert torch.equal(grad, spider_conv_bwd_kernel(feat, idx, g, kernel.detach(), dout)[2])
+
+
+def test_spider_conv_kernels_refuse_what_they_do_not_take(dev):
+    feat, idx, g, kernel, dout = _spider_inputs(dev, SPIDER_CASES["ragged"], seed=4)
+    with pytest.raises(ValueError, match="int32"):
+        spider_conv_fwd_kernel(feat, idx.long(), g, kernel)
+    with pytest.raises(ValueError, match="float32"):
+        spider_conv_fwd_kernel(feat.double(), idx, g, kernel)
+    with pytest.raises(ValueError, match="contiguous"):
+        spider_conv_fwd_kernel(feat, idx, g, kernel.t().contiguous().t())
+    with pytest.raises(ValueError, match="kernel"):
+        spider_conv_fwd_kernel(feat, idx, g, kernel[1:])
+    with pytest.raises(ValueError, match="T <= 64"):
+        spider_conv_fwd_kernel(feat, idx, g.repeat(1, 1, 1, 22), kernel.repeat(22, 1))
+    with pytest.raises(ValueError, match="dout"):
+        spider_conv_bwd_kernel(feat, idx, g, kernel, dout[:, 1:])
