@@ -78,7 +78,29 @@ Phases (any failure raises and the exit code is not 0):
         counting launches, against the plain path on the same card; timed;
      d. training, f32 (``TrainerConfig(model="spidercnn_cls_xyz",
         batch_size=32)``): three steps with finite losses, counting launches;
-        one step on the kernel path against the plain path; a step timed.
+        one step on the kernel path against the plain path; a step timed;
+  8. PointCNN (``pointcnn_cls``: ``modelnet_x3_l4``, ``pointcnn_seg``:
+     ``object_dataset_x3``, x=3), B=32 clouds of N=1024 points of the
+     synthetic dataset with background masks, with exact copies of earlier
+     points (inside the first 384, so the 384-point layer has them too) and
+     a -0.0/0.0 pair injected, on the inputs that one f32 ``pointcnn_seg``
+     forward hands its kernels (the kernel branch of its unique kNN, every
+     call with k <= 64: ``xconv_1-4``, ``xdconv_4``, ``xdconv_5``):
+     a. the duplicate mask #12 on the [32, 1024|384|128, 3] clouds,
+        equal to its plain version; timed (CUDA events, and device time);
+     b. the kNN #13 at the six calls (k = 8, 24, 32, 48, 48, 32) with the
+        duplicate bias, equal to ``knn_point_plain``; timed; then both
+        branches of ``knn_indices_general`` (#12 + #13, and the full sort)
+        timed at every call of the forward with k <= 64, the dispatch's
+        crossover;
+     c. ``pointcnn_cls`` and ``pointcnn_seg`` inference in f32 and bf16 from
+        ``get_model``, counting launches, against the plain path on the
+        same card; the forward timed;
+     d. training, f32, with PointCNN's recipe (``TrainerConfig(model=...,
+        batch_size=32)``: step LR, Adam eps 1e-2, L2 1e-5, the PointCNN
+        augmentation): three steps of ``pointcnn_cls`` with finite losses
+        and one of ``pointcnn_seg``, counting launches; one step of each on
+        the kernel path against the plain path; a step timed.
 
 Every kernel's line in the ``{"kernels": [...]}`` record carries its
 bound: the larger of the bytes it must move over 3.35 TB/s and the
@@ -160,6 +182,12 @@ EDGE_BWD_TOL = 1e-5
 # to TRAIN_GRAD_TOL as above.
 SPIDER_BATCH, SPIDER_POINT, SPIDER_K = 32, 1024, 20
 SPIDER_FWD_TOL, SPIDER_BWD_TOL, SPIDER_LOSS_RTOL = 1e-5, 1e-5, 1e-5
+# PointCNN (phase 8): inference and training at the JAX package's B=32,
+# N=1024.  #12 and #13 must equal their plain versions (float == on both
+# sides; the same f32 operations in the same order, the same tie rule), so
+# the kernel and plain paths are the same arithmetic but for the scatter-add
+# of the training backward: the model paths are held to the SSG bounds.
+PCNN_BATCH, PCNN_POINT = 32, 1024
 # Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds.
 HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 989e12
 
@@ -334,10 +362,10 @@ def plain_path():
     from contextlib import ExitStack
 
     from scanobjectnn_torch.models import dgcnn, spidercnn
-    from scanobjectnn_torch.nn import pointnet_modules
+    from scanobjectnn_torch.nn import pointnet_modules, xconv
     from scanobjectnn_torch.ops import fps as ops_fps
     from scanobjectnn_torch.ops.cuda import (
-        ballgroup_kernel, edge_kernel, gather_kernel, knn_kernel, safused_kernel, spider_kernel,
+        ballgroup_kernel, dupmask_kernel, edge_kernel, gather_kernel, knn_kernel, safused_kernel, spider_kernel,
     )
 
     stack = ExitStack()
@@ -353,6 +381,8 @@ def plain_path():
         (dgcnn, "edge_gather_knn", edge_kernel.edge_gather_knn_plain),
         (spidercnn, "edge_gather_knn", edge_kernel.edge_gather_knn_plain),
         (spidercnn, "spider_conv", spider_kernel.spider_conv_plain),
+        (xconv, "duplicate_mask_kernel", dupmask_kernel.duplicate_mask_plain),
+        (xconv, "knn_point_kernel", knn_kernel.knn_point_plain),
     ):
         stack.enter_context(mock.patch.object(module, name, plain))
     return stack
@@ -392,13 +422,16 @@ def compare_steps(trainer, batch, n_zero: int, label: str, loss_rtol: float = TR
     ``n_zero`` Dense biases before a training BN near 0 on both paths."""
     import torch
 
-    from scanobjectnn_torch.ops.cuda import edge_kernel, fps_kernel, gather_kernel, knn_kernel, spider_kernel
+    from scanobjectnn_torch.ops.cuda import (
+        dupmask_kernel, edge_kernel, fps_kernel, gather_kernel, knn_kernel, spider_kernel,
+    )
     from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group
 
     counters = (fps_kernel.fps, query_ball_group, gather_kernel.gather_rows, gather_kernel.scatter_add_rows,
                 knn_kernel.knn_point_kernel, knn_kernel.knn_graph_kernel, edge_kernel.edge_reduce_fwd_kernel,
                 edge_kernel.edge_reduce_bwd_kernel, edge_kernel.edge_gather_knn,
-                spider_kernel.spider_conv_fwd_kernel, spider_kernel.spider_conv_bwd_kernel)
+                spider_kernel.spider_conv_fwd_kernel, spider_kernel.spider_conv_bwd_kernel,
+                dupmask_kernel.duplicate_mask_kernel)
     steps = {}
     for path in ("kernel", "plain"):
         s = trainer.init_state(seed=1)
@@ -419,7 +452,7 @@ def compare_steps(trainer, batch, n_zero: int, label: str, loss_rtol: float = TR
     grad_err, worst = max(
         (float((grads_k[n] - grads_p[n]).abs().max()) / scale_of(grads_p[n]), n) for n in grads_p if n not in zero
     )
-    zero_max = max(float(g[n].abs().max()) for g in (grads_k, grads_p) for n in zero)
+    zero_max = max((float(g[n].abs().max()) for g in (grads_k, grads_p) for n in zero), default=0.0)
     stat_err = max(float((stats_k[n] - stats_p[n]).abs().max()) / scale_of(stats_p[n]) for n in stats_p)
     print(f"train step {label}, kernel path against plain path: loss {loss_k:.7f} vs {loss_p:.7f} "
           f"(rel err {loss_err:.3e}, bound {loss_rtol}); largest error / scale: gradients {grad_err:.3e} "
@@ -1077,6 +1110,161 @@ def spider_phase(smi: str, dev) -> dict:
     return out
 
 
+def with_duplicates(points):
+    """A copy of [B, N, 3] clouds with exact copies of earlier points (some
+    inside the first 384) and a -0.0/0.0 pair injected (phase 8)."""
+    x = points.clone()
+    x[:, 300:340] = x[:, 10:50]
+    x[:, 900:1000] = x[:, 100:200]
+    x[:, 5] = x.new_tensor((0.0, 0.25, -0.5))
+    x[:, 700] = x.new_tensor((-0.0, 0.25, -0.5))
+    return x
+
+
+def dupmask_work(work: Work, xyz) -> None:
+    """#12: each point compares its three coordinates with the points before
+    it until the first match (every earlier point where it has none); the
+    points read once, the mask written once."""
+    import torch
+
+    b, n, _ = xyz.shape
+    eq = (xyz[:, :, None, :] == xyz[:, None, :, :]).all(-1).triu(1)  # [B, i, j]: i < j and equal
+    first = torch.where(eq.any(1), eq.int().argmax(1) + 1, torch.arange(n, device=xyz.device))
+    work.add(3.0 * float(first.sum()), 16 * b * n)
+
+
+def pointcnn_phase(smi: str, dev) -> dict:
+    """Phase 8 (module doc).  Returns #12's record (max abs error, kernel
+    and plain ms and its bound over the six calls of one f32
+    ``pointcnn_seg`` forward at B=32); #13's PointCNN calls are printed."""
+    import numpy as np
+    import torch
+
+    from scanobjectnn_torch.data.io import convert_to_binary_mask
+    from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.nn import xconv
+    from scanobjectnn_torch.ops.cuda.dupmask_kernel import duplicate_mask_kernel, duplicate_mask_plain
+    from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows, scatter_add_rows
+    from scanobjectnn_torch.ops.cuda.knn_kernel import knn_point_kernel, knn_point_plain
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    b, n = PCNN_BATCH, PCNN_POINT
+    data, labels, masks = make_synthetic_dataset(
+        num_per_class=9, num_classes=NUM_CLASSES, num_points=2 * n, seed=4, with_mask=True
+    )
+    view = EpochSampler(data, labels, masks=convert_to_binary_mask(masks).astype(np.int64), num_points=n,
+                        seed=0).epoch()
+    batches = [{**bt, "points": with_duplicates(torch.from_numpy(bt["points"])).numpy()} for bt in Batches(view, b)]
+    require(len(batches) > TRAIN_STEPS, f"only {len(batches)} PointCNN batches")
+    x = torch.from_numpy(batches[0]["points"]).to(dev)
+    seg_models = eval_models("pointcnn_seg", np.random.RandomState(13))
+
+    # The inputs one f32 pointcnn_seg forward hands #12 and #13.
+    calls = {"dup": [], "knn": []}
+
+    def recorder(kind, fn):
+        def call(*args):
+            calls[kind].append(args)
+            return fn(*args)
+        return call
+
+    with torch.no_grad(), mock.patch.object(xconv, "duplicate_mask_kernel", recorder("dup", duplicate_mask_kernel)), \
+            mock.patch.object(xconv, "knn_point_kernel", recorder("knn", knn_point_kernel)):
+        seg_models["f32"](x)
+    ks = [c[2] for c in calls["knn"]]
+    require(ks == [8, 24, 32, 48, 48, 32] and len(calls["dup"]) == 6, f"PointCNN kernel-branch calls: k {ks}")
+
+    # 8a. #12 at the forward's six calls.
+    dup = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None}
+    work = Work()
+    for i, (xyz,) in enumerate(calls["dup"]):
+        label = f"call {i + 1} [{b},{xyz.shape[1]},3]"
+        got, want = duplicate_mask_kernel(xyz), duplicate_mask_plain(xyz)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"the duplicate mask differs from its plain version ({label})")
+        ms, plain_ms = cuda_ms(lambda: duplicate_mask_kernel(xyz)), cuda_ms(lambda: duplicate_mask_plain(xyz), iters=3)
+        print(f"duplicate_mask {label}: equal to the plain version ({int(want.sum())} duplicates); time kernel "
+              f"{ms:.4f} ms (device {device_ms(lambda: duplicate_mask_kernel(xyz)):.4f}), plain {plain_ms:.4f} ms "
+              f"({smi})")
+        dup["ms"] += ms
+        dup["plain_ms"] += plain_ms
+        dupmask_work(work, xyz)
+    dup.update(work.record())
+
+    # 8b. #13 at the forward's six kernel-branch calls, with the dup bias.
+    knn_ms = knn_plain_ms = 0.0
+    knn_bound = Work()
+    for q, p, k, bias in calls["knn"]:
+        label = f"M{q.shape[1]} N{p.shape[1]} k{k} with the duplicate bias"
+        d, i = knn_point_kernel(q, p, k, bias)
+        ref_d, ref_i = knn_point_plain(q, p, k, bias)
+        torch.cuda.synchronize()
+        require(torch.equal(i, ref_i) and torch.equal(d, ref_d), f"kNN differs from its plain version ({label})")
+        ms, plain_ms = cuda_ms(lambda: knn_point_kernel(q, p, k, bias)), cuda_ms(lambda: knn_point_plain(q, p, k, bias), iters=3)
+        print(f"knn PointCNN {label}: idx and d2 equal to the plain version; time kernel {ms:.4f} ms (device "
+              f"{device_ms(lambda: knn_point_kernel(q, p, k, bias)):.4f}), plain {plain_ms:.4f} ms ({smi})")
+        knn_ms += ms
+        knn_plain_ms += plain_ms
+        knn_work(knn_bound, q, p, k, True)
+    rec = knn_bound.record()
+    print(f"knn PointCNN, one pointcnn_seg forward's six calls: kernel {knn_ms:.4f} ms, plain {knn_plain_ms:.4f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) ({smi})")
+
+    # 8b'. Both branches of knn_indices_general at every call of the forward
+    # with k <= 64, the dispatch's crossover: #12 + #13 against the full sort.
+    general, knn_indices_general = [], xconv.knn_indices_general
+
+    def record_general(q, p, k, unique=True):
+        general.append((q, p, k))
+        return knn_indices_general(q, p, k, unique)
+
+    with torch.no_grad(), mock.patch.object(xconv, "knn_indices_general", record_general):
+        seg_models["f32"](x)
+    for q, p, k in general:
+        if k > xconv.MAX_K:
+            continue
+        branches = {"kernel": lambda: xconv._knn_indices_kernel(q, p, k, True),
+                    "plain": lambda: xconv._knn_indices_plain(q, p, k, True)}
+        # A call is mostly launches, so the host's hiccups move one reading:
+        # five alternating rounds of 20 calls each, their median, and the
+        # device time, which leaves the host's gaps out.
+        rounds = {name: [] for name in branches}
+        for _ in range(5):
+            for name, fn in branches.items():
+                rounds[name].append(cuda_ms(fn, iters=20))
+        med = {name: sorted(ms)[2] for name, ms in rounds.items()}
+        dev_ms = {name: device_ms(fn) for name, fn in branches.items()}
+        print(f"knn_indices_general Q{q.shape[1]} N{p.shape[1]} k{k} (Q*N {q.shape[1] * p.shape[1]}): median of 5 "
+              f"rounds kernel branch {med['kernel']:.4f} ms, plain branch {med['plain']:.4f} ms (rounds "
+              f"{[round(v, 4) for v in rounds['kernel']]} / {[round(v, 4) for v in rounds['plain']]}); device "
+              f"{dev_ms['kernel']:.4f} / {dev_ms['plain']:.4f} ms ({smi})")
+
+    # 8c. Inference, f32 and bf16, from get_model.
+    inference = (duplicate_mask_kernel, knn_point_kernel, gather_rows)
+    check_inference(seg_models, x, inference, smi, "pointcnn_seg")
+    del seg_models
+    check_inference(eval_models("pointcnn_cls", np.random.RandomState(14)), x, inference, smi, "pointcnn_cls")
+    torch.cuda.empty_cache()
+
+    # 8d. Training with the recipe: steps, one against the plain path, a step timed.
+    counters = inference + (scatter_add_rows,)
+    for name, n_steps in (("pointcnn_cls", TRAIN_STEPS), ("pointcnn_seg", 1)):
+        trainer = Trainer(TrainerConfig(model=name, batch_size=b, device=str(dev)))
+        require(trainer.recipe is not None and trainer.adam_eps == 1e-2 and trainer.weight_decay == 1e-5,
+                f"{name}: the Trainer did not take PointCNN's recipe")
+        state = trainer.init_state(seed=0)
+        losses, counts = counted_run(
+            counters, lambda: [float(trainer.train_step(state, bt)[1]["loss"]) for bt in batches[:n_steps]]
+        )
+        print(f"{name} training main path: {n_steps} steps, losses {[round(v, 6) for v in losses]}, launches {counts}")
+        require(all(c > 0 for c in counts.values()), f"a kernel of the {name} training path never launched: {counts}")
+        require(all(math.isfinite(v) for v in losses), f"non-finite {name} training loss: {losses}")
+        compare_steps(trainer, batches[TRAIN_STEPS], 0, f"{name} B={b}")
+        time_steps(trainer, state, batches, smi, f"{name} B={b} N={n} f32", n=1)
+    return dup
+
+
 def main() -> None:
     import torch
 
@@ -1216,7 +1404,7 @@ def main() -> None:
             print(f"time forward {name} B={BATCH} N={NUM_POINT}: kernel path {ms:.4f} ms "
                   f"({BATCH / ms * 1e3:.1f} clouds/s), plain path {plain_fwd_ms[name]:.4f} ms ({smi})")
 
-    # 4. Training.  5. BGA and part segmentation.  6. DGCNN and DGCNN-BGA.  7. SpiderCNN.
+    # 4. Training.  5. BGA and part segmentation.  6. DGCNN and DGCNN-BGA.  7. SpiderCNN.  8. PointCNN.
     measured = {
         k: {"max_abs_err": errs[k], "ms": per_forward[k][0], "plain_ms": per_forward[k][1],
             **work[k].record(), "library_ms": None}
@@ -1226,6 +1414,7 @@ def main() -> None:
     measured["knn_point"] = seg_phase(smi, dev)
     measured.update(dgcnn_phase(smi, dev))
     measured.update(spider_phase(smi, dev))
+    measured["duplicate_mask"] = pointcnn_phase(smi, dev)
 
     require(not {"jax", "scanobjectnn_tpu"} & set(sys.modules), "JAX or the JAX package was imported")
 
@@ -1246,6 +1435,7 @@ def main() -> None:
                             "edge_gather_knn"),
         "spider_conv": (csrc + "spider.cu", pallas + "spider_kernel.py:256", "spider_conv_fwd_kernel"),
         "spider_conv_bwd": (csrc + "spider.cu", pallas + "spider_kernel.py:281", "spider_conv_bwd_kernel"),
+        "duplicate_mask": (csrc + "dupmask.cu", pallas + "knn_kernel.py:131", "duplicate_mask_kernel"),
     }
     print("launches, every main path together: " + ", ".join(f"{k} {v}" for k, v in sorted(LAUNCHES.items())))
     kernels = []
@@ -1260,7 +1450,9 @@ def main() -> None:
           "device time); knn_graph, edge_reduce, edge_reduce_bwd and edge_gather_knn over one f32 dgcnn "
           "forward's (and its backward's) calls at B=32 (5 graphs, EdgeConv 1-4, the T-Net gather; device "
           "time); spider_conv and spider_conv_bwd over one f32 spidercnn_cls_xyz forward's (and its "
-          "backward's) calls at B=32 (conv1-4; CUDA events). library_ms: torch.gather for the gather, index_add_ "
+          "backward's) calls at B=32 (conv1-4; CUDA events); duplicate_mask over one f32 pointcnn_seg forward's "
+          "calls at B=32 (xconv_1-4, xdconv_4, xdconv_5; CUDA events). library_ms: torch.gather for the "
+          "gather, index_add_ "
           "for the scatter-add (device time), torch.matmul of the materialised outer product for spider_conv "
           "(CUDA events); "
           "launches: every main path's run together")

@@ -7,17 +7,20 @@ GPU.
     python3 profile_forward.py --model pointnet2_cls_bga [--train]
     python3 profile_forward.py --model dgcnn [--train]
     python3 profile_forward.py --model spidercnn_cls_xyz [--train]
+    python3 profile_forward.py --model pointcnn_cls|pointcnn_seg [--train]
 
 ``--model`` is ``pointnet2_cls_ssg`` (default), ``pointnet2_cls_bga``,
-``dgcnn``, ``dgcnn_bga`` or ``spidercnn_cls_xyz``.  The defaults are each
-model's configurations: SSG B=128, N=2048 for the forward and B=16, N=1024
-for ``--train``; BGA B=32, N=1024 and B=16; both DGCNNs and SpiderCNN
-B=32, N=1024 for both.  Forward: for
-bf16 and f32 in turn, builds the model with ``get_model`` (seed 0, on the
-card) and answers one batch of the 15-class synthetic dataset (seed 0; with
-background points and binary masks for the BGA models).  ``--train``: an
-f32 ``Trainer`` (seed 0, its default augmentation, dropout and Adam; the
-BGA models' seg_weight 0.5) takes ``train_step``s on one such batch.
+``dgcnn``, ``dgcnn_bga``, ``spidercnn_cls_xyz``, ``pointcnn_cls`` or
+``pointcnn_seg``.  The defaults are each model's configurations: SSG B=128,
+N=2048 for the forward and B=16, N=1024 for ``--train``; BGA B=32, N=1024
+and B=16; both DGCNNs, SpiderCNN and both PointCNNs B=32, N=1024 for both.
+Forward: for bf16 and f32 in turn, builds the model with ``get_model``
+(seed 0, on the card) and answers one batch of the 15-class synthetic
+dataset (seed 0; with background points and binary masks for the models
+of kind "seg").  ``--train``: an f32 ``Trainer`` (seed 0, its default
+augmentation, dropout and Adam, or the model's recipe: PointCNN's step LR,
+Adam eps 1e-2, L2 1e-5 and augmentation; seg_weight 0.5) takes
+``train_step``s on one such batch.
 Each runs a few times to warm up, then ``--iters`` runs are traced with
 ``torch.profiler``.  Prints, per run: host wall time, the number of device
 kernels, device busy time (the union of kernel intervals), the kernel window
@@ -42,17 +45,23 @@ DEFAULTS = {
     "dgcnn": ((32, 1024), (32, 1024)),
     "dgcnn_bga": ((32, 1024), (32, 1024)),
     "spidercnn_cls_xyz": ((32, 1024), (32, 1024)),
+    "pointcnn_cls": ((32, 1024), (32, 1024)),
+    "pointcnn_seg": ((32, 1024), (32, 1024)),
 }
 
 
 def device_spans(prof) -> list[tuple[float, float, str]]:
     """(start, end, name), in µs, of every device kernel and copy that the
-    ``torch.profiler`` run ``prof`` traced, in order of start."""
+    ``torch.profiler`` run ``prof`` traced, in order of start.  User
+    annotations on the device's timeline (``Optimizer.step#Adam.step``
+    spans the optimizer's kernels and the host gaps between them) are not
+    kernels and are left out; a torch whose events lack
+    ``is_user_annotation`` raises rather than count them."""
     from torch.autograd import DeviceType
 
     return sorted(
         (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events() if e.device_type == DeviceType.CUDA
+        for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation
     )
 
 
@@ -107,7 +116,6 @@ def main() -> None:
     parser.add_argument("--num-point", type=int, help="default: the model's configuration (module doc)")
     parser.add_argument("--iters", type=int, default=5)
     args = parser.parse_args()
-    bga = args.model.endswith("bga")
     batch, num_point = DEFAULTS[args.model][args.train]
     args.batch = args.batch or batch
     args.num_point = args.num_point or num_point
@@ -118,14 +126,15 @@ def main() -> None:
 
     from scanobjectnn_torch.data.io import convert_to_binary_mask
     from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
-    from scanobjectnn_torch.models import get_model
+    from scanobjectnn_torch.models import MODEL_REGISTRY, get_model
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+    seg = MODEL_REGISTRY[args.model].kind == "seg"
     arrays = make_synthetic_dataset(
-        num_per_class=-(-args.batch // 15), num_classes=15, num_points=args.num_point, seed=0, with_mask=bga
+        num_per_class=-(-args.batch // 15), num_classes=15, num_points=args.num_point, seed=0, with_mask=seg
     )
     data, labels = arrays[:2]
     out = {"card": card, "model": args.model, "batch": args.batch, "num_point": args.num_point, "iters": args.iters}
@@ -136,7 +145,7 @@ def main() -> None:
         trainer = Trainer(TrainerConfig(model=args.model, batch_size=args.batch))
         state = trainer.init_state(seed=0)
         batch = {"points": data[: args.batch], "labels": labels[: args.batch]}
-        if bga:
+        if seg:
             batch["masks"] = convert_to_binary_mask(arrays[2][: args.batch]).astype("int64")
         runs["train_f32"] = lambda: trainer.train_step(state, batch)
     else:

@@ -7,8 +7,10 @@ explicitly (``angles``, ``normal``), so that a test can feed it the JAX
 package's draws.  Ranges, sigmas and clips are the reference's
 (pointnet2/utils/provider.py).  ``points`` is [B, N, 3] f32.
 
-Ported: the classification-train recipe (y-rotation, then jitter).  The
-other transforms wait for the slices that use them.
+Ported: the classification-train recipe (y-rotation, then jitter), and
+PointCNN's in-graph augmentation (``pointcnn_xforms``, ``pointcnn_augment``:
+pointfly.get_xforms and pointfly.augment).  The other transforms wait for
+the slices that use them.
 """
 
 from __future__ import annotations
@@ -18,7 +20,10 @@ import math
 import torch
 
 __all__ = [
+    "compose_xforms",
     "jitter_point_cloud",
+    "pointcnn_augment",
+    "pointcnn_xforms",
     "rotate_point_cloud",
     "rotation_matrix_y",
     "standard_train_augment",
@@ -77,3 +82,73 @@ def standard_train_augment(
     """The reference classification-train recipe: rotate about y, then
     jitter (pointnet2/train.py:246-247)."""
     return jitter_point_cloud(rotate_point_cloud(points, generator, angles), generator, normal=normal)
+
+
+def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over the last two axes, written out in f32 elementwise (no
+    TF32): [..., M, 3] @ [..., 3, P]."""
+    return (a[..., :, 0:1] * b[..., 0:1, :] + a[..., :, 1:2] * b[..., 1:2, :]) + a[..., :, 2:3] * b[..., 2:3, :]
+
+
+def compose_xforms(angles: torch.Tensor, scales: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """PointCNN's per-cloud transforms from given draws: angles [3, num]
+    about x, y and z, composed intrinsically ``Rx @ Ry @ Rz``, and per-axis
+    scales [3, num] -> (xforms = diag(scales) @ R, R), each [num, 3, 3] f32.
+
+    Documented deviation, as in the JAX package: the reference multiplies
+    the scaling by the rotation elementwise, which keeps only the diagonal;
+    this is the matrix product S @ R."""
+    c, s = torch.cos(angles.float()), torch.sin(angles.float())
+    z, o = torch.zeros_like(c[0]), torch.ones_like(c[0])
+    rx = torch.stack([o, z, z, z, c[0], -s[0], z, s[0], c[0]], -1).reshape(-1, 3, 3)
+    ry = torch.stack([c[1], z, s[1], z, o, z, -s[1], z, c[1]], -1).reshape(-1, 3, 3)
+    rz = torch.stack([c[2], -s[2], z, s[2], c[2], z, z, z, o], -1).reshape(-1, 3, 3)
+    rotations = _matmul3(_matmul3(rx, ry), rz)
+    return scales.float().t()[:, :, None] * rotations, rotations
+
+
+def _draw(generator, num: int, device, bound: float, method: str) -> torch.Tensor:
+    """bound·N(0, 1) clipped at ±3·bound ("g") or bound·U(-1, 1) ("u")."""
+    if method == "g":
+        return torch.clamp(bound * torch.randn(num, generator=generator, device=device), -3 * bound, 3 * bound)
+    return bound * (torch.rand(num, generator=generator, device=device) * 2.0 - 1.0)
+
+
+def pointcnn_xforms(
+    num: int,
+    generator: torch.Generator | None = None,
+    rotation_range: tuple = (0.0, math.pi, 0.0, "u"),
+    scaling_range: tuple = (0.1, 0.1, 0.1, "g"),
+    device: str | torch.device | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-cloud transforms (pointfly.py:75-92): per-axis rotation angles
+    (uniform in ±bound, or gaussian clipped at 3σ) and per-axis scales
+    (1 + the same draw) from ``generator``, composed by ``compose_xforms``:
+    (xforms [num, 3, 3], rotations [num, 3, 3])."""
+    device = generator.device if generator is not None else device
+    angles = torch.stack([_draw(generator, num, device, float(rotation_range[i]), rotation_range[3])
+                          for i in range(3)])
+    scales = torch.stack([1.0 + _draw(generator, num, device, float(scaling_range[i]), scaling_range[3])
+                          for i in range(3)])
+    return compose_xforms(angles, scales)
+
+
+def pointcnn_augment(
+    points: torch.Tensor,
+    generator: torch.Generator | None = None,
+    jitter_range: float = 0.0,
+    rotation_range: tuple = (0.0, math.pi, 0.0, "u"),
+    scaling_range: tuple = (0.1, 0.1, 0.1, "g"),
+    xforms: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """pointfly.augment (pointfly.py:94-103): each cloud times its transform
+    (``xforms`` [B, 3, 3], or drawn by ``pointcnn_xforms``), in f32 written
+    out elementwise, then, where ``jitter_range`` is not 0, gaussian jitter
+    clipped at ±5·range."""
+    if xforms is None:
+        xforms, _ = pointcnn_xforms(points.shape[0], generator, rotation_range, scaling_range, points.device)
+    out = _matmul3(points.float(), xforms.to(device=points.device, dtype=torch.float32))
+    if jitter_range:
+        noise = jitter_range * torch.randn(out.shape, generator=generator, device=_device(out, generator))
+        out = out + torch.clamp(noise.to(out.device), -5 * jitter_range, 5 * jitter_range)
+    return out

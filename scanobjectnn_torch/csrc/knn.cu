@@ -26,7 +26,11 @@
 // 132 operations, 66 us.  Each block stages a tile of its cloud's keys and
 // their |k|^2 (and bias) in shared memory, where every thread reads the same
 // key at once (a broadcast); the top-k list is fully unrolled into
-// registers.  The graph kernel keeps the query row in registers at the
+// registers, at a capacity KCAP of 4, 8, 16, 32, 48 or 64 entries: the
+// smallest that holds k.  KCAP = 48 serves PointCNN's k = 48 (xdconv_4) and
+// KCAP = 64 the rest up to kMaxK; a list of 64 takes 128 registers, and a
+// key that does not beat the list's last entry skips the unrolled insertion,
+// which after the first few hundred keys is nearly every key.  The graph kernel keeps the query row in registers at the
 // compile-time widths 3 and 64 (the generic width re-reads it from memory
 // for every key), and evaluates two keys per step, two independent chains of
 // dependent adds, before inserting them in index order.
@@ -38,7 +42,8 @@
 namespace {
 
 constexpr int kThreads = 128;            // queries per block
-constexpr int kMaxK = 32;                // MAX_K of knn_kernel.py
+constexpr int kMaxK = 64;                // MAX_K of knn_kernel.py
+constexpr int kGraphMaxK = 32;           // GRAPH_MAX_K of knn_kernel.py
 constexpr int kSmemFloats = 12 * 1024;   // 48 KB: a key tile, its |k|^2 and bias
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
@@ -308,14 +313,16 @@ extern "C" int knn_launch(const void* queries, const void* keys, const void* bia
   if (k <= 4) return launch_c<4>(q, kp, bp, b, m, n, c, k, d, i, s);
   if (k <= 8) return launch_c<8>(q, kp, bp, b, m, n, c, k, d, i, s);
   if (k <= 16) return launch_c<16>(q, kp, bp, b, m, n, c, k, d, i, s);
-  return launch_c<32>(q, kp, bp, b, m, n, c, k, d, i, s);
+  if (k <= 32) return launch_c<32>(q, kp, bp, b, m, n, c, k, d, i, s);
+  if (k <= 48) return launch_c<48>(q, kp, bp, b, m, n, c, k, d, i, s);
+  return launch_c<64>(q, kp, bp, b, m, n, c, k, d, i, s);
 }
 
 // feats [b, n, c] f32, contiguous -> idx [b, n, k] int32: each point's k
 // nearest points, itself included, ascending.
 extern "C" int knn_graph_launch(const void* feats, int b, int n, int c, int k, void* idx,
                                 void* stream) {
-  if (b < 1 || b > 65535 || n < 1 || c < 1 || c + 1 > kSmemFloats || k < 1 || k > kMaxK) {
+  if (b < 1 || b > 65535 || n < 1 || c < 1 || c + 1 > kSmemFloats || k < 1 || k > kGraphMaxK) {
     return cudaErrorInvalidValue;
   }
   auto* f = static_cast<const float*>(feats);

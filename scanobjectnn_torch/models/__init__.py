@@ -2,11 +2,13 @@
 
 Ported: ``pointnet2_cls_ssg`` ("cls"), ``pointnet2_cls_bga`` ("seg"),
 ``pointnet2_cls_partseg`` ("partseg"), ``dgcnn`` ("cls"), ``dgcnn_bga``
-("seg") and ``spidercnn_cls_xyz`` ("cls"), for inference and f32 training;
-every other name raises ``KeyError`` saying it is not ported yet.  The
-registry maps a name to its class; the class carries the model's ``kind``
-and its static ``loss(outputs, batch)`` (the JAX ``get_model`` returns the
-module, the loss and the kind).  ``get_model`` returns the module alone, on
+("seg"), ``spidercnn_cls_xyz`` ("cls"), ``pointcnn_cls`` ("cls") and
+``pointcnn_seg`` ("seg"), for inference and f32 training; every other name
+raises ``KeyError`` saying it is not ported yet.  The registry maps a name
+to its class; the class carries the model's ``kind``, its static
+``loss(outputs, batch)`` (the JAX ``get_model`` returns the module, the loss
+and the kind) and, where the family ships one, its training ``recipe``
+(``get_recipe``; PointCNN's).  ``get_model`` returns the module alone, on
 ``device``.
 """
 
@@ -16,18 +18,24 @@ import torch
 
 from scanobjectnn_torch.convert import init_params
 from scanobjectnn_torch.models.dgcnn import DGCNN, DGCNNBGA
+from scanobjectnn_torch.models.pointcnn import PointCNNCls, PointCNNSeg
 from scanobjectnn_torch.models.pointnet2 import PointNet2BGA, PointNet2ClsSSG, PointNet2PartSeg
+from scanobjectnn_torch.models.recipes import TrainRecipe
 from scanobjectnn_torch.models.spidercnn import SpiderCNNCls
 
 __all__ = [
     "DGCNN",
     "DGCNNBGA",
     "MODEL_REGISTRY",
+    "PointCNNCls",
+    "PointCNNSeg",
     "PointNet2BGA",
     "PointNet2ClsSSG",
     "PointNet2PartSeg",
     "SpiderCNNCls",
+    "TrainRecipe",
     "get_model",
+    "get_recipe",
 ]
 
 MODEL_REGISTRY = {
@@ -37,7 +45,17 @@ MODEL_REGISTRY = {
     "dgcnn": DGCNN,
     "dgcnn_bga": DGCNNBGA,
     "spidercnn_cls_xyz": SpiderCNNCls,
+    "pointcnn_cls": PointCNNCls,
+    "pointcnn_seg": PointCNNSeg,
 }
+
+
+def _check_name(name: str) -> None:
+    if name not in MODEL_REGISTRY:
+        raise KeyError(
+            f"model {name!r} is not ported to scanobjectnn_torch yet; "
+            f"available: {sorted(MODEL_REGISTRY)}"
+        )
 
 
 def get_model(
@@ -46,11 +64,14 @@ def get_model(
     """Instantiate a registered model with the reference init drawn from
     ``generator`` (a generator seeded 0 when None) and move it to
     ``device`` (the card unless the caller asks for the CPU)."""
-    if name not in MODEL_REGISTRY:
-        raise KeyError(
-            f"model {name!r} is not ported to scanobjectnn_torch yet; "
-            f"available: {sorted(MODEL_REGISTRY)}"
-        )
+    _check_name(name)
     module = MODEL_REGISTRY[name](**overrides)
     init_params(module, generator if generator is not None else torch.Generator().manual_seed(0))
     return module.to(device)
+
+
+def get_recipe(name: str) -> TrainRecipe | None:
+    """The training recipe a registered model ships with (None: the
+    ``Trainer``'s defaults)."""
+    _check_name(name)
+    return getattr(MODEL_REGISTRY[name], "recipe", None)

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "knn_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # feats, b, n, c, k, idx, stream
     "knn_graph_launch": (_P, _I, _I, _I, _I, _P, _P),
+    # xyz, b, n, dup, stream
+    "dupmask_launch": (_P, _I, _I, _P, _P),
     # vals, idx, b, n, k, cv, mmax, mmin, sum, sumsq, cntmax, cntmin, stream
     "edge_reduce_fwd_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # vals, idx, mmax, mmin, cntmax, cntmin, dmax, dmin, ds, dq2, b, n, k, cv,

@@ -18,13 +18,14 @@ Semantics (the contract of ``knn_point_pallas``):
   * a slot that no key fills holds ``(+inf, 0)``: when N < k (the JAX
     ``three_nn`` pads so from one key), and for keys whose distance is +inf
     or NaN, which are never selected.
-Any C, M and N; 1 <= k <= ``MAX_K``.  The outputs carry no gradient.
+Any C, M and N; 1 <= k <= ``MAX_K`` (64, the JAX dispatch's own cap:
+PointCNN's ``xdconv_4`` asks for k = 48).  The outputs carry no gradient.
 
 ``knn_graph_kernel(features [B, N, C], k) -> idx [B, N, k] int32`` is the
 self-kNN: every point is a query and a key, so each point's first neighbour
 is itself (its distance is exactly 0).  It is ``knn_point_kernel(x, x,
 k)[1]`` bit for bit, with the cloud read once and, at C = 3 and 64, the
-query row held in registers.
+query row held in registers; 1 <= k <= ``GRAPH_MAX_K``.
 
 What bounds it on the H100: operations, about 2C + 4 per (query, key) pair;
 at fp3 (B=32, 1024 queries, 512 keys, C=3) about 2.5 us of f32 work against
@@ -41,6 +42,7 @@ import torch
 from scanobjectnn_torch.ops.cuda import _build
 
 __all__ = [
+    "GRAPH_MAX_K",
     "MAX_K",
     "knn_graph_kernel",
     "knn_graph_plain",
@@ -49,7 +51,8 @@ __all__ = [
     "squared_distance_plain",
 ]
 
-MAX_K = 32  # kMaxK in csrc/knn.cu
+MAX_K = 64  # kMaxK in csrc/knn.cu
+GRAPH_MAX_K = 32  # kGraphMaxK in csrc/knn.cu
 
 
 def _sum_of_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -164,8 +167,8 @@ def knn_graph_kernel(features: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"knn_graph_kernel: need [B, N, C], got {tuple(features.shape)}")
     b, n, c = features.shape
     _check_cuda("features", features, (b, n, c), features.device, "knn_graph_kernel")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_graph_kernel: kernel takes 1 <= k <= {MAX_K}, got {k}")
+    if not 1 <= k <= GRAPH_MAX_K:
+        raise ValueError(f"knn_graph_kernel: kernel takes 1 <= k <= {GRAPH_MAX_K}, got {k}")
     if min(b, n, c) < 1:
         raise ValueError(f"knn_graph_kernel: empty input {tuple(features.shape)}")
     idx = torch.empty(b, n, k, dtype=torch.int32, device=features.device)

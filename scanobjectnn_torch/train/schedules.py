@@ -4,6 +4,9 @@
 Reference: pointnet2/train.py:116-134.
   * LR: staircase exponential decay on SAMPLES seen (step·batch_size),
     clipped below at 1e-5 (get_learning_rate).
+  * PointCNN's LR (``step_exponential_decay_lr``): staircase decay on
+    global STEPS, clipped below at learning_rate_min
+    (PointCNN/train.py:160-162).
   * BN momentum (bn_decay): 1 − 0.5·0.5^floor(samples/decay_step), clipped
     above at 0.99 (get_bn_decay).
 Each schedule maps the integer step to a Python float.  The arithmetic runs
@@ -17,7 +20,7 @@ from typing import Callable
 
 import numpy as np
 
-__all__ = ["bn_momentum_schedule", "exponential_decay_lr"]
+__all__ = ["bn_momentum_schedule", "exponential_decay_lr", "step_exponential_decay_lr"]
 
 _F32 = np.float32
 
@@ -39,6 +42,18 @@ def exponential_decay_lr(
 
     def schedule(step: int) -> float:
         p = _exponent(step, batch_size, decay_step, staircase)
+        return float(np.maximum(_F32(base_lr) * np.power(_F32(decay_rate), p), _F32(floor)))
+
+    return schedule
+
+
+def step_exponential_decay_lr(
+    base_lr: float, decay_steps: int, decay_rate: float, floor: float
+) -> Callable[[int], float]:
+    """LR(step) = max(base · rate^floor(step/decay_steps), floor)."""
+
+    def schedule(step: int) -> float:
+        p = _exponent(step, 1, decay_steps, True)
         return float(np.maximum(_F32(base_lr) * np.power(_F32(decay_rate), p), _F32(floor)))
 
     return schedule

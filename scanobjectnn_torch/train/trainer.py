@@ -1,6 +1,7 @@
 """The training step (counterpart of ``scanobjectnn_tpu/train/trainer.py``).
 
-One ``train_step`` is augmentation (y-rotation, then jitter) → forward in
+One ``train_step`` is augmentation (y-rotation, then jitter; PointCNN's
+recipe: its per-cloud transform) → forward in
 training mode (batch-statistics BN with the scheduled momentum, dropout
 from the state's generator) → the model's loss → backward → Adam with the
 scheduled LR → metrics ``correct``/``count`` (models with class logits)
@@ -13,7 +14,15 @@ num_classes``, as the JAX ``Trainer`` does.  A loss that declares
 default (``dgcnn``'s label smoothing 0.2, as in the JAX ``Trainer``).  The
 BN running stats are updated during the forward.  As in optax, the LR of an
 update is ``schedule(step)`` taken BEFORE the step, counting from 0; Adam
-uses eps 1e-8 and no weight decay (``pointnet2_cls_ssg`` ships no recipe).
+uses eps 1e-8 and no weight decay, unless the model ships a recipe.
+
+A model's recipe (``models.get_recipe``; PointCNN's, ``models/recipes.py``)
+is honoured unless ``use_model_recipe`` is False, as in the JAX ``Trainer``:
+the LR decays over steps (``step_exponential_decay_lr``), Adam takes the
+recipe's eps, the weight decay is the config's when not 0 and else the
+recipe's, and augmentation is ``pointcnn_augment``.  Weight decay is L2
+added to the gradient before Adam (``optax.add_decayed_weights`` chained
+before ``adam``), which is ``torch.optim.Adam(weight_decay=...)``.
 
 Differences from the JAX ``Trainer``, on purpose:
   * the state is mutable (the model, its optimizer and a generator), and
@@ -25,9 +34,10 @@ Differences from the JAX ``Trainer``, on purpose:
     (``torch.amax``) and no setting to write.
 Ported: f32 training of ``pointnet2_cls_ssg``, ``pointnet2_cls_bga``,
 ``pointnet2_cls_partseg``, ``dgcnn``, ``dgcnn_bga`` and
-``spidercnn_cls_xyz`` (none of them ships a recipe: Adam, as the JAX
-``Trainer`` gives them).  ``dtype="bfloat16"``
-raises: it needs exact-key pooling (``ops/exactpool``), not ported yet.
+``spidercnn_cls_xyz`` (no recipe: plain Adam, as the JAX ``Trainer`` gives
+them), and ``pointcnn_cls`` and ``pointcnn_seg`` (with PointCNN's recipe).
+``dtype="bfloat16"`` raises: it needs exact-key pooling (``ops/exactpool``),
+not ported yet.
 Evaluation, checkpoints and ``fit`` wait for the CLI slice.
 """
 
@@ -40,9 +50,9 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from scanobjectnn_torch.augment.transforms import standard_train_augment
+from scanobjectnn_torch.augment.transforms import pointcnn_augment, standard_train_augment
 from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
-from scanobjectnn_torch.models import MODEL_REGISTRY, get_model
+from scanobjectnn_torch.models import MODEL_REGISTRY, get_model, get_recipe
 from scanobjectnn_torch.train import schedules
 
 __all__ = ["TrainState", "Trainer", "TrainerConfig"]
@@ -62,7 +72,10 @@ class TrainerConfig:
     decay_step: int = 200_000
     decay_rate: float = 0.7
     seg_weight: float = 0.5
+    weight_decay: float = 0.0
     dtype: str = "float32"
+    # Honour the training recipe the model ships with (module doc).
+    use_model_recipe: bool = True
     seed: int = 0
     device: str = "cuda"
 
@@ -95,9 +108,19 @@ class Trainer:
         self.loss_fn = model_cls.loss
         if "seg_weight" in inspect.signature(model_cls.loss).parameters:
             self.loss_fn = functools.partial(model_cls.loss, seg_weight=config.seg_weight)
-        self.lr_schedule = schedules.exponential_decay_lr(
-            config.learning_rate, config.batch_size, config.decay_step, config.decay_rate
-        )
+        self.recipe = get_recipe(config.model) if config.use_model_recipe else None
+        recipe = self.recipe
+        self.adam_eps, self.weight_decay = ADAM_EPS, config.weight_decay
+        if recipe is not None:
+            self.lr_schedule = schedules.step_exponential_decay_lr(
+                recipe.learning_rate_base, recipe.decay_steps, recipe.decay_rate, recipe.learning_rate_min
+            )
+            self.adam_eps = recipe.adam_epsilon
+            self.weight_decay = self.weight_decay or recipe.weight_decay
+        else:
+            self.lr_schedule = schedules.exponential_decay_lr(
+                config.learning_rate, config.batch_size, config.decay_step, config.decay_rate
+            )
         self.bn_schedule = schedules.bn_momentum_schedule(config.batch_size, config.decay_step)
 
     # ------------------------------------------------------------------ setup
@@ -115,7 +138,7 @@ class Trainer:
         return TrainState(0, model, self.make_optimizer(model.parameters()), generator)
 
     def make_optimizer(self, params) -> torch.optim.Optimizer:
-        return torch.optim.Adam(params, lr=self.lr_schedule(0), eps=ADAM_EPS)
+        return torch.optim.Adam(params, lr=self.lr_schedule(0), eps=self.adam_eps, weight_decay=self.weight_decay)
 
     def optimizer_step(self, optimizer: torch.optim.Optimizer, step: int) -> None:
         """One Adam update at LR ``schedule(step)`` (optax's count)."""
@@ -124,6 +147,14 @@ class Trainer:
         optimizer.step()
 
     # ------------------------------------------------------------- train step
+
+    def augment(self, points: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        """The step's augmentation: the recipe's PointCNN transform, or
+        y-rotation then jitter."""
+        recipe = self.recipe
+        if recipe is not None:
+            return pointcnn_augment(points, generator, recipe.jitter, recipe.rotation_range, recipe.scaling_range)
+        return standard_train_augment(points, generator)
 
     def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         """One step on ``batch`` ({"points" [B, N, 3], "labels" [B], and
@@ -136,7 +167,7 @@ class Trainer:
             k: torch.as_tensor(batch[k], device=self.device).long()
             for k in ("labels", "masks", "parts") if k in batch
         }
-        points = standard_train_augment(points, state.generator)
+        points = self.augment(points, state.generator)
         model = state.model.train()
         outputs = model(points, bn_momentum=self.bn_schedule(state.step), generator=state.generator)
         loss, metrics = self.loss_fn(outputs, targets)

@@ -18,8 +18,12 @@ within 1e-5 x max(1, |ref|max) of ``index_add_`` (both sum exact f32, in
 other orders), and two calls on the same input must give the same bits.
 
 kNN: indices and squared distances equal to ``knn_point_plain`` (the same
-f32 operations in the same order, and the same tie rule).  The self-kNN
-graph: indices equal to ``knn_graph_plain``, for the same reason.
+f32 operations in the same order, and the same tie rule), up to k = 64.  The
+self-kNN graph: indices equal to ``knn_graph_plain``, for the same reason.
+The duplicate mask (#12): equal to ``duplicate_mask_plain`` (float ``==``
+on both sides), with ``-0.0``/``0.0`` pairs and NaN points.  PointCNN's
+``knn_indices_general`` launches both at any Q and N when k <= 64 and
+equals its kernel branch run on the plain versions.
 
 DGCNN's edge reductions: every forward output equal to ``edge_reduce_plain``
 (the same neighbours, max and min exact, the sums in the same slot order
@@ -44,7 +48,9 @@ import pytest
 import torch
 
 from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group, query_ball_group_plain
+from scanobjectnn_torch.ops.cuda.dupmask_kernel import duplicate_mask_kernel, duplicate_mask_plain
 from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
+from scanobjectnn_torch.nn import xconv
 from scanobjectnn_torch.ops import interpolate
 from scanobjectnn_torch.ops.cuda.gather_kernel import (
     gather_neighbors,
@@ -308,7 +314,9 @@ def test_gather_kernels_refuse_what_they_do_not_take(dev):
 # (b, m queries, n keys, c, k, bias, cloud): the FP decoder's three_nn at
 # fp1 (one key: padded slots), fp2 and fp3; PointCNN-like k=16 with a bias;
 # C=64 (keys in several shared-memory tiles); k=32; ragged counts;
-# duplicated keys; a NaN key.
+# duplicated keys; a NaN key; the wider lists: k = 33, 48 (PointCNN's
+# xdconv_4 shape, 1024 queries on 384 keys) and 64, with and without a bias;
+# fewer keys than k (padded slots) at k = 48.
 KNN_CASES = {
     "fp1": (4, 128, 1, 3, 3, False, "normal"),
     "fp2": (4, 512, 128, 3, 3, False, "subset"),
@@ -318,6 +326,12 @@ KNN_CASES = {
     "k32": (2, 130, 257, 5, 32, True, "normal"),
     "duplicates": (3, 256, 512, 3, 5, False, "lattice"),
     "nan_key": (2, 64, 100, 3, 4, False, "nan"),
+    "k33": (2, 130, 257, 3, 33, False, "normal"),
+    "k48_xdconv4": (2, 1024, 384, 3, 48, True, "subset"),
+    "k48_duplicates": (2, 256, 512, 3, 48, False, "lattice"),
+    "k64": (2, 200, 1500, 3, 64, False, "normal"),
+    "k64_bias_c7": (2, 96, 300, 7, 64, True, "normal"),
+    "k48_few_keys": (2, 64, 40, 3, 48, True, "normal"),
 }
 
 
@@ -357,6 +371,9 @@ def test_knn_kernel_matches_plain(dev, case):
         assert bool((d[:, :512, 0] == 0).all())  # a query equal to a key: exactly 0
     if case == "nan_key":
         assert not bool((i[1] == 7).any())
+    if case == "k48_few_keys":
+        assert bool(torch.isinf(d[..., 40:]).all()) and bool((i[..., 40:] == 0).all())
+        assert bool(torch.isfinite(d[..., :40]).all())
 
 
 def test_three_nn_launches_the_knn_kernel(dev):
@@ -371,8 +388,8 @@ def test_three_nn_launches_the_knn_kernel(dev):
 
 def test_knn_kernel_refuses_what_it_does_not_take(dev):
     q = torch.zeros(1, 8, 3, device=dev)
-    with pytest.raises(ValueError, match="k <= 32"):
-        knn_point_kernel(q, q, 33)
+    with pytest.raises(ValueError, match="k <= 64"):
+        knn_point_kernel(q, q, 65)
     with pytest.raises(ValueError, match="float32"):
         knn_point_kernel(q.double(), q, 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -583,3 +600,64 @@ def test_spider_conv_kernels_refuse_what_they_do_not_take(dev):
         spider_conv_fwd_kernel(feat, idx, g.repeat(1, 1, 1, 22), kernel.repeat(22, 1))
     with pytest.raises(ValueError, match="dout"):
         spider_conv_bwd_kernel(feat, idx, g, kernel, dout[:, 1:])
+
+
+def dup_cloud(rng, b, n):
+    """Random points with exact copies of earlier (and of later) points, a
+    -0.0/0.0 pair, NaN points and a NaN point's copy (clouds of more than
+    four points)."""
+    x = (rng.rand(b, n, 3) * 2 - 1).astype(np.float32)
+    for c in range(b):
+        src = rng.choice(n, n // 8, replace=False)
+        dst = rng.choice(n, n // 8, replace=False)
+        x[c, dst] = x[c, src]
+    if n > 4:
+        x[:, 3] = (0.0, 0.5, -0.25)
+        x[:, n - 2] = (-0.0, 0.5, -0.25)
+        x[0, 5, 1] = np.nan
+        x[0, n // 2] = x[0, 5]
+    return x
+
+
+@pytest.mark.parametrize("b,n", [(32, 1024), (32, 384), (3, 1000), (2, 129), (1, 1)])
+def test_duplicate_mask_kernel_matches_plain(dev, b, n):
+    x = torch.from_numpy(dup_cloud(np.random.RandomState(n), b, n)).to(dev)
+    before = duplicate_mask_kernel.launches
+    got = duplicate_mask_kernel(x)
+    want = duplicate_mask_plain(x)
+    torch.cuda.synchronize()
+    assert duplicate_mask_kernel.launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (b, n)
+    assert torch.equal(got, want)
+    if n > 4:
+        assert float(got[:, n - 2].min()) == 1.0  # -0.0 repeats 0.0
+        assert float(got[0, 5]) == 0.0 and float(got[0, n // 2]) == 0.0  # NaN never equals
+        assert 0 < float(want.sum()) < b * n
+
+
+def test_duplicate_mask_kernel_refuses_what_it_does_not_take(dev):
+    x = torch.zeros(1, 8, 3, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        duplicate_mask_kernel(x.double())
+    with pytest.raises(ValueError, match="float32"):
+        duplicate_mask_kernel(torch.zeros(1, 8, 4, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        duplicate_mask_kernel(torch.zeros(1, 3, 8, device=dev).transpose(1, 2))
+
+
+@pytest.mark.parametrize("q_count,n,k", [(128, 128, 48), (5, 37, 64), (1024, 384, 48), (64, 64, 65)])
+def test_knn_indices_general_takes_the_kernels_up_to_k64(dev, monkeypatch, q_count, n, k):
+    # Every CUDA call with k <= 64 launches #12 and #13, whatever Q and N,
+    # and picks what the kernel branch picks with the plain versions on the
+    # same card; k > 64 takes the plain branch and launches nothing.
+    p = torch.from_numpy(dup_cloud(np.random.RandomState(k), 2, n)).nan_to_num(0.5).to(dev)
+    q = p[:, torch.arange(q_count) % n].contiguous()
+    before = (duplicate_mask_kernel.launches, knn_point_kernel.launches)
+    d, i = xconv.knn_indices_general(q, p, k)
+    torch.cuda.synchronize()
+    launched = int(k <= 64)
+    assert (duplicate_mask_kernel.launches, knn_point_kernel.launches) == (before[0] + launched, before[1] + launched)
+    monkeypatch.setattr(xconv, "duplicate_mask_kernel", duplicate_mask_plain)
+    monkeypatch.setattr(xconv, "knn_point_kernel", knn_point_plain)
+    want_d, want_i = xconv.knn_indices_general(q, p, k)
+    assert torch.equal(i, want_i) and torch.equal(d, want_d)

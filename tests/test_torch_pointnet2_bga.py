@@ -114,6 +114,7 @@ def test_registry_kinds():
     assert {n: c.kind for n, c in MODEL_REGISTRY.items()} == {
         "pointnet2_cls_ssg": "cls", "pointnet2_cls_bga": "seg", "pointnet2_cls_partseg": "partseg",
         "dgcnn": "cls", "dgcnn_bga": "seg", "spidercnn_cls_xyz": "cls",
+        "pointcnn_cls": "cls", "pointcnn_seg": "seg",
     }
     for name, cls in MODEL_REGISTRY.items():
         assert jzoo.MODEL_REGISTRY[name].kind == cls.kind
