@@ -101,6 +101,29 @@ Phases (any failure raises and the exit code is not 0):
         augmentation): three steps of ``pointcnn_cls`` with finite losses
         and one of ``pointcnn_seg``, counting launches; one step of each on
         the kernel path against the plain path; a step timed.
+  9. PointNet++ MSG (``pointnet2_cls_msg``: SA-MSG 512 with K = 16, 32,
+     128, SA-MSG 128 with K = 32, 64, 128, group-all, the SSG head), clouds
+     of N=1024 points of the synthetic dataset:
+     a. one forward in f32 and one in bf16 at B=32, counting the fused SA
+        layer's six launches (two of them on its chunked K > 64 path) and
+        recording their inputs; each of the six calls against its plain
+        version, timed;
+     b. inference in f32 and bf16 from ``get_model``, against the plain path
+        on the same card; the forward timed;
+     c. training, f32, B=16: three steps with finite losses, counting
+        launches; one step on the kernel path against the plain path; a step
+        timed;
+ 10. the SA layer's other kernels, B=32 clouds of N=1024 points:
+     a. ``SAModule`` with ``knn=True, nsample=32`` and with ``nsample=128``
+        (ball) at SSG's SA1 (512, r 0.2, 64-64-128, no features) and SA2
+        (128, r 0.4, 128-128-256, 128 features) shapes, f32 and bf16, seeded
+        weights: FPS, the kNN kernel or the ball group, then #10
+        (``sa_mlp_pool``), counting launches, against the plain path;
+     b. #10 on the inputs those layers handed it, against its plain
+        version; timed;
+     c. #8 through ``ops.query_ball_point`` at M=512 centroids, K=32 (r 0.2)
+        and 128 (r 0.4), counting launches: idx and cnt equal to
+        ``ball_query_plain``; timed.
 
 Every kernel's line in the ``{"kernels": [...]}`` record carries its
 bound: the larger of the bytes it must move over 3.35 TB/s and the
@@ -188,6 +211,13 @@ SPIDER_FWD_TOL, SPIDER_BWD_TOL, SPIDER_LOSS_RTOL = 1e-5, 1e-5, 1e-5
 # the kernel and plain paths are the same arithmetic but for the scatter-add
 # of the training backward: the model paths are held to the SSG bounds.
 PCNN_BATCH, PCNN_POINT = 32, 1024
+# MSG (phase 9): inference at the JAX package's "Inference by family" batch,
+# training at its training table's, held to the SSG bounds; #3 at K = 128
+# to the fused SA bounds.  SAModule's kNN / K > 64 branches and the ball
+# query (phase 10) at SSG's SA1 and SA2 shapes: #10 to the fused SA
+# bounds, #8's idx and cnt equal to ball_query_plain.
+MSG_BATCH, MSG_POINT, MSG_TRAIN_BATCH = 32, 1024, 16
+SA_LAYER_BATCH, SA_LAYER_POINT = 32, 1024
 # Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds.
 HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 989e12
 
@@ -287,20 +317,51 @@ def fps_work(work: Work, b: int, n: int, m: int, with_coords: bool = True) -> No
     work.add(10.0 * b * n * m, 12 * b * n + b * m * (16 if with_coords else 4))
 
 
-def sa_work(work: Work, args, dtype) -> None:
+def mlp_ops(weights, rows: int, lifted_points: int = 0) -> float:
+    """The folded MLP on ``rows`` (query, slot) rows and the max-pool: per
+    layer 2 operations a weight (the product) and 2 an output (bias,
+    relu), 1 an output of the last layer (the max).  A prelifted layer 0
+    multiplies its feature rows once a point (``lifted_points`` of them)
+    and adds the gathered term on every row instead."""
+    w0 = weights[0]
+    per_row = sum(2 * w.shape[0] * w.shape[1] + 2 * w.shape[1] for w in weights) + weights[-1].shape[1]
+    if not lifted_points:
+        return float(rows * per_row)
+    per_row += w0.shape[1] - 2 * (w0.shape[0] - 3) * w0.shape[1]
+    return float(rows * per_row) + 2.0 * lifted_points * (w0.shape[0] - 3) * w0.shape[1]
+
+
+def sa_work(work: Work, args, dtype, use_xyz: bool = True) -> None:
     """The fused SA layer: its ball scan, its folded MLP on every (query,
-    slot) row, the max-pool; operands of the compute dtype."""
+    slot) row (layer 0 per point when prelifted), the max-pool; operands
+    of the compute dtype; idx written at K <= 64."""
     import torch
 
     radius, k, xyz, new_xyz, src, weights, _ = args
     b, n, m = xyz.shape[0], xyz.shape[1], new_xyz.shape[1]
     rows = b * m * k
-    mlp = sum(2 * w.shape[0] * w.shape[1] + 2 * w.shape[1] for w in weights) + weights[-1].shape[1]
+    lifted = src is not None and use_xyz and src.shape[-1] > weights[0].shape[1]
     elt = 2 if dtype == torch.bfloat16 else 4
-    nbytes = 12 * (b * n + b * m) + (0 if src is None else src.numel() * elt) + 4 * rows
+    nbytes = 12 * (b * n + b * m) + (0 if src is None else src.numel() * elt) + (4 * rows if k <= 64 else 0)
     nbytes += sum(w.numel() * elt + 4 * w.shape[1] for w in weights) + b * m * weights[-1].shape[1] * elt
-    work.add(9.0 * scanned_points(radius, k, xyz, new_xyz) + rows * mlp, nbytes,
-             BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S)
+    work.add(9.0 * scanned_points(radius, k, xyz, new_xyz) + mlp_ops(weights, rows, b * n if lifted else 0),
+             nbytes, BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S)
+
+
+def samlp_work(work: Work, args, dtype) -> None:
+    """#10: the folded MLP on every (query, slot) row and the max-pool; the
+    grouping, the indices, the source and the weights read once, the pooled
+    output written once."""
+    import torch
+
+    grouped, idx, src, weights, _ = args
+    b, m, k = (grouped if grouped is not None else idx).shape[:3]
+    elt = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (0 if grouped is None else 4 * grouped.numel()) + b * m * weights[-1].shape[1] * elt
+    if idx is not None and src is not None:
+        nbytes += 4 * idx.numel() + elt * src.numel()
+    nbytes += sum(w.numel() * elt + 4 * w.shape[1] for w in weights)
+    work.add(mlp_ops(weights, b * m * k), nbytes, BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S)
 
 
 def knn_work(work: Work, queries, keys, k: int, with_bias: bool = False) -> None:
@@ -324,20 +385,31 @@ def check_fps(xyz, npoint, label, fps, fps_plain) -> float:
     return float((new_xyz - ref_xyz).abs().max())
 
 
-def check_sa(args, dtype, label, sa, sa_plain) -> float:
+def check_sa(args, dtype, label, sa, sa_plain, **kw) -> float:
     import torch
 
-    pooled, idx = sa(*args, dtype=dtype)
-    ref, ref_idx = sa_plain(*args, dtype=dtype)
+    pooled, idx = sa(*args, dtype=dtype, **kw)
+    ref, ref_idx = sa_plain(*args, dtype=dtype, **kw)
     torch.cuda.synchronize()
-    require(torch.equal(idx, ref_idx), f"SA idx differs from the plain version ({label})")
-    require(pooled.dtype == ref.dtype and pooled.shape == ref.shape, f"SA output type ({label})")
+    if args[1] > 64:  # the chunked path returns no idx
+        require(idx is None and ref_idx is None, f"SA idx at K > 64 ({label})")
+    else:
+        require(torch.equal(idx, ref_idx), f"SA idx differs from the plain version ({label})")
+    return check_pooled(pooled, ref, dtype, f"sa {label}: idx {'None' if idx is None else 'equal'}, pooled")
+
+
+def check_pooled(pooled, ref, dtype, what: str) -> float:
+    """Hold a fused SA layer's pooled output to its plain version: f32 to
+    rtol F32_RTOL / atol F32_ATOL, bf16 by the bf16 rule."""
+    import torch
+
+    require(pooled.dtype == ref.dtype and pooled.shape == ref.shape, f"output type ({what})")
     if dtype == torch.bfloat16:
-        return check_bf16(pooled, ref, BF16_SA_ULPS, f"sa {label}: idx equal, pooled")[0]
+        return check_bf16(pooled, ref, BF16_SA_ULPS, what)[0]
     err = float((pooled - ref).abs().max())
     require(torch.allclose(pooled, ref, rtol=F32_RTOL, atol=F32_ATOL),
-            f"SA pooled differs from the plain version ({label}): max abs err {err}")
-    print(f"sa {label}: idx equal, pooled max abs err {err:.3e} (bound rtol {F32_RTOL} atol {F32_ATOL})")
+            f"pooled differs from the plain version ({what}): max abs err {err}")
+    print(f"{what} max abs err {err:.3e} (bound rtol {F32_RTOL} atol {F32_ATOL})")
     return err
 
 
@@ -356,6 +428,15 @@ def fps_plain_entry(xyz, npoint, with_coords=True):
     return (idx, new_xyz) if with_coords else idx
 
 
+def ball_query_plain_entry(radius, nsample, xyz, new_xyz):
+    """``ball_query_plain`` behind the signature of the ``query_ball_point``
+    wrapper (int32 outputs)."""
+    from scanobjectnn_torch.ops.cuda.ballgroup_kernel import ball_query_plain
+
+    idx, cnt = ball_query_plain(radius, nsample, xyz, new_xyz)
+    return idx.int(), cnt.int()
+
+
 def plain_path():
     """Patches that swap every kernel's wrapper for its plain version, at
     the names the model paths call them by."""
@@ -365,14 +446,17 @@ def plain_path():
     from scanobjectnn_torch.nn import pointnet_modules, xconv
     from scanobjectnn_torch.ops import fps as ops_fps
     from scanobjectnn_torch.ops.cuda import (
-        ballgroup_kernel, dupmask_kernel, edge_kernel, gather_kernel, knn_kernel, safused_kernel, spider_kernel,
+        ballgroup_kernel, dupmask_kernel, edge_kernel, gather_kernel, knn_kernel, safused_kernel, samlp_kernel,
+        spider_kernel,
     )
 
     stack = ExitStack()
     for module, name, plain in (
         (ops_fps, "fps", fps_plain_entry),
         (pointnet_modules, "sa_ball_mlp_pool", safused_kernel.sa_ball_mlp_pool_plain),
+        (pointnet_modules, "sa_mlp_pool", samlp_kernel.sa_mlp_pool_plain),
         (ballgroup_kernel, "query_ball_group", ballgroup_kernel.query_ball_group_plain),
+        (ballgroup_kernel, "query_ball_point", ball_query_plain_entry),
         (gather_kernel, "gather_rows", gather_kernel.gather_rows_plain),
         (gather_kernel, "scatter_add_rows", gather_kernel.scatter_add_rows_plain),
         (knn_kernel, "knn_point_kernel", knn_kernel.knn_point_plain),
@@ -388,9 +472,12 @@ def plain_path():
     return stack
 
 
-# Every main path's launches together, by counter (``counted_run``); FPS's
-# are split into "fps" (with coordinates) and "fps_indices" (indices only).
+# Every main path's launches together, by counter (``counted_run``).  A
+# wrapper's sub-count is split off under its own name: FPS's into "fps"
+# (with coordinates) and "fps_indices" (indices only), the fused SA layer's
+# into "sa_ball_mlp_pool" (K <= 64) and "sa_ball_mlp_pool_chunked" (K > 64).
 LAUNCHES: dict[str, int] = {}
+SUBCOUNTS = {"index_launches": "_indices", "chunked_launches": "_chunked"}
 
 
 def counted_run(counters, fn):
@@ -400,16 +487,18 @@ def counted_run(counters, fn):
 
     for c in counters:
         c.launches = 0
-        if hasattr(c, "index_launches"):
-            c.index_launches = 0
+        for attr in SUBCOUNTS:
+            if hasattr(c, attr):
+                setattr(c, attr, 0)
     out = fn()
     torch.cuda.synchronize()
     counts = {c.__name__: c.launches for c in counters}
     split = dict(counts)
     for c in counters:
-        if hasattr(c, "index_launches"):
-            split[c.__name__] -= c.index_launches
-            split[c.__name__ + "_indices"] = c.index_launches
+        for attr, suffix in SUBCOUNTS.items():
+            if hasattr(c, attr):
+                split[c.__name__] -= getattr(c, attr)
+                split[c.__name__ + suffix] = getattr(c, attr)
     for k, v in split.items():
         LAUNCHES[k] = LAUNCHES.get(k, 0) + v
     return out, counts
@@ -1265,6 +1354,194 @@ def pointcnn_phase(smi: str, dev) -> dict:
     return dup
 
 
+def msg_phase(smi: str, dev) -> dict:
+    """Phase 9 (module doc).  Returns the record of #3's chunked path (max
+    abs error; kernel, plain and bound ms summed over the two K=128 calls
+    of one bf16 ``pointnet2_cls_msg`` forward at B=32)."""
+    import numpy as np
+    import torch
+
+    from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.nn import pointnet_modules
+    from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group
+    from scanobjectnn_torch.ops.cuda.fps_kernel import fps
+    from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows, scatter_add_rows
+    from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool, sa_ball_mlp_pool_plain
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    b, n = MSG_BATCH, MSG_POINT
+    data, labels = make_synthetic_dataset(num_per_class=5, num_classes=NUM_CLASSES, num_points=2 * n, seed=5)
+    view = EpochSampler(data, labels, num_points=n, seed=0).epoch()
+    x = torch.from_numpy(view["points"][:b]).to(dev)
+    models = eval_models("pointnet2_cls_msg", np.random.RandomState(15))
+    rec = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None}
+    work = Work()
+
+    # 9a. One forward in each dtype, counting #3's launches (six, two of them
+    # chunked) and recording its calls; each call against the plain version.
+    calls = []
+
+    def recorder(*args, **kw):
+        calls.append((args, {k: v for k, v in kw.items() if k != "dtype"}))
+        return sa_ball_mlp_pool(*args, **kw)
+
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        calls.clear()
+        with torch.no_grad(), mock.patch.object(pointnet_modules, "sa_ball_mlp_pool", recorder):
+            _, counts = counted_run((fps, sa_ball_mlp_pool), lambda: models[name](x))
+        ks = [args[1] for args, _ in calls]
+        print(f"MSG {name} forward B={b}: launches {counts}, of them chunked (K > 64) "
+              f"{sa_ball_mlp_pool.chunked_launches}; K of the fused calls {ks}")
+        require(counts["sa_ball_mlp_pool"] == 6 and ks == [16, 32, 128, 32, 64, 128]
+                and sa_ball_mlp_pool.chunked_launches == 2, f"MSG's fused SA calls: {counts}, K {ks}")
+        with torch.no_grad():
+            for i, (args, kw) in enumerate(calls):
+                label = f"MSG SA{i // 3 + 1} scale {i % 3} {name} B={b} K{args[1]} r{args[0]}"
+                err = check_sa(args, dtype, label, sa_ball_mlp_pool, sa_ball_mlp_pool_plain, **kw)
+                ms = cuda_ms(lambda: sa_ball_mlp_pool(*args, dtype=dtype, **kw))
+                plain_ms = cuda_ms(lambda: sa_ball_mlp_pool_plain(*args, dtype=dtype, **kw), iters=3)
+                print(f"time sa_ball_mlp_pool {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
+                if args[1] > 64:
+                    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+                    if name == "bf16":
+                        rec["ms"] += ms
+                        rec["plain_ms"] += plain_ms
+                        sa_work(work, args, dtype, kw["use_xyz"])
+    rec.update(work.record())
+
+    # 9b. Inference, f32 and bf16, against the plain path.
+    check_inference(models, x, (fps, sa_ball_mlp_pool), smi, "MSG")
+    del models
+    torch.cuda.empty_cache()
+
+    # 9c. Training, f32, B=16: a few steps, one against the plain path, a step timed.
+    batches = list(Batches(view, MSG_TRAIN_BATCH))
+    require(len(batches) > TRAIN_STEPS, f"only {len(batches)} MSG batches")
+    trainer = Trainer(TrainerConfig(model="pointnet2_cls_msg", batch_size=MSG_TRAIN_BATCH, device=str(dev)))
+    state = trainer.init_state(seed=0)
+    counters = (fps, query_ball_group, gather_rows, scatter_add_rows)
+
+    def steps():
+        return [float(trainer.train_step(state, batch)[1]["loss"]) for batch in batches[:TRAIN_STEPS]]
+
+    losses, counts = counted_run(counters, steps)
+    print(f"MSG training main path: {TRAIN_STEPS} steps, losses {[round(v, 6) for v in losses]}, launches {counts}")
+    require(all(c > 0 for c in counts.values()), f"a kernel of the MSG training path never launched: {counts}")
+    require(all(math.isfinite(v) for v in losses), f"non-finite MSG training loss: {losses}")
+    compare_steps(trainer, batches[TRAIN_STEPS], 23, f"MSG B={MSG_TRAIN_BATCH}")
+    time_steps(trainer, state, batches, smi, f"MSG B={MSG_TRAIN_BATCH} N={n} f32")
+    return rec
+
+
+def sa_layer_phase(smi: str, dev) -> dict:
+    """Phase 10 (module doc).  Returns the records of #10 (summed over the
+    four f32 ``SAModule`` calls) and #8 (over its two calls)."""
+    import numpy as np
+    import torch
+
+    from scanobjectnn_torch import ops
+    from scanobjectnn_torch.convert import init_params
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.nn import pointnet_modules
+    from scanobjectnn_torch.nn.pointnet_modules import SAModule
+    from scanobjectnn_torch.ops.cuda.ballgroup_kernel import ball_query_plain, query_ball_group, query_ball_point
+    from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
+    from scanobjectnn_torch.ops.cuda.knn_kernel import knn_point_kernel
+    from scanobjectnn_torch.ops.cuda.samlp_kernel import sa_mlp_pool, sa_mlp_pool_plain
+
+    b, n = SA_LAYER_BATCH, SA_LAYER_POINT
+    data, _ = make_synthetic_dataset(num_per_class=3, num_classes=NUM_CLASSES, num_points=n, seed=6)
+    x = torch.from_numpy(data[np.random.RandomState(16).permutation(len(data))[:b]]).to(dev)
+    records = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None}
+               for k in ("sa_mlp_pool", "query_ball_point")}
+
+    # 10a. SAModule's kNN and K > 64 branches at SSG's SA1 and SA2 shapes,
+    # f32 and bf16, seeded weights and random positive BN running stats.
+    gen, stats_rng = torch.Generator().manual_seed(16), np.random.RandomState(17)
+    layers = {}
+    for label, args in (
+        ("SA1 knn K32", (512, None, 32, (64, 64, 128), 0, False, True)),
+        ("SA1 ball K128", (512, 0.2, 128, (64, 64, 128), 0, False, False)),
+        ("SA2 knn K32", (128, None, 32, (128, 128, 256), 128, False, True)),
+        ("SA2 ball K128", (128, 0.4, 128, (128, 128, 256), 128, False, False)),
+    ):
+        f32 = init_params(SAModule(*args), gen)
+        with torch.no_grad():
+            for key, buf in f32.named_buffers():
+                vals = stats_rng.randn(*buf.shape)
+                buf.copy_(torch.from_numpy(0.1 + 0.1 * np.abs(vals) if key.endswith(".var") else 0.05 * np.abs(vals)))
+        bf16 = SAModule(*args, dtype=torch.bfloat16)
+        bf16.load_state_dict(f32.state_dict())
+        layers[label] = {"f32": f32.to(dev).eval(), "bf16": bf16.to(dev).eval()}
+    with torch.no_grad():
+        l1_xyz, l1_points = layers["SA1 knn K32"]["f32"](x, None)
+    inputs = {"SA1": (x, None), "SA2": (l1_xyz, l1_points.contiguous())}
+    calls = []
+
+    def recorder(*args, dtype):
+        calls.append((args, dtype))
+        return sa_mlp_pool(*args, dtype=dtype)
+
+    def run():
+        return {(label, name): m(*inputs[label[:3]]) for label, ms in layers.items() for name, m in ms.items()}
+
+    counters = (fps, knn_point_kernel, query_ball_group, sa_mlp_pool)
+    with torch.no_grad(), mock.patch.object(pointnet_modules, "sa_mlp_pool", recorder):
+        got, counts = counted_run(counters, run)
+    print(f"SAModule knn / K=128 inference B={b} (four layers, f32 and bf16): launches {counts}")
+    require(all(c > 0 for c in counts.values()) and counts["sa_mlp_pool"] == 8,
+            f"a kernel of SAModule's knn / K > 64 path never launched: {counts}")
+    before = [c.launches for c in counters]
+    with torch.no_grad(), plain_path():
+        ref = run()
+    require([c.launches for c in counters] == before, "the plain SAModule path launched a kernel")
+    for key, (new_xyz, pooled) in got.items():
+        require(torch.equal(new_xyz, ref[key][0]), f"SAModule centroids differ ({key})")
+        require(bool(torch.isfinite(pooled.float()).all()) and float(ref[key][1].float().abs().max()) > 0.1,
+                f"SAModule output ({key})")
+        check_pooled(pooled, ref[key][1], pooled.dtype, f"SAModule {key[0]} {key[1]} B={b} against the plain path")
+
+    # 10b. #10 on the inputs those layers handed it, against its plain version; timed.
+    work = Work()
+    for (args, dtype), (label, name) in zip(calls, got):
+        what = f"sa_mlp_pool {label} {name} B={b}"
+        err = check_pooled(sa_mlp_pool(*args, dtype=dtype), sa_mlp_pool_plain(*args, dtype=dtype), dtype, what)
+        ms = cuda_ms(lambda: sa_mlp_pool(*args, dtype=dtype))
+        plain_ms = cuda_ms(lambda: sa_mlp_pool_plain(*args, dtype=dtype), iters=3)
+        print(f"time {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
+        records["sa_mlp_pool"]["max_abs_err"] = max(records["sa_mlp_pool"]["max_abs_err"], err)
+        if name == "f32":
+            records["sa_mlp_pool"]["ms"] += ms
+            records["sa_mlp_pool"]["plain_ms"] += plain_ms
+            samlp_work(work, args, dtype)
+    records["sa_mlp_pool"].update(work.record())
+
+    # 10c. #8 through ops.query_ball_point at N=1024, M=512: K=32 at SSG
+    # SA1's radius, K=128 at MSG SA1's widest.
+    _, q = fps_plain(x, 512)
+    shapes = ((32, 0.2), (128, 0.4))
+    outs, counts = counted_run((query_ball_point,), lambda: [ops.query_ball_point(r, k, x, q) for k, r in shapes])
+    print(f"ops.query_ball_point B={b} N={n} M=512: launches {counts}")
+    require(counts["query_ball_point"] == 2, f"query_ball_point launches {counts}")
+    work = Work()
+    for (k, radius), (idx, cnt) in zip(shapes, outs):
+        want_idx, want_cnt = ball_query_plain(radius, k, x, q)
+        require(torch.equal(idx, want_idx.int()) and torch.equal(cnt, want_cnt.int()),
+                f"query_ball_point differs from ball_query_plain (K={k})")
+        ms = cuda_ms(lambda: query_ball_point(radius, k, x, q))
+        plain_ms = cuda_ms(lambda: ball_query_plain(radius, k, x, q), iters=3)
+        print(f"query_ball_point K={k} r={radius}: idx and cnt equal to ball_query_plain (mean cnt "
+              f"{float(cnt.float().mean()):.2f}, {float((cnt == k).float().mean()):.3f} of the rows full); "
+              f"time kernel {ms:.4f} ms (device {device_ms(lambda: query_ball_point(radius, k, x, q)):.4f}), "
+              f"plain {plain_ms:.4f} ms ({smi})")
+        records["query_ball_point"]["ms"] += ms
+        records["query_ball_point"]["plain_ms"] += plain_ms
+        work.add(9.0 * scanned_points(radius, k, x, q), 12 * (b * n + b * 512) + b * 512 * (4 * k + 4))
+    records["query_ball_point"].update(work.record())
+    return records
+
+
 def main() -> None:
     import torch
 
@@ -1405,6 +1682,7 @@ def main() -> None:
                   f"({BATCH / ms * 1e3:.1f} clouds/s), plain path {plain_fwd_ms[name]:.4f} ms ({smi})")
 
     # 4. Training.  5. BGA and part segmentation.  6. DGCNN and DGCNN-BGA.  7. SpiderCNN.  8. PointCNN.
+    # 9. MSG.  10. The SA layer's other kernels.
     measured = {
         k: {"max_abs_err": errs[k], "ms": per_forward[k][0], "plain_ms": per_forward[k][1],
             **work[k].record(), "library_ms": None}
@@ -1415,6 +1693,8 @@ def main() -> None:
     measured.update(dgcnn_phase(smi, dev))
     measured.update(spider_phase(smi, dev))
     measured["duplicate_mask"] = pointcnn_phase(smi, dev)
+    measured["sa_ball_mlp_pool_chunked"] = msg_phase(smi, dev)
+    measured.update(sa_layer_phase(smi, dev))
 
     require(not {"jax", "scanobjectnn_tpu"} & set(sys.modules), "JAX or the JAX package was imported")
 
@@ -1424,6 +1704,10 @@ def main() -> None:
         "fps": (csrc + "fps.cu", pallas + "fps_kernel.py:151", "fps"),
         "fps_indices": (csrc + "fps.cu", pallas + "fps_kernel.py:126", "fps_indices"),
         "sa_ball_mlp_pool": (csrc + "safused.cu", pallas + "safused_kernel.py:354", "sa_ball_mlp_pool"),
+        "sa_ball_mlp_pool_chunked": (csrc + "safused.cu", pallas + "safused_kernel.py:354",
+                                     "sa_ball_mlp_pool_chunked"),
+        "sa_mlp_pool": (csrc + "safused.cu", pallas + "samlp_kernel.py:213", "sa_mlp_pool"),
+        "query_ball_point": (csrc + "ballgroup.cu", pallas + "ballquery_kernel.py:75", "query_ball_point"),
         "query_ball_group": (csrc + "ballgroup.cu", pallas + "ballquery_kernel.py:381", "query_ball_group"),
         "gather_rows": (csrc + "gather.cu", pallas + "onehot.py:223", "gather_rows"),
         "scatter_add_rows": (csrc + "gather.cu", pallas + "onehot.py:245", "scatter_add_rows"),
@@ -1443,8 +1727,12 @@ def main() -> None:
         require(LAUNCHES.get(counter, 0) > 0, f"{k} never launched on a main path")
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": tpu,
                         "launches": LAUNCHES[counter], **measured[k]})
-    print("kernel ms / plain_ms / bound_ms: fps and sa_ball_mlp_pool summed over one bf16 SSG forward's calls "
-          "at B=128 (FPS both layers, SA1+SA2; CUDA events); fps_indices, ball group, gather and scatter-add over "
+    print("kernel ms / plain_ms / bound_ms: fps and sa_ball_mlp_pool (K <= 64) summed over one bf16 SSG forward's "
+          "calls at B=128 (FPS both layers, SA1+SA2; CUDA events); sa_ball_mlp_pool_chunked (the same kernel at "
+          "K > 64, up to 1024: K a multiple of 16) over the two K=128 calls of one bf16 pointnet2_cls_msg forward "
+          "at B=32 (CUDA events); sa_mlp_pool over the four f32 SAModule calls of phase 10 at B=32 (knn K=32 and "
+          "ball K=128 at SA1 and SA2; CUDA events); query_ball_point over its two calls at B=32, N=1024, M=512 "
+          "(K=32, 128; CUDA events); fps_indices, ball group, gather and scatter-add over "
           "one f32 SSG training step's calls at B=16 (FPS both layers, ball group SA1+SA2, gather and scatter-add "
           "SA2; device time, torch.profiler); knn_point over one f32 BGA forward's calls at B=32 (fp1+fp2+fp3; "
           "device time); knn_graph, edge_reduce, edge_reduce_bwd and edge_gather_knn over one f32 dgcnn "

@@ -4,16 +4,17 @@ GPU.
 
     python3 profile_forward.py [--batch 128] [--num-point 2048] [--iters 5]
     python3 profile_forward.py --train [--batch 16] [--num-point 1024]
-    python3 profile_forward.py --model pointnet2_cls_bga [--train]
+    python3 profile_forward.py --model pointnet2_cls_msg|pointnet2_cls_bga [--train]
     python3 profile_forward.py --model dgcnn [--train]
     python3 profile_forward.py --model spidercnn_cls_xyz [--train]
     python3 profile_forward.py --model pointcnn_cls|pointcnn_seg [--train]
 
-``--model`` is ``pointnet2_cls_ssg`` (default), ``pointnet2_cls_bga``,
-``dgcnn``, ``dgcnn_bga``, ``spidercnn_cls_xyz``, ``pointcnn_cls`` or
-``pointcnn_seg``.  The defaults are each model's configurations: SSG B=128,
-N=2048 for the forward and B=16, N=1024 for ``--train``; BGA B=32, N=1024
-and B=16; both DGCNNs, SpiderCNN and both PointCNNs B=32, N=1024 for both.
+``--model`` is ``pointnet2_cls_ssg`` (default), ``pointnet2_cls_msg``,
+``pointnet2_cls_bga``, ``dgcnn``, ``dgcnn_bga``, ``spidercnn_cls_xyz``,
+``pointcnn_cls`` or ``pointcnn_seg``.  The defaults are each model's
+configurations: SSG B=128, N=2048 for the forward and B=16, N=1024 for
+``--train``; MSG and BGA B=32, N=1024 and B=16; both DGCNNs, SpiderCNN and
+both PointCNNs B=32, N=1024 for both.
 Forward: for bf16 and f32 in turn, builds the model with ``get_model``
 (seed 0, on the card) and answers one batch of the 15-class synthetic
 dataset (seed 0; with background points and binary masks for the models
@@ -41,6 +42,7 @@ from collections import defaultdict
 # model: ((forward batch, points), (training batch, points))
 DEFAULTS = {
     "pointnet2_cls_ssg": ((128, 2048), (16, 1024)),
+    "pointnet2_cls_msg": ((32, 1024), (16, 1024)),
     "pointnet2_cls_bga": ((32, 1024), (16, 1024)),
     "dgcnn": ((32, 1024), (32, 1024)),
     "dgcnn_bga": ((32, 1024), (32, 1024)),

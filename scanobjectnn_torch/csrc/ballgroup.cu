@@ -1,8 +1,11 @@
-// Ball query + centred grouping of the coordinates for Hopper (sm_90a).
+// Ball query, with or without the centred grouping of the coordinates, for
+// Hopper (sm_90a).
 //
-// Replaces scanobjectnn_tpu/ops/pallas/ballquery_kernel.py
-// (query_ball_group_pallas -> _qbg_call).  Semantics are documented in
-// scanobjectnn_torch/ops/cuda/ballgroup_kernel.py.  The TPU kernel's rank
+// Replaces two kernels of scanobjectnn_tpu/ops/pallas/ballquery_kernel.py:
+// query_ball_group_pallas -> _qbg_call (ballgroup_launch: idx, cnt and the
+// grouped coordinates) and query_ball_pallas (ballquery_launch: idx and cnt
+// only, the same kernel with no coordinate write).  Semantics are documented
+// in scanobjectnn_torch/ops/cuda/ballgroup_kernel.py.  The TPU kernel's rank
 // cumsum matmuls, one-hot slot extraction and bf16 Dekker splits are not
 // carried over: the selection is the warp-ballot scan of ballscan.cuh (the
 // same device function the fused SA layer runs), and the coordinates are
@@ -11,7 +14,8 @@
 // Bound: the scan of the N candidates of each query (one warp per query,
 // 32 candidates per step, stopping after K hits).  The cloud, 12 KB at
 // N=1024, stays in L1/L2 for the queries of a block.  The outputs (idx, cnt
-// and the [K, 3] centred coordinates) are written once, coalesced.
+// and, for the ball group, the [K, 3] centred coordinates) are written once,
+// coalesced.
 
 #include <cuda_runtime.h>
 
@@ -26,7 +30,7 @@ constexpr int kMaxK = 1024;
 
 __global__ void __launch_bounds__(kWarps * 32)
     ballgroup_kernel(const float* __restrict__ xyz, const float* __restrict__ new_xyz,
-                     int n, int m, int k, float r2, float* __restrict__ grouped,
+                     int n, int m, int k, float r2, float* __restrict__ grouped,  // null: no coordinates
                      int32_t* __restrict__ idx, int32_t* __restrict__ cnt) {
   extern __shared__ int rows[];  // [kWarps, k]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -40,6 +44,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (lane == 0) cnt[bq] = filled;
   int32_t* out_idx = idx + bq * k;
   for (int s = lane; s < k; s += 32) out_idx[s] = row[s];
+  if (grouped == nullptr) return;
   float* out = grouped + bq * k * 3;
   for (int e = lane; e < 3 * k; e += 32) {
     const int s = e / 3, c = e - 3 * s;
@@ -47,11 +52,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-}  // namespace
-
-extern "C" int ballgroup_launch(const void* xyz, const void* new_xyz, int b, int n, int m,
-                                int k, float r2, void* grouped, void* idx, void* cnt,
-                                void* stream) {
+cudaError_t launch(const void* xyz, const void* new_xyz, int b, int n, int m, int k, float r2,
+                   void* grouped, void* idx, void* cnt, void* stream) {
   if (b < 1 || n < 1 || m < 1 || k < 1 || k > kMaxK) return cudaErrorInvalidValue;
   const dim3 grid((m + kWarps - 1) / kWarps, b);
   const size_t smem = sizeof(int) * kWarps * static_cast<size_t>(k);  // <= 32 KB
@@ -59,4 +61,17 @@ extern "C" int ballgroup_launch(const void* xyz, const void* new_xyz, int b, int
       static_cast<const float*>(xyz), static_cast<const float*>(new_xyz), n, m, k, r2,
       static_cast<float*>(grouped), static_cast<int32_t*>(idx), static_cast<int32_t*>(cnt));
   return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int ballgroup_launch(const void* xyz, const void* new_xyz, int b, int n, int m,
+                                int k, float r2, void* grouped, void* idx, void* cnt,
+                                void* stream) {
+  return launch(xyz, new_xyz, b, n, m, k, r2, grouped, idx, cnt, stream);
+}
+
+extern "C" int ballquery_launch(const void* xyz, const void* new_xyz, int b, int n, int m,
+                                int k, float r2, void* idx, void* cnt, void* stream) {
+  return launch(xyz, new_xyz, b, n, m, k, r2, nullptr, idx, cnt, stream);
 }

@@ -1,25 +1,42 @@
-// Fused eval-time SA layer for Hopper (sm_90a): ball select + gather +
-// folded-BN MLP + max-pool in one kernel.
+// Fused eval-time SA layer for Hopper (sm_90a): neighbour rows + gather +
+// folded-BN MLP + max-pool in one kernel, with two ways to pick the rows.
 //
-// Replaces scanobjectnn_tpu/ops/pallas/safused_kernel.py (sa_ball_mlp_pool ->
-// _sa_ball_mlp_call, K <= 64).  Semantics are documented in
-// scanobjectnn_torch/ops/cuda/safused_kernel.py; the TPU mechanisms (one-hot
-// MXU slot extraction, the block-triangular cumsum, bf16 Dekker splits) are
-// not carried over: on the card a gather is a load.
+// Replaces two kernels of scanobjectnn_tpu/ops/pallas/:
+//   * safused_kernel.py (sa_ball_mlp_pool -> _sa_ball_mlp_call): the rows
+//     are selected by a ball scan (safused_launch);
+//   * samlp_kernel.py (sa_mlp_pool -> _sa_mlp_pool_call): the rows come from
+//     a grouping computed before (centred coordinates and/or neighbour
+//     indices: kNN, or a ball group; samlp_launch).
+// Semantics are documented in scanobjectnn_torch/ops/cuda/safused_kernel.py
+// and samlp_kernel.py; the TPU mechanisms (one-hot MXU slot extraction, the
+// block-triangular cumsum, bf16 Dekker splits) are not carried over: on the
+// card a gather is a load.  Both entry points share one kernel: only the
+// selection step (1.) and where a row's coordinates come from (2.) differ,
+// so the layer and max-pool code cannot drift between them.
 //
-// One block handles QPB = max(1, 64 / K) queries of one cloud, i.e. R = QPB*K
-// <= 64 (query, slot) rows:
-//   1. ball select: one warp per query scans the candidates 32 at a time in
-//      point order (ballot + popc keep the order) and stops after K hits
-//      (ball_scan in ballscan.cuh, shared with ballgroup.cu);
-//   2. the rows [c3 | feat[idx]] are staged in shared memory (c3 rounded to
-//      the compute type, features converted to f32 exactly);
+// One block handles QPB = max(1, 64 / K) queries of one cloud and stages at
+// most 64 (query, slot) rows at a time:
+//   1. selection: the ball scan runs one warp per query over the candidates
+//      32 at a time in point order (ballot + popc keep the order) and stops
+//      after K hits (ball_scan in ballscan.cuh, shared with ballgroup.cu); it
+//      writes all K indices to shared memory first, since padding needs the
+//      first hit.  A given grouping loads its K indices instead;
+//   2. the rows [c3 | feat[idx]] of a chunk of at most 64 slots are staged
+//      in shared memory (c3 rounded to the compute type, features converted
+//      to f32 exactly);
 //   3. each hidden layer maps 8 rows x 1 output column to a thread (one
 //      weight load, read through L2, feeds 8 FMAs; the activations are
 //      warp-broadcast reads of shared memory) and stores relu(acc + b),
 //      rounded to the compute type, in the other shared buffer;
-//   4. the last layer runs per (query, column) over the K slots and keeps a
-//      running max, so its activations are never stored.
+//   4. the last layer runs per (query, column) over the chunk's slots and
+//      keeps a running max, so its activations are never stored.
+// K <= 64 is one chunk of QPB * K rows.  K > 64 (MSG's 128) takes one query
+// per block and repeats 2-4 over chunks of 64 slots, carrying the running
+// max of each column in shared memory from one chunk to the next.  Chunks
+// rather than a whole 128-row block: at MSG SA2's widest scale (prelifted,
+// wa = 3 + 128, wb = 128) a 64-row chunk needs 4 * 64 * 259 B = 66 KB and a
+// whole block 133 KB, so chunks let three blocks share an SM instead of one,
+// with the same layer code as K <= 64.
 // Bound: the MLP's FLOPs on CUDA cores (tensor cores are later work).
 //
 #include <cuda_bf16.h>
@@ -34,7 +51,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerTask = 8;
-constexpr int kMaxRows = 64;
+constexpr int kMaxRows = 64;  // staged rows per block, and slots per chunk
+constexpr int kMaxK = 1024;
 constexpr int kMaxLayers = 8;
 constexpr size_t kMaxSmem = 227 * 1024;
 
@@ -46,8 +64,11 @@ struct Layers {
 };
 
 struct Args {
-  const float* xyz;      // [B, N, 3]
-  const float* new_xyz;  // [B, M, 3]
+  int ball;              // 1: select by the ball scan; 0: a given grouping
+  const float* xyz;      // [B, N, 3] (ball scan)
+  const float* new_xyz;  // [B, M, 3] (ball scan)
+  const float* grouped;  // [B, M, K, 3] centred coordinates (given grouping), or null
+  const int32_t* gidx;   // [B, M, K] neighbour indices (given grouping), or null
   const void* src;       // [B, N, cs] compute type, or null
   int n, m, cs, k, qpb;
   float r2;
@@ -56,7 +77,7 @@ struct Args {
   int prelifted;
   int wa, wb;  // widths of the two activation buffers
   void* pooled;  // [B, M, Cout] compute type
-  int32_t* idx;  // [B, M, K]
+  int32_t* idx;  // [B, M, K] (ball scan, K <= 64), or null
 };
 
 template <typename T>
@@ -131,17 +152,21 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     safused_kernel(const Args a, const Layers L) {
   extern __shared__ float smem[];
-  const int k = a.k, qpb = a.qpb, rows = qpb * k;
-  int* sidx = reinterpret_cast<int*>(smem);  // [rows]
-  float* buf_a = smem + rows;                // [rows, wa]: staged rows, odd layers
-  float* buf_b = buf_a + rows * a.wa;        // [rows, wb]: even layers
+  const int k = a.k, qpb = a.qpb;
+  const int kc = min(k, kMaxRows);  // slots per chunk: all of them when K <= 64
+  const int cap = qpb * kc;         // staged rows per chunk
+  int* sidx = reinterpret_cast<int*>(smem);  // [qpb, k]
+  float* buf_a = smem + qpb * k;             // [cap, wa]: staged rows, odd layers
+  float* buf_b = buf_a + cap * a.wa;         // [cap, wb]: even layers
+  float* run_max = buf_b + cap * a.wb;       // [cout] across chunks (K > 64 only)
 
   const int b = blockIdx.y, q0 = blockIdx.x * qpb;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = kThreads / 32;
-  const float* cloud = a.xyz + static_cast<size_t>(b) * a.n * 3;
+  const float* cloud = a.ball ? a.xyz + static_cast<size_t>(b) * a.n * 3 : nullptr;
 
-  // 1. Ball select, one warp per query (csrc/ballscan.cuh).
+  // 1. Selection, one warp per query: the ball scan (csrc/ballscan.cuh) or
+  //    the given indices.
   for (int ql = warp; ql < qpb; ql += nwarps) {
     int* row = sidx + ql * k;
     const int q = q0 + ql;
@@ -149,67 +174,90 @@ __global__ void __launch_bounds__(kThreads)
       for (int s = lane; s < k; s += 32) row[s] = 0;
       continue;
     }
-    const float* qp = a.new_xyz + (static_cast<size_t>(b) * a.m + q) * 3;
-    ball_scan(cloud, a.n, qp[0], qp[1], qp[2], a.r2, k, row);
-    int32_t* out = a.idx + (static_cast<size_t>(b) * a.m + q) * k;
-    for (int s = lane; s < k; s += 32) out[s] = row[s];
+    const size_t bq = static_cast<size_t>(b) * a.m + q;
+    if (a.ball) {
+      const float* qp = a.new_xyz + bq * 3;
+      ball_scan(cloud, a.n, qp[0], qp[1], qp[2], a.r2, k, row);
+      if (a.idx)
+        for (int s = lane; s < k; s += 32) a.idx[bq * k + s] = row[s];
+    } else {
+      for (int s = lane; s < k; s += 32) row[s] = a.gidx ? a.gidx[bq * k + s] : 0;
+    }
   }
   __syncthreads();
 
-  // 2. Stage rows [c3 | feat[idx]].
   const int ld0 = 3 + a.cs;
   const T* src = static_cast<const T*>(a.src);
-  for (int e = tid; e < rows * ld0; e += kThreads) {
-    const int r = e / ld0, j = e - r * ld0, p = sidx[r];
-    float v;
-    if (j < 3) {
-      const int q = min(q0 + r / k, a.m - 1);
-      v = round_to<T>(cloud[3 * p + j] - a.new_xyz[(static_cast<size_t>(b) * a.m + q) * 3 + j]);
-    } else {
-      v = to_f<T>(src[(static_cast<size_t>(b) * a.n + p) * a.cs + (j - 3)]);
-    }
-    buf_a[e] = v;
-  }
-  __syncthreads();
-
-  // 3. Hidden layers: layer l reads `in` and writes `out`, alternating buffers.
-  const float* in = buf_a;
+  const int l_last = L.n - 1, cout_last = L.width[l_last];
+  T* pooled = static_cast<T*>(a.pooled);
   int r[kRowsPerTask];
   float acc[kRowsPerTask];
-  for (int l = 0; l + 1 < L.n; ++l) {
-    float* out = (l % 2 == 0) ? buf_b : buf_a;
-    const int cout = L.width[l];
-    const int nblk = (rows + kRowsPerTask - 1) / kRowsPerTask;
-    for (int t = tid; t < nblk * cout; t += kThreads) {
-      const int c = t % cout, r0 = (t / cout) * kRowsPerTask;
-#pragma unroll
-      for (int i = 0; i < kRowsPerTask; ++i) r[i] = min(r0 + i, rows - 1);
-      layer_sums<T>(a, L, l, in, c, r, acc);
-      const float bias = L.b[l][c];
-#pragma unroll
-      for (int i = 0; i < kRowsPerTask; ++i)
-        if (r0 + i < rows) out[(r0 + i) * cout + c] = round_to<T>(fmaxf(acc[i] + bias, 0.f));
+  for (int s0 = 0; s0 < k; s0 += kc) {
+    const int ns = min(kc, k - s0), rows = qpb * ns;
+
+    // 2. Stage the rows [c3 | feat[idx]] of slots [s0, s0 + ns).  Row r0 of
+    //    the chunk is sidx[s0 + r0]: K > 64 runs one query a block, and
+    //    K <= 64 one chunk (s0 = 0).
+    for (int e = tid; e < rows * ld0; e += kThreads) {
+      const int r0 = e / ld0, j = e - r0 * ld0, p = sidx[s0 + r0];
+      float v;
+      if (j < 3) {
+        const int ql = r0 / ns;
+        const size_t bq = static_cast<size_t>(b) * a.m + min(q0 + ql, a.m - 1);
+        if (a.ball) {
+          v = round_to<T>(cloud[3 * p + j] - a.new_xyz[bq * 3 + j]);
+        } else {
+          const int s = s0 + r0 - ql * ns;
+          v = a.grouped ? round_to<T>(a.grouped[(bq * k + s) * 3 + j]) : 0.f;
+        }
+      } else {
+        v = to_f<T>(src[(static_cast<size_t>(b) * a.n + p) * a.cs + (j - 3)]);
+      }
+      buf_a[e] = v;
     }
     __syncthreads();
-    in = out;
-  }
 
-  // 4. Last layer with the max-pool over each query's K slots.
-  const int l = L.n - 1, cout = L.width[l];
-  T* pooled = static_cast<T*>(a.pooled);
-  for (int t = tid; t < qpb * cout; t += kThreads) {
-    const int ql = t / cout, c = t - ql * cout;
-    const float bias = L.b[l][c];
-    float mx = -INFINITY;
-    for (int s0 = 0; s0 < k; s0 += kRowsPerTask) {
+    // 3. Hidden layers: layer l reads `in` and writes `out`, alternating buffers.
+    const float* in = buf_a;
+    for (int l = 0; l < l_last; ++l) {
+      float* out = (l % 2 == 0) ? buf_b : buf_a;
+      const int cout = L.width[l];
+      const int nblk = (rows + kRowsPerTask - 1) / kRowsPerTask;
+      for (int t = tid; t < nblk * cout; t += kThreads) {
+        const int c = t % cout, rb = (t / cout) * kRowsPerTask;
 #pragma unroll
-      for (int i = 0; i < kRowsPerTask; ++i) r[i] = ql * k + min(s0 + i, k - 1);  // repeats leave the max unchanged
-      layer_sums<T>(a, L, l, in, c, r, acc);
+        for (int i = 0; i < kRowsPerTask; ++i) r[i] = min(rb + i, rows - 1);
+        layer_sums<T>(a, L, l, in, c, r, acc);
+        const float bias = L.b[l][c];
 #pragma unroll
-      for (int i = 0; i < kRowsPerTask; ++i) mx = fmaxf(mx, fmaxf(acc[i] + bias, 0.f));
+        for (int i = 0; i < kRowsPerTask; ++i)
+          if (rb + i < rows) out[(rb + i) * cout + c] = round_to<T>(fmaxf(acc[i] + bias, 0.f));
+      }
+      __syncthreads();
+      in = out;
     }
-    const int q = q0 + ql;
-    if (q < a.m) pooled[(static_cast<size_t>(b) * a.m + q) * cout + c] = from_f<T>(mx);
+
+    // 4. Last layer with the max-pool over each query's slots of this chunk,
+    //    carried across chunks in run_max.
+    for (int t = tid; t < qpb * cout_last; t += kThreads) {
+      const int ql = t / cout_last, c = t - ql * cout_last;
+      const float bias = L.b[l_last][c];
+      float mx = s0 == 0 ? -INFINITY : run_max[t];
+      for (int j0 = 0; j0 < ns; j0 += kRowsPerTask) {
+#pragma unroll
+        for (int i = 0; i < kRowsPerTask; ++i) r[i] = ql * ns + min(j0 + i, ns - 1);  // repeats leave the max unchanged
+        layer_sums<T>(a, L, l_last, in, c, r, acc);
+#pragma unroll
+        for (int i = 0; i < kRowsPerTask; ++i) mx = fmaxf(mx, fmaxf(acc[i] + bias, 0.f));
+      }
+      const int q = q0 + ql;
+      if (s0 + ns < k) {
+        run_max[t] = mx;
+      } else if (q < a.m) {
+        pooled[(static_cast<size_t>(b) * a.m + q) * cout_last + c] = from_f<T>(mx);
+      }
+    }
+    __syncthreads();  // the next chunk restages buf_a
   }
 }
 
@@ -225,35 +273,17 @@ cudaError_t launch(const Args& a, const Layers& L, int b, size_t smem, cudaStrea
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" int safused_launch(const void* xyz, const void* new_xyz, const void* src,
-                              int b, int n, int m, int cs, int k, float r2,
-                              const void* w0x, const void* w0f, int prelifted,
-                              int bf16, int n_layers, const int* widths,
-                              const void* const* weights, const float* const* biases,
-                              void* pooled, void* idx, void* stream) {
-  if (k < 1 || k > kMaxRows || n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
-  Args a{};
-  a.xyz = static_cast<const float*>(xyz);
-  a.new_xyz = static_cast<const float*>(new_xyz);
-  a.src = src;
-  a.n = n;
-  a.m = m;
-  a.cs = cs;
-  a.k = k;
-  a.qpb = k >= kMaxRows ? 1 : kMaxRows / k;
-  a.r2 = r2;
-  a.w0x = w0x;
-  a.w0f = w0f;
-  a.prelifted = prelifted;
-  a.pooled = pooled;
-  a.idx = static_cast<int32_t*>(idx);
+// Fills the layer table and the buffer widths, and launches.
+cudaError_t plan_and_launch(Args& a, int b, int bf16, int n_layers, const int* widths,
+                            const void* const* weights, const float* const* biases,
+                            void* stream) {
+  if (a.k < 1 || a.k > kMaxK || n_layers < 1 || n_layers > kMaxLayers) return cudaErrorInvalidValue;
+  a.qpb = a.k >= kMaxRows ? 1 : kMaxRows / a.k;
   Layers L{};
   L.n = n_layers;
   // Buffer A holds the staged rows and the outputs of odd hidden layers,
   // buffer B the outputs of even hidden layers (the last layer stores none).
-  a.wa = 3 + cs;
+  a.wa = 3 + a.cs;
   a.wb = 1;
   for (int l = 0; l < n_layers; ++l) {
     L.width[l] = widths[l];
@@ -264,9 +294,60 @@ extern "C" int safused_launch(const void* xyz, const void* new_xyz, const void* 
       w = max(w, widths[l]);
     }
   }
-  const int rows = a.qpb * k;
-  const size_t smem = sizeof(float) * (static_cast<size_t>(rows) * (1 + a.wa + a.wb));
+  // sidx [qpb, K], the two buffers of one chunk, and run_max when K > 64.
+  const size_t rows = static_cast<size_t>(a.qpb) * min(a.k, kMaxRows);
+  size_t words = static_cast<size_t>(a.qpb) * a.k + rows * (a.wa + a.wb);
+  if (a.k > kMaxRows) words += widths[n_layers - 1];
+  const size_t smem = sizeof(float) * words;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<__nv_bfloat16>(a, L, b, smem, s) : launch<float>(a, L, b, smem, s);
+}
+
+}  // namespace
+
+// The ball-selected layer (#3): idx [B, M, K] is written when not null.
+extern "C" int safused_launch(const void* xyz, const void* new_xyz, const void* src,
+                              int b, int n, int m, int cs, int k, float r2,
+                              const void* w0x, const void* w0f, int prelifted,
+                              int bf16, int n_layers, const int* widths,
+                              const void* const* weights, const float* const* biases,
+                              void* pooled, void* idx, void* stream) {
+  Args a{};
+  a.ball = 1;
+  a.xyz = static_cast<const float*>(xyz);
+  a.new_xyz = static_cast<const float*>(new_xyz);
+  a.src = src;
+  a.n = n;
+  a.m = m;
+  a.cs = cs;
+  a.k = k;
+  a.r2 = r2;
+  a.w0x = w0x;
+  a.w0f = w0f;
+  a.prelifted = prelifted;
+  a.pooled = pooled;
+  a.idx = static_cast<int32_t*>(idx);
+  return plan_and_launch(a, b, bf16, n_layers, widths, weights, biases, stream);
+}
+
+// The layer over a given grouping (#10): grouped [B, M, K, 3] and/or
+// gidx [B, M, K] with src [B, N, cs].
+extern "C" int samlp_launch(const void* grouped, const void* gidx, const void* src,
+                            int b, int n, int m, int cs, int k,
+                            const void* w0x, const void* w0f, int bf16, int n_layers,
+                            const int* widths, const void* const* weights,
+                            const float* const* biases, void* pooled, void* stream) {
+  Args a{};
+  a.grouped = static_cast<const float*>(grouped);
+  a.gidx = static_cast<const int32_t*>(gidx);
+  a.src = src;
+  a.n = n;
+  a.m = m;
+  a.cs = cs;
+  a.k = k;
+  a.w0x = w0x;
+  a.w0f = w0f;
+  a.pooled = pooled;
+  return plan_and_launch(a, b, bf16, n_layers, widths, weights, biases, stream);
 }

@@ -1,9 +1,10 @@
 """Model registry (counterpart of ``scanobjectnn_tpu/models/__init__.py``).
 
-Ported: ``pointnet2_cls_ssg`` ("cls"), ``pointnet2_cls_bga`` ("seg"),
-``pointnet2_cls_partseg`` ("partseg"), ``dgcnn`` ("cls"), ``dgcnn_bga``
-("seg"), ``spidercnn_cls_xyz`` ("cls"), ``pointcnn_cls`` ("cls") and
-``pointcnn_seg`` ("seg"), for inference and f32 training; every other name
+Ported: ``pointnet2_cls_ssg`` ("cls"), ``pointnet2_cls_msg`` ("cls"),
+``pointnet2_cls_bga`` ("seg"), ``pointnet2_cls_partseg`` ("partseg"),
+``dgcnn`` ("cls"), ``dgcnn_bga`` ("seg"), ``spidercnn_cls_xyz`` ("cls"),
+``pointcnn_cls`` ("cls") and ``pointcnn_seg`` ("seg"), for inference and
+f32 training; every other name
 raises ``KeyError`` saying it is not ported yet.  The registry maps a name
 to its class; the class carries the model's ``kind``, its static
 ``loss(outputs, batch)`` (the JAX ``get_model`` returns the module, the loss
@@ -19,7 +20,7 @@ import torch
 from scanobjectnn_torch.convert import init_params
 from scanobjectnn_torch.models.dgcnn import DGCNN, DGCNNBGA
 from scanobjectnn_torch.models.pointcnn import PointCNNCls, PointCNNSeg
-from scanobjectnn_torch.models.pointnet2 import PointNet2BGA, PointNet2ClsSSG, PointNet2PartSeg
+from scanobjectnn_torch.models.pointnet2 import PointNet2BGA, PointNet2ClsMSG, PointNet2ClsSSG, PointNet2PartSeg
 from scanobjectnn_torch.models.recipes import TrainRecipe
 from scanobjectnn_torch.models.spidercnn import SpiderCNNCls
 
@@ -30,6 +31,7 @@ __all__ = [
     "PointCNNCls",
     "PointCNNSeg",
     "PointNet2BGA",
+    "PointNet2ClsMSG",
     "PointNet2ClsSSG",
     "PointNet2PartSeg",
     "SpiderCNNCls",
@@ -40,6 +42,7 @@ __all__ = [
 
 MODEL_REGISTRY = {
     "pointnet2_cls_ssg": PointNet2ClsSSG,
+    "pointnet2_cls_msg": PointNet2ClsMSG,
     "pointnet2_cls_bga": PointNet2BGA,
     "pointnet2_cls_partseg": PointNet2PartSeg,
     "dgcnn": DGCNN,

@@ -1,7 +1,9 @@
 """PointNet++ models (counterpart of ``scanobjectnn_tpu/models/pointnet2.py``):
-the SSG classifier, BGA joint classification and background segmentation,
-and part segmentation.  References: pointnet2/models/pointnet2_cls_ssg.py:23-57,
-pointnet2_cls_bga.py:21-93 and pointnet2_cls_partseg.py:18-87.
+the SSG and MSG classifiers, BGA joint classification and background
+segmentation, and part segmentation.  References:
+pointnet2/models/pointnet2_cls_ssg.py:23-57, pointnet2_cls_bga.py:21-93,
+pointnet2_cls_partseg.py:18-87, and the upstream PointNet++ MSG config
+through pointnet_sa_module_msg (pointnet2/utils/pointnet_util.py:156-196).
 
 Each model class carries ``kind``, the targets its loss reads: "cls"
 (labels), "seg" (labels and background masks) or "partseg" (part ids).
@@ -14,9 +16,9 @@ from torch import nn
 
 from scanobjectnn_torch.models import losses
 from scanobjectnn_torch.nn.layers import MLP, BatchNorm, Dense
-from scanobjectnn_torch.nn.pointnet_modules import FPModule, SAModule
+from scanobjectnn_torch.nn.pointnet_modules import FPModule, SAModule, SAModuleMSG
 
-__all__ = ["PointNet2BGA", "PointNet2ClsSSG", "PointNet2PartSeg", "dropout"]
+__all__ = ["PointNet2BGA", "PointNet2ClsMSG", "PointNet2ClsSSG", "PointNet2PartSeg", "dropout"]
 
 
 def dropout(h: torch.Tensor, keep: float, training: bool, generator: torch.Generator | None) -> torch.Tensor:
@@ -104,6 +106,47 @@ class PointNet2ClsSSG(nn.Module):
         """Mean softmax cross-entropy: (loss, {"loss", "classify_loss"})."""
         loss = losses.softmax_cross_entropy(outputs["logits"], batch["labels"])
         return loss, {"loss": loss, "classify_loss": loss}
+
+
+class PointNet2ClsMSG(nn.Module):
+    """Multi-scale-grouping classifier: SA-MSG(512; r 0.1, 0.2, 0.4; K 16,
+    32, 128) → SA-MSG(128; r 0.2, 0.4, 0.8; K 32, 64, 128) →
+    SA(all,[256,512,1024]) → the SSG head.  The second layer's scales are
+    lifted (320 + 3 input channels, wider than each first layer).
+    ``forward(points [B, N, 3])`` returns ``{"logits", "end_points"}``;
+    training as ``PointNet2ClsSSG``.  JAX's ``remat_scales`` is not ported:
+    it changes no value."""
+
+    kind = "cls"
+    # (npoint, radius_list, nsample_list, mlp_list) per MSG layer, in order.
+    MSG_CONFIGS = (
+        (512, (0.1, 0.2, 0.4), (16, 32, 128), ((32, 32, 64), (64, 64, 128), (64, 96, 128))),
+        (128, (0.2, 0.4, 0.8), (32, 64, 128), ((64, 64, 128), (128, 128, 256), (128, 128, 256))),
+    )
+    GROUP_ALL_MLP = (256, 512, 1024)
+
+    def __init__(self, num_classes: int = 15, dtype: torch.dtype | None = None):
+        super().__init__()
+        channels = 0
+        for i, (npoint, radii, nsamples, mlps) in enumerate(self.MSG_CONFIGS):
+            self.add_module(f"sa{i + 1}", SAModuleMSG(npoint, radii, nsamples, mlps, channels, dtype=dtype))
+            channels = sum(mlp[-1] for mlp in mlps)
+        i = len(self.MSG_CONFIGS)
+        self.add_module(
+            f"sa{i + 1}", SAModule(None, None, None, self.GROUP_ALL_MLP, channels, group_all=True, dtype=dtype)
+        )
+        self.head = _ClsHead(self.GROUP_ALL_MLP[-1], num_classes, dtype)
+
+    def forward(
+        self, points: torch.Tensor, bn_momentum: float = 0.9, generator: torch.Generator | None = None
+    ) -> dict:
+        xyz, feats = points, None
+        for i in range(len(self.MSG_CONFIGS) + 1):
+            xyz, feats = getattr(self, f"sa{i + 1}")(xyz, feats, bn_momentum)
+        logits = self.head(feats.reshape(points.shape[0], -1), bn_momentum, generator)
+        return {"logits": logits, "end_points": {}}
+
+    loss = staticmethod(PointNet2ClsSSG.loss)
 
 
 class _PointNet2Seg(nn.Module):

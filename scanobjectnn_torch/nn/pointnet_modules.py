@@ -1,16 +1,31 @@
 """PointNet++ set abstraction and feature propagation (counterpart of
 ``scanobjectnn_tpu/nn/pointnet_modules.py``).
 
-Ported: ``_fused_ball_scale``, ``sample_and_group``,
-``sample_and_group_all``, ``SAModule`` (the fused eval branch, the unfused
-training branch and the group-all branch), ``GroupMLPPool`` (eval and
-the unfused training path) and ``FPModule`` (3-NN through the kNN
-kernel, inverse-distance interpolation through the gather kernel, then a
-unit MLP).  A ball-grouped SA layer at eval runs two kernels: FPS for the
-centroids, then the fused ball-select + MLP + max-pool layer.  In training it runs FPS (indices only), the ball group, the
-neighbour gather (whose backward is the scatter-add kernel) and the MLP in
-plain PyTorch with batch-statistics BN.  kNN grouping, pooling modes other
-than max, ``mlp2`` and the fused training tail are not ported yet.
+Ported: ``_fused_ball_scale``, ``sample_and_group`` (ball or kNN
+grouping, with or without xyz), ``sample_and_group_all``, ``SAModule``
+(max pooling: the fused eval branches, the unfused branch and the
+group-all branch), ``SAModuleMSG``, ``GroupMLPPool``, ``LiftedGroupMLP``
+and ``FPModule`` (3-NN through the kNN kernel, inverse-distance
+interpolation through the gather kernel, then a unit MLP).
+
+At eval, as in JAX, a layer whose ``npoint`` and point count are multiples
+of 8 takes a fused branch (anything else the unfused one, with the
+running-stat BN): FPS with coordinates (one kernel), then
+  * ``SAModule`` without ``knn`` at K <= 64, and every ``SAModuleMSG``
+    scale with K <= 64 or K a multiple of 16: the fused ball select + MLP +
+    max-pool kernel (``sa_ball_mlp_pool``);
+  * ``SAModule`` with ``knn`` (the kNN kernel, then a plain gather of the
+    coordinates) or with K > 64 (the ball group kernel): the MLP + max-pool
+    over that grouping (``sa_mlp_pool``).
+In training a ball-grouped layer runs FPS (indices only), the ball group,
+the neighbour gather (whose backward is the scatter-add kernel) and the
+MLP in plain PyTorch with batch-statistics BN.  An MSG scale whose input is
+wider than its first layer (``C + 3 > mlp[0]``) runs ``LiftedGroupMLP``:
+Dense 0 per point before the gather.
+
+Not ported: pooling modes other than max, ``mlp2``, ``bn=False``, the fused
+training tail (JAX ``_fused_train_tail``, #17: off by default) and MSG's
+``remat_scales`` (it changes no value and was measured slower).
 """
 
 from __future__ import annotations
@@ -21,12 +36,20 @@ import torch
 from torch import nn
 
 from scanobjectnn_torch import ops
-from scanobjectnn_torch.nn.layers import MLP, mlp_final_max
+from scanobjectnn_torch.nn.layers import MLP, matmul_f32, mlp_final_max
 from scanobjectnn_torch.ops.cuda.gather_kernel import gather_neighbors
-from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool
-from scanobjectnn_torch.ops.cuda.samlp_kernel import fold_bn_mlp_params
+from scanobjectnn_torch.ops.cuda.safused_kernel import fusable_nsample, sa_ball_mlp_pool
+from scanobjectnn_torch.ops.cuda.samlp_kernel import fold_bn_mlp_params, sa_mlp_pool
 
-__all__ = ["sample_and_group", "sample_and_group_all", "FPModule", "SAModule", "GroupMLPPool"]
+__all__ = [
+    "sample_and_group",
+    "sample_and_group_all",
+    "FPModule",
+    "SAModule",
+    "SAModuleMSG",
+    "GroupMLPPool",
+    "LiftedGroupMLP",
+]
 
 
 class GroupMLPPool(MLP):
@@ -49,58 +72,154 @@ class GroupMLPPool(MLP):
         return fold_bn_mlp_params(dense, [(m.scale, m.bias, m.mean, m.var) for m in bn])
 
 
+class LiftedGroupMLP(MLP):
+    """Shared MLP over grouped neighbourhoods with the first Dense lifted to
+    per point, applied before the neighbour gather: an exact linear
+    refactoring of ``Dense([f_j, p_j - q])``,
+
+        [f_j, p_j - q]·W + b  =  ([f_j, p_j]·W + b)  -  [0, q]·W,
+
+    so layer 0 runs over the N points instead of the M·K edges and the
+    gather (#6, backward #7) moves ``mlp[0]`` channels instead of C + 3.  Then
+    BN, relu, the remaining layers and the max-pool over the neighbours, as
+    ``GroupMLPPool`` (the pool runs inside the module: JAX's ``pool=True``,
+    the only way MSG calls it).  Children ``dense_i``/``bn_i`` as in
+    ``MLP``, so JAX checkpoints load strictly and the eval BN fold reads
+    them.
+
+    f32 only: with a bf16 compute dtype JAX multiplies the xyz rows of W0 in
+    f32 (``Dense.highest_cols``), since ``p·W - q·W`` cancels; that returns
+    with bf16 training.  In f32 those products are exact already (no TF32)."""
+
+    def __init__(
+        self, in_features: int, features: Sequence[int], xyz_first: bool = False, dtype: torch.dtype | None = None
+    ):
+        super().__init__(in_features, features, dtype)
+        self.xyz_first = xyz_first
+
+    folded = GroupMLPPool.folded
+
+    def forward(
+        self,
+        point_feats: torch.Tensor | None,
+        xyz: torch.Tensor,
+        query_xyz: torch.Tensor,
+        idx: torch.Tensor,
+        bn_momentum: float | None = None,
+    ) -> torch.Tensor:
+        """point_feats [B, N, C] or None, xyz [B, N, 3], query_xyz [B, M, 3],
+        idx int32 [B, M, K] -> pooled [B, M, mlp[-1]]."""
+        d0 = self.dense_0
+        if (d0.dtype or xyz.dtype) != torch.float32:
+            raise NotImplementedError(
+                "LiftedGroupMLP runs in f32: a bf16 compute dtype needs f32 products of W0's xyz rows "
+                "(JAX Dense.highest_cols), which return with bf16 training"
+            )
+        if point_feats is None:
+            pointwise, wx = d0(xyz), d0.kernel
+        else:
+            c = point_feats.shape[-1]
+            parts = [xyz, point_feats] if self.xyz_first else [point_feats, xyz]
+            pointwise = d0(torch.cat(parts, dim=-1))
+            wx = d0.kernel[:3] if self.xyz_first else d0.kernel[c:]
+        x = gather_neighbors(pointwise.contiguous(), idx) - matmul_f32(query_xyz, wx)[:, :, None, :]
+        x = torch.relu(self.bn_0(x, bn_momentum))
+        n = len(self.features)
+        if n == 1:
+            return torch.amax(x, dim=2)
+        for i in range(1, n - 1):
+            x = self.layer(i, x, bn_momentum)
+        return mlp_final_max(self, x, n - 1, 2, bn_momentum)
+
+
+def _group_width(in_channels: int, use_xyz: bool) -> int:
+    """Width of a grouped row: the centred coordinates (``use_xyz``, or a
+    layer without point features) and the ``in_channels`` features."""
+    return 3 if in_channels == 0 else in_channels + 3 * use_xyz
+
+
+def _gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Neighbour rows [B, M, K, C] of ``points`` in its dtype.  The gather
+    kernel moves f32 rows, so a bf16 source (an unfused eval layer) is
+    gathered as f32, which is exact, and cast back."""
+    return gather_neighbors(points.float().contiguous(), idx).to(points.dtype)
+
+
+def _fused_eval(npoint: int, xyz: torch.Tensor) -> bool:
+    """The JAX gate of the fused eval branches: ``npoint`` and the point
+    count multiples of 8."""
+    return npoint % 8 == 0 and xyz.shape[1] % 8 == 0
+
+
 def _fused_ball_scale(
-    mlp: GroupMLPPool,
+    mlp: GroupMLPPool | LiftedGroupMLP,
     radius: float,
     nsample: int,
     xyz: torch.Tensor,
     new_xyz: torch.Tensor,
     points: torch.Tensor | None,
+    use_xyz: bool,
+    xyz_first: bool,
     dtype: torch.dtype,
 ) -> torch.Tensor:
-    """One fused eval-time ball-grouped SA scale in the SSG layer order
-    ([xyz, feats]): fold the eval BN into the Dense weights, then ball
+    """One fused eval-time ball-grouped SA scale, shared by ``SAModule``
+    (SSG order [xyz, feats], ``xyz_first=True``) and ``SAModuleMSG`` (MSG
+    order [feats, xyz]): fold the eval BN into the Dense weights, then ball
     select + gather + MLP + max-pool in one kernel.  Returns pooled
     [B, M, C]."""
     weights, biases = mlp.folded()
     pooled, _ = sa_ball_mlp_pool(
         radius, nsample, xyz.float().contiguous(), new_xyz.float().contiguous(),
-        points, weights, biases, dtype=dtype,
+        points, weights, biases, use_xyz=use_xyz, xyz_first=xyz_first, dtype=dtype,
     )
     return pooled
 
 
 def sample_and_group(
-    npoint: int, radius: float, nsample: int, xyz: torch.Tensor, points: torch.Tensor | None
+    npoint: int,
+    radius: float,
+    nsample: int,
+    xyz: torch.Tensor,
+    points: torch.Tensor | None,
+    knn: bool = False,
+    use_xyz: bool = True,
 ):
-    """FPS → ball query with centred grouping → feature gather →
-    concat [xyz, feats] (coordinates first, the JAX ``use_xyz=True``).
-    Returns (new_xyz [B,np,3], new_points [B,np,ns,3+C]); the JAX function
-    also returns the indices and the grouped coordinates, which no caller
-    here reads."""
+    """FPS → neighbourhood (ball query with centred grouping, or kNN and a
+    gather of the coordinates minus the centroid) → feature gather →
+    concat [xyz, feats] (coordinates first; ``use_xyz=False`` keeps the
+    features alone).  Returns (new_xyz [B,np,3], new_points
+    [B,np,ns,C']); the JAX function also returns the indices and the
+    grouped coordinates, which no caller here reads."""
     fps_idx = ops.farthest_point_sample(xyz, npoint)
     new_xyz = ops.gather_point(xyz, fps_idx)
-    grouped_xyz, idx, _ = ops.query_ball_group(radius, nsample, xyz, new_xyz)
+    if knn:
+        _, idx = ops.knn_point(nsample, xyz, new_xyz)
+        grouped_xyz = ops.group_point(xyz, idx) - new_xyz[:, :, None, :]
+    else:
+        grouped_xyz, idx, _ = ops.query_ball_group(radius, nsample, xyz, new_xyz)
     if points is None:
         return new_xyz, grouped_xyz
-    return new_xyz, torch.cat([grouped_xyz, gather_neighbors(points.contiguous(), idx)], dim=-1)
+    grouped = _gather_points(points, idx)
+    return new_xyz, torch.cat([grouped_xyz, grouped], dim=-1) if use_xyz else grouped
 
 
-def sample_and_group_all(xyz: torch.Tensor, points: torch.Tensor | None):
+def sample_and_group_all(xyz: torch.Tensor, points: torch.Tensor | None, use_xyz: bool = True):
     """Single group holding every point, centroid (0, 0, 0), coordinates
-    concatenated before the features.  Returns (new_xyz [B,1,3], new_points
-    [B,1,N,3+C])."""
+    concatenated before the features (``use_xyz``).  Returns (new_xyz
+    [B,1,3], new_points [B,1,N,C'])."""
     new_xyz = xyz.new_zeros(xyz.shape[0], 1, 3)
     if points is None:
         return new_xyz, xyz[:, None]
-    return new_xyz, torch.cat([xyz, points], dim=-1)[:, None]
+    return new_xyz, (torch.cat([xyz, points], dim=-1) if use_xyz else points)[:, None]
 
 
 class SAModule(nn.Module):
     """PointNet set abstraction with max pooling.
 
     ``in_channels`` is the width of ``points`` (0 when there are none); the
-    MLP's input adds the 3 centred coordinates (the JAX ``use_xyz=True``)."""
+    MLP's input adds the 3 centred coordinates when ``use_xyz`` or when
+    there are no points.  ``knn`` groups the ``nsample`` nearest points
+    instead of a ball (``radius`` unused)."""
 
     def __init__(
         self,
@@ -110,29 +229,106 @@ class SAModule(nn.Module):
         mlp: Sequence[int],
         in_channels: int = 0,
         group_all: bool = False,
+        knn: bool = False,
+        use_xyz: bool = True,
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
         self.npoint, self.radius, self.nsample = npoint, radius, nsample
-        self.group_all, self.dtype = group_all, dtype
-        self.mlp = GroupMLPPool(3 + in_channels, mlp, dtype=dtype)
+        self.group_all, self.knn, self.use_xyz, self.dtype = group_all, knn, use_xyz, dtype
+        self.mlp = GroupMLPPool(_group_width(in_channels, use_xyz), mlp, dtype=dtype)
 
     def forward(self, xyz: torch.Tensor, points: torch.Tensor | None, bn_momentum: float | None = None):
         """Returns (new_xyz [B, npoint, 3], pooled [B, npoint, C]).
         ``bn_momentum`` is required in training."""
         if self.group_all:
-            new_xyz, new_points = sample_and_group_all(xyz, points)
+            new_xyz, new_points = sample_and_group_all(xyz, points, self.use_xyz)
             return new_xyz, self.mlp(new_points, bn_momentum)
-        if self.training:
-            new_xyz, new_points = sample_and_group(self.npoint, self.radius, self.nsample, xyz, points)
+        if self.training or not _fused_eval(self.npoint, xyz):
+            new_xyz, new_points = sample_and_group(
+                self.npoint, self.radius, self.nsample, xyz, points, self.knn, self.use_xyz
+            )
             return new_xyz, self.mlp(new_points, bn_momentum)
         # idx + centroid coordinates in one FPS kernel pass.
         _, new_xyz = ops.farthest_point_sample_with_coords(xyz, self.npoint)
-        pooled = _fused_ball_scale(
-            self.mlp, self.radius, self.nsample, xyz, new_xyz, points,
-            dtype=self.dtype or xyz.dtype,
+        dtype = self.dtype or xyz.dtype
+        if not self.knn and self.nsample <= 64:
+            pooled = _fused_ball_scale(
+                self.mlp, self.radius, self.nsample, xyz, new_xyz, points, self.use_xyz, True, dtype
+            )
+            return new_xyz, pooled
+        if self.knn:
+            _, idx = ops.knn_point(self.nsample, xyz, new_xyz)
+            grouped_xyz = ops.group_point(xyz.float(), idx) - new_xyz.float()[:, :, None, :]
+        else:
+            grouped_xyz, idx, _ = ops.query_ball_group(self.radius, self.nsample, xyz, new_xyz)
+        weights, biases = self.mlp.folded()
+        pooled = sa_mlp_pool(
+            grouped_xyz if self.use_xyz or points is None else None,
+            idx if points is not None else None,
+            points, weights, biases, dtype=dtype,
         )
         return new_xyz, pooled
+
+
+class SAModuleMSG(nn.Module):
+    """Multi-scale grouping SA (ref pointnet_util.py:156-196): one FPS, a
+    ball query + MLP + max-pool per radius, concatenated over the scales.
+    The grouped rows are [feats, xyz] (features first, unlike SSG).
+
+    ``in_channels`` is the width of ``points`` (0 when there are none).  A
+    scale is lifted (``mlp_scale{i}`` a ``LiftedGroupMLP``) when it has
+    point features, ``use_xyz``, and ``in_channels + 3 > mlp[0]``; else it
+    is a ``GroupMLPPool`` over the grouped rows.  At eval (module doc) every
+    scale with K <= 64 or K a multiple of 16 runs the fused kernel; any
+    other K runs the unfused chain with the running-stat BN."""
+
+    def __init__(
+        self,
+        npoint: int,
+        radius_list: Sequence[float],
+        nsample_list: Sequence[int],
+        mlp_list: Sequence[Sequence[int]],
+        in_channels: int = 0,
+        use_xyz: bool = True,
+        dtype: torch.dtype | None = None,
+    ):
+        super().__init__()
+        self.npoint, self.radius_list, self.nsample_list = npoint, tuple(radius_list), tuple(nsample_list)
+        self.use_xyz, self.dtype = use_xyz, dtype
+        width = _group_width(in_channels, use_xyz)
+        for i, mlp in enumerate(mlp_list):
+            if in_channels and use_xyz and in_channels + 3 > mlp[0]:
+                scale = LiftedGroupMLP(width, mlp, xyz_first=False, dtype=dtype)
+            else:
+                scale = GroupMLPPool(width, mlp, dtype=dtype)
+            self.add_module(f"mlp_scale{i}", scale)
+
+    def forward(self, xyz: torch.Tensor, points: torch.Tensor | None, bn_momentum: float | None = None):
+        """Returns (new_xyz [B, npoint, 3], [B, npoint, sum of mlp[-1]])."""
+        fused = not self.training and _fused_eval(self.npoint, xyz)
+        if fused:
+            _, new_xyz = ops.farthest_point_sample_with_coords(xyz, self.npoint)
+        else:
+            new_xyz = ops.gather_point(xyz, ops.farthest_point_sample(xyz, self.npoint))
+        dtype = self.dtype or xyz.dtype
+        pooled = []
+        for i, (radius, nsample) in enumerate(zip(self.radius_list, self.nsample_list)):
+            mlp = getattr(self, f"mlp_scale{i}")
+            if fused and fusable_nsample(nsample):
+                pooled.append(_fused_ball_scale(mlp, radius, nsample, xyz, new_xyz, points, self.use_xyz, False, dtype))
+                continue
+            grouped_xyz, idx, _ = ops.query_ball_group(radius, nsample, xyz, new_xyz)
+            if isinstance(mlp, LiftedGroupMLP):
+                pooled.append(mlp(points, xyz, new_xyz, idx, bn_momentum))
+                continue
+            grouped = grouped_xyz
+            if points is not None:
+                grouped = _gather_points(points, idx)
+                if self.use_xyz:
+                    grouped = torch.cat([grouped, grouped_xyz], dim=-1)
+            pooled.append(mlp(grouped, bn_momentum))
+        return new_xyz, torch.cat(pooled, dim=-1)
 
 
 class FPModule(nn.Module):

@@ -13,6 +13,7 @@ from scanobjectnn_torch.ops.grouping import (  # noqa: F401
     knn_point,
     pairwise_squared_distance,
     query_ball_group,
+    query_ball_point,
 )
 from scanobjectnn_torch.ops.interpolate import (  # noqa: F401
     three_interpolate,

@@ -37,13 +37,18 @@ _SIGNATURES = {
     # xyz, b, n, m, idx, new_xyz (nullable), stream
     "fps_launch": (_P, _I, _I, _I, _P, _P, _P),
     # xyz, new_xyz, src, b, n, m, cs, k, r2, w0x, w0f, prelifted, bf16,
-    # n_layers, widths*, weights*, biases*, pooled, idx, stream
+    # n_layers, widths*, weights*, biases*, pooled, idx (nullable), stream
     "safused_launch": (
         _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _I, _I,
         _I, _P, _P, _P, _P, _P, _P,
     ),
+    # grouped, idx, src, b, n, m, cs, k, w0x, w0f, bf16, n_layers, widths*,
+    # weights*, biases*, pooled, stream
+    "samlp_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P),
     # xyz, new_xyz, b, n, m, k, r2, grouped, idx, cnt, stream
     "ballgroup_launch": (_P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P),
+    # xyz, new_xyz, b, n, m, k, r2, idx, cnt, stream
+    "ballquery_launch": (_P, _P, _I, _I, _I, _I, _F, _P, _P, _P),
     # vals, idx, b, n, r, c, out, stream
     "gather_launch": (_P, _P, _I, _I, _I, _I, _P, _P),
     # idx, upd, b, n, r, c, offsets, perm, out, stream

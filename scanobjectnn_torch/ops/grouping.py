@@ -1,8 +1,9 @@
 """Ball query, grouping and kNN (counterpart of
 ``scanobjectnn_tpu/ops/grouping.py``).
 
-``query_ball_group``, ``knn_point`` and ``knn_graph`` dispatch on the
-tensor's device, as ``ops/fps.py`` does: a CUDA tensor runs the CUDA kernel
+``query_ball_point``, ``query_ball_group``, ``knn_point`` and
+``knn_graph`` dispatch on the tensor's device, as ``ops/fps.py`` does: a
+CUDA tensor runs the CUDA kernel
 (``ops/cuda/ballgroup_kernel.py``, ``ops/cuda/knn_kernel.py``), a CPU
 tensor its plain version.  ``knn_graph`` is DGCNN's self-kNN: each point's
 first neighbour is itself.  The ball query takes the first K hits of
@@ -30,6 +31,7 @@ __all__ = [
     "knn_point",
     "pairwise_squared_distance",
     "query_ball_group",
+    "query_ball_point",
 ]
 
 
@@ -52,6 +54,15 @@ def knn_graph(features: torch.Tensor, k: int) -> torch.Tensor:
     """Self-kNN over a feature cloud [B, N, C] -> idx [B, N, k] int32, the
     self edge included, ascending (ties to the lowest index)."""
     return knn_kernel.knn_graph_kernel(features.detach().float().contiguous(), k)
+
+
+def query_ball_point(
+    radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ball query: (idx int32 [B, M, K], cnt int32 [B, M] = min(hits, K))."""
+    return ballgroup_kernel.query_ball_point(
+        radius, nsample, xyz.detach().float().contiguous(), new_xyz.detach().float().contiguous()
+    )
 
 
 def query_ball_group(

@@ -1,7 +1,10 @@
 """PyTorch port, ball query + centred grouping: the port's
 ``ops.query_ball_group`` on CPU tensors (the CUDA kernel's plain version)
 against the JAX ``query_ball_group_pallas(..., interpret=True)`` and the
-reference-CUDA golden ``tests/golden.query_ball_golden``.
+reference-CUDA golden ``tests/golden.query_ball_golden``; and the ball
+query alone, ``ops.query_ball_point`` (#8's plain version,
+``ball_query_plain``), against ``query_ball_pallas(..., interpret=True)``
+and ``query_ball_point_lax``.
 
 ``idx`` and ``cnt`` must be equal.  ``grouped`` must be equal to the
 interpreted Pallas kernel, and within atol 1e-6 of the golden gather, as
@@ -9,6 +12,13 @@ interpreted Pallas kernel, and within atol 1e-6 of the golden gather, as
 fewer hits than K, duplicated points, and K=48 and K=96 (the Pallas
 kernel's chunked slot path).  The CUDA kernel is held against the plain
 version by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+
+The ball query alone: ``idx`` and ``cnt`` equal, on rows with no hit and
+rows with more than K.  The two JAX functions test ``sqrt(d2) < radius``
+(``query_ball_point_lax`` on the EXPANDED d2), the port ``d2 < radius²``
+on direct differences: they agree except within rounding of a ball's
+boundary, so the inputs are pinned instead of the check loosened: no
+(query, point) pair has |d2 - radius²| < 1e-6 (asserted).
 """
 
 import jax.numpy as jnp
@@ -16,9 +26,15 @@ import numpy as np
 import pytest
 import torch
 
-from scanobjectnn_tpu.ops.pallas.ballquery_kernel import query_ball_group_pallas
+from scanobjectnn_tpu.ops.grouping import query_ball_point_lax
+from scanobjectnn_tpu.ops.pallas.ballquery_kernel import query_ball_group_pallas, query_ball_pallas
 from scanobjectnn_torch import ops
-from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group, query_ball_group_plain
+from scanobjectnn_torch.ops.cuda.ballgroup_kernel import (
+    ball_query_plain,
+    query_ball_group,
+    query_ball_group_plain,
+    query_ball_point,
+)
 from tests import golden
 
 
@@ -104,3 +120,44 @@ def test_outputs_carry_no_gradient(rng):
 def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         query_ball_group(0.2, 4, torch.zeros(1, 8, 3, device="meta"), torch.zeros(1, 2, 3, device="meta"))
+
+
+# name: (b, n, m, K, radius); queries are perturbed cloud points, and the
+# last quarter is moved out of every ball.
+QUERY_CASES = {
+    "k16": (2, 128, 32, 16, 0.75),
+    "k48": (2, 256, 16, 48, 0.9),
+    "k128": (1, 256, 16, 128, 1.3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(QUERY_CASES))
+def test_ball_query_matches_jax(rng, case):
+    b, n, m, k, radius = QUERY_CASES[case]
+    xyz = _cloud(rng, b, n)
+    centers = xyz[:, rng.choice(n, m, replace=False)] + (0.02 * rng.randn(b, m, 3)).astype(np.float32)
+    centers[:, 3 * m // 4:] += 10.0
+    d2 = ((centers[:, :, None, :].astype(np.float64) - xyz[:, None, :, :]) ** 2).sum(-1)
+    assert np.abs(d2 - radius * radius).min() > 1e-6  # pinned off the boundaries (module doc)
+    idx, cnt = ops.query_ball_point(radius, k, torch.from_numpy(xyz), torch.from_numpy(centers))
+    assert idx.dtype == cnt.dtype == torch.int32 and idx.shape == (b, m, k) and cnt.shape == (b, m)
+    for ref_idx, ref_cnt in (
+        query_ball_pallas(radius, k, jnp.asarray(xyz), jnp.asarray(centers), interpret=True),
+        query_ball_point_lax(radius, k, jnp.asarray(xyz), jnp.asarray(centers)),
+    ):
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+        np.testing.assert_array_equal(cnt.numpy(), np.asarray(ref_cnt))
+    hits = (d2 < radius * radius).sum(-1)
+    assert (hits == 0).any() and (hits > k).any() and ((hits > 0) & (hits < k)).any()
+    assert (idx.numpy()[hits == 0] == 0).all()
+
+
+def test_ball_query_cpu_tensor_takes_plain_version_without_launch(rng):
+    xyz = torch.from_numpy(_cloud(rng, 2, 64))
+    before = query_ball_point.launches
+    idx, cnt = query_ball_point(0.4, 8, xyz, xyz[:, :8].contiguous())
+    want_idx, want_cnt = ball_query_plain(0.4, 8, xyz, xyz[:, :8])
+    assert torch.equal(idx, want_idx.int()) and torch.equal(cnt, want_cnt.int())
+    assert query_ball_point.launches == before == 0
+    with pytest.raises(ValueError):
+        query_ball_point(0.2, 4, torch.zeros(1, 8, 3, device="meta"), torch.zeros(1, 2, 3, device="meta"))

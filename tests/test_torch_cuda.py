@@ -4,16 +4,18 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-FPS indices and coordinates must be equal.  Fused SA: ``idx`` equal;
-``pooled`` in f32 to rtol 1e-4 / atol 1e-5 (only the summation order
-differs).  In bf16 the kernel and the plain version sum the same
+FPS indices and coordinates must be equal.  Fused SA (#3, K <= 64 and
+the chunked K = 80, 128; and #10 over a given grouping): ``idx`` equal
+(None at K > 64); ``pooled`` in f32 to rtol 1e-4 / atol 1e-5 (only the
+summation order differs).  In bf16 the kernel and the plain version sum the same
 bf16-rounded products in f32 and round at the same points, so they agree
 bit for bit on an H100: ``pooled`` may differ by at most one bf16 ulp of
 max(1, |ref|max), on at most 0.1% of its elements.  A kernel that skipped a
 bf16 rounding between layers differs on far more.
 
-Training kernels: the ball group (``grouped``, ``idx``, ``cnt``) and the
-row gather must be equal to their plain versions.  The scatter-add must be
+Training kernels: the ball group (``grouped``, ``idx``, ``cnt``), the ball
+query alone (#8: ``idx``, ``cnt``) and the row gather must be equal to their
+plain versions.  The scatter-add must be
 within 1e-5 x max(1, |ref|max) of ``index_add_`` (both sum exact f32, in
 other orders), and two calls on the same input must give the same bits.
 
@@ -47,7 +49,12 @@ import numpy as np
 import pytest
 import torch
 
-from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group, query_ball_group_plain
+from scanobjectnn_torch.ops.cuda.ballgroup_kernel import (
+    ball_query_plain,
+    query_ball_group,
+    query_ball_group_plain,
+    query_ball_point,
+)
 from scanobjectnn_torch.ops.cuda.dupmask_kernel import duplicate_mask_kernel, duplicate_mask_plain
 from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
 from scanobjectnn_torch.nn import xconv
@@ -75,6 +82,7 @@ from scanobjectnn_torch.ops.cuda.knn_kernel import (
     knn_point_plain,
 )
 from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool, sa_ball_mlp_pool_plain
+from scanobjectnn_torch.ops.cuda.samlp_kernel import sa_mlp_pool, sa_mlp_pool_plain
 from scanobjectnn_torch.ops.cuda.spider_kernel import (
     spider_conv,
     spider_conv_bwd_kernel,
@@ -135,6 +143,10 @@ SA_CASES = {
     "no_xyz": (1, 128, 32, 8, 0.6, 16, (16, 16), False, True),
     "prelifted": (2, 128, 32, 8, 0.6, 40, (16, 24), True, True),
     "four_layers": (1, 200, 24, 16, 0.6, 8, (16, 24, 24, 40), True, True),
+    # K > 64: one query a block, chunks of 64 slots (MSG's K = 128 scales).
+    "msg_sa1_k128": (2, 1024, 128, 128, 0.4, 0, (64, 96, 128), True, False),
+    "msg_sa2_k128_prelifted": (2, 512, 64, 128, 0.8, 320, (128, 128, 256), True, False),
+    "k80_features_ragged": (1, 300, 40, 80, 0.6, 20, (32, 40), True, True),
 }
 
 
@@ -173,7 +185,14 @@ def test_safused_kernel_matches_plain(dev, case, dtype):
     ref, ref_idx = sa_ball_mlp_pool_plain(*args, dtype=dtype, **kw)
     torch.cuda.synchronize()
     assert sa_ball_mlp_pool.launches == before + 1
-    assert torch.equal(idx, ref_idx)
+    if args[1] > 64:
+        assert idx is None and ref_idx is None
+    else:
+        assert torch.equal(idx, ref_idx)
+    _check_pooled(pooled, ref, dtype)
+
+
+def _check_pooled(pooled, ref, dtype):
     assert pooled.dtype == ref.dtype == dtype and pooled.shape == ref.shape
     if dtype == torch.float32:
         torch.testing.assert_close(pooled, ref, rtol=1e-4, atol=1e-5)
@@ -187,8 +206,9 @@ def test_safused_kernel_matches_plain(dev, case, dtype):
 
 def test_safused_kernel_refuses_what_it_does_not_take(dev):
     args, kw = _sa_inputs("ragged_m", dev)
-    with pytest.raises(ValueError, match="K <= 64"):
-        sa_ball_mlp_pool(args[0], 65, *args[2:], **kw)
+    for k in (65, 72, 1040):  # K <= 64, or a multiple of 16 up to 1024
+        with pytest.raises(ValueError, match="K <= 64"):
+            sa_ball_mlp_pool(args[0], k, *args[2:], **kw)
     with pytest.raises(ValueError, match="contiguous"):
         sa_ball_mlp_pool(args[0], args[1], args[2].transpose(0, 1).contiguous().transpose(0, 1), *args[3:], **kw)
     with pytest.raises(ValueError, match="float32"):
@@ -253,6 +273,105 @@ def test_ballgroup_kernel_refuses_what_it_does_not_take(dev):
         query_ball_group(0.2, 4, xyz.double(), xyz)
     with pytest.raises(ValueError, match="contiguous"):
         query_ball_group(0.2, 4, torch.zeros(1, 3, 8, device=dev).transpose(1, 2), xyz)
+
+
+@pytest.mark.parametrize("case", sorted(BALL_CASES))
+def test_ball_query_kernel_matches_plain(dev, case):
+    spec = BALL_CASES[case]
+    xyz, new_xyz = (torch.from_numpy(a).to(dev) for a in ball_inputs(spec, np.random.RandomState(spec[1])))
+    radius, k = spec[4], spec[3]
+    before = query_ball_point.launches
+    idx, cnt = query_ball_point(radius, k, xyz, new_xyz)
+    want_idx, want_cnt = ball_query_plain(radius, k, xyz, new_xyz)
+    torch.cuda.synchronize()
+    assert query_ball_point.launches == before + 1
+    assert idx.dtype == cnt.dtype == torch.int32
+    assert torch.equal(idx, want_idx.int()) and torch.equal(cnt, want_cnt.int())
+
+
+# name: (b, n, m, k, feature channels, use the coordinates, mlp)
+SAMLP_CASES = {
+    "xyz_only_k32": (4, 1024, 512, 32, 0, True, (64, 64, 128)),
+    "ssg_sa2_knn_like": (4, 512, 128, 32, 128, True, (128, 128, 256)),
+    "features_k128": (2, 512, 128, 128, 128, True, (128, 128, 256)),
+    "features_no_xyz_ragged": (3, 200, 37, 16, 24, False, (32, 40)),
+    "k72": (2, 256, 40, 72, 8, True, (16, 24, 24, 40)),
+}
+
+
+def _samlp_inputs(case, dev):
+    b, n, m, k, c, use_xyz, mlp = SAMLP_CASES[case]
+    rng = np.random.RandomState(n + k)
+    grouped = (rng.randn(b, m, k, 3) * 0.3).astype(np.float32) if use_xyz or not c else None
+    idx = rng.randint(0, n, (b, m, k)).astype(np.int32) if c else None
+    src = rng.randn(b, n, c).astype(np.float32) if c else None
+    widths = ((3 if grouped is not None else 0) + c,) + tuple(mlp)
+    weights = [(rng.randn(i, o) / np.sqrt(i)).astype(np.float32) for i, o in zip(widths, widths[1:])]
+    biases = [(0.1 * rng.randn(o)).astype(np.float32) for o in mlp]
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x).to(dev)
+
+    return t(grouped), t(idx), t(src), [t(w) for w in weights], [t(b_) for b_ in biases]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(SAMLP_CASES))
+def test_samlp_kernel_matches_plain(dev, case, dtype):
+    args = _samlp_inputs(case, dev)
+    before = sa_mlp_pool.launches
+    pooled = sa_mlp_pool(*args, dtype=dtype)
+    ref = sa_mlp_pool_plain(*args, dtype=dtype)
+    torch.cuda.synchronize()
+    assert sa_mlp_pool.launches == before + 1
+    _check_pooled(pooled, ref, dtype)
+
+
+def test_samlp_kernel_refuses_what_it_does_not_take(dev):
+    grouped, idx, src, weights, biases = _samlp_inputs("features_no_xyz_ragged", dev)
+    with pytest.raises(ValueError, match="int32"):
+        sa_mlp_pool(None, idx.long(), src, weights, biases)
+    with pytest.raises(ValueError, match="weights"):
+        sa_mlp_pool(None, idx, src, [weights[0], weights[1][1:]], biases)
+    with pytest.raises(ValueError, match="K <= 1024"):
+        sa_mlp_pool(torch.zeros(1, 2, 1025, 3, device=dev), None, None, [torch.zeros(3, 4, device=dev)],
+                    [torch.zeros(4, device=dev)])
+
+
+def test_sa_module_knn_above_k64_raises_on_the_card(dev):
+    # The port's kNN kernel stops at k = 64 (JAX's takes any k): the fused
+    # eval branch raises there instead of falling back to the plain path.
+    from scanobjectnn_torch.nn.pointnet_modules import SAModule
+
+    sa = SAModule(32, None, 72, (16, 32), knn=True).to(dev).eval()
+    xyz = torch.from_numpy(np.random.RandomState(0).randn(2, 256, 3).astype(np.float32)).to(dev)
+    with pytest.raises(ValueError, match="k <= 64"), torch.no_grad():
+        sa(xyz, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_unfused_eval_sa_layers_gather_bf16_points(dev, dtype):
+    # JAX's eval gate sends npoint % 8 != 0 (SAModule) and an unfusable K
+    # (SAModuleMSG, K = 72) to the unfused chain, which gathers the point
+    # features: bf16 ones too.  Against the same layers on the CPU (the
+    # plain versions): f32 to rtol 1e-4 / atol 1e-5, bf16 to 2e-2, about two
+    # bf16 ulps at the activations' scale, since cuBLAS and the CPU sum in
+    # other orders before each rounding.
+    from scanobjectnn_torch.convert import init_params
+    from scanobjectnn_torch.nn.pointnet_modules import SAModule, SAModuleMSG
+
+    rng = np.random.RandomState(3)
+    xyz = torch.from_numpy((rng.randn(2, 256, 3) * 0.5).astype(np.float32))
+    pts = torch.from_numpy(rng.randn(2, 256, 8).astype(np.float32)).to(dtype)
+    for layer in (SAModule(30, 0.4, 16, (16, 16), 8, dtype=dtype),
+                  SAModuleMSG(32, (0.6,), (72,), ((16, 16),), 8, dtype=dtype)):
+        init_params(layer, torch.Generator().manual_seed(0)).eval()
+        with torch.no_grad():
+            want = layer(xyz, pts)
+            got = layer.to(dev)(xyz.to(dev), pts.to(dev))
+        assert torch.equal(got[0].cpu(), want[0])
+        torch.testing.assert_close(got[1].float().cpu(), want[1].float(), rtol=1e-4 if dtype == torch.float32 else 2e-2,
+                                   atol=1e-5 if dtype == torch.float32 else 2e-2)
 
 
 def _scatter_inputs(dev, b, n, m, k, c, seed):

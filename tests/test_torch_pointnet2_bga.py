@@ -112,7 +112,8 @@ def test_state_dict_names_match_jax_tree(variables, name):
 
 def test_registry_kinds():
     assert {n: c.kind for n, c in MODEL_REGISTRY.items()} == {
-        "pointnet2_cls_ssg": "cls", "pointnet2_cls_bga": "seg", "pointnet2_cls_partseg": "partseg",
+        "pointnet2_cls_ssg": "cls", "pointnet2_cls_msg": "cls", "pointnet2_cls_bga": "seg",
+        "pointnet2_cls_partseg": "partseg",
         "dgcnn": "cls", "dgcnn_bga": "seg", "spidercnn_cls_xyz": "cls",
         "pointcnn_cls": "cls", "pointcnn_seg": "seg",
     }

@@ -116,7 +116,7 @@ def test_state_dict_names_match_jax_tree(variables):
 
 def test_get_model_refuses_unported_names():
     with pytest.raises(KeyError, match="not ported"):
-        get_model("pointnet2_cls_msg", device="cpu")
+        get_model("pointnet_cls", device="cpu")
 
 
 def test_training_mode_raises(points):
