@@ -124,6 +124,27 @@ Phases (any failure raises and the exit code is not 0):
      c. #8 through ``ops.query_ball_point`` at M=512 centroids, K=32 (r 0.2)
         and 128 (r 0.4), counting launches: idx and cnt equal to
         ``ball_query_plain``; timed.
+ 11. mixed-precision and fused-tail training, B=16 clouds of N=1024 points:
+     a. bf16 ``Trainer`` steps (``dtype="bfloat16"``, pool_precision "auto":
+        exact keys) of ``pointnet2_cls_ssg`` and ``pointnet2_cls_msg``,
+        counting launches and recording the inputs of #18
+        (``bn_relu_exactkey_pool``: SSG's three SA layers, MSG's six scales
+        and group-all); each call bit-equal to its plain version (pooled,
+        kmax, cnt); timed, with its bound;
+     b. f32 and bf16 steps with ``fused_sa_train=True`` (pool mode native),
+        recording the inputs of #17 (``grouped_bn_mlp_pool_bwd``); at SSG's
+        SA1 and SA2 and MSG's two K = 128 scales each call held to its plain
+        backward (FUSED_* bounds) and bit-stable across two calls; timed;
+     c. the bf16 steps against the plain path (``compare_steps``, BF16_*
+        step bounds) and timed (``time_steps``) beside the f32 step of the
+        same model;
+     d. the f32 steps with ``fused_sa_train=True`` against ``False`` on the
+        kernel path, from the same weights, batch and draws: the loss and
+        every gradient (FUSED_STEP_* bounds); both timed;
+     e. ``SAModule(knn=True, nsample=128)`` at SSG's SA1 and SA2 shapes
+        (B=32), f32 and bf16, through FPS, the kNN kernel's k > 64 path (the
+        block-wide sort), the gather and #10, against the plain path; the
+        kNN call at k = 128 equal to ``knn_point_plain``, timed.
 
 Every kernel's line in the ``{"kernels": [...]}`` record carries its
 bound: the larger of the bytes it must move over 3.35 TB/s and the
@@ -218,6 +239,32 @@ PCNN_BATCH, PCNN_POINT = 32, 1024
 # bounds, #8's idx and cnt equal to ball_query_plain.
 MSG_BATCH, MSG_POINT, MSG_TRAIN_BATCH = 32, 1024, 16
 SA_LAYER_BATCH, SA_LAYER_POINT = 32, 1024
+# Mixed precision and the fused tail (phase 11), B=16, N=1024.  #18 must
+# equal its plain version bit for bit (the same r, the same op order without
+# contraction, the same rounding).  #17 sums its products in another order
+# than cuBLAS, so a relu gate or pool winner within rounding of a tie may
+# flip, and in bf16 a rounding of h may move by one ulp: dz1 (per row) at
+# most FUSED_FLIP_SHARE of the elements beyond FUSED_TOL x max|ref|; the
+# sums over all rows (dgamma, dbeta, dW; up to 1,048,576 rows at MSG SA1's
+# K=128 scale, where dW_2 read 0.14% of its elements beyond 1e-5 of the
+# scale on an H100) within FUSED_SUM_TOL x max|ref|, TRAIN_GRAD_TOL, the
+# step's bound for f32 gradients summed in other orders; the Dense biases
+# (true gradient 0) within FUSED_ZERO_TOL x max(1, |dbeta|max) on both
+# sides; two calls bit-equal.  A bf16 step, kernel path against
+# plain path: the forward is the same arithmetic (#18 equal), the backward
+# differs through the scatter-add's order, whose last-bit changes move bf16
+# roundings of the cotangents: the loss to TRAIN_LOSS_RTOL, each gradient
+# and BN stat to BF16_STEP_GRAD_TOL x max(1, |ref|max).  The Dense biases
+# before a BN have a true gradient of 0, but in bf16 both paths compute
+# rounding noise there (read up to 1.34, 0.23 of the layer kernel
+# gradient's scale, at SSG on an H100), so they are held as the other
+# gradients, kernel path against plain path.  The
+# f32 step with the fused tail against the unfused one: the same forward,
+# the backward's sums in other orders: FUSED_STEP_GRAD_TOL x max(1,
+# |ref|max), the Dense biases before a BN to ZERO_GRAD_TOL.
+MIXED_BATCH, MIXED_POINT = 16, 1024
+FUSED_TOL, FUSED_FLIP_SHARE, FUSED_SUM_TOL, FUSED_ZERO_TOL = 1e-5, 1e-3, TRAIN_GRAD_TOL, 1e-3
+BF16_STEP_GRAD_TOL, FUSED_STEP_GRAD_TOL = 2e-2, 1e-4
 # Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds.
 HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 989e12
 
@@ -444,10 +491,11 @@ def plain_path():
 
     from scanobjectnn_torch.models import dgcnn, spidercnn
     from scanobjectnn_torch.nn import pointnet_modules, xconv
+    from scanobjectnn_torch.ops import exactpool, satrain
     from scanobjectnn_torch.ops import fps as ops_fps
     from scanobjectnn_torch.ops.cuda import (
-        ballgroup_kernel, dupmask_kernel, edge_kernel, gather_kernel, knn_kernel, safused_kernel, samlp_kernel,
-        spider_kernel,
+        ballgroup_kernel, dupmask_kernel, edge_kernel, gather_kernel, knn_kernel, poolkey_kernel, safused_kernel,
+        samlp_kernel, satrain_kernel, spider_kernel,
     )
 
     stack = ExitStack()
@@ -467,6 +515,8 @@ def plain_path():
         (spidercnn, "spider_conv", spider_kernel.spider_conv_plain),
         (xconv, "duplicate_mask_kernel", dupmask_kernel.duplicate_mask_plain),
         (xconv, "knn_point_kernel", knn_kernel.knn_point_plain),
+        (exactpool, "bn_relu_exactkey_pool", poolkey_kernel.bn_relu_exactkey_pool_plain),
+        (satrain, "grouped_bn_mlp_pool_bwd", satrain_kernel.grouped_bn_mlp_pool_bwd_plain),
     ):
         stack.enter_context(mock.patch.object(module, name, plain))
     return stack
@@ -475,9 +525,10 @@ def plain_path():
 # Every main path's launches together, by counter (``counted_run``).  A
 # wrapper's sub-count is split off under its own name: FPS's into "fps"
 # (with coordinates) and "fps_indices" (indices only), the fused SA layer's
-# into "sa_ball_mlp_pool" (K <= 64) and "sa_ball_mlp_pool_chunked" (K > 64).
+# into "sa_ball_mlp_pool" (K <= 64) and "sa_ball_mlp_pool_chunked" (K > 64),
+# the kNN's into "knn_point_kernel" (k <= 64) and "knn_point_kernel_sorted".
 LAUNCHES: dict[str, int] = {}
-SUBCOUNTS = {"index_launches": "_indices", "chunked_launches": "_chunked"}
+SUBCOUNTS = {"index_launches": "_indices", "chunked_launches": "_chunked", "sort_launches": "_sorted"}
 
 
 def counted_run(counters, fn):
@@ -504,15 +555,20 @@ def counted_run(counters, fn):
     return out, counts
 
 
-def compare_steps(trainer, batch, n_zero: int, label: str, loss_rtol: float = TRAIN_LOSS_RTOL) -> None:
+def compare_steps(trainer, batch, n_zero: int, label: str, loss_rtol: float = TRAIN_LOSS_RTOL,
+                  grad_tol: float = TRAIN_GRAD_TOL, zero_tol: float | None = ZERO_GRAD_TOL, against=None) -> None:
     """One step on the kernel path and one on the plain path, from the same
     weights, batch and generator state: the loss (within ``loss_rtol``),
-    every gradient and the BN running stats (the bounds above); the
-    ``n_zero`` Dense biases before a training BN near 0 on both paths."""
+    every gradient and the BN running stats (within ``grad_tol`` x max(1,
+    |ref|max)); the ``n_zero`` Dense biases before a training BN within
+    ``zero_tol`` of 0 on both paths (None: held as the other gradients).
+    ``against``: instead of the plain path, another trainer's step on the
+    kernel path."""
     import torch
 
     from scanobjectnn_torch.ops.cuda import (
-        dupmask_kernel, edge_kernel, fps_kernel, gather_kernel, knn_kernel, spider_kernel,
+        dupmask_kernel, edge_kernel, fps_kernel, gather_kernel, knn_kernel, poolkey_kernel, satrain_kernel,
+        spider_kernel,
     )
     from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group
 
@@ -520,37 +576,42 @@ def compare_steps(trainer, batch, n_zero: int, label: str, loss_rtol: float = TR
                 knn_kernel.knn_point_kernel, knn_kernel.knn_graph_kernel, edge_kernel.edge_reduce_fwd_kernel,
                 edge_kernel.edge_reduce_bwd_kernel, edge_kernel.edge_gather_knn,
                 spider_kernel.spider_conv_fwd_kernel, spider_kernel.spider_conv_bwd_kernel,
-                dupmask_kernel.duplicate_mask_kernel)
+                dupmask_kernel.duplicate_mask_kernel, poolkey_kernel.bn_relu_exactkey_pool,
+                satrain_kernel.grouped_bn_mlp_pool_bwd)
     steps = {}
     for path in ("kernel", "plain"):
-        s = trainer.init_state(seed=1)
+        s = (against if path == "plain" and against is not None else trainer).init_state(seed=1)
         before = [fn.launches for fn in counters]
-        if path == "plain":
+        if path == "plain" and against is not None:
+            s, metrics = against.train_step(s, batch)
+        elif path == "plain":
             with plain_path():
                 s, metrics = trainer.train_step(s, batch)
             torch.cuda.synchronize()
             require([fn.launches for fn in counters] == before, f"the plain training path launched a kernel ({label})")
         else:
             s, metrics = trainer.train_step(s, batch)
-        steps[path] = (float(metrics["loss"]), {n: p.grad for n, p in s.model.named_parameters()},
+        steps[path] = (float(metrics["loss"]), {n: p.grad.float() for n, p in s.model.named_parameters()},
                        dict(s.model.named_buffers()))
     (loss_k, grads_k, stats_k), (loss_p, grads_p, stats_p) = steps["kernel"], steps["plain"]
     loss_err = abs(loss_k - loss_p) / abs(loss_p)
-    zero = [n for n in grads_p if feeds_train_bn(n)]
-    require(len(zero) == n_zero, f"expected the {n_zero} Dense biases that feed a BN, found {zero}")
+    biases = [n for n in grads_p if feeds_train_bn(n)]
+    require(len(biases) == n_zero, f"expected the {n_zero} Dense biases that feed a BN, found {biases}")
+    zero = biases if zero_tol is not None else []
     grad_err, worst = max(
         (float((grads_k[n] - grads_p[n]).abs().max()) / scale_of(grads_p[n]), n) for n in grads_p if n not in zero
     )
-    zero_max = max((float(g[n].abs().max()) for g in (grads_k, grads_p) for n in zero), default=0.0)
+    zero_max = max((float(g[n].abs().max()) for g in (grads_k, grads_p) for n in biases), default=0.0)
     stat_err = max(float((stats_k[n] - stats_p[n]).abs().max()) / scale_of(stats_p[n]) for n in stats_p)
-    print(f"train step {label}, kernel path against plain path: loss {loss_k:.7f} vs {loss_p:.7f} "
+    other = "the unfused step" if against is not None else "plain path"
+    print(f"train step {label}, kernel path against {other}: loss {loss_k:.7f} vs {loss_p:.7f} "
           f"(rel err {loss_err:.3e}, bound {loss_rtol}); largest error / scale: gradients {grad_err:.3e} "
-          f"({worst}), BN stats {stat_err:.3e} (bound {TRAIN_GRAD_TOL}); the {n_zero} Dense biases before a BN: "
-          f"max |grad| {zero_max:.3e} on either path (bound {ZERO_GRAD_TOL})")
-    require(loss_err <= loss_rtol, f"training loss differs from the plain path ({label})")
-    require(grad_err <= TRAIN_GRAD_TOL and stat_err <= TRAIN_GRAD_TOL,
-            f"training gradients or BN stats differ from the plain path ({label})")
-    require(zero_max <= ZERO_GRAD_TOL, f"a Dense bias before a BN has a gradient far from 0 ({label})")
+          f"({worst}), BN stats {stat_err:.3e} (bound {grad_tol}); the {n_zero} Dense biases before a BN: "
+          f"max |grad| {zero_max:.3e} on either path (bound {zero_tol if zero else 'none: held as the rest'})")
+    require(loss_err <= loss_rtol, f"training loss differs from the {other} ({label})")
+    require(grad_err <= grad_tol and stat_err <= grad_tol,
+            f"training gradients or BN stats differ from the {other} ({label})")
+    require(not zero or zero_max <= zero_tol, f"a Dense bias before a BN has a gradient far from 0 ({label})")
 
 
 def eval_models(name: str, stats_rng) -> dict:
@@ -1542,6 +1603,300 @@ def sa_layer_phase(smi: str, dev) -> dict:
     return records
 
 
+def poolkey_work(work: Work, z32, cdtype) -> None:
+    """#18: z32 read once, pooled, kmax and cnt written; per element the two
+    affine chains, two roundings, two relus and the compare (about 14
+    operations)."""
+    import torch
+
+    rows, c = z32[..., 0, :].numel() // z32.shape[-1], z32.shape[-1]
+    elt = 2 if cdtype == torch.bfloat16 else 4
+    work.add(14.0 * z32.numel(), 4 * z32.numel() + rows * c * (elt + 8) + 16 * c)
+
+
+def satrain_work(work: Work, z1, widths) -> None:
+    """#17, the least work of the backward: one forward recompute of the
+    layers' products, the dW and dy products (2 C_{i-1} C_i operations a row
+    each, f32 on the CUDA cores), about 20 elementwise operations a row and
+    channel; z1 read, dz1 written, d_pooled and the parameters read once."""
+    rows = z1[..., 0].numel()
+    products = sum(2 * a * c for a, c in zip(widths, widths[1:]))
+    nbytes = 2 * z1.element_size() * z1.numel() + 4 * (z1.shape[0] * z1.shape[1]) * widths[-1]
+    nbytes += 4 * sum(a * c for a, c in zip(widths, widths[1:])) * 2 + 4 * 8 * sum(widths)
+    work.add(float(rows) * (3 * products + 20 * sum(widths)), nbytes)
+
+
+def time_trainers(trainers: dict, batches, smi: str, label: str, n: int = 3) -> None:
+    """Step time of two trainers' kernel paths (host clock around ``n``
+    steps that end in a synchronize), in turns A, B, B, A."""
+    import torch
+
+    states = {name: t.init_state(seed=0) for name, t in trainers.items()}
+
+    def step_ms(name: str) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for batch in batches[:n]:
+            trainers[name].train_step(states[name], batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    a, b = trainers
+    times = {a: [], b: []}
+    for name in (a, b, b, a):
+        times[name].append(step_ms(name))
+    for name, ms in times.items():
+        print(f"time train step {label} {name}: {sum(ms) / len(ms):.4f} ms "
+              f"(rounds {', '.join(f'{v:.4f}' for v in ms)}) ({smi})")
+
+
+def clone_args(args):
+    """Arguments of a recorded call, tensors (also in lists) cloned."""
+    import torch
+
+    def one(a):
+        if torch.is_tensor(a):
+            return a.detach().clone()
+        if isinstance(a, (list, tuple)):
+            return type(a)(one(x) for x in a)
+        return a
+
+    return tuple(one(a) for a in args)
+
+
+def check_satrain_bwd(args, label: str) -> float:
+    """#17 against its plain backward (the FUSED_* bounds) and bit-stable
+    across two calls; returns the largest error / max|ref| of a cotangent
+    outside the flipped share."""
+    import torch
+
+    from scanobjectnn_torch.ops.cuda.satrain_kernel import grouped_bn_mlp_pool_bwd, grouped_bn_mlp_pool_bwd_plain
+
+    def flat(out):
+        dz1, dgammas, dbetas, dws, dbs = out
+        named = {"dz1": dz1, **{f"dgamma{i}": g for i, g in enumerate(dgammas)},
+                 **{f"dbeta{i}": g for i, g in enumerate(dbetas)}, **{f"dw{i + 1}": g for i, g in enumerate(dws)}}
+        return named, {f"dbias{i + 1}": g for i, g in enumerate(dbs)}
+
+    (got, got_b), (again, again_b) = flat(grouped_bn_mlp_pool_bwd(*args)), flat(grouped_bn_mlp_pool_bwd(*args))
+    want, want_b = flat(grouped_bn_mlp_pool_bwd_plain(*args))
+    torch.cuda.synchronize()
+    worst, readings, faults = 0.0, [], []
+    for name, w in want.items():
+        g = got[name]
+        require(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, again[name]),
+                f"#17 {name} is not bit-stable or has another type ({label})")
+        diff = (g.float() - w.float()).abs()
+        scale = max(float(w.float().abs().max()), 1e-30)
+        err = float(diff.max()) / scale
+        worst = max(worst, err)
+        if name == "dz1":  # per row: a flipped gate or winner moves a whole element
+            beyond = diff > FUSED_TOL * scale
+            share = float(beyond.float().mean())
+            readings.append(f"{name} {err:.2e} ({share:.1e} beyond {FUSED_TOL}, the rest within "
+                            f"{float(torch.where(beyond, 0.0, diff).max()) / scale:.2e})")
+            if share > FUSED_FLIP_SHARE:
+                faults.append(f"{name}: {share} of the elements beyond {FUSED_TOL}")
+        else:  # sums over every row
+            readings.append(f"{name} {err:.2e}")
+            if err > FUSED_SUM_TOL:
+                faults.append(f"{name}: {err} > {FUSED_SUM_TOL}")
+    for name, w in want_b.items():
+        bound = FUSED_ZERO_TOL * max(1.0, float(want["dbeta" + name[5:]].abs().max()))
+        noise = max(float(got_b[name].abs().max()), float(w.abs().max()))
+        readings.append(f"{name} |{noise:.2e}|")
+        if not torch.equal(got_b[name], again_b[name]) or noise > bound:
+            faults.append(f"{name}: |db| {noise} > {bound} or not bit-stable")
+    print(f"#17 {label}: bit-stable; error / max|ref|: {', '.join(readings)}")
+    require(not faults, f"#17 differs from its plain version ({label}): {faults}")
+    return worst
+
+
+def mixed_phase(smi: str, dev) -> dict:
+    """Phase 11 (module doc).  Returns the records of #18 (over one bf16 SSG
+    step's three calls), #17 (over one f32 fused SSG step's SA1 and SA2
+    calls) and the kNN's k > 64 path (over the two f32 ``SAModule(knn,
+    nsample=128)`` layers' calls)."""
+    import numpy as np
+    import torch
+
+    from scanobjectnn_torch.convert import init_params
+    from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.nn.pointnet_modules import SAModule
+    from scanobjectnn_torch.ops import exactpool, satrain
+    from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group
+    from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
+    from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows, scatter_add_rows
+    from scanobjectnn_torch.ops.cuda.knn_kernel import knn_point_kernel, knn_point_plain
+    from scanobjectnn_torch.ops.cuda.poolkey_kernel import bn_relu_exactkey_pool, bn_relu_exactkey_pool_plain
+    from scanobjectnn_torch.ops.cuda.samlp_kernel import sa_mlp_pool
+    from scanobjectnn_torch.ops.cuda.satrain_kernel import grouped_bn_mlp_pool_bwd, grouped_bn_mlp_pool_bwd_plain
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    b, n = MIXED_BATCH, MIXED_POINT
+    data, labels = make_synthetic_dataset(num_per_class=5, num_classes=NUM_CLASSES, num_points=2 * n, seed=11)
+    batches = list(Batches(EpochSampler(data, labels, num_points=n, seed=0).epoch(), b))
+    require(len(batches) > TRAIN_STEPS, f"only {len(batches)} batches for phase 11")
+    records = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None}
+               for k in ("bn_relu_exactkey_pool", "grouped_bn_mlp_pool_bwd", "knn_point_sorted")}
+    base = (fps, query_ball_group, gather_rows, scatter_add_rows)
+    n_zero = {"pointnet2_cls_ssg": 11, "pointnet2_cls_msg": 23}
+
+    def steps(trainer, state, first: int = 0):
+        return [float(trainer.train_step(state, batch)[1]["loss"]) for batch in batches[first:TRAIN_STEPS]]
+
+    # 11a. bf16 steps (exact keys), #18's calls recorded and held to the plain version.
+    calls = []
+
+    def record(real):
+        def recorder(*args):
+            calls.append(clone_args(args))
+            return real(*args)
+        return recorder
+
+    work = Work()
+    for model in n_zero:
+        short = model.split("_")[-1].upper()
+        trainer = Trainer(TrainerConfig(model=model, batch_size=b, dtype="bfloat16", device=str(dev)))
+        require(trainer.pool_mode == "keys", f"bf16 pool_precision 'auto' resolved to {trainer.pool_mode}")
+        state = trainer.init_state(seed=0)
+        calls.clear()
+        with mock.patch.object(exactpool, "bn_relu_exactkey_pool", record(bn_relu_exactkey_pool)):
+            losses, counts = counted_run(base + (bn_relu_exactkey_pool,), lambda: steps(trainer, state))
+        per_step = 3 if short == "SSG" else 7
+        print(f"{short} bf16 (keys) training main path: {TRAIN_STEPS} steps, losses {[round(v, 6) for v in losses]}, "
+              f"launches {counts}")
+        require(all(c > 0 for c in counts.values()) and all(math.isfinite(v) for v in losses)
+                and counts["bn_relu_exactkey_pool"] == per_step * TRAIN_STEPS,
+                f"the {short} bf16 training path: launches {counts}, losses {losses}")
+        for i, args in enumerate(calls[:per_step]):
+            z32 = args[0]
+            label = f"{short} bf16 call {i} z32 {list(z32.shape)}"
+            got, want = bn_relu_exactkey_pool(*args), bn_relu_exactkey_pool_plain(*args)
+            torch.cuda.synchronize()
+            require(all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)),
+                    f"#18 differs from its plain version ({label})")
+            ms, plain_ms = cuda_ms(lambda: bn_relu_exactkey_pool(*args)), cuda_ms(
+                lambda: bn_relu_exactkey_pool_plain(*args), iters=3)
+            one = Work()
+            poolkey_work(one, z32, args[5])
+            print(f"#18 {label}: pooled, kmax and cnt equal to the plain version (min cnt {float(got[2].min()):.0f}, "
+                  f"{float((got[2] > 1).float().mean()):.4f} of the columns tie); time kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {one.record()['bound_ms']:.4f} ms ({smi})")
+            if short == "SSG":
+                records["bn_relu_exactkey_pool"]["ms"] += ms
+                records["bn_relu_exactkey_pool"]["plain_ms"] += plain_ms
+                poolkey_work(work, z32, args[5])
+        calls.clear()
+        # 11c. The bf16 step against the plain path; timed beside the f32 step.
+        compare_steps(trainer, batches[TRAIN_STEPS], n_zero[model], f"{short} bf16 keys B={b}",
+                      grad_tol=BF16_STEP_GRAD_TOL, zero_tol=None)
+        time_steps(trainer, state, batches, smi, f"{short} B={b} N={n} bf16 keys")
+        f32 = Trainer(TrainerConfig(model=model, batch_size=b, device=str(dev)))
+        time_trainers({"bf16 keys": trainer, "f32": f32}, batches, smi, f"{short} B={b} N={n}, kernel path,")
+    records["bn_relu_exactkey_pool"].update(work.record())
+
+    # 11b. Steps with the fused tail, f32 and bf16 (native), #17's calls recorded.
+    work = Work()
+    selected = {(512, 32), (128, 64), (512, 128), (128, 128)}  # (M, K): SSG SA1, SA2; MSG's K=128 scales
+    for model in n_zero:
+        short = model.split("_")[-1].upper()
+        for dtype in ("float32", "bfloat16"):
+            trainer = Trainer(TrainerConfig(model=model, batch_size=b, dtype=dtype, pool_precision="native",
+                                            fused_sa_train=True, device=str(dev)))
+            state = trainer.init_state(seed=0)
+            calls.clear()
+            with mock.patch.object(satrain, "grouped_bn_mlp_pool_bwd", record(grouped_bn_mlp_pool_bwd)):
+                losses, counts = counted_run(base + (grouped_bn_mlp_pool_bwd,), lambda: steps(trainer, state))
+            per_step = 3 if short == "SSG" else 7
+            print(f"{short} {dtype} fused-tail training main path: losses {[round(v, 6) for v in losses]}, "
+                  f"launches {counts}")
+            require(all(c > 0 for c in counts.values()) and all(math.isfinite(v) for v in losses)
+                    and counts["grouped_bn_mlp_pool_bwd"] == per_step * TRAIN_STEPS,
+                    f"the {short} fused-tail path: launches {counts}, losses {losses}")
+            for args in calls[:per_step]:
+                z1, widths = args[0], [int(g.shape[0]) for g in args[1]]
+                if tuple(z1.shape[1:3]) not in selected:
+                    continue
+                label = f"{short} {dtype} z1 {list(z1.shape)} widths {widths}"
+                err = check_satrain_bwd(args, label)
+                ms = cuda_ms(lambda: grouped_bn_mlp_pool_bwd(*args), iters=5)
+                plain_ms = cuda_ms(lambda: grouped_bn_mlp_pool_bwd_plain(*args), iters=3)
+                one = Work()
+                satrain_work(one, z1, widths)
+                print(f"time #17 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{one.record()['bound_ms']:.4f} ms ({one.record()['bound_by']}) ({smi})")
+                records["grouped_bn_mlp_pool_bwd"]["max_abs_err"] = max(
+                    records["grouped_bn_mlp_pool_bwd"]["max_abs_err"], err)
+                if short == "SSG" and dtype == "float32":
+                    records["grouped_bn_mlp_pool_bwd"]["ms"] += ms
+                    records["grouped_bn_mlp_pool_bwd"]["plain_ms"] += plain_ms
+                    satrain_work(work, z1, widths)
+            calls.clear()
+            if dtype == "float32":
+                # 11d. Fused against unfused, f32, kernel path; both timed.
+                unfused = Trainer(TrainerConfig(model=model, batch_size=b, device=str(dev)))
+                compare_steps(trainer, batches[TRAIN_STEPS], n_zero[model], f"{short} f32 fused tail B={b}",
+                              grad_tol=FUSED_STEP_GRAD_TOL, against=unfused)
+                time_trainers({"fused tail": trainer, "unfused": unfused}, batches, smi, f"{short} B={b} N={n} f32")
+    records["grouped_bn_mlp_pool_bwd"].update(work.record())
+
+    # 11e. SAModule(knn=True, nsample=128): the kNN's k > 64 path, at SSG's SA1 and SA2 shapes.
+    bb = SA_LAYER_BATCH
+    x = torch.from_numpy(data[np.random.RandomState(18).permutation(len(data))[:bb], :SA_LAYER_POINT]).to(dev)
+    gen, stats_rng = torch.Generator().manual_seed(19), np.random.RandomState(20)
+    layers = {}
+    for label, args in (("SA1 knn K128", (512, None, 128, (64, 64, 128), 0, False, True)),
+                        ("SA2 knn K128", (128, None, 128, (128, 128, 256), 128, False, True))):
+        f32 = init_params(SAModule(*args), gen)
+        with torch.no_grad():
+            for key, buf in f32.named_buffers():
+                vals = stats_rng.randn(*buf.shape)
+                buf.copy_(torch.from_numpy(0.1 + 0.1 * np.abs(vals) if key.endswith(".var") else 0.05 * np.abs(vals)))
+        bf16 = SAModule(*args, dtype=torch.bfloat16)
+        bf16.load_state_dict(f32.state_dict())
+        layers[label] = {"f32": f32.to(dev).eval(), "bf16": bf16.to(dev).eval()}
+    with torch.no_grad():
+        l1_xyz, l1_points = layers["SA1 knn K128"]["f32"](x, None)
+    inputs = {"SA1": (x, None), "SA2": (l1_xyz, l1_points.contiguous())}
+
+    def run():
+        return {(label, name): m(*inputs[label[:3]]) for label, ms in layers.items() for name, m in ms.items()}
+
+    counters = (fps, knn_point_kernel, sa_mlp_pool)
+    with torch.no_grad():
+        got, counts = counted_run(counters, run)
+        sorted_launches = knn_point_kernel.sort_launches
+        with plain_path():
+            ref = run()
+    print(f"SAModule knn K=128 inference B={bb} (two layers, f32 and bf16): launches {counts}, "
+          f"of them the kNN's sort {sorted_launches}")
+    require(all(c > 0 for c in counts.values()) and sorted_launches == 4, f"SAModule knn K=128 launches {counts}")
+    for key, (new_xyz, pooled) in got.items():
+        require(torch.equal(new_xyz, ref[key][0]) and bool(torch.isfinite(pooled.float()).all()),
+                f"SAModule knn K=128 output ({key})")
+        check_pooled(pooled, ref[key][1], pooled.dtype, f"SAModule {key[0]} {key[1]} B={bb} against the plain path")
+    work = Work()
+    for layer, (xyz, _) in inputs.items():
+        npoint = 512 if layer == "SA1" else 128
+        _, q = fps_plain(xyz, npoint)
+        args = (q.contiguous(), xyz.contiguous(), 128)
+        d, i = knn_point_kernel(*args)
+        ref_d, ref_i = knn_point_plain(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(i, ref_i) and torch.equal(d, ref_d), f"the k=128 kNN differs from knn_point_plain ({layer})")
+        ms, plain_ms = cuda_ms(lambda: knn_point_kernel(*args)), cuda_ms(lambda: knn_point_plain(*args), iters=3)
+        print(f"knn k=128 {layer} B={bb} M{q.shape[1]} N{xyz.shape[1]}: idx and d2 equal to knn_point_plain; time "
+              f"kernel {ms:.4f} ms (device {device_ms(lambda: knn_point_kernel(*args)):.4f}), plain {plain_ms:.4f} ms "
+              f"({smi})")
+        records["knn_point_sorted"]["ms"] += ms
+        records["knn_point_sorted"]["plain_ms"] += plain_ms
+        knn_work(work, q, xyz, 128)
+    records["knn_point_sorted"].update(work.record())
+    return records
+
+
 def main() -> None:
     import torch
 
@@ -1682,7 +2037,7 @@ def main() -> None:
                   f"({BATCH / ms * 1e3:.1f} clouds/s), plain path {plain_fwd_ms[name]:.4f} ms ({smi})")
 
     # 4. Training.  5. BGA and part segmentation.  6. DGCNN and DGCNN-BGA.  7. SpiderCNN.  8. PointCNN.
-    # 9. MSG.  10. The SA layer's other kernels.
+    # 9. MSG.  10. The SA layer's other kernels.  11. Mixed precision and the fused tail.
     measured = {
         k: {"max_abs_err": errs[k], "ms": per_forward[k][0], "plain_ms": per_forward[k][1],
             **work[k].record(), "library_ms": None}
@@ -1695,6 +2050,7 @@ def main() -> None:
     measured["duplicate_mask"] = pointcnn_phase(smi, dev)
     measured["sa_ball_mlp_pool_chunked"] = msg_phase(smi, dev)
     measured.update(sa_layer_phase(smi, dev))
+    measured.update(mixed_phase(smi, dev))
 
     require(not {"jax", "scanobjectnn_tpu"} & set(sys.modules), "JAX or the JAX package was imported")
 
@@ -1720,6 +2076,10 @@ def main() -> None:
         "spider_conv": (csrc + "spider.cu", pallas + "spider_kernel.py:256", "spider_conv_fwd_kernel"),
         "spider_conv_bwd": (csrc + "spider.cu", pallas + "spider_kernel.py:281", "spider_conv_bwd_kernel"),
         "duplicate_mask": (csrc + "dupmask.cu", pallas + "knn_kernel.py:131", "duplicate_mask_kernel"),
+        "knn_point_sorted": (csrc + "knn.cu", pallas + "knn_kernel.py:196", "knn_point_kernel_sorted"),
+        "bn_relu_exactkey_pool": (csrc + "poolkey.cu", pallas + "poolkey_kernel.py:125", "bn_relu_exactkey_pool"),
+        "grouped_bn_mlp_pool_bwd": (csrc + "satrain_bwd.cu", pallas + "satrain_bwd.py:207",
+                                    "grouped_bn_mlp_pool_bwd"),
     }
     print("launches, every main path together: " + ", ".join(f"{k} {v}" for k, v in sorted(LAUNCHES.items())))
     kernels = []
@@ -1739,7 +2099,11 @@ def main() -> None:
           "forward's (and its backward's) calls at B=32 (5 graphs, EdgeConv 1-4, the T-Net gather; device "
           "time); spider_conv and spider_conv_bwd over one f32 spidercnn_cls_xyz forward's (and its "
           "backward's) calls at B=32 (conv1-4; CUDA events); duplicate_mask over one f32 pointcnn_seg forward's "
-          "calls at B=32 (xconv_1-4, xdconv_4, xdconv_5; CUDA events). library_ms: torch.gather for the "
+          "calls at B=32 (xconv_1-4, xdconv_4, xdconv_5; CUDA events); knn_point_sorted (the kNN at k > 64) "
+          "over the two f32 SAModule(knn, nsample=128) calls of phase 11 at B=32 (CUDA events); "
+          "bn_relu_exactkey_pool over one bf16 SSG step's three calls at B=16 (CUDA events); "
+          "grouped_bn_mlp_pool_bwd over one f32 fused-tail SSG step's SA1 and SA2 calls at B=16 (CUDA events). "
+          "library_ms: torch.gather for the "
           "gather, index_add_ "
           "for the scatter-add (device time), torch.matmul of the materialised outer product for spider_conv "
           "(CUDA events); "

@@ -4,6 +4,8 @@ GPU.
 
     python3 profile_forward.py [--batch 128] [--num-point 2048] [--iters 5]
     python3 profile_forward.py --train [--batch 16] [--num-point 1024]
+    python3 profile_forward.py --train --dtype bfloat16 [--model pointnet2_cls_msg]
+    python3 profile_forward.py --train --fused-sa-train [--dtype bfloat16]
     python3 profile_forward.py --model pointnet2_cls_msg|pointnet2_cls_bga [--train]
     python3 profile_forward.py --model dgcnn [--train]
     python3 profile_forward.py --model spidercnn_cls_xyz [--train]
@@ -18,10 +20,12 @@ both PointCNNs B=32, N=1024 for both.
 Forward: for bf16 and f32 in turn, builds the model with ``get_model``
 (seed 0, on the card) and answers one batch of the 15-class synthetic
 dataset (seed 0; with background points and binary masks for the models
-of kind "seg").  ``--train``: an f32 ``Trainer`` (seed 0, its default
+of kind "seg").  ``--train``: a ``Trainer`` (seed 0, its default
 augmentation, dropout and Adam, or the model's recipe: PointCNN's step LR,
 Adam eps 1e-2, L2 1e-5 and augmentation; seg_weight 0.5) takes
-``train_step``s on one such batch.
+``train_step``s on one such batch, in f32 or with ``--dtype bfloat16``
+(exact-key pooling, the PointNet++ models), and with ``--fused-sa-train``
+the SA layers' fused training tail (pool mode native in bf16).
 Each runs a few times to warm up, then ``--iters`` runs are traced with
 ``torch.profiler``.  Prints, per run: host wall time, the number of device
 kernels, device busy time (the union of kernel intervals), the kernel window
@@ -113,7 +117,9 @@ def main() -> None:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", default="pointnet2_cls_ssg", choices=sorted(DEFAULTS))
-    parser.add_argument("--train", action="store_true", help="profile f32 train_step instead of the forward")
+    parser.add_argument("--train", action="store_true", help="profile train_step instead of the forward")
+    parser.add_argument("--dtype", default="float32", choices=("float32", "bfloat16"), help="--train's compute dtype")
+    parser.add_argument("--fused-sa-train", action="store_true", help="--train with the fused SA training tail")
     parser.add_argument("--batch", type=int, help="default: the model's configuration (module doc)")
     parser.add_argument("--num-point", type=int, help="default: the model's configuration (module doc)")
     parser.add_argument("--iters", type=int, default=5)
@@ -144,12 +150,15 @@ def main() -> None:
     if args.train:
         from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
 
-        trainer = Trainer(TrainerConfig(model=args.model, batch_size=args.batch))
+        pool = "native" if args.fused_sa_train else "auto"
+        trainer = Trainer(TrainerConfig(model=args.model, batch_size=args.batch, dtype=args.dtype,
+                                        pool_precision=pool, fused_sa_train=args.fused_sa_train))
         state = trainer.init_state(seed=0)
         batch = {"points": data[: args.batch], "labels": labels[: args.batch]}
         if seg:
             batch["masks"] = convert_to_binary_mask(arrays[2][: args.batch]).astype("int64")
-        runs["train_f32"] = lambda: trainer.train_step(state, batch)
+        name = {"float32": "train_f32", "bfloat16": "train_bf16"}[args.dtype]
+        runs[name + ("_fused_tail" if args.fused_sa_train else "")] = lambda: trainer.train_step(state, batch)
     else:
         points = torch.from_numpy(data[: args.batch]).cuda()
         for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):

@@ -5,7 +5,11 @@ of arrays with names such as ``sa1/mlp/dense_0/kernel`` or
 ``head/bn1/scale``.  This package names its parameters and buffers the same
 way (``sa1.mlp.dense_0.kernel``, ``head.bn1.mean``) and keeps Dense kernels
 in the JAX ``[in, out]`` layout, so the conversion is a renaming and no
-tensor is transposed.
+tensor is transposed.  The training-only ops own no parameters: exact-key
+pooling (``ops/exactpool``) and the fused SA tail (``ops/satrain``) read the
+``dense_i``/``bn_i`` of the grouped MLP that calls them, as the JAX
+modules keep that tree, so a checkpoint of a bf16 or fused-tail JAX model
+loads with the same names, and parameters stay f32 in any compute dtype.
 """
 
 from __future__ import annotations

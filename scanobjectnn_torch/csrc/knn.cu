@@ -34,6 +34,17 @@
 // compile-time widths 3 and 64 (the generic width re-reads it from memory
 // for every key), and evaluates two keys per step, two independent chains of
 // dependent adds, before inserting them in index order.
+//
+// k > 64 (knn_sort_kernel): one block per query computes the query's
+// distance to every key of its cloud, the same expressions in the same
+// order, into shared memory as 64-bit keys (the distance's order-preserving
+// bits, then the key index), sorts them with a block-wide bitonic sort and
+// writes the first k: ascending distance, ties to the lowest index, +inf
+// and NaN (sorted as +inf) never selected.  The cloud's N keys, padded to a
+// power of two, must fit the block's shared memory: N <= kSortMaxN (16384,
+// 128 KB).  Bound: operations, as above, plus the sort's
+// log2(N)(log2(N)+1)/2 compare-exchange steps over N/2 pairs a query; the
+// sort, not the distances, sets this path's time.
 
 #include <cuda_runtime.h>
 
@@ -45,6 +56,8 @@ constexpr int kThreads = 128;            // queries per block
 constexpr int kMaxK = 64;                // MAX_K of knn_kernel.py
 constexpr int kGraphMaxK = 32;           // GRAPH_MAX_K of knn_kernel.py
 constexpr int kSmemFloats = 12 * 1024;   // 48 KB: a key tile, its |k|^2 and bias
+constexpr int kSortThreads = 256;        // threads of a knn_sort_kernel block
+constexpr int kSortMaxN = 16384;         // SORT_MAX_N of knn_kernel.py
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
@@ -256,6 +269,90 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Order-preserving bits of a distance: unsigned order equals float order;
+// -0 and +0 tie (the plain version's sort), a NaN sorts as +inf.
+__device__ __forceinline__ uint32_t order_bits(float d) {
+  if (d != d) d = inf_f();
+  const uint32_t u = d == 0.f ? 0u : __float_as_uint(d);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_order_bits(uint32_t o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+// k nearest keys of one query (blockIdx.x of cloud blockIdx.y) for any k:
+// all N distances sorted in shared memory (npow = N rounded up to a power
+// of two).  W as in dot.
+template <int W>
+__global__ void __launch_bounds__(kSortThreads)
+    knn_sort_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
+                    const float* __restrict__ bias, int m, int n, int c, int k, int npow,
+                    float* __restrict__ dist, int32_t* __restrict__ idx) {
+  extern __shared__ __align__(16) unsigned long long skey[];
+  const int width = W > 0 ? W : c;
+  const int b = blockIdx.y, qi = blockIdx.x;
+  const float* q = queries + (static_cast<size_t>(b) * m + qi) * width;
+  const float qq = dot<W>(q, q, width);
+  const float* cloud = keys + static_cast<size_t>(b) * n * width;
+  for (int j = threadIdx.x; j < npow; j += kSortThreads) {
+    unsigned long long key = ~0ull;
+    if (j < n) {
+      const float* kp = cloud + static_cast<size_t>(j) * width;
+      float d = expand(qq, dot<W>(q, kp, width), dot<W>(kp, kp, width));
+      if (bias != nullptr) d = __fadd_rn(d, bias[static_cast<size_t>(b) * n + j]);
+      key = (static_cast<unsigned long long>(order_bits(d)) << 32) | static_cast<uint32_t>(j);
+    }
+    skey[j] = key;
+  }
+  __syncthreads();
+  for (int size = 2; size <= npow; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = threadIdx.x; i < npow / 2; i += kSortThreads) {
+        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+        const unsigned long long a = skey[lo], z = skey[hi];
+        if ((a > z) == ((lo & size) == 0)) {
+          skey[lo] = z;
+          skey[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  const size_t row = (static_cast<size_t>(b) * m + qi) * k;
+  for (int p = threadIdx.x; p < k; p += kSortThreads) {
+    float d = inf_f();
+    int j = 0;
+    if (p < n) {
+      const float v = from_order_bits(static_cast<uint32_t>(skey[p] >> 32));
+      if (v < inf_f()) {
+        d = v;
+        j = static_cast<int>(skey[p] & 0xffffffffu);
+      }
+    }
+    dist[row + p] = d;
+    idx[row + p] = j;
+  }
+}
+
+cudaError_t launch_sort(const float* q, const float* keys, const float* bias, int b, int m, int n,
+                        int c, int k, float* dist, int32_t* idx, cudaStream_t s) {
+  int npow = 1;
+  while (npow < n) npow <<= 1;
+  const size_t smem = sizeof(unsigned long long) * static_cast<size_t>(npow);
+  const dim3 grid(m, b);
+  auto run = [&](auto kernel) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    kernel<<<grid, kSortThreads, smem, s>>>(q, keys, bias, m, n, c, k, npow, dist, idx);
+    return cudaGetLastError();
+  };
+  return c == 3 ? run(knn_sort_kernel<3>) : run(knn_sort_kernel<0>);
+}
+
 template <int KCAP, int W>
 cudaError_t launch(const float* q, const float* keys, const float* bias, int b, int m, int n,
                    int c, int k, float* dist, int32_t* idx, cudaStream_t s) {
@@ -297,11 +394,12 @@ cudaError_t launch_graph_c(const float* feats, int b, int n, int c, int k, int32
 }  // namespace
 
 // queries [b, m, c], keys [b, n, c], bias [b, n] or null, all f32 and
-// contiguous -> dist [b, m, k] f32, idx [b, m, k] int32, ascending.
+// contiguous -> dist [b, m, k] f32, idx [b, m, k] int32, ascending.  Any k;
+// above kMaxK the cloud holds at most kSortMaxN keys.
 extern "C" int knn_launch(const void* queries, const void* keys, const void* bias, int b, int m,
                           int n, int c, int k, void* dist, void* idx, void* stream) {
   if (b < 1 || b > 65535 || m < 1 || n < 1 || c < 1 || c + 2 > kSmemFloats || k < 1 ||
-      k > kMaxK) {
+      (k > kMaxK && n > kSortMaxN)) {
     return cudaErrorInvalidValue;
   }
   auto* q = static_cast<const float*>(queries);
@@ -315,7 +413,8 @@ extern "C" int knn_launch(const void* queries, const void* keys, const void* bia
   if (k <= 16) return launch_c<16>(q, kp, bp, b, m, n, c, k, d, i, s);
   if (k <= 32) return launch_c<32>(q, kp, bp, b, m, n, c, k, d, i, s);
   if (k <= 48) return launch_c<48>(q, kp, bp, b, m, n, c, k, d, i, s);
-  return launch_c<64>(q, kp, bp, b, m, n, c, k, d, i, s);
+  if (k <= kMaxK) return launch_c<64>(q, kp, bp, b, m, n, c, k, d, i, s);
+  return launch_sort(q, kp, bp, b, m, n, c, k, d, i, s);
 }
 
 // feats [b, n, c] f32, contiguous -> idx [b, n, k] int32: each point's k

@@ -4,7 +4,8 @@ Ported: ``pointnet2_cls_ssg`` ("cls"), ``pointnet2_cls_msg`` ("cls"),
 ``pointnet2_cls_bga`` ("seg"), ``pointnet2_cls_partseg`` ("partseg"),
 ``dgcnn`` ("cls"), ``dgcnn_bga`` ("seg"), ``spidercnn_cls_xyz`` ("cls"),
 ``pointcnn_cls`` ("cls") and ``pointcnn_seg`` ("seg"), for inference and
-f32 training; every other name
+f32 training, and the four ``pointnet2_*`` for bf16 training (their
+``trains_in_bf16``); every other name
 raises ``KeyError`` saying it is not ported yet.  The registry maps a name
 to its class; the class carries the model's ``kind``, its static
 ``loss(outputs, batch)`` (the JAX ``get_model`` returns the module, the loss

@@ -7,14 +7,23 @@ Semantics kept from the JAX package, which ``torch.nn`` does not give:
     f32, the f32 bias added, then ONE cast.  A bf16 ``torch.matmul`` would
     round its product to bf16 before the bias (a second rounding), so the
     product runs on the bf16-rounded operands upcast to f32 (``matmul_f32``).
+    ``forward(x, keep_f32_output=True)`` skips the final cast (the operands
+    still take the compute dtype).  ``Dense(highest_cols=(a, b))``
+    multiplies input channels [a, b) in f32 against their kernel rows (no
+    TF32), the other rows in the compute dtype, and returns f32: the caller
+    subtracts products of uncentred coordinates (``LiftedGroupMLP``) and
+    rounds after the cancellation.
   * ``BatchNorm`` normalizes as ``(x - mean) * rsqrt(var + 1e-3) * scale +
-    bias`` in f32, cast to the compute dtype (eps 1e-3, not torch's 1e-5).
+    bias`` in f32, cast to the compute dtype (eps 1e-3, not torch's 1e-5;
+    ``forward(..., dtype=torch.float32)`` keeps f32).
     Eval reads the running stats.  Training takes the batch statistics in
     f32 over every axis but the last, with the BIASED variance
     ``max(E[x²] - E[x]², 0)``, and updates the running stats with the
     call-time momentum ``m`` as ``ra = m·ra + (1-m)·batch`` (``bn_decay``;
     ``F.batch_norm`` keeps an unbiased running var and the opposite
-    momentum convention, so it is not used).
+    momentum convention, so it is not used).  ``f32_key_input`` (exact-key
+    pooling) also returns an f32 normalization of that unrounded copy of
+    ``x`` under the same statistics, with no gradient.
   * ``GroupNorm`` is flax's ``nn.GroupNorm`` on channels-last [B, N, C]
     input (``torch.nn.GroupNorm`` wants channels first and takes the
     two-pass variance): each of G groups of C/G channels takes its
@@ -23,7 +32,8 @@ Semantics kept from the JAX package, which ``torch.nn`` does not give:
     (rsqrt(var + eps) * scale) + bias`` in f32 and one cast
     (``flax.linen.normalization._compute_stats`` and ``_normalize``).
   * The max-pool is ``torch.amax``, which splits the gradient evenly across
-    ties as ``jnp.max`` does.
+    ties as ``jnp.max`` does.  In training, ``mlp_final_max`` honours the
+    pool modes of the module it pools for (module doc of the function).
   * Init is Glorot-uniform kernels and zero biases (``reset_parameters``
     with an explicit ``torch.Generator``); ``Dense(zero_init=True)`` starts
     its kernel at zero too (the JAX ``kernel_init=zeros``, DGCNN's T-Net
@@ -53,11 +63,17 @@ class Dense(nn.Module):
     """Linear layer over the last axis; kernel ``[in, out]``."""
 
     def __init__(
-        self, in_features: int, features: int, dtype: torch.dtype | None = None, zero_init: bool = False
+        self,
+        in_features: int,
+        features: int,
+        dtype: torch.dtype | None = None,
+        zero_init: bool = False,
+        highest_cols: tuple[int, int] | None = None,
     ):
         super().__init__()
         self.dtype = dtype
         self.zero_init = zero_init
+        self.highest_cols = highest_cols
         self.kernel = nn.Parameter(torch.empty(in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.reset_parameters()
@@ -72,10 +88,19 @@ class Dense(nn.Module):
                 self.kernel.uniform_(-limit, limit, generator=generator)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, keep_f32_output: bool = False) -> torch.Tensor:
         dtype = self.dtype or x.dtype
-        y = matmul_f32(x.to(dtype), self.kernel.to(dtype)) + self.bias
-        return y.to(dtype)
+        if self.highest_cols is None:
+            y = matmul_f32(x.to(dtype), self.kernel.to(dtype))
+        else:
+            a, c = self.highest_cols
+            y = matmul_f32(x[..., a:c], self.kernel[a:c])
+            if a > 0:
+                y = y + matmul_f32(x[..., :a].to(dtype), self.kernel[:a].to(dtype))
+            if c < x.shape[-1]:
+                y = y + matmul_f32(x[..., c:].to(dtype), self.kernel[c:].to(dtype))
+        y = y + self.bias
+        return y if keep_f32_output or self.highest_cols is not None else y.to(dtype)
 
 
 class BatchNorm(nn.Module):
@@ -102,8 +127,10 @@ class BatchNorm(nn.Module):
             self.mean.zero_()
             self.var.fill_(1.0)
 
-    def update_running(self, mean: torch.Tensor, var: torch.Tensor, bn_momentum: float) -> None:
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor, bn_momentum: float | None) -> None:
         """``ra = m·ra + (1-m)·batch`` for the running mean and var."""
+        if bn_momentum is None:
+            raise ValueError("training-mode BatchNorm needs the call-time bn_momentum")
         # m and 1 - m in f32, as JAX takes them, but as Python scalars: a
         # tensor made from m would be a host-to-device copy, which waits for
         # the card on every call.
@@ -113,22 +140,34 @@ class BatchNorm(nn.Module):
             self.mean.copy_(self.mean * m + mean * rest)
             self.var.copy_(self.var * m + var * rest)
 
-    def forward(self, x: torch.Tensor, bn_momentum: float | None = None) -> torch.Tensor:
+    def forward(
+        self,
+        x: torch.Tensor,
+        bn_momentum: float | None = None,
+        f32_key_input: torch.Tensor | None = None,
+        dtype: torch.dtype | None = None,
+    ):
         """In training, ``bn_momentum`` (the scheduled ``bn_decay``) is
-        required; eval ignores it."""
+        required; eval ignores it.  Returns the normalized ``x`` in
+        ``dtype``, else the module's compute dtype, else x's; with
+        ``f32_key_input``, (that, the key)."""
         xf = x.float()
         if self.training:
-            if bn_momentum is None:
-                raise ValueError("training-mode BatchNorm needs the call-time bn_momentum")
             axes = tuple(range(x.dim() - 1))
             mean = xf.mean(dim=axes)
             var = torch.clamp(torch.square(xf).mean(dim=axes) - torch.square(mean), min=0.0)
             self.update_running(mean, var, bn_momentum)
         else:
             mean, var = self.mean, self.var
-        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
-        y = y * self.scale + self.bias
-        return y.to(self.dtype or x.dtype)
+        r = torch.rsqrt(var + self.epsilon)
+        y = (xf - mean) * r
+        y = (y * self.scale + self.bias).to(dtype or self.dtype or x.dtype)
+        if f32_key_input is None:
+            return y
+        with torch.no_grad():
+            key = (f32_key_input.float() - mean) * r
+            key = key * self.scale + self.bias
+        return y, key
 
 
 class GroupNorm(nn.Module):
@@ -170,7 +209,7 @@ class MLP(nn.Module):
 
     def __init__(self, in_features: int, features: Sequence[int], dtype: torch.dtype | None = None):
         super().__init__()
-        self.features = tuple(features)
+        self.features, self.dtype = tuple(features), dtype
         for i, f in enumerate(self.features):
             self.add_module(f"dense_{i}", Dense(in_features, f, dtype))
             self.add_module(f"bn_{i}", BatchNorm(f, dtype))
@@ -188,11 +227,58 @@ class MLP(nn.Module):
 
 
 def mlp_final_max(
-    mdl: MLP, x: torch.Tensor, index: int, dim: int, bn_momentum: float | None = None
+    mdl: MLP,
+    x: torch.Tensor,
+    index: int,
+    dim: int,
+    bn_momentum: float | None = None,
+    skip_dense: bool = False,
+    x32: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Final Dense→BN→relu→max-pool step of a shared-MLP stack: pool_f32
-    mode "0" of the JAX ``mlp_final_max`` (every eval call, and f32
-    training, where the other modes are no-ops).  ``torch.amax`` splits the
-    gradient evenly across ties.  Returns the pooled tensor in the compute
-    dtype."""
-    return torch.amax(mdl.layer(index, x, bn_momentum), dim=dim)
+    """Final Dense→BN→relu→max-pool step of a shared-MLP stack, with the
+    pool modes of the JAX ``mlp_final_max``.  The mode is ``mdl.pool_mode``
+    in training (``"0"`` where the module has none) and "0" at eval:
+
+      "0"    the plain chain in the compute dtype (``torch.amax`` splits the
+             gradient evenly across ties);
+      "1"    the layer's Dense output and BN stay f32 across the pool, then
+             one cast;
+      "keys" the value chain stays in the compute dtype and an f32 key copy
+             (the Dense's f32 sums, or ``x32``) decides winners and ties
+             (``ops.exactpool.exact_key_max_pool``); with a Dense and a bf16
+             compute dtype the step is one op,
+             ``ops.exactpool.dense_bn_exactkey_pool`` (#18 on the card),
+             whose batch statistics update the BN's running ones.
+
+    ``mdl`` owns ``dense_{index}`` and ``bn_{index}``.  ``skip_dense``: the
+    layer has no Dense of its own (``LiftedGroupMLP``'s layer 0, whose
+    unrounded f32 pre-BN input ``x32`` then keys the pool).  Returns the
+    pooled tensor in the compute dtype."""
+    # ops.exactpool imports this module.
+    from scanobjectnn_torch.ops.exactpool import dense_bn_exactkey_pool, exact_key_max_pool
+
+    mode = getattr(mdl, "pool_mode", "0") if mdl.training else "0"
+    cdtype = mdl.dtype or x.dtype
+    dense = None if skip_dense else getattr(mdl, f"dense_{index}")
+    bn = getattr(mdl, f"bn_{index}")
+    if mode == "keys":
+        if dense is not None and cdtype == torch.bfloat16:
+            pooled, mean, var = dense_bn_exactkey_pool(
+                x.to(cdtype), dense.kernel, dense.bias, bn.scale, bn.bias, dim
+            )
+            bn.update_running(mean, var, bn_momentum)
+            return pooled
+        if dense is None:
+            h32, z = (x if x32 is None else x32).float(), x
+        else:
+            h32 = dense(x, keep_f32_output=True)
+            z = h32.to(cdtype)
+        z, key = bn(z, bn_momentum, f32_key_input=h32)
+        return exact_key_max_pool(torch.relu(z), torch.relu(key), dim).to(cdtype)
+    if mode == "1":
+        if dense is not None:
+            x = dense(x, keep_f32_output=True)
+        x = bn(x, bn_momentum, dtype=torch.float32)
+    else:
+        x = bn(x if dense is None else dense(x), bn_momentum)
+    return torch.amax(torch.relu(x), dim=dim).to(cdtype)

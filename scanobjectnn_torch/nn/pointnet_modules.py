@@ -19,12 +19,22 @@ running-stat BN): FPS with coordinates (one kernel), then
     over that grouping (``sa_mlp_pool``).
 In training a ball-grouped layer runs FPS (indices only), the ball group,
 the neighbour gather (whose backward is the scatter-add kernel) and the
-MLP in plain PyTorch with batch-statistics BN.  An MSG scale whose input is
-wider than its first layer (``C + 3 > mlp[0]``) runs ``LiftedGroupMLP``:
-Dense 0 per point before the gather.
+MLP with batch-statistics BN.  An MSG scale whose input is wider than its
+first layer (``C + 3 > mlp[0]``) runs ``LiftedGroupMLP``: Dense 0 per
+point before the gather.  Each ``GroupMLPPool`` / ``LiftedGroupMLP`` ends
+in ``nn/layers.mlp_final_max`` and carries the training settings that
+``configure_training`` gives it (the ``Trainer`` does, per model; nothing
+is process-global):
+  * ``pool_mode``: "0" (native), "1" (the last layer f32 across the pool)
+    or "keys" (exact-key pooling, the bf16 default: the last layer is
+    ``ops.exactpool.dense_bn_exactkey_pool``, #18 on the card);
+  * ``fused_sa_train``: under modes "0" and "1", the layers after Dense 0
+    run as ``ops.satrain.grouped_bn_mlp_pool`` (``_fused_train_tail``),
+    whose backward recomputes them from Dense 0's output (#17 on the card).
+Eval ignores both.  The parameter tree stays ``dense_i``/``bn_i`` on every
+path: the fused ops own no parameters.
 
-Not ported: pooling modes other than max, ``mlp2``, ``bn=False``, the fused
-training tail (JAX ``_fused_train_tail``, #17: off by default) and MSG's
+Not ported: pooling modes other than max, ``mlp2``, ``bn=False`` and MSG's
 ``remat_scales`` (it changes no value and was measured slower).
 """
 
@@ -40,8 +50,10 @@ from scanobjectnn_torch.nn.layers import MLP, matmul_f32, mlp_final_max
 from scanobjectnn_torch.ops.cuda.gather_kernel import gather_neighbors
 from scanobjectnn_torch.ops.cuda.safused_kernel import fusable_nsample, sa_ball_mlp_pool
 from scanobjectnn_torch.ops.cuda.samlp_kernel import fold_bn_mlp_params, sa_mlp_pool
+from scanobjectnn_torch.ops.satrain import grouped_bn_mlp_pool
 
 __all__ = [
+    "configure_training",
     "sample_and_group",
     "sample_and_group_all",
     "FPModule",
@@ -52,17 +64,20 @@ __all__ = [
 ]
 
 
-class GroupMLPPool(MLP):
-    """Grouped shared MLP + max-pool over the neighbour axis (dim 2).  Same
-    children as ``MLP`` (``dense_i``/``bn_i``), so the eval BN fold reads
-    them directly.  Training runs the unfused chain with batch-statistics
-    BN (the fused training tail is not ported)."""
+POOL_MODES = ("0", "1", "keys")
 
-    def forward(self, x: torch.Tensor, bn_momentum: float | None = None) -> torch.Tensor:
-        n = len(self.features)
-        for i in range(n - 1):
-            x = self.layer(i, x, bn_momentum)
-        return mlp_final_max(self, x, n - 1, 2, bn_momentum)
+
+class _PooledMLP(MLP):
+    """A shared MLP that ends in a max-pool over the neighbour axis, with
+    the training settings of the module doc (defaults: mode "0", unfused)."""
+
+    pool_mode = "0"
+    fused_sa_train = False
+
+    def fused_tail(self) -> bool:
+        """JAX's gate of the fused training tail: training, the setting on,
+        and a mode the tail implements ("0" or "1")."""
+        return self.training and self.fused_sa_train and self.pool_mode != "keys"
 
     def folded(self) -> tuple[list[torch.Tensor], list[torch.Tensor]]:
         """Eval-mode BN folded into the Dense params (f32)."""
@@ -72,7 +87,51 @@ class GroupMLPPool(MLP):
         return fold_bn_mlp_params(dense, [(m.scale, m.bias, m.mean, m.var) for m in bn])
 
 
-class LiftedGroupMLP(MLP):
+def configure_training(model: nn.Module, pool_mode: str, fused_sa_train: bool) -> nn.Module:
+    """Give every grouped MLP of ``model`` its training settings (module
+    doc): ``pool_mode`` "0", "1" or "keys" (JAX's pool_f32 modes), and
+    whether the fused tail runs."""
+    if pool_mode not in POOL_MODES:
+        raise ValueError(f"pool_mode must be one of {POOL_MODES}, got {pool_mode!r}")
+    for sub in model.modules():
+        if isinstance(sub, _PooledMLP):
+            sub.pool_mode, sub.fused_sa_train = pool_mode, bool(fused_sa_train)
+    return model
+
+
+def _fused_train_tail(mdl: _PooledMLP, z1: torch.Tensor, bn_momentum: float | None) -> torch.Tensor:
+    """BN0 -> relu -> (Dense -> BN -> relu)* -> max over K as one op
+    (``ops.satrain.grouped_bn_mlp_pool``) on ``mdl``'s own parameters, its
+    BatchNorms taking the op's batch statistics into their running ones."""
+    n = len(mdl.features)
+    bns = [getattr(mdl, f"bn_{i}") for i in range(n)]
+    denses = [getattr(mdl, f"dense_{i}") for i in range(1, n)]
+    pooled, means, variances = grouped_bn_mlp_pool(
+        z1, [m.scale for m in bns], [m.bias for m in bns], [d.kernel for d in denses], [d.bias for d in denses],
+        mdl.pool_mode,
+    )
+    for m, mean, var in zip(bns, means, variances):
+        m.update_running(mean, var, bn_momentum)
+    return pooled
+
+
+class GroupMLPPool(_PooledMLP):
+    """Grouped shared MLP + max-pool over the neighbour axis (dim 2).  Same
+    children as ``MLP`` (``dense_i``/``bn_i``), so the eval BN fold reads
+    them directly.  Training runs the chain with batch-statistics BN, the
+    last layer through ``mlp_final_max`` (its pool mode), or Dense 0 and
+    then the fused tail."""
+
+    def forward(self, x: torch.Tensor, bn_momentum: float | None = None) -> torch.Tensor:
+        if self.fused_tail():
+            return _fused_train_tail(self, self.dense_0(x), bn_momentum)
+        n = len(self.features)
+        for i in range(n - 1):
+            x = self.layer(i, x, bn_momentum)
+        return mlp_final_max(self, x, n - 1, 2, bn_momentum)
+
+
+class LiftedGroupMLP(_PooledMLP):
     """Shared MLP over grouped neighbourhoods with the first Dense lifted to
     per point, applied before the neighbour gather: an exact linear
     refactoring of ``Dense([f_j, p_j - q])``,
@@ -87,17 +146,20 @@ class LiftedGroupMLP(MLP):
     ``MLP``, so JAX checkpoints load strictly and the eval BN fold reads
     them.
 
-    f32 only: with a bf16 compute dtype JAX multiplies the xyz rows of W0 in
-    f32 (``Dense.highest_cols``), since ``p·W - q·W`` cancels; that returns
-    with bf16 training.  In f32 those products are exact already (no TF32)."""
+    Dense 0 multiplies the xyz rows of W0 in f32 (``Dense.highest_cols``)
+    and keeps its output f32: ``p·W - q·W`` cancels, so bf16 operands there
+    would carry the rounding of the uncentred ``|p·W|``.  The per-edge
+    pre-activation ``x32 = gather(pointwise) - (qfull - b)`` (``qfull =
+    q·W_xyz + b``, JAX's Dense 0 of ``[0, q]``) is rounded to the compute
+    dtype only after the subtraction; in keys mode ``x32`` keys a one-layer
+    pool."""
 
     def __init__(
         self, in_features: int, features: Sequence[int], xyz_first: bool = False, dtype: torch.dtype | None = None
     ):
         super().__init__(in_features, features, dtype)
         self.xyz_first = xyz_first
-
-    folded = GroupMLPPool.folded
+        self.dense_0.highest_cols = (0, 3) if xyz_first else (in_features - 3, in_features)
 
     def forward(
         self,
@@ -110,23 +172,24 @@ class LiftedGroupMLP(MLP):
         """point_feats [B, N, C] or None, xyz [B, N, 3], query_xyz [B, M, 3],
         idx int32 [B, M, K] -> pooled [B, M, mlp[-1]]."""
         d0 = self.dense_0
-        if (d0.dtype or xyz.dtype) != torch.float32:
-            raise NotImplementedError(
-                "LiftedGroupMLP runs in f32: a bf16 compute dtype needs f32 products of W0's xyz rows "
-                "(JAX Dense.highest_cols), which return with bf16 training"
-            )
         if point_feats is None:
-            pointwise, wx = d0(xyz), d0.kernel
+            pointwise = d0(xyz)
         else:
-            c = point_feats.shape[-1]
             parts = [xyz, point_feats] if self.xyz_first else [point_feats, xyz]
             pointwise = d0(torch.cat(parts, dim=-1))
-            wx = d0.kernel[:3] if self.xyz_first else d0.kernel[c:]
-        x = gather_neighbors(pointwise.contiguous(), idx) - matmul_f32(query_xyz, wx)[:, :, None, :]
-        x = torch.relu(self.bn_0(x, bn_momentum))
+        # JAX's qfull, Dense 0 of [0, q], is q·W_xyz + b bit for bit (the
+        # zero rows add exact zeros); its bias comes back off before the
+        # subtraction, as there.
+        a, c = d0.highest_cols
+        qfull = matmul_f32(query_xyz, d0.kernel[a:c]) + d0.bias
+        x32 = gather_neighbors(pointwise.contiguous(), idx) - (qfull - d0.bias)[:, :, None, :]
+        x = x32.to(self.dtype) if self.dtype is not None else x32
+        if self.fused_tail():
+            return _fused_train_tail(self, x, bn_momentum)
         n = len(self.features)
         if n == 1:
-            return torch.amax(x, dim=2)
+            return mlp_final_max(self, x, 0, 2, bn_momentum, skip_dense=True, x32=x32)
+        x = torch.relu(self.bn_0(x, bn_momentum))
         for i in range(1, n - 1):
             x = self.layer(i, x, bn_momentum)
         return mlp_final_max(self, x, n - 1, 2, bn_momentum)

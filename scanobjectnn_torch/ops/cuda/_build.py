@@ -72,6 +72,11 @@ _SIGNATURES = {
     "spider_bwd_weight_slices": (_I, _I, _I),
     # feat, idx, g, dout, b, n, k, c, t, o, slices, part, dw, stream
     "spider_bwd_weight_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+    # z32, gamma, beta, mean, r, rows, k, c, bf16, pooled, kmax, cnt, stream
+    "poolkey_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # z1, d_pooled, groups, k, bf16, pool_f32, n_layers, widths*, ptrs*, pooled,
+    # cnt, partial, partial_floats, dz1, stream
+    "satrain_bwd_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P),
 }
 
 _lib = None

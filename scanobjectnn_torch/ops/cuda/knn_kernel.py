@@ -18,8 +18,11 @@ Semantics (the contract of ``knn_point_pallas``):
   * a slot that no key fills holds ``(+inf, 0)``: when N < k (the JAX
     ``three_nn`` pads so from one key), and for keys whose distance is +inf
     or NaN, which are never selected.
-Any C, M and N; 1 <= k <= ``MAX_K`` (64, the JAX dispatch's own cap:
-PointCNN's ``xdconv_4`` asks for k = 48).  The outputs carry no gradient.
+Any C, M and N and any k >= 1, as ``knn_point_pallas``: up to ``MAX_K``
+(64; PointCNN's ``xdconv_4`` asks for k = 48) each query's list stays in
+registers, above it the kernel sorts every distance of the query in shared
+memory, which holds a cloud of at most ``SORT_MAX_N`` (16384) keys.  The
+outputs carry no gradient.
 
 ``knn_graph_kernel(features [B, N, C], k) -> idx [B, N, k] int32`` is the
 self-kNN: every point is a query and a key, so each point's first neighbour
@@ -32,7 +35,9 @@ at fp3 (B=32, 1024 queries, 512 keys, C=3) about 2.5 us of f32 work against
 0.4 us of bytes, so in practice the launch.  DGCNN's C=64 graph at B=32,
 N=1024 is 33.6M pairs of about 132 operations: 66 us.  One thread per query
 scans its cloud's keys, staged in shared memory in tiles, in ascending index
-and keeps its k best in registers.
+and keeps its k best in registers; above k = 64 one block per query sorts
+all its distances (a bitonic sort of (distance bits, index) keys), whose
+log2(N)²/2 steps, not the distances, then set the time.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from scanobjectnn_torch.ops.cuda import _build
 __all__ = [
     "GRAPH_MAX_K",
     "MAX_K",
+    "SORT_MAX_N",
     "knn_graph_kernel",
     "knn_graph_plain",
     "knn_point_kernel",
@@ -51,7 +57,8 @@ __all__ = [
     "squared_distance_plain",
 ]
 
-MAX_K = 64  # kMaxK in csrc/knn.cu
+MAX_K = 64  # kMaxK in csrc/knn.cu: the largest k kept in registers
+SORT_MAX_N = 16384  # kSortMaxN in csrc/knn.cu: the largest cloud above MAX_K
 GRAPH_MAX_K = 32  # kGraphMaxK in csrc/knn.cu
 
 
@@ -117,7 +124,8 @@ def knn_point_kernel(
     ascending.
 
     A CPU tensor takes ``knn_point_plain``; a CUDA tensor launches the kernel
-    (counted in ``knn_point_kernel.launches``) or raises."""
+    (counted in ``knn_point_kernel.launches``, and above k = ``MAX_K`` in
+    ``knn_point_kernel.sort_launches`` too) or raises."""
     if queries.device.type == "cpu":
         return knn_point_plain(queries, keys, k, bias)
     if queries.device.type != "cuda":
@@ -133,8 +141,10 @@ def knn_point_kernel(
     _check_cuda("keys", keys, (b, n, c), dev)
     if bias is not None:
         _check_cuda("bias", bias, (b, n), dev)
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"knn_point_kernel: kernel takes 1 <= k <= {MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"knn_point_kernel: kernel takes k >= 1, got {k}")
+    if k > MAX_K and n > SORT_MAX_N:
+        raise ValueError(f"knn_point_kernel: above k = {MAX_K} the kernel takes N <= {SORT_MAX_N} keys, got {n}")
     if min(b, m, n, c) < 1:
         raise ValueError(f"knn_point_kernel: empty input {tuple(queries.shape)}, {tuple(keys.shape)}")
     dist = torch.empty(b, m, k, dtype=torch.float32, device=dev)
@@ -147,10 +157,13 @@ def knn_point_kernel(
         )
     _build.check(err, "knn_point_kernel")
     knn_point_kernel.launches += 1
+    if k > MAX_K:
+        knn_point_kernel.sort_launches += 1
     return dist, idx
 
 
 knn_point_kernel.launches = 0
+knn_point_kernel.sort_launches = 0  # of them, k > MAX_K (the sort)
 
 
 def knn_graph_kernel(features: torch.Tensor, k: int) -> torch.Tensor:

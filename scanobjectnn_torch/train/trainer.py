@@ -30,14 +30,22 @@ Differences from the JAX ``Trainer``, on purpose:
   * the random bits come from a ``torch.Generator`` on the training device,
     seeded from ``config.seed``; they are not the JAX package's bits;
   * nothing is process-global: the JAX ``Trainer`` writes its kernel
-    configuration into ``kernelconfig``; f32 training here has one pool
-    (``torch.amax``) and no setting to write.
-Ported: f32 training of ``pointnet2_cls_ssg``, ``pointnet2_cls_bga``,
-``pointnet2_cls_partseg``, ``dgcnn``, ``dgcnn_bga`` and
-``spidercnn_cls_xyz`` (no recipe: plain Adam, as the JAX ``Trainer`` gives
-them), and ``pointcnn_cls`` and ``pointcnn_seg`` (with PointCNN's recipe).
-``dtype="bfloat16"`` raises: it needs exact-key pooling (``ops/exactpool``),
-not ported yet.
+    configuration into ``kernelconfig``; here the resolved pool mode and
+    ``fused_sa_train`` go to the model the trainer builds
+    (``nn.pointnet_modules.configure_training``).
+
+Mixed precision (the JAX fields and defaults): ``dtype`` is the compute
+dtype the model is built with (parameters stay f32); ``pool_precision``
+"auto" resolves to "keys" (exact-key pooling) in bf16 and "native" in f32,
+and "native", "f32", "keys" are the SA pool modes "0", "1", "keys";
+``fused_sa_train`` runs the SA layers' fused training tail under the
+native and f32 modes (never under keys).
+Ported: f32 training of ``pointnet2_cls_ssg``, ``pointnet2_cls_msg``,
+``pointnet2_cls_bga``, ``pointnet2_cls_partseg``, ``dgcnn``,
+``dgcnn_bga`` and ``spidercnn_cls_xyz`` (no recipe: plain Adam, as the JAX
+``Trainer`` gives them), and ``pointcnn_cls`` and ``pointcnn_seg`` (with
+PointCNN's recipe); bf16 training of the four ``pointnet2_*`` models.  The
+other families raise ``NotImplementedError`` for bf16.
 Evaluation, checkpoints and ``fit`` wait for the CLI slice.
 """
 
@@ -53,11 +61,14 @@ from torch import nn
 from scanobjectnn_torch.augment.transforms import pointcnn_augment, standard_train_augment
 from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
 from scanobjectnn_torch.models import MODEL_REGISTRY, get_model, get_recipe
+from scanobjectnn_torch.nn.pointnet_modules import configure_training
 from scanobjectnn_torch.train import schedules
 
 __all__ = ["TrainState", "Trainer", "TrainerConfig"]
 
 ADAM_EPS = 1e-8
+DTYPES = {"float32": None, "bfloat16": torch.bfloat16}  # None: the model's f32 default
+POOL_MODES = {"native": "0", "f32": "1", "keys": "keys"}
 
 
 @dataclass
@@ -76,6 +87,10 @@ class TrainerConfig:
     dtype: str = "float32"
     # Honour the training recipe the model ships with (module doc).
     use_model_recipe: bool = True
+    # SA pool mode, "auto" | "native" | "f32" | "keys", and the fused SA
+    # training tail (module doc).
+    pool_precision: str = "auto"
+    fused_sa_train: bool = False
     seed: int = 0
     device: str = "cuda"
 
@@ -92,15 +107,22 @@ class Trainer:
     """Builds and trains a registered model on one device."""
 
     def __init__(self, config: TrainerConfig):
-        if config.dtype == "bfloat16":
-            raise NotImplementedError(
-                "bf16 training needs exact-key pooling (pool_precision='keys', "
-                "ops/exactpool.dense_bn_exactkey_pool), which the port does not have yet"
-            )
-        if config.dtype != "float32":
+        if config.dtype not in DTYPES:
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {config.dtype!r}")
         if config.model not in MODEL_REGISTRY:
             raise KeyError(f"model {config.model!r} is not ported to scanobjectnn_torch yet")
+        if config.dtype == "bfloat16" and not getattr(MODEL_REGISTRY[config.model], "trains_in_bf16", False):
+            raise NotImplementedError(
+                f"bf16 training of {config.model!r} is not ported: its backward kernels (#7, #14, #16) have not "
+                "been held in bf16 (ROADMAP.md queue 1, 'bf16 training of DGCNN, SpiderCNN and PointCNN')"
+            )
+        pool = config.pool_precision
+        if pool == "auto":
+            pool = "keys" if config.dtype == "bfloat16" else "native"
+        if pool not in POOL_MODES:
+            raise ValueError(f"pool_precision must be 'auto' or one of {sorted(POOL_MODES)}, got {pool!r}")
+        self.pool_mode, self.fused_sa_train = POOL_MODES[pool], bool(config.fused_sa_train)
+        self.dtype = DTYPES[config.dtype]
         self.config = config
         self.device = torch.device(config.device)
         model_cls = MODEL_REGISTRY[config.model]
@@ -126,14 +148,16 @@ class Trainer:
     # ------------------------------------------------------------------ setup
 
     def init_state(self, seed: int | None = None) -> TrainState:
-        """Model with the reference init drawn from ``seed`` (default
-        ``config.seed``), its Adam optimizer, and the step's generator."""
+        """Model in the compute dtype with the reference init drawn from
+        ``seed`` (default ``config.seed``) and the trainer's SA settings, its
+        Adam optimizer, and the step's generator."""
         seed = self.config.seed if seed is None else seed
         width = "num_parts" if self.kind == "partseg" else "num_classes"
         model = get_model(
             self.config.model, generator=torch.Generator().manual_seed(seed), device=self.device,
-            **{width: self.config.num_classes},
+            dtype=self.dtype, **{width: self.config.num_classes},
         )
+        configure_training(model, self.pool_mode, self.fused_sa_train)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         return TrainState(0, model, self.make_optimizer(model.parameters()), generator)
 

@@ -20,7 +20,10 @@ within 1e-5 x max(1, |ref|max) of ``index_add_`` (both sum exact f32, in
 other orders), and two calls on the same input must give the same bits.
 
 kNN: indices and squared distances equal to ``knn_point_plain`` (the same
-f32 operations in the same order, and the same tie rule), up to k = 64.  The
+f32 operations in the same order, and the same tie rule), at any k: the
+register lists up to k = 64, the block-wide sort above (k = 65 to 128, a
+k above N, ties, a NaN key); ``SAModule(knn=True, nsample=72)`` on the card
+against the same layer on the CPU.  The
 self-kNN graph: indices equal to ``knn_graph_plain``, for the same reason.
 The duplicate mask (#12): equal to ``duplicate_mask_plain`` (float ``==``
 on both sides), with ``-0.0``/``0.0`` pairs and NaN points.  PointCNN's
@@ -41,6 +44,18 @@ kernel in another order than cuBLAS's); the backward (dfeat, dg, dkernel)
 within ``SPIDER_BWD_TOL`` x max(1, |ref|max) of autograd through the plain
 version, per tensor, and bit-stable across two calls (fixed summation
 orders, no float atomics).
+
+Exact-key pooling (#18): pooled, kmax and cnt equal to
+``bn_relu_exactkey_pool_plain`` bit for bit (the same r, the op order
+without contraction, the same bf16 rounding), at the bf16 SSG step's three
+SA shapes and MSG SA1's 64-wide scale, ragged widths, ties and a NaN.  The
+fused tail's backward (#17): against ``grouped_bn_mlp_pool_bwd_plain`` at
+SSG's SA1, SA2 and group-all, MSG SA1's K = 128 scale and small stacks, f32
+and bf16, pool modes "0" and "1": bit-stable across two calls; each
+cotangent at most ``SATRAIN_FLIP_SHARE`` of its elements beyond
+``SATRAIN_TOL`` x max|ref| (a gate or winner flipped by the summation
+order; in bf16 a rounding of h moved by one ulp); the Dense biases (true
+gradient 0) within ``SATRAIN_ZERO_TOL`` x max(1, |dbeta|max) on both sides.
 """
 
 import math
@@ -82,7 +97,13 @@ from scanobjectnn_torch.ops.cuda.knn_kernel import (
     knn_point_plain,
 )
 from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool, sa_ball_mlp_pool_plain
+from scanobjectnn_torch.ops.cuda.poolkey_kernel import bn_relu_exactkey_pool, bn_relu_exactkey_pool_plain
 from scanobjectnn_torch.ops.cuda.samlp_kernel import sa_mlp_pool, sa_mlp_pool_plain
+from scanobjectnn_torch.ops.cuda.satrain_kernel import (
+    fwd_chain,
+    grouped_bn_mlp_pool_bwd,
+    grouped_bn_mlp_pool_bwd_plain,
+)
 from scanobjectnn_torch.ops.cuda.spider_kernel import (
     spider_conv,
     spider_conv_bwd_kernel,
@@ -339,14 +360,24 @@ def test_samlp_kernel_refuses_what_it_does_not_take(dev):
 
 
 def test_sa_module_knn_above_k64_raises_on_the_card(dev):
-    # The port's kNN kernel stops at k = 64 (JAX's takes any k): the fused
-    # eval branch raises there instead of falling back to the plain path.
+    # It raised while the kNN kernel stopped at k = 64; now (any k, as JAX's
+    # knn_point_pallas) the layer runs the kernels (FPS, kNN, #10) and
+    # matches the same layer on the CPU, its plain versions: centroids
+    # equal, pooled to rtol 1e-4 / atol 1e-5 (only the MLP's summation
+    # order differs).
+    from scanobjectnn_torch.convert import init_params
     from scanobjectnn_torch.nn.pointnet_modules import SAModule
 
-    sa = SAModule(32, None, 72, (16, 32), knn=True).to(dev).eval()
-    xyz = torch.from_numpy(np.random.RandomState(0).randn(2, 256, 3).astype(np.float32)).to(dev)
-    with pytest.raises(ValueError, match="k <= 64"), torch.no_grad():
-        sa(xyz, None)
+    sa = init_params(SAModule(32, None, 72, (16, 32), knn=True), torch.Generator().manual_seed(0)).eval()
+    xyz = torch.from_numpy(np.random.RandomState(0).randn(2, 256, 3).astype(np.float32))
+    with torch.no_grad():
+        want = sa(xyz, None)
+        before = knn_point_kernel.launches
+        got = sa.to(dev)(xyz.to(dev), None)
+        torch.cuda.synchronize()
+    assert knn_point_kernel.launches == before + 1
+    assert torch.equal(got[0].cpu(), want[0])
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -451,6 +482,12 @@ KNN_CASES = {
     "k64": (2, 200, 1500, 3, 64, False, "normal"),
     "k64_bias_c7": (2, 96, 300, 7, 64, True, "normal"),
     "k48_few_keys": (2, 64, 40, 3, 48, True, "normal"),
+    # k > 64: the block-wide sort (any k; N <= 16384).
+    "k65": (2, 130, 257, 3, 65, False, "normal"),
+    "k128_bias": (2, 100, 1024, 3, 128, True, "normal"),
+    "k72_duplicates": (2, 256, 512, 3, 72, False, "lattice"),
+    "k80_c7_nan_key": (2, 64, 300, 7, 80, False, "nan"),
+    "k100_few_keys": (2, 64, 80, 3, 100, False, "normal"),
 }
 
 
@@ -490,9 +527,12 @@ def test_knn_kernel_matches_plain(dev, case):
         assert bool((d[:, :512, 0] == 0).all())  # a query equal to a key: exactly 0
     if case == "nan_key":
         assert not bool((i[1] == 7).any())
-    if case == "k48_few_keys":
-        assert bool(torch.isinf(d[..., 40:]).all()) and bool((i[..., 40:] == 0).all())
-        assert bool(torch.isfinite(d[..., :40]).all())
+    if case in ("k48_few_keys", "k100_few_keys"):
+        n_keys = spec[2]
+        assert bool(torch.isinf(d[..., n_keys:]).all()) and bool((i[..., n_keys:] == 0).all())
+        assert bool(torch.isfinite(d[..., :n_keys]).all())
+    if case == "k80_c7_nan_key":
+        assert not bool((i[1] == 7).any())
 
 
 def test_three_nn_launches_the_knn_kernel(dev):
@@ -507,8 +547,10 @@ def test_three_nn_launches_the_knn_kernel(dev):
 
 def test_knn_kernel_refuses_what_it_does_not_take(dev):
     q = torch.zeros(1, 8, 3, device=dev)
-    with pytest.raises(ValueError, match="k <= 64"):
-        knn_point_kernel(q, q, 65)
+    with pytest.raises(ValueError, match="k >= 1"):
+        knn_point_kernel(q, q, 0)
+    with pytest.raises(ValueError, match="N <= 16384"):  # k > 64 sorts the cloud in shared memory
+        knn_point_kernel(q, torch.zeros(1, 16385, 3, device=dev), 65)
     with pytest.raises(ValueError, match="float32"):
         knn_point_kernel(q.double(), q, 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -780,3 +822,198 @@ def test_knn_indices_general_takes_the_kernels_up_to_k64(dev, monkeypatch, q_cou
     monkeypatch.setattr(xconv, "knn_point_kernel", knn_point_plain)
     want_d, want_i = xconv.knn_indices_general(q, p, k)
     assert torch.equal(i, want_i) and torch.equal(d, want_d)
+
+
+# #18, the exact-key pool forward: (lead dims, K, C, compute dtype, inputs).
+# The bf16 SSG step's three SA shapes and MSG SA1's scale 1 (C = 64) at
+# B=16, then a ragged width, an f32 compute dtype, exact ties and a NaN.
+POOLKEY_CASES = {
+    "ssg_sa1": ((16, 512), 32, 128, torch.bfloat16, "normal"),
+    "ssg_sa2": ((16, 128), 64, 256, torch.bfloat16, "normal"),
+    "ssg_group_all": ((16, 1), 128, 1024, torch.bfloat16, "normal"),
+    "msg_sa1_scale1": ((16, 512), 16, 64, torch.bfloat16, "normal"),
+    "ragged": ((3, 7), 5, 33, torch.bfloat16, "normal"),
+    "f32": ((4, 8), 12, 40, torch.float32, "normal"),
+    "ties": ((4, 16), 8, 24, torch.bfloat16, "ties"),
+    "nan": ((2, 4), 6, 10, torch.bfloat16, "nan"),
+}
+
+
+def poolkey_inputs(case, dev):
+    """z32 [.., K, C] and (gamma, beta, mean, r) as the fused keys layer
+    hands them to #18: the statistics of the rounded z32, r = rsqrt(var +
+    1e-3) from torch."""
+    lead, k, c, cdtype, kind = POOLKEY_CASES[case]
+    rng = np.random.RandomState(k * c)
+    z = rng.randn(*lead, k, c).astype(np.float32) * 2.0 + rng.randn(c).astype(np.float32)
+    if kind == "ties":
+        z[..., k // 2:, :] = z[..., : k - k // 2, :]
+    if kind == "nan":
+        z[0, 1, 3, 2] = np.nan
+    z32 = torch.from_numpy(z).to(dev)
+    zbf = z32.to(cdtype).float()
+    axes = tuple(range(z32.dim() - 1))
+    mean = zbf.nan_to_num(0.0).mean(dim=axes)
+    var = torch.clamp(torch.square(zbf.nan_to_num(0.0)).mean(dim=axes) - torch.square(mean), min=0.0)
+    gamma = torch.from_numpy((1.0 + 0.2 * rng.randn(c)).astype(np.float32)).to(dev)
+    beta = torch.from_numpy((0.1 * rng.randn(c)).astype(np.float32)).to(dev)
+    return z32, gamma, beta, mean, torch.rsqrt(var + 1e-3), cdtype
+
+
+@pytest.mark.parametrize("case", sorted(POOLKEY_CASES))
+def test_poolkey_kernel_matches_plain(dev, case):
+    # Bit-equal: the same r, the same op order without contraction, the
+    # same rounding to bf16.
+    args = poolkey_inputs(case, dev)
+    before = bn_relu_exactkey_pool.launches
+    got = bn_relu_exactkey_pool(*args)
+    want = bn_relu_exactkey_pool_plain(*args)
+    torch.cuda.synchronize()
+    assert bn_relu_exactkey_pool.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    if case == "ties":
+        assert bool((got[2] >= 2).all())  # every column's winner is duplicated
+    if case == "nan":
+        assert bool(torch.isnan(got[1][0, 1, 2])) and float(got[2][0, 1, 2]) == 0.0
+
+
+def test_poolkey_kernel_refuses_what_it_does_not_take(dev):
+    z32, gamma, beta, mean, r, _ = poolkey_inputs("ragged", dev)
+    with pytest.raises(ValueError, match="float32"):
+        bn_relu_exactkey_pool(z32.double(), gamma, beta, mean, r)
+    with pytest.raises(ValueError, match="r must be"):
+        bn_relu_exactkey_pool(z32, gamma, beta, mean, r[1:])
+    with pytest.raises(ValueError, match="compute dtype"):
+        bn_relu_exactkey_pool(z32, gamma, beta, mean, r, torch.float16)
+
+
+# #17, the fused SA training tail's backward: (z1 shape [B, M, K, C0], the
+# MLP widths).  SSG SA1 and SA2 at B=16, MSG SA1's K=128 scale, SSG's
+# group-all at B=4, and small stacks of 1-3 layers with K and widths that
+# are not multiples of 8, and duplicated slots (exact pool ties).
+SATRAIN_CASES = {
+    "ssg_sa1": ((16, 512, 32, 64), (64, 64, 128)),
+    "ssg_sa2": ((16, 128, 64, 128), (128, 128, 256)),
+    "msg_sa1_k128": ((16, 512, 128, 64), (64, 96, 128)),
+    "group_all": ((4, 1, 128, 256), (256, 512, 1024)),
+    "ragged": ((3, 5, 7, 12), (12, 20, 9)),
+    "one_layer": ((2, 8, 10, 16), (16,)),
+    "two_layers_ties": ((2, 16, 8, 24), (24, 40)),
+}
+# Tolerance (x the tensor's max |ref|): the kernel sums its products in
+# another order than cuBLAS, so a relu gate or a pool winner within
+# rounding of its threshold may flip, and in bf16 a rounding of h may move
+# by one ulp: at most SATRAIN_FLIP_SHARE of a tensor's elements may lie
+# beyond SATRAIN_TOL.
+SATRAIN_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-5}
+SATRAIN_FLIP_SHARE = {torch.float32: 1e-3, torch.bfloat16: 1e-3}
+# db_i feeds a training BN, so its true value is 0: both sides' rounding
+# noise is held to SATRAIN_ZERO_TOL x max(1, |dbeta_i|max).
+SATRAIN_ZERO_TOL = 1e-3
+
+
+def satrain_inputs(case, dtype, dev, pool_mode="0"):
+    """(z1, gammas, betas, ws, bs, means, vars, d_pooled, pool_mode), the
+    statistics those of the plain forward chain on the card."""
+    shape, widths = SATRAIN_CASES[case]
+    rng = np.random.RandomState(sum(shape) + sum(widths))
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    z = rng.randn(*shape).astype(np.float32) + rng.randn(shape[-1]).astype(np.float32)
+    if case.endswith("ties"):
+        z[:, :, shape[2] // 2:] = z[:, :, : shape[2] - shape[2] // 2]
+    z1 = t(z).to(dtype)
+    gammas = [t(1.0 + 0.1 * rng.randn(c)) for c in widths]
+    betas = [t(0.1 * rng.randn(c)) for c in widths]
+    ws = [t(rng.randn(a, b) / np.sqrt(a)) for a, b in zip(widths, widths[1:])]
+    bs = [t(0.05 * rng.randn(c)) for c in widths[1:]]
+    _, _, _, means, variances = fwd_chain(z1, gammas, betas, ws, bs, pool_mode)
+    d_pooled = t(rng.randn(shape[0], shape[1], widths[-1])).to(dtype)
+    return z1, gammas, betas, ws, bs, means, variances, d_pooled, pool_mode
+
+
+def _flatten_grads(out):
+    dz1, dgammas, dbetas, dws, dbs = out
+    named = {"dz1": dz1}
+    named.update({f"dgamma{i}": g for i, g in enumerate(dgammas)})
+    named.update({f"dbeta{i}": g for i, g in enumerate(dbetas)})
+    named.update({f"dw{i + 1}": g for i, g in enumerate(dws)})
+    named.update({f"dbias{i + 1}": g for i, g in enumerate(dbs)})
+    return named
+
+
+@pytest.mark.parametrize("dtype,pool_mode", [(torch.float32, "0"), (torch.bfloat16, "0"), (torch.bfloat16, "1")],
+                         ids=["f32", "bf16", "bf16_pool_f32"])
+@pytest.mark.parametrize("case", sorted(SATRAIN_CASES))
+def test_satrain_bwd_kernel_matches_plain(dev, case, dtype, pool_mode):
+    args = satrain_inputs(case, dtype, dev, pool_mode)
+    before = grouped_bn_mlp_pool_bwd.launches
+    got = _flatten_grads(grouped_bn_mlp_pool_bwd(*args))
+    again = _flatten_grads(grouped_bn_mlp_pool_bwd(*args))
+    want = _flatten_grads(grouped_bn_mlp_pool_bwd_plain(*args))
+    torch.cuda.synchronize()
+    assert grouped_bn_mlp_pool_bwd.launches == before + 2
+    readings = []
+    for name, w in want.items():
+        g = got[name]
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.equal(g, again[name]), f"{name} is not bit-stable"
+        diff = (g.float() - w.float()).abs()
+        if name.startswith("dbias"):  # feeds a training BN: its true value is 0, both sum rounding noise
+            bound = SATRAIN_ZERO_TOL * max(1.0, float(want["dbeta" + name[5:]].abs().max()))
+            readings.append((name, float(g.abs().max()), float(w.abs().max()), bound))
+            assert float(g.abs().max()) <= bound and float(w.abs().max()) <= bound, (name, readings)
+            continue
+        scale = max(float(w.float().abs().max()), 1e-30)
+        beyond = diff > SATRAIN_TOL[dtype] * scale
+        share = float(beyond.float().mean())
+        rest = float(torch.where(beyond, 0.0, diff).max()) / scale
+        readings.append((name, float(diff.max()) / scale, share, rest))
+        assert share <= SATRAIN_FLIP_SHARE[dtype], (name, share, readings)
+    print(f"#17 {case} {dtype} mode {pool_mode}: {readings}")
+
+
+
+def test_satrain_bwd_kernel_refuses_what_it_does_not_take(dev):
+    args = list(satrain_inputs("ragged", torch.float32, dev))
+    with pytest.raises(ValueError, match="pool modes"):
+        grouped_bn_mlp_pool_bwd(*args[:8], "keys")
+    with pytest.raises(ValueError, match="z1 must be"):
+        grouped_bn_mlp_pool_bwd(args[0].double(), *args[1:])
+    with pytest.raises(ValueError, match="1024 channels"):
+        grouped_bn_mlp_pool_bwd(torch.zeros(1, 1, 2, 1025, device=dev), [torch.ones(1025, device=dev)],
+                                [torch.zeros(1025, device=dev)], [], [], [torch.zeros(1025, device=dev)],
+                                [torch.ones(1025, device=dev)], torch.zeros(1, 1, 1025, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_tail_and_keys_layers_launch_their_kernels(dev, dtype):
+    # A training step of GroupMLPPool and LiftedGroupMLP on the card: the
+    # fused tail's backward is #17, the bf16 keys layer's forward #18.
+    from scanobjectnn_torch.convert import init_params
+    from scanobjectnn_torch.nn.pointnet_modules import GroupMLPPool, LiftedGroupMLP, configure_training
+
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(2, 16, 8, 6).astype(np.float32)).to(dev)
+    for mode, fused, counter in (("0", True, grouped_bn_mlp_pool_bwd), ("keys", False, bn_relu_exactkey_pool)):
+        if counter is bn_relu_exactkey_pool and dtype != torch.bfloat16:
+            continue
+        mlp = configure_training(init_params(GroupMLPPool(6, (8, 12, 16), dtype=dtype), torch.Generator().manual_seed(0)),
+                                 mode, fused).to(dev).train()
+        before = counter.launches
+        mlp(x, 0.5).float().sum().backward()
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1, (mode, fused)
+        assert all(p.grad is not None and bool(torch.isfinite(p.grad).all()) for p in mlp.parameters())
+    lifted = configure_training(LiftedGroupMLP(15, (8, 16), dtype=dtype), "0", True).to(dev).train()
+    before = grouped_bn_mlp_pool_bwd.launches
+    pts = torch.from_numpy(rng.randn(2, 32, 12).astype(np.float32)).to(dev)
+    xyz = torch.from_numpy(rng.randn(2, 32, 3).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.randint(0, 32, (2, 8, 4)).astype(np.int32)).to(dev)
+    lifted(pts, xyz, xyz[:, :8].contiguous(), idx, 0.5).float().sum().backward()
+    torch.cuda.synchronize()
+    assert grouped_bn_mlp_pool_bwd.launches == before + 1

@@ -151,9 +151,14 @@ def test_lifted_group_mlp_train_matches_jax(case):
 
 
 def test_lifted_group_mlp_is_f32_only():
-    tm = LiftedGroupMLP(15, (8,), dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        tm(torch.zeros(1, 4, 12), torch.zeros(1, 4, 3), torch.zeros(1, 2, 3), torch.zeros(1, 2, 2, dtype=torch.int32))
+    # No longer f32 only: in bf16 Dense 0 multiplies the xyz rows in f32 and
+    # keeps its output f32 (JAX Dense.highest_cols), and the layer rounds
+    # after the cancellation (tests/test_torch_satrain.py holds it to JAX).
+    tm = LiftedGroupMLP(15, (8,), dtype=torch.bfloat16).train()
+    assert tm.dense_0.highest_cols == (12, 15)
+    out = tm(torch.zeros(1, 4, 12), torch.zeros(1, 4, 3), torch.zeros(1, 2, 3), torch.zeros(1, 2, 2, dtype=torch.int32),
+             0.5)
+    assert out.dtype == torch.bfloat16 and out.shape == (1, 2, 8)
 
 
 @pytest.fixture(scope="module")

@@ -240,7 +240,11 @@ def test_train_epoch_runs_and_updates(monkeypatch, batch):
 
 
 def test_bf16_training_is_the_next_slice():
-    with pytest.raises(NotImplementedError, match="exactpool"):
-        Trainer(TrainerConfig(dtype="bfloat16", device="cpu"))
+    # bf16 training of PointNet++ came with exact-key pooling: "auto" takes
+    # keys; the other families still refuse bf16 (tests/test_torch_mixed_train.py).
+    trainer = Trainer(TrainerConfig(dtype="bfloat16", device="cpu"))
+    assert trainer.pool_mode == "keys" and trainer.dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(TrainerConfig(model="dgcnn", dtype="bfloat16", device="cpu"))
     with pytest.raises(ValueError, match="dtype"):
         Trainer(TrainerConfig(dtype="float16", device="cpu"))
