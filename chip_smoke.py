@@ -12,8 +12,11 @@ Phases (any failure raises and the exit code is not 0):
      with the full-width ``pointnet2_cls_ssg`` built by ``get_model`` (seeded
      weights; random positive BN running stats, so the BN fold matters,
      sized so the activations neither vanish nor blow up), in
-     bf16 and f32, counting the kernels' launches; then run the same model
-     on the plain path on the same card and compare the logits;
+     bf16 and f32, counting the kernels' launches (under ``sa_bucket``
+     "auto", the default, SA1 runs #5 twice and #4, SA2 #3); hold the logits
+     bit-equal to the "off" forward's (SA1 through #3); then run the same
+     model on the plain path on the same card and compare the logits; time
+     the forward under "auto" and "off";
   4. training, f32, B=16 clouds of N=1024 points (``Trainer`` defaults:
      Adam, the LR and BN-momentum schedules, y-rotation + jitter, dropout
      0.5): hold the training kernels against their plain versions at the
@@ -145,6 +148,23 @@ Phases (any failure raises and the exit code is not 0):
         (B=32), f32 and bf16, through FPS, the kNN kernel's k > 64 path (the
         block-wide sort), the gather and #10, against the plain path; the
         kNN call at k = 128 equal to ``knn_point_plain``, timed.
+ 12. the bucketed SA path and evaluation at N=2048:
+     a. #5 (``rank_sort_points``) at SSG SA1's two calls (B=128: the points,
+        N=2048, and the queries, M=512, keyed by each cloud's widest axis),
+        on a tie lattice with -0.0 and NaN keys, and carrying bf16 feature
+        rows: sorted rows, ids and rank equal to its plain version; timed
+        beside ``torch.argsort(stable=True)``;
+     b. #4 (``sa_ball_mlp_pool_bucketed``) at the "auto" SA1 call (B=128,
+        (W, T, G) = (896, 64, 128)), f32 and bf16: pooled bit-equal to the
+        #3 kernel's and held to its plain version; the overflowed tiles
+        printed out of the total (the window must have served some); timed
+        beside #3 and the plain version;
+     c. #4 on a cloud that forces every tile to overflow, on a dense cloud
+        (more than K hits in a ball) and with 64 features at an explicit
+        (W, T, G), f32 and bf16, as in b;
+     d. an SSG ``Trainer.evaluate`` at N=2048 (60 clouds, batch 32, 3 votes:
+        #1, #3, #4, #5 on the card), counting launches, with the same
+        predictions on the plain path; both timed.
 
 Every kernel's line in the ``{"kernels": [...]}`` record carries its
 bound: the larger of the bytes it must move over 3.35 TB/s and the
@@ -494,14 +514,15 @@ def plain_path():
     from scanobjectnn_torch.ops import exactpool, satrain
     from scanobjectnn_torch.ops import fps as ops_fps
     from scanobjectnn_torch.ops.cuda import (
-        ballgroup_kernel, dupmask_kernel, edge_kernel, gather_kernel, knn_kernel, poolkey_kernel, safused_kernel,
-        samlp_kernel, satrain_kernel, spider_kernel,
+        ballgroup_kernel, dupmask_kernel, edge_kernel, gather_kernel, knn_kernel, poolkey_kernel, sabucket_kernel,
+        safused_kernel, samlp_kernel, satrain_kernel, spider_kernel,
     )
 
     stack = ExitStack()
     for module, name, plain in (
         (ops_fps, "fps", fps_plain_entry),
         (pointnet_modules, "sa_ball_mlp_pool", safused_kernel.sa_ball_mlp_pool_plain),
+        (pointnet_modules, "sa_ball_mlp_pool_bucketed", sabucket_kernel.sa_ball_mlp_pool_bucketed_plain),
         (pointnet_modules, "sa_mlp_pool", samlp_kernel.sa_mlp_pool_plain),
         (ballgroup_kernel, "query_ball_group", ballgroup_kernel.query_ball_group_plain),
         (ballgroup_kernel, "query_ball_point", ball_query_plain_entry),
@@ -1495,6 +1516,183 @@ def msg_phase(smi: str, dev) -> dict:
     return rec
 
 
+def rank_sort_work(work: Work, b: int, n: int) -> None:
+    # Per point: the key and the coordinates read (16 B), the sorted
+    # coordinates, the id and the rank written (20 B); a sort's n·log2(n)
+    # comparisons a cloud.
+    work.add(b * n * math.log2(max(n, 2)), 36 * b * n)
+
+
+def check_bucketed(args, dtype, label, **wtg) -> tuple[float, int, int]:
+    """#4 on ``args`` (``sa_ball_mlp_pool``'s): pooled equal bit for bit to
+    the #3 kernel's, and held to its plain version by the SA bound.
+    Returns (max abs error, overflowed tiles, tiles)."""
+    import torch
+
+    from scanobjectnn_torch.ops.cuda.sabucket_kernel import (
+        sa_ball_mlp_pool_bucketed, sa_ball_mlp_pool_bucketed_plain,
+    )
+    from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool
+
+    pooled, idx = sa_ball_mlp_pool_bucketed(*args, dtype=dtype, **wtg)
+    flags = sa_ball_mlp_pool_bucketed.last_overflow.clone()
+    full, _ = sa_ball_mlp_pool(*args, dtype=dtype)
+    ref, _ = sa_ball_mlp_pool_bucketed_plain(*args, dtype=dtype, **wtg)
+    torch.cuda.synchronize()
+    require(idx is None, f"the bucketed layer returned idx ({label})")
+    require(torch.equal(pooled, full), f"the bucketed layer differs from the #3 kernel ({label})")
+    err = check_pooled(pooled, ref, dtype, f"bucketed {label}: equal to the #3 kernel; against its plain version,")
+    n_ov, total = int(flags.sum()), flags.numel()
+    print(f"bucketed {label}: {n_ov} of {total} tiles overflowed (scanned the whole cloud)")
+    return err, n_ov, total
+
+
+def bucket_phase(smi: str, dev, models: dict, x0, sa1_xyz) -> dict:
+    """Phase 12 (module doc).  Returns the records of #5 (its two calls of
+    one SSG forward's SA1, B=128) and #4 (the bf16 SA1 call)."""
+    import numpy as np
+    import torch
+
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.ops.cuda.ballgroup_kernel import ball_query_plain
+    from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
+    from scanobjectnn_torch.ops.cuda.ranksort_kernel import rank_sort_points, rank_sort_points_plain
+    from scanobjectnn_torch.ops.cuda.sabucket_kernel import (
+        AUTO_BUCKET, sa_ball_mlp_pool_bucketed, sa_ball_mlp_pool_bucketed_plain, sort_keys,
+    )
+    from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    # a. #5 at SA1's two calls, on a tie lattice with -0.0 and NaN keys, and
+    #    carrying feature rows.
+    _, key, qkey = sort_keys(x0, sa1_xyz)
+    g = torch.Generator().manual_seed(21)
+    lattice = torch.randint(-3, 4, (BATCH, NUM_POINT), generator=g).float() * 0.25
+    lattice[:, ::9] = -0.0
+    lattice[:2, 5::301] = float("nan")
+    feats = torch.randn(BATCH, NUM_POINT, 64, generator=g).to(dev, torch.bfloat16)
+    rec5 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    work5 = Work()
+    for label, k, pts, rows, timed in (
+        ("points B=128 N=2048", key, x0, None, True), ("queries B=128 M=512", qkey, sa1_xyz, None, True),
+        ("tie lattice with -0.0 and NaN keys B=128 N=2048", lattice.to(dev), x0, None, False),
+        ("points with bf16 feature rows B=128 N=2048 C=64", key, x0, feats, False),
+    ):
+        got, ref = rank_sort_points(k, pts, rows), rank_sort_points_plain(k, pts, rows)
+        torch.cuda.synchronize()
+        require(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, ref)),
+                f"rank_sort_points differs from its plain version ({label})")
+        print(f"rank_sort_points {label}: sorted rows, ids and rank equal to rank_sort_points_plain")
+        if timed:  # calls of tens of µs: device time (CUDA events mostly time the launches)
+            ms = device_ms(lambda: rank_sort_points(k, pts))
+            plain_ms = device_ms(lambda: rank_sort_points_plain(k, pts))
+            lib_ms = device_ms(lambda: torch.argsort(k, dim=1, stable=True))
+            print(f"time rank_sort_points {label}: device kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"torch.argsort(stable=True) {lib_ms:.4f} ms; CUDA events per call kernel "
+                  f"{cuda_ms(lambda: rank_sort_points(k, pts)):.4f} ms ({smi})")
+            rec5["ms"] += ms
+            rec5["plain_ms"] += plain_ms
+            rec5["library_ms"] += lib_ms
+            rank_sort_work(work5, *k.shape)
+
+    # b. #4 at the "auto" SA1 call, f32 and bf16.
+    window, qtile, gblk = AUTO_BUCKET[(NUM_POINT, 512)]
+    wtg = dict(window=window, qtile=qtile, gblk=gblk)
+    rec4 = {"max_abs_err": 0.0, "library_ms": None}
+    work4 = Work()
+    for name in ("f32", "bf16"):
+        dtype = torch.float32 if name == "f32" else torch.bfloat16
+        with torch.no_grad():
+            w1, b1 = models[name].sa1.mlp.folded()
+        args = (0.2, 32, x0, sa1_xyz, None, w1, b1)
+        err, n_ov, total = check_bucketed(args, dtype, f"SSG SA1 {name} B=128 (W, T, G) = {window, qtile, gblk}", **wtg)
+        require(n_ov < total, "the window branch ran on no tile of the auto SA1 call")
+        rec4["max_abs_err"] = max(rec4["max_abs_err"], err)
+        ms = cuda_ms(lambda: sa_ball_mlp_pool_bucketed(*args, dtype=dtype, **wtg))
+        full_ms = cuda_ms(lambda: sa_ball_mlp_pool(*args, dtype=dtype))
+        plain_ms = cuda_ms(lambda: sa_ball_mlp_pool_bucketed_plain(*args, dtype=dtype, **wtg), iters=3)
+        sorts_ms = cuda_ms(lambda: (rank_sort_points(key, x0), rank_sort_points(qkey, sa1_xyz)))
+        print(f"time sa_ball_mlp_pool_bucketed SSG SA1 {name} B=128: #4 with its prep {ms:.4f} ms (the two #5 calls "
+              f"{sorts_ms:.4f}), #3 {full_ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
+        if name == "bf16":
+            rec4.update(ms=ms, plain_ms=plain_ms)
+            sa_work(work4, args, dtype)
+
+    # c. A cloud that forces overflow, a dense cloud, and a has-src call.
+    b = 16
+    tight = (x0[:b] * 0.05).contiguous()
+    _, tight_q = fps(tight, 512)
+    rng = np.random.RandomState(22)
+    centers = rng.randn(b, 16, 3) * np.array([4.0, 0.3, 0.3])
+    dense = torch.from_numpy((centers[np.arange(b)[:, None], rng.randint(0, 16, (b, NUM_POINT))]
+                              + rng.randn(b, NUM_POINT, 3) * 0.05).astype(np.float32)).to(dev)
+    _, dense_q = fps(dense, 512)
+    _, cnt = ball_query_plain(0.2, NUM_POINT, dense, dense_q)
+    require(int(cnt.max()) > 32, "the dense cloud has no ball with more than K hits")
+    _, sa2_q = fps_plain(sa1_xyz[:b].contiguous(), 128)
+    src = torch.randn(b, 512, 64, generator=g).to(dev)
+    w_src = [torch.randn(3 + 64, 64, generator=g).to(dev) / 8.0, torch.randn(64, 128, generator=g).to(dev) / 8.0]
+    b_src = [0.1 * torch.randn(64, generator=g).to(dev), 0.1 * torch.randn(128, generator=g).to(dev)]
+    with torch.no_grad():
+        w1, b1 = models["f32"].sa1.mlp.folded()
+    for label, args, cfg in (
+        ("a cloud that forces overflow B=16", (0.2, 32, tight, tight_q, None, w1, b1), wtg),
+        (f"a dense cloud B=16 (max {int(cnt.max())} hits > K=32)", (0.2, 32, dense, dense_q, None, w1, b1), wtg),
+        ("with 64 features B=16 N=512 M=128 K=64, (W, T, G) = (384, 32, 128)",
+         (0.4, 64, sa1_xyz[:b].contiguous(), sa2_q, src, w_src, b_src), dict(window=384, qtile=32, gblk=128)),
+    ):
+        for dtype in (torch.float32, torch.bfloat16):
+            _, n_ov, total = check_bucketed(args, dtype, f"{label} {dtype}", **cfg)
+            if label.startswith("a cloud that forces"):
+                require(n_ov == total, "the tight cloud did not overflow every tile")
+
+    # d. SSG Trainer.evaluate at N=2048 with votes, kernel path against plain path.
+    data, labels = make_synthetic_dataset(num_per_class=4, num_classes=NUM_CLASSES, num_points=NUM_POINT, seed=5)
+    trainer = Trainer(TrainerConfig(num_point=NUM_POINT, batch_size=32))
+    state = trainer.init_state(0)
+    stats_rng = np.random.RandomState(23)
+    with torch.no_grad():
+        for k_, buf in state.model.named_buffers():
+            vals = stats_rng.randn(*buf.shape)
+            buf.copy_(torch.from_numpy(0.1 + 0.1 * np.abs(vals) if k_.endswith(".var") else 0.05 * np.abs(vals)))
+    counters = (fps, sa_ball_mlp_pool, sa_ball_mlp_pool_bucketed, rank_sort_points)
+
+    def run():
+        return trainer.evaluate(state, data, labels, num_votes=3, shuffle=False)
+
+    res, counts = counted_run(counters, run)
+    print(f"evaluate SSG main path launches: {counts}")
+    require(all(c > 0 for c in counts.values()), f"a kernel of the evaluate path never launched: {counts}")
+    before = [c.launches for c in counters]
+    with plain_path():
+        ref = run()
+    require([c.launches for c in counters] == before, "the plain evaluate path launched a kernel")
+    require(res["total_seen"] == ref["total_seen"] == len(labels), "evaluate dropped a cloud")
+    require(np.array_equal(res["predictions"], ref["predictions"]), "evaluate's predictions differ from the plain path")
+    print(f"evaluate SSG N=2048, {len(labels)} clouds, batch 32, 3 votes: accuracy {res['accuracy']:.4f} "
+          f"(plain path {ref['accuracy']:.4f}), mean loss {res['mean_loss']:.6f} (plain path {ref['mean_loss']:.6f}), "
+          f"predictions equal")
+
+    def wall_ms(path):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if path == "plain":
+            with plain_path():
+                run()
+        else:
+            run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    times = {"kernel": [], "plain": []}
+    for path in ("kernel", "plain", "plain", "kernel"):
+        times[path].append(wall_ms(path))
+    print(f"time evaluate SSG N=2048 ({len(labels)} clouds, 3 votes): kernel path "
+          f"{sum(times['kernel']) / 2:.4f} ms, plain path {sum(times['plain']) / 2:.4f} ms "
+          f"(rounds {', '.join(f'{v:.4f}' for v in times['kernel'] + times['plain'])}) ({smi})")
+    return {"rank_sort_points": {**rec5, **work5.record()}, "sa_ball_mlp_pool_bucketed": {**rec4, **work4.record()}}
+
+
 def sa_layer_phase(smi: str, dev) -> dict:
     """Phase 10 (module doc).  Returns the records of #10 (summed over the
     four f32 ``SAModule`` calls) and #8 (over its two calls)."""
@@ -1911,9 +2109,13 @@ def main() -> None:
     from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
     from scanobjectnn_torch.models import get_model
     from scanobjectnn_torch.ops.cuda import _build
+    from scanobjectnn_torch.nn.pointnet_modules import configure_eval
     from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
+    from scanobjectnn_torch.ops.cuda.ranksort_kernel import rank_sort_points
+    from scanobjectnn_torch.ops.cuda.sabucket_kernel import sa_ball_mlp_pool_bucketed
     from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool, sa_ball_mlp_pool_plain
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda:0")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2000,20 +2202,30 @@ def main() -> None:
                 if name == "bf16":
                     sa_work(work["sa_ball_mlp_pool"], args, dtype)
 
-    # 3. The main path: get_model -> model(points), counting kernel launches.
+    # 3. The main path: get_model -> model(points) under sa_bucket "auto" (SA1
+    # through #5 and #4, SA2 through #3), counting kernel launches; the
+    # logits equal to the "off" forward's (SA1 through #3).
+    main_counters = (fps, sa_ball_mlp_pool, sa_ball_mlp_pool_bucketed, rank_sort_points)
     with torch.no_grad():
         logits, launches = counted_run(
-            (fps, sa_ball_mlp_pool), lambda: {n: [m(x)["logits"] for x in batches] for n, m in models.items()}
+            main_counters, lambda: {n: [m(x)["logits"] for x in batches] for n, m in models.items()}
         )
-    print(f"main path launches: {launches}")
-    require(all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}")
+        print(f"main path launches: {launches}")
+        require(all(n > 0 for n in launches.values()), f"a kernel of the path never launched: {launches}")
+        for name, m in models.items():
+            configure_eval(m, "off")
+            off = [m(x)["logits"] for x in batches]
+            configure_eval(m, "auto")
+            require(all(torch.equal(a, b) for a, b in zip(logits[name], off)),
+                    f"{name} logits under sa_bucket 'auto' differ from 'off'")
+            print(f"model {name}: logits under sa_bucket 'auto' equal to 'off' bit for bit")
+    before = [c.launches for c in main_counters]
 
     # The same model on the plain path, same card.
     with torch.no_grad(), plain_path():
         ref = {name: [m(x)["logits"] for x in batches] for name, m in models.items()}
         plain_fwd_ms = {name: cuda_ms(lambda: m(batches[0]), iters=3) for name, m in models.items()}
-    require(fps.launches == launches["fps"] and sa_ball_mlp_pool.launches == launches["sa_ball_mlp_pool"],
-            "the plain path launched a kernel")
+    require([c.launches for c in main_counters] == before, "the plain path launched a kernel")
 
     for name in models:
         got, want = torch.cat(logits[name]), torch.cat(ref[name])
@@ -2032,9 +2244,15 @@ def main() -> None:
 
     with torch.no_grad():
         for name, m in models.items():
-            ms = cuda_ms(lambda: m(batches[0]))
-            print(f"time forward {name} B={BATCH} N={NUM_POINT}: kernel path {ms:.4f} ms "
-                  f"({BATCH / ms * 1e3:.1f} clouds/s), plain path {plain_fwd_ms[name]:.4f} ms ({smi})")
+            ms = {}
+            for setting in ("auto", "off", "off", "auto"):
+                configure_eval(m, setting)
+                ms.setdefault(setting, []).append(cuda_ms(lambda: m(batches[0])))
+            auto, off = (sum(ms[k]) / 2 for k in ("auto", "off"))
+            print(f"time forward {name} B={BATCH} N={NUM_POINT}: kernel path, sa_bucket 'auto' {auto:.4f} ms "
+                  f"({BATCH / auto * 1e3:.1f} clouds/s), 'off' {off:.4f} ms (rounds auto, off, off, auto: "
+                  f"{', '.join(f'{v:.4f}' for v in ms['auto'][:1] + ms['off'] + ms['auto'][1:])}), "
+                  f"plain path {plain_fwd_ms[name]:.4f} ms ({smi})")
 
     # 4. Training.  5. BGA and part segmentation.  6. DGCNN and DGCNN-BGA.  7. SpiderCNN.  8. PointCNN.
     # 9. MSG.  10. The SA layer's other kernels.  11. Mixed precision and the fused tail.
@@ -2051,6 +2269,7 @@ def main() -> None:
     measured["sa_ball_mlp_pool_chunked"] = msg_phase(smi, dev)
     measured.update(sa_layer_phase(smi, dev))
     measured.update(mixed_phase(smi, dev))
+    measured.update(bucket_phase(smi, dev, models, x0, sa1_xyz))
 
     require(not {"jax", "scanobjectnn_tpu"} & set(sys.modules), "JAX or the JAX package was imported")
 
@@ -2080,6 +2299,9 @@ def main() -> None:
         "bn_relu_exactkey_pool": (csrc + "poolkey.cu", pallas + "poolkey_kernel.py:125", "bn_relu_exactkey_pool"),
         "grouped_bn_mlp_pool_bwd": (csrc + "satrain_bwd.cu", pallas + "satrain_bwd.py:207",
                                     "grouped_bn_mlp_pool_bwd"),
+        "rank_sort_points": (csrc + "ranksort.cu", pallas + "ranksort_kernel.py:154", "rank_sort_points"),
+        "sa_ball_mlp_pool_bucketed": (csrc + "sabucket.cu", pallas + "sabucket_kernel.py:455",
+                                      "sa_ball_mlp_pool_bucketed"),
     }
     print("launches, every main path together: " + ", ".join(f"{k} {v}" for k, v in sorted(LAUNCHES.items())))
     kernels = []
@@ -2088,7 +2310,10 @@ def main() -> None:
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": tpu,
                         "launches": LAUNCHES[counter], **measured[k]})
     print("kernel ms / plain_ms / bound_ms: fps and sa_ball_mlp_pool (K <= 64) summed over one bf16 SSG forward's "
-          "calls at B=128 (FPS both layers, SA1+SA2; CUDA events); sa_ball_mlp_pool_chunked (the same kernel at "
+          "calls at B=128 under sa_bucket 'off' (FPS both layers, SA1+SA2; CUDA events); rank_sort_points over "
+          "the two calls of the bf16 SSG forward's SA1 under 'auto' at B=128 (points N=2048, queries M=512; device "
+          "time), sa_ball_mlp_pool_bucketed over its one call (SA1, with its prep: the sort keys and both "
+          "rank_sort_points calls; CUDA events); sa_ball_mlp_pool_chunked (the same kernel at "
           "K > 64, up to 1024: K a multiple of 16) over the two K=128 calls of one bf16 pointnet2_cls_msg forward "
           "at B=32 (CUDA events); sa_mlp_pool over the four f32 SAModule calls of phase 10 at B=32 (knn K=32 and "
           "ball K=128 at SA1 and SA2; CUDA events); query_ball_point over its two calls at B=32, N=1024, M=512 "
@@ -2103,11 +2328,12 @@ def main() -> None:
           "over the two f32 SAModule(knn, nsample=128) calls of phase 11 at B=32 (CUDA events); "
           "bn_relu_exactkey_pool over one bf16 SSG step's three calls at B=16 (CUDA events); "
           "grouped_bn_mlp_pool_bwd over one f32 fused-tail SSG step's SA1 and SA2 calls at B=16 (CUDA events). "
-          "library_ms: torch.gather for the "
+          "library_ms: torch.argsort(stable=True) for rank_sort_points (device time), torch.gather for the "
           "gather, index_add_ "
           "for the scatter-add (device time), torch.matmul of the materialised outer product for spider_conv "
           "(CUDA events); "
           "launches: every main path's run together")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@
 GPU.
 
     python3 profile_forward.py [--batch 128] [--num-point 2048] [--iters 5]
+    python3 profile_forward.py --sa-bucket off
     python3 profile_forward.py --train [--batch 16] [--num-point 1024]
     python3 profile_forward.py --train --dtype bfloat16 [--model pointnet2_cls_msg]
     python3 profile_forward.py --train --fused-sa-train [--dtype bfloat16]
@@ -20,7 +21,9 @@ both PointCNNs B=32, N=1024 for both.
 Forward: for bf16 and f32 in turn, builds the model with ``get_model``
 (seed 0, on the card) and answers one batch of the 15-class synthetic
 dataset (seed 0; with background points and binary masks for the models
-of kind "seg").  ``--train``: a ``Trainer`` (seed 0, its default
+of kind "seg"), under ``--sa-bucket`` ("auto", the default: an SA layer at
+N=2048, M=512, such as SSG's SA1, runs the bucketed kernel #4 after two
+rank sorts #5; "off": the fused kernel #3).  ``--train``: a ``Trainer`` (seed 0, its default
 augmentation, dropout and Adam, or the model's recipe: PointCNN's step LR,
 Adam eps 1e-2, L2 1e-5 and augmentation; seg_weight 0.5) takes
 ``train_step``s on one such batch, in f32 or with ``--dtype bfloat16``
@@ -122,6 +125,8 @@ def main() -> None:
     parser.add_argument("--fused-sa-train", action="store_true", help="--train with the fused SA training tail")
     parser.add_argument("--batch", type=int, help="default: the model's configuration (module doc)")
     parser.add_argument("--num-point", type=int, help="default: the model's configuration (module doc)")
+    parser.add_argument("--sa-bucket", default="auto", choices=("auto", "off"),
+                        help="the forward's bucketed SA setting (module doc)")
     parser.add_argument("--iters", type=int, default=5)
     args = parser.parse_args()
     batch, num_point = DEFAULTS[args.model][args.train]
@@ -135,6 +140,7 @@ def main() -> None:
     from scanobjectnn_torch.data.io import convert_to_binary_mask
     from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
     from scanobjectnn_torch.models import MODEL_REGISTRY, get_model
+    from scanobjectnn_torch.nn.pointnet_modules import configure_eval
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -145,7 +151,8 @@ def main() -> None:
         num_per_class=-(-args.batch // 15), num_classes=15, num_points=args.num_point, seed=0, with_mask=seg
     )
     data, labels = arrays[:2]
-    out = {"card": card, "model": args.model, "batch": args.batch, "num_point": args.num_point, "iters": args.iters}
+    out = {"card": card, "model": args.model, "batch": args.batch, "num_point": args.num_point, "iters": args.iters,
+           "sa_bucket": args.sa_bucket}
     runs = {}
     if args.train:
         from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
@@ -162,7 +169,7 @@ def main() -> None:
     else:
         points = torch.from_numpy(data[: args.batch]).cuda()
         for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
-            model = get_model(args.model, dtype=dtype).eval()
+            model = configure_eval(get_model(args.model, dtype=dtype), args.sa_bucket).eval()
             runs[name] = torch.no_grad()(lambda model=model: model(points))
     for name, run in runs.items():
         res = out[name] = profile_one(run, args.iters)

@@ -6,7 +6,9 @@ visits clouds and points in the JAX package's order under the same seed:
   * each epoch draws ONE point permutation shared by every cloud and keeps
     its first ``num_points`` points; masks and parts take the same points;
   * then the cloud order is shuffled;
-  * batches are fixed-size and drop the remainder (pointnet2/train.py:237).
+  * training batches are fixed-size and drop the remainder
+    (pointnet2/train.py:237); evaluation's ``padded_batches`` keeps it,
+    padded by repeating its last row, with the count of real rows.
 Ported: rectangular point clouds with labels, masks and parts.  Types and
 ragged (per-cloud size) input wait for the slices that read them.
 """
@@ -18,7 +20,7 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["Batches", "EpochSampler"]
+__all__ = ["Batches", "EpochSampler", "pad_or_trim_batch", "padded_batches"]
 
 
 @dataclass
@@ -74,3 +76,29 @@ class Batches:
         bs = self.batch_size
         for i in range(self.num_batches):
             yield {k: v[i * bs : (i + 1) * bs] for k, v in self.view.items()}
+
+
+def pad_or_trim_batch(arr: np.ndarray, batch_size: int) -> np.ndarray:
+    """Pad the leading axis up to ``batch_size`` by repeating the last row,
+    or cut it down to ``batch_size``."""
+    n = arr.shape[0]
+    if n == batch_size:
+        return arr
+    if n > batch_size:
+        return arr[:batch_size]
+    return np.concatenate([arr, np.repeat(arr[-1:], batch_size - n, axis=0)], axis=0)
+
+
+def padded_batches(epoch_view: dict[str, np.ndarray], batch_size: int) -> Iterator[tuple[dict[str, np.ndarray], int]]:
+    """Fixed-size batches that keep the remainder: the last partial batch is
+    padded to ``batch_size`` (its last row repeated) and each batch comes
+    with its count of real rows, which the caller's tallies keep to.  The
+    reference evaluates at BATCH_SIZE=1 (evaluate_scenennobjects.py:29): the
+    same samples, none dropped."""
+    n = len(epoch_view["labels"])
+    for i in range(0, n, batch_size):
+        chunk = {k: v[i : i + batch_size] for k, v in epoch_view.items()}
+        valid = len(chunk["labels"])
+        if valid < batch_size:
+            chunk = {k: pad_or_trim_batch(v, batch_size) for k, v in chunk.items()}
+        yield chunk, valid

@@ -31,7 +31,13 @@ is process-global):
   * ``fused_sa_train``: under modes "0" and "1", the layers after Dense 0
     run as ``ops.satrain.grouped_bn_mlp_pool`` (``_fused_train_tail``),
     whose backward recomputes them from Dense 0's output (#17 on the card).
-Eval ignores both.  The parameter tree stays ``dense_i``/``bn_i`` on every
+Eval ignores both; it reads ``sa_bucket``, which ``configure_eval`` gives
+(JAX's kernelconfig ``sa_bucket``, per model here): "auto" (the default)
+sends a fused ball-grouped scale whose (N, M) is in the bucketed kernel's
+table (``ops/cuda/sabucket_kernel.AUTO_BUCKET``: (2048, 512)) and that
+``bucket_eligible`` takes to ``sa_ball_mlp_pool_bucketed`` (#4, with #5
+sorting its points and queries), whose pooled output is #3's bit for bit;
+"off" keeps #3.  The parameter tree stays ``dense_i``/``bn_i`` on every
 path: the fused ops own no parameters.
 
 Not ported: pooling modes other than max, ``mlp2``, ``bn=False`` and MSG's
@@ -48,11 +54,15 @@ from torch import nn
 from scanobjectnn_torch import ops
 from scanobjectnn_torch.nn.layers import MLP, matmul_f32, mlp_final_max
 from scanobjectnn_torch.ops.cuda.gather_kernel import gather_neighbors
+from scanobjectnn_torch.ops.cuda.sabucket_kernel import (
+    SA_BUCKET_SETTINGS, bucket_eligible, resolve_bucket_config, sa_ball_mlp_pool_bucketed,
+)
 from scanobjectnn_torch.ops.cuda.safused_kernel import fusable_nsample, sa_ball_mlp_pool
 from scanobjectnn_torch.ops.cuda.samlp_kernel import fold_bn_mlp_params, sa_mlp_pool
 from scanobjectnn_torch.ops.satrain import grouped_bn_mlp_pool
 
 __all__ = [
+    "configure_eval",
     "configure_training",
     "sample_and_group",
     "sample_and_group_all",
@@ -69,10 +79,12 @@ POOL_MODES = ("0", "1", "keys")
 
 class _PooledMLP(MLP):
     """A shared MLP that ends in a max-pool over the neighbour axis, with
-    the training settings of the module doc (defaults: mode "0", unfused)."""
+    the training settings of the module doc (defaults: mode "0", unfused)
+    and the eval setting ``sa_bucket`` (default "auto")."""
 
     pool_mode = "0"
     fused_sa_train = False
+    sa_bucket = "auto"
 
     def fused_tail(self) -> bool:
         """JAX's gate of the fused training tail: training, the setting on,
@@ -96,6 +108,18 @@ def configure_training(model: nn.Module, pool_mode: str, fused_sa_train: bool) -
     for sub in model.modules():
         if isinstance(sub, _PooledMLP):
             sub.pool_mode, sub.fused_sa_train = pool_mode, bool(fused_sa_train)
+    return model
+
+
+def configure_eval(model: nn.Module, sa_bucket: str) -> nn.Module:
+    """Give every grouped MLP of ``model`` its eval setting (module doc):
+    ``sa_bucket`` "auto" (JAX's default: the bucketed kernel where
+    ``AUTO_BUCKET`` has the layer's shape) or "off"."""
+    if sa_bucket not in SA_BUCKET_SETTINGS:
+        raise ValueError(f"sa_bucket must be one of {SA_BUCKET_SETTINGS}, got {sa_bucket!r}")
+    for sub in model.modules():
+        if isinstance(sub, _PooledMLP):
+            sub.sa_bucket = sa_bucket
     return model
 
 
@@ -228,12 +252,24 @@ def _fused_ball_scale(
     """One fused eval-time ball-grouped SA scale, shared by ``SAModule``
     (SSG order [xyz, feats], ``xyz_first=True``) and ``SAModuleMSG`` (MSG
     order [feats, xyz]): fold the eval BN into the Dense weights, then ball
-    select + gather + MLP + max-pool in one kernel.  Returns pooled
-    [B, M, C]."""
+    select + gather + MLP + max-pool in one kernel: the bucketed one
+    (``sa_ball_mlp_pool_bucketed``) where ``mlp.sa_bucket`` resolves to a
+    window for the layer's (N, M) and JAX's ``bucket_eligible`` holds (no
+    caller here reads the layer's idx), else ``sa_ball_mlp_pool``.  Returns
+    pooled [B, M, C]."""
     weights, biases = mlp.folded()
+    xyz, new_xyz = xyz.float().contiguous(), new_xyz.float().contiguous()
+    n, m = xyz.shape[1], new_xyz.shape[1]
+    bucket = resolve_bucket_config(mlp.sa_bucket, n, m)
+    if bucket_eligible(bucket, n, m, nsample, points is not None, use_xyz, need_idx=False):
+        window, qtile, gblk = bucket
+        pooled, _ = sa_ball_mlp_pool_bucketed(
+            radius, nsample, xyz, new_xyz, points, weights, biases, use_xyz=use_xyz, xyz_first=xyz_first,
+            dtype=dtype, window=window, qtile=qtile, gblk=gblk,
+        )
+        return pooled
     pooled, _ = sa_ball_mlp_pool(
-        radius, nsample, xyz.float().contiguous(), new_xyz.float().contiguous(),
-        points, weights, biases, use_xyz=use_xyz, xyz_first=xyz_first, dtype=dtype,
+        radius, nsample, xyz, new_xyz, points, weights, biases, use_xyz=use_xyz, xyz_first=xyz_first, dtype=dtype,
     )
     return pooled
 

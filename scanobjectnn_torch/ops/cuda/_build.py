@@ -42,6 +42,15 @@ _SIGNATURES = {
         _P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _I, _I,
         _I, _P, _P, _P, _P, _P, _P,
     ),
+    # xyz, new_xyz, src, xyz_s, ids, q_s, qids, axis, b, n, m, cs, k, r2, w, t,
+    # g, pad_r, w0x, w0f, prelifted, bf16, n_layers, widths*, weights*,
+    # biases*, pooled, overflow, stream
+    "sabucket_launch": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+        _I, _F, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+    ),
+    # key, xyz, feats, b, n, row_units, xyz_s, ids, rank, feats_s, stream
+    "ranksort_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
     # grouped, idx, src, b, n, m, cs, k, w0x, w0f, bf16, n_layers, widths*,
     # weights*, biases*, pooled, stream
     "samlp_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P),

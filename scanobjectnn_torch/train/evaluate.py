@@ -1,0 +1,123 @@
+"""Evaluation: the cross-domain protocols and the confusion matrix
+(counterpart of ``scanobjectnn_tpu/train/evaluate.py``).
+
+Behavioural references:
+  * pointnet2/evaluate_scenennobjects.py:152-231: the voting eval
+    (``Trainer.evaluate``), its per-class table and pred_label.txt;
+  * pointnet2/evaluate_real_trained_on_synthetic.py:156-209: a
+    ModelNet40-trained model on ScanObjectNN, only the 11 mappable classes,
+    ModelNet predictions mapped to ScanObjectNN labels;
+  * pointnet2/evaluate_synthetic_trained_on_real.py:159-225: a
+    ScanObjectNN-trained model on ModelNet40, a prediction right iff the
+    ground truth is in ``OBJECTDATASET_TO_MODELNET[pred]``;
+  * pointnet2/draw_cmat.py:26-30: the row-normalised confusion matrix.
+
+The cross-domain functions evaluate with ``Trainer.evaluate(...,
+shuffle=False)``, which the JAX package's device-resident evaluation is
+tested equal to.  ``dump_error_cases`` and ``dump_seg_masks`` (renders and
+PLY files) wait for the I/O slice.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from scanobjectnn_torch.data import mappings
+
+__all__ = [
+    "confusion_matrix",
+    "evaluate_real_trained_on_synthetic",
+    "evaluate_synthetic_trained_on_real",
+    "filter_to_mappable_classes",
+    "format_per_class_table",
+    "write_pred_labels",
+]
+
+
+def format_per_class_table(per_class: np.ndarray, class_names) -> str:
+    lines = []
+    for name, acc in zip(class_names, per_class):
+        acc_s = "  nan" if np.isnan(acc) else f"{acc:0.3f}"
+        lines.append(f"{name:>10s}:\t{acc_s}")
+    return "\n".join(lines)
+
+
+def write_pred_labels(path: str, predictions, labels, class_names) -> None:
+    """pred_label.txt: '<pred_name>, <gt_name>' per sample
+    (evaluate_scenennobjects.py:209)."""
+    with open(path, "w") as f:
+        for p, l in zip(predictions, labels):
+            f.write(f"{class_names[int(p)]}, {class_names[int(l)]}\n")
+
+
+def filter_to_mappable_classes(data, labels, *extra):
+    """Keep only samples whose ScanObjectNN label maps to ModelNet40 (the 11
+    mappable classes, evaluate_real_trained_on_synthetic.py:156-170)."""
+    keep = np.isin(np.asarray(labels), list(mappings.OBJECTDATASET_TO_COMBINED))
+    out = [np.asarray(data)[keep], np.asarray(labels)[keep]]
+    out += [np.asarray(e)[keep] for e in extra]
+    return tuple(out)
+
+
+def evaluate_real_trained_on_synthetic(trainer, state, data, labels, num_votes: int = 1) -> dict:
+    """A ModelNet40-trained (40-way) model evaluated on ScanObjectNN.
+
+    Predictions over the 40 ModelNet classes are mapped to ScanObjectNN
+    labels (many-to-one); unmappable predictions count as wrong."""
+    data, labels = filter_to_mappable_classes(data, labels)
+    results = trainer.evaluate(state, data, labels, num_votes=num_votes, shuffle=False)
+    preds_scan = mappings.modelnet_pred_to_scanobjectnn(results["predictions"])
+    gts = results["labels"]
+    correct = preds_scan == gts
+    results["accuracy"] = float(correct.mean()) if len(correct) else 0.0
+    results["mapped_predictions"] = preds_scan
+    per_class = {}
+    for c in sorted(mappings.OBJECTDATASET_TO_COMBINED):
+        sel = gts == c
+        if sel.any():
+            per_class[c] = float(correct[sel].mean())
+    results["per_class_accuracy_mapped"] = per_class
+    results["avg_class_accuracy"] = float(np.mean(list(per_class.values()))) if per_class else 0.0
+    return results
+
+
+def evaluate_synthetic_trained_on_real(trainer, state, modelnet_data, modelnet_labels, num_votes: int = 1) -> dict:
+    """A ScanObjectNN-trained (15-way) model evaluated on ModelNet40 data.
+
+    Only ModelNet samples with a ScanObjectNN counterpart are kept; a
+    prediction is right iff the ModelNet label is one of those accepted for
+    the predicted ScanObjectNN class (one-to-many)."""
+    keep = np.isin(np.asarray(modelnet_labels), list(mappings.MODELNET_TO_OBJECTDATASET))
+    data = np.asarray(modelnet_data)[keep]
+    gt_modelnet = np.asarray(modelnet_labels)[keep]
+    # Dummy ScanObjectNN labels: only the predictions are read.
+    results = trainer.evaluate(state, data, np.zeros(len(data), np.int64), num_votes=num_votes, shuffle=False)
+    preds = results["predictions"]
+    correct = mappings.is_correct_on_modelnet(preds, gt_modelnet)
+    out = {
+        "total_seen": len(preds),
+        "accuracy": float(correct.mean()) if len(correct) else 0.0,
+        "predictions": preds,
+        "labels_modelnet": gt_modelnet[: len(preds)],
+    }
+    per_class = {}
+    for m40 in sorted(mappings.MODELNET_TO_OBJECTDATASET):
+        sel = out["labels_modelnet"] == m40
+        if sel.any():
+            per_class[m40] = float(correct[sel].mean())
+    out["per_class_accuracy_modelnet"] = per_class
+    out["avg_class_accuracy"] = float(np.mean(list(per_class.values()))) if per_class else 0.0
+    return out
+
+
+def confusion_matrix(labels, predictions, num_classes: int, normalize: bool = True) -> np.ndarray:
+    """Row-normalised confusion matrix (draw_cmat.py row-normalises
+    sklearn's before plotting); rows without samples are 0."""
+    cm = np.zeros((num_classes, num_classes), np.float64)
+    for l, p in zip(np.asarray(labels), np.asarray(predictions)):
+        cm[int(l), int(p)] += 1
+    if normalize:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            cm = cm / cm.sum(axis=1, keepdims=True)
+        cm = np.nan_to_num(cm)
+    return cm

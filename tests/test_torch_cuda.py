@@ -56,6 +56,16 @@ cotangent at most ``SATRAIN_FLIP_SHARE`` of its elements beyond
 ``SATRAIN_TOL`` x max|ref| (a gate or winner flipped by the summation
 order; in bf16 a rounding of h moved by one ulp); the Dense biases (true
 gradient 0) within ``SATRAIN_ZERO_TOL`` x max(1, |dbeta|max) on both sides.
+
+The rank sort (#5): sorted coordinates, ids, rank and feature rows equal to
+``rank_sort_points_plain`` (ties, -0.0/0.0, NaN keys, ragged N).  The
+bucketed SA layer (#4): ``pooled`` equal bit for bit to the #3 kernel's on
+the same inputs (the same selection, the same row code), held to
+``sa_ball_mlp_pool_bucketed_plain`` as #3 to its plain version, and its
+per-tile overflow flags equal to the plain version's, in the sparse, dense
+and overflow regimes, with and without features, prelifted, f32 and bf16;
+an eval-mode SSG forward at N = 2048 launches #5 twice and #4 once under
+``sa_bucket="auto"``, with logits equal to the "off" forward's.
 """
 
 import math
@@ -95,6 +105,11 @@ from scanobjectnn_torch.ops.cuda.knn_kernel import (
     knn_graph_plain,
     knn_point_kernel,
     knn_point_plain,
+)
+from scanobjectnn_torch.ops.cuda.ranksort_kernel import rank_sort_points, rank_sort_points_plain
+from scanobjectnn_torch.ops.cuda.sabucket_kernel import (
+    sa_ball_mlp_pool_bucketed,
+    sa_ball_mlp_pool_bucketed_plain,
 )
 from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool, sa_ball_mlp_pool_plain
 from scanobjectnn_torch.ops.cuda.poolkey_kernel import bn_relu_exactkey_pool, bn_relu_exactkey_pool_plain
@@ -1017,3 +1032,143 @@ def test_fused_tail_and_keys_layers_launch_their_kernels(dev, dtype):
     lifted(pts, xyz, xyz[:, :8].contiguous(), idx, 0.5).float().sum().backward()
     torch.cuda.synchronize()
     assert grouped_bn_mlp_pool_bwd.launches == before + 1
+
+
+# (b, n, feature channels, feature dtype, kind)
+RANKSORT_CASES = {
+    "points_2048": (4, 2048, 0, None, "random"),
+    "queries_512": (4, 512, 0, None, "random"),
+    "ties_and_zeros": (3, 1000, 0, None, "ties"),
+    "nan_keys": (2, 777, 0, None, "nan"),
+    "bf16_rows": (2, 300, 24, torch.bfloat16, "ties"),
+    "f32_rows": (2, 129, 5, torch.float32, "random"),
+    "one_point": (2, 1, 3, torch.float32, "random"),
+    "large_n": (1, 16384, 0, None, "ties"),
+}
+
+
+def _ranksort_inputs(spec, dev):
+    b, n, c, fdtype, kind = spec
+    rng = np.random.RandomState(n + c)
+    xyz = rng.randn(b, n, 3).astype(np.float32)
+    key = xyz[..., 0].copy()
+    if kind in ("ties", "nan"):
+        key = np.round(key * 4.0) / 4.0  # many exact duplicates, -0.0 and 0.0 among them
+        key[:, ::7] = -0.0
+    if kind == "nan":
+        key[:, 3::50] = np.nan
+    feats = None if not c else torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(dev, fdtype)
+    return torch.from_numpy(key).to(dev), torch.from_numpy(xyz).to(dev), feats
+
+
+@pytest.mark.parametrize("case", sorted(RANKSORT_CASES))
+def test_rank_sort_kernel_matches_plain(dev, case):
+    key, xyz, feats = _ranksort_inputs(RANKSORT_CASES[case], dev)
+    before = rank_sort_points.launches
+    got = rank_sort_points(key, xyz, feats)
+    ref = rank_sort_points_plain(key, xyz, feats)
+    torch.cuda.synchronize()
+    assert rank_sort_points.launches == before + 1
+    for g, r in zip(got, ref):
+        assert (g is None and r is None) or (g.dtype == r.dtype and torch.equal(g, r))
+    ids, rank = got[1].long(), got[2].long()
+    assert torch.equal(torch.gather(ids, 1, rank), torch.arange(key.shape[1], device=dev).expand_as(ids))
+
+
+def test_rank_sort_kernel_refuses_what_it_does_not_take(dev):
+    key, xyz, _ = _ranksort_inputs(RANKSORT_CASES["f32_rows"], dev)
+    with pytest.raises(ValueError):
+        rank_sort_points(torch.zeros(1, 16385, device=dev), torch.zeros(1, 16385, 3, device=dev))
+    with pytest.raises(ValueError):
+        rank_sort_points(key.double(), xyz)
+    with pytest.raises(ValueError):
+        rank_sort_points(key, xyz, torch.zeros(*key.shape, 2, dtype=torch.uint8, device=dev))
+
+
+# (b, n, m, k, radius, src channels, mlp, cloud, (W, T, G), xyz_first)
+BUCKET_CASES = {
+    "ssg_sa1_auto": (2, 2048, 512, 32, 0.2, 0, (64, 64, 128), "sparse", (896, 64, 128), True),
+    "sparse_k16": (2, 1024, 256, 16, 0.2, 0, (16, 16, 32), "sparse", (640, 32, 128), True),
+    "dense_k16": (2, 1024, 256, 16, 0.2, 0, (16, 16, 32), "dense", (640, 32, 128), True),
+    "overflow_k16": (2, 1024, 256, 16, 0.2, 0, (16, 16, 32), "tight", (640, 32, 128), True),
+    "features": (2, 512, 128, 16, 0.2, 8, (16, 16, 32), "sparse", (384, 32, 128), True),
+    "features_msg_order": (2, 512, 128, 16, 0.3, 8, (16, 32), "dense", (384, 16, 128), False),
+    "prelifted": (2, 512, 128, 16, 0.2, 24, (16, 32), "sparse", (384, 32, 128), True),
+    "k64": (1, 1024, 96, 64, 0.3, 0, (32, 48), "sparse", (512, 16, 128), True),
+    "k5_ragged_tile": (1, 512, 60, 5, 0.3, 4, (8, 16), "dense", (448, 20, 64), True),  # 12 queries a block
+    "rows_without_hits": (2, 1024, 256, 16, 0.03, 0, (16, 32), "sparse", (640, 32, 128), True),
+}
+
+
+def _bucket_inputs(case, dev):
+    b, n, m, k, radius, c, mlp, cloud, wtg, xyz_first = BUCKET_CASES[case]
+    rng = np.random.RandomState(n + m + k + c)
+    if cloud == "sparse":
+        xyz = rng.randn(b, n, 3)
+    elif cloud == "dense":  # clusters along x: balls with more than K hits
+        centers = rng.randn(b, 16, 3) * np.array([4.0, 0.3, 0.3])
+        xyz = centers[np.arange(b)[:, None], rng.randint(0, 16, (b, n))] + rng.randn(b, n, 3) * 0.05
+    else:  # every tile's key range needs more than W points: overflow
+        xyz = rng.randn(b, n, 3) * 0.05
+    xyz = xyz.astype(np.float32)
+    new_xyz = np.stack([x[rng.choice(n, m, replace=False)] for x in xyz])
+    new_xyz += (0.02 * rng.randn(*new_xyz.shape)).astype(np.float32)  # off the points
+    src = rng.randn(b, n, c).astype(np.float32) if c else None
+    widths = (3 + c,) + tuple(mlp)
+    weights = [(rng.randn(i, o) / np.sqrt(i)).astype(np.float32) for i, o in zip(widths, widths[1:])]
+    biases = [(0.1 * rng.randn(o)).astype(np.float32) for o in mlp]
+
+    def t(x):
+        return None if x is None else torch.from_numpy(x).to(dev)
+
+    args = (radius, k, t(xyz), t(new_xyz), t(src), [t(w) for w in weights], [t(v) for v in biases])
+    return args, dict(xyz_first=xyz_first), dict(zip(("window", "qtile", "gblk"), wtg))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(BUCKET_CASES))
+def test_sabucket_kernel_matches_safused_and_plain(dev, case, dtype):
+    args, kw, wtg = _bucket_inputs(case, dev)
+    before = (sa_ball_mlp_pool_bucketed.launches, rank_sort_points.launches)
+    pooled, idx = sa_ball_mlp_pool_bucketed(*args, dtype=dtype, **kw, **wtg)
+    torch.cuda.synchronize()
+    flags = sa_ball_mlp_pool_bucketed.last_overflow.clone()
+    assert idx is None
+    assert (sa_ball_mlp_pool_bucketed.launches, rank_sort_points.launches) == (before[0] + 1, before[1] + 2)
+    full, _ = sa_ball_mlp_pool(*args, dtype=dtype, **kw)
+    assert pooled.dtype == full.dtype and torch.equal(pooled, full)
+    ref, _ = sa_ball_mlp_pool_bucketed_plain(*args, dtype=dtype, **kw, **wtg)
+    _check_pooled(pooled, ref, dtype)
+    assert torch.equal(ref, sa_ball_mlp_pool_plain(*args, dtype=dtype, **kw)[0])
+    sa_ball_mlp_pool_bucketed(*[a.cpu() if torch.is_tensor(a) else a for a in args[:5]],
+                              [w.cpu() for w in args[5]], [v.cpu() for v in args[6]], dtype=dtype, **kw, **wtg)
+    assert torch.equal(flags.cpu(), sa_ball_mlp_pool_bucketed.last_overflow)
+    assert bool(flags.any()) == (BUCKET_CASES[case][7] == "tight")
+
+
+def test_sabucket_kernel_refuses_what_it_does_not_take(dev):
+    args, kw, wtg = _bucket_inputs("sparse_k16", dev)
+    for bad in ({**wtg, "window": 650}, {**wtg, "qtile": 60}, {**wtg, "window": 2048}):
+        with pytest.raises(ValueError):
+            sa_ball_mlp_pool_bucketed(*args, **kw, **bad)
+    with pytest.raises(ValueError):
+        sa_ball_mlp_pool_bucketed(args[0], 65, *args[2:], **kw, **wtg)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_ssg_eval_takes_the_bucketed_layer_at_2048_points(dev, dtype):
+    from scanobjectnn_torch.models import get_model
+    from scanobjectnn_torch.nn.pointnet_modules import configure_eval
+
+    model = get_model("pointnet2_cls_ssg", dtype=dtype).eval()
+    x = torch.from_numpy(np.random.RandomState(3).randn(2, 2048, 3).astype(np.float32)).to(dev)
+    counters = (sa_ball_mlp_pool_bucketed, rank_sort_points, sa_ball_mlp_pool)
+    logits = {}
+    for setting, want in (("auto", (1, 2, 1)), ("off", (0, 0, 2))):
+        configure_eval(model, setting)
+        before = [c.launches for c in counters]
+        with torch.no_grad():
+            logits[setting] = model(x)["logits"]
+        torch.cuda.synchronize()
+        assert tuple(c.launches - b for c, b in zip(counters, before)) == want, setting
+    assert torch.equal(logits["auto"], logits["off"])
