@@ -22,7 +22,12 @@ Phases (any failure raises and the exit code is not 0):
      0.5): hold the training kernels against their plain versions at the
      step's shapes (ball group SA1 and SA2, plus empty balls and duplicated
      points; the SA2 neighbour gather and its scatter-add backward, which
-     must also be bit-stable) and time them and FPS indices-only; run a few
+     must also be bit-stable and equal bit for bit to the CPU's sequential
+     ``index_add_``; its counting sort timed alone, and the most rows
+     aimed at one point printed) and time them and FPS indices-only; the
+     scatter-add at SpiderCNN's three ``dfeat`` shapes (B=32, R=20480 rows
+     onto 1024 points, C = 32, 64, 128), bit-equal to the CPU's sum and
+     timed beside ``index_add_``; run a few
      ``train_step``s of a ``Trainer`` built from ``get_model`` (seeded
      weights) on synthetic batches, counting the launches; run one step on
      the kernel path and one on the plain path from the same weights,
@@ -73,8 +78,10 @@ Phases (any failure raises and the exit code is not 0):
      of N=1024 points of the synthetic dataset:
      a. the SpiderConv forward kernel (#16) against its plain version at
         conv1-4's shapes, on the inputs that one forward of the f32 model
-        hands them; timed (CUDA events) beside the plain version and the one
-        ``torch.matmul`` of its materialised outer product;
+        hands them; at conv4 both printed against a float64 product; timed
+        (CUDA events) beside the plain version and the one ``torch.matmul``
+        of its materialised outer product; its bound in f32 and, beside it,
+        as three TF32 products;
      b. its backward (dfeat through the scatter-add, dg, dkernel) against
         autograd through the plain version, and bit-stable; timed;
      c. ``spidercnn_cls_xyz`` inference in f32 and bf16 from ``get_model``,
@@ -285,8 +292,9 @@ SA_LAYER_BATCH, SA_LAYER_POINT = 32, 1024
 MIXED_BATCH, MIXED_POINT = 16, 1024
 FUSED_TOL, FUSED_FLIP_SHARE, FUSED_SUM_TOL, FUSED_ZERO_TOL = 1e-5, 1e-3, TRAIN_GRAD_TOL, 1e-3
 BF16_STEP_GRAD_TOL, FUSED_STEP_GRAD_TOL = 2e-2, 1e-4
-# Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds.
-HBM_BYTES_PER_S, F32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 989e12
+# Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds: f32 on
+# the CUDA cores, TF32 and bf16 on the tensor cores (dense).
+HBM_BYTES_PER_S, F32_OPS_PER_S, TF32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 495e12, 989e12
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -319,7 +327,7 @@ def device_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a trace now and then comes back empty: take another
+    for _ in range(8):  # a trace now and then comes back empty (once three in a row): take another
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -736,7 +744,7 @@ def train_phase(smi: str, dev) -> dict:
     from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group, query_ball_group_plain
     from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
     from scanobjectnn_torch.ops.cuda.gather_kernel import (
-        gather_rows, gather_rows_plain, scatter_add_rows, scatter_add_rows_plain,
+        count_sort_kernel, gather_rows, gather_rows_plain, scatter_add_rows, scatter_add_rows_plain,
     )
     from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
 
@@ -823,13 +831,38 @@ def train_phase(smi: str, dev) -> dict:
     print(f"scatter-add SA2 {shapes}: identical bits on two calls, "
           f"max abs err {err:.3e} against index_add_ (bound {tol:.3e})")
     require(err <= tol, f"scatter-add differs from index_add_: {err} > {tol}")
+    require(torch.equal(got.cpu(), scatter_add_rows_plain(sa2_idx.cpu(), upd.cpu(), 512)),
+            "scatter-add differs from the CPU's index-order sum")
+    print(f"scatter-add SA2 {shapes}: equal bit for bit to the CPU's sequential index_add_")
     out["scatter_add_rows"]["max_abs_err"] = err
     record("scatter_add_rows", f"SA2 {shapes}", lambda: scatter_add_rows(sa2_idx, upd, 512),
            lambda: scatter_add_rows_plain(sa2_idx, upd, 512))
+    most = max(int(torch.bincount(sa2_idx[i].long(), minlength=512).max()) for i in range(b))
+    print(f"scatter-add SA2 {shapes}: its counting sort alone {device_ms(lambda: count_sort_kernel(sa2_idx, 512)):.4f} "
+          f"ms (device time); at most {most} rows aimed at one point (the ball query pads with its first hit), "
+          f"summed in one chain ({smi})")
     flat = (sa2_idx.long() + 512 * torch.arange(b, device=dev)[:, None]).reshape(-1)
     target, rows = torch.zeros(b * 512, c, device=dev), upd.reshape(b * r, c)
     out["scatter_add_rows"]["library_ms"] = device_ms(lambda: target.index_add_(0, flat, rows))
     work["scatter_add_rows"].add(float(b * r * c), 4 * b * r + 4 * b * r * c + 4 * b * 512 * c)
+    # #7 at SpiderCNN's three dfeat calls (B=32, k=20: R = 20480 rows onto
+    # n = 1024 points, C = 32, 64, 128), beside index_add_ (not in the record).
+    sb, sn, sk = SPIDER_BATCH, SPIDER_POINT, SPIDER_K
+    s_idx = torch.from_numpy(rng.randint(0, sn, (sb, sn * sk)).astype(np.int32)).to(dev)
+    s_flat = (s_idx.long() + sn * torch.arange(sb, device=dev)[:, None]).reshape(-1)
+    for sc in (32, 64, 128):
+        s_upd = torch.from_numpy(rng.randn(sb, sn * sk, sc).astype(np.float32)).to(dev)
+        got = scatter_add_rows(s_idx, s_upd, sn)
+        require(torch.equal(got.cpu(), scatter_add_rows_plain(s_idx.cpu(), s_upd.cpu(), sn)),
+                f"scatter-add differs from the CPU's index-order sum (SpiderCNN dfeat, C={sc})")
+        s_target, s_rows = torch.zeros(sb * sn, sc, device=dev), s_upd.reshape(-1, sc)
+        ms, lib = device_ms(lambda: scatter_add_rows(s_idx, s_upd, sn)), device_ms(
+            lambda: s_target.index_add_(0, s_flat, s_rows))
+        nbytes = 4 * sb * sn * sk * (1 + sc) + 4 * sb * sn * sc
+        print(f"time scatter_add_rows SpiderCNN dfeat [{sb},{sn * sk},{sc}] -> {sn} points: device kernel "
+              f"{ms:.4f} ms, index_add_ {lib:.4f} ms, byte bound {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms; equal bit "
+              f"for bit to the CPU's index-order sum ({smi})")
+        del s_upd, s_rows, s_target
     for k in names:
         out[k].update(work[k].record())
 
@@ -1145,8 +1178,8 @@ def dgcnn_phase(smi: str, dev) -> dict:
 
 
 def spider_work(work: Work, feat, idx, g, kernel, backward: bool = False) -> None:
-    """#16's products: 2·M·(K·C·T)·O flops each (the backward makes two);
-    each input read once, each output written once."""
+    """#16's products in f32: 2·M·(K·C·T)·O flops each (the backward makes
+    two); each input read once, each output written once."""
     b, n, c = feat.shape
     k, t = idx.shape[-1], g.shape[-1]
     r, o = kernel.shape
@@ -1198,6 +1231,7 @@ def spider_phase(smi: str, dev) -> dict:
     require(len(calls) == 4, f"{len(calls)} SpiderConv calls in a forward")
 
     cg = torch.Generator(device=dev).manual_seed(12)
+    tf32_ms = 0.0  # the bound of a 3xTF32 forward on the tensor cores, beside the f32 one recorded
     for i, (feat, g, kernel, idx) in enumerate(calls):
         c, o = feat.shape[-1], kernel.shape[-1]
         label = f"conv{i + 1} B={b} N={n} k={SPIDER_K} C={c} O={o}"
@@ -1217,6 +1251,13 @@ def spider_phase(smi: str, dev) -> dict:
         prod = (grouped[..., :, None] * g[..., None, :]).reshape(b, n, -1)
         lib_ms = cuda_ms(lambda: torch.matmul(prod, kernel), iters=3)
         lib_profiled = device_ms(lambda: torch.matmul(prod, kernel), iters=3)
+        if c == 128:  # conv4: both paths against a float64 product of the same f32 p and kernel
+            ref64 = torch.matmul(prod.double(), kernel.double())
+            err64, plain64 = float((got.double() - ref64).abs().max()), float((want.double() - ref64).abs().max())
+            print(f"spider_conv {label}: max abs err against a float64 product: kernel (f32 FMA, r ascending) "
+                  f"{err64:.3e}, plain path (cuBLAS f32) {plain64:.3e}")
+            del ref64
+        tf32_ms += 3 * 2.0 * b * n * kernel.shape[0] * o / TF32_OPS_PER_S * 1e3
         del grouped, prod
         print(f"time spider_conv {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul of the outer "
               f"product {lib_ms:.4f} ms (profiler device time {lib_profiled:.4f} ms; TF32 "
@@ -1256,6 +1297,9 @@ def spider_phase(smi: str, dev) -> dict:
         torch.cuda.empty_cache()
     for name in names:
         out[name].update(work[name].record())
+    print(f"spider_conv bound over conv1-4: {out['spider_conv']['bound_ms']:.4f} ms in f32 on the CUDA cores "
+          f"(67 TFLOP/s; the kernel's route), {tf32_ms:.4f} ms as three TF32 products on the tensor cores "
+          f"(495 TFLOP/s; a 3xTF32 route)")
 
     # 7c. Inference from get_model, f32 and bf16.
     inference = (knn_graph_kernel, edge_gather_knn, gather_rows, spider_conv_fwd_kernel)

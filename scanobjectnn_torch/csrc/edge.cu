@@ -223,19 +223,21 @@ extern "C" int edge_reduce_fwd_launch(const void* vals, const void* idx, int b, 
 
 // The backward of edge_reduce_fwd_launch in vals: the forward's vals, idx
 // and mmax, mmin, cntmax, cntmin, and the cotangents dmax, dmin, ds, dq2
-// [b, n, cv] f32 -> dvals [b, n, cv] f32.  offsets [b, n + 1] and perm
-// [b, n * k] int32 are scratch.
+// [b, n, cv] f32 -> dvals [b, n, cv] f32.  offsets [b, n + 1], perm
+// [b, n * k] and counts [b, count_sort_tiles_for(n, n * k), n] int32 are
+// scratch.
 extern "C" int edge_reduce_bwd_launch(const void* vals, const void* idx, const void* mmax,
                                       const void* mmin, const void* cntmax, const void* cntmin,
                                       const void* dmax, const void* dmin, const void* ds,
                                       const void* dq2, int b, int n, int k, int cv, void* offsets,
-                                      void* perm, void* dvals, void* stream) {
+                                      void* perm, void* counts, void* dvals, void* stream) {
   if (b < 1 || n < 1 || k < 1 || cv < 1) return cudaErrorInvalidValue;
   if (static_cast<long long>(n) * k > 0x7fffffffLL) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto* off = static_cast<int32_t*>(offsets);
   auto* p = static_cast<int32_t*>(perm);
-  cudaError_t err = launch_count_sort(static_cast<const int32_t*>(idx), b, n, n * k, off, p, s);
+  cudaError_t err =
+      launch_count_sort(static_cast<const int32_t*>(idx), b, n, n * k, off, p, static_cast<int32_t*>(counts), s);
   if (err != cudaSuccess) return err;
   const long long rows = static_cast<long long>(b) * n;
   const int grid = blocks_for(rows);

@@ -19,13 +19,15 @@
 // backward and accumulated dW over a revisiting (T, B, tile) grid.  None of
 // that is kept.  Each of the three products is a register-tiled matrix
 // product in f32 on the CUDA cores: a block owns a BM x BN tile of the
-// output, walks the reduction in chunks of kBK and stages both operands of a
-// chunk in shared memory; the next chunk is fetched into registers while the
-// current one is multiplied.  The Taylor product is formed as it is staged:
-// a gather is a load, one cloud's rows (at most 1024 x 128 floats) sit in
-// L2, and the [M, K*C*T] operand never exists in device memory.  Each p is
-// rounded once (__fmul_rn), as the plain version's outer product rounds it;
-// the sums use FMA.  Nothing runs in TF32.
+// output and stages both operands of a chunk of the reduction in shared
+// memory.  The forward walks the reduction slot by slot with a cp.async
+// ring (below); the backward kernels walk it in chunks of kBK, fetching the
+// next chunk into registers while the current one is multiplied.  The
+// Taylor product is formed as it is staged: a gather is a load, one cloud's
+// rows (at most 1024 x 128 floats) sit in L2, and the [M, K*C*T] operand
+// never exists in device memory.  Each p is rounded once (__fmul_rn), as
+// the plain version's outer product rounds it; the sums use FMA.  Nothing
+// runs in TF32.
 //
 // Determinism: the data backward sums over t and over c in ascending order
 // in one thread each; the weight backward splits the rows into a fixed
@@ -36,10 +38,9 @@
 // Bound: operations.  Each of the three products is 2 * M * (K*C*T) * O
 // flops in f32; at B=32, N=1024, k=20, T=5 the four layers' forward is 282
 // GFLOP, 4.2 ms at 67 TFLOP/s, and every call's bytes move in under 0.03
-// ms.  This first version runs a 4x2 to 8x4 outer product per thread per
-// staged value on the CUDA cores, two 256-thread blocks per SM at the
-// 128 x 64 tiles; tensor cores (3xTF32 splits keep f32 accuracy) are for a
-// later version.
+// ms.  The forward runs an 8 x 8 outer product per thread per staged value
+// (128 x 128 tiles), the backward kernels 4x2 to 8x4, two 256-thread blocks
+// per SM.
 
 #include <cuda_runtime.h>
 
@@ -140,61 +141,190 @@ __device__ __forceinline__ void multiply_chunk(const float* As, const float* Bs,
   }
 }
 
-// Forward: out[m, o] over a BM x BN tile.  A = p is staged with the
-// reduction index fastest across threads (neighbouring threads read
-// neighbouring channels of one gathered row), B = W with o fastest.
-template <int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(kThreads, 2)
-    spider_fwd_kernel(Spider s, const float* __restrict__ w, int o_len, float* __restrict__ out) {
-  static_assert((BM / TM) * (BN / TN) == kThreads, "one output micro-tile per thread");
-  constexpr int kA = BM * kBK / kThreads, kB = BN * kBK / kThreads, kRowStep = kThreads / kBK;
-  __shared__ __align__(16) float As[kBK * (BM + kPad)];
-  __shared__ __align__(16) float Bs[kBK * (BN + kPad)];
-  const int tid = threadIdx.x, tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int m0 = blockIdx.x * BM, o0 = blockIdx.y * BN;
-  const int qa = tid % kBK, ma = tid / kBK;
-  float ra[kA], rb[kB], acc[TM][TN] = {};
+// ---------------------------------------------------------------------------
+// Forward: out[m, o] = sum_r p[m, r] W[r, o], staged slot by slot.
+//
+// The reduction is walked chunk by chunk, a chunk being one slot k and a
+// group of cb channels [c0, c0 + cb): its indices (c, t) are consecutive, so
+// its W rows are one contiguous [cb * T, O] slab.  Once per call,
+// spider_fwd_pack_kernel copies each slab, cut into tiles of BN columns and
+// padded with zeros to kc rows (cb * T rounded up to 8) and to whole tiles,
+// into a scratch buffer.  Per chunk, the block copies with cp.async into one
+// stage of a ring: the slab's tile, each row's cb channels of its
+// neighbour's feat row (the index read once per row and slot) and the row's
+// T values of g; the next chunk is in flight while the current one is
+// multiplied.  The [kc, BM] tile of p is formed in shared memory from the
+// staged feat and g, each p rounded once (__fmul_rn).  Each thread then
+// adds its TM x TN outputs' products with FMA, r ascending: every output is
+// the chain fmaf(p, w, acc) from 0 (padding adds exact zeros), and on an
+// H100 it agrees bit for bit with cuBLAS's f32 product at SpiderCNN's
+// conv1-3.
+//
+// Why not the tensor cores: a 3xTF32 version of this kernel
+// (studies/spider_tf32.cu: mma.sync m16n8k8, both operands split into hi
+// and lo TF32 terms, each k-step's three products added to the f32 sum)
+// holds the per-call gate and runs conv1-4 1.39x faster, but its last
+// bits differ from cuBLAS's f32 sums: in the SpiderCNN training step at
+// B=32 they flip relu gates and move the gradients beyond the step's gate
+// of 1e-4 of their scale against the plain path (studies/spider_tf32.py,
+// PERF.md §6).
+constexpr int kFwdBM = 128;
+constexpr int kFwdMaxKC = 64;  // a chunk holds at most 64 reduction indices (T <= kMaxT)
 
-  auto fetch = [&](int r0) {
-    const int r = r0 + qa;
-    int kk = 0, cc = 0, tt = 0;
-    if (r < s.r_len) split_r(s, r, kk, cc, tt);
-#pragma unroll
-    for (int i = 0; i < kA; ++i) {
-      const int m = m0 + ma + i * kRowStep;
-      ra[i] = (r < s.r_len && m < s.rows) ? taylor_product(s, m, kk, cc, tt) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kB; ++i) {
-      const int e = tid + i * kThreads, o = o0 + e % BN, rr = r0 + e / BN;
-      rb[i] = (rr < s.r_len && o < o_len) ? w[static_cast<long long>(rr) * o_len + o] : 0.f;
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int i = 0; i < kA; ++i) As[qa * (BM + kPad) + ma + i * kRowStep] = ra[i];
-#pragma unroll
-    for (int i = 0; i < kB; ++i) {
-      const int e = tid + i * kThreads;
-      Bs[(e / BN) * (BN + kPad) + e % BN] = rb[i];
-    }
-  };
+constexpr int kFwdStages = 2;  // of the cp.async ring (three read slower at conv4 on an H100)
 
-  fetch(0);
-  for (int r0 = 0; r0 < s.r_len; r0 += kBK) {
-    stash();
-    __syncthreads();
-    if (r0 + kBK < s.r_len) fetch(r0 + kBK);
-    multiply_chunk<BM, BN, TM, TN>(As, Bs, tx, ty, acc);
-    __syncthreads();
+struct FwdPlan {
+  int cb, groups, kc, bn, op, fs;  // fs: staged feat row stride (odd)
+  int smem;                        // dynamic shared memory, bytes
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most kFwdStages - 2 committed groups are in flight.
+__device__ __forceinline__ void cp_async_wait_ring() {
+  static_assert(kFwdStages == 2, "one group in flight at most: wait for all");
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// W [K * C * T, O] -> wp [chunks][op / BN][kc][BN]: chunk (kk, grp)'s W rows
+// (kk * C + grp * cb) * T + q, one tile of BN columns after another; zeros
+// past the chunk's cb * T rows and past O.
+template <int BN>
+__global__ void __launch_bounds__(kThreads)
+    spider_fwd_pack_kernel(const float* __restrict__ w, int c, int t, int o, FwdPlan p, long long len,
+                           float* __restrict__ wp) {
+  const int o_tiles = p.op / BN;
+  for (long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; e < len;
+       e += static_cast<long long>(gridDim.x) * kThreads) {
+    const int col = static_cast<int>(e % BN);
+    long long rest = e / BN;
+    const int q = static_cast<int>(rest % p.kc);
+    rest /= p.kc;
+    const int ob = static_cast<int>(rest % o_tiles);
+    const long long chunk = rest / o_tiles;
+    const int kk = static_cast<int>(chunk / p.groups), grp = static_cast<int>(chunk % p.groups);
+    const int c0 = grp * p.cb, valid = min(p.cb, c - c0) * t, o_col = ob * BN + col;
+    wp[e] = q < valid && o_col < o ? w[((static_cast<long long>(kk) * c + c0) * t + q) * o + o_col] : 0.f;
   }
+}
+
+// One BM x BN output tile; each of the 256 threads owns TM x TN outputs:
+// rows ty * TM / 2 + [0, TM / 2) and the same BM / 2 further, columns
+// likewise in halves of BN.
+template <int BN, int TM, int TN>
+__global__ void __launch_bounds__(kThreads, 2)
+    spider_fwd_kernel(Spider s, const float* __restrict__ wp, FwdPlan p, int o_len, float* __restrict__ out) {
+  constexpr int BM = kFwdBM, SA = BM + 4, kHalves = kThreads / BM;
+  static_assert((BM / TM) * (BN / TN) == kThreads, "one output micro-tile per thread");
+  extern __shared__ __align__(16) float smem[];
+  const int kc = p.kc, t_len = s.t;
+  float* const As = smem;          // [kc][SA]: the chunk's p
+  float* const ring = As + kc * SA;
+  // A stage: the W tile [kc][BN], then the staged feat [BM][fs] and g [BM][T].
+  const int stage_floats = kc * BN + BM * p.fs + BM * t_len;
+  const int tid = threadIdx.x, tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const int m0 = blockIdx.x * BM;
+  const int nchunks = s.k * p.groups;
+
+  // Staging: thread tid copies row lr's feat and g values, every other one.
+  const int lr = tid % BM, half = tid / BM;
+  const int m_load = m0 + lr;
+  const bool row_ok = m_load < s.rows;
+  const long long cloud = row_ok ? static_cast<long long>(m_load / s.n) * s.n : 0;
+  int cached_k = -1, cached_j = 0;
+
+  auto issue = [&](int chunk, int stage) {
+    float* bs = ring + stage * stage_floats;
+    float* frow = bs + kc * BN + lr * p.fs;
+    float* grow = bs + kc * BN + BM * p.fs + lr * t_len;
+    const float* src = wp + (static_cast<long long>(chunk) * gridDim.y + blockIdx.y) * kc * BN;
+    for (int e = 4 * tid; e < kc * BN; e += 4 * kThreads) cp_async16(bs + e, src + e);
+    const int kk = chunk / p.groups, c0 = (chunk - kk * p.groups) * p.cb, cbe = min(p.cb, s.c - c0);
+    if (!row_ok) {
+      for (int q = half; q < cbe; q += kHalves) frow[q] = 0.f;
+      for (int q = half; q < t_len; q += kHalves) grow[q] = 0.f;
+      return;
+    }
+    if (kk != cached_k) {
+      cached_k = kk;
+      cached_j = s.idx[static_cast<long long>(m_load) * s.k + kk];
+    }
+    if (static_cast<unsigned>(cached_j) >= static_cast<unsigned>(s.n)) {
+      for (int q = half; q < cbe; q += kHalves) frow[q] = __int_as_float(0x7fc00000);
+    } else {
+      const float* fsrc = s.feat + (cloud + cached_j) * s.c + c0;
+      for (int q = half; q < cbe; q += kHalves) cp_async4(frow + q, fsrc + q);
+    }
+    const float* gsrc = s.g + (static_cast<long long>(m_load) * s.k + kk) * t_len;
+    for (int q = half; q < t_len; q += kHalves) cp_async4(grow + q, gsrc + q);
+  };
+
+  // Forming p: thread tid forms row lr's columns of every kHalves-th
+  // channel, neighbouring threads on neighbouring rows; zeros past them.
+  auto form = [&](int chunk, int stage) {
+    const float* frow = ring + stage * stage_floats + kc * BN + lr * p.fs;
+    const float* grow = ring + stage * stage_floats + kc * BN + BM * p.fs + lr * t_len;
+    const int kk = chunk / p.groups, cbe = min(p.cb, s.c - (chunk - kk * p.groups) * p.cb);
+    for (int cc = half; cc < cbe; cc += kHalves) {
+      const float f = frow[cc];
+      float* dst = As + cc * t_len * SA + lr;
+      for (int tt = 0; tt < t_len; ++tt) dst[tt * SA] = __fmul_rn(f, grow[tt]);
+    }
+    for (int q = cbe * t_len + half; q < kc; q += kHalves) As[q * SA + lr] = 0.f;
+  };
+
+  float acc[TM][TN] = {};
+  auto multiply = [&](int stage) {
+    const float* bs = ring + stage * stage_floats;
+#pragma unroll 4
+    for (int q = 0; q < kc; ++q) {
+      float a[2][TM / 2], b[2][TN / 2];
+      load_smem<TM / 2>(As + q * SA + ty * (TM / 2), a[0]);
+      load_smem<TM / 2>(As + q * SA + BM / 2 + ty * (TM / 2), a[1]);
+      load_smem<TN / 2>(bs + q * BN + tx * (TN / 2), b[0]);
+      load_smem<TN / 2>(bs + q * BN + BN / 2 + tx * (TN / 2), b[1]);
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          acc[i][j] = fmaf(a[i / (TM / 2)][i % (TM / 2)], b[j / (TN / 2)][j % (TN / 2)], acc[i][j]);
+        }
+      }
+    }
+  };
+
+  for (int c = 0; c < kFwdStages - 1; ++c) {
+    if (c < nchunks) issue(c, c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nchunks; ++c) {
+    cp_async_wait_ring();
+    __syncthreads();  // chunk c landed; every thread is done with chunk c - 1
+    if (c + kFwdStages - 1 < nchunks) issue(c + kFwdStages - 1, (c + kFwdStages - 1) % kFwdStages);
+    cp_async_commit();
+    form(c, c % kFwdStages);
+    __syncthreads();
+    multiply(c % kFwdStages);
+  }
+
+  const int o0 = blockIdx.y * BN;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty * TM + i;
+    const int m = m0 + (i < TM / 2 ? 0 : BM / 2 - TM / 2) + ty * (TM / 2) + i;
     if (m >= s.rows) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int o = o0 + tx * TN + j;
+      const int o = o0 + (j < TN / 2 ? 0 : BN / 2 - TN / 2) + tx * (TN / 2) + j;
       if (o < o_len) out[static_cast<long long>(m) * o_len + o] = acc[i][j];
     }
   }
@@ -372,29 +502,81 @@ bool make_spider(const void* feat, const void* idx, const void* g, int b, int n,
   return true;
 }
 
-// The forward and the weight backward tile: 128 x 64 (8 x 4 a thread) when
-// O >= 64, else 64 x 32 (4 x 2 a thread).
+// The weight backward tile: 128 x 64 (8 x 4 a thread) when O >= 64, else
+// 64 x 32 (4 x 2 a thread).
 bool wide(int o) { return o >= 64; }
+
+// The forward's chunking and tiles at these shapes.  cb, the channels of a
+// chunk, minimises the padded reduction depth ceil(C / cb) * kc, kc = cb * T
+// rounded up to 8 and at most 64 (ties to the larger cb: fewer chunks).  The
+// tile is 128 x 128 when O > 64, 128 x 64 when O > 32, else 128 x 32.  At
+// SpiderCNN's shapes (T = 5) two blocks share an SM; a wide T takes one.
+FwdPlan plan_fwd(int c, int t, int o) {
+  FwdPlan p{};
+  long long best = -1;
+  for (int cb = 1; cb <= c && cb * t <= kFwdMaxKC; ++cb) {
+    const int kc = (cb * t + 7) / 8 * 8;
+    const long long cost = static_cast<long long>((c + cb - 1) / cb) * kc;
+    if (best < 0 || cost <= best) {
+      best = cost;
+      p.cb = cb;
+      p.kc = kc;
+    }
+  }
+  p.groups = (c + p.cb - 1) / p.cb;
+  p.bn = o > 64 ? 128 : o > 32 ? 64 : 32;
+  p.op = ceil_div(o, p.bn) * p.bn;
+  p.fs = p.cb | 1;  // odd: rows on different banks as the p tile is formed
+  const int a_bytes = 4 * p.kc * (kFwdBM + 4);
+  const int stage_bytes = 4 * (p.kc * p.bn + kFwdBM * p.fs + kFwdBM * t);
+  p.smem = a_bytes + kFwdStages * stage_bytes;
+  return p;
+}
+
+// Packs W into the scratch (spider_fwd_pack_kernel), then runs the product.
+template <int BN, int TM, int TN>
+cudaError_t launch_fwd(const Spider& s, const float* w, const FwdPlan& p, int c, int t, int o, float* wp,
+                       float* out, cudaStream_t st) {
+  const long long len = static_cast<long long>(s.k) * p.groups * p.kc * p.op;
+  const long long blocks = (len + kThreads - 1) / kThreads;
+  spider_fwd_pack_kernel<BN><<<static_cast<int>(blocks < 132 * 16 ? blocks : 132 * 16), kThreads, 0, st>>>(
+      w, c, t, o, p, len, wp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto kernel = spider_fwd_kernel<BN, TM, TN>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ceil_div(s.rows, kFwdBM), ceil_div(o, BN));
+  kernel<<<grid, kThreads, p.smem, st>>>(s, wp, p, o, out);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
+// Floats of the forward's scratch (the packed W) at these shapes, or -1
+// where the forward does not take them.
+extern "C" long long spider_fwd_scratch(int k, int c, int t, int o) {
+  if (k < 1 || c < 1 || t < 1 || t > kMaxT || o < 1) return -1;
+  const FwdPlan p = plan_fwd(c, t, o);
+  return static_cast<long long>(k) * p.groups * p.kc * p.op;
+}
+
 // feat [b, n, c] f32, idx [b, n, k] int32 in [0, n), g [b, n, k, t] f32,
-// w [k * c * t, o] f32, all contiguous -> out [b, n, o] f32.
+// w [k * c * t, o] f32, all contiguous, scratch of spider_fwd_scratch floats
+// -> out [b, n, o] f32.  Packs W into the scratch, then runs the product.
 extern "C" int spider_fwd_launch(const void* feat, const void* idx, const void* g, const void* w, int b,
-                                 int n, int k, int c, int t, int o, void* out, void* stream) {
+                                 int n, int k, int c, int t, int o, void* scratch, void* out, void* stream) {
   Spider s;
   if (!make_spider(feat, idx, g, b, n, k, c, t, s) || o < 1) return cudaErrorInvalidValue;
+  const FwdPlan p = plan_fwd(c, t, o);
+  if (ceil_div(o, p.bn) > 65535) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  auto* wp = static_cast<const float*>(w);
+  auto* wf = static_cast<const float*>(w);
+  auto* wp = static_cast<float*>(scratch);
   auto* op = static_cast<float*>(out);
-  if (wide(o)) {
-    const dim3 grid(ceil_div(s.rows, 128), ceil_div(o, 64));
-    spider_fwd_kernel<128, 64, 8, 4><<<grid, kThreads, 0, st>>>(s, wp, o, op);
-  } else {
-    const dim3 grid(ceil_div(s.rows, 64), ceil_div(o, 32));
-    spider_fwd_kernel<64, 32, 4, 2><<<grid, kThreads, 0, st>>>(s, wp, o, op);
-  }
-  return cudaGetLastError();
+  if (p.bn == 128) return launch_fwd<128, 8, 8>(s, wf, p, c, t, o, wp, op, st);
+  if (p.bn == 64) return launch_fwd<64, 8, 4>(s, wf, p, c, t, o, wp, op, st);
+  return launch_fwd<32, 4, 4>(s, wf, p, c, t, o, wp, op, st);
 }
 
 // The data backward: the forward's inputs and dout [b, n, o] f32 ->

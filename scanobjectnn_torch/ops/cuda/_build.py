@@ -60,8 +60,12 @@ _SIGNATURES = {
     "ballquery_launch": (_P, _P, _I, _I, _I, _I, _F, _P, _P, _P),
     # vals, idx, b, n, r, c, out, stream
     "gather_launch": (_P, _P, _I, _I, _I, _I, _P, _P),
-    # idx, upd, b, n, r, c, offsets, perm, out, stream
-    "scatter_add_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # n, r -> tiles of the counting sort (its scratch: b * tiles * n int32)
+    "count_sort_tiles_for": (_I, _I),
+    # idx, b, n, r, offsets, perm, counts, stream
+    "count_sort_launch": (_P, _I, _I, _I, _P, _P, _P, _P),
+    # idx, upd, b, n, r, c, offsets, perm, counts, out, stream
+    "scatter_add_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     # queries, keys, bias (nullable), b, m, n, c, k, dist, idx, stream
     "knn_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
     # feats, b, n, c, k, idx, stream
@@ -71,10 +75,12 @@ _SIGNATURES = {
     # vals, idx, b, n, k, cv, mmax, mmin, sum, sumsq, cntmax, cntmin, stream
     "edge_reduce_fwd_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # vals, idx, mmax, mmin, cntmax, cntmin, dmax, dmin, ds, dq2, b, n, k, cv,
-    # offsets, perm, dvals, stream
-    "edge_reduce_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    # feat, idx, g, w, b, n, k, c, t, o, out, stream
-    "spider_fwd_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    # offsets, perm, counts, dvals, stream
+    "edge_reduce_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # k, c, t, o -> floats of the forward's scratch (long long)
+    "spider_fwd_scratch": (_I, _I, _I, _I),
+    # feat, idx, g, w, b, n, k, c, t, o, scratch, out, stream
+    "spider_fwd_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # feat, idx, g, w, dout, b, n, k, c, t, o, dgath, dg, stream
     "spider_bwd_data_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # rows, k * c * t, o -> the weight backward's number of row slices
@@ -87,6 +93,9 @@ _SIGNATURES = {
     # cnt, partial, partial_floats, dz1, stream
     "satrain_bwd_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P),
 }
+
+# Entry points that return something other than a cudaError_t (int).
+_RESTYPES = {"spider_fwd_scratch": ctypes.c_longlong}
 
 _lib = None
 build_seconds: float | None = None  # wall time of the nvcc run, if one ran
@@ -145,7 +154,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     lib.kernel_error_string.argtypes = (_I,)
     lib.kernel_error_string.restype = ctypes.c_char_p
     _lib = lib

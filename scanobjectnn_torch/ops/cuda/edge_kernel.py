@@ -49,7 +49,7 @@ from __future__ import annotations
 import torch
 
 from scanobjectnn_torch.ops.cuda import _build
-from scanobjectnn_torch.ops.cuda.gather_kernel import _check_cuda, gather_neighbors, gather_rows_plain
+from scanobjectnn_torch.ops.cuda.gather_kernel import _check_cuda, gather_neighbors, gather_rows_plain, sort_buffers
 from scanobjectnn_torch.ops.cuda.knn_kernel import knn_graph_kernel, knn_graph_plain
 
 __all__ = [
@@ -139,15 +139,14 @@ def edge_reduce_bwd_kernel(vals, idx, mmax, mmin, cntmax, cntmin, dmax, dmin, ds
         _check_cuda(fn, name, t, torch.float32, (b, n, cv), vals.device)
     if min(b, n, cv, k) < 1:
         raise ValueError(f"{fn}: empty input {tuple(vals.shape)}, {tuple(idx.shape)}")
-    offsets = torch.empty(b, n + 1, dtype=torch.int32, device=vals.device)
-    perm = torch.empty(b, n * k, dtype=torch.int32, device=vals.device)
     dvals = torch.empty(b, n, cv, dtype=torch.float32, device=vals.device)
     lib = _build.library()
+    offsets, perm, counts = sort_buffers(lib, b, n, n * k, vals.device)
     with torch.cuda.device(vals.device):
         err = lib.edge_reduce_bwd_launch(
             vals.data_ptr(), idx.data_ptr(), mmax.data_ptr(), mmin.data_ptr(), cntmax.data_ptr(),
             cntmin.data_ptr(), dmax.data_ptr(), dmin.data_ptr(), ds.data_ptr(), dq2.data_ptr(),
-            b, n, k, cv, offsets.data_ptr(), perm.data_ptr(), dvals.data_ptr(),
+            b, n, k, cv, offsets.data_ptr(), perm.data_ptr(), counts.data_ptr(), dvals.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, fn)

@@ -25,10 +25,13 @@ path is f32).
 
 What bounds them on the H100: bytes.  The gather moves R rows of C floats
 in and out, the scatter reads R rows and writes N.  Both give one warp to a
-row, lanes across the channels.  The scatter is deterministic: a per-cloud
-stable counting sort of ``idx`` into an inverse index, then one warp per
-output row sums its rows in ascending order, so two calls give the same
-bits (f32 ``atomicAdd`` would not).
+row, lanes across the channels (the scatter's sum takes several rows a warp
+where C <= 16).  The scatter is deterministic: a stable counting sort of
+``idx`` into an inverse index (``count_sort_kernel``: offsets and perm
+equal to a stable argsort's), spread over (cloud, tile of rows) blocks,
+then one warp per output row sums its rows in ascending order, so two
+calls give the same bits (f32 ``atomicAdd`` would not), equal to the
+sequential ``index_add_`` of ``scatter_add_rows_plain`` on the CPU.
 """
 
 from __future__ import annotations
@@ -38,6 +41,8 @@ import torch
 from scanobjectnn_torch.ops.cuda import _build
 
 __all__ = [
+    "count_sort_kernel",
+    "count_sort_plain",
     "gather_neighbors",
     "gather_rows",
     "gather_rows_plain",
@@ -98,6 +103,52 @@ def gather_rows(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def count_sort_plain(idx: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch inverse index of idx [B, R] over n points: offsets
+    [B, n + 1] (exclusive prefix sums of the rows aimed at each point) and
+    perm [B, R] (the rows by point, ascending within a point: a stable
+    argsort), int32; rows outside [0, n) are left out and perm past
+    offsets[:, n] is -1."""
+    b, r = idx.shape
+    key = idx.long()
+    valid = (key >= 0) & (key < n)
+    key = torch.where(valid, key, torch.full_like(key, n))
+    order = torch.argsort(key, dim=1, stable=True)
+    counts = torch.zeros(b, n + 1, dtype=torch.long, device=idx.device).scatter_add_(1, key, torch.ones_like(key))
+    offsets = torch.cat([torch.zeros(b, 1, dtype=torch.long, device=idx.device), counts[:, :n].cumsum(1)], 1)
+    perm = torch.where(torch.arange(r, device=idx.device)[None] < offsets[:, n:], order, torch.full_like(order, -1))
+    return offsets.to(torch.int32), perm.to(torch.int32)
+
+
+def sort_buffers(lib, b: int, n: int, r: int, device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """offsets [b, n + 1], perm [b, r] and the counting sort's scratch, int32
+    on ``device``."""
+    tiles = lib.count_sort_tiles_for(n, r)
+    return (torch.empty(b, n + 1, dtype=torch.int32, device=device),
+            torch.empty(b, r, dtype=torch.int32, device=device),
+            torch.empty(b, tiles, n, dtype=torch.int32, device=device))
+
+
+def count_sort_kernel(idx: torch.Tensor, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The counting sort that the scatter-add and the EdgeConv backward run,
+    alone, on the card: idx [B, R] int32 -> (offsets, perm) as
+    ``count_sort_plain``, but perm past offsets[:, n] is not written.
+    Launches the sort (counted in
+    ``count_sort_kernel.launches``) or raises."""
+    if idx.device.type != "cuda" or idx.dim() != 2:
+        raise ValueError(f"count_sort_kernel: need a CUDA [B, R] index, got {tuple(idx.shape)} on {idx.device}")
+    b, r = idx.shape
+    _check_cuda("count_sort_kernel", "idx", idx, torch.int32, (b, r), idx.device)
+    lib = _build.library()
+    offsets, perm, counts = sort_buffers(lib, b, n, r, idx.device)
+    with torch.cuda.device(idx.device):
+        err = lib.count_sort_launch(idx.data_ptr(), b, n, r, offsets.data_ptr(), perm.data_ptr(), counts.data_ptr(),
+                                    torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "count_sort_kernel")
+    count_sort_kernel.launches += 1
+    return offsets, perm
+
+
 def scatter_add_rows(idx: torch.Tensor, upd: torch.Tensor, n: int) -> torch.Tensor:
     """Deterministic scatter-add: idx [B, R] int, upd [B, R, C] -> [B, n, C]
     f32.
@@ -114,12 +165,11 @@ def scatter_add_rows(idx: torch.Tensor, upd: torch.Tensor, n: int) -> torch.Tens
     _check_cuda("scatter_add_rows", "upd", upd, torch.float32, (b, r, c), upd.device)
     _check_cuda("scatter_add_rows", "idx", idx, torch.int32, (b, r), upd.device)
     out = torch.empty(b, n, c, dtype=torch.float32, device=upd.device)
-    offsets = torch.empty(b, n + 1, dtype=torch.int32, device=upd.device)
-    perm = torch.empty(b, r, dtype=torch.int32, device=upd.device)
     lib = _build.library()
+    offsets, perm, counts = sort_buffers(lib, b, n, r, upd.device)
     with torch.cuda.device(upd.device):
         err = lib.scatter_add_launch(
-            idx.data_ptr(), upd.data_ptr(), b, n, r, c, offsets.data_ptr(), perm.data_ptr(),
+            idx.data_ptr(), upd.data_ptr(), b, n, r, c, offsets.data_ptr(), perm.data_ptr(), counts.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "scatter_add_rows")
@@ -129,6 +179,7 @@ def scatter_add_rows(idx: torch.Tensor, upd: torch.Tensor, n: int) -> torch.Tens
 
 gather_rows.launches = 0
 scatter_add_rows.launches = 0
+count_sort_kernel.launches = 0
 
 
 class _GatherNeighbors(torch.autograd.Function):

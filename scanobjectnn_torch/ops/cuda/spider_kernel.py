@@ -17,11 +17,19 @@ gradient, as in the reference's grouping ops).  The row order of
 ``kernel`` is (k, c, t), the Dense layout of ``models/spidercnn.py``.
 
 Precision: f32 throughout, each product ``feat · g`` rounded once, then
-summed against ``kernel``; no TF32.  That is the JAX lax path on the CPU
-(``spider_conv_lax``), the port's parity reference; the TPU kernel rounds
-its operands to bf16 for the MXU (``ROADMAP.md``, known quirks).
+summed against ``kernel`` with FMA in ascending (k, c, t) order.  That is
+the JAX lax path on the CPU (``spider_conv_lax``), the port's parity
+reference; the TPU kernel rounds its operands to bf16 for the MXU
+(``ROADMAP.md``, known quirks).  One-pass TF32 is never used.  A 3xTF32
+forward on the tensor cores (each operand split into two TF32 terms, three
+products) kept f32's accuracy per call but not the FMA order's bits, and
+those last bits moved the SpiderCNN training step beyond its gate
+(``csrc/spider.cu``), so the forward sums on the CUDA cores.
 
-On the card the forward is ``spider_conv_fwd_kernel``; the backward
+On the card the forward is ``spider_conv_fwd_kernel`` (the kernel packs
+``kernel`` into a scratch buffer that the wrapper allocates, slot by slot
+in tiles of columns, then stages the Taylor product chunk by chunk with a
+``cp.async`` ring); the backward
 (``spider_conv_bwd_kernel``) is the data backward (the gathered-row
 gradient [B, N, K, C] and ``dg``), the deterministic scatter-add #7
 (``scatter_add_rows``) of the gathered-row gradient into ``dfeat``, and
@@ -31,10 +39,10 @@ gathered rows from ``feat`` again where the TPU saved them.
 
 What bounds it on the H100: operations, 2·B·N·(K·C·T)·O flops for the
 forward and for each half of the backward (282 GFLOP a forward of the four
-layers at B=32, N=1024, k=20, T=5: 4.2 ms at 67 TFLOP/s).  The plain
-version materialises the [B, N, K·C·T] outer product (1.68 GB in f32 at
-the last layer) and multiplies it with ``matmul_f32``; autograd gives its
-backward.
+layers at B=32, N=1024, k=20, T=5: 4.2 ms at 67 TFLOP/s in f32, 1.7 ms as
+three TF32 products at 495).  The plain version materialises the
+[B, N, K·C·T] outer product (1.68 GB in f32 at the last layer) and
+multiplies it with ``matmul_f32``; autograd gives its backward.
 """
 
 from __future__ import annotations
@@ -90,16 +98,17 @@ def _shapes(fn: str, feat, idx, g, kernel) -> tuple[int, ...]:
 def spider_conv_fwd_kernel(feat: torch.Tensor, idx: torch.Tensor, g: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """The forward on the card: feat [B, N, C] f32, idx [B, N, K] int32 in
     [0, N), g [B, N, K, T] f32, kernel [K*C*T, O] f32, all contiguous ->
-    out [B, N, O] f32.  Launches the kernel (counted in
-    ``spider_conv_fwd_kernel.launches``) or raises."""
+    out [B, N, O] f32.  Packs ``kernel`` into a scratch buffer and runs the
+    product (counted in ``spider_conv_fwd_kernel.launches``), or raises."""
     fn = "spider_conv_fwd_kernel"
     b, n, k, c, t, o = _shapes(fn, feat, idx, g, kernel)
     out = torch.empty(b, n, o, dtype=torch.float32, device=feat.device)
     lib = _build.library()
+    scratch = torch.empty(lib.spider_fwd_scratch(k, c, t, o), dtype=torch.float32, device=feat.device)
     with torch.cuda.device(feat.device):
         err = lib.spider_fwd_launch(
-            feat.data_ptr(), idx.data_ptr(), g.data_ptr(), kernel.data_ptr(), b, n, k, c, t, o, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            feat.data_ptr(), idx.data_ptr(), g.data_ptr(), kernel.data_ptr(), b, n, k, c, t, o,
+            scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, fn)
     spider_conv_fwd_kernel.launches += 1

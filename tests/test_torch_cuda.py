@@ -16,8 +16,13 @@ bf16 rounding between layers differs on far more.
 Training kernels: the ball group (``grouped``, ``idx``, ``cnt``), the ball
 query alone (#8: ``idx``, ``cnt``) and the row gather must be equal to their
 plain versions.  The scatter-add must be
-within 1e-5 x max(1, |ref|max) of ``index_add_`` (both sum exact f32, in
-other orders), and two calls on the same input must give the same bits.
+within 1e-5 x max(1, |ref|max) of ``index_add_`` on the card (both sum
+exact f32, in other orders), equal bit for bit to the sequential
+``index_add_`` on the CPU (``scatter_add_rows_plain``: ascending rows,
+out-of-range rows dropped), and two calls on the same input must give the
+same bits.  Its counting sort alone (``count_sort_kernel``): ``offsets``
+and ``perm`` equal to a stable argsort's (``count_sort_plain``), so the
+EdgeConv backward, which shares it, keeps its bits.
 
 kNN: indices and squared distances equal to ``knn_point_plain`` (the same
 f32 operations in the same order, and the same tie rule), at any k: the
@@ -40,7 +45,9 @@ is the scatter-add, held as above.
 
 SpiderConv (#16): the forward within ``SPIDER_FWD_TOL`` x max(1, |ref|max)
 of ``spider_conv_plain`` (the same f32 products feat·g, summed against the
-kernel in another order than cuBLAS's); the backward (dfeat, dg, dkernel)
+kernel with FMA in r order, where cuBLAS may take another), at conv1's
+C=3, O and T not multiples of 8, T=64, O above 128 and tiles of rows cut
+short; a neighbour index outside [0, N) gives a NaN row; the backward (dfeat, dg, dkernel)
 within ``SPIDER_BWD_TOL`` x max(1, |ref|max) of autograd through the plain
 version, per tensor, and bit-stable across two calls (fixed summation
 orders, no float atomics).
@@ -85,6 +92,8 @@ from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
 from scanobjectnn_torch.nn import xconv
 from scanobjectnn_torch.ops import interpolate
 from scanobjectnn_torch.ops.cuda.gather_kernel import (
+    count_sort_kernel,
+    count_sort_plain,
     gather_neighbors,
     gather_rows,
     gather_rows_plain,
@@ -466,6 +475,69 @@ def test_gather_neighbors_backward_is_the_scatter_kernel(dev):
     assert float((grad - want).abs().max()) <= SCATTER_TOL * max(1.0, float(want.abs().max()))
 
 
+def _index_order_sum(idx, upd, n):
+    """Each cloud's rows added into their points in ascending row order by
+    the CPU's sequential ``index_add_``, rows outside [0, n) dropped."""
+    idx, upd = idx.cpu().long(), upd.cpu()
+    out = torch.zeros(upd.shape[0], n, upd.shape[-1])
+    for b in range(upd.shape[0]):
+        keep = (idx[b] >= 0) & (idx[b] < n)
+        out[b].index_add_(0, idx[b][keep], upd[b][keep])
+    return out
+
+
+# (b, n, r, c, how): the SSG SA2 call; the SpiderCNN dfeat shape; every row
+# aimed at one point; r not a multiple of the sort's tile with a width not a
+# multiple of 4; n = 16384 (a tile of 16384 rows); rows outside [0, n).
+SORT_CASES = {
+    "sa2": (16, 512, 8192, 128, "random"),
+    "spider_dfeat": (4, 1024, 20480, 32, "random"),
+    "one_point": (3, 64, 5000, 16, "one_point"),
+    "ragged_r": (2, 300, 3001, 5, "random"),
+    "n16384": (2, 16384, 40000, 8, "random"),
+    "out_of_range": (3, 200, 4100, 12, "out_of_range"),
+}
+
+
+def _sort_inputs(dev, case):
+    b, n, r, c, how = SORT_CASES[case]
+    rng = np.random.RandomState(r)
+    idx = rng.randint(0, n, (b, r)).astype(np.int32)
+    if how == "one_point":
+        idx[:] = 17
+    elif how == "out_of_range":
+        idx[:, ::7] = -1
+        idx[:, 3::11] = n + rng.randint(0, 3, idx[:, 3::11].shape)
+    upd = rng.randn(b, r, c).astype(np.float32)
+    return torch.from_numpy(idx).to(dev), torch.from_numpy(upd).to(dev), n
+
+
+@pytest.mark.parametrize("case", sorted(SORT_CASES))
+def test_count_sort_matches_a_stable_argsort(dev, case):
+    idx, _, n = _sort_inputs(dev, case)
+    before = count_sort_kernel.launches
+    offsets, perm = count_sort_kernel(idx, n)
+    want_offsets, want_perm = count_sort_plain(idx.cpu(), n)
+    torch.cuda.synchronize()
+    assert count_sort_kernel.launches == before + 1
+    assert torch.equal(offsets.cpu(), want_offsets)
+    for b in range(idx.shape[0]):
+        used = int(want_offsets[b, n])
+        assert torch.equal(perm[b, :used].cpu(), want_perm[b, :used]), b
+
+
+@pytest.mark.parametrize("case", sorted(SORT_CASES))
+def test_scatter_add_is_the_cpu_index_order_sum(dev, case):
+    idx, upd, n = _sort_inputs(dev, case)
+    got = scatter_add_rows(idx, upd, n)
+    again = scatter_add_rows(idx, upd, n)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again), "the scatter is not deterministic"
+    assert torch.equal(got.cpu(), _index_order_sum(idx, upd, n))
+    if SORT_CASES[case][-1] != "out_of_range":
+        assert torch.equal(got.cpu(), scatter_add_rows_plain(idx.cpu(), upd.cpu(), n))
+
+
 def test_gather_kernels_refuse_what_they_do_not_take(dev):
     vals, idx, upd = _scatter_inputs(dev, 2, 64, 8, 4, 8, seed=2)
     with pytest.raises(ValueError, match="int32"):
@@ -703,9 +775,10 @@ def test_edge_reduce_kernels_refuse_what_they_do_not_take(dev):
         edge_reduce_fwd_kernel(torch.zeros(1, 4, 8, device=dev).transpose(1, 2), idx)
 
 
-# (b, n, k, c, t, o): SpiderCNN's conv1-4 at k=20 (O < 64 takes the narrow
-# tile), a ragged case (rows, r and o not multiples of any tile; T=3), and
-# k=32 with a wide T.
+# (b, n, k, c, t, o): SpiderCNN's conv1-4 at k=20 (conv1: C=3, R=300), a
+# ragged case (rows, r and o not multiples of any tile; T=3), k=32 with a
+# wide T, T=64 (a 64-deep chunk a channel), O and T not multiples of 8, and
+# O above 128 (two column tiles) with a last row tile cut short.
 SPIDER_CASES = {
     "conv1": (2, 1024, 20, 3, 5, 32),
     "conv2": (2, 1024, 20, 32, 5, 64),
@@ -713,6 +786,9 @@ SPIDER_CASES = {
     "conv4": (2, 1024, 20, 128, 5, 256),
     "ragged": (3, 77, 7, 11, 3, 70),
     "k32_t9": (1, 300, 32, 16, 9, 48),
+    "t64": (2, 50, 4, 3, 64, 33),
+    "odd_o_t": (1, 130, 5, 7, 7, 5),
+    "o200_short_tile": (2, 129, 3, 8, 1, 200),
 }
 
 
@@ -750,6 +826,22 @@ def test_spider_conv_kernels_match_plain(dev, case):
         assert torch.equal(got, twice), f"{name}: the backward is not bit-stable"
         err = float((got - want).abs().max())
         assert err <= SPIDER_BWD_TOL * max(1.0, float(want.abs().max())), (name, err)
+
+
+def test_spider_conv_forward_gives_nan_rows_for_bad_indices(dev):
+    feat, idx, g, kernel, _ = _spider_inputs(dev, SPIDER_CASES["o200_short_tile"], seed=6)
+    b, n = idx.shape[:2]
+    idx[0, 5, 1], idx[1, 9, 2] = -1, n
+    bad = torch.zeros(b, n, dtype=torch.bool, device=dev)
+    bad[0, 5] = bad[1, 9] = True
+    got = spider_conv_fwd_kernel(feat, idx, g, kernel)
+    fixed = idx.clone()
+    fixed[0, 5, 1], fixed[1, 9, 2] = 0, 0
+    want = spider_conv_plain(feat, fixed, g, kernel)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[bad]).all()) and bool(torch.isfinite(got[~bad]).all())
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got[~bad] - want[~bad]).abs().max()) <= SPIDER_FWD_TOL * scale
 
 
 def test_spider_conv_skips_dfeat_without_a_gradient(dev):

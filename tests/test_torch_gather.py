@@ -25,6 +25,7 @@ from scanobjectnn_tpu.ops.pallas import edge_kernel
 from scanobjectnn_torch import ops
 from scanobjectnn_torch.ops.cuda import gather_kernel
 from scanobjectnn_torch.ops.cuda.gather_kernel import (
+    count_sort_plain,
     gather_neighbors,
     gather_rows,
     scatter_add_rows,
@@ -84,6 +85,33 @@ def test_scatter_add_plain_is_index_order_sum(rng):
     got = scatter_add_rows_plain(torch.from_numpy(idx), torch.from_numpy(upd), n)
     np.testing.assert_array_equal(got.numpy(), want)
     assert got.dtype == torch.float32
+
+
+@pytest.mark.parametrize("n", [1, 10, 300])
+def test_count_sort_plain_is_the_inverse_index(rng, n):
+    """offsets and perm against numpy's stable argsort, out-of-range rows
+    dropped; summing each point's rows through perm in order is the
+    index-order scatter-add bit for bit (what the CUDA sum kernel does)."""
+    b, r, c = 3, 257, 4
+    idx = rng.randint(-1, n + 1, size=(b, r)).astype(np.int32)
+    upd = rng.randn(b, r, c).astype(np.float32)
+    offsets, perm = count_sort_plain(torch.from_numpy(idx), n)
+    want = np.zeros((b, n, c), np.float32)
+    for i in range(b):
+        valid = (idx[i] >= 0) & (idx[i] < n)
+        key = np.where(valid, idx[i], n)
+        counts = np.bincount(key, minlength=n + 1)[:n]
+        np.testing.assert_array_equal(offsets[i].numpy(), np.concatenate([[0], np.cumsum(counts)]))
+        used = int(valid.sum())
+        np.testing.assert_array_equal(perm[i, :used].numpy(), np.argsort(key, kind="stable")[:used])
+        assert (perm[i, used:] == -1).all()
+        for j in range(n):
+            for row in perm[i, offsets[i, j]:offsets[i, j + 1]].tolist():
+                want[i, j] += upd[i, row]
+    kept = np.where((idx >= 0) & (idx < n), idx, 0)
+    dropped = np.where(((idx >= 0) & (idx < n))[..., None], upd, 0.0).astype(np.float32)
+    got = scatter_add_rows_plain(torch.from_numpy(kept), torch.from_numpy(dropped), n)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_backward_goes_through_the_scatter_wrapper(rng, monkeypatch):
