@@ -83,7 +83,12 @@ Phases (any failure raises and the exit code is not 0):
         of its materialised outer product; its bound in f32 and, beside it,
         as three TF32 products;
      b. its backward (dfeat through the scatter-add, dg, dkernel) against
-        autograd through the plain version, and bit-stable; timed;
+        autograd through the plain version, and bit-stable; timed, and its
+        data and weight halves timed apart, each beside the one
+        ``torch.matmul`` that computes its product (``dout @ Wᵀ``; ``pᵀ @
+        dout`` with p formed outside the timed call), TF32 off, each read
+        three times (10 calls a read, CUDA events), its mean and spread
+        printed;
      c. ``spidercnn_cls_xyz`` inference in f32 and bf16 from ``get_model``,
         counting launches, against the plain path on the same card; timed;
      d. training, f32 (``TrainerConfig(model="spidercnn_cls_xyz",
@@ -172,6 +177,21 @@ Phases (any failure raises and the exit code is not 0):
      d. an SSG ``Trainer.evaluate`` at N=2048 (60 clouds, batch 32, 3 votes:
         #1, #3, #4, #5 on the card), counting launches, with the same
         predictions on the plain path; both timed.
+ 13. the ranges the card refused before, each equal to its plain version
+     and its route's launches counted (``fps.large_launches``,
+     ``knn_point_kernel.tiled_launches``,
+     ``knn_graph_kernel.routed_launches``; recorded beside the launches in
+     the kernels line):
+     a. FPS at B=8, N=40000 -> 512 through ``ops`` (with and without
+        coordinates: the kernel for clouds above 8192 points), and on a
+        lattice cloud with ties and a NaN row; timed with its bound;
+     b. ``knn_point_kernel`` at B=1, M=1024 queries, N=50000 keys, k=128
+        (sorted tiles merged); timed with its bound;
+     c. the self-kNN graph at k=40 (the general kNN kernel) at DGCNN's
+        shapes (B=32, N=1024, C=3 and 64, and duplicated points), and at
+        k=100 (the sort); device time with its bound;
+     d. ``dgcnn`` with k=40: inference in f32 and bf16 and one training
+        step (B=32), each against the plain path by the DGCNN gates.
 
 Every kernel's line in the ``{"kernels": [...]}`` record carries its
 bound: the larger of the bytes it must move over 3.35 TB/s and the
@@ -201,7 +221,10 @@ BATCH, NUM_POINT, NUM_CLASSES = 128, 2048, 15
 # an H100 read 0).  Allowed: a difference of at most BF16_*_ULPS bf16 ulps
 # of the scale max(1, |ref|max), on at most BF16_MAX_DIFFERING of the
 # elements.  A kernel that skipped a rounding between layers differs on far
-# more.
+# more.  The fused SA layer's bf16 MLP on the tensor cores
+# (studies/sa_mma.py, H100) read 1.0e-5 to 1.7e-4 of a call's pooled
+# elements differing, within this rule, but 37% of the SSG bf16 forward's
+# logits (40% of MSG's) differing by an ulp: the kernels keep FMA in bf16.
 F32_RTOL, F32_ATOL = 1e-4, 1e-5
 F32_LOGIT_TOL = 1e-4  # x max(1, |ref|max)
 BF16_SA_ULPS, BF16_LOGIT_ULPS = 1, 2
@@ -236,6 +259,9 @@ SEG_AGREEMENT = 0.99
 # the plain version, in another order: within EDGE_BWD_TOL x max(1,
 # |ref|max), and bit-stable.  The model paths are held to the SSG bounds.
 DGCNN_BATCH, DGCNN_POINT, DGCNN_K = 32, 1024, 20
+# The ranges the card once refused (phase 13): FPS on (B, N, samples), the
+# general kNN on (B, queries, keys, k), the self-kNN graph and dgcnn at k.
+RANGE_FPS, RANGE_KNN, RANGE_GRAPH_K = (8, 40000, 512), (1, 1024, 50000, 128), 40
 EDGE_BWD_TOL = 1e-5
 # SpiderCNN (phase 7): inference and training at the JAX package's B=32,
 # N=1024, k=20.  The SpiderConv kernel sums the same f32 products feat·g as
@@ -558,6 +584,12 @@ def plain_path():
 # the kNN's into "knn_point_kernel" (k <= 64) and "knn_point_kernel_sorted".
 LAUNCHES: dict[str, int] = {}
 SUBCOUNTS = {"index_launches": "_indices", "chunked_launches": "_chunked", "sort_launches": "_sorted"}
+# Launches that took a route a wrapper counts apart and that stay in its
+# total: FPS above 8192 points ("fps.large_launches"), the graph through
+# the general kNN ("knn_graph_kernel.routed_launches"), the sort over merged
+# tiles ("knn_point_kernel.tiled_launches"), by "counter.attribute".
+ROUTES = ("large_launches", "routed_launches", "tiled_launches")
+LAUNCH_ROUTES: dict[str, int] = {}
 
 
 def counted_run(counters, fn):
@@ -567,12 +599,17 @@ def counted_run(counters, fn):
 
     for c in counters:
         c.launches = 0
-        for attr in SUBCOUNTS:
+        for attr in (*SUBCOUNTS, *ROUTES):
             if hasattr(c, attr):
                 setattr(c, attr, 0)
     out = fn()
     torch.cuda.synchronize()
     counts = {c.__name__: c.launches for c in counters}
+    for c in counters:
+        for attr in ROUTES:
+            if hasattr(c, attr):
+                key = f"{c.__name__}.{attr}"
+                LAUNCH_ROUTES[key] = LAUNCH_ROUTES.get(key, 0) + getattr(c, attr)
     split = dict(counts)
     for c in counters:
         for attr, suffix in SUBCOUNTS.items():
@@ -643,16 +680,16 @@ def compare_steps(trainer, batch, n_zero: int, label: str, loss_rtol: float = TR
     require(not zero or zero_max <= zero_tol, f"a Dense bias before a BN has a gradient far from 0 ({label})")
 
 
-def eval_models(name: str, stats_rng) -> dict:
-    """``name`` in f32 and bf16 from ``get_model`` (seed 0, on the card), in
-    eval mode, with random positive BN running stats drawn from
-    ``stats_rng`` (the same in both), so the BNs matter."""
+def eval_models(name: str, stats_rng, **overrides) -> dict:
+    """``name`` in f32 and bf16 from ``get_model`` (seed 0, on the card,
+    with ``overrides``), in eval mode, with random positive BN running stats
+    drawn from ``stats_rng`` (the same in both), so the BNs matter."""
     import numpy as np
     import torch
 
     from scanobjectnn_torch.models import get_model
 
-    models = {n: get_model(name, generator=torch.Generator().manual_seed(0), dtype=dtype).eval()
+    models = {n: get_model(name, generator=torch.Generator().manual_seed(0), dtype=dtype, **overrides).eval()
               for n, dtype in (("f32", None), ("bf16", torch.bfloat16))}
     with torch.no_grad():
         for key, buf in models["f32"].named_buffers():
@@ -1204,14 +1241,16 @@ def spider_phase(smi: str, dev) -> dict:
     from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows, scatter_add_rows
     from scanobjectnn_torch.ops.cuda.knn_kernel import knn_graph_kernel
     from scanobjectnn_torch.ops.cuda.spider_kernel import (
-        spider_conv, spider_conv_bwd_kernel, spider_conv_fwd_kernel, spider_conv_plain,
+        spider_bwd_data, spider_bwd_weight, spider_conv, spider_conv_bwd_kernel, spider_conv_fwd_kernel,
+        spider_conv_plain,
     )
     from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
 
     b, n = SPIDER_BATCH, SPIDER_POINT
     names = ("spider_conv", "spider_conv_bwd")
     out = {name: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": None} for name in names}
-    out["spider_conv"]["library_ms"] = 0.0
+    out["spider_conv"]["library_ms"] = out["spider_conv_bwd"]["library_ms"] = 0.0
+    halves = {"data": [0.0, 0.0, 0.0], "weight": [0.0, 0.0, 0.0]}  # kernel ms, library ms, bound ms
     work = {name: Work() for name in names}
     data, labels = make_synthetic_dataset(num_per_class=9, num_classes=NUM_CLASSES, num_points=2 * n, seed=3)
     batches = list(Batches(EpochSampler(data, labels, num_points=n, seed=0).epoch(), b))
@@ -1258,7 +1297,7 @@ def spider_phase(smi: str, dev) -> dict:
                   f"{err64:.3e}, plain path (cuBLAS f32) {plain64:.3e}")
             del ref64
         tf32_ms += 3 * 2.0 * b * n * kernel.shape[0] * o / TF32_OPS_PER_S * 1e3
-        del grouped, prod
+        del grouped
         print(f"time spider_conv {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.matmul of the outer "
               f"product {lib_ms:.4f} ms (profiler device time {lib_profiled:.4f} ms; TF32 "
               f"{torch.backends.cuda.matmul.allow_tf32}, {torch.get_float32_matmul_precision()}) ({smi})")
@@ -1289,14 +1328,45 @@ def spider_phase(smi: str, dev) -> dict:
               f"plain version: {', '.join(errs)}")
         ms = cuda_ms(lambda: spider_conv_bwd_kernel(feat, idx, g, kernel, dout, need_feat))
         plain_ms = cuda_ms(lambda: torch.autograd.grad(ref_out, leaves, dout, retain_graph=True), iters=3)
-        print(f"time spider_conv backward {label}: kernels {ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
+        del first, again, leaves, ref_out, ref
+        # Its two halves apart, each beside the one library product that
+        # computes it (TF32 off): D = dout · Wᵀ, and dW = pᵀ · dout with p
+        # formed outside the timed call, as the forward's library time.
+        # Each is timed three times (10 calls each, CUDA events, the
+        # halves and their products interleaved), and the mean is kept.
+        dout2, p2 = dout.reshape(b * n, o), prod.reshape(b * n, -1)
+        runs = {"data": (lambda: spider_bwd_data(feat, idx, g, kernel, dout),
+                         lambda: torch.matmul(dout2, kernel.t())),
+                "weight": (lambda: spider_bwd_weight(feat, idx, g, kernel, dout),
+                           lambda: torch.matmul(p2.t(), dout2))}
+        reads = {(key, which): [] for key in runs for which in (0, 1)}
+        for _ in range(3):
+            for key, fns in runs.items():
+                for which, fn in enumerate(fns):
+                    reads[key, which].append(cuda_ms(fn))
+        half = {key: sum(reads[key, 0]) / 3 for key in runs}
+        lib = {key: sum(reads[key, 1]) / 3 for key in runs}
+        bound = 2.0 * b * n * kernel.shape[0] * o / F32_OPS_PER_S * 1e3
+        for key in halves:
+            halves[key][0] += half[key]
+            halves[key][1] += lib[key]
+            halves[key][2] += bound
+        spread = {key: f"{min(v):.4f}-{max(v):.4f}" for key, v in reads.items()}
+        print(f"time spider_conv backward {label}: kernels {ms:.4f} ms (data {half['data']:.4f}, read "
+              f"{spread['data', 0]}; weight {half['weight']:.4f}, read {spread['weight', 0]}), plain {plain_ms:.4f} "
+              f"ms; torch.matmul dout·Wᵀ {lib['data']:.4f} ms (read {spread['data', 1]}), pᵀ·dout "
+              f"{lib['weight']:.4f} ms (read {spread['weight', 1]}); each half's bound {bound:.4f} ms ({smi})")
         out["spider_conv_bwd"]["ms"] += ms
         out["spider_conv_bwd"]["plain_ms"] += plain_ms
+        out["spider_conv_bwd"]["library_ms"] += lib["data"] + lib["weight"]
         spider_work(work["spider_conv_bwd"], feat, idx, g, kernel, backward=True)
-        del first, again, leaves, ref_out, ref
+        del prod, dout2, p2
         torch.cuda.empty_cache()
     for name in names:
         out[name].update(work[name].record())
+    for key, (k_ms, l_ms, b_ms) in halves.items():
+        print(f"time spider_conv backward, {key} half over conv1-4: kernel {k_ms:.4f} ms, torch.matmul {l_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms (operations, f32) ({smi})")
     print(f"spider_conv bound over conv1-4: {out['spider_conv']['bound_ms']:.4f} ms in f32 on the CUDA cores "
           f"(67 TFLOP/s; the kernel's route), {tf32_ms:.4f} ms as three TF32 products on the tensor cores "
           f"(495 TFLOP/s; a 3xTF32 route)")
@@ -2139,6 +2209,111 @@ def mixed_phase(smi: str, dev) -> dict:
     return records
 
 
+def range_phase(smi: str, dev) -> dict:
+    """Phase 13 (module doc): the ranges the card once refused.  Returns
+    the new routes' launches on their main paths, by counter and route."""
+    import numpy as np
+    import torch
+
+    from scanobjectnn_torch import ops
+    from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.ops.cuda.edge_kernel import edge_gather_knn, edge_reduce_bwd_kernel, edge_reduce_fwd_kernel
+    from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
+    from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows, scatter_add_rows
+    from scanobjectnn_torch.ops.cuda.knn_kernel import (
+        knn_graph_kernel, knn_graph_plain, knn_point_kernel, knn_point_plain,
+    )
+    from scanobjectnn_torch.train import trainer as trainer_mod
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    # 13a. FPS above 8192 points through ops (a raw scan's size), counted.
+    b, n, m = RANGE_FPS
+    big = torch.randn(b, n, 3, device=dev, generator=g) * 0.5
+    (idx, new_xyz), counts = counted_run((fps,), lambda: ops.farthest_point_sample_with_coords(big, m))
+    only_idx, more = counted_run((fps,), lambda: ops.farthest_point_sample(big, m))
+    require(fps.large_launches == 1, f"FPS at N={n} did not take the large-cloud kernel: {counts}, {more}")
+    ref_idx, ref_xyz = fps_plain(big, m)
+    torch.cuda.synchronize()
+    require(torch.equal(idx, ref_idx) and torch.equal(new_xyz, ref_xyz) and torch.equal(only_idx, ref_idx),
+            f"FPS at N={n} differs from fps_plain")
+    lattice = (torch.randint(-3, 4, (2, n // 8, 3), device=dev, generator=g).float() * 0.25).repeat(1, 8, 1)
+    lattice = lattice[:, torch.randperm(n, device=dev, generator=g)].contiguous()
+    lattice[1, n // 3, 0] = float("nan")
+    check_fps(lattice, 256, f"N={n} duplicated lattice points and a NaN row", fps, fps_plain)
+    work = Work()
+    fps_work(work, b, n, m)
+    ms = cuda_ms(lambda: fps(big, m), iters=3)
+    print(f"fps B={b} N={n} -> {m}: indices and coordinates equal to fps_plain; launches {counts} "
+          f"(large-cloud kernel); time {ms:.4f} ms, plain {cuda_ms(lambda: fps_plain(big, m), iters=1):.4f} ms, "
+          f"bound {work.record()['bound_ms']:.4f} ms ({work.record()['bound_by']}) ({smi})")
+
+    # 13b. The general kNN at k = 128 on N = 50000 keys (sorted tiles merged).
+    b, mq, n, k = RANGE_KNN
+    keys = torch.rand(b, n, 3, device=dev, generator=g) * 2 - 1
+    queries = keys[:, torch.randperm(n, device=dev, generator=g)[:mq]] + 0.01
+    (d, i), counts = counted_run((knn_point_kernel,), lambda: knn_point_kernel(queries, keys, k))
+    require(knn_point_kernel.tiled_launches == 1, f"kNN at N={n} did not merge sorted tiles: {counts}")
+    ref_d, ref_i = knn_point_plain(queries, keys, k)
+    torch.cuda.synchronize()
+    require(torch.equal(i, ref_i) and torch.equal(d, ref_d), f"kNN at N={n}, k={k} differs from knn_point_plain")
+    work = Work()
+    knn_work(work, queries, keys, k)
+    ms = cuda_ms(lambda: knn_point_kernel(queries, keys, k), iters=3)
+    print(f"knn_point B={b} M={mq} N={n} k={k}: indices and distances equal to knn_point_plain; time {ms:.4f} ms, "
+          f"plain {cuda_ms(lambda: knn_point_plain(queries, keys, k), iters=1):.4f} ms, bound "
+          f"{work.record()['bound_ms']:.4f} ms ({work.record()['bound_by']}) ({smi})")
+
+    # 13c. The self-kNN graph above k = 32 (the general kernel) at DGCNN's
+    # shapes, on duplicated points, and at k = 100 (the sort).
+    bg, ng, kg = DGCNN_BATCH, DGCNN_POINT, RANGE_GRAPH_K
+    lat = (torch.randint(-3, 4, (bg, ng // 8, 3), device=dev, generator=g).float() * 0.25).repeat(1, 8, 1)
+    for label, feats, kk in (
+        ("C=3", torch.randn(bg, ng, 3, device=dev, generator=g), kg),
+        ("C=64", torch.randn(bg, ng, 64, device=dev, generator=g), kg),
+        ("duplicated lattice points C=3", lat[:, torch.randperm(ng, device=dev, generator=g)].contiguous(), kg),
+        ("C=64", torch.randn(4, ng, 64, device=dev, generator=g), 100),
+    ):
+        idx, counts = counted_run((knn_graph_kernel,), lambda: knn_graph_kernel(feats, kk))
+        require(knn_graph_kernel.routed_launches == 1, f"the graph at k={kk} did not take the general kernel")
+        require(torch.equal(idx, knn_graph_plain(feats, kk)), f"the graph at k={kk} differs ({label})")
+        work = Work()
+        graph_work(work, feats, kk)
+        ms = device_ms(lambda: knn_graph_kernel(feats, kk))
+        print(f"knn_graph {label} B={feats.shape[0]} N={ng} k={kk}: indices equal to the plain version; device "
+              f"time {ms:.4f} ms, bound {work.record()['bound_ms']:.4f} ms ({work.record()['bound_by']}) ({smi})")
+
+    # 13d. dgcnn with k = 40: inference (f32, bf16) and a training step,
+    # against the plain path by the DGCNN gates.
+    data, labels = make_synthetic_dataset(num_per_class=5, num_classes=NUM_CLASSES, num_points=2 * ng, seed=4)
+    batches = list(Batches(EpochSampler(data, labels, num_points=ng, seed=0).epoch(), bg))
+    x = torch.from_numpy(batches[0]["points"]).to(dev)
+    models = eval_models("dgcnn", np.random.RandomState(13), k=kg)
+    graph_counters = (knn_graph_kernel, edge_reduce_fwd_kernel, edge_gather_knn, gather_rows)
+    check_inference(models, x, graph_counters, smi, f"dgcnn k={kg}")
+    # TODO: the Trainer takes no model overrides yet (ROADMAP.md queue 1
+    # item 3); once TrainerConfig.model_kwargs exists, pass {"k": kg} there
+    # in place of this patch of the Trainer's get_model.
+    get_model = trainer_mod.get_model
+    with mock.patch.object(trainer_mod, "get_model", lambda *a, **kw: get_model(*a, **kw, k=kg)):
+        trainer = Trainer(TrainerConfig(model="dgcnn", batch_size=bg, device=str(dev)))
+        state = trainer.init_state(seed=0)
+        counters = graph_counters + (edge_reduce_bwd_kernel, scatter_add_rows)
+        losses, counts = counted_run(counters, lambda: [float(trainer.train_step(state, batches[0])[1]["loss"])])
+        routed = knn_graph_kernel.routed_launches
+        print(f"dgcnn k={kg} training main path: loss {losses}, launches {counts}, of the graph's {routed} "
+              f"through the general kNN kernel")
+        require(all(c > 0 for c in counts.values()) and routed == counts["knn_graph_kernel"],
+                f"a kernel of the dgcnn k={kg} training path never launched: {counts}")
+        require(all(math.isfinite(v) for v in losses), f"non-finite dgcnn k={kg} training loss: {losses}")
+        compare_steps(trainer, batches[1], 12, f"dgcnn k={kg} B={bg}")
+    return {"fps": {"large_launches": LAUNCH_ROUTES["fps.large_launches"]},
+            "knn_graph": {"routed_launches": LAUNCH_ROUTES["knn_graph_kernel.routed_launches"]},
+            "knn_point_sorted": {"tiled_launches": LAUNCH_ROUTES["knn_point_kernel.tiled_launches"]}}
+
+
 def main() -> None:
     import torch
 
@@ -2314,6 +2489,7 @@ def main() -> None:
     measured.update(sa_layer_phase(smi, dev))
     measured.update(mixed_phase(smi, dev))
     measured.update(bucket_phase(smi, dev, models, x0, sa1_xyz))
+    routes = range_phase(smi, dev)
 
     require(not {"jax", "scanobjectnn_tpu"} & set(sys.modules), "JAX or the JAX package was imported")
 
@@ -2352,7 +2528,8 @@ def main() -> None:
     for k, (src, tpu, counter) in sources.items():
         require(LAUNCHES.get(counter, 0) > 0, f"{k} never launched on a main path")
         kernels.append({"name": k, "route": "cuda", "source": src, "replaces": tpu,
-                        "launches": LAUNCHES[counter], **measured[k]})
+                        "launches": LAUNCHES[counter], **measured[k], **routes.get(k, {})})
+    require(all(v > 0 for r in routes.values() for v in r.values()), f"a new route never launched: {routes}")
     print("kernel ms / plain_ms / bound_ms: fps and sa_ball_mlp_pool (K <= 64) summed over one bf16 SSG forward's "
           "calls at B=128 under sa_bucket 'off' (FPS both layers, SA1+SA2; CUDA events); rank_sort_points over "
           "the two calls of the bf16 SSG forward's SA1 under 'auto' at B=128 (points N=2048, queries M=512; device "
@@ -2376,7 +2553,9 @@ def main() -> None:
           "gather, index_add_ "
           "for the scatter-add (device time), torch.matmul of the materialised outer product for spider_conv "
           "(CUDA events); "
-          "launches: every main path's run together")
+          "launches: every main path's run together; fps, knn_graph and knn_point_sorted also carry the launches "
+          "of their routes added in phase 13's ranges (large_launches: FPS above 8192 points; routed_launches: the "
+          "graph above k = 32 through the general kNN kernel; tiled_launches: the sort over more than 16384 keys)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -30,9 +30,10 @@
 // smallest that holds k.  KCAP = 48 serves PointCNN's k = 48 (xdconv_4) and
 // KCAP = 64 the rest up to kMaxK; a list of 64 takes 128 registers, and a
 // key that does not beat the list's last entry skips the unrolled insertion,
-// which after the first few hundred keys is nearly every key.  The graph kernel keeps the query row in registers at the
-// compile-time widths 3 and 64 (the generic width re-reads it from memory
-// for every key), and evaluates two keys per step, two independent chains of
+// which after the first few hundred keys is nearly every key.  Both
+// kernels keep the query row in registers at the compile-time widths 3 and
+// 64 (the generic width re-reads it from memory for every key); the graph
+// kernel also evaluates two keys per step, two independent chains of
 // dependent adds, before inserting them in index order.
 //
 // k > 64 (knn_sort_kernel): one block per query computes the query's
@@ -41,10 +42,23 @@
 // bits, then the key index), sorts them with a block-wide bitonic sort and
 // writes the first k: ascending distance, ties to the lowest index, +inf
 // and NaN (sorted as +inf) never selected.  The cloud's N keys, padded to a
-// power of two, must fit the block's shared memory: N <= kSortMaxN (16384,
-// 128 KB).  Bound: operations, as above, plus the sort's
-// log2(N)(log2(N)+1)/2 compare-exchange steps over N/2 pairs a query; the
-// sort, not the distances, sets this path's time.
+// power of two, fit the block's shared memory up to kSortTile (16384, 128
+// KB).  A larger cloud (knn_sort_tiled_kernel) is sorted a tile of
+// kSortTile keys at a time, exactly so, and each tile's first min(k, tile)
+// words are merged into the query's running list of min(k, N) words, kept
+// in a scratch buffer in device memory (two lists, read and written in
+// turn): each word's place in the merged list is its rank in its own list
+// plus the number of words of the other list below it (a binary search).
+// The words are distinct (the index is in the low bits), so the merge is
+// exact and stable by construction: ties at the lowest index, +inf and NaN
+// last.  Bound: operations, as above, plus the sort's
+// log2(N)(log2(N)+1)/2 compare-exchange steps over N/2 pairs a query (per
+// tile of the larger clouds); the sort, not the distances, sets this
+// path's time.
+//
+// The self-kNN graph above k = kGraphMaxK (32) is this general kernel with
+// the cloud as its own queries (knn_graph_launch): the register lists up to
+// k = 64, the sort above, the same bits as knn_graph_plain by construction.
 
 #include <cuda_runtime.h>
 
@@ -57,7 +71,7 @@ constexpr int kMaxK = 64;                // MAX_K of knn_kernel.py
 constexpr int kGraphMaxK = 32;           // GRAPH_MAX_K of knn_kernel.py
 constexpr int kSmemFloats = 12 * 1024;   // 48 KB: a key tile, its |k|^2 and bias
 constexpr int kSortThreads = 256;        // threads of a knn_sort_kernel block
-constexpr int kSortMaxN = 16384;         // SORT_MAX_N of knn_kernel.py
+constexpr int kSortTile = 16384;         // SORT_TILE of knn_kernel.py
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
@@ -190,7 +204,7 @@ __global__ void __launch_bounds__(kThreads)
       const float* kp = skeys + t * width;
       float inner;
       if constexpr (W > 0) {
-        inner = dot<W>(qr, kp, W);
+        inner = dot_row<W>(qr, kp);
       } else {
         inner = dot<0>(q, kp, width);
       }
@@ -335,22 +349,122 @@ __global__ void __launch_bounds__(kSortThreads)
   }
 }
 
+// Words of list[0, len) below x (a binary search; the words are distinct).
+__device__ __forceinline__ int count_below(const unsigned long long* list, int len, unsigned long long x) {
+  int lo = 0, hi = len;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (list[mid] < x) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// knn_sort_kernel for a cloud of more than kSortTile keys: each tile of
+// kSortTile keys sorted as there, its first min(k, tile) words merged into
+// the running list; scratch holds two lists of min(k, n) words a query.
+template <int W>
+__global__ void __launch_bounds__(kSortThreads)
+    knn_sort_tiled_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
+                          const float* __restrict__ bias, int m, int n, int c, int k,
+                          unsigned long long* __restrict__ scratch, float* __restrict__ dist,
+                          int32_t* __restrict__ idx) {
+  extern __shared__ __align__(16) unsigned long long skey[];
+  const int width = W > 0 ? W : c;
+  const int b = blockIdx.y, qi = blockIdx.x;
+  const int keep = min(k, n);
+  const float* q = queries + (static_cast<size_t>(b) * m + qi) * width;
+  const float qq = dot<W>(q, q, width);
+  const float* cloud = keys + static_cast<size_t>(b) * n * width;
+  unsigned long long* run = scratch + (static_cast<size_t>(b) * m + qi) * 2 * keep;
+  unsigned long long* next = run + keep;
+  int cur = 0;  // words in run
+  for (int base = 0; base < n; base += kSortTile) {
+    const int count = min(kSortTile, n - base);
+    int npow = 1;
+    while (npow < count) npow <<= 1;
+    for (int jj = threadIdx.x; jj < npow; jj += kSortThreads) {
+      unsigned long long key = ~0ull;
+      if (jj < count) {
+        const int j = base + jj;
+        const float* kp = cloud + static_cast<size_t>(j) * width;
+        float d = expand(qq, dot<W>(q, kp, width), dot<W>(kp, kp, width));
+        if (bias != nullptr) d = __fadd_rn(d, bias[static_cast<size_t>(b) * n + j]);
+        key = (static_cast<unsigned long long>(order_bits(d)) << 32) | static_cast<uint32_t>(j);
+      }
+      skey[jj] = key;
+    }
+    __syncthreads();
+    for (int size = 2; size <= npow; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        for (int i = threadIdx.x; i < npow / 2; i += kSortThreads) {
+          const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+          const unsigned long long a = skey[lo], z = skey[hi];
+          if ((a > z) == ((lo & size) == 0)) {
+            skey[lo] = z;
+            skey[hi] = a;
+          }
+        }
+        __syncthreads();
+      }
+    }
+    const int take = min(keep, count), len = min(keep, cur + take);
+    for (int i = threadIdx.x; i < take; i += kSortThreads) {
+      const int pos = i + count_below(run, cur, skey[i]);
+      if (pos < len) next[pos] = skey[i];
+    }
+    for (int i = threadIdx.x; i < cur; i += kSortThreads) {
+      const int pos = i + count_below(skey, take, run[i]);
+      if (pos < len) next[pos] = run[i];
+    }
+    __syncthreads();  // next is complete; skey and run are free
+    unsigned long long* t = run;
+    run = next;
+    next = t;
+    cur = len;
+  }
+  const size_t row = (static_cast<size_t>(b) * m + qi) * k;
+  for (int p = threadIdx.x; p < k; p += kSortThreads) {
+    float d = inf_f();
+    int j = 0;
+    if (p < cur) {
+      const float v = from_order_bits(static_cast<uint32_t>(run[p] >> 32));
+      if (v < inf_f()) {
+        d = v;
+        j = static_cast<int>(run[p] & 0xffffffffu);
+      }
+    }
+    dist[row + p] = d;
+    idx[row + p] = j;
+  }
+}
+
 cudaError_t launch_sort(const float* q, const float* keys, const float* bias, int b, int m, int n,
-                        int c, int k, float* dist, int32_t* idx, cudaStream_t s) {
+                        int c, int k, float* dist, int32_t* idx, unsigned long long* scratch,
+                        cudaStream_t s) {
   int npow = 1;
-  while (npow < n) npow <<= 1;
+  while (npow < n && npow < kSortTile) npow <<= 1;
   const size_t smem = sizeof(unsigned long long) * static_cast<size_t>(npow);
   const dim3 grid(m, b);
-  auto run = [&](auto kernel) {
+  auto run = [&](auto kernel, auto... args) {
     if (smem > 48 * 1024) {
       const cudaError_t err =
           cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (err != cudaSuccess) return err;
     }
-    kernel<<<grid, kSortThreads, smem, s>>>(q, keys, bias, m, n, c, k, npow, dist, idx);
+    kernel<<<grid, kSortThreads, smem, s>>>(args...);
     return cudaGetLastError();
   };
-  return c == 3 ? run(knn_sort_kernel<3>) : run(knn_sort_kernel<0>);
+  if (n > kSortTile) {
+    if (scratch == nullptr) return cudaErrorInvalidValue;
+    return c == 3 ? run(knn_sort_tiled_kernel<3>, q, keys, bias, m, n, c, k, scratch, dist, idx)
+                  : run(knn_sort_tiled_kernel<0>, q, keys, bias, m, n, c, k, scratch, dist, idx);
+  }
+  return c == 3 ? run(knn_sort_kernel<3>, q, keys, bias, m, n, c, k, npow, dist, idx)
+                : run(knn_sort_kernel<0>, q, keys, bias, m, n, c, k, npow, dist, idx);
 }
 
 template <int KCAP, int W>
@@ -364,11 +478,14 @@ cudaError_t launch(const float* q, const float* keys, const float* bias, int b, 
   return cudaGetLastError();
 }
 
+// C = 3 (points) and C = 64 (DGCNN's EdgeConv 2-4 features, the graph
+// above k = 32) keep the query row in registers; other widths re-read it.
 template <int KCAP>
 cudaError_t launch_c(const float* q, const float* keys, const float* bias, int b, int m, int n,
                      int c, int k, float* dist, int32_t* idx, cudaStream_t s) {
-  return c == 3 ? launch<KCAP, 3>(q, keys, bias, b, m, n, c, k, dist, idx, s)
-                : launch<KCAP, 0>(q, keys, bias, b, m, n, c, k, dist, idx, s);
+  if (c == 3) return launch<KCAP, 3>(q, keys, bias, b, m, n, c, k, dist, idx, s);
+  if (c == 64) return launch<KCAP, 64>(q, keys, bias, b, m, n, c, k, dist, idx, s);
+  return launch<KCAP, 0>(q, keys, bias, b, m, n, c, k, dist, idx, s);
 }
 
 template <int KCAP, int W>
@@ -394,12 +511,12 @@ cudaError_t launch_graph_c(const float* feats, int b, int n, int c, int k, int32
 }  // namespace
 
 // queries [b, m, c], keys [b, n, c], bias [b, n] or null, all f32 and
-// contiguous -> dist [b, m, k] f32, idx [b, m, k] int32, ascending.  Any k;
-// above kMaxK the cloud holds at most kSortMaxN keys.
+// contiguous -> dist [b, m, k] f32, idx [b, m, k] int32, ascending.  Any k
+// and N; scratch: 2 * b * m * min(k, n) 64-bit words when k > kMaxK and
+// n > kSortTile (the tiled sort's lists), else null.
 extern "C" int knn_launch(const void* queries, const void* keys, const void* bias, int b, int m,
-                          int n, int c, int k, void* dist, void* idx, void* stream) {
-  if (b < 1 || b > 65535 || m < 1 || n < 1 || c < 1 || c + 2 > kSmemFloats || k < 1 ||
-      (k > kMaxK && n > kSortMaxN)) {
+                          int n, int c, int k, void* dist, void* idx, void* scratch, void* stream) {
+  if (b < 1 || b > 65535 || m < 1 || n < 1 || c < 1 || c + 2 > kSmemFloats || k < 1) {
     return cudaErrorInvalidValue;
   }
   auto* q = static_cast<const float*>(queries);
@@ -414,15 +531,22 @@ extern "C" int knn_launch(const void* queries, const void* keys, const void* bia
   if (k <= 32) return launch_c<32>(q, kp, bp, b, m, n, c, k, d, i, s);
   if (k <= 48) return launch_c<48>(q, kp, bp, b, m, n, c, k, d, i, s);
   if (k <= kMaxK) return launch_c<64>(q, kp, bp, b, m, n, c, k, d, i, s);
-  return launch_sort(q, kp, bp, b, m, n, c, k, d, i, s);
+  return launch_sort(q, kp, bp, b, m, n, c, k, d, i, static_cast<unsigned long long*>(scratch), s);
 }
 
 // feats [b, n, c] f32, contiguous -> idx [b, n, k] int32: each point's k
-// nearest points, itself included, ascending.
-extern "C" int knn_graph_launch(const void* feats, int b, int n, int c, int k, void* idx,
-                                void* stream) {
-  if (b < 1 || b > 65535 || n < 1 || c < 1 || c + 1 > kSmemFloats || k < 1 || k > kGraphMaxK) {
+// nearest points, itself included, ascending.  Above kGraphMaxK: the
+// general kernel (knn_launch) with the cloud as its queries, dist [b, n, k]
+// f32 scratch, and scratch as knn_launch's (null unless k > kMaxK and
+// n > kSortTile).
+extern "C" int knn_graph_launch(const void* feats, int b, int n, int c, int k, void* idx, void* dist,
+                                void* scratch, void* stream) {
+  if (b < 1 || b > 65535 || n < 1 || c < 1 || c + 1 > kSmemFloats || k < 1) {
     return cudaErrorInvalidValue;
+  }
+  if (k > kGraphMaxK) {
+    if (dist == nullptr) return cudaErrorInvalidValue;
+    return knn_launch(feats, feats, nullptr, b, n, n, c, k, dist, idx, scratch, stream);
   }
   auto* f = static_cast<const float*>(feats);
   auto* i = static_cast<int32_t*>(idx);

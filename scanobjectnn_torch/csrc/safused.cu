@@ -28,7 +28,7 @@
 // 128) a 64-row chunk needs 4 * 64 * 259 B = 66 KB and a whole block 133 KB,
 // so chunks let three blocks share an SM instead of one, with the same layer
 // code as K <= 64.
-// Bound: the MLP's FLOPs on CUDA cores (tensor cores are later work).
+// Bound: the MLP's FLOPs on the CUDA cores (sapool.cuh: why bf16 too).
 //
 #include "ballscan.cuh"
 #include "sapool.cuh"

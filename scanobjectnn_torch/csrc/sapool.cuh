@@ -19,6 +19,15 @@
 // K <= 64 is one chunk of QPB * K rows.  K > 64 (MSG's 128) takes one query
 // per block and repeats 2-4 over chunks of 64 slots, carrying the running
 // max of each column in shared memory from one chunk to the next.
+//
+// Steps 3-4 run on the CUDA cores in f32 FMA, k in ascending order (never
+// TF32), for both compute types: in bf16 the products of bf16 operands are
+// exact in f32, and these sums give the plain version's bits (cuBLAS's f32
+// product) on an H100.  A version whose bf16 MLP runs mma.sync on the
+// tensor cores (studies/sa_mma.cuh, studies/sa_mma.py) holds each call's
+// bf16 gate, but sums in another order, and the bf16 roundings it flips
+// spread through the layers after: 37% of the bf16 SSG forward's logits
+// differ by an ulp, past the models' logits gate (PERF.md section 6).
 
 #pragma once
 

@@ -20,10 +20,11 @@
 // that is kept.  Each of the three products is a register-tiled matrix
 // product in f32 on the CUDA cores: a block owns a BM x BN tile of the
 // output and stages both operands of a chunk of the reduction in shared
-// memory.  The forward walks the reduction slot by slot with a cp.async
-// ring (below); the backward kernels walk it in chunks of kBK, fetching the
-// next chunk into registers while the current one is multiplied.  The
-// Taylor product is formed as it is staged: a gather is a load, one cloud's
+// memory.  All three walk the reduction with a two-stage cp.async ring
+// (below): the forward slot by slot over W packed once per call, the data
+// backward over dout transposed and W^T packed once per call, the weight
+// backward over row stages, forming p from each row's staged neighbour and
+// basis values.  The Taylor product is formed as it is staged: a gather is a load, one cloud's
 // rows (at most 1024 x 128 floats) sit in L2, and the [M, K*C*T] operand
 // never exists in device memory.  Each p is rounded once (__fmul_rn), as
 // the plain version's outer product rounds it; the sums use FMA.  Nothing
@@ -38,9 +39,8 @@
 // Bound: operations.  Each of the three products is 2 * M * (K*C*T) * O
 // flops in f32; at B=32, N=1024, k=20, T=5 the four layers' forward is 282
 // GFLOP, 4.2 ms at 67 TFLOP/s, and every call's bytes move in under 0.03
-// ms.  The forward runs an 8 x 8 outer product per thread per staged value
-// (128 x 128 tiles), the backward kernels 4x2 to 8x4, two 256-thread blocks
-// per SM.
+// ms.  Each runs up to an 8 x 8 outer product per thread per staged value
+// (128 x 128 tiles), two 256-thread blocks per SM.
 
 #include <cuda_runtime.h>
 
@@ -50,8 +50,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBK = 16;   // reduction chunk
-constexpr int kPad = 4;   // shared-memory row padding (keeps float4 alignment)
 constexpr int kMaxT = 64; // the data backward's column tile holds one channel's T values
 
 // Division by an invariant divisor d >= 1 for 0 <= x < 2^31 (multiply-high
@@ -120,24 +118,6 @@ __device__ __forceinline__ void load_smem(const float* p, float (&v)[L]) {
   } else {
 #pragma unroll
     for (int i = 0; i < L; ++i) v[i] = p[i];
-  }
-}
-
-// acc[TM x TN] += As[q, rows] x Bs[q, cols] over one staged chunk; the
-// thread owns rows ty * TM .. and columns tx * TN ...
-template <int BM, int BN, int TM, int TN>
-__device__ __forceinline__ void multiply_chunk(const float* As, const float* Bs, int tx, int ty,
-                                               float (&acc)[TM][TN]) {
-#pragma unroll
-  for (int q = 0; q < kBK; ++q) {
-    float a[TM], b[TN];
-    load_smem<TM>(As + q * (BM + kPad) + ty * TM, a);
-    load_smem<TN>(Bs + q * (BN + kPad) + tx * TN, b);
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
   }
 }
 
@@ -330,83 +310,232 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// Data backward: a block owns BM rows and one slot kk = blockIdx.y, and
-// walks the channels in chunks of cc_max (cc_max * T <= BN columns).  Per
-// chunk, D = dout W^T over the chunk's contiguous W rows (both operands
-// staged with o fastest), then dgath over t and the running dg over c, each
-// in ascending order in one thread.
-constexpr int kDataBM = 64, kDataBN = 64, kDataTM = 4, kDataTN = 4;
+// ---------------------------------------------------------------------------
+// Backward, staged as the forward: both products walk their reduction in
+// stages with a two-stage cp.async ring, 128-wide tiles and up to 8 x 8
+// outputs a thread (multiply_halves, the forward's layout), f32 FMA.
+//
+// Chunks: one slot kk and cb channels, their cb * T reduction indices
+// padded to `width` (32, 64 or 128) columns; plan_bwd picks width and cb.
+//
+// Data backward (a block owns 128 rows and one slot kk; it walks the slot's
+// channel groups in order): D = dout W^T with o as the reduction, kBwdBK o
+// a stage.  Both operands are staged with cp.async: dout transposed once
+// per call into doutT [op][mp] (spider_transpose_kernel) and W^T packed
+// once per call into per-chunk slabs wpt [chunk][op][width]
+// (spider_bwd_pack_kernel), zeros past O, past the rows and past the
+// chunk's columns.  Each D sums its products with FMA in ascending o from
+// 0, as before the staging, so the data backward's bits are unchanged.
+// Per group the tile goes to shared memory; dgath sums over t and dg's
+// running sums over c (carried across groups) run in ascending order, one
+// thread each, on the rows' basis values and the group's neighbour
+// features, copied into shared memory with the ring (each row's neighbour
+// index read once).
+//
+// Weight backward (a block owns one chunk's width x BN tile of dW over the
+// rows of slice blockIdx.z): dW = p^T dout with the rows m as the
+// reduction.  Per stage of kWeightBK rows the ring copies each row's dout
+// columns, its neighbour's cb feature values (the index read once per row
+// and slot) and its T basis values; the [kWeightBK, width] tile of p is
+// formed in shared memory, each p rounded once (__fmul_rn).
+constexpr int kBwdBK = 16;     // o values a stage of the data backward
+constexpr int kWeightBK = 32;  // rows a stage of the weight backward
+constexpr int kDataBM = 128;   // rows of a data-backward tile
 
-__global__ void __launch_bounds__(kThreads)
-    spider_bwd_data_kernel(Spider s, const float* __restrict__ w, const float* __restrict__ dout,
-                           int o_len, int cc_max, float* __restrict__ dgath, float* __restrict__ dg) {
-  constexpr int BM = kDataBM, BN = kDataBN, TM = kDataTM, TN = kDataTN;
-  static_assert((BM / TM) * (BN / TN) == kThreads, "one output micro-tile per thread");
-  constexpr int kA = BM * kBK / kThreads, kB = BN * kBK / kThreads, kStep = kThreads / kBK;
-  __shared__ __align__(16) float As[kBK * (BM + kPad)];
-  __shared__ __align__(16) float Bs[kBK * (BN + kPad)];
-  __shared__ float Ds[BM * (BN + 1)];
-  __shared__ float Gs[BM * kMaxT];
-  const int tid = threadIdx.x, tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int m0 = blockIdx.x * BM, kk = blockIdx.y;
-  const int q = tid % kBK, wl = tid / kBK;
-  const int t_len = s.t;
+struct BwdPlan {
+  int cb, groups, width;  // channels of a chunk, chunks a slot, padded columns of a chunk
+  int op, mp;             // O rounded up to kBwdBK, B * N rounded up to kDataBM
+  int bn;                 // the weight backward's tile of o
+};
 
-  for (int c0 = 0; c0 < s.c; c0 += cc_max) {
-    const int cn = min(cc_max, s.c - c0), ncol = cn * t_len;
-    const long long base = (static_cast<long long>(kk) * s.c + c0) * t_len;  // first W row of the chunk
-    float ra[kA], rb[kB], acc[TM][TN] = {};
-    auto fetch = [&](int o_start) {
-      const int o = o_start + q;
-#pragma unroll
-      for (int i = 0; i < kA; ++i) {
-        const int m = m0 + wl + i * kStep;
-        ra[i] = (o < o_len && m < s.rows) ? dout[static_cast<long long>(m) * o_len + o] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kB; ++i) {
-        const int col = wl + i * kStep;
-        rb[i] = (o < o_len && col < ncol) ? w[(base + col) * o_len + o] : 0.f;
-      }
-    };
-    fetch(0);
-    for (int o_start = 0; o_start < o_len; o_start += kBK) {
-#pragma unroll
-      for (int i = 0; i < kA; ++i) As[q * (BM + kPad) + wl + i * kStep] = ra[i];
-#pragma unroll
-      for (int i = 0; i < kB; ++i) Bs[q * (BN + kPad) + wl + i * kStep] = rb[i];
-      __syncthreads();
-      if (o_start + kBK < o_len) fetch(o_start + kBK);
-      multiply_chunk<BM, BN, TM, TN>(As, Bs, tx, ty, acc);
-      __syncthreads();
-    }
+// acc[TM][TN] += As[q][rows] x Bs[q][cols] for q < BK.  The thread owns
+// rows ty * (TM / 2) + [0, TM / 2) and BM / 2 further, and columns likewise
+// in halves of BN (the forward's layout: float4 reads, no bank conflicts).
+template <int BK, int BM, int BN, int TM, int TN>
+__device__ __forceinline__ void multiply_halves(const float* As, int sa, const float* Bs, int sb, int tx, int ty,
+                                                float (&acc)[TM][TN]) {
+#pragma unroll 4
+  for (int q = 0; q < BK; ++q) {
+    float a[2][TM / 2], b[2][TN / 2];
+    load_smem<TM / 2>(As + q * sa + ty * (TM / 2), a[0]);
+    load_smem<TM / 2>(As + q * sa + BM / 2 + ty * (TM / 2), a[1]);
+    load_smem<TN / 2>(Bs + q * sb + tx * (TN / 2), b[0]);
+    load_smem<TN / 2>(Bs + q * sb + BN / 2 + tx * (TN / 2), b[1]);
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
 #pragma unroll
-      for (int j = 0; j < TN; ++j) Ds[(ty * TM + i) * (BN + 1) + tx * TN + j] = acc[i][j];
+      for (int j = 0; j < TN; ++j) {
+        acc[i][j] = fmaf(a[i / (TM / 2)][i % (TM / 2)], b[j / (TN / 2)][j % (TN / 2)], acc[i][j]);
+      }
     }
+  }
+}
+
+// Row (or column) of element i of a thread's half-split micro-tile.
+template <int B, int T>
+__device__ __forceinline__ int half_index(int t, int i) {
+  return (i < T / 2 ? 0 : B / 2 - T / 2) + t * (T / 2) + i;
+}
+
+// W [K * C * T, O] -> wpt [chunk][op][width]: chunk (kk, grp)'s W rows
+// (kk * C + grp * cb) * T + col, transposed; zeros past O and the chunk.
+__global__ void __launch_bounds__(kThreads)
+    spider_bwd_pack_kernel(const float* __restrict__ w, int c, int t, int o, BwdPlan p, long long len,
+                           float* __restrict__ wpt) {
+  for (long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; e < len;
+       e += static_cast<long long>(gridDim.x) * kThreads) {
+    const int col = static_cast<int>(e % p.width);
+    const long long rest = e / p.width;
+    const int q = static_cast<int>(rest % p.op);
+    const long long chunk = rest / p.op;
+    const int kk = static_cast<int>(chunk / p.groups), grp = static_cast<int>(chunk % p.groups);
+    const int c0 = grp * p.cb, valid = min(p.cb, c - c0) * t;
+    wpt[e] = col < valid && q < o ? w[((static_cast<long long>(kk) * c + c0) * t + col) * o + q] : 0.f;
+  }
+}
+
+// dout [rows, o] -> doutT [op][mp], zeros past rows and o (32 x 32 tiles).
+__global__ void __launch_bounds__(kThreads)
+    spider_transpose_kernel(const float* __restrict__ dout, int rows, int o, BwdPlan p, float* __restrict__ doutt) {
+  __shared__ float tile[32][33];
+  const int m0 = blockIdx.x * 32, q0 = blockIdx.y * 32, lx = threadIdx.x % 32, ly = threadIdx.x / 32;
+  for (int i = ly; i < 32; i += kThreads / 32) {
+    const int m = m0 + i, q = q0 + lx;
+    tile[i][lx] = m < rows && q < o ? dout[static_cast<long long>(m) * o + q] : 0.f;
+  }
+  __syncthreads();
+  for (int i = ly; i < 32; i += kThreads / 32) {
+    const int q = q0 + i, m = m0 + lx;
+    if (q < p.op && m < p.mp) doutt[static_cast<long long>(q) * p.mp + m] = tile[lx][i];
+  }
+}
+
+// The data backward's dynamic shared memory, bytes: the ring, the group's
+// D [BM][cb * T + 1] (its valid columns only, so that two blocks share an
+// SM at SpiderCNN's conv4), dg's running sums [BM][T], the rows' basis
+// values [BM][T], the group's neighbour features [BM][cb | 1] and the
+// neighbour points [BM].
+int data_smem(int bn, int t, int cb) {
+  return 4 * (2 * kBwdBK * (kDataBM + 4 + bn + 4) + kDataBM * (cb * t + 1 + 2 * t + (cb | 1) + 1));
+}
+
+template <int BN, int TN>
+__global__ void __launch_bounds__(kThreads, 2)
+    spider_bwd_data_kernel(Spider s, const float* __restrict__ wpt, const float* __restrict__ doutt, BwdPlan p,
+                           float* __restrict__ dgath, float* __restrict__ dg) {
+  constexpr int BM = kDataBM, TM = 8, SA = BM + 4, SB = BN + 4, BK = kBwdBK, kStage = BK * (SA + SB);
+  static_assert((BM / TM) * (BN / TN) == kThreads, "one output micro-tile per thread");
+  extern __shared__ __align__(16) float smem[];
+  float* const ring = smem;                  // two stages: dout^T [BK][SA], then W^T [BK][SB]
+  const int ds = p.cb * s.t + 1;             // D's row stride: the chunk's valid columns, + 1
+  float* const Ds = ring + 2 * kStage;       // [BM][ds]: the group's D tile
+  float* const Gs = Ds + BM * ds;            // [BM][T]: dg's running sums over c
+  float* const Gv = Gs + BM * s.t;           // [BM][T]: g of each row and slot kk
+  const int fs = p.cb | 1;
+  float* const Fs = Gv + BM * s.t;           // [BM][fs]: the group's neighbour features
+  int* const nbr = reinterpret_cast<int*>(Fs + BM * fs);  // [BM]: the neighbour's point, or -1
+  const int tid = threadIdx.x, tx = tid % (BN / TN), ty = tid / (BN / TN);
+  const int m0 = blockIdx.x * BM, kk = blockIdx.y, t_len = s.t;
+  const int n_oc = p.op / BK, total = p.groups * n_oc;
+
+  // Each row's neighbour index, read once (seen after the first barrier),
+  // and its basis values (with the first stage's copies).
+  for (int r = tid; r < BM; r += kThreads) {
+    const int m = m0 + r;
+    int point = -1;
+    if (m < s.rows) {
+      const int j = s.idx[static_cast<long long>(m) * s.k + kk];
+      if (static_cast<unsigned>(j) < static_cast<unsigned>(s.n)) point = fast_div(s.by_n, m) * s.n + j;
+    }
+    nbr[r] = point;
+  }
+  for (int e = tid; e < BM * t_len; e += kThreads) {
+    const int ml = e / t_len, m = m0 + ml;
+    if (m < s.rows) {
+      cp_async4(Gv + e, s.g + (static_cast<long long>(m) * s.k + kk) * t_len + (e - ml * t_len));
+    } else {
+      Gv[e] = 0.f;
+    }
+  }
+  // The neighbour features of group grp, channels [c0, c0 + cn) (NaN for a
+  // bad index); read by the group's epilogue.
+  auto issue_feat = [&](int grp) {
+    const int c0 = grp * p.cb, cn = min(p.cb, s.c - c0);
+    for (int e = tid; e < BM * cn; e += kThreads) {
+      const int ml = e / cn, ci = e - ml * cn, point = nbr[ml];
+      if (point >= 0) {
+        cp_async4(Fs + ml * fs + ci, s.feat + static_cast<long long>(point) * s.c + c0 + ci);
+      } else {
+        Fs[ml * fs + ci] = __int_as_float(0x7fc00000);
+      }
+    }
+  };
+
+  auto issue = [&](int step, int stage) {
+    const int grp = step / n_oc, oc = step - grp * n_oc;
+    float* as = ring + stage * kStage;
+    float* bs = as + BK * SA;
+    const float* asrc = doutt + static_cast<long long>(oc * BK) * p.mp + m0;
+    for (int e = tid; e < BK * (BM / 4); e += kThreads) {
+      const int q = e / (BM / 4), v = e - q * (BM / 4);
+      cp_async16(as + q * SA + 4 * v, asrc + static_cast<long long>(q) * p.mp + 4 * v);
+    }
+    const float* bsrc = wpt + (static_cast<long long>(kk * p.groups + grp) * p.op + oc * BK) * BN;
+    for (int e = tid; e < BK * (BN / 4); e += kThreads) {
+      const int q = e / (BN / 4), v = e - q * (BN / 4);
+      cp_async16(bs + q * SB + 4 * v, bsrc + q * BN + 4 * v);
+    }
+  };
+
+  float acc[TM][TN];
+  issue(0, 0);
+  cp_async_commit();
+  for (int step = 0; step < total; ++step) {
+    const int grp = step / n_oc, oc = step - grp * n_oc;
+    if (oc == 0) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    }
+    cp_async_wait_ring();
+    __syncthreads();  // stage step landed; every thread is done with step - 1
+    if (oc == 0) issue_feat(grp);  // Fs is free: the last group's epilogue is done
+    if (step + 1 < total) issue(step + 1, (step + 1) & 1);
+    cp_async_commit();
+    const float* as = ring + (step & 1) * kStage;
+    multiply_halves<BK, BM, BN, TM, TN>(as, SA, as + BK * SA, SB, tx, ty, acc);
+    if (oc + 1 < n_oc) continue;
+
+    // The group's D is complete: dgath over t, dg's running sums over c.
+    cp_async_wait_ring();  // the group's features
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const int col = half_index<BN, TN>(tx, j);
+        if (col < ds - 1) Ds[half_index<BM, TM>(ty, i) * ds + col] = acc[i][j];
+      }
     __syncthreads();
+    const int c0 = grp * p.cb, cn = min(p.cb, s.c - c0);
     for (int e = tid; e < BM * cn; e += kThreads) {
       const int ml = e / cn, ci = e - ml * cn, m = m0 + ml;
       if (m >= s.rows) continue;
       const long long edge = static_cast<long long>(m) * s.k + kk;
-      const float* gr = s.g + edge * t_len;
+      const float* gr = Gv + ml * t_len;
       float acc_t = 0.f;
-      for (int tt = 0; tt < t_len; ++tt) acc_t = fmaf(gr[tt], Ds[ml * (BN + 1) + ci * t_len + tt], acc_t);
+      for (int tt = 0; tt < t_len; ++tt) acc_t = fmaf(gr[tt], Ds[ml * ds + ci * t_len + tt], acc_t);
       dgath[edge * s.c + c0 + ci] = acc_t;
     }
     for (int e = tid; e < BM * t_len; e += kThreads) {
       const int ml = e / t_len, tt = e - ml * t_len, m = m0 + ml;
       if (m >= s.rows) continue;
-      const float* row = neighbour(s, m, kk);
+      const float* row = Fs + ml * fs;
       float acc_c = c0 == 0 ? 0.f : Gs[e];
-      for (int ci = 0; ci < cn; ++ci) {
-        const float f = row == nullptr ? __int_as_float(0x7fc00000) : row[c0 + ci];
-        acc_c = fmaf(f, Ds[ml * (BN + 1) + ci * t_len + tt], acc_c);
-      }
+      for (int ci = 0; ci < cn; ++ci) acc_c = fmaf(row[ci], Ds[ml * ds + ci * t_len + tt], acc_c);
       Gs[e] = acc_c;
     }
-    __syncthreads();
+    __syncthreads();  // Ds and Gs are free
   }
   for (int e = tid; e < BM * t_len; e += kThreads) {
     const int ml = e / t_len, tt = e - ml * t_len, m = m0 + ml;
@@ -414,64 +543,108 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Weight backward: the partial dW tile [BM rows of r, BN columns of o]
-// over the rows of slice blockIdx.z.  A = p is staged with r fastest (a
-// thread keeps one r, split once), B = dout with o fastest.
-template <int BM, int BN, int TM, int TN>
+// Floats of one stage of the weight backward's ring: dout [BK][BN + 4],
+// feat [BK][cb | 1], g [BK][T], rounded up to 4 (16-byte stages).
+__host__ __device__ __forceinline__ int weight_stage_floats(int bn, int cb, int t) {
+  return (kWeightBK * (bn + 4 + (cb | 1) + t) + 3) / 4 * 4;
+}
+
+template <int BM, int BN>
 __global__ void __launch_bounds__(kThreads, 2)
-    spider_bwd_weight_kernel(Spider s, const float* __restrict__ dout, int o_len, int slice_rows,
+    spider_bwd_weight_kernel(Spider s, const float* __restrict__ dout, int o_len, BwdPlan p, int slice_rows,
                              float* __restrict__ part) {
-  static_assert((BM / TM) * (BN / TN) == kThreads, "one output micro-tile per thread");
-  static_assert(kThreads % BM == 0, "a thread stages one r");
-  constexpr int kA = BM * kBK / kThreads, kB = BN * kBK / kThreads, kStepA = kThreads / BM;
-  __shared__ __align__(16) float As[kBK * (BM + kPad)];
-  __shared__ __align__(16) float Bs[kBK * (BN + kPad)];
+  constexpr int BK = kWeightBK, TM = BM / 16, TN = BN / 16, SA = BM + 4, SB = BN + 4;
+  constexpr int kSub = kThreads / BK;  // threads a staged row
+  extern __shared__ __align__(16) float smem[];
+  const int fs = p.cb | 1, t_len = s.t, stage_floats = weight_stage_floats(BN, p.cb, t_len);
+  float* const As = smem;  // [BK][SA]: the stage's p
+  float* const ring = As + BK * SA;
   const int tid = threadIdx.x, tx = tid % (BN / TN), ty = tid / (BN / TN);
-  const int r0 = blockIdx.x * BM, o0 = blockIdx.y * BN;
+  const int kk = blockIdx.x / p.groups, c0 = (blockIdx.x - kk * p.groups) * p.cb;
+  const int cbe = min(p.cb, s.c - c0), valid = cbe * t_len;
+  const int o0 = blockIdx.y * BN;
   const long long first = static_cast<long long>(blockIdx.z) * slice_rows;
   const int m_begin = static_cast<int>(first < s.rows ? first : s.rows);
   const int m_end = static_cast<int>(first + slice_rows < s.rows ? first + slice_rows : s.rows);
-  const int rl = tid % BM, qa = tid / BM, r = r0 + rl;
-  int kk = 0, cc = 0, tt = 0;
-  if (r < s.r_len) split_r(s, r, kk, cc, tt);
-  float ra[kA], rb[kB], acc[TM][TN] = {};
+  const int lr = tid % BK, sub = tid / BK;
+  const bool vec = o_len % 4 == 0;
 
-  auto fetch = [&](int m_start) {
-#pragma unroll
-    for (int i = 0; i < kA; ++i) {
-      const int m = m_start + qa + i * kStepA;
-      ra[i] = (r < s.r_len && m < m_end) ? taylor_product(s, m, kk, cc, tt) : 0.f;
+  auto issue = [&](int m_start, int stage) {
+    float* bs = ring + stage * stage_floats;
+    float* brow = bs + lr * SB;
+    float* frow = bs + BK * SB + lr * fs;
+    float* grow = bs + BK * SB + BK * fs + lr * t_len;
+    const int m = m_start + lr;
+    const bool ok = m < m_end;
+    const float* dsrc = dout + static_cast<long long>(m) * o_len + o0;
+    if (vec) {
+      for (int v = sub; v < BN / 4; v += kSub) {
+        if (ok && o0 + 4 * v < o_len) {
+          cp_async16(brow + 4 * v, dsrc + 4 * v);
+        } else {
+          brow[4 * v] = brow[4 * v + 1] = brow[4 * v + 2] = brow[4 * v + 3] = 0.f;
+        }
+      }
+    } else {
+      for (int v = sub; v < BN; v += kSub) {
+        if (ok && o0 + v < o_len) {
+          cp_async4(brow + v, dsrc + v);
+        } else {
+          brow[v] = 0.f;
+        }
+      }
     }
-#pragma unroll
-    for (int i = 0; i < kB; ++i) {
-      const int e = tid + i * kThreads, o = o0 + e % BN, m = m_start + e / BN;
-      rb[i] = (m < m_end && o < o_len) ? dout[static_cast<long long>(m) * o_len + o] : 0.f;
+    if (!ok) {
+      for (int q = sub; q < cbe; q += kSub) frow[q] = 0.f;
+      for (int q = sub; q < t_len; q += kSub) grow[q] = 0.f;
+      return;
     }
+    const int j = s.idx[static_cast<long long>(m) * s.k + kk];
+    if (static_cast<unsigned>(j) >= static_cast<unsigned>(s.n)) {
+      for (int q = sub; q < cbe; q += kSub) frow[q] = __int_as_float(0x7fc00000);
+    } else {
+      const float* fsrc = s.feat + (static_cast<long long>(fast_div(s.by_n, m)) * s.n + j) * s.c + c0;
+      for (int q = sub; q < cbe; q += kSub) cp_async4(frow + q, fsrc + q);
+    }
+    const float* gsrc = s.g + (static_cast<long long>(m) * s.k + kk) * t_len;
+    for (int q = sub; q < t_len; q += kSub) cp_async4(grow + q, gsrc + q);
   };
 
-  fetch(m_begin);
-  for (int m_start = m_begin; m_start < m_end; m_start += kBK) {
-#pragma unroll
-    for (int i = 0; i < kA; ++i) As[(qa + i * kStepA) * (BM + kPad) + rl] = ra[i];
-#pragma unroll
-    for (int i = 0; i < kB; ++i) {
-      const int e = tid + i * kThreads;
-      Bs[(e / BN) * (BN + kPad) + e % BN] = rb[i];
+  // Row lr of the stage's p: channels sub, sub + kSub, ..., zeros past them.
+  auto form = [&](int stage) {
+    const float* frow = ring + stage * stage_floats + BK * SB + lr * fs;
+    const float* grow = ring + stage * stage_floats + BK * SB + BK * fs + lr * t_len;
+    float* dst = As + lr * SA;
+    for (int cc = sub; cc < cbe; cc += kSub) {
+      const float f = frow[cc];
+      for (int tt = 0; tt < t_len; ++tt) dst[cc * t_len + tt] = __fmul_rn(f, grow[tt]);
     }
+    for (int q = valid + sub; q < BM; q += kSub) dst[q] = 0.f;
+  };
+
+  float acc[TM][TN] = {};
+  const int nsteps = (m_end - m_begin + BK - 1) / BK;
+  if (nsteps > 0) issue(m_begin, 0);
+  cp_async_commit();
+  for (int c = 0; c < nsteps; ++c) {
+    cp_async_wait_ring();
+    __syncthreads();  // stage c landed; every thread is done with As
+    if (c + 1 < nsteps) issue(m_begin + (c + 1) * BK, (c + 1) & 1);
+    cp_async_commit();
+    form(c & 1);
     __syncthreads();
-    if (m_start + kBK < m_end) fetch(m_start + kBK);
-    multiply_chunk<BM, BN, TM, TN>(As, Bs, tx, ty, acc);
-    __syncthreads();
+    multiply_halves<BK, BM, BN, TM, TN>(As, SA, ring + (c & 1) * stage_floats, SB, tx, ty, acc);
   }
   float* tile = part + static_cast<long long>(blockIdx.z) * s.r_len * o_len;
+  const long long r0 = (static_cast<long long>(kk) * s.c + c0) * t_len;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
-    const int rr = r0 + ty * TM + i;
-    if (rr >= s.r_len) continue;
+    const int rl = half_index<BM, TM>(ty, i);
+    if (rl >= valid) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int o = o0 + tx * TN + j;
-      if (o < o_len) tile[static_cast<long long>(rr) * o_len + o] = acc[i][j];
+      const int o = o0 + half_index<BN, TN>(tx, j);
+      if (o < o_len) tile[(r0 + rl) * o_len + o] = acc[i][j];
     }
   }
 }
@@ -502,9 +675,34 @@ bool make_spider(const void* feat, const void* idx, const void* g, int b, int n,
   return true;
 }
 
-// The weight backward tile: 128 x 64 (8 x 4 a thread) when O >= 64, else
-// 64 x 32 (4 x 2 a thread).
-bool wide(int o) { return o >= 64; }
+// The backward's chunking at these shapes: width (32, 64 or 128 columns)
+// and cb = ceil(C / groups) with groups = ceil(C / (width / T)) minimise
+// groups * width, weighted by how busy a tile that narrow keeps the FMA
+// units (128: 100, 64: 118, 32: 167; ties to the wider tile).  At
+// SpiderCNN's T = 5: conv1 (C = 3) takes 32 columns, conv2 (C = 32) 64 (3
+// groups of 11), conv3-4 128 (3 and 6 groups of 22).  The weight
+// backward's o tile is 128 when O > 64, 64 when O > 32, else 32.
+BwdPlan plan_bwd(int rows, int c, int t, int o) {
+  BwdPlan p{};
+  long long best = -1;
+  const int widths[3] = {128, 64, 32}, weights[3] = {100, 118, 167};
+  for (int i = 0; i < 3; ++i) {
+    const int per = widths[i] / t;
+    if (per < 1) continue;
+    const int groups = (c + per - 1) / per;
+    const long long cost = static_cast<long long>(groups) * widths[i] * weights[i];
+    if (best < 0 || cost < best) {
+      best = cost;
+      p.width = widths[i];
+      p.groups = groups;
+      p.cb = (c + groups - 1) / groups;
+    }
+  }
+  p.op = ceil_div(o, kBwdBK) * kBwdBK;
+  p.mp = ceil_div(rows, kDataBM) * kDataBM;
+  p.bn = o > 64 ? 128 : o > 32 ? 64 : 32;
+  return p;
+}
 
 // The forward's chunking and tiles at these shapes.  cb, the channels of a
 // chunk, minimises the padded reduction depth ceil(C / cb) * kc, kc = cb * T
@@ -551,6 +749,50 @@ cudaError_t launch_fwd(const Spider& s, const float* w, const FwdPlan& p, int c,
   return cudaGetLastError();
 }
 
+template <int BN>
+cudaError_t launch_bwd_data(const Spider& s, const float* w, const float* dout, const BwdPlan& p, int o,
+                            float* scratch, float* dgath, float* dg, cudaStream_t st) {
+  float* doutt = scratch;
+  float* wpt = scratch + static_cast<long long>(p.op) * p.mp;
+  spider_transpose_kernel<<<dim3(p.mp / 32, ceil_div(p.op, 32)), kThreads, 0, st>>>(dout, s.rows, o, p, doutt);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long len = static_cast<long long>(s.k) * p.groups * p.op * p.width;
+  const long long blocks = (len + kThreads - 1) / kThreads;
+  spider_bwd_pack_kernel<<<static_cast<int>(blocks < 132 * 16 ? blocks : 132 * 16), kThreads, 0, st>>>(
+      w, s.c, s.t, o, p, len, wpt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto kernel = spider_bwd_data_kernel<BN, BN / 16>;
+  const int smem = data_smem(BN, s.t, p.cb);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(p.mp / kDataBM, s.k), kThreads, smem, st>>>(s, wpt, doutt, p, dgath, dg);
+  return cudaGetLastError();
+}
+
+template <int BM, int BN>
+cudaError_t launch_bwd_weight(const Spider& s, const float* dout, const BwdPlan& p, int o, int slices,
+                              float* target, cudaStream_t st) {
+  auto kernel = spider_bwd_weight_kernel<BM, BN>;
+  const int smem = 4 * (kWeightBK * (BM + 4) + 2 * weight_stage_floats(BN, p.cb, s.t));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int slice_rows = ceil_div(ceil_div(s.rows, slices), kWeightBK) * kWeightBK;
+  kernel<<<dim3(s.k * p.groups, ceil_div(o, BN), slices), kThreads, smem, st>>>(s, dout, o, p, slice_rows, target);
+  return cudaGetLastError();
+}
+
+template <int BM>
+cudaError_t launch_bwd_weight_bm(const Spider& s, const float* dout, const BwdPlan& p, int o, int slices,
+                                 float* target, cudaStream_t st) {
+  if (p.bn == 128) return launch_bwd_weight<BM, 128>(s, dout, p, o, slices, target, st);
+  if (p.bn == 64) return launch_bwd_weight<BM, 64>(s, dout, p, o, slices, target, st);
+  return launch_bwd_weight<BM, 32>(s, dout, p, o, slices, target, st);
+}
+
 }  // namespace
 
 // Floats of the forward's scratch (the packed W) at these shapes, or -1
@@ -579,27 +821,42 @@ extern "C" int spider_fwd_launch(const void* feat, const void* idx, const void* 
   return launch_fwd<32, 4, 4>(s, wf, p, c, t, o, wp, op, st);
 }
 
-// The data backward: the forward's inputs and dout [b, n, o] f32 ->
-// dgath [b, n, k, c] and dg [b, n, k, t] f32.
+// Floats of the data backward's scratch at these shapes (dout transposed,
+// then W^T packed into chunk slabs), or -1 where it does not take them.
+extern "C" long long spider_bwd_data_scratch(int b, int n, int k, int c, int t, int o) {
+  if (b < 1 || n < 1 || k < 1 || c < 1 || t < 1 || t > kMaxT || o < 1) return -1;
+  const BwdPlan p = plan_bwd(b * n, c, t, o);
+  return static_cast<long long>(p.op) * p.mp + static_cast<long long>(k) * p.groups * p.op * p.width;
+}
+
+// The data backward: the forward's inputs, dout [b, n, o] f32 and scratch of
+// spider_bwd_data_scratch floats -> dgath [b, n, k, c] and dg [b, n, k, t]
+// f32.  Transposes dout and packs W into the scratch, then runs the product.
 extern "C" int spider_bwd_data_launch(const void* feat, const void* idx, const void* g, const void* w,
-                                      const void* dout, int b, int n, int k, int c, int t, int o, void* dgath,
-                                      void* dg, void* stream) {
+                                      const void* dout, int b, int n, int k, int c, int t, int o, void* scratch,
+                                      void* dgath, void* dg, void* stream) {
   Spider s;
   if (!make_spider(feat, idx, g, b, n, k, c, t, s) || o < 1 || k > 65535) return cudaErrorInvalidValue;
-  const dim3 grid(ceil_div(s.rows, kDataBM), k);
-  spider_bwd_data_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, static_cast<const float*>(w), static_cast<const float*>(dout), o, kDataBN / t,
-      static_cast<float*>(dgath), static_cast<float*>(dg));
-  return cudaGetLastError();
+  const BwdPlan p = plan_bwd(s.rows, c, t, o);
+  if (ceil_div(p.op, 32) > 65535) return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* wf = static_cast<const float*>(w);
+  auto* dp = static_cast<const float*>(dout);
+  auto* sc = static_cast<float*>(scratch);
+  auto* gath = static_cast<float*>(dgath);
+  auto* dgp = static_cast<float*>(dg);
+  if (p.width == 128) return launch_bwd_data<128>(s, wf, dp, p, o, sc, gath, dgp, st);
+  if (p.width == 64) return launch_bwd_data<64>(s, wf, dp, p, o, sc, gath, dgp, st);
+  return launch_bwd_data<32>(s, wf, dp, p, o, sc, gath, dgp, st);
 }
 
 // The number of row slices of the weight backward at these shapes: enough
 // blocks for eight waves of two per SM of an H100 (132 SMs), so the last
 // wave's tail is short, in slices of at least 256 rows.
-extern "C" int spider_bwd_weight_slices(int rows, int r_len, int o) {
-  if (rows < 1 || r_len < 1 || o < 1) return 1;
-  const long long tiles = wide(o) ? static_cast<long long>(ceil_div(r_len, 128)) * ceil_div(o, 64)
-                                  : static_cast<long long>(ceil_div(r_len, 64)) * ceil_div(o, 32);
+extern "C" int spider_bwd_weight_slices(int rows, int k, int c, int t, int o) {
+  if (rows < 1 || k < 1 || c < 1 || t < 1 || t > kMaxT || o < 1) return 1;
+  const BwdPlan p = plan_bwd(rows, c, t, o);
+  const long long tiles = static_cast<long long>(k) * p.groups * ceil_div(o, p.bn);
   const long long want = (8 * 2 * 132 + tiles - 1) / tiles, most = rows / 256 > 1 ? rows / 256 : 1;
   return static_cast<int>(want < most ? want : most);
 }
@@ -612,18 +869,14 @@ extern "C" int spider_bwd_weight_launch(const void* feat, const void* idx, const
                                         void* dw, void* stream) {
   Spider s;
   if (!make_spider(feat, idx, g, b, n, k, c, t, s) || o < 1 || slices < 1 || slices > 65535) return cudaErrorInvalidValue;
+  const BwdPlan p = plan_bwd(s.rows, c, t, o);
+  if (ceil_div(o, p.bn) > 65535) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   auto* dp = static_cast<const float*>(dout);
   float* target = slices == 1 ? static_cast<float*>(dw) : static_cast<float*>(part);
-  const int slice_rows = ceil_div(ceil_div(s.rows, slices), kBK) * kBK;
-  if (wide(o)) {
-    const dim3 grid(ceil_div(s.r_len, 128), ceil_div(o, 64), slices);
-    spider_bwd_weight_kernel<128, 64, 8, 4><<<grid, kThreads, 0, st>>>(s, dp, o, slice_rows, target);
-  } else {
-    const dim3 grid(ceil_div(s.r_len, 64), ceil_div(o, 32), slices);
-    spider_bwd_weight_kernel<64, 32, 4, 2><<<grid, kThreads, 0, st>>>(s, dp, o, slice_rows, target);
-  }
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = p.width == 128 ? launch_bwd_weight_bm<128>(s, dp, p, o, slices, target, st)
+                    : p.width == 64 ? launch_bwd_weight_bm<64>(s, dp, p, o, slices, target, st)
+                                    : launch_bwd_weight_bm<32>(s, dp, p, o, slices, target, st);
   if (err != cudaSuccess || slices == 1) return err;
   const long long len = static_cast<long long>(s.r_len) * o;
   const long long blocks = (len + kThreads - 1) / kThreads;

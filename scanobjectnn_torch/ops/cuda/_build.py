@@ -34,8 +34,8 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (see csrc/*.cu).
 _SIGNATURES = {
-    # xyz, b, n, m, idx, new_xyz (nullable), stream
-    "fps_launch": (_P, _I, _I, _I, _P, _P, _P),
+    # xyz, b, n, m, idx, new_xyz (nullable), mind (nullable), stream
+    "fps_launch": (_P, _I, _I, _I, _P, _P, _P, _P),
     # xyz, new_xyz, src, b, n, m, cs, k, r2, w0x, w0f, prelifted, bf16,
     # n_layers, widths*, weights*, biases*, pooled, idx (nullable), stream
     "safused_launch": (
@@ -66,10 +66,10 @@ _SIGNATURES = {
     "count_sort_launch": (_P, _I, _I, _I, _P, _P, _P, _P),
     # idx, upd, b, n, r, c, offsets, perm, counts, out, stream
     "scatter_add_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    # queries, keys, bias (nullable), b, m, n, c, k, dist, idx, stream
-    "knn_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P),
-    # feats, b, n, c, k, idx, stream
-    "knn_graph_launch": (_P, _I, _I, _I, _I, _P, _P),
+    # queries, keys, bias (nullable), b, m, n, c, k, dist, idx, scratch (nullable), stream
+    "knn_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # feats, b, n, c, k, idx, dist (nullable), scratch (nullable), stream
+    "knn_graph_launch": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
     # xyz, b, n, dup, stream
     "dupmask_launch": (_P, _I, _I, _P, _P),
     # vals, idx, b, n, k, cv, mmax, mmin, sum, sumsq, cntmax, cntmin, stream
@@ -81,10 +81,12 @@ _SIGNATURES = {
     "spider_fwd_scratch": (_I, _I, _I, _I),
     # feat, idx, g, w, b, n, k, c, t, o, scratch, out, stream
     "spider_fwd_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    # feat, idx, g, w, dout, b, n, k, c, t, o, dgath, dg, stream
-    "spider_bwd_data_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    # rows, k * c * t, o -> the weight backward's number of row slices
-    "spider_bwd_weight_slices": (_I, _I, _I),
+    # b, n, k, c, t, o -> floats of the data backward's scratch (long long)
+    "spider_bwd_data_scratch": (_I, _I, _I, _I, _I, _I),
+    # feat, idx, g, w, dout, b, n, k, c, t, o, scratch, dgath, dg, stream
+    "spider_bwd_data_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # rows, k, c, t, o -> the weight backward's number of row slices
+    "spider_bwd_weight_slices": (_I, _I, _I, _I, _I),
     # feat, idx, g, dout, b, n, k, c, t, o, slices, part, dw, stream
     "spider_bwd_weight_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # z32, gamma, beta, mean, r, rows, k, c, bf16, pooled, kmax, cnt, stream
@@ -95,7 +97,7 @@ _SIGNATURES = {
 }
 
 # Entry points that return something other than a cudaError_t (int).
-_RESTYPES = {"spider_fwd_scratch": ctypes.c_longlong}
+_RESTYPES = {"spider_fwd_scratch": ctypes.c_longlong, "spider_bwd_data_scratch": ctypes.c_longlong}
 
 _lib = None
 build_seconds: float | None = None  # wall time of the nvcc run, if one ran

@@ -23,7 +23,12 @@ argmax.  The kernel runs one block per cloud (B=128 blocks on 132 SMs),
 keeps each thread's points and their ``min_dist`` in registers and the
 cloud's coordinates in shared memory, and pays one ``__syncthreads`` per
 step: warp-shuffle argmax, one double-buffered shared-memory exchange of
-the per-warp winners, then every warp reduces those redundantly.
+the per-warp winners, then every warp reduces those redundantly.  That
+holds a cloud of at most ``REGISTER_MAX_POINTS`` (8192) points; a larger
+cloud (a raw scan) takes a second kernel that reads its coordinates from
+device memory every step and keeps each point's ``min_dist`` in a scratch
+row the wrapper allocates, with the same arithmetic and the same argmax,
+so both kernels give the plain version's bits at any N.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ from scanobjectnn_torch.ops.cuda import _build
 
 __all__ = ["fps", "fps_plain"]
 
-MAX_POINTS = 8 * 1024  # 8 points per thread at 1024 threads
+REGISTER_MAX_POINTS = 8 * 1024  # kRegisterMaxPoints in csrc/fps.cu: 8 points per thread at 1024 threads
 
 
 def fps_plain(xyz: torch.Tensor, npoint: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -70,7 +75,9 @@ def fps(xyz: torch.Tensor, npoint: int, with_coords: bool = True):
 
     A CPU tensor takes ``fps_plain``; a CUDA tensor launches the kernel
     (counted in ``fps.launches``; a launch without coordinates, the TPU's
-    ``fps_pallas``, also in ``fps.index_launches``) or raises."""
+    ``fps_pallas``, also in ``fps.index_launches``, and one above
+    ``REGISTER_MAX_POINTS`` points also in ``fps.large_launches``) or
+    raises."""
     if xyz.device.type == "cpu":
         idx, new_xyz = fps_plain(xyz, npoint)
         return (idx, new_xyz) if with_coords else idx
@@ -81,25 +88,29 @@ def fps(xyz: torch.Tensor, npoint: int, with_coords: bool = True):
     if not xyz.is_contiguous():
         raise ValueError("fps: xyz must be contiguous")
     b, n, _ = xyz.shape
-    if npoint < 1 or not 1 <= n <= MAX_POINTS:
-        raise ValueError(f"fps: need npoint >= 1 and 1 <= N <= {MAX_POINTS}; got {npoint}, {n}")
+    if npoint < 1 or n < 1:
+        raise ValueError(f"fps: need npoint >= 1 and N >= 1; got {npoint}, {n}")
+    large = n > REGISTER_MAX_POINTS
     idx = torch.empty(b, npoint, dtype=torch.int32, device=xyz.device)
     new_xyz = (
         torch.empty(b, npoint, 3, dtype=torch.float32, device=xyz.device)
         if with_coords else None
     )
+    mind = torch.empty(b, n, dtype=torch.float32, device=xyz.device) if large else None
     lib = _build.library()
     with torch.cuda.device(xyz.device):
         err = lib.fps_launch(
             xyz.data_ptr(), b, n, npoint, idx.data_ptr(),
-            new_xyz.data_ptr() if with_coords else None,
+            new_xyz.data_ptr() if with_coords else None, mind.data_ptr() if large else None,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "fps")
     fps.launches += 1
     fps.index_launches += not with_coords
+    fps.large_launches += large
     return (idx, new_xyz) if with_coords else idx
 
 
 fps.launches = 0
 fps.index_launches = 0
+fps.large_launches = 0  # of them, N > REGISTER_MAX_POINTS (fps_large_kernel)

@@ -21,14 +21,17 @@ Semantics (the contract of ``knn_point_pallas``):
 Any C, M and N and any k >= 1, as ``knn_point_pallas``: up to ``MAX_K``
 (64; PointCNN's ``xdconv_4`` asks for k = 48) each query's list stays in
 registers, above it the kernel sorts every distance of the query in shared
-memory, which holds a cloud of at most ``SORT_MAX_N`` (16384) keys.  The
-outputs carry no gradient.
+memory, a tile of at most ``SORT_TILE`` (16384) keys at a time; a larger
+cloud's tiles are merged into a running list of min(k, N) words a query in
+a scratch buffer that the wrapper allocates.  The outputs carry no
+gradient.
 
 ``knn_graph_kernel(features [B, N, C], k) -> idx [B, N, k] int32`` is the
 self-kNN: every point is a query and a key, so each point's first neighbour
 is itself (its distance is exactly 0).  It is ``knn_point_kernel(x, x,
-k)[1]`` bit for bit, with the cloud read once and, at C = 3 and 64, the
-query row held in registers; 1 <= k <= ``GRAPH_MAX_K``.
+k)[1]`` bit for bit: up to ``GRAPH_MAX_K`` its own kernel, with the cloud
+read once and, at C = 3 and 64, the query row held in registers; above it
+the general kernel with the cloud as its queries (that very call).
 
 What bounds it on the H100: operations, about 2C + 4 per (query, key) pair;
 at fp3 (B=32, 1024 queries, 512 keys, C=3) about 2.5 us of f32 work against
@@ -49,7 +52,7 @@ from scanobjectnn_torch.ops.cuda import _build
 __all__ = [
     "GRAPH_MAX_K",
     "MAX_K",
-    "SORT_MAX_N",
+    "SORT_TILE",
     "knn_graph_kernel",
     "knn_graph_plain",
     "knn_point_kernel",
@@ -58,8 +61,8 @@ __all__ = [
 ]
 
 MAX_K = 64  # kMaxK in csrc/knn.cu: the largest k kept in registers
-SORT_MAX_N = 16384  # kSortMaxN in csrc/knn.cu: the largest cloud above MAX_K
-GRAPH_MAX_K = 32  # kGraphMaxK in csrc/knn.cu
+SORT_TILE = 16384  # kSortTile in csrc/knn.cu: keys sorted at once above MAX_K
+GRAPH_MAX_K = 32  # kGraphMaxK in csrc/knn.cu: the largest k of the graph's own kernel
 
 
 def _sum_of_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -125,7 +128,9 @@ def knn_point_kernel(
 
     A CPU tensor takes ``knn_point_plain``; a CUDA tensor launches the kernel
     (counted in ``knn_point_kernel.launches``, and above k = ``MAX_K`` in
-    ``knn_point_kernel.sort_launches`` too) or raises."""
+    ``knn_point_kernel.sort_launches`` too, and of those, on a cloud of more
+    than ``SORT_TILE`` keys, in ``knn_point_kernel.tiled_launches``) or
+    raises."""
     if queries.device.type == "cpu":
         return knn_point_plain(queries, keys, k, bias)
     if queries.device.type != "cuda":
@@ -143,27 +148,36 @@ def knn_point_kernel(
         _check_cuda("bias", bias, (b, n), dev)
     if k < 1:
         raise ValueError(f"knn_point_kernel: kernel takes k >= 1, got {k}")
-    if k > MAX_K and n > SORT_MAX_N:
-        raise ValueError(f"knn_point_kernel: above k = {MAX_K} the kernel takes N <= {SORT_MAX_N} keys, got {n}")
     if min(b, m, n, c) < 1:
         raise ValueError(f"knn_point_kernel: empty input {tuple(queries.shape)}, {tuple(keys.shape)}")
     dist = torch.empty(b, m, k, dtype=torch.float32, device=dev)
     idx = torch.empty(b, m, k, dtype=torch.int32, device=dev)
+    scratch = _sort_scratch(b, m, n, k, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.knn_launch(
             queries.data_ptr(), keys.data_ptr(), None if bias is None else bias.data_ptr(),
-            b, m, n, c, k, dist.data_ptr(), idx.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            b, m, n, c, k, dist.data_ptr(), idx.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "knn_point_kernel")
     knn_point_kernel.launches += 1
-    if k > MAX_K:
-        knn_point_kernel.sort_launches += 1
+    knn_point_kernel.sort_launches += k > MAX_K
+    knn_point_kernel.tiled_launches += scratch is not None
     return dist, idx
 
 
 knn_point_kernel.launches = 0
 knn_point_kernel.sort_launches = 0  # of them, k > MAX_K (the sort)
+knn_point_kernel.tiled_launches = 0  # of those, N > SORT_TILE (tiles merged)
+
+
+def _sort_scratch(b: int, m: int, n: int, k: int, device) -> torch.Tensor | None:
+    """The tiled sort's two lists of min(k, N) words a query, where the
+    kernel takes that path (k > MAX_K and N > SORT_TILE), else None."""
+    if k <= MAX_K or n <= SORT_TILE:
+        return None
+    return torch.empty(2 * b * m * min(k, n), dtype=torch.int64, device=device)
 
 
 def knn_graph_kernel(features: torch.Tensor, k: int) -> torch.Tensor:
@@ -171,7 +185,9 @@ def knn_graph_kernel(features: torch.Tensor, k: int) -> torch.Tensor:
     int32, ascending.
 
     A CPU tensor takes ``knn_graph_plain``; a CUDA tensor launches the
-    kernel (counted in ``knn_graph_kernel.launches``) or raises."""
+    kernel (counted in ``knn_graph_kernel.launches``; above ``GRAPH_MAX_K``
+    the general kernel, also counted in ``knn_graph_kernel.routed_launches``)
+    or raises."""
     if features.device.type == "cpu":
         return knn_graph_plain(features, k)
     if features.device.type != "cuda":
@@ -180,19 +196,26 @@ def knn_graph_kernel(features: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"knn_graph_kernel: need [B, N, C], got {tuple(features.shape)}")
     b, n, c = features.shape
     _check_cuda("features", features, (b, n, c), features.device, "knn_graph_kernel")
-    if not 1 <= k <= GRAPH_MAX_K:
-        raise ValueError(f"knn_graph_kernel: kernel takes 1 <= k <= {GRAPH_MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"knn_graph_kernel: kernel takes k >= 1, got {k}")
     if min(b, n, c) < 1:
         raise ValueError(f"knn_graph_kernel: empty input {tuple(features.shape)}")
-    idx = torch.empty(b, n, k, dtype=torch.int32, device=features.device)
+    dev = features.device
+    idx = torch.empty(b, n, k, dtype=torch.int32, device=dev)
+    routed = k > GRAPH_MAX_K
+    dist = torch.empty(b, n, k, dtype=torch.float32, device=dev) if routed else None
+    scratch = _sort_scratch(b, n, n, k, dev)
     lib = _build.library()
-    with torch.cuda.device(features.device):
+    with torch.cuda.device(dev):
         err = lib.knn_graph_launch(
-            features.data_ptr(), b, n, c, k, idx.data_ptr(), torch.cuda.current_stream().cuda_stream
+            features.data_ptr(), b, n, c, k, idx.data_ptr(), None if dist is None else dist.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "knn_graph_kernel")
     knn_graph_kernel.launches += 1
+    knn_graph_kernel.routed_launches += routed
     return idx
 
 
 knn_graph_kernel.launches = 0
+knn_graph_kernel.routed_launches = 0  # of them, k > GRAPH_MAX_K (the general kernel)

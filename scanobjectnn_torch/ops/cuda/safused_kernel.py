@@ -25,15 +25,15 @@ Outputs: ``pooled [B, M, Cout]`` in the compute dtype and ``idx [B, M, K]``
 int32 for K <= 64; at K > 64 ``idx`` is None, as in the JAX function.
 
 What bounds it on the H100: the folded MLP's FLOPs (SA2 at B=128 is about
-138 GFLOP) on CUDA cores, fed from shared memory.  This first kernel keeps
-each block's rows (queries x K slots, at most 64) and their activations in
-shared memory, reads the weights through L2 (the SA2 weights, ~264 KB in
-f32, do not fit in shared memory), gives each thread 8 rows of one output
-column so one weight load feeds 8 FMAs, and folds the last layer into the
-max-pool so its output never lands in memory.  K > 64 takes one query a
-block and runs the same code over chunks of 64 slots, carrying each
-column's running max from chunk to chunk.  Tensor cores (wgmma) are the
-next step.
+138 GFLOP), fed from shared memory.  The kernel keeps each block's rows
+(queries x K slots, at most 64) and their activations in shared memory
+and folds the last layer into the max-pool so its output never lands in
+memory.  It reads the weights through L2 and gives each thread 8 rows of
+one output column, so one weight load feeds 8 FMAs on the CUDA cores, in
+f32 and in bf16 (the tensor-core version of the bf16 MLP holds each
+call's gate but not the models' logits gate: ``csrc/sapool.cuh``).  K > 64
+takes one query a block and runs the same code over chunks of 64 slots,
+carrying each column's running max from chunk to chunk.
 """
 
 from __future__ import annotations

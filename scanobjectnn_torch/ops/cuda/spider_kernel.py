@@ -30,12 +30,16 @@ On the card the forward is ``spider_conv_fwd_kernel`` (the kernel packs
 ``kernel`` into a scratch buffer that the wrapper allocates, slot by slot
 in tiles of columns, then stages the Taylor product chunk by chunk with a
 ``cp.async`` ring); the backward
-(``spider_conv_bwd_kernel``) is the data backward (the gathered-row
-gradient [B, N, K, C] and ``dg``), the deterministic scatter-add #7
+(``spider_conv_bwd_kernel``) is the data backward (``spider_bwd_data``:
+the gathered-row gradient [B, N, K, C] and ``dg``; it transposes ``dout``
+and packs ``kernel``'s chunk slabs into a scratch buffer, then stages both
+with a ``cp.async`` ring), the deterministic scatter-add #7
 (``scatter_add_rows``) of the gathered-row gradient into ``dfeat``, and
-the weight backward, whose rows are split into a fixed number of slices
-summed in order: two calls give the same bits.  The backward reads the
-gathered rows from ``feat`` again where the TPU saved them.
+the weight backward (``spider_bwd_weight``: the Taylor product formed a
+stage of rows at a time from staged neighbour and basis values), whose
+rows are split into a fixed number of slices summed in order: two calls
+give the same bits.  The backward reads the gathered rows from ``feat``
+again where the TPU saved them.
 
 What bounds it on the H100: operations, 2·B·N·(K·C·T)·O flops for the
 forward and for each half of the backward (282 GFLOP a forward of the four
@@ -55,6 +59,8 @@ from scanobjectnn_torch.ops.cuda.gather_kernel import _check_cuda, gather_rows_p
 
 __all__ = [
     "MAX_T",
+    "spider_bwd_data",
+    "spider_bwd_weight",
     "spider_conv",
     "spider_conv_bwd_kernel",
     "spider_conv_fwd_kernel",
@@ -115,6 +121,50 @@ def spider_conv_fwd_kernel(feat: torch.Tensor, idx: torch.Tensor, g: torch.Tenso
     return out
 
 
+def spider_bwd_data(
+    feat: torch.Tensor, idx: torch.Tensor, g: torch.Tensor, kernel: torch.Tensor, dout: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The data backward's kernels on the card (``spider_conv_bwd_kernel``'s
+    first half, uncounted): -> (dgath [B, N, K, C], dg [B, N, K, T]) f32."""
+    fn = "spider_conv_bwd_kernel"
+    b, n, k, c, t, o = _shapes(fn, feat, idx, g, kernel)
+    _check_cuda(fn, "dout", dout, torch.float32, (b, n, o), feat.device)
+    dev = feat.device
+    dgath = torch.empty(b, n, k, c, dtype=torch.float32, device=dev)
+    dg = torch.empty(b, n, k, t, dtype=torch.float32, device=dev)
+    lib = _build.library()
+    scratch = torch.empty(lib.spider_bwd_data_scratch(b, n, k, c, t, o), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.spider_bwd_data_launch(
+            feat.data_ptr(), idx.data_ptr(), g.data_ptr(), kernel.data_ptr(), dout.data_ptr(), b, n, k, c, t, o,
+            scratch.data_ptr(), dgath.data_ptr(), dg.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, fn)
+    return dgath, dg
+
+
+def spider_bwd_weight(
+    feat: torch.Tensor, idx: torch.Tensor, g: torch.Tensor, kernel: torch.Tensor, dout: torch.Tensor
+) -> torch.Tensor:
+    """The weight backward's kernels on the card (``spider_conv_bwd_kernel``'s
+    second half, uncounted): -> dkernel [K*C*T, O] f32."""
+    fn = "spider_conv_bwd_kernel"
+    b, n, k, c, t, o = _shapes(fn, feat, idx, g, kernel)
+    _check_cuda(fn, "dout", dout, torch.float32, (b, n, o), feat.device)
+    dev = feat.device
+    dkernel = torch.empty(k * c * t, o, dtype=torch.float32, device=dev)
+    lib = _build.library()
+    slices = lib.spider_bwd_weight_slices(b * n, k, c, t, o)
+    part = torch.empty(slices, k * c * t, o, dtype=torch.float32, device=dev) if slices > 1 else dkernel
+    with torch.cuda.device(dev):
+        err = lib.spider_bwd_weight_launch(
+            feat.data_ptr(), idx.data_ptr(), g.data_ptr(), dout.data_ptr(), b, n, k, c, t, o, slices,
+            part.data_ptr(), dkernel.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, fn)
+    return dkernel
+
+
 def spider_conv_bwd_kernel(
     feat: torch.Tensor, idx: torch.Tensor, g: torch.Tensor, kernel: torch.Tensor, dout: torch.Tensor,
     need_feat: bool = True,
@@ -124,27 +174,11 @@ def spider_conv_bwd_kernel(
     dkernel [K*C*T, O]), f32.  Launches the data and weight backward kernels
     (counted together in ``spider_conv_bwd_kernel.launches``) and the
     scatter-add (``scatter_add_rows.launches``), or raises."""
-    fn = "spider_conv_bwd_kernel"
-    b, n, k, c, t, o = _shapes(fn, feat, idx, g, kernel)
-    _check_cuda(fn, "dout", dout, torch.float32, (b, n, o), feat.device)
-    dev = feat.device
-    dgath = torch.empty(b, n, k, c, dtype=torch.float32, device=dev)
-    dg = torch.empty(b, n, k, t, dtype=torch.float32, device=dev)
-    dkernel = torch.empty(k * c * t, o, dtype=torch.float32, device=dev)
-    lib = _build.library()
-    slices = lib.spider_bwd_weight_slices(b * n, k * c * t, o)
-    part = torch.empty(slices, k * c * t, o, dtype=torch.float32, device=dev) if slices > 1 else dkernel
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        ptrs = (feat.data_ptr(), idx.data_ptr(), g.data_ptr())
-        err = lib.spider_bwd_data_launch(*ptrs, kernel.data_ptr(), dout.data_ptr(), b, n, k, c, t, o,
-                                         dgath.data_ptr(), dg.data_ptr(), stream)
-        _build.check(err, fn)
-        err = lib.spider_bwd_weight_launch(*ptrs, dout.data_ptr(), b, n, k, c, t, o, slices, part.data_ptr(),
-                                           dkernel.data_ptr(), stream)
-    _build.check(err, fn)
+    dgath, dg = spider_bwd_data(feat, idx, g, kernel, dout)
+    dkernel = spider_bwd_weight(feat, idx, g, kernel, dout)
     spider_conv_bwd_kernel.launches += 1
-    dfeat = scatter_add_rows(idx.reshape(b, n * k), dgath.reshape(b, n * k, c), n) if need_feat else None
+    b, n, k = idx.shape
+    dfeat = scatter_add_rows(idx.reshape(b, n * k), dgath.reshape(b, n * k, feat.shape[-1]), n) if need_feat else None
     return dfeat, dg, dkernel
 
 

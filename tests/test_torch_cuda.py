@@ -4,7 +4,9 @@ This file imports no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-FPS indices and coordinates must be equal.  Fused SA (#3, K <= 64 and
+FPS indices and coordinates must be equal, above 8192 points too (the
+kernel that keeps min-distances in device memory; ties and NaN rows).
+Fused SA (#3, K <= 64 and
 the chunked K = 80, 128; and #10 over a given grouping): ``idx`` equal
 (None at K > 64); ``pooled`` in f32 to rtol 1e-4 / atol 1e-5 (only the
 summation order differs).  In bf16 the kernel and the plain version sum the same
@@ -27,9 +29,12 @@ EdgeConv backward, which shares it, keeps its bits.
 kNN: indices and squared distances equal to ``knn_point_plain`` (the same
 f32 operations in the same order, and the same tie rule), at any k: the
 register lists up to k = 64, the block-wide sort above (k = 65 to 128, a
-k above N, ties, a NaN key); ``SAModule(knn=True, nsample=72)`` on the card
-against the same layer on the CPU.  The
-self-kNN graph: indices equal to ``knn_graph_plain``, for the same reason.
+k above N, ties, a NaN key), and on more than 16384 keys its sorted tiles
+merged (N = 16385 to 50000, up to a k larger than a tile);
+``SAModule(knn=True, nsample=72)`` on the card against the same layer on
+the CPU.  The self-kNN graph: indices equal to ``knn_graph_plain``, for the
+same reason, at k <= 32 in its own kernel and above through the general
+one (k = 33 to 100, ties).
 The duplicate mask (#12): equal to ``duplicate_mask_plain`` (float ``==``
 on both sides), with ``-0.0``/``0.0`` pairs and NaN points.  PointCNN's
 ``knn_indices_general`` launches both at any Q and N when k <= 64 and
@@ -152,16 +157,20 @@ def dev():
 
 
 @pytest.mark.parametrize(
-    "b,n,m", [(3, 100, 37), (2, 2048, 512), (2, 512, 128), (2, 5000, 64), (1, 8192, 16), (2, 7, 9)]
+    "b,n,m",
+    [(3, 100, 37), (2, 2048, 512), (2, 512, 128), (2, 5000, 64), (1, 8192, 16), (2, 7, 9),
+     # above 8192 points: the kernel that keeps min_dist in device memory
+     (2, 8193, 64), (2, 16384, 128), (1, 40000, 256)],
 )
 def test_fps_kernel_matches_plain(dev, b, n, m):
     xyz = torch.from_numpy(np.random.RandomState(n).randn(b, n, 3).astype(np.float32)).to(dev)
-    before = fps.launches
+    before, large = fps.launches, fps.large_launches
     idx, new_xyz = fps(xyz, m)
     ref_idx, ref_xyz = fps_plain(xyz, m)
     assert torch.equal(idx, ref_idx) and torch.equal(new_xyz, ref_xyz)
     assert torch.equal(fps(xyz, m, with_coords=False), ref_idx)
     assert fps.launches == before + 2
+    assert fps.large_launches == large + (2 if n > 8192 else 0)
 
 
 def test_fps_kernel_ties_and_nan(dev):
@@ -174,6 +183,22 @@ def test_fps_kernel_ties_and_nan(dev):
     ref_idx, ref_xyz = fps_plain(xyz, 256)
     assert torch.equal(idx, ref_idx) and torch.equal(new_xyz, ref_xyz)
     assert (idx[3, 1:] == 1024).all()
+
+
+def test_fps_large_kernel_ties_and_nan(dev):
+    rng = np.random.RandomState(1)
+    n = 12000
+    base = rng.randint(-3, 4, (3, 1500, 3)).astype(np.float32) * 0.25
+    ties = np.stack([c[rng.permutation(n)] for c in np.tile(base, (1, 8, 1))])
+    ties[2, 9000, 1] = np.nan
+    xyz = torch.from_numpy(ties).to(dev)
+    large = fps.large_launches
+    idx, new_xyz = fps(xyz, 200)
+    ref_idx, ref_xyz = fps_plain(xyz, 200)
+    assert fps.large_launches == large + 1
+    assert torch.equal(idx, ref_idx) and torch.equal(new_xyz, ref_xyz)
+    assert torch.equal(fps(xyz, 200, with_coords=False), ref_idx)
+    assert (idx[2, 1:] == n).all() and (new_xyz[2, 1:] == 0).all()
 
 
 # (b, n, m, k, radius, src channels, mlp, use_xyz, xyz_first)
@@ -575,6 +600,14 @@ KNN_CASES = {
     "k72_duplicates": (2, 256, 512, 3, 72, False, "lattice"),
     "k80_c7_nan_key": (2, 64, 300, 7, 80, False, "nan"),
     "k100_few_keys": (2, 64, 80, 3, 100, False, "normal"),
+    # k > 64 on clouds of more than 16384 keys: sorted tiles merged, up to a
+    # k larger than a tile.
+    "k65_n16385": (2, 4, 16385, 3, 65, False, "normal"),
+    "k128_n20000_bias": (1, 6, 20000, 3, 128, True, "normal"),
+    "k65_n50000_duplicates": (1, 8, 50000, 3, 65, False, "lattice"),
+    "k128_n50000_nan_key": (2, 16, 50000, 3, 128, False, "nan"),
+    "k128_n50000_c7": (1, 64, 50000, 7, 128, False, "normal"),
+    "k20000_n50000": (1, 3, 50000, 3, 20000, True, "normal"),
 }
 
 
@@ -601,11 +634,12 @@ def test_knn_kernel_matches_plain(dev, case):
     q, keys, bias = (None if a is None else torch.from_numpy(a).to(dev)
                      for a in knn_inputs(spec, np.random.RandomState(spec[1] + spec[2])))
     k = spec[4]
-    before = knn_point_kernel.launches
+    before, tiled = knn_point_kernel.launches, knn_point_kernel.tiled_launches
     d, i = knn_point_kernel(q, keys, k, bias)
     ref_d, ref_i = knn_point_plain(q, keys, k, bias)
     torch.cuda.synchronize()
     assert knn_point_kernel.launches == before + 1
+    assert knn_point_kernel.tiled_launches == tiled + (k > 64 and spec[2] > 16384)
     assert d.dtype == torch.float32 and i.dtype == torch.int32 and d.shape == (spec[0], spec[1], k)
     assert torch.equal(i, ref_i) and torch.equal(d, ref_d)
     if case == "fp1":
@@ -618,7 +652,7 @@ def test_knn_kernel_matches_plain(dev, case):
         n_keys = spec[2]
         assert bool(torch.isinf(d[..., n_keys:]).all()) and bool((i[..., n_keys:] == 0).all())
         assert bool(torch.isfinite(d[..., :n_keys]).all())
-    if case == "k80_c7_nan_key":
+    if case in ("k80_c7_nan_key", "k128_n50000_nan_key"):
         assert not bool((i[1] == 7).any())
 
 
@@ -636,8 +670,12 @@ def test_knn_kernel_refuses_what_it_does_not_take(dev):
     q = torch.zeros(1, 8, 3, device=dev)
     with pytest.raises(ValueError, match="k >= 1"):
         knn_point_kernel(q, q, 0)
-    with pytest.raises(ValueError, match="N <= 16384"):  # k > 64 sorts the cloud in shared memory
-        knn_point_kernel(q, torch.zeros(1, 16385, 3, device=dev), 65)
+    # k > 64 on more than 16384 keys, refused before the sorted tiles were
+    # merged, now answers as the plain version does.
+    big = torch.zeros(1, 16385, 3, device=dev)
+    d, i = knn_point_kernel(q, big, 65)
+    ref_d, ref_i = knn_point_plain(q, big, 65)
+    assert torch.equal(i, ref_i) and torch.equal(d, ref_d)
     with pytest.raises(ValueError, match="float32"):
         knn_point_kernel(q.double(), q, 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -664,6 +702,14 @@ GRAPH_CASES = {
     "c5_k3": (3, 37, 5, 3, "normal"),
     "duplicates_c3": (4, 1024, 3, 20, "lattice"),
     "duplicates_c64": (2, 512, 64, 20, "lattice"),
+    # k > 32: the general kNN kernel with the cloud as its queries (its
+    # register lists up to k = 64, the sort above).
+    "c3_k33": (2, 300, 3, 33, "normal"),
+    "c64_k40": (2, 1024, 64, 40, "normal"),
+    "c3_k40": (4, 1024, 3, 40, "normal"),
+    "c5_k64": (2, 257, 5, 64, "normal"),
+    "duplicates_c3_k40": (2, 512, 3, 40, "lattice"),
+    "c3_k100_sort": (2, 300, 3, 100, "normal"),
 }
 
 
@@ -673,11 +719,12 @@ def test_knn_graph_kernel_matches_plain(dev, case):
     rng = np.random.RandomState(n + c)
     x = lattice_cloud(rng, b, n, c) if cloud == "lattice" else rng.randn(b, n, c).astype(np.float32)
     x = torch.from_numpy(x).to(dev)
-    before = knn_graph_kernel.launches
+    before, routed = knn_graph_kernel.launches, knn_graph_kernel.routed_launches
     idx = knn_graph_kernel(x, k)
     want = knn_graph_plain(x, k)
     torch.cuda.synchronize()
     assert knn_graph_kernel.launches == before + 1
+    assert knn_graph_kernel.routed_launches == routed + (k > 32)
     assert idx.dtype == torch.int32 and idx.shape == (b, n, k)
     assert torch.equal(idx, want)
     if cloud == "normal":
@@ -686,8 +733,11 @@ def test_knn_graph_kernel_matches_plain(dev, case):
 
 def test_knn_graph_kernel_refuses_what_it_does_not_take(dev):
     x = torch.zeros(1, 8, 3, device=dev)
-    with pytest.raises(ValueError, match="k <= 32"):
-        knn_graph_kernel(x, 33)
+    with pytest.raises(ValueError, match="k >= 1"):
+        knn_graph_kernel(x, 0)
+    # k > 32, refused before the graph took the general kernel, now answers
+    # as the plain version does.
+    assert torch.equal(knn_graph_kernel(x, 33), knn_graph_plain(x, 33))
     with pytest.raises(ValueError, match="float32"):
         knn_graph_kernel(x.double(), 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -713,6 +763,7 @@ EDGE_CASES = {
     "ec4": (4, 1024, 64, 128, 20, False),
     "cv24_k8": (2, 300, 16, 24, 8, False),
     "ties": (2, 512, 3, 34, 20, True),
+    "ec2_k40": (2, 512, 64, 64, 40, False),  # the graph through the general kNN
 }
 
 
@@ -762,6 +813,22 @@ def test_edge_gather_knn_matches_plain(dev, dtype):
     assert grad.dtype == dtype
     if dtype == torch.float32:
         assert float((grad - ref).abs().max()) <= SCATTER_TOL * max(1.0, float(ref.abs().max()))
+
+
+def test_edge_gather_knn_at_k40_matches_plain(dev):
+    feats, vals = _edge_inputs(dev, 2, 1024, 3, 64, False, seed=10)
+    routed = knn_graph_kernel.routed_launches
+    v = vals.clone().requires_grad_()
+    rows, idx = edge_gather_knn(feats, v, 40)
+    vp = vals.clone().requires_grad_()
+    want, want_idx = edge_gather_knn_plain(feats, vp, 40)
+    assert torch.equal(idx, want_idx) and torch.equal(rows, want)
+    cot = torch.from_numpy(np.random.RandomState(3).randn(*rows.shape).astype(np.float32)).to(dev)
+    (grad,) = torch.autograd.grad(rows, v, cot)
+    (ref,) = torch.autograd.grad(want, vp, cot)
+    torch.cuda.synchronize()
+    assert knn_graph_kernel.routed_launches == routed + 1
+    assert float((grad - ref).abs().max()) <= SCATTER_TOL * max(1.0, float(ref.abs().max()))
 
 
 def test_edge_reduce_kernels_refuse_what_they_do_not_take(dev):

@@ -1,5 +1,5 @@
 """PyTorch port, the DGCNN slice: full-width ``dgcnn`` and ``dgcnn_bga``
-forwards on the CPU at B=2, N=128 (k=8 and k=20) against the JAX models on
+forwards on the CPU at B=2, N=128 (k=8, 20 and 40) against the JAX models on
 the same weights, in f32 and bf16; the port's fused EdgeConv path against
 its unfused one; and the weights carried across.
 
@@ -141,7 +141,7 @@ def feed_jax(monkeypatch, graphs, margin, shares, checked=True):
     monkeypatch.setattr(jops, "knn_graph", given)
 
 
-@pytest.mark.parametrize("k", [8, 20])
+@pytest.mark.parametrize("k", [8, 20, 40])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("name", MODELS)
 def test_matches_jax_on_the_ports_graphs(monkeypatch, points, variables, name, dtype, k):

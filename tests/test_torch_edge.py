@@ -115,6 +115,8 @@ def _assert_scaled(got, want, tol, what):
 # and the JAX package's own test shape; seeds whose clouds clear the margin.
 CASES = {
     "ec1_k20": (2, 128, 3, 64, 20, 151), "ec2_k20": (2, 128, 64, 64, 20, 200), "small_k8": (2, 64, 16, 16, 8, 88),
+    # k = 40: on the card the graph is the general kNN kernel's
+    "ec1_k40": (2, 128, 3, 64, 40, 0),
 }
 
 
@@ -153,8 +155,16 @@ def test_edge_reduce_ties_split_the_gradient():
 
 
 def test_edge_gather_knn_matches_jax():
-    feats, vals = _clouds(3, 2, 128, 3, 64)
-    k = 20
+    _check_edge_gather_knn(3, 20)
+
+
+def test_edge_gather_knn_at_k40_matches_jax():
+    # k = 40: on the card the graph is the general kNN kernel's.
+    _check_edge_gather_knn(1, 40)
+
+
+def _check_edge_gather_knn(seed, k):
+    feats, vals = _clouds(seed, 2, 128, 3, 64)
     assert clear_rows(feats, k).all()
     v = torch.from_numpy(vals).requires_grad_()
     rows, idx = edge_gather_knn(torch.from_numpy(feats), v, k)

@@ -56,6 +56,26 @@ def test_fps_nan_row_rule_matches_pallas(rng):
     np.testing.assert_array_equal(idx[0].numpy(), np.asarray(fps_pallas(jnp.asarray(xyz[:1]), 16, True))[0])
 
 
+@pytest.mark.parametrize("kind", ["normal", "duplicates"])
+@pytest.mark.parametrize("n,npoint", [(8193, 32), (12000, 64)])
+def test_fps_plain_matches_jax_above_8192_points(rng, kind, n, npoint):
+    """Clouds larger than the card's register kernel takes (its second
+    kernel's range): equal to the lax path; with a NaN row, to the
+    interpreted Pallas kernel's rule (the lax path picks the NaN point)."""
+    xyz = _cloud(kind, rng, n=n)
+    idx, new_xyz = fps_plain(torch.from_numpy(xyz), npoint)
+    ref = np.asarray(farthest_point_sample_lax(jnp.asarray(xyz), npoint))
+    np.testing.assert_array_equal(idx.numpy(), ref)
+    np.testing.assert_array_equal(new_xyz.numpy(), np.asarray(jax_gather_point(jnp.asarray(xyz), ref)))
+    xyz[1, n // 2, 2] = np.nan
+    idx, new_xyz = fps_plain(torch.from_numpy(xyz), npoint)
+    ref_idx, ref_xyz = fps_pallas_with_coords(jnp.asarray(xyz), npoint, True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+    np.testing.assert_array_equal(new_xyz.numpy(), np.asarray(ref_xyz))
+    assert (idx[1, 1:] == n).all() and (new_xyz[1, 1:] == 0).all()
+    np.testing.assert_array_equal(idx[0].numpy(), ref[0])
+
+
 def test_ops_entry_points(rng):
     xyz = _cloud("normal", rng)
     t = torch.from_numpy(xyz)

@@ -105,6 +105,22 @@ def test_knn_plain_matches_pallas_and_lax(k, with_bias):
         assert torch.equal(gd, d) and torch.equal(gi, i)
 
 
+@pytest.mark.parametrize("n,k", [(16385, 65), (16385, 128), (20000, 65), (20000, 128)])
+def test_knn_plain_matches_lax_past_16384_keys(n, k):
+    """More keys than the card's sorted tile (16384) at k > 64, where the
+    kernel merges sorted tiles: equal to the lax path.  Coordinates are
+    multiples of 1/64, so every d² is exact on both sides and the many
+    equal distances are compared too (lowest index first)."""
+    rng = np.random.RandomState(n + k)
+    keys = (rng.randint(-64, 65, (2, n, 3)) / 64.0).astype(np.float32)
+    q = (rng.randint(-64, 65, (2, 4, 3)) / 64.0).astype(np.float32)
+    d, i = knn_point_plain(_t(q), _t(keys), k)
+    ld, li = knn_point_lax(k, jnp.asarray(keys), jnp.asarray(q))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(li))
+    np.testing.assert_array_equal(d.numpy(), np.asarray(ld))
+    assert bool((d[..., 1:] == d[..., :-1]).any())  # the lattice gives ties
+
+
 def test_knn_duplicate_keys_lowest_index_wins():
     rng = np.random.RandomState(1)
     keys = _cloud(rng, 2, 64)

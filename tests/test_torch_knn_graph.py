@@ -55,7 +55,9 @@ def assert_graphs_agree(got: np.ndarray, want: np.ndarray, clear: np.ndarray, wh
 
 # (b, n, c, k): the T-Net / EdgeConv 1 width (3) and EdgeConv 2-4 (64) at
 # DGCNN's k=20 and a smaller k, and a generic width.
-CASES = {"c3_k20": (2, 128, 3, 20), "c64_k20": (2, 128, 64, 20), "c64_k8": (2, 96, 64, 8), "c16_k5": (3, 64, 16, 5)}
+CASES = {"c3_k20": (2, 128, 3, 20), "c64_k20": (2, 128, 64, 20), "c64_k8": (2, 96, 64, 8), "c16_k5": (3, 64, 16, 5),
+         # k > 32: on the card the general kNN kernel with the cloud as its queries
+         "c3_k40": (2, 128, 3, 40), "c64_k40": (2, 128, 64, 40)}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -89,6 +91,17 @@ def test_knn_graph_ties_and_duplicates(c):
     first = twins.argmax(-1)
     np.testing.assert_array_equal(got[..., 0], first)
     assert (np.diff(got[..., :4], axis=-1) > 0).all()
+
+
+def test_knn_graph_k40_ties_and_duplicates():
+    # As above at k = 40, which the card serves with the general kNN kernel.
+    rng = np.random.RandomState(40)
+    base = rng.randint(-3, 4, (2, 32, 3)).astype(np.float32) * 0.25
+    x = np.stack([p[rng.permutation(128)] for p in np.tile(base, (1, 4, 1))])
+    got = ops.knn_graph(torch.from_numpy(x), 40).numpy()
+    everything = np.ones(x.shape[:2], bool)
+    assert_graphs_agree(got, np.asarray(knn_graph_lax(jnp.asarray(x), 40)), everything, "knn_graph_lax")
+    assert_graphs_agree(got, np.asarray(knn_graph_pallas(jnp.asarray(x), 40, True)), everything, "knn_graph_pallas")
 
 
 def test_knn_graph_is_the_self_knn_point_and_carries_no_gradient():
