@@ -4,10 +4,16 @@
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
 
 Phases (any failure raises and the exit code is not 0):
-  1. build the CUDA kernels of ``scanobjectnn_torch/csrc`` with nvcc;
+  1. build the CUDA kernels of ``scanobjectnn_torch/csrc`` with nvcc; print
+     the registers, local memory and blocks per SM of each instantiation of
+     the fused SA kernels (#3/#10 and #4, f32 and bf16) at the main paths'
+     shapes, and require no local memory;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes of the main path (FPS 2048->512 and 512->128; the fused SA1 and
      SA2 layers at B=128 in f32 and bf16), and time both with CUDA events;
+     every timed fused SA call (#3 here and in phase 9, #10 in phase 10, #4
+     in phase 12) prints its MLP's FLOPs, their f32 FMA bound (over 67
+     TFLOP/s) and the TFLOP/s it reached;
   3. answer a few batches of a 15-class synthetic dataset (N=2048, B=128)
      with the full-width ``pointnet2_cls_ssg`` built by ``get_model`` (seeded
      weights; random positive BN running stats, so the BN fold matters,
@@ -463,6 +469,47 @@ def samlp_work(work: Work, args, dtype) -> None:
         nbytes += 4 * idx.numel() + elt * src.numel()
     nbytes += sum(w.numel() * elt + 4 * w.shape[1] for w in weights)
     work.add(mlp_ops(weights, b * m * k), nbytes, BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S)
+
+
+def sa_flops(args, use_xyz: bool = True) -> float:
+    """The fused SA layer's MLP FLOPs (``mlp_ops``) on ``sa_ball_mlp_pool``'s
+    ``args``: every (query, slot) row, layer 0 per point when prelifted."""
+    _, k, xyz, new_xyz, src, weights, _ = args
+    lifted = src is not None and use_xyz and src.shape[-1] > weights[0].shape[1]
+    return mlp_ops(weights, xyz.shape[0] * new_xyz.shape[1] * k, xyz.shape[0] * xyz.shape[1] if lifted else 0)
+
+
+def fma_rate(flops: float, ms: float) -> str:
+    """A fused SA call's FLOPs, their f32 FMA bound (over 67 TFLOP/s: the MLP
+    runs f32 FMA in both dtypes) and the rate a call of ``ms`` reached."""
+    return (f"{flops / 1e9:.3f} GFLOP, f32 FMA bound {flops / F32_OPS_PER_S * 1e3:.4f} ms, "
+            f"{flops / ms / 1e9:.2f} TFLOP/s")
+
+
+def check_sa_kernels(smi: str) -> None:
+    """Registers, local memory and blocks per SM of the fused SA kernels (#3
+    and #10 in safused.cu, #4 in sabucket.cu, f32 and bf16) at the main
+    paths' shapes, which between them take every instantiation (the builds
+    for three blocks an SM at SA1's shared memory, for two at SA2's); no
+    local memory allowed."""
+    import torch
+
+    from scanobjectnn_torch.ops.cuda.safused_kernel import kernel_info
+
+    shapes = {  # label: (K, source channels as the kernel sees them, widths, #4's (N, W) or None)
+        "#3 SSG SA1": (32, 0, (64, 64, 128), None),
+        "#3 SSG SA2": (64, 128, (128, 128, 256), None),
+        "#3 MSG SA2 K=128 (prelifted)": (128, 128, (128, 128, 256), None),
+        "#4 SSG SA1": (32, 0, (64, 64, 128), (NUM_POINT, 896)),
+        "#4 at SA2's widths (K=64, 128 features, W=384 of N=512)": (64, 128, (128, 128, 256), (512, 384)),
+    }
+    for label, (k, cs, widths, bucket) in shapes.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            info = kernel_info(k, cs, widths, dtype, bucket)
+            print(f"kernel {label} {dtype}: {info['registers']} registers a thread, {info['local_bytes']} local "
+                  f"bytes, {info['smem_bytes']} shared bytes a block, {info['blocks_per_sm']} blocks per SM ({smi})")
+            require(info["local_bytes"] == 0, f"{label} {dtype} uses local memory: {info}")
+            require(info["blocks_per_sm"] >= 1, f"{label} {dtype} fits no block on an SM: {info}")
 
 
 def knn_work(work: Work, queries, keys, k: int, with_bias: bool = False) -> None:
@@ -1597,7 +1644,8 @@ def msg_phase(smi: str, dev) -> dict:
                 err = check_sa(args, dtype, label, sa_ball_mlp_pool, sa_ball_mlp_pool_plain, **kw)
                 ms = cuda_ms(lambda: sa_ball_mlp_pool(*args, dtype=dtype, **kw))
                 plain_ms = cuda_ms(lambda: sa_ball_mlp_pool_plain(*args, dtype=dtype, **kw), iters=3)
-                print(f"time sa_ball_mlp_pool {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
+                print(f"time sa_ball_mlp_pool {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+                      f"{fma_rate(sa_flops(args, kw['use_xyz']), ms)} ({smi})")
                 if args[1] > 64:
                     rec["max_abs_err"] = max(rec["max_abs_err"], err)
                     if name == "bf16":
@@ -1727,7 +1775,8 @@ def bucket_phase(smi: str, dev, models: dict, x0, sa1_xyz) -> dict:
         plain_ms = cuda_ms(lambda: sa_ball_mlp_pool_bucketed_plain(*args, dtype=dtype, **wtg), iters=3)
         sorts_ms = cuda_ms(lambda: (rank_sort_points(key, x0), rank_sort_points(qkey, sa1_xyz)))
         print(f"time sa_ball_mlp_pool_bucketed SSG SA1 {name} B=128: #4 with its prep {ms:.4f} ms (the two #5 calls "
-              f"{sorts_ms:.4f}), #3 {full_ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
+              f"{sorts_ms:.4f}), #3 {full_ms:.4f} ms, plain {plain_ms:.4f} ms; #4 {fma_rate(sa_flops(args), ms)} "
+              f"({smi})")
         if name == "bf16":
             rec4.update(ms=ms, plain_ms=plain_ms)
             sa_work(work4, args, dtype)
@@ -1882,7 +1931,9 @@ def sa_layer_phase(smi: str, dev) -> dict:
         err = check_pooled(sa_mlp_pool(*args, dtype=dtype), sa_mlp_pool_plain(*args, dtype=dtype), dtype, what)
         ms = cuda_ms(lambda: sa_mlp_pool(*args, dtype=dtype))
         plain_ms = cuda_ms(lambda: sa_mlp_pool_plain(*args, dtype=dtype), iters=3)
-        print(f"time {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms ({smi})")
+        b10, m10, k10 = (args[0] if args[0] is not None else args[1]).shape[:3]
+        print(f"time {what}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+              f"{fma_rate(mlp_ops(args[3], b10 * m10 * k10), ms)} ({smi})")
         records["sa_mlp_pool"]["max_abs_err"] = max(records["sa_mlp_pool"]["max_abs_err"], err)
         if name == "f32":
             records["sa_mlp_pool"]["ms"] += ms
@@ -2348,6 +2399,7 @@ def main() -> None:
     _build.library()
     print(f"build: nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.2f} s "
           f"(library ready after {time.perf_counter() - t0:.2f} s)")
+    check_sa_kernels(smi)
 
     # Data and model.
     data, labels = make_synthetic_dataset(
@@ -2414,10 +2466,11 @@ def main() -> None:
                     errs["sa_ball_mlp_pool"],
                     check_sa(args, dtype, full, sa_ball_mlp_pool, sa_ball_mlp_pool_plain),
                 )
-                record("sa_ball_mlp_pool", full,
-                       cuda_ms(lambda: sa_ball_mlp_pool(*args, dtype=dtype)),
+                ms = cuda_ms(lambda: sa_ball_mlp_pool(*args, dtype=dtype))
+                record("sa_ball_mlp_pool", full, ms,
                        cuda_ms(lambda: sa_ball_mlp_pool_plain(*args, dtype=dtype), iters=3),
                        name == "bf16")
+                print(f"rate sa_ball_mlp_pool {full}: {fma_rate(sa_flops(args), ms)} ({smi})")
                 if name == "bf16":
                     sa_work(work["sa_ball_mlp_pool"], args, dtype)
 

@@ -13,8 +13,9 @@
 // had more than K; here the window is put back in original point order, so
 // the ball scan of safused.cu keeps its semantics as they are.
 //
-// A block takes QPB = max(1, 64 / K) consecutive sorted queries of one tile of
-// cloud blockIdx.y (the tile's ceil(T / QPB) blocks share its window):
+// A block takes QPB = max(1, 64 / K4) consecutive sorted queries of one tile
+// of cloud blockIdx.y (K4: K rounded up to 4; the tile's ceil(T / QPB)
+// blocks share its window):
 //   0. the gate, per tile, on the device: lo / hi = the tile's first / last
 //      query key -/+ pad_r; start = #{sorted keys < lo}, end = #{sorted keys
 //      <= hi} (counted by the whole block); c0 = clip(start / G, 0, N/G -
@@ -29,7 +30,9 @@
 //      the first hit (original point 0 when there is none).  A tile that
 //      overflows scans the whole cloud, as safused.cu does;
 //   2.-4. sapool.cuh's mlp_pool stages the rows from the unsorted inputs,
-//      runs the MLP and writes each pooled row at its query's original index.
+//      runs the register-tiled MLP and writes each pooled row at its
+//      query's original index: the same rows and the same code as #3, so
+//      the same bits.
 // The window's buffers alias mlp_pool's, which are dead until step 2.
 // Bound: the MLP's FLOPs on CUDA cores, as safused.cu; the window shortens
 // only the ball scan (at most W points a query instead of N).
@@ -56,15 +59,15 @@ __device__ __forceinline__ void block_add(int v, int* out) {
   if ((threadIdx.x & 31) == 0) atomicAdd(out, v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int MinBlocks>
+__global__ void __launch_bounds__(kThreads, MinBlocks)
     sabucket_kernel(const Args a, const Bucket bk, const Layers L) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int k = a.k, qpb = a.qpb, n = a.n, nwords = (n + 31) / 32;
   int* sidx = reinterpret_cast<int*>(smem);  // [qpb, k]
   int* qrow = sidx + qpb * k;                // [qpb]
   int* counts = qrow + qpb;                  // start, end
-  float* buf = smem + qpb * (k + 1) + 2;     // mlp_pool's buffer
+  float* buf = smem + round_up4(qpb * (k + 1) + 2);  // mlp_pool's buffer, 16-byte aligned
   float* wxyz = buf;                         // [W, 3] window, original point order
   int* wid = reinterpret_cast<int*>(wxyz + 3 * bk.w);  // [W] original ids
   uint32_t* bits = reinterpret_cast<uint32_t*>(wid + bk.w);  // [nwords]
@@ -147,7 +150,46 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();  // mlp_pool overwrites the window
-  mlp_pool<T>(a, L, sidx, qrow, buf);
+  mlp_pool<T, MinBlocks>(a, L, sidx, qrow, buf);
+}
+
+// The dynamic shared bytes of a block: sidx, qrow, counts, then (at the next
+// 16 bytes) mlp_pool's buffer or the window (W points and their ids, the N-bit map and its
+// prefix counts), the larger; 0 for a shape mlp_pool does not take.
+template <typename T>
+size_t plan_smem(Args& a, Layers& L, int w, int n_layers, const int* widths, const void* const* weights,
+                 const float* const* biases) {
+  const size_t words = plan_mlp_pool<T>(a, L, n_layers, widths, weights, biases);
+  const size_t window = 4 * static_cast<size_t>(w) + 2 * static_cast<size_t>((a.n + 31) / 32);
+  return words == 0 ? 0 : sizeof(float) * (round_up4(a.qpb * (a.k + 1) + 2) + (words > window ? words : window));
+}
+
+template <typename T>
+cudaError_t plan_and_launch(Args& a, Bucket& bk, int b, int n_layers, const int* widths,
+                            const void* const* weights, const float* const* biases, void* stream) {
+  Layers L{};
+  const size_t smem = plan_smem<T>(a, L, bk.w, n_layers, widths, weights, biases);
+  if (smem == 0) return cudaErrorInvalidValue;
+  bk.nsub = (bk.t + a.qpb - 1) / a.qpb;
+  const dim3 grid((a.m / bk.t) * bk.nsub, b);
+  auto s = static_cast<cudaStream_t>(stream);
+  return min_blocks(smem) == 3 ? launch_with_smem(sabucket_kernel<T, 3>, grid, smem, s, a, bk, L)
+                               : launch_with_smem(sabucket_kernel<T, 2>, grid, smem, s, a, bk, L);
+}
+
+template <typename T>
+cudaError_t info_at(int k, int cs, int n, int w, int n_layers, const int* widths, int* info) {
+  Args a{};
+  a.k = k;
+  a.cs = cs;
+  a.n = n;
+  Layers L{};
+  const void* weights[kMaxLayers] = {};
+  const float* biases[kMaxLayers] = {};
+  const size_t smem = plan_smem<T>(a, L, w, n_layers, widths, weights, biases);
+  if (smem == 0) return cudaErrorInvalidValue;
+  return min_blocks(smem) == 3 ? kernel_info(sabucket_kernel<T, 3>, smem, info)
+                               : kernel_info(sabucket_kernel<T, 2>, smem, info);
 }
 
 }  // namespace
@@ -177,9 +219,6 @@ extern "C" int sabucket_launch(const void* xyz, const void* new_xyz, const void*
   a.w0f = w0f;
   a.prelifted = prelifted;
   a.pooled = pooled;
-  Layers L{};
-  const size_t words = plan_mlp_pool(a, L, n_layers, widths, weights, biases);
-  if (words == 0) return cudaErrorInvalidValue;
   Bucket bk{};
   bk.xyz_s = static_cast<const float*>(xyz_s);
   bk.ids = static_cast<const int32_t*>(ids);
@@ -189,14 +228,16 @@ extern "C" int sabucket_launch(const void* xyz, const void* new_xyz, const void*
   bk.w = w;
   bk.t = t;
   bk.g = g;
-  bk.nsub = (t + a.qpb - 1) / a.qpb;
   bk.pad_r = pad_r;
   bk.overflow = static_cast<int32_t*>(overflow);
-  // sidx, qrow, counts, then mlp_pool's buffer or the window, the larger.
-  const size_t window = 4 * static_cast<size_t>(w) + 2 * static_cast<size_t>((n + 31) / 32);
-  const size_t smem = sizeof(float) * (static_cast<size_t>(a.qpb) * (k + 1) + 2 + (words > window ? words : window));
-  const dim3 grid((m / t) * bk.nsub, b);
-  auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_with_smem(sabucket_kernel<__nv_bfloat16>, grid, smem, s, a, bk, L)
-              : launch_with_smem(sabucket_kernel<float>, grid, smem, s, a, bk, L);
+  return bf16 ? plan_and_launch<__nv_bfloat16>(a, bk, b, n_layers, widths, weights, biases, stream)
+              : plan_and_launch<float>(a, bk, b, n_layers, widths, weights, biases, stream);
+}
+
+// The kernel's instantiation that a layer with K slots, cs source channels
+// and these widths over a window of W of N points takes in bf16 (or f32):
+// info as safused_info's.
+extern "C" int sabucket_info(int bf16, int k, int cs, int n, int w, int n_layers, const int* widths, int* info) {
+  return bf16 ? info_at<__nv_bfloat16>(k, cs, n, w, n_layers, widths, info)
+              : info_at<float>(k, cs, n, w, n_layers, widths, info);
 }

@@ -15,19 +15,19 @@
 // the selection step (1.) and where a row's coordinates come from (2.)
 // differ, so the layer and max-pool code cannot drift between them.
 //
-// One block handles QPB = max(1, 64 / K) queries of one cloud:
+// One block handles QPB = max(1, 64 / K4) queries of one cloud (K4: K
+// rounded up to a multiple of 4):
 //   1. selection: the ball scan runs one warp per query over the candidates
 //      32 at a time in point order (ballot + popc keep the order) and stops
 //      after K hits (ball_scan in ballscan.cuh, shared with ballgroup.cu); it
 //      writes all K indices to shared memory first, since padding needs the
 //      first hit.  A given grouping loads its K indices instead;
-//   2.-4. sapool.cuh's mlp_pool: staging, hidden layers, the last layer with
-//      the max-pool, over chunks of at most 64 slots.
+//   2.-4. sapool.cuh's mlp_pool: staging, the register-tiled layers, the
+//      last layer with the max-pool, over chunks of at most 64 slots.
 // K > 64 takes one query per block in chunks of 64 slots rather than a whole
 // 128-row block: at MSG SA2's widest scale (prelifted, wa = 3 + 128, wb =
-// 128) a 64-row chunk needs 4 * 64 * 259 B = 66 KB and a whole block 133 KB,
-// so chunks let three blocks share an SM instead of one, with the same layer
-// code as K <= 64.
+// 128) a 64-row chunk needs 4 * 68 * 259 B = 70 KB of activations and 16 KB
+// of W ring, so two blocks share an SM, with the same layer code as K <= 64.
 // Bound: the MLP's FLOPs on the CUDA cores (sapool.cuh: why bf16 too).
 //
 #include "ballscan.cuh"
@@ -35,10 +35,10 @@
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int MinBlocks>
+__global__ void __launch_bounds__(kThreads, MinBlocks)
     safused_kernel(const Args a, const Layers L) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int k = a.k, qpb = a.qpb;
   int* sidx = reinterpret_cast<int*>(smem);  // [qpb, k]
   int* qrow = sidx + qpb * k;                // [qpb]
@@ -68,22 +68,50 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  mlp_pool<T>(a, L, sidx, qrow, smem + qpb * (k + 1));
+  mlp_pool<T, MinBlocks>(a, L, sidx, qrow, smem + round_up4(qpb * (k + 1)));
+}
+
+// Fills the layer table and the buffer widths; returns the dynamic shared
+// bytes of a block (sidx [qpb, K] and qrow [qpb], then mlp_pool's buffer at
+// the next 16 bytes), or 0 for a shape the kernel does not take.
+template <typename T>
+size_t plan_smem(Args& a, Layers& L, int n_layers, const int* widths, const void* const* weights,
+                 const float* const* biases) {
+  const size_t words = plan_mlp_pool<T>(a, L, n_layers, widths, weights, biases);
+  return words == 0 ? 0 : sizeof(float) * (round_up4(a.qpb * (a.k + 1)) + words);
 }
 
 // Fills the layer table and the buffer widths, and launches.
-cudaError_t plan_and_launch(Args& a, int b, int bf16, int n_layers, const int* widths,
-                            const void* const* weights, const float* const* biases,
-                            void* stream) {
+template <typename T>
+cudaError_t plan_and_launch(Args& a, int b, int n_layers, const int* widths, const void* const* weights,
+                            const float* const* biases, void* stream) {
   Layers L{};
-  const size_t words = plan_mlp_pool(a, L, n_layers, widths, weights, biases);
-  if (words == 0) return cudaErrorInvalidValue;
-  // sidx [qpb, K] and qrow [qpb], then mlp_pool's buffer.
-  const size_t smem = sizeof(float) * (static_cast<size_t>(a.qpb) * (a.k + 1) + words);
+  const size_t smem = plan_smem<T>(a, L, n_layers, widths, weights, biases);
+  if (smem == 0) return cudaErrorInvalidValue;
   const dim3 grid((a.m + a.qpb - 1) / a.qpb, b);
   auto s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_with_smem(safused_kernel<__nv_bfloat16>, grid, smem, s, a, L)
-              : launch_with_smem(safused_kernel<float>, grid, smem, s, a, L);
+  return min_blocks(smem) == 3 ? launch_with_smem(safused_kernel<T, 3>, grid, smem, s, a, L)
+                               : launch_with_smem(safused_kernel<T, 2>, grid, smem, s, a, L);
+}
+
+cudaError_t plan_and_launch(Args& a, int b, int bf16, int n_layers, const int* widths,
+                            const void* const* weights, const float* const* biases, void* stream) {
+  return bf16 ? plan_and_launch<__nv_bfloat16>(a, b, n_layers, widths, weights, biases, stream)
+              : plan_and_launch<float>(a, b, n_layers, widths, weights, biases, stream);
+}
+
+template <typename T>
+cudaError_t info_at(int k, int cs, int n_layers, const int* widths, int* info) {
+  Args a{};
+  a.k = k;
+  a.cs = cs;
+  Layers L{};
+  const void* weights[kMaxLayers] = {};
+  const float* biases[kMaxLayers] = {};
+  const size_t smem = plan_smem<T>(a, L, n_layers, widths, weights, biases);
+  if (smem == 0) return cudaErrorInvalidValue;
+  return min_blocks(smem) == 3 ? kernel_info(safused_kernel<T, 3>, smem, info)
+                               : kernel_info(safused_kernel<T, 2>, smem, info);
 }
 
 }  // namespace
@@ -132,4 +160,12 @@ extern "C" int samlp_launch(const void* grouped, const void* gidx, const void* s
   a.w0f = w0f;
   a.pooled = pooled;
   return plan_and_launch(a, b, bf16, n_layers, widths, weights, biases, stream);
+}
+
+// The kernel's instantiation that a layer with K slots, cs source channels
+// and these widths takes in bf16 (or f32), at its shared memory: info =
+// {registers a thread, local-memory bytes a thread, dynamic shared bytes,
+// resident blocks per SM}.
+extern "C" int safused_info(int bf16, int k, int cs, int n_layers, const int* widths, int* info) {
+  return bf16 ? info_at<__nv_bfloat16>(k, cs, n_layers, widths, info) : info_at<float>(k, cs, n_layers, widths, info);
 }

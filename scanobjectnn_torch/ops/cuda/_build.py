@@ -54,6 +54,10 @@ _SIGNATURES = {
     # grouped, idx, src, b, n, m, cs, k, w0x, w0f, bf16, n_layers, widths*,
     # weights*, biases*, pooled, stream
     "samlp_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P),
+    # bf16, k, cs, n_layers, widths*, info* (int[4])
+    "safused_info": (_I, _I, _I, _I, _P, _P),
+    # bf16, k, cs, n, w, n_layers, widths*, info* (int[4])
+    "sabucket_info": (_I, _I, _I, _I, _I, _I, _P, _P),
     # xyz, new_xyz, b, n, m, k, r2, grouped, idx, cnt, stream
     "ballgroup_launch": (_P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P),
     # xyz, new_xyz, b, n, m, k, r2, idx, cnt, stream

@@ -25,15 +25,19 @@ Outputs: ``pooled [B, M, Cout]`` in the compute dtype and ``idx [B, M, K]``
 int32 for K <= 64; at K > 64 ``idx`` is None, as in the JAX function.
 
 What bounds it on the H100: the folded MLP's FLOPs (SA2 at B=128 is about
-138 GFLOP), fed from shared memory.  The kernel keeps each block's rows
-(queries x K slots, at most 64) and their activations in shared memory
-and folds the last layer into the max-pool so its output never lands in
-memory.  It reads the weights through L2 and gives each thread 8 rows of
-one output column, so one weight load feeds 8 FMAs on the CUDA cores, in
-f32 and in bf16 (the tensor-core version of the bf16 MLP holds each
-call's gate but not the models' logits gate: ``csrc/sapool.cuh``).  K > 64
-takes one query a block and runs the same code over chunks of 64 slots,
-carrying each column's running max from chunk to chunk.
+138 GFLOP) on the CUDA cores, fed from shared memory.  The kernel keeps
+each block's rows (queries x K slots, 64 rows) and their activations in
+shared memory and folds the last layer into the max-pool so its output
+never lands in memory.  Each layer is a register-tiled f32 FMA product: a
+thread holds up to 8 rows x 4 output columns of sums, read with 16-byte
+shared loads from k-major activations and from W, which is staged in
+shared memory slice by slice; every output is the same FMA chain as before
+(from 0, k ascending), in f32 and in bf16 (the tensor-core version of the
+bf16 MLP holds each call's gate but not the models' logits gate:
+``csrc/sapool.cuh``).  K > 64 takes one query a block and runs the same
+code over chunks of 64 slots, carrying each column's running max from
+chunk to chunk.  ``kernel_info`` reads the kernels' registers, local memory
+and blocks per SM.
 """
 
 from __future__ import annotations
@@ -48,11 +52,11 @@ from scanobjectnn_torch.ops.cuda import _build
 from scanobjectnn_torch.ops.cuda.ballgroup_kernel import ball_query_plain
 from scanobjectnn_torch.ops.cuda.gather_kernel import _check_cuda
 
-__all__ = ["fusable_nsample", "sa_ball_mlp_pool", "sa_ball_mlp_pool_plain"]
+__all__ = ["fusable_nsample", "kernel_info", "sa_ball_mlp_pool", "sa_ball_mlp_pool_plain"]
 
-IDX_MAX_NSAMPLE = 64  # kMaxRows in csrc/safused.cu: one chunk, idx returned
-MAX_NSAMPLE = 1024  # kMaxK in csrc/safused.cu
-MAX_LAYERS = 8  # kMaxLayers in csrc/safused.cu
+IDX_MAX_NSAMPLE = 64  # kMaxRows in csrc/sapool.cuh: one chunk, idx returned
+MAX_NSAMPLE = 1024  # kMaxK in csrc/sapool.cuh
+MAX_LAYERS = 8  # kMaxLayers in csrc/sapool.cuh
 
 
 def fusable_nsample(k: int) -> bool:
@@ -248,3 +252,24 @@ def sa_ball_mlp_pool(
 
 sa_ball_mlp_pool.launches = 0
 sa_ball_mlp_pool.chunked_launches = 0  # of them, K > 64 (the chunked path)
+
+
+def kernel_info(nsample: int, cs: int, widths: Sequence[int], dtype: torch.dtype,
+                bucket: tuple[int, int] | None = None) -> dict:
+    """The fused SA kernel instantiated for ``dtype`` (#3 and #10, or #4
+    with ``bucket`` = (N, window)) at the shared memory of a layer with
+    ``nsample`` slots, ``cs`` source channels (the lifted width when
+    prelifted) and these widths: registers and local-memory bytes a thread,
+    dynamic shared bytes a block, and resident blocks per SM, from
+    ``cudaFuncGetAttributes`` and the occupancy API (on the card)."""
+    lib = _build.library()
+    info = (ctypes.c_int * 4)()
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    bf16 = int(dtype == torch.bfloat16)
+    if bucket is None:
+        err = lib.safused_info(bf16, nsample, cs, len(widths), ctypes.addressof(c_widths), ctypes.addressof(info))
+    else:
+        err = lib.sabucket_info(bf16, nsample, cs, *bucket, len(widths), ctypes.addressof(c_widths),
+                                ctypes.addressof(info))
+    _build.check(err, "kernel_info")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), info))

@@ -4,11 +4,11 @@
 // studies/sa_mma.py compiles csrc/safused.cu (#3, #10) and csrc/sabucket.cu
 // (#4) with this header pre-included (nvcc --pre-include, -I csrc).  It
 // includes sapool.cuh first, so the sources' own include of it is a no-op,
-// then specialises mlp_pool for __nv_bfloat16, which every bf16 kernel
-// of the two sources instantiates, and renames their calls of
-// plan_mlp_pool (in scope of each: the launch's `bf16` flag) to a planner
-// that sizes this version's shared memory.  The f32 instantiation is the
-// package's.
+// then specialises mlp_pool (for kernels built for two and three blocks an
+// SM) and plan_mlp_pool for __nv_bfloat16, which every bf16 kernel and
+// launch of the two sources instantiates: the MLP below and a planner that
+// sizes its shared memory.  The f32 instantiations are the package's
+// register-tiled FMA kernel.
 //
 // Each layer's rows x columns product runs mma.sync m16n8k16, bf16
 // operands, f32 accumulators, as the TPU kernel's MXU dots with
@@ -170,12 +170,12 @@ __device__ __forceinline__ void mma_sums(const __nv_bfloat16* in, int ld, int co
 }
 
 // Steps 2-4 of mlp_pool for bf16, on the tensor cores (above).  buf: the
-// floats plan_mlp_pool_mma counts, aligned here to 16 bytes: the activation
-// tiles A [64][lda] (staged rows, odd layers) and B [64][ldb] (even
-// layers), the W slice [kWSlice][ldw], W0x [16][ldw], the pool [qpb][Cout].
-template <>
-__device__ __forceinline__ void mlp_pool<__nv_bfloat16>(const Args& a, const Layers& L, const int* sidx,
-                                                        const int* qrow, float* buf) {
+// floats plan_mlp_pool<__nv_bfloat16> counts, aligned here to 16 bytes: the
+// activation tiles A [64][lda] (staged rows, odd layers) and B [64][ldb]
+// (even layers), the W slice [kWSlice][ldw], W0x [16][ldw], the pool
+// [qpb][Cout].
+__device__ __forceinline__ void mma_mlp_pool(const Args& a, const Layers& L, const int* sidx, const int* qrow,
+                                             float* buf) {
   using bf16 = __nv_bfloat16;
   const Strides st = mma_strides(a, L);
   const int k = a.k, qpb = a.qpb;
@@ -360,13 +360,27 @@ __device__ __forceinline__ void mlp_pool<__nv_bfloat16>(const Args& a, const Lay
   }
 }
 
-// plan_mlp_pool for this build: the package's plan, and for bf16 the floats
-// mlp_pool<__nv_bfloat16> needs in its place, with 16 bytes of slack for
-// alignment.
-inline size_t plan_mlp_pool_mma(Args& a, Layers& L, int n_layers, const int* widths,
-                                const void* const* weights, const float* const* biases, int bf16) {
-  const size_t words = plan_mlp_pool(a, L, n_layers, widths, weights, biases);
-  if (words == 0 || !bf16) return words;
+// The package's bf16 kernels, built for two or three blocks an SM, take it.
+template <>
+__device__ __forceinline__ void mlp_pool<__nv_bfloat16, 2>(const Args& a, const Layers& L, const int* sidx,
+                                                           const int* qrow, float* buf) {
+  mma_mlp_pool(a, L, sidx, qrow, buf);
+}
+
+template <>
+__device__ __forceinline__ void mlp_pool<__nv_bfloat16, 3>(const Args& a, const Layers& L, const int* sidx,
+                                                           const int* qrow, float* buf) {
+  mma_mlp_pool(a, L, sidx, qrow, buf);
+}
+
+// plan_mlp_pool for bf16 in this build: the package's plan (QPB, the layer
+// table), and the floats mlp_pool<__nv_bfloat16> needs in place of the
+// package's, with 16 bytes of slack for alignment.
+template <>
+size_t plan_mlp_pool<__nv_bfloat16>(Args& a, Layers& L, int n_layers, const int* widths,
+                                    const void* const* weights, const float* const* biases) {
+  const size_t words = plan_mlp_pool<float>(a, L, n_layers, widths, weights, biases);
+  if (words == 0) return words;
   const Strides st = mma_strides(a, L);
   const size_t bytes = 2 * static_cast<size_t>(kMmaRows) * (st.lda + st.ldb) +
                        2 * static_cast<size_t>(kWSlice + 16) * st.ldw +
@@ -375,6 +389,3 @@ inline size_t plan_mlp_pool_mma(Args& a, Layers& L, int n_layers, const int* wid
 }
 
 }  // namespace
-
-#define plan_mlp_pool(a, L, n_layers, widths, weights, biases) \
-  plan_mlp_pool_mma(a, L, n_layers, widths, weights, biases, bf16)

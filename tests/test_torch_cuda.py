@@ -7,13 +7,15 @@ This file imports no JAX, so it also runs where JAX is not installed:
 FPS indices and coordinates must be equal, above 8192 points too (the
 kernel that keeps min-distances in device memory; ties and NaN rows).
 Fused SA (#3, K <= 64 and
-the chunked K = 80, 128; and #10 over a given grouping): ``idx`` equal
-(None at K > 64); ``pooled`` in f32 to rtol 1e-4 / atol 1e-5 (only the
-summation order differs).  In bf16 the kernel and the plain version sum the same
-bf16-rounded products in f32 and round at the same points, so they agree
-bit for bit on an H100: ``pooled`` may differ by at most one bf16 ulp of
-max(1, |ref|max), on at most 0.1% of its elements.  A kernel that skipped a
-bf16 rounding between layers differs on far more.
+the chunked K = 80, 128; and #10 over a given grouping), also at the edges
+of the register tile (K = 1, 3, 7, 33, 63; M not a multiple of the queries
+a block; widths not multiples of the tile; 1 and 8 layers; a 264-wide
+layer): ``idx`` equal (None at K > 64); ``pooled`` in f32 to rtol 1e-4 /
+atol 1e-5 (only the summation order differs).  In bf16 the kernel and the
+plain version sum the same bf16-rounded products in f32, each output's sum
+from 0 in ascending k as cuBLAS's, and round at the same points, so
+``pooled`` must equal the plain version's bit for bit on an H100.  Every
+call gives the same bits twice.
 
 Training kernels: the ball group (``grouped``, ``idx``, ``cnt``), the ball
 query alone (#8: ``idx``, ``cnt``) and the row gather must be equal to their
@@ -80,7 +82,6 @@ an eval-mode SSG forward at N = 2048 launches #5 twice and #4 once under
 ``sa_bucket="auto"``, with logits equal to the "off" forward's.
 """
 
-import math
 
 import numpy as np
 import pytest
@@ -217,6 +218,17 @@ SA_CASES = {
     "msg_sa1_k128": (2, 1024, 128, 128, 0.4, 0, (64, 96, 128), True, False),
     "msg_sa2_k128_prelifted": (2, 512, 64, 128, 0.8, 320, (128, 128, 256), True, False),
     "k80_features_ragged": (1, 300, 40, 80, 0.6, 20, (32, 40), True, True),
+    # The register tile's edges: K not a multiple of 4 (pad rows), M not a
+    # multiple of QPB, widths not multiples of the tile, 1 and 8 layers,
+    # a 264-wide layer (two passes of 256 columns), prelifted and not.
+    "k1_one_layer_xyz_only": (2, 64, 33, 1, 0.5, 0, (72,), True, True),
+    "k3_cs37": (2, 200, 50, 3, 0.4, 37, (40, 8), True, True),
+    "k7_cout72": (2, 300, 37, 7, 0.5, 0, (72, 24, 72), True, True),
+    "k33_cs131": (1, 400, 21, 33, 0.6, 131, (136, 24), True, True),
+    "k63_prelifted_cs131": (2, 300, 17, 63, 0.6, 131, (72, 8), True, False),
+    "k64_eight_layers": (1, 256, 24, 64, 0.7, 12, (24, 8, 72, 24, 264, 8, 24, 72), True, True),
+    "k80_cout264": (1, 300, 19, 80, 0.6, 37, (72, 264), True, True),
+    "k128_no_xyz": (1, 512, 10, 128, 0.8, 24, (8, 24), False, True),
 }
 
 
@@ -252,13 +264,15 @@ def test_safused_kernel_matches_plain(dev, case, dtype):
     args, kw = _sa_inputs(case, dev)
     before = sa_ball_mlp_pool.launches
     pooled, idx = sa_ball_mlp_pool(*args, dtype=dtype, **kw)
+    again, _ = sa_ball_mlp_pool(*args, dtype=dtype, **kw)
     ref, ref_idx = sa_ball_mlp_pool_plain(*args, dtype=dtype, **kw)
     torch.cuda.synchronize()
-    assert sa_ball_mlp_pool.launches == before + 1
+    assert sa_ball_mlp_pool.launches == before + 2
     if args[1] > 64:
         assert idx is None and ref_idx is None
     else:
         assert torch.equal(idx, ref_idx)
+    assert torch.equal(pooled, again)
     _check_pooled(pooled, ref, dtype)
 
 
@@ -267,11 +281,8 @@ def _check_pooled(pooled, ref, dtype):
     if dtype == torch.float32:
         torch.testing.assert_close(pooled, ref, rtol=1e-4, atol=1e-5)
     else:
-        scale = max(1.0, float(ref.float().abs().max()))
-        ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)  # bf16 keeps 8 significant bits
         diff = (pooled.float() - ref.float()).abs()
-        err, differing = float(diff.max()), float((diff > 0).float().mean())
-        assert err <= ulp and differing <= 1e-3, (err, differing)
+        assert torch.equal(pooled, ref), (float(diff.max()), float((diff > 0).float().mean()))
 
 
 def test_safused_kernel_refuses_what_it_does_not_take(dev):
@@ -366,6 +377,12 @@ SAMLP_CASES = {
     "features_k128": (2, 512, 128, 128, 128, True, (128, 128, 256)),
     "features_no_xyz_ragged": (3, 200, 37, 16, 24, False, (32, 40)),
     "k72": (2, 256, 40, 72, 8, True, (16, 24, 24, 40)),
+    # The register tile's edges (as SA_CASES).
+    "k3_cs37_one_layer": (2, 100, 33, 3, 37, True, (8,)),
+    "k7_eight_layers": (1, 150, 19, 7, 5, True, (8, 24, 72, 8, 24, 72, 264, 24)),
+    "k33_no_xyz": (2, 200, 13, 33, 24, False, (24, 72)),
+    "k63_xyz_only": (2, 200, 21, 63, 0, True, (72, 24)),
+    "k128_cs131": (1, 300, 9, 128, 131, True, (72, 136)),
 }
 
 
@@ -391,9 +408,11 @@ def test_samlp_kernel_matches_plain(dev, case, dtype):
     args = _samlp_inputs(case, dev)
     before = sa_mlp_pool.launches
     pooled = sa_mlp_pool(*args, dtype=dtype)
+    again = sa_mlp_pool(*args, dtype=dtype)
     ref = sa_mlp_pool_plain(*args, dtype=dtype)
     torch.cuda.synchronize()
-    assert sa_mlp_pool.launches == before + 1
+    assert sa_mlp_pool.launches == before + 2
+    assert torch.equal(pooled, again)
     _check_pooled(pooled, ref, dtype)
 
 
@@ -1256,6 +1275,13 @@ BUCKET_CASES = {
     "k64": (1, 1024, 96, 64, 0.3, 0, (32, 48), "sparse", (512, 16, 128), True),
     "k5_ragged_tile": (1, 512, 60, 5, 0.3, 4, (8, 16), "dense", (448, 20, 64), True),  # 12 queries a block
     "rows_without_hits": (2, 1024, 256, 16, 0.03, 0, (16, 32), "sparse", (640, 32, 128), True),
+    # The register tile's edges (as SA_CASES): QPB not dividing T, K not a
+    # multiple of 4, ragged widths, 1 and 8 layers, prelifted.
+    "k1_one_layer": (2, 256, 64, 1, 0.2, 0, (24,), "sparse", (256, 16, 64), True),
+    "k3_eight_layers": (1, 512, 64, 3, 0.3, 8, (8, 24, 72, 8, 24, 72, 264, 24), "dense", (384, 32, 128), True),
+    "k7_cout72": (2, 512, 120, 7, 0.3, 0, (72, 8), "dense", (384, 40, 128), True),
+    "k33_cs37": (1, 512, 96, 33, 0.3, 37, (72, 24), "sparse", (384, 32, 128), True),
+    "k63_prelifted_cs131": (1, 512, 64, 63, 0.3, 131, (72, 264), "sparse", (384, 16, 128), False),
 }
 
 
@@ -1294,6 +1320,7 @@ def test_sabucket_kernel_matches_safused_and_plain(dev, case, dtype):
     flags = sa_ball_mlp_pool_bucketed.last_overflow.clone()
     assert idx is None
     assert (sa_ball_mlp_pool_bucketed.launches, rank_sort_points.launches) == (before[0] + 1, before[1] + 2)
+    assert torch.equal(pooled, sa_ball_mlp_pool_bucketed(*args, dtype=dtype, **kw, **wtg)[0])
     full, _ = sa_ball_mlp_pool(*args, dtype=dtype, **kw)
     assert pooled.dtype == full.dtype and torch.equal(pooled, full)
     ref, _ = sa_ball_mlp_pool_bucketed_plain(*args, dtype=dtype, **kw, **wtg)
