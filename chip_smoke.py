@@ -7,7 +7,9 @@ Phases (any failure raises and the exit code is not 0):
   1. build the CUDA kernels of ``scanobjectnn_torch/csrc`` with nvcc; print
      the registers, local memory and blocks per SM of each instantiation of
      the fused SA kernels (#3/#10 and #4, f32 and bf16) at the main paths'
-     shapes, and require no local memory;
+     shapes and of #17's walk and pool kernels as their plans build them at
+     phase 11's calls (``satrain_kernel.kernel_info``), and require no local
+     memory;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes of the main path (FPS 2048->512 and 512->128; the fused SA1 and
      SA2 layers at B=128 in f32 and bf16), and time both with CUDA events;
@@ -154,14 +156,19 @@ Phases (any failure raises and the exit code is not 0):
         kmax, cnt); timed, with its bound;
      b. f32 and bf16 steps with ``fused_sa_train=True`` (pool mode native),
         recording the inputs of #17 (``grouped_bn_mlp_pool_bwd``); at SSG's
-        SA1 and SA2 and MSG's two K = 128 scales each call held to its plain
-        backward (FUSED_* bounds) and bit-stable across two calls; timed;
+        SA1, SA2 and group-all and MSG's two K = 128 scales each call held
+        to its plain backward (FUSED_* bounds) and bit-stable across two
+        calls; timed beside the plain backward, with TFLOP/s against the
+        3-product work (``satrain_work``) and against its own passes
+        (``satrain_design_ops``), its device time by kernel and pass from a
+        profiler trace, whose launches must be those its plan lays out;
      c. the bf16 steps against the plain path (``compare_steps``, BF16_*
         step bounds) and timed (``time_steps``) beside the f32 step of the
         same model;
      d. the f32 steps with ``fused_sa_train=True`` against ``False`` on the
         kernel path, from the same weights, batch and draws: the loss and
-        every gradient (FUSED_STEP_* bounds); both timed;
+        every gradient (FUSED_STEP_* bounds); both timed, and their peak
+        device memory (``torch.cuda.max_memory_allocated``);
      e. ``SAModule(knn=True, nsample=128)`` at SSG's SA1 and SA2 shapes
         (B=32), f32 and bf16, through FPS, the kNN kernel's k > 64 path (the
         block-wide sort), the gather and #10, against the plain path; the
@@ -1989,6 +1996,90 @@ def satrain_work(work: Work, z1, widths) -> None:
     work.add(float(rows) * (3 * products + 20 * sum(widths)), nbytes)
 
 
+# #17's calls of the phase-11 steps at B=16 (groups = B * M, K, widths), for
+# the kernels' build and the records.
+SATRAIN_CALLS = {
+    "SSG SA1": (16 * 512, 32, (64, 64, 128)),
+    "SSG SA2": (16 * 128, 64, (128, 128, 256)),
+    "SSG group-all": (16, 128, (256, 512, 1024)),
+    "MSG SA1 K=128": (16 * 512, 128, (64, 96, 128)),
+    "MSG SA2 K=128": (16 * 128, 128, (128, 128, 256)),
+}
+SATRAIN_KERNELS = ("consts_kernel", "pool_kernel", "combine_kernel", "walk_kernel", "reduce_kernel")
+
+
+def check_satrain_kernels(smi: str) -> None:
+    """Registers, local memory and blocks per SM of #17's walk and pool
+    kernels, built as their plans pick them at phase 11's calls; no local
+    memory allowed."""
+    from scanobjectnn_torch.ops.cuda.satrain_kernel import kernel_info, plan
+
+    for label, (groups, k, widths) in SATRAIN_CALLS.items():
+        layout = plan(groups, k, widths)
+        for walk in (True, False):
+            info = kernel_info(groups, k, widths, walk)
+            name = "walk_kernel" if walk else "pool_kernel"
+            print(f"kernel #17 {name} {label} (rows {layout.rows}, pool in the pass {layout.pool_in_pass}): "
+                  f"{info['registers']} registers a thread, {info['local_bytes']} local bytes, {info['smem_bytes']} "
+                  f"shared bytes a block, {info['blocks_per_sm']} blocks per SM ({smi})")
+            require(info["local_bytes"] == 0, f"#17 {name} {label} uses local memory: {info}")
+            require(info["blocks_per_sm"] >= 1, f"#17 {name} {label} fits no block on an SM: {info}")
+
+
+def satrain_design_ops(rows: int, widths, layout) -> float:
+    """#17's own operations under ``layout`` (``satrain_kernel.plan``): a
+    forward recompute a pass (and the pool pass), the dy products each pass
+    walks through, each dW once, and the forward and the products above the
+    emitting layer again in every dW slice but the first."""
+    prod = [0] + [2 * a * c for a, c in zip(widths, widths[1:])]  # prod[i]: layer i's product, a row
+    fwd = sum(prod)
+    ops = 0 if layout.pool_in_pass else fwd
+    for p in layout.passes:
+        walked = sum(prod[max(p.target, 0) + 1:])  # dy_{i-1} for i above the target
+        ops += fwd + walked
+        if 0 <= p.target < len(widths) - 1:
+            ops += prod[p.target + 1] + (p.slices - 1) * (fwd + sum(prod[p.target + 2:]))
+    return float(rows) * ops
+
+
+def satrain_kernel_ms(fn, iters: int = 3) -> dict:
+    """Device ms a call of #17's kernels by name, and their launches a call,
+    from a torch.profiler trace (``profile_forward.device_spans``); the
+    walk's passes apart, in launch order."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_forward import device_spans
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(8):  # a trace now and then comes back empty: take another
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [(end - start, name) for start, end, name in device_spans(prof)]
+        if spans:
+            break
+    else:
+        raise AssertionError("chip_smoke: the profiler recorded no device time for #17")
+    out = {name: {"ms": 0.0, "launches": 0} for name in SATRAIN_KERNELS}
+    walks = []
+    for us, name in spans:
+        for key in SATRAIN_KERNELS:
+            if key in name:
+                out[key]["ms"] += us / 1e3 / iters
+                out[key]["launches"] += 1
+                if key == "walk_kernel":
+                    walks.append(us / 1e3)
+    for v in out.values():
+        require(v["launches"] % iters == 0, f"#17's kernels launched unevenly over {iters} calls: {out}")
+        v["launches"] //= iters
+    per_call = len(walks) // iters
+    out["walk_passes_ms"] = [sum(walks[i::per_call]) / iters for i in range(per_call)]
+    return out
+
+
 def time_trainers(trainers: dict, batches, smi: str, label: str, n: int = 3) -> None:
     """Step time of two trainers' kernel paths (host clock around ``n``
     steps that end in a synchronize), in turns A, B, B, A."""
@@ -2095,6 +2186,7 @@ def mixed_phase(smi: str, dev) -> dict:
     from scanobjectnn_torch.ops.cuda.poolkey_kernel import bn_relu_exactkey_pool, bn_relu_exactkey_pool_plain
     from scanobjectnn_torch.ops.cuda.samlp_kernel import sa_mlp_pool
     from scanobjectnn_torch.ops.cuda.satrain_kernel import grouped_bn_mlp_pool_bwd, grouped_bn_mlp_pool_bwd_plain
+    from scanobjectnn_torch.ops.cuda.satrain_kernel import plan as satrain_plan
     from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
 
     b, n = MIXED_BATCH, MIXED_POINT
@@ -2162,7 +2254,7 @@ def mixed_phase(smi: str, dev) -> dict:
 
     # 11b. Steps with the fused tail, f32 and bf16 (native), #17's calls recorded.
     work = Work()
-    selected = {(512, 32), (128, 64), (512, 128), (128, 128)}  # (M, K): SSG SA1, SA2; MSG's K=128 scales
+    selected = {"SSG": {(512, 32), (128, 64), (1, 128)}, "MSG": {(512, 128), (128, 128)}}  # (M, K)
     for model in n_zero:
         short = model.split("_")[-1].upper()
         for dtype in ("float32", "bfloat16"):
@@ -2180,7 +2272,8 @@ def mixed_phase(smi: str, dev) -> dict:
                     f"the {short} fused-tail path: launches {counts}, losses {losses}")
             for args in calls[:per_step]:
                 z1, widths = args[0], [int(g.shape[0]) for g in args[1]]
-                if tuple(z1.shape[1:3]) not in selected:
+                mk = tuple(z1.shape[1:3])
+                if mk not in selected[short]:
                     continue
                 label = f"{short} {dtype} z1 {list(z1.shape)} widths {widths}"
                 err = check_satrain_bwd(args, label)
@@ -2188,11 +2281,28 @@ def mixed_phase(smi: str, dev) -> dict:
                 plain_ms = cuda_ms(lambda: grouped_bn_mlp_pool_bwd_plain(*args), iters=3)
                 one = Work()
                 satrain_work(one, z1, widths)
+                rows, groups = z1[..., 0].numel(), z1.shape[0] * z1.shape[1]
+                layout = satrain_plan(groups, z1.shape[2], widths)
+                own = satrain_design_ops(rows, widths, layout)
+                three = one.ops_s * F32_OPS_PER_S
+                split = satrain_kernel_ms(lambda: grouped_bn_mlp_pool_bwd(*args))
+                # The kernel launches what its plan lays out.
+                want_launches = {"consts_kernel": 1, "pool_kernel": int(not layout.pool_in_pass),
+                                 "combine_kernel": int(layout.pool_segs > 1), "walk_kernel": len(layout.passes),
+                                 "reduce_kernel": len(layout.passes) - 1}
+                got_launches = {key: split[key]["launches"] for key in SATRAIN_KERNELS}
+                require(got_launches == want_launches,
+                        f"#17 {label} launched {got_launches}, its plan lays out {want_launches}")
                 print(f"time #17 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                      f"{one.record()['bound_ms']:.4f} ms ({one.record()['bound_by']}) ({smi})")
+                      f"{one.record()['bound_ms']:.4f} ms ({one.record()['bound_by']}); "
+                      f"{three / ms / 1e9:.2f} TFLOP/s of the 3-product work ({three / 1e9:.3f} GFLOP), "
+                      f"{own / ms / 1e9:.2f} of its own ({own / 1e9:.3f} GFLOP: rows {layout.rows}, pool in the pass "
+                      f"{layout.pool_in_pass}, blocks {[q.blocks for q in layout.passes]}); device ms by kernel "
+                      f"{ {key: round(split[key]['ms'], 4) for key in SATRAIN_KERNELS if split[key]['launches']} }, "
+                      f"walk passes {[round(v, 4) for v in split['walk_passes_ms']]} ({smi})")
                 records["grouped_bn_mlp_pool_bwd"]["max_abs_err"] = max(
                     records["grouped_bn_mlp_pool_bwd"]["max_abs_err"], err)
-                if short == "SSG" and dtype == "float32":
+                if short == "SSG" and dtype == "float32" and mk != (1, 128):  # the record: SA1 + SA2
                     records["grouped_bn_mlp_pool_bwd"]["ms"] += ms
                     records["grouped_bn_mlp_pool_bwd"]["plain_ms"] += plain_ms
                     satrain_work(work, z1, widths)
@@ -2203,6 +2313,16 @@ def mixed_phase(smi: str, dev) -> dict:
                 compare_steps(trainer, batches[TRAIN_STEPS], n_zero[model], f"{short} f32 fused tail B={b}",
                               grad_tol=FUSED_STEP_GRAD_TOL, against=unfused)
                 time_trainers({"fused tail": trainer, "unfused": unfused}, batches, smi, f"{short} B={b} N={n} f32")
+                for name, t in (("fused tail", trainer), ("unfused", unfused)):
+                    st = t.init_state(seed=0)
+                    t.train_step(st, batches[0])
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t.train_step(st, batches[1])
+                    torch.cuda.synchronize()
+                    print(f"peak memory train step {short} B={b} N={n} f32 {name}: "
+                          f"{torch.cuda.max_memory_allocated() / 2 ** 20:.1f} MiB ({smi})")
+                    del st
     records["grouped_bn_mlp_pool_bwd"].update(work.record())
 
     # 11e. SAModule(knn=True, nsample=128): the kNN's k > 64 path, at SSG's SA1 and SA2 shapes.
@@ -2400,6 +2520,7 @@ def main() -> None:
     print(f"build: nvcc {_build.build_seconds if _build.build_seconds is not None else 0.0:.2f} s "
           f"(library ready after {time.perf_counter() - t0:.2f} s)")
     check_sa_kernels(smi)
+    check_satrain_kernels(smi)
 
     # Data and model.
     data, labels = make_synthetic_dataset(

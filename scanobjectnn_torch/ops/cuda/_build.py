@@ -95,9 +95,11 @@ _SIGNATURES = {
     "spider_bwd_weight_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     # z32, gamma, beta, mean, r, rows, k, c, bf16, pooled, kmax, cnt, stream
     "poolkey_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    # z1, d_pooled, groups, k, bf16, pool_f32, n_layers, widths*, ptrs*, pooled,
-    # cnt, partial, partial_floats, dz1, stream
-    "satrain_bwd_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P),
+    # z1, d_pooled, groups, k, bf16, pool_f32, n_layers, widths*, ptrs*, plan*,
+    # plan_len, pooled, share, table, partial, partial_floats, dz1, stream
+    "satrain_bwd_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P),
+    # rows, n_layers, widths*, dw_floats, consts_smem, walk, info* (int[4])
+    "satrain_info": (_I, _I, _P, _I, _I, _I, _P),
 }
 
 # Entry points that return something other than a cudaError_t (int).

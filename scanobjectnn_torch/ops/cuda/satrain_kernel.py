@@ -24,14 +24,18 @@ du_i = dy_i·(u_i > 0):
 and dz1 = dz_0 rounded to the compute dtype.  db_i is the true sum: 0 up to
 rounding, since it feeds a training BN.
 
-``grouped_bn_mlp_pool_bwd`` on a CUDA tensor launches the kernel: L + 2
-passes over the rows, each recomputing the chain from z1 (a pool pass for
-the kernel's own winners, one pass per layer's sums, a final pass for dz1),
-with deterministic block sums (no float atomics).  It is not bit-equal to
-the plain version: its products sum in another order than cuBLAS's, so a
-relu gate or a pool winner within f32 rounding of a tie may flip; two calls
-give the same bits.  The scratch of a pass's block sums is at most
-``PARTIAL_BYTES`` (64 MiB), which bounds its blocks (``csrc/satrain_bwd.cu``).
+``grouped_bn_mlp_pool_bwd`` on a CUDA tensor launches the kernel: a pass
+per layer's sums and a final pass for dz1, each recomputing the chain from
+z1 (register-tiled f32 FMA products, W staged in shared memory), plus a
+pool pass for the kernel's own winners only where a chunk cannot hold whole
+groups; block sums reduced in a fixed order (no float atomics).  ``plan``
+lays the launch out (chunk rows, the pool in the pass or not, blocks a
+pass, the dW's place and slices, scratch) and the kernel refuses a plan it
+cannot run.  The result is not bit-equal to the plain version: its
+products sum in another order than cuBLAS's, so a relu gate or a pool
+winner within f32 rounding of a tie may flip; two calls give the same bits.
+Scratch: the block sums at most ``PARTIAL_BYTES`` (64 MiB), which bounds a
+pass's blocks, plus ``[groups, C_{L-1}]`` twice and the constants table.
 
 What bounds it on the H100: operations (each pass recomputes the forward
 chain on the CUDA cores in f32).
@@ -40,6 +44,8 @@ chain on the CUDA cores in f32).
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -49,16 +55,173 @@ from scanobjectnn_torch.ops.cuda import _build
 __all__ = [
     "EPS",
     "PARTIAL_BYTES",
+    "Plan",
     "fwd_chain",
     "grouped_bn_mlp_pool_bwd",
     "grouped_bn_mlp_pool_bwd_plain",
+    "kernel_info",
+    "plan",
 ]
 
 EPS = 1e-3
 PARTIAL_BYTES = 64 * 1024 * 1024
 MAX_LAYERS, MAX_WIDTH = 4, 1024  # kMaxLayers, kMaxWidth in csrc/satrain_bwd.cu
-_MAX_BLOCKS = 8 * 132  # kMaxBlocks
+# The kernel's layout constants (csrc/satrain_bwd.cu) and the card's (H100).
+_ROWS = (64, 32, 16, 8, 4)  # chunk rows it is built for
+_SLICE, _CONSTS, _DW_SIDE = 2048, 7, 64  # kSlice, kConsts, kDwSide
+_SMEM_MAX, _SM_SMEM, _BLOCK_RESERVED, SMS = 227 * 1024, 228 * 1024, 1024, 132
+_POOL_BLOCKS = 8 * SMS
 
+
+@dataclass(frozen=True)
+class PassPlan:
+    """One walk pass: the layer whose S1, S2 it sums (-1: dz1), its row
+    blocks (``blocks_x``, each ``chunks_per_block`` chunks), the dW's tile
+    slices (blockIdx.y), whether the dW sums in shared memory, a block's
+    partial floats and its dynamic shared bytes."""
+
+    target: int
+    blocks_x: int
+    chunks_per_block: int
+    slices: int
+    dw_smem: bool
+    stride: int
+    smem_bytes: int
+
+    @property
+    def blocks(self) -> int:
+        return self.blocks_x * self.slices
+
+
+@dataclass(frozen=True)
+class Plan:
+    """A launch of the kernel (``plan``): chunk rows of the tile (``rows``)
+    and of a chunk's data (``chunk_rows``: whole groups when the pool is in
+    the pass), the pool pass's segments a group, rows a segment and blocks
+    (when it runs), where the constants live, the walk passes, and the
+    partial buffer's floats."""
+
+    rows: int
+    chunk_rows: int
+    pool_in_pass: bool
+    pool_segs: int
+    pool_seg_rows: int
+    pool_blocks: int
+    consts_smem: bool
+    passes: tuple
+    partial_floats: int
+
+    @property
+    def scratch_bytes(self) -> int:
+        """The block sums' scratch (held to ``PARTIAL_BYTES``)."""
+        return 4 * self.partial_floats
+
+    def ints(self) -> list:
+        """The plan as ``satrain_bwd_launch`` reads it."""
+        head = [self.rows, self.chunk_rows, int(self.pool_in_pass), self.pool_segs, self.pool_seg_rows,
+                self.pool_blocks, int(self.consts_smem)]
+        return head + [v for p in self.passes for v in (p.blocks_x, p.chunks_per_block, p.slices, int(p.dw_smem))]
+
+
+def _smem_bytes(rows: int, widths: Sequence[int], dw_floats: int, consts_smem: bool) -> int:
+    """csrc/satrain_bwd.cu's smem_floats, in bytes: the W ring (ring_stages:
+    two slices at 32 and 64 rows, four below), h_i (i >= 1; h_0 when L ==
+    1), the even and odd layers' buffers, the dW, the constants."""
+    stages = 2 if rows >= 32 else 4
+    n = len(widths)
+    hsum = widths[0] if n == 1 else sum(widths[1:])
+    b0 = max([widths[i] for i in range(0, n - 1, 2)], default=0)
+    b1 = max([widths[i] for i in range(1, n - 1, 2)], default=0)
+    floats = stages * _SLICE + (rows + 4) * (hsum + b0 + b1) + dw_floats + (_CONSTS * sum(widths) if consts_smem else 0)
+    return 4 * floats
+
+
+def _blocks_per_sm(rows: int, smem: int) -> int:
+    """Blocks an SM holds at ``smem`` bytes: the kernels are built for two
+    at 32 and 64 rows a chunk where two fit (min_blocks), else for one."""
+    return 2 if rows >= 32 and 2 * (smem + _BLOCK_RESERVED) <= _SM_SMEM else 1
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(groups: int, k: int, widths: Sequence[int], *, rows: int | None = None,
+         pool_in_pass: bool | None = None, consts_smem: bool | None = None) -> Plan:
+    """The launch of the kernel on ``groups`` groups of ``k`` rows through
+    layers of these widths.  The keywords force a choice
+    (``studies/satrain_fma.py`` times the alternatives).
+
+    Chunk rows (64, 32, 16, 8, 4) and the constants' place: the most blocks
+    an SM, then the most rows, then the constants in shared memory, that fit
+    (two blocks at 32 rows beat one at 64 with the pool in the pass at SSG's
+    SA2 on an H100, 6.27 ms against 6.74).  The pool is in the pass where a
+    chunk holds whole groups (K <= rows, their maxima in half the W ring);
+    else the pool pass splits each group into segments of whole chunks when
+    there are too few groups to fill the card.  A pass that sums dW_{t+1}
+    takes the fewest dW slices (blockIdx.y) with which the partial buffer
+    holds a slice for a wave of blocks (or one tile a slice); its dW sums in
+    shared memory where that keeps the blocks an SM.  Every pass takes the
+    chunks a block that need the fewest waves times chunks, then fill the
+    card's SMs, then the most chunks."""
+    return _plan(groups, k, tuple(int(w) for w in widths), rows, pool_in_pass, consts_smem)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(groups, k, widths, rows, pool_in_pass, consts_smem) -> Plan:
+    n = len(widths)
+    partial_cap = PARTIAL_BYTES // 4
+    fits = [(_blocks_per_sm(r, smem), r, c) for r in _ROWS for c in (True, False)
+            for smem in [_smem_bytes(r, widths, 0, c)]
+            if smem <= _SMEM_MAX and r == (rows or r) and c == (c if consts_smem is None else consts_smem)]
+    if not fits:
+        raise ValueError(f"satrain plan: widths {list(widths)} fit no chunk in shared memory")
+    _, rows, consts_smem = max(fits)
+    # The pool in the pass: whole groups a chunk, their (max, share) in half the ring.
+    in_pass = k <= rows and rows // k * widths[-1] <= _SLICE // 2 and pool_in_pass is not False
+    chunk_rows = rows // k * k if in_pass else rows
+    chunks = _ceil(groups * k, chunk_rows)
+    base = _smem_bytes(rows, widths, 0, consts_smem)
+    wave = SMS * _blocks_per_sm(rows, base)
+    segs = seg_rows = pool_blocks = partial = 0
+    if not in_pass:
+        group_chunks = _ceil(k, rows)
+        segs = min(group_chunks, max(1, _ceil(_POOL_BLOCKS, groups)))
+        if groups * segs * 2 * widths[-1] > partial_cap:
+            segs = 1
+        seg_rows = _ceil(group_chunks, segs) * rows
+        segs = _ceil(k, seg_rows)
+        pool_blocks = min(groups * segs, _POOL_BLOCKS)
+        if segs > 1:
+            partial = groups * segs * 2 * widths[-1]
+    passes = []
+    for target in range(n - 1, -2, -1):
+        ct = widths[target] if target >= 0 else 0
+        with_dw = 0 <= target < n - 1
+        ce = widths[target + 1] if with_dw else 0
+        tiles = _ceil(ct, _DW_SIDE) * _ceil(ce, _DW_SIDE)
+        for want in range(1, max(tiles, 1) + 1):
+            tps = _ceil(tiles, want)
+            slices = _ceil(tiles, tps) if with_dw else 1
+            stride = 2 * ct + tps * _DW_SIDE ** 2 + ce
+            cap = min(chunks, partial_cap // (stride * slices)) if stride else chunks
+            if not with_dw or cap * slices >= wave:
+                break
+        if not cap:
+            raise ValueError(f"satrain plan: one block's sums ({stride} floats) exceed the scratch")
+
+        def cost(cpb):
+            blocks = _ceil(chunks, cpb) * slices
+            return _ceil(blocks, wave) * cpb, blocks < SMS, -cpb
+
+        cpb = min(range(_ceil(chunks, cap), chunks + 1), key=cost)
+        bx = _ceil(chunks, cpb)
+        dw_floats = tps * _DW_SIDE ** 2 if with_dw else 0
+        with_smem = _smem_bytes(rows, widths, dw_floats, consts_smem)
+        smem_dw = with_dw and with_smem <= _SMEM_MAX and _blocks_per_sm(rows, with_smem) >= _blocks_per_sm(rows, base)
+        passes.append(PassPlan(target, bx, cpb, slices, smem_dw, stride, with_smem if smem_dw else base))
+        partial = max(partial, bx * slices * stride)
+    return Plan(rows, chunk_rows, in_pass, segs, seg_rows, pool_blocks, consts_smem, tuple(passes), max(partial, 1))
 
 def _acc(t: torch.Tensor) -> torch.Tensor:
     """``t`` in the type the chain sums in: f32 (float64 stays float64)."""
@@ -173,11 +336,13 @@ def grouped_bn_mlp_pool_bwd(
     variances: Sequence[torch.Tensor],
     d_pooled: torch.Tensor,
     pool_mode: str = "0",
+    launch_plan: Plan | None = None,
 ):
     """The tail's backward (module doc): (dz1, dgammas, dbetas, dws, dbs).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``grouped_bn_mlp_pool_bwd.launches``) or raises."""
+    (counted in ``grouped_bn_mlp_pool_bwd.launches``) on ``launch_plan``, by
+    default ``plan``'s, or raises."""
     if z1.device.type == "cpu":
         return grouped_bn_mlp_pool_bwd_plain(z1, gammas, betas, ws, bs, means, variances, d_pooled, pool_mode)
     fn = "grouped_bn_mlp_pool_bwd"
@@ -207,34 +372,36 @@ def grouped_bn_mlp_pool_bwd(
     dbetas = [torch.empty(c, device=dev) for c in widths]
     dws = [torch.empty(widths[i - 1], widths[i], device=dev) for i in range(1, n_layers)]
     dbs = [torch.empty(widths[i], device=dev) for i in range(1, n_layers)]
-    table = []
+    table_ptrs = []
     for i, c in enumerate(widths):
         var = _f32(f"variances[{i}]", variances[i], (c,), dev)
-        table += [ptr(_f32(f"means[{i}]", means[i], (c,), dev)), ptr(torch.rsqrt(var + EPS)),
+        table_ptrs += [ptr(_f32(f"means[{i}]", means[i], (c,), dev)), ptr(torch.rsqrt(var + EPS)),
                   ptr(_f32(f"gammas[{i}]", gammas[i], (c,), dev)), ptr(_f32(f"betas[{i}]", betas[i], (c,), dev)),
                   ptr(dbetas[i]), ptr(dgammas[i])]
     for i in range(1, n_layers):
         w = _f32(f"ws[{i - 1}]", ws[i - 1], (widths[i - 1], widths[i]), dev)
-        table += [ptr(w.to(z1.dtype).float().contiguous()), ptr(w.t().contiguous()),
+        table_ptrs += [ptr(w.to(z1.dtype).float().contiguous()), ptr(w.t().contiguous()),
                   ptr(_f32(f"bs[{i - 1}]", bs[i - 1], (widths[i],), dev)), ptr(dws[i - 1]), ptr(dbs[i - 1])]
     dp = _f32("d_pooled", d_pooled, (b, m, widths[-1]), dev)
-    strides = [2 * widths[j] + (widths[j] * widths[j + 1] + widths[j + 1] if j + 1 < n_layers else 0)
-               for j in range(n_layers)]
-    partial_floats = min(PARTIAL_BYTES // 4, max(strides) * _MAX_BLOCKS)
-    if max(strides) > partial_floats:
-        raise ValueError(f"{fn}: one block's sums ({max(strides)} floats) exceed the {PARTIAL_BYTES}-byte scratch")
-    partial = torch.empty(partial_floats, device=dev)
+    layout = launch_plan if launch_plan is not None else plan(groups, k, widths)
+    if layout.scratch_bytes > PARTIAL_BYTES:
+        raise ValueError(f"{fn}: the plan's scratch ({layout.scratch_bytes} bytes) exceeds {PARTIAL_BYTES}")
+    partial = torch.empty(layout.partial_floats, device=dev)
     pooled = torch.empty(groups, widths[-1], device=dev)
-    cnt = torch.empty(groups, widths[-1], device=dev)
+    share = torch.empty(groups, widths[-1], device=dev)
+    table = torch.empty(7 * sum(widths), device=dev)
     dz1 = torch.empty_like(z1)
     c_widths = (ctypes.c_int * n_layers)(*widths)
-    c_ptrs = (ctypes.c_void_p * len(table))(*table)
+    c_ptrs = (ctypes.c_void_p * len(table_ptrs))(*table_ptrs)
+    ints = layout.ints()
+    c_plan = (ctypes.c_int * len(ints))(*ints)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.satrain_bwd_launch(
             z1.data_ptr(), dp.data_ptr(), groups, k, int(z1.dtype == torch.bfloat16), int(pool_mode == "1"),
-            n_layers, ctypes.addressof(c_widths), ctypes.addressof(c_ptrs), pooled.data_ptr(), cnt.data_ptr(),
-            partial.data_ptr(), partial_floats, dz1.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            n_layers, ctypes.addressof(c_widths), ctypes.addressof(c_ptrs), ctypes.addressof(c_plan), len(ints),
+            pooled.data_ptr(), share.data_ptr(), table.data_ptr(), partial.data_ptr(), layout.partial_floats,
+            dz1.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, fn)
     grouped_bn_mlp_pool_bwd.launches += 1
@@ -242,3 +409,19 @@ def grouped_bn_mlp_pool_bwd(
 
 
 grouped_bn_mlp_pool_bwd.launches = 0
+
+
+def kernel_info(groups: int, k: int, widths: Sequence[int], walk: bool = True) -> dict:
+    """The walk kernel (or the pool kernel) at its plan's chunk rows and the
+    shared memory of its largest pass: registers and local-memory bytes a
+    thread, dynamic shared bytes a block, resident blocks per SM, from
+    ``cudaFuncGetAttributes`` and the occupancy API (on the card)."""
+    layout = plan(groups, k, widths)
+    dw_floats = max((_ceil(_ceil(widths[p.target], _DW_SIDE) * _ceil(widths[p.target + 1], _DW_SIDE), p.slices)
+                     * _DW_SIDE ** 2 for p in layout.passes if p.dw_smem), default=0)
+    info = (ctypes.c_int * 4)()
+    c_widths = (ctypes.c_int * len(widths))(*widths)
+    err = _build.library().satrain_info(layout.rows, len(widths), ctypes.addressof(c_widths), dw_floats,
+                                        int(layout.consts_smem), int(walk), ctypes.addressof(info))
+    _build.check(err, "satrain kernel_info")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), info))

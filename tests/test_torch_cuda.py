@@ -64,8 +64,11 @@ Exact-key pooling (#18): pooled, kmax and cnt equal to
 without contraction, the same bf16 rounding), at the bf16 SSG step's three
 SA shapes and MSG SA1's 64-wide scale, ragged widths, ties and a NaN.  The
 fused tail's backward (#17): against ``grouped_bn_mlp_pool_bwd_plain`` at
-SSG's SA1, SA2 and group-all, MSG SA1's K = 128 scale and small stacks, f32
-and bf16, pool modes "0" and "1": bit-stable across two calls; each
+SSG's SA1, SA2 and group-all, MSG SA1's K = 128 scale, small stacks and
+the edges of its plan (K = 1, 33, 65, 96, 127, a last chunk of fewer
+groups, widths 1, 5 and 1024, four layers), f32 and bf16, pool modes "0"
+and "1", and one input as groups the chunk holds (the pool in every pass)
+and reshaped into groups it cannot: bit-stable across two calls; each
 cotangent at most ``SATRAIN_FLIP_SHARE`` of its elements beyond
 ``SATRAIN_TOL`` x max|ref| (a gate or winner flipped by the summation
 order; in bf16 a rounding of h moved by one ulp); the Dense biases (true
@@ -134,6 +137,7 @@ from scanobjectnn_torch.ops.cuda.satrain_kernel import (
     grouped_bn_mlp_pool_bwd,
     grouped_bn_mlp_pool_bwd_plain,
 )
+from scanobjectnn_torch.ops.cuda.satrain_kernel import plan as satrain_plan
 from scanobjectnn_torch.ops.cuda.spider_kernel import (
     spider_conv,
     spider_conv_bwd_kernel,
@@ -1085,7 +1089,16 @@ def test_poolkey_kernel_refuses_what_it_does_not_take(dev):
 # #17, the fused SA training tail's backward: (z1 shape [B, M, K, C0], the
 # MLP widths).  SSG SA1 and SA2 at B=16, MSG SA1's K=128 scale, SSG's
 # group-all at B=4, and small stacks of 1-3 layers with K and widths that
-# are not multiples of 8, and duplicated slots (exact pool ties).
+# are not multiples of 8, and duplicated slots (exact pool ties).  The
+# edges of the kernel's plan (``satrain_kernel.plan``): K = 1 and 33 (whole
+# groups a chunk, the pool in the pass), K = 65, 96 and 127 (a group
+# crosses chunks: the pool pass, split into segments; the ties of k96 lie
+# across a chunk's and a segment's boundary), groups x K not a multiple of
+# the chunk's rows (k12_ragged: five groups a chunk, 21 groups), widths 1
+# and 5 (a one-channel layer between two of 5: a lone channel at the
+# bottom or the top sums gradients that cancel over the rows, which the
+# kernel's order and cuBLAS's round apart by more than SATRAIN_TOL of
+# their own size), 1024 (fewer rows a chunk), four layers.
 SATRAIN_CASES = {
     "ssg_sa1": ((16, 512, 32, 64), (64, 64, 128)),
     "ssg_sa2": ((16, 128, 64, 128), (128, 128, 256)),
@@ -1094,6 +1107,15 @@ SATRAIN_CASES = {
     "ragged": ((3, 5, 7, 12), (12, 20, 9)),
     "one_layer": ((2, 8, 10, 16), (16,)),
     "two_layers_ties": ((2, 16, 8, 24), (24, 40)),
+    "k1": ((2, 64, 1, 16), (16, 24, 32)),
+    "k33": ((2, 9, 33, 20), (20, 36, 40)),
+    "k65": ((2, 5, 65, 24), (24, 40)),
+    "k96_ties": ((2, 4, 96, 16), (16, 24, 32)),
+    "k127": ((1, 6, 127, 12), (12, 24, 48)),
+    "k12_ragged": ((3, 7, 12, 8), (8, 16)),
+    "widths_1_5": ((2, 8, 16, 5), (5, 1, 5)),
+    "width_1024": ((1, 4, 16, 1024), (1024, 1024)),
+    "four_layers": ((2, 16, 16, 12), (12, 20, 28, 36)),
 }
 # Tolerance (x the tensor's max |ref|): the kernel sums its products in
 # another order than cuBLAS, so a relu gate or a pool winner within
@@ -1107,10 +1129,11 @@ SATRAIN_FLIP_SHARE = {torch.float32: 1e-3, torch.bfloat16: 1e-3}
 SATRAIN_ZERO_TOL = 1e-3
 
 
-def satrain_inputs(case, dtype, dev, pool_mode="0"):
+def satrain_inputs(case, dtype, dev, pool_mode="0", spec=None):
     """(z1, gammas, betas, ws, bs, means, vars, d_pooled, pool_mode), the
-    statistics those of the plain forward chain on the card."""
-    shape, widths = SATRAIN_CASES[case]
+    statistics those of the plain forward chain on the card; ``spec`` (the
+    shape and widths) for a case outside SATRAIN_CASES."""
+    shape, widths = spec or SATRAIN_CASES[case]
     rng = np.random.RandomState(sum(shape) + sum(widths))
 
     def t(a):
@@ -1150,11 +1173,17 @@ def test_satrain_bwd_kernel_matches_plain(dev, case, dtype, pool_mode):
     want = _flatten_grads(grouped_bn_mlp_pool_bwd_plain(*args))
     torch.cuda.synchronize()
     assert grouped_bn_mlp_pool_bwd.launches == before + 2
+    for name, g in got.items():
+        assert torch.equal(g, again[name]), f"{name} is not bit-stable"
+    _check_satrain(got, want, dtype, f"{case} mode {pool_mode}")
+
+
+def _check_satrain(got, want, dtype, label):
+    """Each cotangent within the SATRAIN_* gates of the plain backward's."""
     readings = []
     for name, w in want.items():
         g = got[name]
         assert g.dtype == w.dtype and g.shape == w.shape, name
-        assert torch.equal(g, again[name]), f"{name} is not bit-stable"
         diff = (g.float() - w.float()).abs()
         if name.startswith("dbias"):  # feeds a training BN: its true value is 0, both sum rounding noise
             bound = SATRAIN_ZERO_TOL * max(1.0, float(want["dbeta" + name[5:]].abs().max()))
@@ -1167,8 +1196,62 @@ def test_satrain_bwd_kernel_matches_plain(dev, case, dtype, pool_mode):
         rest = float(torch.where(beyond, 0.0, diff).max()) / scale
         readings.append((name, float(diff.max()) / scale, share, rest))
         assert share <= SATRAIN_FLIP_SHARE[dtype], (name, share, readings)
-    print(f"#17 {case} {dtype} mode {pool_mode}: {readings}")
+    print(f"#17 {label} {dtype}: {readings}")
 
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_satrain_bwd_in_pass_pool_and_pool_pass(dev, dtype):
+    # The same z1 and parameters as 32-row groups (the pool in every pass)
+    # and reshaped into 128-row groups (a group crosses chunks: the pool
+    # pass); both within the gates of the plain backward.  The 32-row call
+    # forced onto the pool pass chunks its rows alike, so it gives the same
+    # bits as the in-pass pool.
+    rng = np.random.RandomState(31)
+    widths = (16, 24, 32)
+    z = rng.randn(2, 32, 32, 16).astype(np.float32) + rng.randn(16).astype(np.float32)
+    z[:, :, 16:] = z[:, :, :16]  # exact ties
+    gammas = [torch.from_numpy((1.0 + 0.1 * rng.randn(c)).astype(np.float32)).to(dev) for c in widths]
+    betas = [torch.from_numpy((0.1 * rng.randn(c)).astype(np.float32)).to(dev) for c in widths]
+    ws = [torch.from_numpy((rng.randn(a, b) / np.sqrt(a)).astype(np.float32)).to(dev)
+          for a, b in zip(widths, widths[1:])]
+    bs = [torch.from_numpy((0.05 * rng.randn(c)).astype(np.float32)).to(dev) for c in widths[1:]]
+    for shape in ((2, 32, 32, 16), (2, 8, 128, 16)):
+        z1 = torch.from_numpy(z.reshape(shape)).to(dev).to(dtype)
+        _, _, _, means, variances = fwd_chain(z1, gammas, betas, ws, bs)
+        d_pooled = torch.from_numpy(rng.randn(shape[0], shape[1], widths[-1]).astype(np.float32)).to(dev)
+        args = (z1, gammas, betas, ws, bs, means, variances, d_pooled, "0")
+        layout = satrain_plan(shape[0] * shape[1], shape[2], widths)
+        assert layout.pool_in_pass == (shape[2] == 32)
+        got = _flatten_grads(grouped_bn_mlp_pool_bwd(*args))
+        want = _flatten_grads(grouped_bn_mlp_pool_bwd_plain(*args))
+        torch.cuda.synchronize()
+        _check_satrain(got, want, dtype, f"z1 {shape}")
+        if layout.pool_in_pass:
+            forced = satrain_plan(shape[0] * shape[1], shape[2], widths, pool_in_pass=False)
+            assert not forced.pool_in_pass and forced.chunk_rows == layout.chunk_rows
+            again = _flatten_grads(grouped_bn_mlp_pool_bwd(*args, launch_plan=forced))
+            for name, g in got.items():
+                assert torch.equal(g, again[name]), name
+
+
+def test_satrain_bwd_four_wide_layers_f32(dev):
+    # Four layers of 1024: 4 rows a chunk, the constants in device memory.
+    # In f32 only: in bf16 a rounding of h that the summation order moves by
+    # an ulp moves the next layer's 1024 sums of that row, and over four
+    # such layers most of the row's roundings (62% of dz1's elements beyond
+    # SATRAIN_TOL, read on an H100), whichever kernel sums in another order
+    # than cuBLAS.
+    args = satrain_inputs("four_wide", torch.float32, dev, spec=((1, 2, 8, 1024), (1024,) * 4))
+    layout = satrain_plan(2, 8, (1024,) * 4)
+    assert layout.rows == 4 and not layout.consts_smem
+    got = _flatten_grads(grouped_bn_mlp_pool_bwd(*args))
+    again = _flatten_grads(grouped_bn_mlp_pool_bwd(*args))
+    want = _flatten_grads(grouped_bn_mlp_pool_bwd_plain(*args))
+    torch.cuda.synchronize()
+    for name, g in got.items():
+        assert torch.equal(g, again[name]), f"{name} is not bit-stable"
+    _check_satrain(got, want, torch.float32, "four_wide")
 
 
 def test_satrain_bwd_kernel_refuses_what_it_does_not_take(dev):

@@ -15,6 +15,12 @@ the JAX package on the same numpy inputs.
     stats.
   * ``LiftedGroupMLP`` in bf16 training against the JAX module (keys and
     native modes).
+  * The kernel's launch plan (``satrain_kernel.plan``), which the CUDA
+    entry point checks and refuses when it cannot run it: the pool in every
+    pass where a chunk holds whole groups (SSG's SA1 and SA2, MSG's K <= 64
+    scales), the pool pass at group-all and MSG's K = 128 scales, the blocks
+    of group-all's passes, and every plan within its scratch and shared
+    memory, covering each row once.
 
 Tolerances, x max(1, |ref|max) per tensor.  f32: 1e-5 (sums over the rows
 in other orders); the Dense biases feed a training BN, so their gradient is
@@ -41,9 +47,12 @@ from scanobjectnn_tpu.ops.pallas import satrain_kernel as jsatrain
 from scanobjectnn_torch import convert
 from scanobjectnn_torch.nn.pointnet_modules import GroupMLPPool, LiftedGroupMLP, configure_training
 from scanobjectnn_torch.ops.cuda.satrain_kernel import (
+    PARTIAL_BYTES,
+    SMS,
     fwd_chain,
     grouped_bn_mlp_pool_bwd,
     grouped_bn_mlp_pool_bwd_plain,
+    plan,
 )
 from scanobjectnn_torch.ops.satrain import grouped_bn_mlp_pool
 
@@ -285,3 +294,95 @@ def test_lifted_group_mlp_bf16_matches_jax(monkeypatch, mode):
             assert np.abs(g - w).max() <= MODULE_BF16_TOL * scale, (name, np.abs(g - w).max() / scale)
     for name, w in convert._flatten(ref_stats):
         np.testing.assert_allclose(dict(tm.named_buffers())[name].numpy(), np.asarray(w), rtol=1e-3, atol=1e-6)
+
+
+# The fused tail's calls of a B=16 training step (groups = B * M, K, the MLP
+# widths) and whether a chunk of the kernel holds whole groups there: where
+# two blocks an SM fit 64-row chunks (SA1's widths), not at SA2's, whose
+# 32-row chunks at two blocks an SM beat 64 rows at one with the pool in the
+# pass on an H100 (PERF.md section 6, PR 13).
+MAIN_CALLS = {
+    "ssg_sa1": (16 * 512, 32, (64, 64, 128), True),
+    "ssg_sa2": (16 * 128, 64, (128, 128, 256), False),
+    "ssg_group_all": (16, 128, (256, 512, 1024), False),
+    "msg_sa1_k16": (16 * 512, 16, (32, 32, 64), True),
+    "msg_sa1_k32": (16 * 512, 32, (64, 64, 128), True),
+    "msg_sa1_k128": (16 * 512, 128, (64, 96, 128), False),
+    "msg_sa2_k32": (16 * 128, 32, (64, 64, 128), True),
+    "msg_sa2_k64": (16 * 128, 64, (128, 128, 256), False),
+    "msg_sa2_k128": (16 * 128, 128, (128, 128, 256), False),
+}
+# The card tests' shapes (tests/test_torch_cuda.py SATRAIN_CASES) and the
+# largest stack the kernel takes.
+EDGE_CALLS = {
+    "group_all_b4": (4, 128, (256, 512, 1024)),
+    "ragged": (15, 7, (12, 20, 9)),
+    "one_layer": (16, 10, (16,)),
+    "k1": (128, 1, (16, 24, 32)),
+    "k33": (18, 33, (20, 36, 40)),
+    "k65": (10, 65, (24, 40)),
+    "k96": (8, 96, (16, 24, 32)),
+    "k127": (6, 127, (12, 24, 48)),
+    "k12_ragged": (21, 12, (8, 16)),
+    "widths_1_5": (16, 16, (5, 1, 5)),
+    "width_1024": (4, 16, (1024, 1024)),
+    "four_layers": (32, 16, (12, 20, 28, 36)),
+    "four_wide": (2, 8, (1024, 1024, 1024, 1024)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MAIN_CALLS))
+def test_plan_takes_the_pool_into_the_pass_where_a_chunk_holds_whole_groups(name):
+    groups, k, widths, in_pass = MAIN_CALLS[name]
+    layout = plan(groups, k, widths)
+    assert layout.pool_in_pass == in_pass
+    if in_pass:  # whole groups a chunk; no pool pass
+        assert layout.chunk_rows == layout.rows // k * k and layout.pool_blocks == 0
+    else:  # a group's rows in whole chunks of the pool pass's segments
+        assert layout.chunk_rows == layout.rows and layout.pool_seg_rows % layout.rows == 0
+        assert layout.pool_segs * layout.pool_seg_rows >= k > (layout.pool_segs - 1) * layout.pool_seg_rows
+
+
+def test_plan_fills_the_card_at_group_all():
+    # SSG's group-all at B=16: 2048 rows in 16-row chunks (the widest the
+    # 256-512-1024 layers leave room for, the constants in device memory),
+    # so 128 chunks: a pass without a dW takes a chunk a block, 128 blocks on
+    # the 132 SMs.  (8-row chunks give 256 blocks and read 1.35x slower on an
+    # H100.)  The two passes that sum a dW are bounded by the partial buffer
+    # (2 MiB of dW_2 a row block) and split the dW's tiles: dW_2 in 5 slices
+    # x 26 row blocks, dW_1 in 2 x 64 (PERF.md section 6, PR 13).
+    layout = plan(16, 128, (256, 512, 1024))
+    assert (layout.rows, layout.consts_smem, layout.pool_in_pass) == (16, False, False)
+    assert [p.blocks for p in layout.passes] == [128, 130, 128, 128]
+    assert [p.slices for p in layout.passes] == [1, 5, 2, 1]
+
+
+@pytest.mark.parametrize("name", sorted(MAIN_CALLS) + sorted(EDGE_CALLS))
+def test_plan_stays_within_its_scratch_and_shared_memory(name):
+    groups, k, widths = (MAIN_CALLS.get(name) or EDGE_CALLS[name])[:3]
+    layout = plan(groups, k, widths)
+    assert layout.scratch_bytes <= PARTIAL_BYTES
+    assert layout.rows in (4, 8, 16, 32, 64) and 1 <= layout.chunk_rows <= layout.rows
+    assert len(layout.ints()) == 7 + 4 * (len(widths) + 1)
+    chunks = -(-groups * k // layout.chunk_rows)
+    assert [p.target for p in layout.passes] == list(range(len(widths) - 1, -2, -1))
+    for p in layout.passes:
+        # every chunk in one block, no block empty
+        assert p.blocks_x * p.chunks_per_block >= chunks > (p.blocks_x - 1) * p.chunks_per_block
+        assert p.smem_bytes <= 227 * 1024
+        assert p.blocks_x * p.slices * p.stride <= layout.partial_floats
+        if 0 <= p.target < len(widths) - 1:
+            tiles = -(-widths[p.target] // 64) * -(-widths[p.target + 1] // 64)
+            assert 1 <= p.slices <= tiles
+        else:
+            assert p.slices == 1 and not p.dw_smem
+
+
+def test_plan_keywords_force_a_choice():
+    layout = plan(16 * 512, 32, (64, 64, 128), pool_in_pass=False)
+    assert not layout.pool_in_pass and layout.chunk_rows == layout.rows == 64
+    layout = plan(16 * 512, 32, (64, 64, 128), rows=32)
+    assert layout.rows == 32 and layout.pool_in_pass and layout.chunk_rows == 32
+    assert [p.dw_smem for p in layout.passes] == [False, True, True, False]
+    layout = plan(16 * 128, 64, (128, 128, 256), rows=64, consts_smem=True)
+    assert layout.pool_in_pass and layout.consts_smem and layout.chunk_rows == 64
