@@ -2012,10 +2012,12 @@ def check_satrain_kernels(smi: str) -> None:
     """Registers, local memory and blocks per SM of #17's walk and pool
     kernels, built as their plans pick them at phase 11's calls; no local
     memory allowed."""
-    from scanobjectnn_torch.ops.cuda.satrain_kernel import kernel_info, plan
+    import torch
+
+    from scanobjectnn_torch.ops.cuda.satrain_kernel import kernel_info, plan, sm_count
 
     for label, (groups, k, widths) in SATRAIN_CALLS.items():
-        layout = plan(groups, k, widths)
+        layout = plan(groups, k, widths, sm_count(torch.cuda.current_device()))
         for walk in (True, False):
             info = kernel_info(groups, k, widths, walk)
             name = "walk_kernel" if walk else "pool_kernel"
@@ -2053,27 +2055,27 @@ def satrain_kernel_ms(fn, iters: int = 3) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(8):  # a trace now and then comes back empty: take another
+    # A trace now and then comes back empty or without its first kernels:
+    # take another.
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        spans = [(end - start, name) for start, end, name in device_spans(prof)]
-        if spans:
+        out = {name: {"ms": 0.0, "launches": 0} for name in SATRAIN_KERNELS}
+        walks = []
+        for start, end, name in device_spans(prof):
+            for key in SATRAIN_KERNELS:
+                if key in name:
+                    out[key]["ms"] += (end - start) / 1e3 / iters
+                    out[key]["launches"] += 1
+                    if key == "walk_kernel":
+                        walks.append((end - start) / 1e3)
+        if walks and all(v["launches"] % iters == 0 for v in out.values()):
             break
     else:
-        raise AssertionError("chip_smoke: the profiler recorded no device time for #17")
-    out = {name: {"ms": 0.0, "launches": 0} for name in SATRAIN_KERNELS}
-    walks = []
-    for us, name in spans:
-        for key in SATRAIN_KERNELS:
-            if key in name:
-                out[key]["ms"] += us / 1e3 / iters
-                out[key]["launches"] += 1
-                if key == "walk_kernel":
-                    walks.append(us / 1e3)
+        raise AssertionError(f"chip_smoke: 8 traces recorded #17's kernels unevenly over {iters} calls: {out}")
     for v in out.values():
-        require(v["launches"] % iters == 0, f"#17's kernels launched unevenly over {iters} calls: {out}")
         v["launches"] //= iters
     per_call = len(walks) // iters
     out["walk_passes_ms"] = [sum(walks[i::per_call]) / iters for i in range(per_call)]
@@ -2186,7 +2188,7 @@ def mixed_phase(smi: str, dev) -> dict:
     from scanobjectnn_torch.ops.cuda.poolkey_kernel import bn_relu_exactkey_pool, bn_relu_exactkey_pool_plain
     from scanobjectnn_torch.ops.cuda.samlp_kernel import sa_mlp_pool
     from scanobjectnn_torch.ops.cuda.satrain_kernel import grouped_bn_mlp_pool_bwd, grouped_bn_mlp_pool_bwd_plain
-    from scanobjectnn_torch.ops.cuda.satrain_kernel import plan as satrain_plan
+    from scanobjectnn_torch.ops.cuda.satrain_kernel import plan as satrain_plan, sm_count
     from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
 
     b, n = MIXED_BATCH, MIXED_POINT
@@ -2282,7 +2284,7 @@ def mixed_phase(smi: str, dev) -> dict:
                 one = Work()
                 satrain_work(one, z1, widths)
                 rows, groups = z1[..., 0].numel(), z1.shape[0] * z1.shape[1]
-                layout = satrain_plan(groups, z1.shape[2], widths)
+                layout = satrain_plan(groups, z1.shape[2], widths, sm_count(z1.device))
                 own = satrain_design_ops(rows, widths, layout)
                 three = one.ops_s * F32_OPS_PER_S
                 split = satrain_kernel_ms(lambda: grouped_bn_mlp_pool_bwd(*args))

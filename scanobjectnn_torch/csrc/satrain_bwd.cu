@@ -96,7 +96,7 @@ constexpr int kConsts = 7;                        // per-channel constants a lay
 constexpr int kDwSide = 64;                       // a dW tile: 64 x 64 entries
 constexpr int kDwThreads = 16;                    // threads along each side of a dW tile
 constexpr int kDwTileFloats = kDwSide * kDwSide;
-constexpr int kPlanHead = 7, kPlanPass = 4;
+constexpr int kPlanHead = 8, kPlanPass = 4;
 constexpr size_t kMaxSmem = 227 * 1024;
 
 enum { kMean, kR, kGamma, kBeta, kCoef, kS1n, kS2n };
@@ -972,10 +972,11 @@ cudaError_t run(const Net& n, const int* plan, cudaStream_t s) {
 }
 
 // The plan's checks (ops/cuda/satrain_kernel.py: plan lays it out): true if
-// this file can run it within partial_floats of scratch.
+// this file can run it within partial_floats of scratch, every launch built
+// for the blocks an SM that the plan's waves assume (plan[7]).
 bool plan_ok(const Net& n, const int* plan, int plan_len, int64_t groups, int partial_floats) {
   const int rows = plan[0], chunk = plan[1], in_pass = plan[2], segs = plan[3], seg_rows = plan[4],
-            pool_blocks = plan[5], consts_smem = plan[6];
+            pool_blocks = plan[5], consts_smem = plan[6], blocks_per_sm = plan[7];
   const int top = n.layers - 1, cl = n.width[top];
   if (plan_len != kPlanHead + kPlanPass * (n.layers + 1)) return false;
   if (rows != 4 && rows != 8 && rows != 16 && rows != 32 && rows != 64) return false;
@@ -986,8 +987,9 @@ bool plan_ok(const Net& n, const int* plan, int plan_len, int64_t groups, int pa
     if (chunk != rows || segs < 1 || seg_rows < rows || seg_rows % rows || pool_blocks < 1) return false;
     if (static_cast<int64_t>(segs) * seg_rows < n.k || static_cast<int64_t>(segs - 1) * seg_rows >= n.k) return false;
     if (segs > 1 && groups * segs * 2 * cl > partial_floats) return false;
-    if (sizeof(float) * smem_floats(rows, n.layers, n.width, 0, consts_smem) > kMaxSmem) return false;
   }
+  const size_t base = sizeof(float) * smem_floats(rows, n.layers, n.width, 0, consts_smem);
+  if (base > kMaxSmem || min_blocks(rows, base) != blocks_per_sm) return false;
   const int64_t chunks = (n.rows + chunk - 1) / chunk;
   for (int j = 0; j <= n.layers; ++j) {
     const int* q = plan + kPlanHead + kPlanPass * j;
@@ -1009,7 +1011,8 @@ bool plan_ok(const Net& n, const int* plan, int plan_len, int64_t groups, int pa
       const int64_t stride = 2 * n.width[target] + dwf + (with_dw ? n.width[target + 1] : 0);
       if (static_cast<int64_t>(bx) * slices * stride > partial_floats) return false;
     }
-    if (sizeof(float) * smem_floats(rows, n.layers, n.width, dw_smem ? dwf : 0, consts_smem) > kMaxSmem) return false;
+    const size_t bytes = sizeof(float) * smem_floats(rows, n.layers, n.width, dw_smem ? dwf : 0, consts_smem);
+    if (bytes > kMaxSmem || min_blocks(rows, bytes) != blocks_per_sm) return false;
   }
   return true;
 }

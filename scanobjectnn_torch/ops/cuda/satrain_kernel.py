@@ -61,16 +61,17 @@ __all__ = [
     "grouped_bn_mlp_pool_bwd_plain",
     "kernel_info",
     "plan",
+    "sm_count",
 ]
 
 EPS = 1e-3
 PARTIAL_BYTES = 64 * 1024 * 1024
 MAX_LAYERS, MAX_WIDTH = 4, 1024  # kMaxLayers, kMaxWidth in csrc/satrain_bwd.cu
-# The kernel's layout constants (csrc/satrain_bwd.cu) and the card's (H100).
+# The kernel's layout constants (csrc/satrain_bwd.cu) and Hopper's shared
+# memory: at most 227 KB a block, 228 KB an SM, 1 KB of it reserved a block.
 _ROWS = (64, 32, 16, 8, 4)  # chunk rows it is built for
 _SLICE, _CONSTS, _DW_SIDE = 2048, 7, 64  # kSlice, kConsts, kDwSide
-_SMEM_MAX, _SM_SMEM, _BLOCK_RESERVED, SMS = 227 * 1024, 228 * 1024, 1024, 132
-_POOL_BLOCKS = 8 * SMS
+_SMEM_MAX, _SM_SMEM, _BLOCK_RESERVED = 227 * 1024, 228 * 1024, 1024
 
 
 @dataclass(frozen=True)
@@ -98,7 +99,8 @@ class Plan:
     """A launch of the kernel (``plan``): chunk rows of the tile (``rows``)
     and of a chunk's data (``chunk_rows``: whole groups when the pool is in
     the pass), the pool pass's segments a group, rows a segment and blocks
-    (when it runs), where the constants live, the walk passes, and the
+    (when it runs), where the constants live, the blocks an SM every
+    launch is built for (the kernel checks it), the walk passes, and the
     partial buffer's floats."""
 
     rows: int
@@ -108,6 +110,7 @@ class Plan:
     pool_seg_rows: int
     pool_blocks: int
     consts_smem: bool
+    blocks_per_sm: int
     passes: tuple
     partial_floats: int
 
@@ -119,7 +122,7 @@ class Plan:
     def ints(self) -> list:
         """The plan as ``satrain_bwd_launch`` reads it."""
         head = [self.rows, self.chunk_rows, int(self.pool_in_pass), self.pool_segs, self.pool_seg_rows,
-                self.pool_blocks, int(self.consts_smem)]
+                self.pool_blocks, int(self.consts_smem), self.blocks_per_sm]
         return head + [v for p in self.passes for v in (p.blocks_x, p.chunks_per_block, p.slices, int(p.dw_smem))]
 
 
@@ -138,19 +141,23 @@ def _smem_bytes(rows: int, widths: Sequence[int], dw_floats: int, consts_smem: b
 
 def _blocks_per_sm(rows: int, smem: int) -> int:
     """Blocks an SM holds at ``smem`` bytes: the kernels are built for two
-    at 32 and 64 rows a chunk where two fit (min_blocks), else for one."""
+    at 32 and 64 rows a chunk where two fit (min_blocks, which the kernel
+    holds the plan to), else for one."""
     return 2 if rows >= 32 and 2 * (smem + _BLOCK_RESERVED) <= _SM_SMEM else 1
+
+
+def sm_count(device) -> int:
+    """The SMs of the card ``device`` names (``plan``'s ``sms``)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _ceil(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def plan(groups: int, k: int, widths: Sequence[int], *, rows: int | None = None,
-         pool_in_pass: bool | None = None, consts_smem: bool | None = None) -> Plan:
+def plan(groups: int, k: int, widths: Sequence[int], sms: int) -> Plan:
     """The launch of the kernel on ``groups`` groups of ``k`` rows through
-    layers of these widths.  The keywords force a choice
-    (``studies/satrain_fma.py`` times the alternatives).
+    layers of these widths, on a card of ``sms`` SMs.
 
     Chunk rows (64, 32, 16, 8, 4) and the constants' place: the most blocks
     an SM, then the most rows, then the constants in shared memory, that fit
@@ -164,11 +171,14 @@ def plan(groups: int, k: int, widths: Sequence[int], *, rows: int | None = None,
     shared memory where that keeps the blocks an SM.  Every pass takes the
     chunks a block that need the fewest waves times chunks, then fill the
     card's SMs, then the most chunks."""
-    return _plan(groups, k, tuple(int(w) for w in widths), rows, pool_in_pass, consts_smem)
+    return _plan(groups, k, tuple(int(w) for w in widths), sms)
 
 
 @functools.lru_cache(maxsize=256)
-def _plan(groups, k, widths, rows, pool_in_pass, consts_smem) -> Plan:
+def _plan(groups, k, widths, sms, rows=None, pool_in_pass=None, consts_smem=None) -> Plan:
+    """``plan``; ``rows``, ``pool_in_pass`` and ``consts_smem`` force a
+    choice (the tests and ``studies/satrain_fma.py`` launch such plans by
+    patching ``plan``)."""
     n = len(widths)
     partial_cap = PARTIAL_BYTES // 4
     fits = [(_blocks_per_sm(r, smem), r, c) for r in _ROWS for c in (True, False)
@@ -182,16 +192,17 @@ def _plan(groups, k, widths, rows, pool_in_pass, consts_smem) -> Plan:
     chunk_rows = rows // k * k if in_pass else rows
     chunks = _ceil(groups * k, chunk_rows)
     base = _smem_bytes(rows, widths, 0, consts_smem)
-    wave = SMS * _blocks_per_sm(rows, base)
+    per_sm = _blocks_per_sm(rows, base)
+    wave = sms * per_sm
     segs = seg_rows = pool_blocks = partial = 0
     if not in_pass:
         group_chunks = _ceil(k, rows)
-        segs = min(group_chunks, max(1, _ceil(_POOL_BLOCKS, groups)))
+        segs = min(group_chunks, max(1, _ceil(8 * sms, groups)))
         if groups * segs * 2 * widths[-1] > partial_cap:
             segs = 1
         seg_rows = _ceil(group_chunks, segs) * rows
         segs = _ceil(k, seg_rows)
-        pool_blocks = min(groups * segs, _POOL_BLOCKS)
+        pool_blocks = min(groups * segs, 8 * sms)
         if segs > 1:
             partial = groups * segs * 2 * widths[-1]
     passes = []
@@ -212,16 +223,18 @@ def _plan(groups, k, widths, rows, pool_in_pass, consts_smem) -> Plan:
 
         def cost(cpb):
             blocks = _ceil(chunks, cpb) * slices
-            return _ceil(blocks, wave) * cpb, blocks < SMS, -cpb
+            return _ceil(blocks, wave) * cpb, blocks < sms, -cpb
 
         cpb = min(range(_ceil(chunks, cap), chunks + 1), key=cost)
         bx = _ceil(chunks, cpb)
         dw_floats = tps * _DW_SIDE ** 2 if with_dw else 0
         with_smem = _smem_bytes(rows, widths, dw_floats, consts_smem)
-        smem_dw = with_dw and with_smem <= _SMEM_MAX and _blocks_per_sm(rows, with_smem) >= _blocks_per_sm(rows, base)
+        smem_dw = with_dw and with_smem <= _SMEM_MAX and _blocks_per_sm(rows, with_smem) == per_sm
         passes.append(PassPlan(target, bx, cpb, slices, smem_dw, stride, with_smem if smem_dw else base))
         partial = max(partial, bx * slices * stride)
-    return Plan(rows, chunk_rows, in_pass, segs, seg_rows, pool_blocks, consts_smem, tuple(passes), max(partial, 1))
+    return Plan(rows, chunk_rows, in_pass, segs, seg_rows, pool_blocks, consts_smem, per_sm, tuple(passes),
+                max(partial, 1))
+
 
 def _acc(t: torch.Tensor) -> torch.Tensor:
     """``t`` in the type the chain sums in: f32 (float64 stays float64)."""
@@ -336,13 +349,12 @@ def grouped_bn_mlp_pool_bwd(
     variances: Sequence[torch.Tensor],
     d_pooled: torch.Tensor,
     pool_mode: str = "0",
-    launch_plan: Plan | None = None,
 ):
     """The tail's backward (module doc): (dz1, dgammas, dbetas, dws, dbs).
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``grouped_bn_mlp_pool_bwd.launches``) on ``launch_plan``, by
-    default ``plan``'s, or raises."""
+    (counted in ``grouped_bn_mlp_pool_bwd.launches``) on ``plan``'s layout,
+    or raises."""
     if z1.device.type == "cpu":
         return grouped_bn_mlp_pool_bwd_plain(z1, gammas, betas, ws, bs, means, variances, d_pooled, pool_mode)
     fn = "grouped_bn_mlp_pool_bwd"
@@ -383,7 +395,7 @@ def grouped_bn_mlp_pool_bwd(
         table_ptrs += [ptr(w.to(z1.dtype).float().contiguous()), ptr(w.t().contiguous()),
                   ptr(_f32(f"bs[{i - 1}]", bs[i - 1], (widths[i],), dev)), ptr(dws[i - 1]), ptr(dbs[i - 1])]
     dp = _f32("d_pooled", d_pooled, (b, m, widths[-1]), dev)
-    layout = launch_plan if launch_plan is not None else plan(groups, k, widths)
+    layout = plan(groups, k, widths, sm_count(dev))
     if layout.scratch_bytes > PARTIAL_BYTES:
         raise ValueError(f"{fn}: the plan's scratch ({layout.scratch_bytes} bytes) exceeds {PARTIAL_BYTES}")
     partial = torch.empty(layout.partial_floats, device=dev)
@@ -416,7 +428,7 @@ def kernel_info(groups: int, k: int, widths: Sequence[int], walk: bool = True) -
     shared memory of its largest pass: registers and local-memory bytes a
     thread, dynamic shared bytes a block, resident blocks per SM, from
     ``cudaFuncGetAttributes`` and the occupancy API (on the card)."""
-    layout = plan(groups, k, widths)
+    layout = plan(groups, k, widths, sm_count(torch.cuda.current_device()))
     dw_floats = max((_ceil(_ceil(widths[p.target], _DW_SIDE) * _ceil(widths[p.target + 1], _DW_SIDE), p.slices)
                      * _DW_SIDE ** 2 for p in layout.passes if p.dw_smem), default=0)
     info = (ctypes.c_int * 4)()

@@ -20,14 +20,27 @@ checkout's own C signatures).  The parent's wrapper
    (``chip_smoke.satrain_work``) and against the change's own passes
    (``chip_smoke.satrain_design_ops``).
 2. The change under other launch plans at SSG's SA2 and group-all calls
-   (``satrain_kernel.plan`` keywords): SA2 in 64-row chunks with the pool
-   in every pass (one block an SM) against the default 32-row chunks and
-   pool pass (two blocks an SM); group-all in 8-row chunks (the constants
-   in shared memory) against the default 16; each held to the gates, times
-   in turns default, other, other, default.
+   (``satrain_kernel._plan``'s keywords, launched by patching
+   ``satrain_kernel.plan``): SA2 in 64-row chunks with the pool in every
+   pass (one block an SM) against the default 32-row chunks and pool pass
+   (two blocks an SM); group-all in 8-row chunks (the constants in shared
+   memory) against the default 16; each held to the gates, times in turns
+   default, other, other, default.
 3. The f32 SSG and MSG training steps (``Trainer``, B=16) with the fused
    tail on each library and without it, host clock in turns unfused,
    parent, change, change, parent, unfused (three steps a turn).
+4. Which side is closer to the exact answer where the kernel and the plain
+   backward disagree beyond ``SATRAIN_TOL`` (``tests/test_torch_cuda.py``):
+   on that file's inputs at widths (1, 5, 1) and (1, 5, 8) (z1 [2, 8, 16,
+   1]) and four layers of 1024 (z1 [1, 2, 8, 1024]), in f32 and bf16, the
+   card tests' draw and 15 others, the change, the parent and the plain
+   backward (cuBLAS) are each held to the plain backward with float64 sums
+   (``satrain_plain64``): the worst error / max|float64| of a cotangent
+   (median and max over the draws) and the draws within the SATRAIN_*
+   gates, of the result and of the magnitudes it sums
+   (``satrain_magnitudes``); at four layers of 1024 also the plain
+   backward summed in the kernel's order, and the change against it with
+   the statistics summed that way (``satrain_in_kernel_order``).
 
 Prints the card's name and power limit first; exits 1 if a call misses a
 gate.
@@ -36,9 +49,11 @@ gate.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import glob
 import importlib.util
+import io
 import os
 import subprocess
 import sys
@@ -103,6 +118,7 @@ def main() -> None:
     from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
     from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
 
+    sms = satrain_kernel.sm_count(dev)
     libs = {"change": _build.library(), "parent": build_parent(parent)}
     parent_kernel = load_module("parent_satrain_kernel",
                                 os.path.join(parent, "scanobjectnn_torch", "ops", "cuda", "satrain_kernel.py"))
@@ -114,6 +130,63 @@ def main() -> None:
                 mock.patch.object(satrain, "grouped_bn_mlp_pool_bwd", fns[name]), \
                 mock.patch.object(satrain_kernel, "grouped_bn_mlp_pool_bwd", fns[name]):
             return fn()
+
+    # 4. Closeness to float64, first: it needs no step.
+    card_tests = load_module("card_tests", os.path.join(ROOT, "tests", "test_torch_cuda.py"))
+
+    def gates(got, want, dtype, scales=None):
+        """(worst error / max|want| of a cotangent but the Dense biases,
+        whether ``got`` holds the card tests' SATRAIN_* gates against
+        ``want``, x max|want| or x the max of ``scales``' tensor)."""
+        worst = max(float((got[key].double() - w.double()).abs().max()) / max(float(w.double().abs().max()), 1e-300)
+                    for key, w in want.items() if not key.startswith("dbias"))
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                card_tests._check_satrain(got, {key: w if key == "dz1" else w.float() for key, w in want.items()},
+                                          dtype, "", scales)
+        except AssertionError:
+            return worst, False
+        return worst, True
+
+    cancel_cases = {"widths_1_5_1": ((2, 8, 16, 1), (1, 5, 1)), "widths_1_5_8": ((2, 8, 16, 1), (1, 5, 8)),
+                    "four_wide": ((1, 2, 8, 1024), (1024,) * 4)}
+    seeds = [None, *range(15)]  # None: the card tests' draw
+    for case, spec in cancel_cases.items():
+        for dtype, pool_mode in ((torch.float32, "0"), (torch.bfloat16, "0"), (torch.bfloat16, "1")):
+            sides = ("plain", "change", "parent") + (("order",) if case == "four_wide" else ())
+            worst = {side: [] for side in sides}
+            held = {side: 0 for side in sides}
+            held_mag = {side: 0 for side in sides}
+            order_held = 0
+            for seed in seeds:
+                a = card_tests.satrain_inputs(case, dtype, dev, pool_mode, spec=spec, seed=seed)
+                exact = card_tests._flatten_grads(card_tests.satrain_plain64(a))
+                mags = card_tests.satrain_magnitudes(a)
+                got = {"plain": card_tests._flatten_grads(satrain_kernel.grouped_bn_mlp_pool_bwd_plain(*a))}
+                for name in ("change", "parent"):
+                    got[name] = card_tests._flatten_grads(run(name, lambda: fns[name](*a)))
+                if "order" in sides:
+                    with mock.patch.object(satrain_kernel, "_mm", card_tests._chain_mm):
+                        got["order"] = card_tests._flatten_grads(satrain_kernel.grouped_bn_mlp_pool_bwd_plain(*a))
+                    # the change against its own order, the statistics summed that way too
+                    own, want = card_tests.satrain_in_kernel_order(a)
+                    order_held += gates(card_tests._flatten_grads(satrain_kernel.grouped_bn_mlp_pool_bwd(*own)),
+                                        card_tests._flatten_grads(want), dtype)[1]
+                torch.cuda.synchronize()
+                for side in sides:
+                    err, ok = gates(got[side], exact, dtype)
+                    worst[side].append(err)
+                    held[side] += ok
+                    held_mag[side] += gates(got[side], exact, dtype, mags)[1]
+                if seed is None:
+                    print(f"#17 {case} {spec[1]} {dtype} mode {pool_mode}, the card tests' draw, worst error / "
+                          f"max|float64|: " + ", ".join(f"{side} {worst[side][0]:.3e}" for side in sides), flush=True)
+            print(f"#17 {case} {spec[1]} {dtype} mode {pool_mode} over {len(seeds)} draws against float64: " + "; ".join(
+                f"{side} worst error / max|float64| median {sorted(v)[len(v) // 2]:.3e}, max {max(v):.3e}, "
+                f"{held[side]} of {len(seeds)} within the SATRAIN_* gates, {held_mag[side]} with the tolerance "
+                f"taken of the magnitudes summed" for side, v in worst.items())
+                + (f"; the change within the gates of its own order {order_held} of {len(seeds)}"
+                   if "order" in sides else "") + f" ({smi})", flush=True)
 
     # Phase 11's data and steps.
     b, n = cs.MIXED_BATCH, cs.MIXED_POINT
@@ -157,7 +230,7 @@ def main() -> None:
             cs.satrain_work(one, z1, widths)
             three = one.ops_s * cs.F32_OPS_PER_S
             rows, groups = z1[..., 0].numel(), z1.shape[0] * z1.shape[1]
-            layout = satrain_kernel.plan(groups, z1.shape[2], widths)
+            layout = satrain_kernel.plan(groups, z1.shape[2], widths, sms)
             own = cs.satrain_design_ops(rows, widths, layout)
             print(f"#17 {label}: change {ms['change']} ms, parent {ms['parent']} ms (mean {mean['change']:.4f} "
                   f"against {mean['parent']:.4f}: {mean['parent'] / mean['change']:.3f}x), plain {plain_ms:.4f} ms; "
@@ -174,20 +247,19 @@ def main() -> None:
             if kw is None:
                 continue
             groups, k = z1.shape[0] * z1.shape[1], z1.shape[2]
-            layouts = {"default": satrain_kernel.plan(groups, k, widths), "other": satrain_kernel.plan(groups, k, widths, **kw)}
+            layouts = {"default": satrain_kernel.plan(groups, k, widths, sms),
+                       "other": satrain_kernel._plan(groups, k, tuple(widths), sms, **kw)}
             label = f"{short} f32 z1 {list(z1.shape)} widths {widths}"
             ms = {"default": [], "other": []}
             for name in ("default", "other", "other", "default"):
-                layout = layouts[name]
-                if len(ms[name]) == 0:
-                    with mock.patch.object(satrain_kernel, "plan", lambda *_, **__: layout):
+                with mock.patch.object(satrain_kernel, "plan", lambda *_, layout=layouts[name]: layout):
+                    if len(ms[name]) == 0:
                         try:
                             cs.check_satrain_bwd(a, f"{label}, {name} plan")
                         except AssertionError as err:
                             print(f"#17 {label} {name} plan: {err}", flush=True)
                             failed.append(f"{label} {name} plan")
-                ms[name].append(cs.cuda_ms(
-                    lambda: satrain_kernel.grouped_bn_mlp_pool_bwd(*a, launch_plan=layout), iters=5))
+                    ms[name].append(cs.cuda_ms(lambda: satrain_kernel.grouped_bn_mlp_pool_bwd(*a), iters=5))
             print(f"#17 {label}: " + "; ".join(
                 f"{name} plan (rows {lay.rows}, pool in the pass {lay.pool_in_pass}, constants in shared memory "
                 f"{lay.consts_smem}, blocks {[q.blocks for q in lay.passes]}) {ms[name]} ms"

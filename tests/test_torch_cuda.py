@@ -73,6 +73,9 @@ cotangent at most ``SATRAIN_FLIP_SHARE`` of its elements beyond
 ``SATRAIN_TOL`` x max|ref| (a gate or winner flipped by the summation
 order; in bf16 a rounding of h moved by one ulp); the Dense biases (true
 gradient 0) within ``SATRAIN_ZERO_TOL`` x max(1, |dbeta|max) on both sides.
+A one-channel bottom layer, whose sums cancel over the rows, is held under
+the same gates to the plain backward with float64 sums.  A plan the kernel
+cannot run (chunk rows, dW slices, scratch, blocks an SM) is refused.
 
 The rank sort (#5): sorted coordinates, ids, rank and feature rows equal to
 ``rank_sort_points_plain`` (ties, -0.0/0.0, NaN keys, ragged N).  The
@@ -85,6 +88,9 @@ an eval-mode SSG forward at N = 2048 launches #5 twice and #4 once under
 ``sa_bucket="auto"``, with logits equal to the "off" forward's.
 """
 
+
+from dataclasses import replace
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -137,7 +143,10 @@ from scanobjectnn_torch.ops.cuda.satrain_kernel import (
     grouped_bn_mlp_pool_bwd,
     grouped_bn_mlp_pool_bwd_plain,
 )
+from scanobjectnn_torch.ops.cuda import satrain_kernel
+from scanobjectnn_torch.ops.cuda.satrain_kernel import _plan as satrain_forced_plan
 from scanobjectnn_torch.ops.cuda.satrain_kernel import plan as satrain_plan
+from scanobjectnn_torch.ops.cuda.satrain_kernel import sm_count
 from scanobjectnn_torch.ops.cuda.spider_kernel import (
     spider_conv,
     spider_conv_bwd_kernel,
@@ -1090,15 +1099,16 @@ def test_poolkey_kernel_refuses_what_it_does_not_take(dev):
 # MLP widths).  SSG SA1 and SA2 at B=16, MSG SA1's K=128 scale, SSG's
 # group-all at B=4, and small stacks of 1-3 layers with K and widths that
 # are not multiples of 8, and duplicated slots (exact pool ties).  The
-# edges of the kernel's plan (``satrain_kernel.plan``): K = 1 and 33 (whole
-# groups a chunk, the pool in the pass), K = 65, 96 and 127 (a group
+# edges of the kernel's plan (``satrain_kernel.plan``): K = 1 (k1: 64
+# one-row groups a chunk, whose 64 x 32 maxima overflow half the W ring,
+# so the pool pass; k1_in_pass: 64 x 12, the pool in the pass), K = 33
+# (one group a chunk, the pool in the pass), K = 65, 96 and 127 (a group
 # crosses chunks: the pool pass, split into segments; the ties of k96 lie
 # across a chunk's and a segment's boundary), groups x K not a multiple of
 # the chunk's rows (k12_ragged: five groups a chunk, 21 groups), widths 1
-# and 5 (a one-channel layer between two of 5: a lone channel at the
-# bottom or the top sums gradients that cancel over the rows, which the
-# kernel's order and cuBLAS's round apart by more than SATRAIN_TOL of
-# their own size), 1024 (fewer rows a chunk), four layers.
+# and 5 (a one-channel layer between two of 5; a lone channel at the
+# bottom is held to the float64 backward below), 1024 (fewer rows a
+# chunk), four layers.
 SATRAIN_CASES = {
     "ssg_sa1": ((16, 512, 32, 64), (64, 64, 128)),
     "ssg_sa2": ((16, 128, 64, 128), (128, 128, 256)),
@@ -1108,6 +1118,7 @@ SATRAIN_CASES = {
     "one_layer": ((2, 8, 10, 16), (16,)),
     "two_layers_ties": ((2, 16, 8, 24), (24, 40)),
     "k1": ((2, 64, 1, 16), (16, 24, 32)),
+    "k1_in_pass": ((2, 64, 1, 16), (16, 12)),
     "k33": ((2, 9, 33, 20), (20, 36, 40)),
     "k65": ((2, 5, 65, 24), (24, 40)),
     "k96_ties": ((2, 4, 96, 16), (16, 24, 32)),
@@ -1129,12 +1140,13 @@ SATRAIN_FLIP_SHARE = {torch.float32: 1e-3, torch.bfloat16: 1e-3}
 SATRAIN_ZERO_TOL = 1e-3
 
 
-def satrain_inputs(case, dtype, dev, pool_mode="0", spec=None):
+def satrain_inputs(case, dtype, dev, pool_mode="0", spec=None, seed=None):
     """(z1, gammas, betas, ws, bs, means, vars, d_pooled, pool_mode), the
     statistics those of the plain forward chain on the card; ``spec`` (the
-    shape and widths) for a case outside SATRAIN_CASES."""
+    shape and widths) for a case outside SATRAIN_CASES; ``seed`` for other
+    draws of the same case."""
     shape, widths = spec or SATRAIN_CASES[case]
-    rng = np.random.RandomState(sum(shape) + sum(widths))
+    rng = np.random.RandomState(sum(shape) + sum(widths) if seed is None else seed)
 
     def t(a):
         return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
@@ -1150,6 +1162,70 @@ def satrain_inputs(case, dtype, dev, pool_mode="0", spec=None):
     _, _, _, means, variances = fwd_chain(z1, gammas, betas, ws, bs, pool_mode)
     d_pooled = t(rng.randn(shape[0], shape[1], widths[-1])).to(dtype)
     return z1, gammas, betas, ws, bs, means, variances, d_pooled, pool_mode
+
+
+def satrain_plain64(args):
+    """The plain backward with every sum, the parameters and the
+    statistics in float64; the compute dtype's roundings of W, h, y and dz1
+    kept (``fwd_chain``'s ``.to(cdtype)``): the exact answer the kernel and
+    the f32 plain backward both round."""
+    z1, gammas, betas, ws, bs, means, variances, d_pooled, pool_mode = args
+
+    def d64(ts):
+        return [t.double() for t in ts]
+
+    with mock.patch.object(satrain_kernel, "_acc", lambda t: t.to(torch.promote_types(t.dtype, torch.float64))):
+        return grouped_bn_mlp_pool_bwd_plain(z1, d64(gammas), d64(betas), d64(ws), d64(bs), d64(means),
+                                             d64(variances), d_pooled.double(), pool_mode)
+
+
+def _chain_mm(a, b):
+    """``a @ b`` as the kernel sums it: each output an FMA chain from 0 in
+    ascending k, rounded to f32 at every step (the product of two f32
+    values is exact in float64)."""
+    a, b = satrain_kernel._acc(a).double(), satrain_kernel._acc(b).double()
+    acc = torch.zeros(*a.shape[:-1], b.shape[-1], dtype=torch.float32, device=a.device)
+    for k in range(a.shape[-1]):
+        acc = (a[..., k:k + 1] * b[k] + acc.double()).float()
+    return acc
+
+
+def satrain_in_kernel_order(args):
+    """(args with the statistics of the forward chain summed in the
+    kernel's order, the plain backward on them in that order)."""
+    with mock.patch.object(satrain_kernel, "_mm", _chain_mm):
+        _, _, _, means, variances = fwd_chain(*args[:5], args[8])
+        args = (*args[:5], means, variances, *args[7:])
+        return args, grouped_bn_mlp_pool_bwd_plain(*args)
+
+
+def satrain_magnitudes(args):
+    """Each cotangent's scale of rounding: the plain backward in float64
+    with every term taken by its magnitude (a difference as the sum of its
+    operands' magnitudes), so each sum is that of its terms' magnitudes.  An
+    f32 evaluation in any order rounds at this scale; a sum that cancels is
+    small beside it."""
+    z1, gammas, betas, ws, bs, means, variances, d_pooled, pool_mode = args
+    gammas, betas, ws, bs, means, variances = ([t.double() for t in ts]
+                                               for ts in (gammas, betas, ws, bs, means, variances))
+    with mock.patch.object(satrain_kernel, "_acc", lambda t: t.to(torch.promote_types(t.dtype, torch.float64))):
+        zhats, ys, pooled, _, _ = fwd_chain(z1, gammas, betas, ws, bs, pool_mode, means, variances)
+    axes, rows = (0, 1, 2), float(z1[..., 0].numel())
+    eq = (ys[-1] == pooled.unsqueeze(-2)).double()
+    dy = eq / eq.sum(-2, keepdim=True) * d_pooled.double().abs().unsqueeze(-2)
+    out = {}
+    for i in range(len(gammas) - 1, -1, -1):
+        du = dy * (zhats[i] * gammas[i] + betas[i] > 0.0)
+        a1, a2 = du.sum(axes), (du * zhats[i].abs()).sum(axes)
+        out[f"dgamma{i}"], out[f"dbeta{i}"] = a2, a1
+        dz = (torch.rsqrt(variances[i] + satrain_kernel.EPS) * gammas[i]).abs() * (
+            du + a1 / rows + zhats[i].abs() * (a2 / rows))
+        if i > 0:
+            out[f"dw{i}"] = ys[i - 1].double().abs().reshape(-1, ys[i - 1].shape[-1]).t() @ dz.reshape(-1, dz.shape[-1])
+            out[f"dbias{i}"] = dz.sum(axes)
+            dy = dz @ ws[i - 1].abs().t()
+    out["dz1"] = dz
+    return out
 
 
 def _flatten_grads(out):
@@ -1178,8 +1254,9 @@ def test_satrain_bwd_kernel_matches_plain(dev, case, dtype, pool_mode):
     _check_satrain(got, want, dtype, f"{case} mode {pool_mode}")
 
 
-def _check_satrain(got, want, dtype, label):
-    """Each cotangent within the SATRAIN_* gates of the plain backward's."""
+def _check_satrain(got, want, dtype, label, scales=None):
+    """Each cotangent within the SATRAIN_* gates of the plain backward's,
+    x max|ref| or x the max of ``scales``' tensor (``satrain_magnitudes``)."""
     readings = []
     for name, w in want.items():
         g = got[name]
@@ -1190,7 +1267,7 @@ def _check_satrain(got, want, dtype, label):
             readings.append((name, float(g.abs().max()), float(w.abs().max()), bound))
             assert float(g.abs().max()) <= bound and float(w.abs().max()) <= bound, (name, readings)
             continue
-        scale = max(float(w.float().abs().max()), 1e-30)
+        scale = max(float((scales[name] if scales else w.float()).abs().max()), 1e-30)
         beyond = diff > SATRAIN_TOL[dtype] * scale
         share = float(beyond.float().mean())
         rest = float(torch.where(beyond, 0.0, diff).max()) / scale
@@ -1201,7 +1278,7 @@ def _check_satrain(got, want, dtype, label):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-def test_satrain_bwd_in_pass_pool_and_pool_pass(dev, dtype):
+def test_satrain_bwd_in_pass_pool_and_pool_pass(dev, dtype, monkeypatch):
     # The same z1 and parameters as 32-row groups (the pool in every pass)
     # and reshaped into 128-row groups (a group crosses chunks: the pool
     # pass); both within the gates of the plain backward.  The 32-row call
@@ -1221,29 +1298,27 @@ def test_satrain_bwd_in_pass_pool_and_pool_pass(dev, dtype):
         _, _, _, means, variances = fwd_chain(z1, gammas, betas, ws, bs)
         d_pooled = torch.from_numpy(rng.randn(shape[0], shape[1], widths[-1]).astype(np.float32)).to(dev)
         args = (z1, gammas, betas, ws, bs, means, variances, d_pooled, "0")
-        layout = satrain_plan(shape[0] * shape[1], shape[2], widths)
+        layout = satrain_plan(shape[0] * shape[1], shape[2], widths, sm_count(dev))
         assert layout.pool_in_pass == (shape[2] == 32)
         got = _flatten_grads(grouped_bn_mlp_pool_bwd(*args))
         want = _flatten_grads(grouped_bn_mlp_pool_bwd_plain(*args))
         torch.cuda.synchronize()
         _check_satrain(got, want, dtype, f"z1 {shape}")
         if layout.pool_in_pass:
-            forced = satrain_plan(shape[0] * shape[1], shape[2], widths, pool_in_pass=False)
+            forced = satrain_forced_plan(shape[0] * shape[1], shape[2], widths, sm_count(dev), pool_in_pass=False)
             assert not forced.pool_in_pass and forced.chunk_rows == layout.chunk_rows
-            again = _flatten_grads(grouped_bn_mlp_pool_bwd(*args, launch_plan=forced))
+            monkeypatch.setattr(satrain_kernel, "plan", lambda *_: forced)
+            again = _flatten_grads(grouped_bn_mlp_pool_bwd(*args))
+            monkeypatch.undo()
             for name, g in got.items():
                 assert torch.equal(g, again[name]), name
 
 
 def test_satrain_bwd_four_wide_layers_f32(dev):
     # Four layers of 1024: 4 rows a chunk, the constants in device memory.
-    # In f32 only: in bf16 a rounding of h that the summation order moves by
-    # an ulp moves the next layer's 1024 sums of that row, and over four
-    # such layers most of the row's roundings (62% of dz1's elements beyond
-    # SATRAIN_TOL, read on an H100), whichever kernel sums in another order
-    # than cuBLAS.
+    # bf16 is held to the kernel's own summation order below.
     args = satrain_inputs("four_wide", torch.float32, dev, spec=((1, 2, 8, 1024), (1024,) * 4))
-    layout = satrain_plan(2, 8, (1024,) * 4)
+    layout = satrain_plan(2, 8, (1024,) * 4, sm_count(dev))
     assert layout.rows == 4 and not layout.consts_smem
     got = _flatten_grads(grouped_bn_mlp_pool_bwd(*args))
     again = _flatten_grads(grouped_bn_mlp_pool_bwd(*args))
@@ -1252,6 +1327,78 @@ def test_satrain_bwd_four_wide_layers_f32(dev):
     for name, g in got.items():
         assert torch.equal(g, again[name]), f"{name} is not bit-stable"
     _check_satrain(got, want, torch.float32, "four_wide")
+
+
+@pytest.mark.parametrize("pool_mode", ["0", "1"], ids=["bf16", "bf16_pool_f32"])
+def test_satrain_bwd_four_wide_layers_bf16_in_its_sum_order(dev, pool_mode):
+    # Four layers of 1024 over 16 rows in bf16: a 1024-term sum that another
+    # order moves by an f32 ulp can round h to the other bf16 value, and over
+    # four such layers that moves a pool winner or a relu gate, and with 16
+    # rows every sum with it.  The plain backward summed in the kernel's order
+    # (FMA chains from 0 in ascending k) lands up to 5e-2 of the result from
+    # the one summed by cuBLAS or in float64 (PERF.md section 7), so the
+    # kernel is held to it under the SATRAIN_* gates, with the statistics of
+    # the forward summed that way too (the Dense biases' gradient is 0 only
+    # for the statistics of the same h).
+    args, want = satrain_in_kernel_order(
+        satrain_inputs("four_wide", torch.bfloat16, dev, pool_mode, spec=((1, 2, 8, 1024), (1024,) * 4)))
+    want = _flatten_grads(want)
+    got = _flatten_grads(grouped_bn_mlp_pool_bwd(*args))
+    again = _flatten_grads(grouped_bn_mlp_pool_bwd(*args))
+    torch.cuda.synchronize()
+    for name, g in got.items():
+        assert torch.equal(g, again[name]), f"{name} is not bit-stable"
+    _check_satrain(got, want, torch.bfloat16, f"four_wide mode {pool_mode} in the kernel's order")
+
+
+# A lone channel at the bottom (widths 1, 5, 1 and 1, 5, 8): dgamma0 and
+# dW_1 sum terms over the rows that cancel to a thousandth of their
+# magnitudes, so no f32 order holds SATRAIN_TOL of the result: against the
+# float64 backward cuBLAS misses it in 5 to 10 of 16 draws, the kernel in 6
+# to 12 (PERF.md section 7).  The kernel is held to the float64 backward
+# (``satrain_plain64``) on the card tests' draw and four others under the
+# SATRAIN_* gates, each cotangent's tolerance taken of the magnitudes it
+# sums (``satrain_magnitudes``), the scale at which any f32 order rounds.
+SATRAIN_F64_CASES = {"widths_1_5_1": ((2, 8, 16, 1), (1, 5, 1)), "widths_1_5_8": ((2, 8, 16, 1), (1, 5, 8))}
+
+
+@pytest.mark.parametrize("dtype,pool_mode", [(torch.float32, "0"), (torch.bfloat16, "0"), (torch.bfloat16, "1")],
+                         ids=["f32", "bf16", "bf16_pool_f32"])
+@pytest.mark.parametrize("case", sorted(SATRAIN_F64_CASES))
+def test_satrain_bwd_kernel_matches_float64(dev, case, dtype, pool_mode):
+    for seed in (None, 0, 1, 2, 3):
+        args = satrain_inputs(case, dtype, dev, pool_mode, spec=SATRAIN_F64_CASES[case], seed=seed)
+        got = _flatten_grads(grouped_bn_mlp_pool_bwd(*args))
+        again = _flatten_grads(grouped_bn_mlp_pool_bwd(*args))
+        want = _flatten_grads(satrain_plain64(args))
+        torch.cuda.synchronize()
+        for name, g in got.items():
+            assert torch.equal(g, again[name]), f"{name} is not bit-stable"
+        _check_satrain(got, {name: w if name == "dz1" else w.float() for name, w in want.items()}, dtype,
+                       f"{case} mode {pool_mode} draw {seed} against float64", satrain_magnitudes(args))
+
+
+@pytest.mark.parametrize("fault", ["chunk_rows", "slices", "scratch", "blocks_per_sm"])
+def test_satrain_bwd_kernel_refuses_a_plan_it_cannot_run(dev, monkeypatch, fault):
+    # The wrapper hands the kernel plan()'s layout; the C entry point checks
+    # it and refuses one it cannot run before it launches anything.
+    args = satrain_inputs("ssg_sa2", torch.float32, dev)
+    layout = satrain_plan(16 * 128, 64, (128, 128, 256), sm_count(dev))
+    dw_pass = layout.passes[1]  # sums dW_2 over 2 x 4 tiles of 64 x 64
+    bad = {
+        "chunk_rows": replace(layout, chunk_rows=layout.chunk_rows - 1),
+        "slices": replace(layout, passes=(layout.passes[0], replace(dw_pass, slices=9), *layout.passes[2:])),
+        "scratch": replace(layout, partial_floats=dw_pass.blocks * dw_pass.stride - 1),
+        "blocks_per_sm": replace(layout, blocks_per_sm=3 - layout.blocks_per_sm),
+    }[fault]
+    monkeypatch.setattr(satrain_kernel, "plan", lambda *_: bad)
+    before = grouped_bn_mlp_pool_bwd.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        grouped_bn_mlp_pool_bwd(*args)
+    assert grouped_bn_mlp_pool_bwd.launches == before
+    monkeypatch.undo()
+    torch.cuda.synchronize()  # no error left behind
+    assert all(bool(torch.isfinite(g).all()) for g in _flatten_grads(grouped_bn_mlp_pool_bwd(*args)).values())
 
 
 def test_satrain_bwd_kernel_refuses_what_it_does_not_take(dev):

@@ -15,12 +15,13 @@ the JAX package on the same numpy inputs.
     stats.
   * ``LiftedGroupMLP`` in bf16 training against the JAX module (keys and
     native modes).
-  * The kernel's launch plan (``satrain_kernel.plan``), which the CUDA
-    entry point checks and refuses when it cannot run it: the pool in every
-    pass where a chunk holds whole groups (SSG's SA1 and SA2, MSG's K <= 64
-    scales), the pool pass at group-all and MSG's K = 128 scales, the blocks
-    of group-all's passes, and every plan within its scratch and shared
-    memory, covering each row once.
+  * The kernel's launch plan (``satrain_kernel.plan``) for an H100's 132
+    SMs, which the CUDA entry point checks and refuses when it cannot run
+    it: the pool in every pass where a chunk holds whole groups (SSG's SA1,
+    MSG's K <= 32 scales), the pool pass at SSG's SA2, group-all and MSG's
+    K = 64 and 128 scales, the blocks of group-all's passes on 132 SMs and
+    on fewer, and every plan within its scratch and shared memory, covering
+    each row once.
 
 Tolerances, x max(1, |ref|max) per tensor.  f32: 1e-5 (sums over the rows
 in other orders); the Dense biases feed a training BN, so their gradient is
@@ -48,7 +49,7 @@ from scanobjectnn_torch import convert
 from scanobjectnn_torch.nn.pointnet_modules import GroupMLPPool, LiftedGroupMLP, configure_training
 from scanobjectnn_torch.ops.cuda.satrain_kernel import (
     PARTIAL_BYTES,
-    SMS,
+    _plan,
     fwd_chain,
     grouped_bn_mlp_pool_bwd,
     grouped_bn_mlp_pool_bwd_plain,
@@ -301,6 +302,7 @@ def test_lifted_group_mlp_bf16_matches_jax(monkeypatch, mode):
 # two blocks an SM fit 64-row chunks (SA1's widths), not at SA2's, whose
 # 32-row chunks at two blocks an SM beat 64 rows at one with the pool in the
 # pass on an H100 (PERF.md section 6, PR 13).
+H100_SMS = 132
 MAIN_CALLS = {
     "ssg_sa1": (16 * 512, 32, (64, 64, 128), True),
     "ssg_sa2": (16 * 128, 64, (128, 128, 256), False),
@@ -334,7 +336,7 @@ EDGE_CALLS = {
 @pytest.mark.parametrize("name", sorted(MAIN_CALLS))
 def test_plan_takes_the_pool_into_the_pass_where_a_chunk_holds_whole_groups(name):
     groups, k, widths, in_pass = MAIN_CALLS[name]
-    layout = plan(groups, k, widths)
+    layout = plan(groups, k, widths, H100_SMS)
     assert layout.pool_in_pass == in_pass
     if in_pass:  # whole groups a chunk; no pool pass
         assert layout.chunk_rows == layout.rows // k * k and layout.pool_blocks == 0
@@ -351,25 +353,39 @@ def test_plan_fills_the_card_at_group_all():
     # H100.)  The two passes that sum a dW are bounded by the partial buffer
     # (2 MiB of dW_2 a row block) and split the dW's tiles: dW_2 in 5 slices
     # x 26 row blocks, dW_1 in 2 x 64 (PERF.md section 6, PR 13).
-    layout = plan(16, 128, (256, 512, 1024))
+    layout = plan(16, 128, (256, 512, 1024), H100_SMS)
     assert (layout.rows, layout.consts_smem, layout.pool_in_pass) == (16, False, False)
     assert [p.blocks for p in layout.passes] == [128, 130, 128, 128]
     assert [p.slices for p in layout.passes] == [1, 5, 2, 1]
 
 
+@pytest.mark.parametrize("sms", [132, 114, 78])
+def test_plan_fills_one_wave_of_the_card_it_is_given(sms):
+    # The wrapper passes the card's SM count (H100 SXM 132, PCIe 114): at
+    # SSG's SA1 (4096 chunks of 64 rows) every pass takes one wave of
+    # blocks, and a chunk fewer a block would not fit one wave.
+    layout = plan(16 * 512, 32, (64, 64, 128), sms)
+    wave = layout.blocks_per_sm * sms
+    assert layout.blocks_per_sm == 2 and layout.chunk_rows == 64
+    for p in layout.passes:
+        assert p.blocks <= wave < -(-4096 // (p.chunks_per_block - 1))
+
+
 @pytest.mark.parametrize("name", sorted(MAIN_CALLS) + sorted(EDGE_CALLS))
 def test_plan_stays_within_its_scratch_and_shared_memory(name):
     groups, k, widths = (MAIN_CALLS.get(name) or EDGE_CALLS[name])[:3]
-    layout = plan(groups, k, widths)
+    layout = plan(groups, k, widths, H100_SMS)
     assert layout.scratch_bytes <= PARTIAL_BYTES
     assert layout.rows in (4, 8, 16, 32, 64) and 1 <= layout.chunk_rows <= layout.rows
-    assert len(layout.ints()) == 7 + 4 * (len(widths) + 1)
+    assert len(layout.ints()) == 8 + 4 * (len(widths) + 1)
     chunks = -(-groups * k // layout.chunk_rows)
     assert [p.target for p in layout.passes] == list(range(len(widths) - 1, -2, -1))
     for p in layout.passes:
         # every chunk in one block, no block empty
         assert p.blocks_x * p.chunks_per_block >= chunks > (p.blocks_x - 1) * p.chunks_per_block
         assert p.smem_bytes <= 227 * 1024
+        # every pass built for the blocks an SM the plan's waves assume (the kernel's min_blocks)
+        assert layout.blocks_per_sm == (2 if layout.rows >= 32 and 2 * (p.smem_bytes + 1024) <= 228 * 1024 else 1)
         assert p.blocks_x * p.slices * p.stride <= layout.partial_floats
         if 0 <= p.target < len(widths) - 1:
             tiles = -(-widths[p.target] // 64) * -(-widths[p.target + 1] // 64)
@@ -379,10 +395,11 @@ def test_plan_stays_within_its_scratch_and_shared_memory(name):
 
 
 def test_plan_keywords_force_a_choice():
-    layout = plan(16 * 512, 32, (64, 64, 128), pool_in_pass=False)
+    # _plan's keywords (rows, pool_in_pass, consts_smem) force a choice.
+    layout = _plan(16 * 512, 32, (64, 64, 128), H100_SMS, pool_in_pass=False)
     assert not layout.pool_in_pass and layout.chunk_rows == layout.rows == 64
-    layout = plan(16 * 512, 32, (64, 64, 128), rows=32)
+    layout = _plan(16 * 512, 32, (64, 64, 128), H100_SMS, rows=32)
     assert layout.rows == 32 and layout.pool_in_pass and layout.chunk_rows == 32
     assert [p.dw_smem for p in layout.passes] == [False, True, True, False]
-    layout = plan(16 * 128, 64, (128, 128, 256), rows=64, consts_smem=True)
-    assert layout.pool_in_pass and layout.consts_smem and layout.chunk_rows == 64
+    layout = _plan(16 * 128, 64, (128, 128, 256), H100_SMS, rows=64, consts_smem=True)
+    assert layout.pool_in_pass and layout.consts_smem and layout.chunk_rows == 64 and layout.blocks_per_sm == 1
