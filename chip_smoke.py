@@ -7,12 +7,18 @@ Phases (any failure raises and the exit code is not 0):
   1. build the CUDA kernels of ``scanobjectnn_torch/csrc`` with nvcc; print
      the registers, local memory and blocks per SM of each instantiation of
      the fused SA kernels (#3/#10 and #4, f32 and bf16) at the main paths'
-     shapes and of #17's walk and pool kernels as their plans build them at
-     phase 11's calls (``satrain_kernel.kernel_info``), and require no local
+     shapes, of #17's walk and pool kernels as their plans build them at
+     phase 11's calls (``satrain_kernel.kernel_info``), of the self-kNN
+     graph kernel at C = 3, 64 and 128 (``knn_kernel.graph_kernel_info``)
+     and of the FPS kernels at N = 512, 1024, 2048, 8192 and 40000
+     (``fps_kernel.kernel_info``, with their threads), and require no local
      memory;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes of the main path (FPS 2048->512 and 512->128; the fused SA1 and
      SA2 layers at B=128 in f32 and bf16), and time both with CUDA events;
+     FPS's time a step is printed in us and in SM cycles at the clock
+     ``nvidia-smi`` reads right after the timed window (here and for the
+     training step's two calls in phase 4);
      every timed fused SA call (#3 here and in phase 9, #10 in phase 10, #4
      in phase 12) prints its MLP's FLOPs, their f32 FMA bound (over 67
      TFLOP/s) and the TFLOP/s it reached;
@@ -63,7 +69,9 @@ Phases (any failure raises and the exit code is not 0):
      of the f32 ``dgcnn`` hands its kernels:
      a. the self-kNN graph kernel against its plain version (indices equal)
         on the T-Net's and EdgeConv 1-4's inputs (C = 3, 3, 64, 64, 64) and
-        on clouds of duplicated points at C=3 and C=64; timed;
+        on clouds of duplicated points at C=3 and C=64; timed, each call
+        beside its bound and its no-contraction issue bound (2C + 4
+        separate f32 instructions a pair at 33.5 T instructions/s);
      b. the edge-reduce forward kernel against its plain version at
         EdgeConv 1-4's (Cf, Cv) = (3, 64), (64, 64), (64, 64), (64, 128):
         every output equal; timed;
@@ -334,6 +342,10 @@ BF16_STEP_GRAD_TOL, FUSED_STEP_GRAD_TOL = 2e-2, 1e-4
 # Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds: f32 on
 # the CUDA cores, TF32 and bf16 on the tensor cores (dense).
 HBM_BYTES_PER_S, F32_OPS_PER_S, TF32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 495e12, 989e12
+# f32 instructions a second on the CUDA cores: the FMA rate counts two
+# operations an instruction, so a multiply and an add that may not be
+# contracted take two (the self-kNN graph's issue bound).
+F32_INSTR_PER_S = F32_OPS_PER_S / 2
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -429,6 +441,44 @@ def scanned_points(radius: float, k: int, xyz, new_xyz) -> int:
 def fps_work(work: Work, b: int, n: int, m: int, with_coords: bool = True) -> None:
     # Per step and point: a distance (3 sub, 3 mul, 2 add), a min, a compare.
     work.add(10.0 * b * n * m, 12 * b * n + b * m * (16 if with_coords else 4))
+
+
+def sm_clock_mhz() -> int:
+    """The SM clock ``nvidia-smi`` reads now (MHz)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    return int(out.split()[0])
+
+
+def print_fps_step(label: str, ms: float, npoint: int, smi: str) -> None:
+    """FPS's time a step (its npoint - 1 serial steps) in us and in SM cycles
+    at the clock read right after the timed window."""
+    mhz = sm_clock_mhz()
+    us = ms * 1e3 / max(npoint - 1, 1)
+    print(f"fps step {label}: {us:.4f} us a step, {us * mhz:.0f} SM cycles at {mhz} MHz ({smi})")
+
+
+def check_graph_fps_kernels(smi: str) -> None:
+    """Registers, local memory and blocks per SM of the self-kNN graph
+    kernel at DGCNN's widths (C = 3 takes the run-time width) and a wider
+    run-time width, and of the FPS kernels at the main paths' N and above
+    8192 points; no local memory allowed."""
+    from scanobjectnn_torch.ops.cuda.fps_kernel import kernel_info as fps_info
+    from scanobjectnn_torch.ops.cuda.knn_kernel import graph_kernel_info
+
+    for c in (3, 64, 128):
+        info = graph_kernel_info(c)
+        print(f"kernel #11 knn_graph_tile_kernel C={c}: {info['registers']} registers a thread, {info['local_bytes']} "
+              f"local bytes, {info['smem_bytes']} shared bytes a block, {info['blocks_per_sm']} blocks per SM ({smi})")
+        require(info["local_bytes"] == 0, f"the graph kernel at C={c} uses local memory: {info}")
+        require(info["blocks_per_sm"] >= 1, f"the graph kernel at C={c} fits no block on an SM: {info}")
+    for n in (512, 1024, 2048, 8192, 40000):
+        info = fps_info(n)
+        print(f"kernel #1/#2 fps N={n}: {info['threads']} threads, {info['registers']} registers a thread, "
+              f"{info['local_bytes']} local bytes, {info['smem_bytes']} shared bytes a block, {info['blocks_per_sm']} "
+              f"blocks per SM ({smi})")
+        require(info["local_bytes"] == 0, f"the FPS kernel at N={n} uses local memory: {info}")
+        require(info["blocks_per_sm"] >= 1, f"the FPS kernel at N={n} fits no block on an SM: {info}")
 
 
 def mlp_ops(weights, rows: int, lifted_points: int = 0) -> float:
@@ -869,6 +919,7 @@ def train_phase(smi: str, dev) -> dict:
                 f"FPS indices-only differ from fps_plain ({label})")
         record("fps_indices", label, lambda: fps(xyz, npoint, with_coords=False),
                lambda: fps_plain(xyz, npoint), plain_iters=3)
+        print_fps_step(label, cuda_ms(lambda: fps(xyz, npoint, with_coords=False)), npoint, smi)
         fps_work(work["fps_indices"], *xyz.shape[:2], npoint, with_coords=False)
     g = torch.Generator().manual_seed(3)
     lattice = torch.randint(-3, 4, (TRAIN_BATCH, 128, 3), generator=g).float() * 0.25
@@ -1099,6 +1150,14 @@ def graph_work(work: Work, feats, k: int) -> None:
     work.add(b * n * n * (2 * c + 4) + 2 * c * b * n, 4 * b * n * c + 4 * b * n * k)
 
 
+def graph_issue_ms(feats) -> float:
+    """The self-kNN's issue bound without contraction: 2C + 4 separate f32
+    instructions a (query, key) pair (C multiplies and C adds, the
+    expansion, the clamp) at F32_INSTR_PER_S."""
+    b, n, c = feats.shape
+    return b * n * n * (2 * c + 4) / F32_INSTR_PER_S * 1e3
+
+
 def dgcnn_phase(smi: str, dev) -> dict:
     """Phase 6 (module doc).  Returns, per DGCNN kernel, its max abs error
     against its plain version, kernel and plain ms and its bound, summed
@@ -1172,6 +1231,12 @@ def dgcnn_phase(smi: str, dev) -> dict:
         require(torch.equal(idx, want), f"the graph kernel differs from its plain version ({label})")
         print(f"knn_graph {label} B={b} N={n} k={k}: indices equal to the plain version")
         record("knn_graph", label, lambda: knn_graph_kernel(feats, k), lambda: knn_graph_plain(feats, k), in_forward)
+        call = Work()
+        graph_work(call, feats, k)
+        bound = call.record()
+        print(f"bound knn_graph {label}: {bound['bound_ms']:.4f} ms ({bound['bound_by']}, FMA rate), no-contraction "
+              f"issue bound {graph_issue_ms(feats):.4f} ms (2C+4 f32 instructions a pair at "
+              f"{F32_INSTR_PER_S / 1e12:.1f} T/s)")
         if in_forward:
             graph_work(work["knn_graph"], feats, k)
 
@@ -2523,6 +2588,7 @@ def main() -> None:
           f"(library ready after {time.perf_counter() - t0:.2f} s)")
     check_sa_kernels(smi)
     check_satrain_kernels(smi)
+    check_graph_fps_kernels(smi)
 
     # Data and model.
     data, labels = make_synthetic_dataset(
@@ -2570,8 +2636,9 @@ def main() -> None:
     ):
         errs["fps"] = max(errs["fps"], check_fps(xyz, npoint, label, fps, fps_plain))
     for xyz, npoint, label in ((x0, 512, "2048->512"), (sa1_xyz, 128, "512->128")):
-        record("fps", label, cuda_ms(lambda: fps(xyz, npoint)),
-               cuda_ms(lambda: fps_plain(xyz, npoint), iters=3), True)
+        ms = cuda_ms(lambda: fps(xyz, npoint))
+        print_fps_step(f"B={BATCH} {label}", ms, npoint, smi)
+        record("fps", label, ms, cuda_ms(lambda: fps_plain(xyz, npoint), iters=3), True)
         fps_work(work["fps"], *xyz.shape[:2], npoint)
 
     for name in ("f32", "bf16"):

@@ -6,16 +6,19 @@
 // knn_graph_pallas (body _knn_kernel), DGCNN's per-layer feature-space graph
 // with the self edge included.  Semantics are documented in
 // scanobjectnn_torch/ops/cuda/knn_kernel.py.  The TPU kernels build a
-// [T, N] distance block with one MXU matmul and run k argmin rounds over it;
-// on the card each thread owns one query, scans the keys in ascending index
-// and keeps its k best in registers, so no distance row is stored.
+// [T, N] distance block with one MXU matmul and run k argmin rounds over it.
+// On the card the general kernel gives each thread one query, which scans
+// the keys in ascending index and keeps its k best in registers; the graph
+// kernel (k <= 32) computes a tile of distances a block and selects from it
+// a warp a query (below).
 //
 // Distance: max(qq - 2*inner + kk, 0) + bias, every sum in ascending channel
 // order with __fmul_rn/__fadd_rn (nvcc may not contract them into FMAs), so
 // the bits equal the plain version's elementwise tensor ops.  A query's
 // distance to itself is exactly 0 (inner == qq, bit for bit).  Ties: a key
-// enters the list only when strictly below an entry (insert), and keys come
-// in ascending index, so the lowest index wins a tie.  Slots no key filled
+// enters a list only when strictly below its last entry and behind every
+// entry it does not beat, and keys come in ascending index, so the lowest
+// index wins a tie.  Slots no key filled
 // (N < k, or distances that are +inf or NaN) stay (+inf, 0).
 //
 // Bound: operations.  A (query, key) pair costs about 2C + 4 f32 operations
@@ -30,11 +33,26 @@
 // smallest that holds k.  KCAP = 48 serves PointCNN's k = 48 (xdconv_4) and
 // KCAP = 64 the rest up to kMaxK; a list of 64 takes 128 registers, and a
 // key that does not beat the list's last entry skips the unrolled insertion,
-// which after the first few hundred keys is nearly every key.  Both
-// kernels keep the query row in registers at the compile-time widths 3 and
-// 64 (the generic width re-reads it from memory for every key); the graph
-// kernel also evaluates two keys per step, two independent chains of
-// dependent adds, before inserting them in index order.
+// which after the first few hundred keys is nearly every key.  The kernel
+// keeps the query row in registers at the compile-time widths 3 and 64 (the
+// generic width re-reads it from memory for every key).
+//
+// The self-kNN graph up to k = 32 (knn_graph_tile_kernel): the same pairs.
+// With a query a thread, its divergent list insertion would hold a warp for
+// every key any of the warp's 32 queries takes (most of the first ~640 keys
+// at k = 20), and its C=64 inner products would be dependent chains; so a
+// block computes a 64 x 64 tile of distances at a time, 16 independent
+// chains a thread, and each warp selects from the tile's rows with a list
+// held one entry a lane.  A query takes about k ln(N/k) + k insertions (98 measured
+// at N=1024, k=20); the first 32 keys' share goes in as one warp sort, and
+// each later insertion costs four warp-wide exchanges (its distance, its
+// place, the entries moved).  Measured on an H100, the selection takes
+// about 0.12 ms of DGCNN's C=3 graph at B=32, N=1024, k=20, ten times the
+// arithmetic; keeping ranks in place of moving entries (two exchanges an
+// insertion) was no faster.  Without contraction the inner products
+// take two f32 instructions a channel, so the issue bound is 2C + 4
+// instructions a pair at 33.5 T instructions/s (10 us at C=3 and 132 us at
+// C=64 for that graph), not the FMA rate.
 //
 // k > 64 (knn_sort_kernel): one block per query computes the query's
 // distance to every key of its cloud, the same expressions in the same
@@ -63,6 +81,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "kernel_info.cuh"
 
 namespace {
 
@@ -224,63 +244,332 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Self-kNN over a cloud [n, c]: every point is a query and a key; writes
-// the indices only.  KCAP >= k; W as in dot.
-template <int KCAP, int W>
-__global__ void __launch_bounds__(kThreads)
-    knn_graph_kernel(const float* __restrict__ feats, int n, int c, int k, int tile,
-                     int32_t* __restrict__ idx) {
-  extern __shared__ __align__(16) float smem[];
-  const int width = W > 0 ? W : c;
-  float* skeys = smem;                // [tile, width]
-  float* skk = skeys + tile * width;  // [tile]
-  const int b = blockIdx.y;
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
-  const bool active = qi < n;  // no early return: every thread joins the barriers
-  const float* cloud = feats + static_cast<size_t>(b) * n * width;
-  const float* q = cloud + static_cast<size_t>(active ? qi : 0) * width;
-  float qr[W > 0 ? W : 1];
-  float qq;
-  if constexpr (W > 0) {
-#pragma unroll
-    for (int i = 0; i < W; ++i) qr[i] = q[i];
-    qq = dot<W>(qr, qr, W);
-  } else {
-    qr[0] = 0.f;
-    qq = dot<0>(q, q, width);
-  }
-  float bd[KCAP];
-  int bi[KCAP];
-  clear(bd, bi);
+// Self-kNN graph at k <= kGraphMaxK.  A block takes kGraphQT queries of one
+// cloud and walks the cloud's keys in tiles of kGraphKT, staged in shared
+// memory with the queries (channel-major; a width above kGraphSlice in
+// slices of that many channels, the queries staged again for each; C = 64
+// by cp.async, below).  Each thread sums a 4 x 4 register tile of inner
+// products: independent chains of __fmul_rn/__fadd_rn in ascending channel
+// order, each from -0, the additive identity (its first sum is its first
+// product, bit for bit, as dot's), 16-byte shared loads feeding several
+// products.  The tile is expanded with |q|^2 and |k|^2, which
+// graph_norms_kernel computed once a point, into a distance tile in shared
+// memory.  Then each warp walks the rows of its kGraphRows queries 32 keys
+// at a time, in ascending key order, against the query's list, which the
+// warp holds one entry a lane, ascending.  The cloud's first 32 keys are
+// sorted by (distance, index) with a warp bitonic network and the first k
+// make the list.  After that a ballot marks the keys below the list's k-th
+// entry; they go in lowest lane first, each tested again against the k-th
+// entry as it then stands (bit k-1 of ballot(entry <= d)), at position
+// popc(ballot(entry <= d)), and the entries from there up move one lane up
+// (__shfl_up_sync).  An equal distance stays behind the lower index already
+// in the list, +inf and NaN never pass the strict test, and slots no key
+// filled keep (+inf, 0).
+constexpr int kGraphThreads = 256;                           // 8 warps, 16 x 16 over a tile's pairs
+constexpr int kGraphQT = 64;                                 // queries a block: 4 a thread
+constexpr int kGraphKT = 64;                                 // keys a tile: 4 a thread
+constexpr int kGraphSlice = 64;                              // channels staged at once
+constexpr int kGraphRows = kGraphQT / (kGraphThreads / 32);  // lists a warp keeps
+constexpr int kGraphMinBlocks = 4;                           // blocks an SM: 64 registers a thread
+constexpr unsigned kFull = 0xffffffffu;
 
-  for (int base = 0; base < n; base += tile) {
-    const int count = min(tile, n - base);
-    stage_tile(cloud, nullptr, base, count, width, skeys, skk, nullptr);
-    if (!active) continue;
-    for (int t = 0; t < count; t += 2) {
-      // Two keys per step (the second repeats the last key of an odd tile
-      // and is then not inserted): independent chains the SM interleaves.
-      const int u = min(t + 1, count - 1);
-      float i0, i1;
-      if constexpr (W > 0) {
-        i0 = dot_row<W>(qr, skeys + t * width);
-        i1 = dot_row<W>(qr, skeys + u * width);
-      } else {
-        i0 = dot<0>(q, skeys + t * width, width);
-        i1 = dot<0>(q, skeys + u * width, width);
-      }
-      const float d0 = expand(qq, i0, skk[t]);
-      const float d1 = expand(qq, i1, skk[u]);
-      insert(bd, bi, d0, base + t);
-      if (u > t) insert(bd, bi, d1, base + u);
+static_assert(kGraphQT == 4 * (kGraphThreads / 16) && kGraphKT == 4 * 16, "4 x 4 pairs a thread");
+static_assert(kGraphKT % 32 == 0, "the selection reads 32 keys at a time");
+
+// |x|^2 of each of `total` points [total, c]: dot<W> of the row with itself.
+template <int W>
+__global__ void graph_norms_kernel(const float* __restrict__ feats, long long total, int c,
+                                   float* __restrict__ norms) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const float* row = feats + i * (W > 0 ? W : c);
+  norms[i] = dot<W>(row, row, c);
+}
+
+// Rows [row0, row0 + rows) of a cloud [n, width], channels [c0, c0 + cs),
+// into dst [cs][STRIDE] channel-major; rows from `rows` to STRIDE are zero.
+// Every thread of the block calls it.  VEC reads four channels at once (the
+// cloud 16-byte aligned, width, c0 and cs multiples of 4).
+template <bool VEC, int STRIDE>
+__device__ __forceinline__ void stage_rows(const float* __restrict__ cloud, int width, int row0, int rows,
+                                           int c0, int cs, float* dst) {
+  if constexpr (VEC) {
+    for (int e = threadIdx.x; e < STRIDE * (cs >> 2); e += kGraphThreads) {
+      const int v = e / STRIDE, j = e - v * STRIDE;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (j < rows) x = *reinterpret_cast<const float4*>(cloud + static_cast<size_t>(row0 + j) * width + c0 + 4 * v);
+      float* col = dst + 4 * v * STRIDE + j;
+      col[0] = x.x;
+      col[STRIDE] = x.y;
+      col[2 * STRIDE] = x.z;
+      col[3 * STRIDE] = x.w;
+    }
+  } else {
+    for (int e = threadIdx.x; e < STRIDE * cs; e += kGraphThreads) {
+      const int ch = e / STRIDE, j = e - ch * STRIDE;
+      dst[ch * STRIDE + j] = j < rows ? cloud[static_cast<size_t>(row0 + j) * width + c0 + ch] : 0.f;
     }
   }
-  if (!active) return;
-  const size_t row = (static_cast<size_t>(b) * n + qi) * k;
+}
+
+// Shared bytes of a knn_graph_tile_kernel block that stages `slice` channels.
+constexpr size_t graph_smem_bytes(int slice) {
+  return sizeof(float) * (static_cast<size_t>(slice) * (kGraphQT + kGraphKT) + kGraphQT * kGraphKT + kGraphQT +
+                          kGraphKT);
+}
+
+// (d, i) of each lane sorted ascending across the warp by (distance,
+// index): a bitonic network of 15 exchange steps.
+__device__ __forceinline__ void warp_sort(float& d, int& i, int lane) {
 #pragma unroll
-  for (int p = 0; p < KCAP; ++p) {
-    if (p < k) idx[row + p] = bi[p];
+  for (int size = 2; size <= 32; size <<= 1) {
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      const float od = __shfl_xor_sync(kFull, d, stride);
+      const int oi = __shfl_xor_sync(kFull, i, stride);
+      const bool other_first = od < d || (od == d && oi < i);
+      const bool keep_first = ((lane & stride) == 0) == ((lane & size) == 0);
+      if (other_first == keep_first) {
+        d = od;
+        i = oi;
+      }
+    }
   }
+}
+
+// One key tile's selection for the calling warp's kGraphRows queries: rows
+// warp * kGraphRows + t of the distance tile sd [kGraphQT][kGraphKT], which
+// the warp wrote itself, keys [base, base + count) of the cloud.  ld and li
+// are the warp's lists, lane p holding entry p.
+__device__ __forceinline__ void select_tile(const float* sd, int base, int count, int qrows, int k,
+                                            float (&ld)[kGraphRows], int (&li)[kGraphRows]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned kmask = k >= 32 ? kFull : (1u << k) - 1u;
+#pragma unroll
+  for (int t = 0; t < kGraphRows; ++t) {
+    const int r = warp * kGraphRows + t;
+    if (r >= qrows) break;  // warp-uniform
+    const float* row = sd + r * kGraphKT;
+    int h0 = 0;
+    if (base == 0) {
+      // The cloud's first 32 keys: sorted by (distance, index), the first
+      // k make the list (+inf and NaN never: slots (+inf, 0)).
+      float d = lane < count ? row[lane] : inf_f();
+      int i = lane;
+      if (!(d < inf_f())) d = inf_f();
+      warp_sort(d, i, lane);
+      const bool keep = lane < k && d < inf_f();
+      ld[t] = keep ? d : inf_f();
+      li[t] = keep ? i : 0;
+      h0 = 32;
+    }
+    float thr = __shfl_sync(kFull, ld[t], k - 1);
+#pragma unroll
+    for (int h = h0; h < kGraphKT; h += 32) {
+      const float d = h + lane < count ? row[h + lane] : inf_f();
+      unsigned cand = __ballot_sync(kFull, d < thr);
+      while (cand) {  // warp-uniform
+        const int s = __ffs(cand) - 1;
+        cand &= cand - 1;
+        const float dc = __shfl_sync(kFull, d, s);
+        const unsigned below = __ballot_sync(kFull, ld[t] <= dc);
+        if ((below >> (k - 1)) & 1u) continue;  // the k-th entry is not above dc
+        const int pos = __popc(below & kmask);
+        const float up_d = __shfl_up_sync(kFull, ld[t], 1);
+        const int up_i = __shfl_up_sync(kFull, li[t], 1);
+        if (lane > pos) {
+          ld[t] = up_d;
+          li[t] = up_i;
+        } else if (lane == pos) {
+          ld[t] = dc;
+          li[t] = base + h + s;
+        }
+      }
+      thr = __shfl_sync(kFull, ld[t], k - 1);
+    }
+  }
+}
+
+// The warp's lists, lane p < k writing entry p of each of its queries.
+__device__ __forceinline__ void write_lists(int32_t* __restrict__ idx, int b, int n, int q0, int qrows, int k,
+                                            const int (&li)[kGraphRows]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < kGraphRows; ++t) {
+    const int r = warp * kGraphRows + t;
+    if (r < qrows && lane < k) idx[(static_cast<size_t>(b) * n + q0 + r) * k + lane] = li[t];
+  }
+}
+
+// Self-kNN over a cloud [n, c] with its norms [n] (graph_norms_kernel):
+// writes the indices.  k <= 32; any width (in slices of kGraphSlice
+// channels above it).  A thread's pairs are queries 4tq.. x keys 4tk.. of
+// the tile, and a warp's queries are the rows it selects from.
+__global__ void __launch_bounds__(kGraphThreads, kGraphMinBlocks)
+    knn_graph_tile_kernel(const float* __restrict__ feats, const float* __restrict__ norms, int n, int c, int k,
+                          int32_t* __restrict__ idx) {
+  extern __shared__ __align__(16) float smem[];
+  const int slice = min(c, kGraphSlice);
+  float* sq = smem;                       // [slice][kGraphQT]
+  float* sk = sq + slice * kGraphQT;      // [slice][kGraphKT]
+  float* sd = sk + slice * kGraphKT;      // [kGraphQT][kGraphKT]
+  float* sqq = sd + kGraphQT * kGraphKT;  // [kGraphQT]
+  float* skk = sqq + kGraphQT;            // [kGraphKT]
+  const int b = blockIdx.y, q0 = blockIdx.x * kGraphQT;
+  const int qrows = min(kGraphQT, n - q0);
+  const float* cloud = feats + static_cast<size_t>(b) * n * c;
+  const float* cnorm = norms + static_cast<size_t>(b) * n;
+  const int tid = threadIdx.x;
+  const int tq = tid >> 4, tk = tid & 15;
+  const bool one_slice = c <= slice;
+  if (tid < kGraphQT) sqq[tid] = tid < qrows ? cnorm[q0 + tid] : 0.f;
+  if (one_slice) stage_rows<false, kGraphQT>(cloud, c, q0, qrows, 0, c, sq);
+  float ld[kGraphRows];  // lane p: entry p of each list (distance, key)
+  int li[kGraphRows];
+#pragma unroll
+  for (int t = 0; t < kGraphRows; ++t) {
+    ld[t] = inf_f();
+    li[t] = 0;
+  }
+
+  for (int base = 0; base < n; base += kGraphKT) {
+    const int count = min(kGraphKT, n - base);
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = -0.f;
+    }
+    for (int c0 = 0; c0 < c; c0 += slice) {
+      const int cs = min(slice, c - c0);
+      __syncthreads();  // the last tile's keys are no longer read
+      if (!one_slice) stage_rows<false, kGraphQT>(cloud, c, q0, qrows, c0, cs, sq);
+      stage_rows<false, kGraphKT>(cloud, c, base, count, c0, cs, sk);
+      if (c0 == 0 && tid < kGraphKT) skk[tid] = tid < count ? cnorm[base + tid] : 0.f;
+      __syncthreads();
+#pragma unroll 4
+      for (int ch = 0; ch < cs; ++ch) {
+        const float4 qv = *reinterpret_cast<const float4*>(sq + ch * kGraphQT + 4 * tq);
+        const float4 kv = *reinterpret_cast<const float4*>(sk + ch * kGraphKT + 4 * tk);
+        const float qa[4] = {qv.x, qv.y, qv.z, qv.w}, ka[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(qa[i], ka[j]));
+        }
+      }
+    }
+    const float4 kk = *reinterpret_cast<const float4*>(skk + 4 * tk);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float qq = sqq[4 * tq + i];
+      const float4 d = make_float4(expand(qq, acc[i][0], kk.x), expand(qq, acc[i][1], kk.y),
+                                   expand(qq, acc[i][2], kk.z), expand(qq, acc[i][3], kk.w));
+      *reinterpret_cast<float4*>(sd + (4 * tq + i) * kGraphKT + 4 * tk) = d;
+    }
+    __syncwarp();  // the warp's rows are its own
+    select_tile(sd, base, count, qrows, k, ld, li);
+  }
+  write_lists(idx, b, n, q0, qrows, k, li);
+}
+
+// A key tile of a cloud [n, 64] for knn_graph_tile64_kernel: keys [base,
+// base + count) into dst [kGraphKT][kGraph64Stride] row-major by cp.async
+// (16 bytes a copy, rows from count on filled with zeros), committed as one
+// group.  Every thread of the block calls it.
+constexpr int kGraph64Stride = 68;  // floats a staged key row: conflict-free 16-byte loads
+__device__ __forceinline__ void stage_keys64(const float* __restrict__ cloud, int base, int count, float* dst) {
+  for (int e = threadIdx.x; e < kGraphKT * 16; e += kGraphThreads) {
+    const int j = e >> 4, v = e & 15;
+    const float* src = cloud + static_cast<size_t>(base + (j < count ? j : 0)) * 64 + 4 * v;
+    const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst + j * kGraph64Stride + 4 * v));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(src), "r"(j < count ? 16 : 0));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void wait_keys64() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// Shared bytes of a knn_graph_tile64_kernel block.
+constexpr size_t graph64_smem_bytes() {
+  return sizeof(float) * (64 * kGraphQT + kGraphKT * kGraph64Stride + kGraphQT * kGraphKT + kGraphQT);
+}
+
+// knn_graph_tile_kernel at C = 64 over a 16-byte aligned cloud.  The key
+// tiles are copied row-major by cp.async, each issued as soon as every warp
+// has multiplied the tile before it, so that it lands while the warps
+// expand and select; a thread's keys are tk, tk + 16, tk + 32 and tk + 48
+// of the tile, read four channels at a time from rows kGraph64Stride floats
+// apart (no bank conflicts), and the same chains in the same order.
+__global__ void __launch_bounds__(kGraphThreads, kGraphMinBlocks)
+    knn_graph_tile64_kernel(const float* __restrict__ feats, const float* __restrict__ norms, int n, int k,
+                            int32_t* __restrict__ idx) {
+  extern __shared__ __align__(16) float smem[];
+  float* sq = smem;                             // [64][kGraphQT] channel-major
+  float* sk = sq + 64 * kGraphQT;               // [kGraphKT][kGraph64Stride] row-major
+  float* sd = sk + kGraphKT * kGraph64Stride;   // [kGraphQT][kGraphKT]
+  float* sqq = sd + kGraphQT * kGraphKT;        // [kGraphQT]
+  const int b = blockIdx.y, q0 = blockIdx.x * kGraphQT;
+  const int qrows = min(kGraphQT, n - q0);
+  const float* cloud = feats + static_cast<size_t>(b) * n * 64;
+  const float* cnorm = norms + static_cast<size_t>(b) * n;
+  const int tid = threadIdx.x;
+  const int tq = tid >> 4, tk = tid & 15;
+  stage_keys64(cloud, 0, min(kGraphKT, n), sk);
+  if (tid < kGraphQT) sqq[tid] = tid < qrows ? cnorm[q0 + tid] : 0.f;
+  stage_rows<true, kGraphQT>(cloud, 64, q0, qrows, 0, 64, sq);
+  float ld[kGraphRows];  // lane p: entry p of each list (distance, key)
+  int li[kGraphRows];
+#pragma unroll
+  for (int t = 0; t < kGraphRows; ++t) {
+    ld[t] = inf_f();
+    li[t] = 0;
+  }
+  wait_keys64();
+  __syncthreads();
+
+  for (int base = 0; base < n; base += kGraphKT) {
+    const int count = min(kGraphKT, n - base);
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = -0.f;
+    }
+#pragma unroll 4
+    for (int v = 0; v < 16; ++v) {
+      float4 kv[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = *reinterpret_cast<const float4*>(sk + (tk + 16 * j) * kGraph64Stride + 4 * v);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4 qv = *reinterpret_cast<const float4*>(sq + (4 * v + u) * kGraphQT + 4 * tq);
+        const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+        float ka[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) ka[j] = u == 0 ? kv[j].x : u == 1 ? kv[j].y : u == 2 ? kv[j].z : kv[j].w;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(qa[i], ka[j]));
+        }
+      }
+    }
+    __syncthreads();  // every warp has read this key tile
+    if (base + kGraphKT < n) stage_keys64(cloud, base + kGraphKT, min(kGraphKT, n - base - kGraphKT), sk);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = tk + 16 * j;
+      const float kk = key < count ? cnorm[base + key] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sd[(4 * tq + i) * kGraphKT + key] = expand(sqq[4 * tq + i], acc[i][j], kk);
+    }
+    __syncwarp();  // the warp's rows are its own
+    select_tile(sd, base, count, qrows, k, ld, li);
+    wait_keys64();
+    __syncthreads();  // the next key tile is in
+  }
+  write_lists(idx, b, n, q0, qrows, k, li);
 }
 
 // Order-preserving bits of a distance: unsigned order equals float order;
@@ -488,25 +777,45 @@ cudaError_t launch_c(const float* q, const float* keys, const float* bias, int b
   return launch<KCAP, 0>(q, keys, bias, b, m, n, c, k, dist, idx, s);
 }
 
-template <int KCAP, int W>
-cudaError_t launch_graph(const float* feats, int b, int n, int c, int k, int32_t* idx,
+// C = 64 (DGCNN's EdgeConv 2-4) takes knn_graph_tile64_kernel where the
+// cloud is 16-byte aligned, as its 16-byte copies need; every other width,
+// C = 3 included, the run-time width.  A compile-time C = 3 build spilled
+// 8-16 bytes at 64 registers in every variant tried on an H100, and at 80
+// registers (three blocks an SM) it took 0.22 ms against 0.17 at DGCNN's
+// C=3 graph; the run-time width at C = 3 has no spill.
+bool graph_c64(const void* feats, int c) { return c == 64 && reinterpret_cast<uintptr_t>(feats) % 16 == 0; }
+
+// |x|^2 of every point into norms [b, n], then the tiled graph kernel
+// (knn_graph_tile64_kernel at C = 64 when the cloud is 16-byte aligned).
+cudaError_t launch_graph(const float* feats, float* norms, int b, int n, int c, int k, int32_t* idx,
                          cudaStream_t s) {
-  // Rows of 64 floats start 256 bytes apart: dot_row's float4 reads stay aligned.
-  const int fit = kSmemFloats / (c + 1);
-  const int tile = n < fit ? n : fit;
-  const size_t smem = sizeof(float) * static_cast<size_t>(tile) * (c + 1);
-  const dim3 grid((n + kThreads - 1) / kThreads, b);
-  knn_graph_kernel<KCAP, W><<<grid, kThreads, smem, s>>>(feats, n, c, k, tile, idx);
+  const long long total = static_cast<long long>(b) * n;
+  const bool c64 = graph_c64(feats, c);
+  if (c64) {
+    graph_norms_kernel<64><<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(feats, total, c, norms);
+  } else {
+    graph_norms_kernel<0><<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(feats, total, c, norms);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem = c64 ? graph64_smem_bytes() : graph_smem_bytes(c < kGraphSlice ? c : kGraphSlice);
+  const dim3 grid((n + kGraphQT - 1) / kGraphQT, b);
+  if (c64) {
+    err = cudaFuncSetAttribute(knn_graph_tile64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    knn_graph_tile64_kernel<<<grid, kGraphThreads, smem, s>>>(feats, norms, n, k, idx);
+  } else {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(knn_graph_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    knn_graph_tile_kernel<<<grid, kGraphThreads, smem, s>>>(feats, norms, n, c, k, idx);
+  }
   return cudaGetLastError();
 }
 
-template <int KCAP>
-cudaError_t launch_graph_c(const float* feats, int b, int n, int c, int k, int32_t* idx,
-                           cudaStream_t s) {
-  if (c == 3) return launch_graph<KCAP, 3>(feats, b, n, c, k, idx, s);
-  if (c == 64) return launch_graph<KCAP, 64>(feats, b, n, c, k, idx, s);
-  return launch_graph<KCAP, 0>(feats, b, n, c, k, idx, s);
-}
 
 }  // namespace
 
@@ -535,24 +844,32 @@ extern "C" int knn_launch(const void* queries, const void* keys, const void* bia
 }
 
 // feats [b, n, c] f32, contiguous -> idx [b, n, k] int32: each point's k
-// nearest points, itself included, ascending.  Above kGraphMaxK: the
+// nearest points, itself included, ascending.  Up to kGraphMaxK: the tiled
+// graph kernel, dist [b, n] f32 scratch (the points' |x|^2).  Above it: the
 // general kernel (knn_launch) with the cloud as its queries, dist [b, n, k]
 // f32 scratch, and scratch as knn_launch's (null unless k > kMaxK and
 // n > kSortTile).
 extern "C" int knn_graph_launch(const void* feats, int b, int n, int c, int k, void* idx, void* dist,
                                 void* scratch, void* stream) {
-  if (b < 1 || b > 65535 || n < 1 || c < 1 || c + 1 > kSmemFloats || k < 1) {
+  if (b < 1 || b > 65535 || n < 1 || c < 1 || c + 1 > kSmemFloats || k < 1 || dist == nullptr) {
     return cudaErrorInvalidValue;
   }
-  if (k > kGraphMaxK) {
-    if (dist == nullptr) return cudaErrorInvalidValue;
-    return knn_launch(feats, feats, nullptr, b, n, n, c, k, dist, idx, scratch, stream);
-  }
+  if (k > kGraphMaxK) return knn_launch(feats, feats, nullptr, b, n, n, c, k, dist, idx, scratch, stream);
   auto* f = static_cast<const float*>(feats);
+  auto* norms = static_cast<float*>(dist);
   auto* i = static_cast<int32_t*>(idx);
   auto s = static_cast<cudaStream_t>(stream);
-  if (k <= 8) return launch_graph_c<8>(f, b, n, c, k, i, s);
-  if (k <= 16) return launch_graph_c<16>(f, b, n, c, k, i, s);
-  if (k <= 20) return launch_graph_c<20>(f, b, n, c, k, i, s);
-  return launch_graph_c<32>(f, b, n, c, k, i, s);
+  return launch_graph(f, norms, b, n, c, k, i, s);
+}
+
+// The tiled graph kernel as knn_graph_launch takes it at width c (a 16-byte
+// aligned cloud): info = {registers, local bytes a thread, dynamic shared
+// bytes a block, resident blocks per SM}.
+extern "C" int knn_graph_info(int c, int* info) {
+  if (c < 1 || c + 1 > kSmemFloats) return cudaErrorInvalidValue;
+  if (graph_c64(reinterpret_cast<const void*>(16), c)) {
+    return kernel_info(knn_graph_tile64_kernel, graph64_smem_bytes(), kGraphThreads, info);
+  }
+  return kernel_info(knn_graph_tile_kernel, graph_smem_bytes(c < kGraphSlice ? c : kGraphSlice), kGraphThreads,
+                     info);
 }

@@ -72,8 +72,12 @@ _SIGNATURES = {
     "scatter_add_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     # queries, keys, bias (nullable), b, m, n, c, k, dist, idx, scratch (nullable), stream
     "knn_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # feats, b, n, c, k, idx, dist (nullable), scratch (nullable), stream
+    # feats, b, n, c, k, idx, dist (k <= 32: the norms), scratch (nullable), stream
     "knn_graph_launch": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # c, info* (int[4])
+    "knn_graph_info": (_I, _P),
+    # n, info* (int[5])
+    "fps_info": (_I, _P),
     # xyz, b, n, dup, stream
     "dupmask_launch": (_P, _I, _I, _P, _P),
     # vals, idx, b, n, k, cv, mmax, mmin, sum, sumsq, cntmax, cntmin, stream

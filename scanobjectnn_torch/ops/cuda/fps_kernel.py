@@ -22,8 +22,12 @@ are strictly serial (511 at SA1, 127 at SA2) and each one is a block-wide
 argmax.  The kernel runs one block per cloud (B=128 blocks on 132 SMs),
 keeps each thread's points and their ``min_dist`` in registers and the
 cloud's coordinates in shared memory, and pays one ``__syncthreads`` per
-step: warp-shuffle argmax, one double-buffered shared-memory exchange of
-the per-warp winners, then every warp reduces those redundantly.  That
+step.  The argmax compares an order-preserving 32-bit key of ``min_dist``
+(its bits, NaN above +inf): a warp's winner is two hardware warp
+reductions (the largest key, then the lowest index holding it), the
+per-warp winners go through one double-buffered shared-memory exchange,
+and every warp reduces those the same way.  ``kernel_info`` reads the
+kernel's registers, local memory, blocks per SM and threads on the card.  That
 holds a cloud of at most ``REGISTER_MAX_POINTS`` (8192) points; a larger
 cloud (a raw scan) takes a second kernel that reads its coordinates from
 device memory every step and keeps each point's ``min_dist`` in a scratch
@@ -33,11 +37,13 @@ so both kernels give the plain version's bits at any N.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from scanobjectnn_torch.ops.cuda import _build
 
-__all__ = ["fps", "fps_plain"]
+__all__ = ["fps", "fps_plain", "kernel_info"]
 
 REGISTER_MAX_POINTS = 8 * 1024  # kRegisterMaxPoints in csrc/fps.cu: 8 points per thread at 1024 threads
 
@@ -114,3 +120,14 @@ def fps(xyz: torch.Tensor, npoint: int, with_coords: bool = True):
 fps.launches = 0
 fps.index_launches = 0
 fps.large_launches = 0  # of them, N > REGISTER_MAX_POINTS (fps_large_kernel)
+
+
+def kernel_info(n: int) -> dict:
+    """The kernel a launch on clouds of ``n`` points takes (the register
+    kernel up to ``REGISTER_MAX_POINTS``): registers and local-memory bytes
+    a thread, dynamic shared bytes a block, resident blocks per SM and
+    threads a block, from ``cudaFuncGetAttributes`` and the occupancy API
+    (on the card)."""
+    info = (ctypes.c_int * 5)()
+    _build.check(_build.library().fps_info(n, ctypes.addressof(info)), "fps kernel_info")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "threads"), info))

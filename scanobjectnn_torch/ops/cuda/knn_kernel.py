@@ -29,21 +29,28 @@ gradient.
 ``knn_graph_kernel(features [B, N, C], k) -> idx [B, N, k] int32`` is the
 self-kNN: every point is a query and a key, so each point's first neighbour
 is itself (its distance is exactly 0).  It is ``knn_point_kernel(x, x,
-k)[1]`` bit for bit: up to ``GRAPH_MAX_K`` its own kernel, with the cloud
-read once and, at C = 3 and 64, the query row held in registers; above it
-the general kernel with the cloud as its queries (that very call).
+k)[1]`` bit for bit: up to ``GRAPH_MAX_K`` its own kernel, which takes the
+points' |x|² once a point, sums 64 x 64 tiles of inner products a block
+(4 x 4 a thread) and selects from each tile's rows a warp a query, the
+query's list held one entry a lane; above it the general kernel with the
+cloud as its queries (that very call).  ``graph_kernel_info`` reads its
+registers, local memory and blocks per SM on the card.
 
 What bounds it on the H100: operations, about 2C + 4 per (query, key) pair;
 at fp3 (B=32, 1024 queries, 512 keys, C=3) about 2.5 us of f32 work against
 0.4 us of bytes, so in practice the launch.  DGCNN's C=64 graph at B=32,
-N=1024 is 33.6M pairs of about 132 operations: 66 us.  One thread per query
-scans its cloud's keys, staged in shared memory in tiles, in ascending index
-and keeps its k best in registers; above k = 64 one block per query sorts
-all its distances (a bitonic sort of (distance bits, index) keys), whose
+N=1024 is 33.6M pairs of about 132 operations: 66 us at the FMA rate, 132
+us at the rate of separate f32 instructions, which the contract's
+uncontracted sums need.  In the general kernel one thread per query scans
+its cloud's keys, staged in shared memory in tiles, in ascending index and
+keeps its k best in registers; above k = 64 one block per query sorts all
+its distances (a bitonic sort of (distance bits, index) keys), whose
 log2(N)²/2 steps, not the distances, then set the time.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -53,6 +60,7 @@ __all__ = [
     "GRAPH_MAX_K",
     "MAX_K",
     "SORT_TILE",
+    "graph_kernel_info",
     "knn_graph_kernel",
     "knn_graph_plain",
     "knn_point_kernel",
@@ -203,12 +211,13 @@ def knn_graph_kernel(features: torch.Tensor, k: int) -> torch.Tensor:
     dev = features.device
     idx = torch.empty(b, n, k, dtype=torch.int32, device=dev)
     routed = k > GRAPH_MAX_K
-    dist = torch.empty(b, n, k, dtype=torch.float32, device=dev) if routed else None
+    # Routed: the general kernel's distances; else the points' |x|².
+    dist = torch.empty((b, n, k) if routed else (b, n), dtype=torch.float32, device=dev)
     scratch = _sort_scratch(b, n, n, k, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.knn_graph_launch(
-            features.data_ptr(), b, n, c, k, idx.data_ptr(), None if dist is None else dist.data_ptr(),
+            features.data_ptr(), b, n, c, k, idx.data_ptr(), dist.data_ptr(),
             None if scratch is None else scratch.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "knn_graph_kernel")
@@ -219,3 +228,13 @@ def knn_graph_kernel(features: torch.Tensor, k: int) -> torch.Tensor:
 
 knn_graph_kernel.launches = 0
 knn_graph_kernel.routed_launches = 0  # of them, k > GRAPH_MAX_K (the general kernel)
+
+
+def graph_kernel_info(c: int) -> dict:
+    """The graph kernel (k <= ``GRAPH_MAX_K``) as a launch at width ``c``
+    builds it: registers and local-memory bytes a thread, dynamic shared
+    bytes a block, and resident blocks per SM, from
+    ``cudaFuncGetAttributes`` and the occupancy API (on the card)."""
+    info = (ctypes.c_int * 4)()
+    _build.check(_build.library().knn_graph_info(c, ctypes.addressof(info)), "graph_kernel_info")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), info))

@@ -5,7 +5,10 @@ This file imports no JAX, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 FPS indices and coordinates must be equal, above 8192 points too (the
-kernel that keeps min-distances in device memory; ties and NaN rows).
+kernel that keeps min-distances in device memory; ties and NaN rows), at
+the register kernel's block sizes and their edges, with argmax ties
+between warps and the NaN rule at each block size; a second call gives
+the same bits.
 Fused SA (#3, K <= 64 and
 the chunked K = 80, 128; and #10 over a given grouping), also at the edges
 of the register tile (K = 1, 3, 7, 33, 63; M not a multiple of the queries
@@ -35,8 +38,11 @@ k above N, ties, a NaN key), and on more than 16384 keys its sorted tiles
 merged (N = 16385 to 50000, up to a k larger than a tile);
 ``SAModule(knn=True, nsample=72)`` on the card against the same layer on
 the CPU.  The self-kNN graph: indices equal to ``knn_graph_plain``, for the
-same reason, at k <= 32 in its own kernel and above through the general
-one (k = 33 to 100, ties).
+same reason, at k <= 32 in its own kernel (k = 1, 2, 31, 32; C = 1, 65,
+128; N off its 64-point tiles; ties across its 32-key chunks and tiles;
+NaN and infinite rows; a cloud not on 16 bytes), twice with the same bits,
+and above through the general one (k = 33 to 100, ties).  The graph and
+FPS kernels use no local memory.
 The duplicate mask (#12): equal to ``duplicate_mask_plain`` (float ``==``
 on both sides), with ``-0.0``/``0.0`` pairs and NaN points.  PointCNN's
 ``knn_indices_general`` launches both at any Q and N when k <= 64 and
@@ -104,6 +110,7 @@ from scanobjectnn_torch.ops.cuda.ballgroup_kernel import (
 )
 from scanobjectnn_torch.ops.cuda.dupmask_kernel import duplicate_mask_kernel, duplicate_mask_plain
 from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
+from scanobjectnn_torch.ops.cuda.fps_kernel import kernel_info as fps_kernel_info
 from scanobjectnn_torch.nn import xconv
 from scanobjectnn_torch.ops import interpolate
 from scanobjectnn_torch.ops.cuda.gather_kernel import (
@@ -125,6 +132,7 @@ from scanobjectnn_torch.ops.cuda.edge_kernel import (
     edge_reduce_plain,
 )
 from scanobjectnn_torch.ops.cuda.knn_kernel import (
+    graph_kernel_info,
     knn_graph_kernel,
     knn_graph_plain,
     knn_point_kernel,
@@ -173,6 +181,11 @@ def dev():
 @pytest.mark.parametrize(
     "b,n,m",
     [(3, 100, 37), (2, 2048, 512), (2, 512, 128), (2, 5000, 64), (1, 8192, 16), (2, 7, 9),
+     # the register kernel's block sizes and their edges: one point a thread
+     # up to 512 threads, up to 8 of 512 threads, 1024 threads above 4096;
+     # m up to N, m = 1, more clouds than SMs
+     (2, 32, 32), (2, 33, 33), (2, 1023, 600), (2, 1025, 1025), (1, 2049, 900), (1, 4097, 300),
+     (1, 8192, 8192), (3, 100, 1), (200, 64, 16),
      # above 8192 points: the kernel that keeps min_dist in device memory
      (2, 8193, 64), (2, 16384, 128), (1, 40000, 256)],
 )
@@ -183,8 +196,60 @@ def test_fps_kernel_matches_plain(dev, b, n, m):
     ref_idx, ref_xyz = fps_plain(xyz, m)
     assert torch.equal(idx, ref_idx) and torch.equal(new_xyz, ref_xyz)
     assert torch.equal(fps(xyz, m, with_coords=False), ref_idx)
-    assert fps.launches == before + 2
-    assert fps.large_launches == large + (2 if n > 8192 else 0)
+    again_idx, again_xyz = fps(xyz, m)
+    assert torch.equal(again_idx, idx) and torch.equal(again_xyz, new_xyz)  # the same bits twice
+    assert fps.launches == before + 3
+    assert fps.large_launches == large + (3 if n > 8192 else 0)
+
+
+def _far_ties(rng, b, n, pairs):
+    """A small cloud around the seed (index 0, at the origin) with each pair
+    (i, j) of points far out at exactly the same distance from it, mirrored
+    through the origin: the argmax ties between them, and i < j must win."""
+    xyz = (rng.rand(b, n, 3).astype(np.float32) - 0.5) * 0.25
+    xyz[:, 0] = 0.0
+    for r, (i, j) in enumerate(pairs):
+        v = np.zeros(3, np.float32)
+        v[r % 3] = 4.0 + r
+        xyz[:, i], xyz[:, j] = v, -v
+    return xyz
+
+
+# (n, pairs), at most three pairs (one an axis): at 512 threads a thread
+# owns points tid, tid + 512, ...; the pairs sit in different warps (31/32,
+# 63/64), in different warps of the second slice (543/1000) and across
+# slices (5/517 are one thread's points).
+FPS_TIE_CASES = {
+    "n512": (512, [(31, 32), (63, 64), (100, 300)]),
+    "n1024": (1024, [(31, 32), (543, 1000), (5, 517)]),
+    "n2048": (2048, [(31, 32), (1500, 2047), (63, 1088)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FPS_TIE_CASES))
+def test_fps_kernel_ties_across_warps(dev, case):
+    n, pairs = FPS_TIE_CASES[case]
+    xyz = torch.from_numpy(_far_ties(np.random.RandomState(n), 3, n, pairs)).to(dev)
+    idx, new_xyz = fps(xyz, 64)
+    ref_idx, ref_xyz = fps_plain(xyz, 64)
+    assert torch.equal(idx, ref_idx) and torch.equal(new_xyz, ref_xyz)
+    assert torch.equal(fps(xyz, 64, with_coords=False), ref_idx)
+    # The farthest pair first, each pair at its lower index, then its mirror.
+    want = [x for i, j in reversed(pairs) for x in (i, j)]
+    assert idx[:, 1:1 + len(want)].tolist() == [want] * 3
+
+
+@pytest.mark.parametrize("n", [512, 2048, 5000])
+def test_fps_kernel_nan_row_at_each_block_size(dev, n):
+    # A NaN point poisons its cloud from step 1: index N, coordinates 0.
+    xyz = np.random.RandomState(n).randn(3, n, 3).astype(np.float32)
+    xyz[1, n - 7, 2] = np.nan
+    xyz = torch.from_numpy(xyz).to(dev)
+    idx, new_xyz = fps(xyz, 40)
+    ref_idx, ref_xyz = fps_plain(xyz, 40)
+    assert torch.equal(idx, ref_idx) and torch.equal(new_xyz, ref_xyz)
+    assert torch.equal(fps(xyz, 40, with_coords=False), ref_idx)
+    assert (idx[1, 1:] == n).all() and (new_xyz[1, 1:] == 0).all()
 
 
 def test_fps_kernel_ties_and_nan(dev):
@@ -723,10 +788,52 @@ def lattice_cloud(rng, b, n, c, copies=4):
     return np.stack([p[rng.permutation(n)] for p in np.tile(base, (1, copies, 1))])
 
 
+def straddling_lattice(rng, b, n, c):
+    """Dyadic lattice points with exact duplicates at indices 31/32, 63/64
+    and 127/128: distance ties across the graph kernel's 32-key chunks and
+    64-key tiles."""
+    x = rng.randint(-3, 4, (b, n, c)).astype(np.float32) * 0.25
+    for lo in (31, 63, 127):
+        if lo + 1 < n:
+            x[:, lo + 1] = x[:, lo]
+    return x
+
+
+def graph_cloud(rng, b, n, c, cloud):
+    if cloud == "lattice":
+        return lattice_cloud(rng, b, n, c)
+    if cloud == "straddle":
+        return straddling_lattice(rng, b, n, c)
+    x = rng.randn(b, n, c).astype(np.float32)  # "normal", "line" (C = 1), "unaligned"
+    if cloud in ("nan", "inf"):  # one row of cloud 1 and one of cloud 0
+        x[1, n // 3, c - 1] = np.nan if cloud == "nan" else np.inf
+        x[0, n - 2, 0] = np.nan if cloud == "nan" else -np.inf
+    return x
+
+
 # (b, n, c, k, cloud): DGCNN's graphs at C=3 (T-Net, EdgeConv 1) and C=64
 # (EdgeConv 2-4) at k=20, over several shared-memory tiles at C=64; a
-# generic width; k=8 and k=32; a ragged N; duplicated points.
+# generic width; k=8 and k=32; a ragged N; duplicated points.  The tiled
+# kernel's edges: k = 1, 2, 31, 32; C = 1, 65 (two channel slices), 128;
+# N that is not a multiple of its 64-query and 64-key tiles; ties across
+# its 32-key chunks and tiles; NaN and +-inf rows (never selected).
 GRAPH_CASES = {
+    "c3_k1_n33": (2, 33, 3, 1, "normal"),
+    "c64_k2_n65": (2, 65, 64, 2, "normal"),
+    "c64_k31_n129": (2, 129, 64, 31, "normal"),
+    "c3_k32_n1000": (2, 1000, 3, 32, "normal"),
+    "c1_k5": (2, 300, 1, 5, "line"),  # its expansion rounds close neighbours to 0: the self edge may not lead
+    "c65_k20": (2, 300, 65, 20, "normal"),
+    "c128_k20_n1000": (2, 1000, 128, 20, "normal"),
+    "straddle_c3_k20": (2, 160, 3, 20, "straddle"),
+    "straddle_c3_k32": (2, 160, 3, 32, "straddle"),
+    "straddle_c64_k20": (2, 160, 64, 20, "straddle"),
+    "straddle_c64_k32": (2, 160, 64, 32, "straddle"),
+    "nan_rows_c3": (2, 300, 3, 20, "nan"),
+    "nan_rows_c64": (2, 300, 64, 20, "nan"),
+    "inf_rows_c3": (2, 300, 3, 20, "inf"),
+    "inf_rows_c64": (2, 300, 64, 20, "inf"),
+    "unaligned_c64": (2, 300, 64, 20, "unaligned"),  # not on 16 bytes: the run-time width
     "c3_k20": (4, 1024, 3, 20, "normal"),
     "c64_k20": (4, 1024, 64, 20, "normal"),
     "c16_k8": (2, 300, 16, 8, "normal"),
@@ -749,18 +856,30 @@ GRAPH_CASES = {
 def test_knn_graph_kernel_matches_plain(dev, case):
     b, n, c, k, cloud = GRAPH_CASES[case]
     rng = np.random.RandomState(n + c)
-    x = lattice_cloud(rng, b, n, c) if cloud == "lattice" else rng.randn(b, n, c).astype(np.float32)
-    x = torch.from_numpy(x).to(dev)
+    x = torch.from_numpy(graph_cloud(rng, b, n, c, cloud)).to(dev)
+    if cloud == "unaligned":  # the same values one float into a larger buffer
+        x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(b, n, c)
     before, routed = knn_graph_kernel.launches, knn_graph_kernel.routed_launches
     idx = knn_graph_kernel(x, k)
     want = knn_graph_plain(x, k)
+    again = knn_graph_kernel(x, k)
     torch.cuda.synchronize()
-    assert knn_graph_kernel.launches == before + 1
-    assert knn_graph_kernel.routed_launches == routed + (k > 32)
+    assert knn_graph_kernel.launches == before + 2
+    assert knn_graph_kernel.routed_launches == routed + 2 * (k > 32)
     assert idx.dtype == torch.int32 and idx.shape == (b, n, k)
     assert torch.equal(idx, want)
+    assert torch.equal(again, idx)  # the same bits twice
     if cloud == "normal":
         assert bool((idx[..., 0] == torch.arange(n, device=dev)).all())  # the self edge first
+
+
+@pytest.mark.parametrize("c", [3, 64, 65])
+def test_graph_and_fps_kernels_use_no_local_memory(dev, c):
+    info = graph_kernel_info(c)
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, info
+    for n in (512, 1024, 2048, 8192, 9000):
+        info = fps_kernel_info(n)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, (n, info)
 
 
 def test_knn_graph_kernel_refuses_what_it_does_not_take(dev):

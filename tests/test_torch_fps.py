@@ -104,3 +104,33 @@ def test_cpu_tensor_takes_plain_version_without_launch(rng):
 def test_wrapper_refuses_other_devices():
     with pytest.raises(ValueError):
         fps(torch.zeros(1, 8, 3, device="meta"), 4)
+
+
+def _tie_cloud(rng, n: int, lo: int, mirrored: bool) -> np.ndarray:
+    """A small cloud around the seed (index 0, at the origin) with points
+    lo and lo + 1 far out at exactly equal distance: copies of each other,
+    or mirrored through the origin.  On the card lo and lo + 1 sit in
+    different warps."""
+    xyz = (rng.rand(2, n, 3).astype(np.float32) - 0.5) * 0.25
+    xyz[:, 0] = 0.0
+    xyz[:, lo] = (0.0, 4.0, 0.0)
+    xyz[:, lo + 1] = (0.0, -4.0, 0.0) if mirrored else (0.0, 4.0, 0.0)
+    return xyz
+
+
+@pytest.mark.parametrize("mirrored", [False, True])
+@pytest.mark.parametrize("lo", [31, 63])
+def test_fps_ties_across_warps_match_jax(rng, lo, mirrored):
+    """The farthest points tie at step 1 (and, mirrored, again at step 2):
+    the lowest index wins, as in the lax path and the Pallas kernel."""
+    xyz = _tie_cloud(rng, 160, lo, mirrored)
+    idx, new_xyz = fps_plain(torch.from_numpy(xyz), 24)
+    assert (idx[:, 1] == lo).all()
+    if mirrored:
+        assert (idx[:, 2] == lo + 1).all()
+    else:
+        assert not (idx == lo + 1).any()  # its copy's min-distance is 0 after step 1
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(farthest_point_sample_lax(jnp.asarray(xyz), 24)))
+    ref_idx, ref_xyz = fps_pallas_with_coords(jnp.asarray(xyz), 24, True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+    np.testing.assert_array_equal(new_xyz.numpy(), np.asarray(ref_xyz))

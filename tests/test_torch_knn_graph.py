@@ -115,3 +115,35 @@ def test_knn_graph_is_the_self_knn_point_and_carries_no_gradient():
 def test_knn_graph_kernel_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         knn_graph_kernel(torch.zeros(1, 4, 3, device="meta"), 2)
+
+
+def straddling_lattice(rng, b: int, n: int, c: int) -> np.ndarray:
+    """Dyadic lattice points (exact distances on both sides) with exact
+    duplicates at indices 31/32, 63/64 and 127/128: ties that straddle the
+    card kernel's 32-key chunks and 64-key tiles."""
+    x = rng.randint(-3, 4, (b, n, c)).astype(np.float32) * 0.25
+    for lo in (31, 63, 127):
+        if lo + 1 < n:
+            x[:, lo + 1] = x[:, lo]
+    return x
+
+
+@pytest.mark.parametrize("c", [3, 64])
+@pytest.mark.parametrize("k", [20, 32])
+def test_knn_graph_ties_straddling_chunks_and_tiles(c, k):
+    # The card kernel sorts the first 32 keys of a cloud and inserts the
+    # rest 32 at a time from 64-key tiles; ties across those edges must
+    # still go to the lowest index, as lax.top_k and the TPU's argmin give.
+    x = straddling_lattice(np.random.RandomState(c + k), 2, 160, c)
+    got = ops.knn_graph(torch.from_numpy(x), k).numpy()
+    everything = np.ones(x.shape[:2], bool)
+    assert_graphs_agree(got, np.asarray(knn_graph_lax(jnp.asarray(x), k)), everything, "knn_graph_lax")
+    assert_graphs_agree(got, np.asarray(knn_graph_pallas(jnp.asarray(x), k, True)), everything, "knn_graph_pallas")
+    twins = (x[:, :, None, :] == x[:, None, :, :]).all(-1)
+    np.testing.assert_array_equal(got[..., 0], twins.argmax(-1))  # the lowest-indexed copy first
+    for lo in (31, 63, 127):
+        # Both copies list the pair at distance 0, in ascending index.
+        for q in (lo, lo + 1):
+            row = got[:, q]
+            assert ((row == lo).argmax(-1) < (row == lo + 1).argmax(-1)).all()
+            assert (row == lo).any(-1).all() and (row == lo + 1).any(-1).all()
