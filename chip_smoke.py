@@ -9,9 +9,13 @@ Phases (any failure raises and the exit code is not 0):
      the fused SA kernels (#3/#10 and #4, f32 and bf16) at the main paths'
      shapes, of #17's walk and pool kernels as their plans build them at
      phase 11's calls (``satrain_kernel.kernel_info``), of the self-kNN
-     graph kernel at C = 3, 64 and 128 (``knn_kernel.graph_kernel_info``)
-     and of the FPS kernels at N = 512, 1024, 2048, 8192 and 40000
-     (``fps_kernel.kernel_info``, with their threads), and require no local
+     graph kernel at C = 3, 64 and 128 (``knn_kernel.graph_kernel_info``),
+     of the FPS kernels at N = 512, 1024, 2048, 8192 and 40000
+     (``fps_kernel.kernel_info``, with their threads), of every build of
+     ``edge.cu`` (``edge_kernel.kernel_info``: the staged backward at slice
+     widths 8, 4, 2 and 1 at the largest cloud each takes, its per-edge
+     route and the forward at 1, 2 and 4 floats a lane) and of the
+     duplicate mask (``dupmask_kernel.kernel_info``), and require no local
      memory;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes of the main path (FPS 2048->512 and 512->128; the fused SA1 and
@@ -75,8 +79,11 @@ Phases (any failure raises and the exit code is not 0):
      b. the edge-reduce forward kernel against its plain version at
         EdgeConv 1-4's (Cf, Cv) = (3, 64), (64, 64), (64, 64), (64, 128):
         every output equal; timed;
-     c. its backward kernel against autograd through the plain version, and
-        bit-stable across two calls; timed;
+     c. its backward kernel against autograd through the plain version,
+        bit-stable across two calls and equal to ``edge_reduce_bwd_ordered``;
+        timed, and its device time split into the counting sort and the sum
+        (a profiler trace), beside the bytes the sum moves and the per-edge
+        kernel's 32 Cv bytes an edge;
      d. the T-Net's neighbour gather (graph kernel + gather kernel) against
         its plain version, forward equal and backward (the scatter-add);
         timed;
@@ -118,7 +125,9 @@ Phases (any failure raises and the exit code is not 0):
      forward hands its kernels (the kernel branch of its unique kNN, every
      call with k <= 64: ``xconv_1-4``, ``xdconv_4``, ``xdconv_5``):
      a. the duplicate mask #12 on the [32, 1024|384|128, 3] clouds,
-        equal to its plain version; timed (CUDA events, and device time);
+        equal to its plain version; timed (CUDA events, and device time)
+        beside an empty kernel of the same grid launched the same way, the
+        floor of a call this small;
      b. the kNN #13 at the six calls (k = 8, 24, 32, 48, 48, 32) with the
         duplicate bias, equal to ``knn_point_plain``; timed; then both
         branches of ``knn_indices_general`` (#12 + #13, and the full sort)
@@ -201,8 +210,9 @@ Phases (any failure raises and the exit code is not 0):
  13. the ranges the card refused before, each equal to its plain version
      and its route's launches counted (``fps.large_launches``,
      ``knn_point_kernel.tiled_launches``,
-     ``knn_graph_kernel.routed_launches``; recorded beside the launches in
-     the kernels line):
+     ``knn_graph_kernel.routed_launches``,
+     ``edge_reduce_bwd_kernel.routed_launches``; recorded beside the
+     launches in the kernels line):
      a. FPS at B=8, N=40000 -> 512 through ``ops`` (with and without
         coordinates: the kernel for clouds above 8192 points), and on a
         lattice cloud with ties and a NaN row; timed with its bound;
@@ -212,7 +222,10 @@ Phases (any failure raises and the exit code is not 0):
         shapes (B=32, N=1024, C=3 and 64, and duplicated points), and at
         k=100 (the sort); device time with its bound;
      d. ``dgcnn`` with k=40: inference in f32 and bf16 and one training
-        step (B=32), each against the plain path by the DGCNN gates.
+        step (B=32), each against the plain path by the DGCNN gates;
+     e. the EdgeConv backward at B=2, N=9686, Cv=64 (a cloud whose one
+        channel does not fit the staged kernel: the per-edge route), equal
+        to ``edge_reduce_bwd_ordered``; device time.
 
 Every kernel's line in the ``{"kernels": [...]}`` record carries its
 bound: the larger of the bytes it must move over 3.35 TB/s and the
@@ -278,11 +291,16 @@ SEG_AGREEMENT = 0.99
 # (the same f32 operations in the same order, the same tie rule).  The
 # reduce backward sums the same per-edge coefficients as autograd through
 # the plain version, in another order: within EDGE_BWD_TOL x max(1,
-# |ref|max), and bit-stable.  The model paths are held to the SSG bounds.
+# |ref|max), bit-stable, and equal to ``edge_reduce_bwd_ordered`` (the same
+# operations in the kernel's order).  The model paths are held to the SSG
+# bounds.
 DGCNN_BATCH, DGCNN_POINT, DGCNN_K = 32, 1024, 20
 # The ranges the card once refused (phase 13): FPS on (B, N, samples), the
-# general kNN on (B, queries, keys, k), the self-kNN graph and dgcnn at k.
+# general kNN on (B, queries, keys, k), the self-kNN graph and dgcnn at k;
+# and the EdgeConv backward's per-edge route on (B, N, Cv), a cloud one
+# point past its staged kernel's reach.
 RANGE_FPS, RANGE_KNN, RANGE_GRAPH_K = (8, 40000, 512), (1, 1024, 50000, 128), 40
+RANGE_EDGE = (2, 9686, 64)
 EDGE_BWD_TOL = 1e-5
 # SpiderCNN (phase 7): inference and training at the JAX package's B=32,
 # N=1024, k=20.  The SpiderConv kernel sums the same f32 products feat·g as
@@ -479,6 +497,76 @@ def check_graph_fps_kernels(smi: str) -> None:
               f"blocks per SM ({smi})")
         require(info["local_bytes"] == 0, f"the FPS kernel at N={n} uses local memory: {info}")
         require(info["blocks_per_sm"] >= 1, f"the FPS kernel at N={n} fits no block on an SM: {info}")
+
+
+def check_edge_dup_kernels(smi: str) -> None:
+    """Registers, local memory and blocks per SM of every build of
+    ``edge.cu`` (the staged backward at each slice width, at the largest
+    cloud it takes; its per-edge route and the forward at 1, 2 and 4 floats
+    a lane) and of the duplicate mask #12; no local memory allowed."""
+    from scanobjectnn_torch.ops.cuda.dupmask_kernel import kernel_info as dupmask_info
+    from scanobjectnn_torch.ops.cuda.edge_kernel import kernel_info as edge_info
+
+    builds = [("#14 backward, staged", "bwd", w, n) for w, n in ((8, 1024), (8, 1210), (4, 2048), (2, 4842),
+                                                                 (1, 9685))]
+    builds += [(f"#14 {name}", kernel, w, 1024) for name, kernel in (("backward, per-edge route", "bwd_edge"),
+                                                                     ("forward", "fwd")) for w in (1, 2, 4)]
+    for label, kernel, width, n in builds:
+        info = edge_info(kernel, width, n)
+        shape = f"slice {width}, N={n}" if kernel == "bwd" else f"{width} floats a lane"
+        print(f"kernel {label} ({shape}): {info['registers']} registers a thread, {info['local_bytes']} local bytes, "
+              f"{info['smem_bytes']} shared bytes a block, {info['blocks_per_sm']} blocks per SM ({smi})")
+        require(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, f"{label} ({shape}): {info}")
+    info = dupmask_info()
+    print(f"kernel #12 dupmask_kernel: {info['registers']} registers a thread, {info['local_bytes']} local bytes, "
+          f"{info['blocks_per_sm']} blocks of 1024 threads per SM ({smi})")
+    require(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, f"the duplicate mask kernel: {info}")
+
+
+def kernel_split_ms(fn, groups: dict, iters: int = 10) -> dict:
+    """Device ms a call of ``fn``'s kernels, summed by group: ``groups``
+    maps a name to (substrings of kernel names, kernels a call), from a
+    torch.profiler trace of ``iters`` calls (``profile_forward.device_spans``).
+    Each group is read over the last ``iters - 1`` calls' kernels: a trace
+    now and then loses the first kernels of its window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from profile_forward import device_spans
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(8):  # a trace now and then comes back empty or short
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = {g: [] for g in groups}
+        for start, end, name in device_spans(prof):
+            for g, (keys, _) in groups.items():
+                if any(key in name for key in keys):
+                    spans[g].append(end - start)
+        last = {g: (iters - 1) * per_call for g, (_, per_call) in groups.items()}
+        if all(len(spans[g]) >= last[g] for g in groups):
+            return {g: sum(spans[g][-last[g]:]) / 1e3 / (iters - 1) for g in groups}
+    raise AssertionError(f"chip_smoke: 8 traces missed kernels of {list(groups)}: "
+                         f"{({g: len(v) for g, v in spans.items()})}")
+
+
+# The EdgeConv backward's kernels, for kernel_split_ms: the counting sort's
+# three, and the sum.
+EDGE_BWD_SPLIT = {"sort": (("count_tiles_kernel", "count_scan_kernel", "count_fill_kernel"), 3),
+                  "sum": (("edge_reduce_bwd",), 1)}
+
+
+def edge_bwd_sum_bytes(b: int, n: int, k: int, cv: int) -> float:
+    """Bytes the backward's staged sum moves from device memory or L2: each
+    per-query operand, vals and dvals once, the inverse index (offsets and
+    perm) once a channel slice."""
+    from scanobjectnn_torch.ops.cuda.edge_kernel import bwd_slice_width
+
+    slices = -(-cv // bwd_slice_width(n, cv))
+    return 4.0 * (10 * b * n * cv + slices * b * (n + 1 + n * k))
 
 
 def mlp_ops(weights, rows: int, lifted_points: int = 0) -> float:
@@ -691,7 +779,9 @@ SUBCOUNTS = {"index_launches": "_indices", "chunked_launches": "_chunked", "sort
 # Launches that took a route a wrapper counts apart and that stay in its
 # total: FPS above 8192 points ("fps.large_launches"), the graph through
 # the general kNN ("knn_graph_kernel.routed_launches"), the sort over merged
-# tiles ("knn_point_kernel.tiled_launches"), by "counter.attribute".
+# tiles ("knn_point_kernel.tiled_launches"), the EdgeConv backward's
+# per-edge kernel ("edge_reduce_bwd_kernel.routed_launches"), by
+# "counter.attribute".
 ROUTES = ("large_launches", "routed_launches", "tiled_launches")
 LAUNCH_ROUTES: dict[str, int] = {}
 
@@ -1173,7 +1263,7 @@ def dgcnn_phase(smi: str, dev) -> dict:
     from scanobjectnn_torch.models import dgcnn
     from scanobjectnn_torch.ops.cuda.edge_kernel import (
         REDUCTIONS, edge_gather_knn, edge_gather_knn_plain, edge_reduce, edge_reduce_bwd_kernel,
-        edge_reduce_fwd_kernel, edge_reduce_plain, reduce_neighbors_plain,
+        edge_reduce_bwd_ordered, edge_reduce_fwd_kernel, edge_reduce_plain, reduce_neighbors_plain,
     )
     from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows, scatter_add_rows
     from scanobjectnn_torch.ops.cuda.knn_kernel import knn_graph_kernel, knn_graph_plain
@@ -1262,19 +1352,26 @@ def dgcnn_phase(smi: str, dev) -> dict:
         (grad,) = torch.autograd.grad([red[key] for key in diff], v, cot)
         saved = (vals, idx, red["mmax"], red["mmin"], red["cntmax"], red["cntmin"])
         again = edge_reduce_bwd_kernel(*saved, *cot)
+        ordered = edge_reduce_bwd_ordered(*saved, *cot)
         vp = vals.clone().requires_grad_()
         plain = reduce_neighbors_plain(vp, idx)
         plain_outs = [plain[key] for key in diff]
         (ref,) = torch.autograd.grad(plain_outs, vp, cot, retain_graph=True)
         torch.cuda.synchronize()
         require(torch.equal(grad, again), f"the edge_reduce backward is not bit-stable ({label})")
+        require(torch.equal(grad, ordered), f"the edge_reduce backward differs from edge_reduce_bwd_ordered ({label})")
         err, tol = float((grad - ref).abs().max()), EDGE_BWD_TOL * scale_of(ref)
-        print(f"edge_reduce backward {label}: identical bits on two calls, max abs err {err:.3e} against "
-              f"autograd of the plain version (bound {tol:.3e})")
+        print(f"edge_reduce backward {label}: identical bits on two calls and to edge_reduce_bwd_ordered, max abs "
+              f"err {err:.3e} against autograd of the plain version (bound {tol:.3e})")
         require(err <= tol, f"the edge_reduce backward differs from autograd: {err} > {tol} ({label})")
         out["edge_reduce_bwd"]["max_abs_err"] = max(out["edge_reduce_bwd"]["max_abs_err"], err)
         record("edge_reduce_bwd", label, lambda: edge_reduce_bwd_kernel(*saved, *cot),
                lambda: torch.autograd.grad(plain_outs, vp, cot, retain_graph=True))
+        split = kernel_split_ms(lambda: edge_reduce_bwd_kernel(*saved, *cot), EDGE_BWD_SPLIT)
+        print(f"edge_reduce backward {label}: device time the counting sort {split['sort']:.4f} ms + the sum "
+              f"{split['sum']:.4f} ms; the sum moves {edge_bwd_sum_bytes(b, n, k, cv) / 1e6:.1f} MB from device "
+              f"memory or L2, the per-edge kernel loaded 32 Cv bytes an edge, {32 * cv * b * n * k / 1e6:.1f} MB "
+              f"({smi})")
         work["edge_reduce_bwd"].add(10.0 * b * n * k * cv, 4 * (10 * b * n * cv + b * n * k))
 
     # 6d. The T-Net's neighbour gather, forward and backward.
@@ -1548,7 +1645,7 @@ def pointcnn_phase(smi: str, dev) -> dict:
     from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
     from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
     from scanobjectnn_torch.nn import xconv
-    from scanobjectnn_torch.ops.cuda.dupmask_kernel import duplicate_mask_kernel, duplicate_mask_plain
+    from scanobjectnn_torch.ops.cuda.dupmask_kernel import duplicate_mask_kernel, duplicate_mask_plain, launch_floor
     from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows, scatter_add_rows
     from scanobjectnn_torch.ops.cuda.knn_kernel import knn_point_kernel, knn_point_plain
     from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
@@ -1588,9 +1685,11 @@ def pointcnn_phase(smi: str, dev) -> dict:
         torch.cuda.synchronize()
         require(torch.equal(got, want), f"the duplicate mask differs from its plain version ({label})")
         ms, plain_ms = cuda_ms(lambda: duplicate_mask_kernel(xyz)), cuda_ms(lambda: duplicate_mask_plain(xyz), iters=3)
+        floor_ms = cuda_ms(lambda: launch_floor(xyz))
         print(f"duplicate_mask {label}: equal to the plain version ({int(want.sum())} duplicates); time kernel "
-              f"{ms:.4f} ms (device {device_ms(lambda: duplicate_mask_kernel(xyz)):.4f}), plain {plain_ms:.4f} ms "
-              f"({smi})")
+              f"{ms:.4f} ms (device {device_ms(lambda: duplicate_mask_kernel(xyz)):.4f}), plain {plain_ms:.4f} ms; "
+              f"the floor, an empty kernel of the same grid, {floor_ms:.4f} ms (device "
+              f"{device_ms(lambda: launch_floor(xyz)):.4f}) ({smi})")
         dup["ms"] += ms
         dup["plain_ms"] += plain_ms
         dupmask_work(work, xyz)
@@ -2456,7 +2555,9 @@ def range_phase(smi: str, dev) -> dict:
     from scanobjectnn_torch import ops
     from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
     from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
-    from scanobjectnn_torch.ops.cuda.edge_kernel import edge_gather_knn, edge_reduce_bwd_kernel, edge_reduce_fwd_kernel
+    from scanobjectnn_torch.ops.cuda.edge_kernel import (
+        edge_gather_knn, edge_reduce, edge_reduce_bwd_kernel, edge_reduce_bwd_ordered, edge_reduce_fwd_kernel,
+    )
     from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
     from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows, scatter_add_rows
     from scanobjectnn_torch.ops.cuda.knn_kernel import (
@@ -2547,9 +2648,25 @@ def range_phase(smi: str, dev) -> dict:
                 f"a kernel of the dgcnn k={kg} training path never launched: {counts}")
         require(all(math.isfinite(v) for v in losses), f"non-finite dgcnn k={kg} training loss: {losses}")
         compare_steps(trainer, batches[1], 12, f"dgcnn k={kg} B={bg}")
+
+    # 13e. The EdgeConv backward on clouds one point too large for one
+    # channel's staged slice: the per-edge route.
+    b, n, cv = RANGE_EDGE
+    feats = torch.randn(b, n, 3, device=dev, generator=g)
+    vals = torch.randn(b, n, cv, device=dev, generator=g)
+    red = edge_reduce(feats, vals, DGCNN_K)
+    saved = (vals, red["idx"], red["mmax"], red["mmin"], red["cntmax"], red["cntmin"])
+    cot = [torch.randn(b, n, cv, device=dev, generator=g) for _ in range(4)]
+    dvals, counts = counted_run((edge_reduce_bwd_kernel,), lambda: edge_reduce_bwd_kernel(*saved, *cot))
+    require(edge_reduce_bwd_kernel.routed_launches == 1, f"the backward at N={n} did not take the per-edge route")
+    require(torch.equal(dvals, edge_reduce_bwd_ordered(*saved, *cot)),
+            f"the backward at N={n} differs from edge_reduce_bwd_ordered")
+    print(f"edge_reduce backward B={b} N={n} k={DGCNN_K} Cv={cv}: per-edge route, equal to edge_reduce_bwd_ordered; "
+          f"device time {device_ms(lambda: edge_reduce_bwd_kernel(*saved, *cot)):.4f} ms ({smi})")
     return {"fps": {"large_launches": LAUNCH_ROUTES["fps.large_launches"]},
             "knn_graph": {"routed_launches": LAUNCH_ROUTES["knn_graph_kernel.routed_launches"]},
-            "knn_point_sorted": {"tiled_launches": LAUNCH_ROUTES["knn_point_kernel.tiled_launches"]}}
+            "knn_point_sorted": {"tiled_launches": LAUNCH_ROUTES["knn_point_kernel.tiled_launches"]},
+            "edge_reduce_bwd": {"routed_launches": LAUNCH_ROUTES["edge_reduce_bwd_kernel.routed_launches"]}}
 
 
 def main() -> None:
@@ -2589,6 +2706,7 @@ def main() -> None:
     check_sa_kernels(smi)
     check_satrain_kernels(smi)
     check_graph_fps_kernels(smi)
+    check_edge_dup_kernels(smi)
 
     # Data and model.
     data, labels = make_synthetic_dataset(
@@ -2796,9 +2914,10 @@ def main() -> None:
           "gather, index_add_ "
           "for the scatter-add (device time), torch.matmul of the materialised outer product for spider_conv "
           "(CUDA events); "
-          "launches: every main path's run together; fps, knn_graph and knn_point_sorted also carry the launches "
-          "of their routes added in phase 13's ranges (large_launches: FPS above 8192 points; routed_launches: the "
-          "graph above k = 32 through the general kNN kernel; tiled_launches: the sort over more than 16384 keys)")
+          "launches: every main path's run together; fps, knn_graph, knn_point_sorted and edge_reduce_bwd also "
+          "carry the launches of their routes added in phase 13's ranges (large_launches: FPS above 8192 points; "
+          "routed_launches: the graph above k = 32 through the general kNN kernel, the EdgeConv backward above "
+          "9685 points through its per-edge kernel; tiled_launches: the sort over more than 16384 keys)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -25,15 +25,39 @@
 // with g = vals[j], the value the forward gathered for that edge, bit for
 // bit.  It runs in gather form over the graph's inverse index: the counting
 // sort of countsort.cuh lists each point's incoming edges in ascending
-// (query, slot) order, and one warp per point sums them in that order.  No
-// float atomics: two calls give the same bits.
+// (query, slot) order, and each (point, channel) is one chain of adds from
+// +0 in that order, every operation rounded on its own.  No float atomics:
+// two calls give the same bits.
+//
+// A point's edges come from about k different queries, so a per-edge walk
+// reads each query's eight rows (32 Cv bytes) k times over, from L2: at
+// B=32, N=1024, k=20, Cv=64 that is 1.34 GB a call against 67 MB of unique
+// bytes.  So one block of 1024 threads takes a (cloud, slice of S channels)
+// and first stages, for every query of the cloud, the slice's ds, dq2,
+// mmax, mmin and the two quotients dmax / max(cntmax, 1) and dmin /
+// max(cntmin, 1), formed once a query with the ops the sum would use: 24
+// bytes a (query, channel), 192 KB at N = 1024, S = 8, one block an SM.
+// Then S threads a point (a point's S channels side by side, 32 / S points
+// a warp) walk its edges; the group's lanes read S edge numbers at once and
+// pass each query on by shuffle, and every per-edge operand comes from
+// shared memory: ds, dq2, mmax and mmin as one float4 (a group of eight
+// lanes reads one query's 128-byte row: no bank conflicts) and the
+// quotients as a float2 (two points of a half-warp conflict where their
+// queries' rows share a bank half).  The steps are branch-free (the max and
+// min terms by select), so a chunk's loads are in flight together.  Each
+// query row now leaves L2 once a (cloud, slice), not k times.  The slice
+// width is chosen in Python (edge_kernel.bwd_slice_width: 8 channels,
+// halved until 24 N S bytes fit in 227 KB); a cloud whose single channel
+// does not fit (N > 9685) takes the per-edge kernel, a route the wrapper
+// counts.
 //
 // Bound: bytes.  The forward reads the values and the indices once and
 // writes six [B, N, Cv] outputs; the backward reads the values, the indices
 // and eight per-query tensors and writes dvals.  At B=32, N=1024, Cv=128,
 // k=20 that is 120 MB forward (36 us at 3.35 TB/s) and 170 MB backward (51
-// us); the backward reads a query's rows again for each of its k edges, from
-// L2.
+// us).  What sets the staged sum's pace is shared memory: 24 bytes a (edge,
+// channel), 1 GB a Cv = 64 call, about 34 us at 128 bytes a clock on 132
+// SMs, with a shuffle an edge and steps past a point's last edge on top.
 
 #include <cuda_runtime.h>
 
@@ -41,6 +65,7 @@
 #include <initializer_list>
 
 #include "countsort.cuh"
+#include "kernel_info.cuh"
 
 namespace {
 
@@ -122,19 +147,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// One warp per point row = b * n + j: dvals[row] = the sum, in ascending
-// edge order, of the coefficients of the edges aimed at j (module doc).
+// The per-edge route, for clouds whose one channel does not fit the staged
+// kernel's shared memory: one warp per point row = b * n + j, dvals[row] =
+// the sum, in ascending edge order, of the coefficients of the edges aimed
+// at j (module doc), each edge's eight query rows read from device memory.
 // offsets/perm come from count_sort_kernel over idx [b, n * k]; an edge e is
 // slot e % k of query e / k.
 template <int VEC>
 __global__ void __launch_bounds__(kThreads)
-    edge_reduce_bwd_kernel(const float* __restrict__ vals, const int32_t* __restrict__ offsets,
-                           const int32_t* __restrict__ perm, int n, int k, int cv, long long rows,
-                           const float* __restrict__ mmax, const float* __restrict__ mmin,
-                           const float* __restrict__ cntmax, const float* __restrict__ cntmin,
-                           const float* __restrict__ dmax, const float* __restrict__ dmin,
-                           const float* __restrict__ ds, const float* __restrict__ dq2,
-                           float* __restrict__ dvals) {
+    edge_reduce_bwd_edge_kernel(const float* __restrict__ vals, const int32_t* __restrict__ offsets,
+                                const int32_t* __restrict__ perm, int n, int k, int cv, long long rows,
+                                const float* __restrict__ mmax, const float* __restrict__ mmin,
+                                const float* __restrict__ cntmax, const float* __restrict__ cntmin,
+                                const float* __restrict__ dmax, const float* __restrict__ dmin,
+                                const float* __restrict__ ds, const float* __restrict__ dq2,
+                                float* __restrict__ dvals) {
   const int lane = threadIdx.x & 31;
   const long long stride = static_cast<long long>(gridDim.x) * kWarps;
   const long long r = static_cast<long long>(n) * k;
@@ -174,6 +201,100 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr int kBwdThreads = 1024;           // the staged kernel's block
+constexpr int kBwdStagedBytes = 24;         // staged bytes a (query, channel)
+constexpr size_t kBwdSmemMax = 232448;      // 227 KB: the most shared memory a block may use
+
+size_t staged_smem_bytes(int n, int s) { return static_cast<size_t>(kBwdStagedBytes) * n * s; }
+
+// One block a (channel slice, cloud) = (blockIdx.x, blockIdx.y): the
+// slice's channels c0 .. c0 + S - 1 of every query staged in shared memory
+// (module doc), then dvals of those channels for every point of the cloud.
+// Channels at or past cv are staged as zeros and not written.
+template <int S>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    edge_reduce_bwd_staged_kernel(const float* __restrict__ vals, const int32_t* __restrict__ offsets,
+                                  const int32_t* __restrict__ perm, int n, int k, int cv,
+                                  const float* __restrict__ mmax, const float* __restrict__ mmin,
+                                  const float* __restrict__ cntmax, const float* __restrict__ cntmin,
+                                  const float* __restrict__ dmax, const float* __restrict__ dmin,
+                                  const float* __restrict__ ds, const float* __restrict__ dq2,
+                                  float* __restrict__ dvals) {
+  static_assert(S == 1 || S == 2 || S == 4 || S == 8, "a slice is 1, 2, 4 or 8 channels");
+  extern __shared__ float4 staged[];
+  float4* rows = staged;                                     // [n][S]: ds, dq2, mmax, mmin
+  float2* quot = reinterpret_cast<float2*>(staged + n * S);  // [n][S]: the two quotients
+  const int tid = threadIdx.x;
+  const int c0 = blockIdx.x * S;
+  const size_t cloud = static_cast<size_t>(blockIdx.y) * n;  // the cloud's first row
+
+  // Stage element e = q * S + c, two a thread at a time so that each thread
+  // has sixteen loads in flight.
+  const int elems = n * S;
+  for (int e = tid; e < elems; e += 2 * kBwdThreads) {
+    float v[2][8];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int eu = e + u * kBwdThreads;
+      const int ch = c0 + eu % S;
+      const bool in = eu < elems && ch < cv;
+      const size_t o = (cloud + eu / S) * cv + ch;
+      v[u][0] = in ? ds[o] : 0.f;
+      v[u][1] = in ? dq2[o] : 0.f;
+      v[u][2] = in ? mmax[o] : 0.f;
+      v[u][3] = in ? mmin[o] : 0.f;
+      v[u][4] = in ? dmax[o] : 0.f;
+      v[u][5] = in ? cntmax[o] : 0.f;
+      v[u][6] = in ? dmin[o] : 0.f;
+      v[u][7] = in ? cntmin[o] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int eu = e + u * kBwdThreads;
+      if (eu < elems) {
+        rows[eu] = make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
+        quot[eu] = make_float2(__fdiv_rn(v[u][4], fmaxf(v[u][5], 1.f)), __fdiv_rn(v[u][6], fmaxf(v[u][7], 1.f)));
+      }
+    }
+  }
+  __syncthreads();
+
+  const int c = tid % S;                                      // the thread's channel in the slice
+  const unsigned group = ((1u << S) - 1u) << ((tid & 31) - c);  // the lanes of the thread's point
+  const size_t ch = static_cast<size_t>(c0 + c);
+  const bool in = ch < static_cast<size_t>(cv);
+  const int32_t* off = offsets + static_cast<size_t>(blockIdx.y) * (n + 1);
+  const int32_t* edges = perm + static_cast<size_t>(blockIdx.y) * n * k;
+  for (int j = tid / S; j < n; j += kBwdThreads / S) {
+    const int start = off[j], end = off[j + 1];
+    const size_t o = (cloud + j) * cv + ch;
+    const float g = in ? vals[o] : 0.f;
+    const float g2 = __fmul_rn(2.f, g);
+    float acc = 0.f;
+    // A chunk of S edges: lane c holds edge t0 + c (the next chunk's is
+    // already in flight), and its query's staged element goes to the group
+    // by shuffle.  The steps are branch-free, so a chunk's loads are in
+    // flight together.
+    int next = start + c < end ? edges[start + c] : 0;
+    for (int t0 = start; t0 < end; t0 += S) {
+      const int mine = next / k * S;
+      next = t0 + S + c < end ? edges[t0 + S + c] : 0;
+      const int count = end - t0;
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const int at = __shfl_sync(group, mine, i, S) + c;
+        const float4 q = rows[at];
+        const float2 d = quot[at];
+        float coeff = __fadd_rn(q.x, __fmul_rn(g2, q.y));
+        coeff = g == q.z ? __fadd_rn(coeff, d.x) : coeff;
+        coeff = g == q.w ? __fadd_rn(coeff, d.y) : coeff;
+        acc = __fadd_rn(acc, i < count ? coeff : 0.f);  // a step past the last edge adds +0
+      }
+    }
+    if (in) dvals[o] = acc;
+  }
+}
+
 int blocks_for(long long rows) {
   const long long blocks = (rows + kWarps - 1) / kWarps;
   return static_cast<int>(blocks < 132 * 64 ? blocks : 132 * 64);
@@ -187,6 +308,21 @@ int vec_for(int cv, std::initializer_list<const void*> ptrs) {
     while (vec > 1 && reinterpret_cast<uintptr_t>(p) % (4 * vec) != 0) vec /= 2;
   }
   return vec;
+}
+
+// The staged backward at slice width S over b clouds; `in` holds mmax, mmin,
+// cntmax, cntmin, dmax, dmin, ds, dq2.
+template <int S>
+cudaError_t launch_staged(const float* vals, const int32_t* off, const int32_t* p, int b, int n, int k, int cv,
+                          const float* const* in, float* out, cudaStream_t s) {
+  const size_t smem = staged_smem_bytes(n, S);
+  const cudaError_t err = cudaFuncSetAttribute(edge_reduce_bwd_staged_kernel<S>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((cv + S - 1) / S, b);
+  edge_reduce_bwd_staged_kernel<S><<<grid, kBwdThreads, smem, s>>>(vals, off, p, n, k, cv, in[0], in[1], in[2],
+                                                                    in[3], in[4], in[5], in[6], in[7], out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -223,41 +359,86 @@ extern "C" int edge_reduce_fwd_launch(const void* vals, const void* idx, int b, 
 
 // The backward of edge_reduce_fwd_launch in vals: the forward's vals, idx
 // and mmax, mmin, cntmax, cntmin, and the cotangents dmax, dmin, ds, dq2
-// [b, n, cv] f32 -> dvals [b, n, cv] f32.  offsets [b, n + 1], perm
+// [b, n, cv] f32 -> dvals [b, n, cv] f32.  slice: the channels a block
+// stages (1, 2, 4 or 8, with 24 n slice bytes within 227 KB), or 0 for the
+// per-edge kernel; anything else is refused.  offsets [b, n + 1], perm
 // [b, n * k] and counts [b, count_sort_tiles_for(n, n * k), n] int32 are
 // scratch.
 extern "C" int edge_reduce_bwd_launch(const void* vals, const void* idx, const void* mmax,
                                       const void* mmin, const void* cntmax, const void* cntmin,
                                       const void* dmax, const void* dmin, const void* ds,
-                                      const void* dq2, int b, int n, int k, int cv, void* offsets,
+                                      const void* dq2, int b, int n, int k, int cv, int slice, void* offsets,
                                       void* perm, void* counts, void* dvals, void* stream) {
-  if (b < 1 || n < 1 || k < 1 || cv < 1) return cudaErrorInvalidValue;
+  if (b < 1 || b > 65535 || n < 1 || k < 1 || cv < 1) return cudaErrorInvalidValue;
   if (static_cast<long long>(n) * k > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (slice != 0 && slice != 1 && slice != 2 && slice != 4 && slice != 8) return cudaErrorInvalidValue;
+  if (slice > 0 && staged_smem_bytes(n, slice) > kBwdSmemMax) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto* off = static_cast<int32_t*>(offsets);
   auto* p = static_cast<int32_t*>(perm);
   cudaError_t err =
       launch_count_sort(static_cast<const int32_t*>(idx), b, n, n * k, off, p, static_cast<int32_t*>(counts), s);
   if (err != cudaSuccess) return err;
-  const long long rows = static_cast<long long>(b) * n;
-  const int grid = blocks_for(rows);
   auto f = [](const void* q) { return static_cast<const float*>(q); };
   auto* out = static_cast<float*>(dvals);
+  const float* in[8] = {f(mmax), f(mmin), f(cntmax), f(cntmin), f(dmax), f(dmin), f(ds), f(dq2)};
+  switch (slice) {
+    case 8: return launch_staged<8>(f(vals), off, p, b, n, k, cv, in, out, s);
+    case 4: return launch_staged<4>(f(vals), off, p, b, n, k, cv, in, out, s);
+    case 2: return launch_staged<2>(f(vals), off, p, b, n, k, cv, in, out, s);
+    case 1: return launch_staged<1>(f(vals), off, p, b, n, k, cv, in, out, s);
+    default: break;
+  }
+  const long long rows = static_cast<long long>(b) * n;
+  const int grid = blocks_for(rows);
   switch (vec_for(cv, {vals, mmax, mmin, cntmax, cntmin, dmax, dmin, ds, dq2, dvals})) {
     case 4:
-      edge_reduce_bwd_kernel<4><<<grid, kThreads, 0, s>>>(f(vals), off, p, n, k, cv, rows, f(mmax), f(mmin),
-                                                          f(cntmax), f(cntmin), f(dmax), f(dmin), f(ds),
-                                                          f(dq2), out);
+      edge_reduce_bwd_edge_kernel<4><<<grid, kThreads, 0, s>>>(f(vals), off, p, n, k, cv, rows, in[0], in[1], in[2],
+                                                               in[3], in[4], in[5], in[6], in[7], out);
       break;
     case 2:
-      edge_reduce_bwd_kernel<2><<<grid, kThreads, 0, s>>>(f(vals), off, p, n, k, cv, rows, f(mmax), f(mmin),
-                                                          f(cntmax), f(cntmin), f(dmax), f(dmin), f(ds),
-                                                          f(dq2), out);
+      edge_reduce_bwd_edge_kernel<2><<<grid, kThreads, 0, s>>>(f(vals), off, p, n, k, cv, rows, in[0], in[1], in[2],
+                                                               in[3], in[4], in[5], in[6], in[7], out);
       break;
     default:
-      edge_reduce_bwd_kernel<1><<<grid, kThreads, 0, s>>>(f(vals), off, p, n, k, cv, rows, f(mmax), f(mmin),
-                                                          f(cntmax), f(cntmin), f(dmax), f(dmin), f(ds),
-                                                          f(dq2), out);
+      edge_reduce_bwd_edge_kernel<1><<<grid, kThreads, 0, s>>>(f(vals), off, p, n, k, cv, rows, in[0], in[1], in[2],
+                                                               in[3], in[4], in[5], in[6], in[7], out);
   }
   return cudaGetLastError();
+}
+
+// A build of this file's kernels: info = {registers, local bytes a thread,
+// dynamic shared bytes a block, resident blocks per SM}.  kernel 0: the
+// staged backward at slice width `width` for a cloud of n points; 1: the
+// backward's per-edge route and 2: the forward, at `width` floats a lane
+// (1, 2 or 4).
+extern "C" int edge_info(int kernel, int width, int n, int* info) {
+  if (kernel == 0) {
+    if (n < 1 || staged_smem_bytes(n, width) > kBwdSmemMax) return cudaErrorInvalidValue;
+    const size_t smem = staged_smem_bytes(n, width);
+    switch (width) {
+      case 8: return kernel_info(edge_reduce_bwd_staged_kernel<8>, smem, kBwdThreads, info);
+      case 4: return kernel_info(edge_reduce_bwd_staged_kernel<4>, smem, kBwdThreads, info);
+      case 2: return kernel_info(edge_reduce_bwd_staged_kernel<2>, smem, kBwdThreads, info);
+      case 1: return kernel_info(edge_reduce_bwd_staged_kernel<1>, smem, kBwdThreads, info);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (kernel == 1) {
+    switch (width) {
+      case 4: return kernel_info(edge_reduce_bwd_edge_kernel<4>, 0, kThreads, info);
+      case 2: return kernel_info(edge_reduce_bwd_edge_kernel<2>, 0, kThreads, info);
+      case 1: return kernel_info(edge_reduce_bwd_edge_kernel<1>, 0, kThreads, info);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (kernel == 2) {
+    switch (width) {
+      case 4: return kernel_info(edge_reduce_fwd_kernel<4>, 0, kThreads, info);
+      case 2: return kernel_info(edge_reduce_fwd_kernel<2>, 0, kThreads, info);
+      case 1: return kernel_info(edge_reduce_fwd_kernel<1>, 0, kThreads, info);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  return cudaErrorInvalidValue;
 }

@@ -80,11 +80,17 @@ _SIGNATURES = {
     "fps_info": (_I, _P),
     # xyz, b, n, dup, stream
     "dupmask_launch": (_P, _I, _I, _P, _P),
+    # b, n, stream: an empty kernel at dupmask_launch's grid
+    "dupmask_floor_launch": (_I, _I, _P),
+    # info* (int[4])
+    "dupmask_info": (_P,),
     # vals, idx, b, n, k, cv, mmax, mmin, sum, sumsq, cntmax, cntmin, stream
     "edge_reduce_fwd_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # vals, idx, mmax, mmin, cntmax, cntmin, dmax, dmin, ds, dq2, b, n, k, cv,
-    # offsets, perm, counts, dvals, stream
-    "edge_reduce_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # slice, offsets, perm, counts, dvals, stream
+    "edge_reduce_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # kernel, width, n, info* (int[4])
+    "edge_info": (_I, _I, _I, _P),
     # k, c, t, o -> floats of the forward's scratch (long long)
     "spider_fwd_scratch": (_I, _I, _I, _I),
     # feat, idx, g, w, b, n, k, c, t, o, scratch, out, stream

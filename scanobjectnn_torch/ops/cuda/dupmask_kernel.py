@@ -16,18 +16,23 @@ The first of a group of equal points is never marked.  No gradient.
 
 What bounds it on the H100: operations, at most N(N-1)/2 comparisons of
 three floats a cloud (16.8M pairs at B=32, N=1024: about 1 us of f32 work
-against 0.5 MB of bytes), so in practice the launch.  One thread per point
-scans the earlier points through shared memory and stops at the first
-match.
+against 0.5 MB of bytes), so in practice the launch.  A block takes 128
+points and eight threads a point, each scanning every eighth earlier point
+of the cloud staged in shared memory and stopping at its first match; the
+eight findings are ORed.  ``kernel_info`` reads the build's registers and
+local memory; ``launch_floor`` launches an empty kernel of the same grid,
+the floor of a call this small.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from scanobjectnn_torch.ops.cuda import _build
 
-__all__ = ["duplicate_mask_kernel", "duplicate_mask_plain"]
+__all__ = ["duplicate_mask_kernel", "duplicate_mask_plain", "kernel_info", "launch_floor"]
 
 
 def duplicate_mask_plain(xyz: torch.Tensor) -> torch.Tensor:
@@ -67,3 +72,21 @@ def duplicate_mask_kernel(xyz: torch.Tensor) -> torch.Tensor:
 
 
 duplicate_mask_kernel.launches = 0
+
+
+def launch_floor(xyz: torch.Tensor) -> None:
+    """Launch an empty kernel at ``duplicate_mask_kernel``'s grid and block
+    for ``xyz`` [B, N, 3] on its card (not counted): what a launch of that
+    shape costs with no work in it."""
+    b, n, _ = xyz.shape
+    with torch.cuda.device(xyz.device):
+        err = _build.library().dupmask_floor_launch(b, n, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "duplicate_mask launch_floor")
+
+
+def kernel_info() -> dict:
+    """Registers, local bytes a thread, dynamic shared bytes a block and
+    resident blocks per SM of the duplicate-mask kernel's build."""
+    info = (ctypes.c_int * 4)()
+    _build.check(_build.library().dupmask_info(ctypes.addressof(info)), "duplicate_mask kernel_info")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), info))

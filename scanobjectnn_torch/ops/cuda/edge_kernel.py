@@ -32,7 +32,15 @@ neighbours' rows in slot order; its backward is ``edge_reduce_bwd_kernel``,
 which sums each point's incoming edge coefficients in ascending (query,
 slot) order over the graph's inverse index (``csrc/countsort.cuh``, shared
 with the scatter-add), re-reading ``vals`` where the TPU saved the gathered
-[B, k, N, Cv] rows.  ``edge_gather_knn`` is the graph kernel followed by
+[B, k, N, Cv] rows.  A block of the backward takes a (cloud, slice of
+``bwd_slice_width`` channels), stages every query's slice of the per-query
+operands in shared memory (24 bytes a query and channel, the two quotients
+formed once a query), then walks each point's edges; a cloud of more than
+9685 points, whose one channel does not fit, takes the per-edge kernel
+(counted in ``edge_reduce_bwd_kernel.routed_launches``).
+``edge_reduce_bwd_ordered`` is the backward in the kernel's order, bit for
+bit; ``kernel_info`` reads each build's registers and local memory.
+``edge_gather_knn`` is the graph kernel followed by
 ``gather_neighbors`` (the gather kernel #6; backward the scatter-add #7):
 the TPU fused the kNN and the gather only because its one-hot MXU gather
 cost nothing beside the argmin rounds.
@@ -46,6 +54,8 @@ autograd for the backward; the forward agrees with the kernel bit for bit.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from scanobjectnn_torch.ops.cuda import _build
@@ -54,16 +64,34 @@ from scanobjectnn_torch.ops.cuda.knn_kernel import knn_graph_kernel, knn_graph_p
 
 __all__ = [
     "REDUCTIONS",
+    "bwd_slice_width",
     "edge_gather_knn",
     "edge_gather_knn_plain",
     "edge_reduce",
     "edge_reduce_bwd_kernel",
+    "edge_reduce_bwd_ordered",
     "edge_reduce_fwd_kernel",
     "edge_reduce_plain",
+    "kernel_info",
     "reduce_neighbors_plain",
 ]
 
 REDUCTIONS = ("mmax", "mmin", "s", "q2", "cntmax", "cntmin")
+BWD_SMEM_BYTES = 232_448  # the most shared memory a block may use on an H100 (227 KB)
+BWD_STAGED_BYTES = 24  # the backward's staged bytes a (query, channel)
+BWD_MAX_SLICE = 8  # channels a block of the backward takes, at most
+
+
+def bwd_slice_width(n: int, cv: int) -> int:
+    """Channels a block of the backward stages for clouds of ``n`` points
+    and ``cv`` channels: 8, halved while ``24 n S`` bytes exceed 227 KB or
+    half as many still hold every channel; 0 where one channel does not fit
+    (``n`` > 9685): the per-edge route.  The blocks take channels [0, S),
+    [S, 2S), ... up to ``cv``."""
+    s = BWD_MAX_SLICE
+    while s > 1 and (BWD_STAGED_BYTES * n * s > BWD_SMEM_BYTES or s // 2 >= cv):
+        s //= 2
+    return s if BWD_STAGED_BYTES * n * s <= BWD_SMEM_BYTES else 0
 
 
 def _gather_plain(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -97,6 +125,40 @@ def edge_reduce_plain(feats: torch.Tensor, vals: torch.Tensor, k: int) -> dict:
     return {**reduce_neighbors_plain(vals, idx), "idx": idx}
 
 
+def edge_reduce_bwd_ordered(vals, idx, mmax, mmin, cntmax, cntmin, dmax, dmin, ds, dq2) -> torch.Tensor:
+    """The backward of the forward reduce in ``vals`` in the kernel's order
+    (module doc): the same arguments as ``edge_reduce_bwd_kernel`` -> dvals
+    [B, N, Cv] f32, bit for bit the kernel's.  Each edge's coefficient
+    ``ds + (2 g) dq2``, plus ``dmax / fmax(cntmax, 1)`` where ``g == mmax``
+    and then ``dmin / fmax(cntmin, 1)`` where ``g == mmin`` (``g`` the
+    point's value), each operation rounded on its own; each point sums its
+    edges from +0 in ascending (query, slot) order, padded with +0 terms
+    to the most edges a point has (``acc + 0`` is ``acc``: a sum from +0
+    is never -0).  Edges whose index is outside [0, N) are left out, as the
+    counting sort leaves them out."""
+    b, n, cv = vals.shape
+    k = idx.shape[-1]
+    flat = idx.reshape(b, n * k).long()
+    point = torch.where((flat >= 0) & (flat < n), flat, n)  # n: left out
+    order = torch.argsort(point, dim=1, stable=True)  # edges by (point, query, slot)
+    counts = torch.zeros(b, n + 1, dtype=torch.long, device=vals.device)
+    counts = counts.scatter_add_(1, point, torch.ones_like(point))[:, :n]
+    starts = torch.cumsum(counts, 1) - counts
+    rows = torch.arange(b, device=vals.device)[:, None]
+    q = order // k
+    g = vals[rows, torch.gather(point, 1, order).clamp(max=n - 1)]
+    one = torch.ones((), dtype=torch.float32, device=vals.device)
+    coeff = ds[rows, q] + (2.0 * g) * dq2[rows, q]
+    coeff = torch.where(g == mmax[rows, q], coeff + (dmax / torch.fmax(cntmax, one))[rows, q], coeff)
+    coeff = torch.where(g == mmin[rows, q], coeff + (dmin / torch.fmax(cntmin, one))[rows, q], coeff)
+    acc = torch.zeros(b, n, cv, dtype=torch.float32, device=vals.device)
+    last = coeff.shape[1] - 1
+    for d in range(int(counts.max()) if n * k else 0):
+        term = coeff[rows, (starts + d).clamp(max=last)]
+        acc = acc + torch.where((d < counts)[..., None], term, 0.0)
+    return acc
+
+
 def edge_reduce_fwd_kernel(vals: torch.Tensor, idx: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """The forward reduce on the card: vals [B, N, Cv] f32, idx [B, N, k]
     int32 in [0, N) -> (mmax, mmin, s, q2, cntmax, cntmin), each [B, N, Cv]
@@ -126,8 +188,11 @@ def edge_reduce_fwd_kernel(vals: torch.Tensor, idx: torch.Tensor) -> tuple[torch
 def edge_reduce_bwd_kernel(vals, idx, mmax, mmin, cntmax, cntmin, dmax, dmin, ds, dq2) -> torch.Tensor:
     """The backward of the forward reduce in ``vals``, on the card: the
     forward's inputs and outputs and the cotangents of mmax, mmin, s and q2
-    ([B, N, Cv] f32) -> dvals [B, N, Cv] f32.  Launches the kernel (counted
-    in ``edge_reduce_bwd_kernel.launches``) or raises."""
+    ([B, N, Cv] f32) -> dvals [B, N, Cv] f32, bit for bit
+    ``edge_reduce_bwd_ordered``.  Launches the kernel (counted in
+    ``edge_reduce_bwd_kernel.launches``; clouds of more than 9685 points
+    take the per-edge route, also counted in ``.routed_launches``) or
+    raises."""
     fn = "edge_reduce_bwd_kernel"
     if vals.device.type != "cuda" or vals.dim() != 3 or idx.dim() != 3:
         raise ValueError(f"{fn}: need CUDA [B, N, Cv] and [B, N, k], got {tuple(vals.shape)} on {vals.device}")
@@ -140,22 +205,39 @@ def edge_reduce_bwd_kernel(vals, idx, mmax, mmin, cntmax, cntmin, dmax, dmin, ds
     if min(b, n, cv, k) < 1:
         raise ValueError(f"{fn}: empty input {tuple(vals.shape)}, {tuple(idx.shape)}")
     dvals = torch.empty(b, n, cv, dtype=torch.float32, device=vals.device)
+    width = bwd_slice_width(n, cv)
     lib = _build.library()
     offsets, perm, counts = sort_buffers(lib, b, n, n * k, vals.device)
     with torch.cuda.device(vals.device):
         err = lib.edge_reduce_bwd_launch(
             vals.data_ptr(), idx.data_ptr(), mmax.data_ptr(), mmin.data_ptr(), cntmax.data_ptr(),
             cntmin.data_ptr(), dmax.data_ptr(), dmin.data_ptr(), ds.data_ptr(), dq2.data_ptr(),
-            b, n, k, cv, offsets.data_ptr(), perm.data_ptr(), counts.data_ptr(), dvals.data_ptr(),
+            b, n, k, cv, width, offsets.data_ptr(), perm.data_ptr(), counts.data_ptr(), dvals.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, fn)
     edge_reduce_bwd_kernel.launches += 1
+    edge_reduce_bwd_kernel.routed_launches += width == 0
     return dvals
 
 
 edge_reduce_fwd_kernel.launches = 0
 edge_reduce_bwd_kernel.launches = 0
+edge_reduce_bwd_kernel.routed_launches = 0  # of them, clouds of more than 9685 points (the per-edge kernel)
+
+_INFO_KERNELS = {"bwd": 0, "bwd_edge": 1, "fwd": 2}
+
+
+def kernel_info(kernel: str, width: int, n: int = 1024) -> dict:
+    """Registers, local bytes a thread, dynamic shared bytes a block and
+    resident blocks per SM of a build of ``csrc/edge.cu``: ``kernel`` "bwd"
+    (the staged backward at slice width ``width`` for clouds of ``n``
+    points), "bwd_edge" (its per-edge route) or "fwd" (the forward), the
+    last two at ``width`` floats a lane (1, 2 or 4)."""
+    info = (ctypes.c_int * 4)()
+    err = _build.library().edge_info(_INFO_KERNELS[kernel], width, n, ctypes.addressof(info))
+    _build.check(err, "edge kernel_info")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), info))
 
 
 class _EdgeReduce(torch.autograd.Function):

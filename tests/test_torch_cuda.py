@@ -44,7 +44,9 @@ NaN and infinite rows; a cloud not on 16 bytes), twice with the same bits,
 and above through the general one (k = 33 to 100, ties).  The graph and
 FPS kernels use no local memory.
 The duplicate mask (#12): equal to ``duplicate_mask_plain`` (float ``==``
-on both sides), with ``-0.0``/``0.0`` pairs and NaN points.  PointCNN's
+on both sides), with ``-0.0``/``0.0`` pairs and NaN points, at N off and
+on its 128-point tiles and above the 2048 points it stages at once, on one
+point repeated N times and on clouds without duplicates.  PointCNN's
 ``knn_indices_general`` launches both at any Q and N when k <= 64 and
 equals its kernel branch run on the plain versions.
 
@@ -52,7 +54,13 @@ DGCNN's edge reductions: every forward output equal to ``edge_reduce_plain``
 (the same neighbours, max and min exact, the sums in the same slot order
 without contraction).  The backward within 1e-5 x max(1, |ref|max) of
 autograd through the plain version (the same coefficients, summed in
-another order), and bit-stable across two calls (no float atomics).  The
+another order), bit-stable across two calls (no float atomics) and equal
+to ``edge_reduce_bwd_ordered`` (the same operations in the kernel's order),
+at the staged kernel's slice widths 8, 4, 2 and 1, ragged slices, Cv = 1
+to 256, N = 1 to 9685, k = 1, 20, 40, ties, and on the per-edge route at
+N = 9686 (``routed_launches`` counted); with NaN values, NaN for NaN.  A
+slice the kernel cannot run is refused; no build of ``edge.cu`` or of the
+duplicate mask uses local memory.  The
 neighbour gather ``edge_gather_knn``: rows and indices equal; its backward
 is the scatter-add, held as above.
 
@@ -109,6 +117,7 @@ from scanobjectnn_torch.ops.cuda.ballgroup_kernel import (
     query_ball_point,
 )
 from scanobjectnn_torch.ops.cuda.dupmask_kernel import duplicate_mask_kernel, duplicate_mask_plain
+from scanobjectnn_torch.ops.cuda.dupmask_kernel import kernel_info as dupmask_kernel_info
 from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
 from scanobjectnn_torch.ops.cuda.fps_kernel import kernel_info as fps_kernel_info
 from scanobjectnn_torch.nn import xconv
@@ -122,12 +131,16 @@ from scanobjectnn_torch.ops.cuda.gather_kernel import (
     scatter_add_rows,
     scatter_add_rows_plain,
 )
+from scanobjectnn_torch.ops.cuda import edge_kernel
+from scanobjectnn_torch.ops.cuda.edge_kernel import kernel_info as edge_kernel_info
 from scanobjectnn_torch.ops.cuda.edge_kernel import (
     REDUCTIONS,
+    bwd_slice_width,
     edge_gather_knn,
     edge_gather_knn_plain,
     edge_reduce,
     edge_reduce_bwd_kernel,
+    edge_reduce_bwd_ordered,
     edge_reduce_fwd_kernel,
     edge_reduce_plain,
 )
@@ -908,6 +921,10 @@ def _edge_inputs(dev, b, n, cf, cv, lattice, seed):
 
 # (b, n, cf, cv, k, lattice): EdgeConv 1-4's (Cf, Cv) at k=20, a width that
 # takes the scalar path, and duplicated points whose values tie in max/min.
+# The staged backward's plan: Cv = 1 (a one-channel slice), 8 (one slice),
+# 24, 65 (a ragged last slice), 256; N = 1, 33, 300, 1025; slices of 8, 4,
+# 2 and 1 channels (N = 1024, 2048, 4842, 9685) and the per-edge route
+# just past them (N = 9686); k = 1, 20, 40.
 EDGE_CASES = {
     "ec1": (4, 1024, 3, 64, 20, False),
     "ec2": (4, 1024, 64, 64, 20, False),
@@ -915,13 +932,33 @@ EDGE_CASES = {
     "cv24_k8": (2, 300, 16, 24, 8, False),
     "ties": (2, 512, 3, 34, 20, True),
     "ec2_k40": (2, 512, 64, 64, 40, False),  # the graph through the general kNN
+    "cv1": (2, 300, 3, 1, 20, False),
+    "cv8": (2, 300, 3, 8, 20, False),
+    "cv65": (2, 300, 16, 65, 20, False),
+    "cv256": (2, 1024, 64, 256, 20, False),
+    "n1_k1": (3, 1, 3, 16, 1, False),
+    "n33": (2, 33, 3, 64, 20, False),
+    "n1025": (2, 1025, 3, 64, 20, False),
+    "k1": (2, 300, 3, 64, 1, False),
+    "ties_k40": (2, 512, 3, 34, 40, True),
+    "slice4_n2048": (2, 2048, 3, 20, 20, False),
+    "slice2_n4842": (1, 4842, 3, 12, 20, False),
+    "slice1_n9685": (1, 9685, 3, 5, 20, False),
+    "route_n9686": (1, 9686, 3, 5, 20, False),
 }
+
+
+def same_bits(a, b) -> bool:
+    """Equal where not NaN, and NaN at the same places."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan])
 
 
 @pytest.mark.parametrize("case", sorted(EDGE_CASES))
 def test_edge_reduce_kernels_match_plain(dev, case):
     b, n, cf, cv, k, lattice = EDGE_CASES[case]
     feats, vals = _edge_inputs(dev, b, n, cf, cv, lattice, seed=n + cv)
+    routed = edge_reduce_bwd_kernel.routed_launches
     before = (knn_graph_kernel.launches, edge_reduce_fwd_kernel.launches, edge_reduce_bwd_kernel.launches)
     v = vals.clone().requires_grad_()
     got = edge_reduce(feats, v, k)
@@ -937,12 +974,72 @@ def test_edge_reduce_kernels_match_plain(dev, case):
     (grad,) = torch.autograd.grad(outs, v, cot)
     again = edge_reduce_bwd_kernel(vals, got["idx"], got["mmax"], got["mmin"], got["cntmax"], got["cntmin"], *cot)
     (ref,) = torch.autograd.grad([want[key] for key in ("mmax", "mmin", "s", "q2")], vp, cot)
+    ordered = edge_reduce_bwd_ordered(vals, got["idx"], got["mmax"], got["mmin"], got["cntmax"], got["cntmin"], *cot)
     torch.cuda.synchronize()
     after = (knn_graph_kernel.launches, edge_reduce_fwd_kernel.launches, edge_reduce_bwd_kernel.launches)
     assert after == (before[0] + 1, before[1] + 1, before[2] + 2)
+    assert (bwd_slice_width(n, cv) == 0) == (n > 9685)
+    assert edge_reduce_bwd_kernel.routed_launches == routed + 2 * (n > 9685)  # the per-edge route
     assert torch.equal(grad, again), "the backward is not bit-stable"
+    assert torch.equal(grad, ordered), "the backward differs from edge_reduce_bwd_ordered"
     scale = max(1.0, float(ref.abs().max()))
     assert float((grad - ref).abs().max()) <= EDGE_BWD_TOL * scale
+
+
+@pytest.mark.parametrize("n", [300, 9686])
+def test_edge_reduce_bwd_with_nan_values_matches_ordered(dev, n):
+    # A NaN value: max and min keep it (as torch.amax does), the NaN point's
+    # own sum is NaN, and g == NaN never holds, so the queries whose max is
+    # NaN pass no max term on.  Autograd through amax spreads NaN there
+    # instead, so the bits are held to the ordered version, NaN for NaN
+    # (staged kernel at N = 300, per-edge route at N = 9686).  The forward's
+    # tie counts where the max or min is NaN are the kernel's own (it counts
+    # the NaN slot, the plain version's == counts nothing); the backward
+    # reads them only where g equals a max or min that is not NaN.
+    feats, vals = _edge_inputs(dev, 1, n, 3, 16, False, seed=5)
+    vals[0, 7, 3] = float("nan")
+    vals[0, n // 2, :] = float("nan")
+    got = edge_reduce(feats, vals, 20)
+    want = edge_reduce_plain(feats, vals, 20)
+    for key in ("idx", "mmax", "mmin", "s", "q2"):
+        assert same_bits(got[key], want[key]), key
+    assert bool(torch.isnan(got["mmax"]).any())
+    rng = np.random.RandomState(6)
+    cot = [torch.from_numpy(rng.randn(1, n, 16).astype(np.float32)).to(dev) for _ in range(4)]
+    saved = (vals, got["idx"], got["mmax"], got["mmin"], got["cntmax"], got["cntmin"])
+    grad, again = edge_reduce_bwd_kernel(*saved, *cot), edge_reduce_bwd_kernel(*saved, *cot)
+    ordered = edge_reduce_bwd_ordered(*saved, *cot)
+    torch.cuda.synchronize()
+    assert same_bits(grad, again) and same_bits(grad, ordered)
+    assert bool(torch.isnan(grad).any()) and bool(torch.isfinite(grad).any())
+
+
+def test_edge_reduce_bwd_refuses_a_slice_it_cannot_run(dev):
+    # Eight channels of 2048 queries need 384 KB of shared memory; a slice
+    # of 3 channels is not a width the kernel has.
+    feats, vals = _edge_inputs(dev, 1, 2048, 3, 16, False, seed=7)
+    red = edge_reduce(feats, vals, 20)
+    saved = (vals, red["idx"], red["mmax"], red["mmin"], red["cntmax"], red["cntmin"])
+    cot = [torch.ones_like(vals) for _ in range(4)]
+    for width in (8, 3):
+        with mock.patch.object(edge_kernel, "bwd_slice_width", lambda n, cv, width=width: width):
+            with pytest.raises(RuntimeError, match="cudaError_t"):
+                edge_reduce_bwd_kernel(*saved, *cot)
+
+
+def test_edge_and_dupmask_kernels_use_no_local_memory(dev):
+    # Every build of edge.cu (the staged backward at each slice width, at the
+    # largest cloud it takes; its per-edge route and the forward at 1, 2 and
+    # 4 floats a lane) and the duplicate mask's.
+    for width, n in ((8, 1024), (8, 1210), (4, 2048), (2, 4842), (1, 9685)):
+        info = edge_kernel_info("bwd", width, n)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, (width, n, info)
+    for kernel in ("bwd_edge", "fwd"):
+        for width in (1, 2, 4):
+            info = edge_kernel_info(kernel, width)
+            assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, (kernel, width, info)
+    info = dupmask_kernel_info()
+    assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2, info  # two 1024-thread blocks an SM
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -1105,7 +1202,10 @@ def dup_cloud(rng, b, n):
     return x
 
 
-@pytest.mark.parametrize("b,n", [(32, 1024), (32, 384), (3, 1000), (2, 129), (1, 1)])
+@pytest.mark.parametrize("b,n", [(32, 1024), (32, 384), (3, 1000), (2, 129), (1, 1),
+                                 # the 128-point tiles' edges; above 2048 points the
+                                 # earlier points are staged a chunk at a time
+                                 (2, 2), (2, 127), (2, 128), (2, 1023), (2, 1025), (2, 4096), (1, 5000)])
 def test_duplicate_mask_kernel_matches_plain(dev, b, n):
     x = torch.from_numpy(dup_cloud(np.random.RandomState(n), b, n)).to(dev)
     before = duplicate_mask_kernel.launches
@@ -1119,6 +1219,30 @@ def test_duplicate_mask_kernel_matches_plain(dev, b, n):
         assert float(got[:, n - 2].min()) == 1.0  # -0.0 repeats 0.0
         assert float(got[0, 5]) == 0.0 and float(got[0, n // 2]) == 0.0  # NaN never equals
         assert 0 < float(want.sum()) < b * n
+
+
+@pytest.mark.parametrize("n", [1, 2, 129, 1024, 4096])
+def test_duplicate_mask_kernel_on_one_point_repeated(dev, n):
+    # Every point but the first repeats it (in the second cloud its x
+    # alternates 0.0 and -0.0, equal under ==).
+    x = torch.full((2, n, 3), 0.25, device=dev)
+    x[1, :, 0] = torch.tensor([0.0, -0.0], device=dev).repeat(n)[:n]
+    got = duplicate_mask_kernel(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, duplicate_mask_plain(x))
+    assert float(got[:, 0].max()) == 0.0 and bool((got[:, 1:] == 1.0).all())
+
+
+@pytest.mark.parametrize("n", [1, 2, 129, 1024, 4096])
+def test_duplicate_mask_kernel_without_duplicates(dev, n):
+    # Distinct points (a lattice walk, one coordinate at a time) and their
+    # mirror images: no point repeats another.
+    i = torch.arange(n, device=dev, dtype=torch.float32)
+    x = torch.stack([i % 17, (i // 17) % 19, i // 323], -1) * 0.125
+    x = torch.stack([x, -x - 1.0]).contiguous()
+    got = duplicate_mask_kernel(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, duplicate_mask_plain(x)) and float(got.max()) == 0.0
 
 
 def test_duplicate_mask_kernel_refuses_what_it_does_not_take(dev):

@@ -157,16 +157,21 @@ def feed_jax(monkeypatch, calls):
 # ------------------------------------------------------------------ #12
 
 
-@pytest.mark.parametrize("n", [128, 384])
+@pytest.mark.parametrize("n", [1, 128, 129, 384, 1000])
 def test_duplicate_mask_plain_matches_jax(n):
-    x = dup_cloud(n, 3, n, nan=True)
+    # N = 1: a lone point is never a duplicate; N = 129, 1000: clouds off the
+    # card kernel's 128-point tiles.
+    x = dup_cloud(n, 3, n, nan=True) if n > 1 else np.full((3, 1, 3), 0.5, np.float32)
     got = duplicate_mask_plain(torch.from_numpy(x))
     assert torch.equal(duplicate_mask_kernel(torch.from_numpy(x)), got)  # the CPU wrapper
     want = np.asarray(jxconv._duplicate_mask(jnp.asarray(x))).astype(np.float32)
     pallas = np.asarray(duplicate_mask_pallas(jnp.asarray(x), interpret=True))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), pallas)
-    assert got.dtype == torch.float32
+    assert got.dtype == torch.float32 and got.shape == (3, n)
+    if n == 1:
+        assert (got == 0).all()
+        return
     assert (got[:, n // 2 + 1] == 1).all() and (got[:, n - 1] == 1).all() and (got[:, 2] == 0).all()
     assert got[0, 7] == 0 and got[0, n - 3] == 0  # NaN equals nothing
 
