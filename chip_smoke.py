@@ -10,11 +10,17 @@ Phases (any failure raises and the exit code is not 0):
      shapes, of #17's walk and pool kernels as their plans build them at
      phase 11's calls (``satrain_kernel.kernel_info``), of the self-kNN
      graph kernel at C = 3, 64 and 128 (``knn_kernel.graph_kernel_info``),
+     of #13's kernels on every route as the main paths' plans build them
+     (``knn_kernel.point_kernel_info``: the group route at BGA's fp3 and
+     fp2 and PointCNN's k = 8, the warp route at PointCNN's k = 24 and 48
+     and DGCNN's k = 40 graph at C = 64, the selection at k = 128 on 1024
+     and 50000 keys, the full sort at k = 20000),
      of the FPS kernels at N = 512, 1024, 2048, 8192 and 40000
      (``fps_kernel.kernel_info``, with their threads), of every build of
      ``edge.cu`` (``edge_kernel.kernel_info``: the staged backward at slice
      widths 8, 4, 2 and 1 at the largest cloud each takes, its per-edge
-     route and the forward at 1, 2 and 4 floats a lane) and of the
+     route and the forward at 1, 2 and 4 floats a lane, the forward at a
+     warp and a half-warp a query) and of the
      duplicate mask (``dupmask_kernel.kernel_info``), and require no local
      memory;
   2. hold each kernel against its plain PyTorch version on the card at the
@@ -188,7 +194,7 @@ Phases (any failure raises and the exit code is not 0):
         device memory (``torch.cuda.max_memory_allocated``);
      e. ``SAModule(knn=True, nsample=128)`` at SSG's SA1 and SA2 shapes
         (B=32), f32 and bf16, through FPS, the kNN kernel's k > 64 path (the
-        block-wide sort), the gather and #10, against the plain path; the
+        selection), the gather and #10, against the plain path; the
         kNN call at k = 128 equal to ``knn_point_plain``, timed.
  12. the bucketed SA path and evaluation at N=2048:
      a. #5 (``rank_sort_points``) at SSG SA1's two calls (B=128: the points,
@@ -210,6 +216,7 @@ Phases (any failure raises and the exit code is not 0):
  13. the ranges the card refused before, each equal to its plain version
      and its route's launches counted (``fps.large_launches``,
      ``knn_point_kernel.tiled_launches``,
+     ``knn_point_kernel.fullsort_launches``,
      ``knn_graph_kernel.routed_launches``,
      ``edge_reduce_bwd_kernel.routed_launches``; recorded beside the
      launches in the kernels line):
@@ -217,7 +224,10 @@ Phases (any failure raises and the exit code is not 0):
         coordinates: the kernel for clouds above 8192 points), and on a
         lattice cloud with ties and a NaN row; timed with its bound;
      b. ``knn_point_kernel`` at B=1, M=1024 queries, N=50000 keys, k=128
-        (sorted tiles merged); timed with its bound;
+        (each tile's words selected, the tiles merged); timed with its
+        bound; and three of those queries at k=20000 with a bias, whose
+        selected words do not fit a block: the full sort
+        (``knn_point_kernel.fullsort_launches``);
      c. the self-kNN graph at k=40 (the general kNN kernel) at DGCNN's
         shapes (B=32, N=1024, C=3 and 64, and duplicated points), and at
         k=100 (the sort); device time with its bound;
@@ -300,6 +310,7 @@ DGCNN_BATCH, DGCNN_POINT, DGCNN_K = 32, 1024, 20
 # and the EdgeConv backward's per-edge route on (B, N, Cv), a cloud one
 # point past its staged kernel's reach.
 RANGE_FPS, RANGE_KNN, RANGE_GRAPH_K = (8, 40000, 512), (1, 1024, 50000, 128), 40
+RANGE_FULLSORT_K = 20000  # k on RANGE_KNN's keys whose selected words do not fit a block
 RANGE_EDGE = (2, 9686, 64)
 EDGE_BWD_TOL = 1e-5
 # SpiderCNN (phase 7): inference and training at the JAX package's B=32,
@@ -476,13 +487,22 @@ def print_fps_step(label: str, ms: float, npoint: int, smi: str) -> None:
     print(f"fps step {label}: {us:.4f} us a step, {us * mhz:.0f} SM cycles at {mhz} MHz ({smi})")
 
 
+# #13's kernels as the main paths' plans build them: (route, N, C, k, lanes)
+# at BGA's fp3 and fp2, PointCNN's k = 8, 24 and 48, DGCNN's k = 40 graph
+# at C = 64, SAModule's k = 128, N = 50000 at k = 128 and k = 20000.
+KNN_BUILDS = (("group", 512, 3, 3, 1), ("group", 128, 3, 3, 2), ("group", 1024, 3, 8, 1), ("warp", 1024, 3, 24, 1),
+              ("warp", 384, 3, 48, 1), ("warp", 1024, 64, 40, 1), ("select", 1024, 3, 128, 1),
+              ("select", 50000, 3, 128, 1), ("sort", 50000, 3, 20000, 1))
+
+
 def check_graph_fps_kernels(smi: str) -> None:
     """Registers, local memory and blocks per SM of the self-kNN graph
     kernel at DGCNN's widths (C = 3 takes the run-time width) and a wider
-    run-time width, and of the FPS kernels at the main paths' N and above
-    8192 points; no local memory allowed."""
+    run-time width, of #13's kernels on each route as the main paths'
+    plans build them (``KNN_BUILDS``), and of the FPS kernels at the main
+    paths' N and above 8192 points; no local memory allowed."""
     from scanobjectnn_torch.ops.cuda.fps_kernel import kernel_info as fps_info
-    from scanobjectnn_torch.ops.cuda.knn_kernel import graph_kernel_info
+    from scanobjectnn_torch.ops.cuda.knn_kernel import graph_kernel_info, point_kernel_info
 
     for c in (3, 64, 128):
         info = graph_kernel_info(c)
@@ -490,6 +510,12 @@ def check_graph_fps_kernels(smi: str) -> None:
               f"local bytes, {info['smem_bytes']} shared bytes a block, {info['blocks_per_sm']} blocks per SM ({smi})")
         require(info["local_bytes"] == 0, f"the graph kernel at C={c} uses local memory: {info}")
         require(info["blocks_per_sm"] >= 1, f"the graph kernel at C={c} fits no block on an SM: {info}")
+    for route, n, c, k, lanes in KNN_BUILDS:
+        info = point_kernel_info(route, n, c, k, lanes)
+        label = f"kernel #13 {route} route N={n} C={c} k={k}" + (f" {lanes} lanes a query" if route == "group" else "")
+        print(f"{label}: {info['registers']} registers a thread, {info['local_bytes']} local bytes, "
+              f"{info['smem_bytes']} shared bytes a block, {info['blocks_per_sm']} blocks per SM ({smi})")
+        require(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, f"{label}: {info}")
     for n in (512, 1024, 2048, 8192, 40000):
         info = fps_info(n)
         print(f"kernel #1/#2 fps N={n}: {info['threads']} threads, {info['registers']} registers a thread, "
@@ -503,16 +529,21 @@ def check_edge_dup_kernels(smi: str) -> None:
     """Registers, local memory and blocks per SM of every build of
     ``edge.cu`` (the staged backward at each slice width, at the largest
     cloud it takes; its per-edge route and the forward at 1, 2 and 4 floats
-    a lane) and of the duplicate mask #12; no local memory allowed."""
+    a lane, the forward at a warp and a half-warp a query) and of the
+    duplicate mask #12; no local memory allowed."""
     from scanobjectnn_torch.ops.cuda.dupmask_kernel import kernel_info as dupmask_info
     from scanobjectnn_torch.ops.cuda.edge_kernel import kernel_info as edge_info
 
     builds = [("#14 backward, staged", "bwd", w, n) for w, n in ((8, 1024), (8, 1210), (4, 2048), (2, 4842),
                                                                  (1, 9685))]
     builds += [(f"#14 {name}", kernel, w, 1024) for name, kernel in (("backward, per-edge route", "bwd_edge"),
-                                                                     ("forward", "fwd")) for w in (1, 2, 4)]
+                                                                     ("forward", "fwd"), ("forward", "fwd16"))
+               for w in (1, 2, 4)]
     for label, kernel, width, n in builds:
-        info = edge_info(kernel, width, n)
+        if kernel == "fwd16":
+            info, label = edge_info("fwd", width, n, lanes=16), label + ", a half-warp a query"
+        else:
+            info = edge_info(kernel, width, n)
         shape = f"slice {width}, N={n}" if kernel == "bwd" else f"{width} floats a lane"
         print(f"kernel {label} ({shape}): {info['registers']} registers a thread, {info['local_bytes']} local bytes, "
               f"{info['smem_bytes']} shared bytes a block, {info['blocks_per_sm']} blocks per SM ({smi})")
@@ -778,11 +809,13 @@ LAUNCHES: dict[str, int] = {}
 SUBCOUNTS = {"index_launches": "_indices", "chunked_launches": "_chunked", "sort_launches": "_sorted"}
 # Launches that took a route a wrapper counts apart and that stay in its
 # total: FPS above 8192 points ("fps.large_launches"), the graph through
-# the general kNN ("knn_graph_kernel.routed_launches"), the sort over merged
-# tiles ("knn_point_kernel.tiled_launches"), the EdgeConv backward's
+# the general kNN ("knn_graph_kernel.routed_launches"), the kNN at k <= 64
+# through the warp lists ("knn_point_kernel.warp_launches"), above k = 64
+# over merged tiles ("knn_point_kernel.tiled_launches") and through the full
+# sort ("knn_point_kernel.fullsort_launches"), the EdgeConv backward's
 # per-edge kernel ("edge_reduce_bwd_kernel.routed_launches"), by
 # "counter.attribute".
-ROUTES = ("large_launches", "routed_launches", "tiled_launches")
+ROUTES = ("large_launches", "routed_launches", "tiled_launches", "warp_launches", "fullsort_launches")
 LAUNCH_ROUTES: dict[str, int] = {}
 
 
@@ -2605,6 +2638,22 @@ def range_phase(smi: str, dev) -> dict:
           f"plain {cuda_ms(lambda: knn_point_plain(queries, keys, k), iters=1):.4f} ms, bound "
           f"{work.record()['bound_ms']:.4f} ms ({work.record()['bound_by']}) ({smi})")
 
+    # 13b'. k = 20000 on the same keys: the selected words past a block's
+    # shared memory, the full sort's route (three queries; the bias from a
+    # generator of its own, so that the draws after it stay as they were).
+    kf = RANGE_FULLSORT_K
+    few = queries[:, :3].contiguous()
+    bias = torch.rand(b, n, device=dev, generator=torch.Generator(device=dev).manual_seed(131)) * 0.1
+    (d, i), counts = counted_run((knn_point_kernel,), lambda: knn_point_kernel(few, keys, kf, bias))
+    require(knn_point_kernel.fullsort_launches == 1 and knn_point_kernel.tiled_launches == 1,
+            f"kNN at N={n}, k={kf} did not take the full sort over merged tiles: {counts}")
+    ref_d, ref_i = knn_point_plain(few, keys, kf, bias)
+    torch.cuda.synchronize()
+    require(torch.equal(i, ref_i) and torch.equal(d, ref_d), f"kNN at N={n}, k={kf} differs from knn_point_plain")
+    print(f"knn_point B={b} M=3 N={n} k={kf} with a bias: the full sort (the selected words do not fit a block), "
+          f"equal to knn_point_plain; time {cuda_ms(lambda: knn_point_kernel(few, keys, kf, bias), iters=3):.4f} ms "
+          f"({smi})")
+
     # 13c. The self-kNN graph above k = 32 (the general kernel) at DGCNN's
     # shapes, on duplicated points, and at k = 100 (the sort).
     bg, ng, kg = DGCNN_BATCH, DGCNN_POINT, RANGE_GRAPH_K
@@ -2665,7 +2714,9 @@ def range_phase(smi: str, dev) -> dict:
           f"device time {device_ms(lambda: edge_reduce_bwd_kernel(*saved, *cot)):.4f} ms ({smi})")
     return {"fps": {"large_launches": LAUNCH_ROUTES["fps.large_launches"]},
             "knn_graph": {"routed_launches": LAUNCH_ROUTES["knn_graph_kernel.routed_launches"]},
-            "knn_point_sorted": {"tiled_launches": LAUNCH_ROUTES["knn_point_kernel.tiled_launches"]},
+            "knn_point": {"warp_launches": LAUNCH_ROUTES["knn_point_kernel.warp_launches"]},
+            "knn_point_sorted": {"tiled_launches": LAUNCH_ROUTES["knn_point_kernel.tiled_launches"],
+                                 "fullsort_launches": LAUNCH_ROUTES["knn_point_kernel.fullsort_launches"]},
             "edge_reduce_bwd": {"routed_launches": LAUNCH_ROUTES["edge_reduce_bwd_kernel.routed_launches"]}}
 
 
@@ -2914,10 +2965,13 @@ def main() -> None:
           "gather, index_add_ "
           "for the scatter-add (device time), torch.matmul of the materialised outer product for spider_conv "
           "(CUDA events); "
-          "launches: every main path's run together; fps, knn_graph, knn_point_sorted and edge_reduce_bwd also "
+          "launches: every main path's run together; fps, knn_graph, knn_point, knn_point_sorted and "
+          "edge_reduce_bwd also "
           "carry the launches of their routes added in phase 13's ranges (large_launches: FPS above 8192 points; "
           "routed_launches: the graph above k = 32 through the general kNN kernel, the EdgeConv backward above "
-          "9685 points through its per-edge kernel; tiled_launches: the sort over more than 16384 keys)")
+          "9685 points through its per-edge kernel; "
+          "tiled_launches: the selection or sort over more than 16384 keys; fullsort_launches: the full sort, where "
+          "the selected words do not fit a block; warp_launches: the kNN at 16 < k <= 64 through the warp lists)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     print(smi)
     print(json.dumps({"kernels": kernels}))

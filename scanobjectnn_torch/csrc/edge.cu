@@ -11,14 +11,24 @@
 // a gather is a load, and nothing per edge is stored: the backward reads the
 // values again.
 //
-// Forward: one warp per query, its lanes across the channels (float2 at
-// Cv = 64, float4 at Cv = 128), walks the query's k neighbours in slot order
-// and keeps max, min, their tie counts, the sum and the sum of squares in
-// registers.  The rows it reads are one cloud's values (512 KB at N = 1024,
-// Cv = 128), which stay in L2.  Sums run in slot order with
-// __fmul_rn/__fadd_rn, the order of the plain version's explicit adds, so
-// kernel and plain version agree bit for bit.
-//
+// Forward: a warp (a half-warp where 64 channels fill it: two queries a
+// warp) per query, its lanes across the channels (float4 where the width
+// allows), walks the query's k neighbours in slot order and keeps max, min,
+// their tie counts, the sum and the sum of squares in registers.  The rows
+// it reads are one cloud's values (512 KB at N = 1024, Cv = 128), which stay
+// in L2.  Sums run in slot order with __fmul_rn/__fadd_rn, the order of the
+// plain version's explicit adds, so kernel and plain version agree bit for
+// bit.  The reductions cost about 17 f32 instructions an (edge, channel),
+// which set its pace at DGCNN's shapes (about 25 us of issue a Cv = 64 call
+// on 132 SMs), so the design adds little around them: a step loads the rows
+// of kFwdBatch (4) slots before it reduces any, their indices read by every
+// lane of the query from one L1 line, and the six outputs are streamed out
+// (__stcs, evict-first).  Measured on an H100 and not kept (PERF.md §6):
+// the indices read one a lane and passed on by shuffle, 8 slots a step
+// (more registers, half the warps), and each (cloud, 8-channel slice)
+// staged in shared memory with the rows read from there (no L2 rereads, but
+// a shuffle, a shared load and the indices reread for every slice).
+
 // Backward: dvals[j] = sum over the edges (q, r) with idx[q, r] == j of
 //   ds[q] + 2 g dq2[q] + [g == mmax[q]] dmax[q] / max(cntmax[q], 1)
 //                      + [g == mmin[q]] dmin[q] / max(cntmin[q], 1)
@@ -55,7 +65,9 @@
 // writes six [B, N, Cv] outputs; the backward reads the values, the indices
 // and eight per-query tensors and writes dvals.  At B=32, N=1024, Cv=128,
 // k=20 that is 120 MB forward (36 us at 3.35 TB/s) and 170 MB backward (51
-// us).  What sets the staged sum's pace is shared memory: 24 bytes a (edge,
+// us).  The forward's gathers reread B N k Cv 4 bytes from L2 besides (336
+// MB at Cv = 128), which the bound does not count, and its reductions' f32
+// instructions take longer than either at DGCNN's shapes.  What sets the staged sum's pace is shared memory: 24 bytes a (edge,
 // channel), 1 GB a Cv = 64 call, about 34 us at 128 bytes a clock on 132
 // SMs, with a shuffle an edge and steps past a point's last edge on top.
 
@@ -71,6 +83,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
 
 // VEC consecutive floats at p (p aligned to 4 * VEC bytes).
 template <int VEC>
@@ -97,52 +110,89 @@ __device__ __forceinline__ void store(float* p, const float (&v)[VEC]) {
   }
 }
 
-// One warp per query row = b * n + i: the six reductions of vals[b, idx[row, r]]
-// over the slots r = 0..k-1, in slot order.  max and min keep a NaN, as
-// torch.amax does; a tie count is the number of slots equal to the max.
+// VEC floats streamed to p (aligned to 4 * VEC bytes), evict-first: the six
+// outputs are written once and never read here, so they should not push the
+// gathered cloud rows out of L2.
 template <int VEC>
+__device__ __forceinline__ void store_cs(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (VEC == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+    __stcs(p, v[0]);
+  }
+}
+
+// One slot's value x into a lane's reductions.
+template <int VEC>
+__device__ __forceinline__ void step(const float (&x)[VEC], float (&mx)[VEC], float (&mn)[VEC], float (&s)[VEC],
+                                     float (&q)[VEC], float (&cx)[VEC], float (&cn)[VEC]) {
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    const float y = x[v];
+    cx[v] = y > mx[v] ? 1.f : cx[v] + (y == mx[v] ? 1.f : 0.f);
+    mx[v] = (y > mx[v] || y != y) ? y : mx[v];
+    cn[v] = y < mn[v] ? 1.f : cn[v] + (y == mn[v] ? 1.f : 0.f);
+    mn[v] = (y < mn[v] || y != y) ? y : mn[v];
+    s[v] = __fadd_rn(s[v], y);
+    q[v] = __fadd_rn(q[v], __fmul_rn(y, y));
+  }
+}
+
+// L lanes a query (32, or 16 where a half-warp holds every channel of a
+// point: two queries a warp), each lane VEC channels a pass: the six
+// reductions of vals[b, idx[row, r]] over the slots r = 0..k-1, in slot
+// order.  max and min keep a NaN, as torch.amax does; a tie count is the
+// number of slots equal to the max (where the max is NaN, the count it had
+// when the NaN came).  A step loads the rows of kFwdBatch slots, their
+// indices read by every lane of the query (one L1 line), before it reduces
+// any.  The outputs are streamed out (__stcs).
+constexpr int kFwdBatch = 4;
+
+template <int VEC, int L>
 __global__ void __launch_bounds__(kThreads)
     edge_reduce_fwd_kernel(const float* __restrict__ vals, const int32_t* __restrict__ idx,
                            int n, int k, int cv, long long rows, float* __restrict__ mmax,
                            float* __restrict__ mmin, float* __restrict__ sum,
                            float* __restrict__ sumsq, float* __restrict__ cntmax,
                            float* __restrict__ cntmin) {
-  const int lane = threadIdx.x & 31;
-  const long long stride = static_cast<long long>(gridDim.x) * kWarps;
-  for (long long row = static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  static_assert(L == 16 || L == 32, "a query takes a half-warp or a warp");
+  constexpr int Q = 32 / L;  // queries a warp
+  const int lane = threadIdx.x & (L - 1);
+  const long long stride = static_cast<long long>(gridDim.x) * kWarps * Q;
+  for (long long row = (static_cast<long long>(blockIdx.x) * kWarps + (threadIdx.x >> 5)) * Q + (threadIdx.x & 31) / L;
        row < rows; row += stride) {
     const long long b = row / n;
-    const int32_t* nb = idx + row * k;  // warp-uniform reads
+    const int32_t* nb = idx + row * k;
     const float* cloud = vals + b * n * cv;
-    for (int c0 = lane * VEC; c0 < cv; c0 += 32 * VEC) {
-      float g[VEC], mx[VEC], mn[VEC], s[VEC], q[VEC], cx[VEC], cn[VEC];
-      load<VEC>(cloud + static_cast<size_t>(nb[0]) * cv + c0, g);
+    for (int c0 = lane * VEC; c0 < cv; c0 += L * VEC) {
+      float g[kFwdBatch][VEC], mx[VEC], mn[VEC], s[VEC], q[VEC], cx[VEC], cn[VEC];
+      load<VEC>(cloud + static_cast<size_t>(nb[0]) * cv + c0, g[0]);  // slot 0 starts every reduction
 #pragma unroll
       for (int v = 0; v < VEC; ++v) {
-        mx[v] = mn[v] = s[v] = g[v];
-        q[v] = __fmul_rn(g[v], g[v]);
+        mx[v] = mn[v] = s[v] = g[0][v];
+        q[v] = __fmul_rn(g[0][v], g[0][v]);
         cx[v] = cn[v] = 1.f;
       }
-      for (int r = 1; r < k; ++r) {
-        load<VEC>(cloud + static_cast<size_t>(nb[r]) * cv + c0, g);
+      int r = 1;
+      for (; r + kFwdBatch <= k; r += kFwdBatch) {
 #pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          const float x = g[v];
-          cx[v] = x > mx[v] ? 1.f : cx[v] + (x == mx[v] ? 1.f : 0.f);
-          mx[v] = (x > mx[v] || x != x) ? x : mx[v];
-          cn[v] = x < mn[v] ? 1.f : cn[v] + (x == mn[v] ? 1.f : 0.f);
-          mn[v] = (x < mn[v] || x != x) ? x : mn[v];
-          s[v] = __fadd_rn(s[v], x);
-          q[v] = __fadd_rn(q[v], __fmul_rn(x, x));
-        }
+        for (int u = 0; u < kFwdBatch; ++u) load<VEC>(cloud + static_cast<size_t>(nb[r + u]) * cv + c0, g[u]);
+#pragma unroll
+        for (int u = 0; u < kFwdBatch; ++u) step<VEC>(g[u], mx, mn, s, q, cx, cn);
+      }
+      for (; r < k; ++r) {
+        load<VEC>(cloud + static_cast<size_t>(nb[r]) * cv + c0, g[0]);
+        step<VEC>(g[0], mx, mn, s, q, cx, cn);
       }
       const size_t o = static_cast<size_t>(row) * cv + c0;
-      store<VEC>(mmax + o, mx);
-      store<VEC>(mmin + o, mn);
-      store<VEC>(sum + o, s);
-      store<VEC>(sumsq + o, q);
-      store<VEC>(cntmax + o, cx);
-      store<VEC>(cntmin + o, cn);
+      store_cs<VEC>(mmax + o, mx);
+      store_cs<VEC>(mmin + o, mn);
+      store_cs<VEC>(sum + o, s);
+      store_cs<VEC>(sumsq + o, q);
+      store_cs<VEC>(cntmax + o, cx);
+      store_cs<VEC>(cntmin + o, cn);
     }
   }
 }
@@ -300,14 +350,21 @@ int blocks_for(long long rows) {
   return static_cast<int>(blocks < 132 * 64 ? blocks : 132 * 64);
 }
 
-// Floats per lane: 4 at widths that are multiples of 128, 2 at multiples of
-// 64, else 1; every pointer must be aligned to the vector.
-int vec_for(int cv, std::initializer_list<const void*> ptrs) {
-  int vec = cv % 128 == 0 ? 4 : cv % 64 == 0 ? 2 : 1;
+// The largest vector of floats (4, 2 or 1) that divides `width` and to
+// which every pointer is aligned.
+int aligned_vec(int width, std::initializer_list<const void*> ptrs) {
+  int vec = width % 4 == 0 ? 4 : width % 2 == 0 ? 2 : 1;
   for (const void* p : ptrs) {
     while (vec > 1 && reinterpret_cast<uintptr_t>(p) % (4 * vec) != 0) vec /= 2;
   }
   return vec;
+}
+
+// The backward's per-edge route: 4 floats a lane at widths that are
+// multiples of 128, 2 at multiples of 64, else 1 (a warp's lanes across the
+// channels), every pointer aligned to the vector.
+int vec_for(int cv, std::initializer_list<const void*> ptrs) {
+  return aligned_vec(cv % 128 == 0 ? 4 : cv % 64 == 0 ? 2 : 1, ptrs);
 }
 
 // The staged backward at slice width S over b clouds; `in` holds mmax, mmin,
@@ -325,36 +382,43 @@ cudaError_t launch_staged(const float* vals, const int32_t* off, const int32_t* 
   return cudaGetLastError();
 }
 
+// The forward at VEC floats a lane and L lanes a query.
+template <int L>
+cudaError_t launch_fwd(int vec, const float* v, const int32_t* i, int n, int k, int cv, long long rows,
+                       float* const* o, cudaStream_t s) {
+  const long long per_block = kWarps * (32 / L);
+  const long long blocks = (rows + per_block - 1) / per_block;
+  const int grid = static_cast<int>(blocks < 132 * 64 ? blocks : 132 * 64);
+  switch (vec) {
+    case 4:
+      edge_reduce_fwd_kernel<4, L><<<grid, kThreads, 0, s>>>(v, i, n, k, cv, rows, o[0], o[1], o[2], o[3], o[4], o[5]);
+      break;
+    case 2:
+      edge_reduce_fwd_kernel<2, L><<<grid, kThreads, 0, s>>>(v, i, n, k, cv, rows, o[0], o[1], o[2], o[3], o[4], o[5]);
+      break;
+    default:
+      edge_reduce_fwd_kernel<1, L><<<grid, kThreads, 0, s>>>(v, i, n, k, cv, rows, o[0], o[1], o[2], o[3], o[4], o[5]);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // vals [b, n, cv] f32, idx [b, n, k] int32 in [0, n), contiguous -> mmax,
-// mmin, sum, sumsq, cntmax, cntmin [b, n, cv] f32.
+// mmin, sum, sumsq, cntmax, cntmin [b, n, cv] f32.  lanes: the lanes a query
+// takes (16 or 32, edge_kernel.fwd_lanes); anything else is refused.
 extern "C" int edge_reduce_fwd_launch(const void* vals, const void* idx, int b, int n, int k,
-                                      int cv, void* mmax, void* mmin, void* sum, void* sumsq,
+                                      int cv, int lanes, void* mmax, void* mmin, void* sum, void* sumsq,
                                       void* cntmax, void* cntmin, void* stream) {
-  if (b < 1 || n < 1 || k < 1 || cv < 1) return cudaErrorInvalidValue;
+  if (b < 1 || n < 1 || k < 1 || cv < 1 || (lanes != 16 && lanes != 32)) return cudaErrorInvalidValue;
   const long long rows = static_cast<long long>(b) * n;
   auto* v = static_cast<const float*>(vals);
   auto* i = static_cast<const int32_t*>(idx);
-  auto* o0 = static_cast<float*>(mmax);
-  auto* o1 = static_cast<float*>(mmin);
-  auto* o2 = static_cast<float*>(sum);
-  auto* o3 = static_cast<float*>(sumsq);
-  auto* o4 = static_cast<float*>(cntmax);
-  auto* o5 = static_cast<float*>(cntmin);
+  float* const o[6] = {static_cast<float*>(mmax), static_cast<float*>(mmin), static_cast<float*>(sum),
+                       static_cast<float*>(sumsq), static_cast<float*>(cntmax), static_cast<float*>(cntmin)};
   auto s = static_cast<cudaStream_t>(stream);
-  const int grid = blocks_for(rows);
-  switch (vec_for(cv, {vals, mmax, mmin, sum, sumsq, cntmax, cntmin})) {
-    case 4:
-      edge_reduce_fwd_kernel<4><<<grid, kThreads, 0, s>>>(v, i, n, k, cv, rows, o0, o1, o2, o3, o4, o5);
-      break;
-    case 2:
-      edge_reduce_fwd_kernel<2><<<grid, kThreads, 0, s>>>(v, i, n, k, cv, rows, o0, o1, o2, o3, o4, o5);
-      break;
-    default:
-      edge_reduce_fwd_kernel<1><<<grid, kThreads, 0, s>>>(v, i, n, k, cv, rows, o0, o1, o2, o3, o4, o5);
-  }
-  return cudaGetLastError();
+  const int vec = aligned_vec(cv, {vals, mmax, mmin, sum, sumsq, cntmax, cntmin});
+  return lanes == 16 ? launch_fwd<16>(vec, v, i, n, k, cv, rows, o, s) : launch_fwd<32>(vec, v, i, n, k, cv, rows, o, s);
 }
 
 // The backward of edge_reduce_fwd_launch in vals: the forward's vals, idx
@@ -410,8 +474,8 @@ extern "C" int edge_reduce_bwd_launch(const void* vals, const void* idx, const v
 // A build of this file's kernels: info = {registers, local bytes a thread,
 // dynamic shared bytes a block, resident blocks per SM}.  kernel 0: the
 // staged backward at slice width `width` for a cloud of n points; 1: the
-// backward's per-edge route and 2: the forward, at `width` floats a lane
-// (1, 2 or 4).
+// backward's per-edge route at `width` floats a lane (1, 2 or 4); 2 and 3:
+// the forward at 32 and 16 lanes a query, `width` floats a lane.
 extern "C" int edge_info(int kernel, int width, int n, int* info) {
   if (kernel == 0) {
     if (n < 1 || staged_smem_bytes(n, width) > kBwdSmemMax) return cudaErrorInvalidValue;
@@ -432,11 +496,15 @@ extern "C" int edge_info(int kernel, int width, int n, int* info) {
       default: return cudaErrorInvalidValue;
     }
   }
-  if (kernel == 2) {
+  if (kernel == 2 || kernel == 3) {  // the forward at 32 (2) or 16 (3) lanes a query, `width` floats a lane
+    const bool half = kernel == 3;
     switch (width) {
-      case 4: return kernel_info(edge_reduce_fwd_kernel<4>, 0, kThreads, info);
-      case 2: return kernel_info(edge_reduce_fwd_kernel<2>, 0, kThreads, info);
-      case 1: return kernel_info(edge_reduce_fwd_kernel<1>, 0, kThreads, info);
+      case 4: return half ? kernel_info(edge_reduce_fwd_kernel<4, 16>, 0, kThreads, info)
+                          : kernel_info(edge_reduce_fwd_kernel<4, 32>, 0, kThreads, info);
+      case 2: return half ? kernel_info(edge_reduce_fwd_kernel<2, 16>, 0, kThreads, info)
+                          : kernel_info(edge_reduce_fwd_kernel<2, 32>, 0, kThreads, info);
+      case 1: return half ? kernel_info(edge_reduce_fwd_kernel<1, 16>, 0, kThreads, info)
+                          : kernel_info(edge_reduce_fwd_kernel<1, 32>, 0, kThreads, info);
       default: return cudaErrorInvalidValue;
     }
   }

@@ -1,16 +1,16 @@
 // k-nearest-neighbour search for Hopper (sm_90a): the general kNN and the
 // self-kNN graph.
 //
-// knn_kernel replaces scanobjectnn_tpu/ops/pallas/knn_kernel.py:
-// knn_point_pallas (body _knn_general_kernel); knn_graph_kernel replaces
+// knn_launch replaces scanobjectnn_tpu/ops/pallas/knn_kernel.py:
+// knn_point_pallas (body _knn_general_kernel); knn_graph_tile_kernel replaces
 // knn_graph_pallas (body _knn_kernel), DGCNN's per-layer feature-space graph
 // with the self edge included.  Semantics are documented in
 // scanobjectnn_torch/ops/cuda/knn_kernel.py.  The TPU kernels build a
 // [T, N] distance block with one MXU matmul and run k argmin rounds over it.
-// On the card the general kernel gives each thread one query, which scans
-// the keys in ascending index and keeps its k best in registers; the graph
-// kernel (k <= 32) computes a tile of distances a block and selects from it
-// a warp a query (below).
+// On the card the general kNN takes one of four routes, which the wrapper's
+// plan (knn_kernel.point_plan) picks and knn_launch checks; the graph kernel
+// (k <= 32) computes a tile of distances a block and selects from it a warp
+// a query (below).
 //
 // Distance: max(qq - 2*inner + kk, 0) + bias, every sum in ascending channel
 // order with __fmul_rn/__fadd_rn (nvcc may not contract them into FMAs), so
@@ -26,16 +26,53 @@
 // the points read once and the outputs.  At the FP decoder's fp3 (B=32,
 // M=1024 queries, N=512 keys, C=3) that is 16.8M pairs, 2.5 us at the card's
 // 67 TFLOP/s f32 rate; DGCNN's C=64 graph at B=32, N=1024 is 33.6M pairs of
-// 132 operations, 66 us.  Each block stages a tile of its cloud's keys and
-// their |k|^2 (and bias) in shared memory, where every thread reads the same
-// key at once (a broadcast); the top-k list is fully unrolled into
-// registers, at a capacity KCAP of 4, 8, 16, 32, 48 or 64 entries: the
-// smallest that holds k.  KCAP = 48 serves PointCNN's k = 48 (xdconv_4) and
-// KCAP = 64 the rest up to kMaxK; a list of 64 takes 128 registers, and a
-// key that does not beat the list's last entry skips the unrolled insertion,
-// which after the first few hundred keys is nearly every key.  The kernel
-// keeps the query row in registers at the compile-time widths 3 and 64 (the
-// generic width re-reads it from memory for every key).
+// 132 operations, 66 us.  What the calls spend beyond that is the selection
+// and, at small B*M, the card left empty.
+//
+// The group route (knn_group_kernel, k <= kGroupMaxK = 16): G lanes a
+// query, G from the wrapper (knn_kernel.group_lanes: the least power of two
+// that gives a launch about six warps an SM).  Each block stages a tile of
+// its cloud's keys and their |k|^2 (and bias) in shared memory; lane l of a
+// group scans the keys j with j % G == l into its own register list (KCAP
+// >= k entries: 4, 8 or 16, unrolled; a key that does not beat the list's
+// last entry skips the insertion), and the group merges its G sorted lists
+// k times by a shuffle minimum of (distance bits, index).  The query row
+// stays in registers at the compile-time widths 3 and 64.  An insertion
+// costs about 5 KCAP instructions, and in a warp some lane inserts at
+// nearly every key, so G = 1 stays the fastest where B*M fills the card
+// (BGA's fp3, PointCNN's k = 8), and longer lists (32-64 entries, 130-255
+// registers, spills) lost to the warp route at every k > 16 timed; hence
+// the warp route (knn_warp_kernel, 16 < k <= 64): a warp a query, its list
+// one entry a lane (two registers above k = 32), the keys 32 at a time, the
+// cloud's first 32 sorted by a warp bitonic network; later keys below the
+// k-th entry are buffered in shared memory and merged into the list 32 at
+// a time (a bitonic sort of the buffer and bitonic merges), where one warp
+// insertion a key (knn_graph_tile_kernel's rule) was slower at PointCNN's
+// k > 16 calls (PERF.md §6).
+
+// The selection (knn_select_kernel, k > 64): one block a query computes its
+// distance to every key of its cloud, the same expressions in the same
+// order, into shared memory as 64-bit words (the distance's order-preserving
+// bits, then the key index), finds the k-th smallest word by a radix select
+// (8-bit digits from the top, integer histograms in shared memory), compacts
+// the min(k, N) words at or below it in index order and sorts only those
+// (a bitonic sort).  A sort of all N words, the route before it, took 55
+// stages of N/2 compare-exchanges at N = 1024 to keep 128.  A cloud of more
+// than kSortTile (16384) keys (knn_select_tiled_kernel) is taken a tile of
+// kSortTile keys at a time, each tile's first min(k, tile) words selected so,
+// and merged into the query's running list of min(k, N) words, kept in a
+// scratch buffer in device memory (two lists, read and written in turn):
+// each word's place in the merged list is its rank in its own list plus the
+// number of words of the other list below it (a binary search).  The words
+// are distinct (the index is in the low bits), so the merge is exact and
+// stable by construction: ties at the lowest index, +inf and NaN last.  A k
+// whose selected words do not fit a block's shared memory with the tile's
+// takes the full sort (knn_sort_kernel, knn_sort_tiled_kernel: every word
+// of a tile sorted), the fourth route.
+//
+// The self-kNN graph above k = kGraphMaxK (32) is the general kNN with the
+// cloud as its own queries (knn_graph_launch), on the plan the wrapper makes
+// for it: the same bits as knn_graph_plain by construction.
 //
 // The self-kNN graph up to k = 32 (knn_graph_tile_kernel): the same pairs.
 // With a query a thread, its divergent list insertion would hold a warp for
@@ -53,30 +90,6 @@
 // take two f32 instructions a channel, so the issue bound is 2C + 4
 // instructions a pair at 33.5 T instructions/s (10 us at C=3 and 132 us at
 // C=64 for that graph), not the FMA rate.
-//
-// k > 64 (knn_sort_kernel): one block per query computes the query's
-// distance to every key of its cloud, the same expressions in the same
-// order, into shared memory as 64-bit keys (the distance's order-preserving
-// bits, then the key index), sorts them with a block-wide bitonic sort and
-// writes the first k: ascending distance, ties to the lowest index, +inf
-// and NaN (sorted as +inf) never selected.  The cloud's N keys, padded to a
-// power of two, fit the block's shared memory up to kSortTile (16384, 128
-// KB).  A larger cloud (knn_sort_tiled_kernel) is sorted a tile of
-// kSortTile keys at a time, exactly so, and each tile's first min(k, tile)
-// words are merged into the query's running list of min(k, N) words, kept
-// in a scratch buffer in device memory (two lists, read and written in
-// turn): each word's place in the merged list is its rank in its own list
-// plus the number of words of the other list below it (a binary search).
-// The words are distinct (the index is in the low bits), so the merge is
-// exact and stable by construction: ties at the lowest index, +inf and NaN
-// last.  Bound: operations, as above, plus the sort's
-// log2(N)(log2(N)+1)/2 compare-exchange steps over N/2 pairs a query (per
-// tile of the larger clouds); the sort, not the distances, sets this
-// path's time.
-//
-// The self-kNN graph above k = kGraphMaxK (32) is this general kernel with
-// the cloud as its own queries (knn_graph_launch): the register lists up to
-// k = 64, the sort above, the same bits as knn_graph_plain by construction.
 
 #include <cuda_runtime.h>
 
@@ -86,12 +99,14 @@
 
 namespace {
 
-constexpr int kThreads = 128;            // queries per block
-constexpr int kMaxK = 64;                // MAX_K of knn_kernel.py
+constexpr int kThreads = 128;            // threads of a group-route block
+constexpr int kMaxK = 64;                // MAX_K of knn_kernel.py: the list routes
+constexpr int kGroupMaxK = 16;           // GROUP_MAX_K of knn_kernel.py: the group route
 constexpr int kGraphMaxK = 32;           // GRAPH_MAX_K of knn_kernel.py
 constexpr int kSmemFloats = 12 * 1024;   // 48 KB: a key tile, its |k|^2 and bias
-constexpr int kSortThreads = 256;        // threads of a knn_sort_kernel block
+constexpr int kSortThreads = 256;        // threads of a selection or sort block
 constexpr int kSortTile = 16384;         // SORT_TILE of knn_kernel.py
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
@@ -165,6 +180,24 @@ __device__ __forceinline__ void clear(float (&bd)[KCAP], int (&bi)[KCAP]) {
   }
 }
 
+// Order-preserving bits of a distance: unsigned order equals float order;
+// -0 and +0 tie (the plain version's sort), a NaN sorts as +inf.
+__device__ __forceinline__ uint32_t order_bits(float d) {
+  if (d != d) d = inf_f();
+  const uint32_t u = d == 0.f ? 0u : __float_as_uint(d);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float from_order_bits(uint32_t o) {
+  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+}
+
+// The 64-bit word of a list entry: the distance's order bits, then the key
+// index; unsigned order is (distance, index) order.
+__device__ __forceinline__ unsigned long long entry_word(float d, int j) {
+  return (static_cast<unsigned long long>(order_bits(d)) << 32) | static_cast<uint32_t>(j);
+}
+
 // Stage keys [base, base + count) of a cloud [n, width], their |k|^2 and,
 // where cbias is not null, their bias in shared memory.  Every thread of the
 // block must call it.
@@ -185,19 +218,27 @@ __device__ __forceinline__ void stage_tile(const float* __restrict__ cloud,
   __syncthreads();
 }
 
-// KCAP >= k entries are kept (the first k are written); W as in dot.
+// k nearest keys of each query, G = g lanes a query (g a power of two up to
+// 32, chosen by the wrapper): lane l of a group scans the keys j with
+// j % g == l in ascending index into its own list (insert: within a lane the
+// lowest index wins a tie), KCAP >= k entries kept; then the group merges its
+// g lists k times by a group-wide minimum of (distance bits, index), the
+// lane whose head won dropping it.  The lists hold no +inf or NaN (the strict
+// insertion never lets them in), so an empty head, (+inf, 0), loses to every
+// entry and, once it wins, the rest of the row is (+inf, 0).  W as in dot.
 template <int KCAP, int W>
 __global__ void __launch_bounds__(kThreads)
-    knn_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
-               const float* __restrict__ bias, int m, int n, int c, int k, int tile,
-               float* __restrict__ dist, int32_t* __restrict__ idx) {
+    knn_group_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
+                     const float* __restrict__ bias, int m, int n, int c, int k, int tile, int g,
+                     float* __restrict__ dist, int32_t* __restrict__ idx) {
   extern __shared__ __align__(16) float smem[];
   const int width = W > 0 ? W : c;
   float* skeys = smem;                // [tile, width]
   float* skk = skeys + tile * width;  // [tile]
   float* sbias = skk + tile;          // [tile]
   const int b = blockIdx.y;
-  const int qi = blockIdx.x * kThreads + threadIdx.x;
+  const int gl = threadIdx.x & (g - 1);  // the lane's place in its group
+  const int qi = (blockIdx.x * kThreads + threadIdx.x) / g;
   const bool active = qi < m;  // no early return: every thread joins the barriers
   const float* q = queries + (static_cast<size_t>(b) * m + (active ? qi : 0)) * width;
   float qr[W > 0 ? W : 1];
@@ -216,30 +257,64 @@ __global__ void __launch_bounds__(kThreads)
   const float* cloud = keys + static_cast<size_t>(b) * n * width;
   const float* cbias = bias != nullptr ? bias + static_cast<size_t>(b) * n : nullptr;
 
+  auto scan = [&](int base, int t) {
+    const float* kp = skeys + t * width;
+    float inner;
+    if constexpr (W > 0) {
+      inner = dot_row<W>(qr, kp);
+    } else {
+      inner = dot<0>(q, kp, width);
+    }
+    float d = expand(qq, inner, skk[t]);
+    if (cbias != nullptr) d = __fadd_rn(d, sbias[t]);
+    insert(bd, bi, d, base + t);
+  };
   for (int base = 0; base < n; base += tile) {
     const int count = min(tile, n - base);
     stage_tile(cloud, cbias, base, count, width, skeys, skk, sbias);
     if (!active) continue;
-    for (int t = 0; t < count; ++t) {
-      const float* kp = skeys + t * width;
-      float inner;
-      if constexpr (W > 0) {
-        inner = dot_row<W>(qr, kp);
-      } else {
-        inner = dot<0>(q, kp, width);
-      }
-      float d = expand(qq, inner, skk[t]);
-      if (cbias != nullptr) d = __fadd_rn(d, sbias[t]);
-      insert(bd, bi, d, base + t);
+    if (g == 1) {  // a unit stride, which the compiler unrolls: faster at BGA's fp3 than a run-time one
+      for (int t = 0; t < count; ++t) scan(base, t);
+    } else {
+      for (int t = gl; t < count; t += g) scan(base, t);
     }
   }
-  if (!active) return;
+  if (!active) return;  // a group's lanes share their query: they leave together
   const size_t row = (static_cast<size_t>(b) * m + qi) * k;
+  if (g == 1) {
 #pragma unroll
-  for (int p = 0; p < KCAP; ++p) {
-    if (p < k) {
-      dist[row + p] = bd[p];
-      idx[row + p] = bi[p];
+    for (int p = 0; p < KCAP; ++p) {
+      if (p < k) {
+        dist[row + p] = bd[p];
+        idx[row + p] = bi[p];
+      }
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const unsigned group = g == 32 ? kFull : ((1u << g) - 1u) << (lane & ~(g - 1));
+  unsigned long long head = entry_word(bd[0], bi[0]);
+  for (int r = 0; r < k; ++r) {
+    unsigned long long best = head;
+    for (int s = 1; s < g; s <<= 1) {
+      const unsigned long long o = __shfl_xor_sync(group, best, s, g);
+      best = o < best ? o : best;
+    }
+    if (gl == (r & (g - 1))) {
+      const float d = from_order_bits(static_cast<uint32_t>(best >> 32));
+      const bool real = d < inf_f();
+      dist[row + r] = real ? d : inf_f();
+      idx[row + r] = real ? static_cast<int>(best & 0xffffffffu) : 0;
+    }
+    if (head == best) {  // this lane's head won (or the group's lists are all empty)
+#pragma unroll
+      for (int p = 0; p + 1 < KCAP; ++p) {
+        bd[p] = bd[p + 1];
+        bi[p] = bi[p + 1];
+      }
+      bd[KCAP - 1] = inf_f();
+      bi[KCAP - 1] = 0;
+      head = entry_word(bd[0], bi[0]);
     }
   }
 }
@@ -271,7 +346,6 @@ constexpr int kGraphKT = 64;                                 // keys a tile: 4 a
 constexpr int kGraphSlice = 64;                              // channels staged at once
 constexpr int kGraphRows = kGraphQT / (kGraphThreads / 32);  // lists a warp keeps
 constexpr int kGraphMinBlocks = 4;                           // blocks an SM: 64 registers a thread
-constexpr unsigned kFull = 0xffffffffu;
 
 static_assert(kGraphQT == 4 * (kGraphThreads / 16) && kGraphKT == 4 * 16, "4 x 4 pairs a thread");
 static_assert(kGraphKT % 32 == 0, "the selection reads 32 keys at a time");
@@ -572,18 +646,6 @@ __global__ void __launch_bounds__(kGraphThreads, kGraphMinBlocks)
   write_lists(idx, b, n, q0, qrows, k, li);
 }
 
-// Order-preserving bits of a distance: unsigned order equals float order;
-// -0 and +0 tie (the plain version's sort), a NaN sorts as +inf.
-__device__ __forceinline__ uint32_t order_bits(float d) {
-  if (d != d) d = inf_f();
-  const uint32_t u = d == 0.f ? 0u : __float_as_uint(d);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_order_bits(uint32_t o) {
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
-
 // k nearest keys of one query (blockIdx.x of cloud blockIdx.y) for any k:
 // all N distances sorted in shared memory (npow = N rounded up to a power
 // of two).  W as in dot.
@@ -635,6 +697,265 @@ __global__ void __launch_bounds__(kSortThreads)
     }
     dist[row + p] = d;
     idx[row + p] = j;
+  }
+}
+
+// k nearest keys of each query at k <= kMaxK, a warp a query (the warp
+// route of knn_launch): a block takes kWarpQT queries of one cloud (their
+// rows and |q|^2 staged channel-major in shared memory) and walks the
+// cloud's keys in tiles staged channel-major (a row stride of tile + 1
+// floats: a warp's 32 keys of one channel, and a staging warp's 32 channels
+// of one key, fall in 32 banks).  Each warp keeps the lists of kWarpRows
+// queries, E entries a lane (entry p in lane p % 32 of register p / 32), and
+// takes a tile 32 keys at a time: lane t's distance to key h + t, the same
+// expressions in the same order as dot and expand, then select_chunk (the
+// cloud's first 32 keys sorted by a warp bitonic network; after that the
+// keys below the k-th entry buffered, 32 at most, in the query's slot of a
+// shared buffer and merged into the list by flush_buffer).
+constexpr int kWarpThreads = 256;                             // 8 warps
+constexpr int kWarpRows = 2;                                  // queries a warp keeps lists for
+constexpr int kWarpQT = kWarpRows * (kWarpThreads / 32);      // queries a block
+constexpr int kWarpQS = kWarpQT + 1;                          // row stride of the staged queries
+// Four blocks an SM (64 registers, no spill), two queries a warp: on an H100
+// at PointCNN's five calls with k > 16 faster than four queries a warp at
+// two blocks an SM (the lists' shuffle chains want warps more than rows a
+// warp; PERF.md §6).
+constexpr int kWarpMinBlocks = 4;
+
+// Keys a tile of the warp route at width c within kSmemFloats, a multiple
+// of 32 (0: the width does not fit), and its shared bytes.
+constexpr int kWarpBufFloats = 2 * kWarpQT * 32;              // the rows' candidate buffers
+
+int warp_tile(int n, int c) {
+  const int fit = (kSmemFloats - c * kWarpQS - kWarpQT - c - kWarpBufFloats) / (c + 2);
+  const int need = (n + 31) / 32 * 32;
+  const int tile = (fit < need ? fit : need) / 32 * 32;
+  return tile > 0 ? tile : 0;
+}
+
+size_t warp_smem_bytes(int c, int tile) {
+  return sizeof(float) * (static_cast<size_t>(c) * kWarpQS + kWarpQT + static_cast<size_t>(c) * (tile + 1) + 2 * tile +
+                          kWarpBufFloats);
+}
+
+// (da, ia) before (db, ib): by distance, then index.
+__device__ __forceinline__ bool entry_less(float da, int ia, float db, int ib) {
+  return da < db || (da == db && ia < ib);
+}
+
+// A bitonic sequence of 32 entries, one a lane, sorted ascending by
+// (distance, index): compare-exchanges at strides 16, 8, 4, 2, 1.
+__device__ __forceinline__ void bitonic_finish(float& d, int& i, int lane) {
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    const float od = __shfl_xor_sync(kFull, d, stride);
+    const int oi = __shfl_xor_sync(kFull, i, stride);
+    if (entry_less(od, oi, d, i) == ((lane & stride) == 0)) {
+      d = od;
+      i = oi;
+    }
+  }
+}
+
+// Merge a query's buffered candidates (sd, si: bn of them, in the warp's
+// shared buffer) into its list: the buffer sorted by a warp bitonic network,
+// reversed against the list (E = 1) or its second register (E = 2), the
+// lane-wise minimum (the 32 smallest of both, a bitonic sequence) sorted;
+// at E = 2 the two registers then merged the same way (minimum and
+// maximum).  A list entry that ties a buffered one on distance has the
+// lower index (keys come in ascending index), so the order is the strict
+// insertion's.  thr: entry k - 1 afterwards.
+template <int E>
+__device__ __forceinline__ void flush_buffer(const float* sd, const int* si, int& bn, int k, float& d0, int& i0,
+                                             float& d1, int& i1, float& thr) {
+  const int lane = threadIdx.x & 31;
+  __syncwarp();  // the buffer's writes are visible
+  float d = lane < bn ? sd[lane] : inf_f();
+  int i = lane < bn ? si[lane] : 0;
+  warp_sort(d, i, lane);
+  const float rd = __shfl_sync(kFull, d, 31 - lane);
+  const int ri = __shfl_sync(kFull, i, 31 - lane);
+  float& md = E == 1 ? d0 : d1;
+  int& mi = E == 1 ? i0 : i1;
+  if (entry_less(rd, ri, md, mi)) {
+    md = rd;
+    mi = ri;
+  }
+  bitonic_finish(md, mi, lane);
+  if constexpr (E == 2) {
+    const float hd = __shfl_sync(kFull, d1, 31 - lane);
+    const int hi = __shfl_sync(kFull, i1, 31 - lane);
+    const bool swap = entry_less(hd, hi, d0, i0);
+    d1 = swap ? d0 : hd;
+    i1 = swap ? i0 : hi;
+    if (swap) {
+      d0 = hd;
+      i0 = hi;
+    }
+    bitonic_finish(d0, i0, lane);
+    bitonic_finish(d1, i1, lane);
+  }
+  bn = 0;
+  __syncwarp();  // the buffer is read before it is written again
+  thr = __shfl_sync(kFull, E == 1 ? d0 : d1, (k - 1) & 31);
+}
+
+// One 32-key chunk of a query's selection: lane t holds d, the distance to
+// key j0 + t (+inf past the tile).  The list: (d0, i0) in lane p is entry
+// p, (d1, i1) entry 32 + p (E = 2 only); the cloud's first chunk makes it
+// (sorted by a warp bitonic network, its first min(k, 32) kept).  Later keys
+// below entry k - 1 (thr) go to the query's buffer (sd, si, bn entries),
+// which is merged into the list when the next chunk's would not fit.
+template <int E>
+__device__ __forceinline__ void select_chunk(float d, int j0, int k, bool first, float* sd, int* si, int& bn,
+                                             float& d0, int& i0, float& d1, int& i1, float& thr) {
+  const int lane = threadIdx.x & 31;
+  if (first) {
+    float dd = d < inf_f() ? d : inf_f();  // +inf and NaN never: slots (+inf, 0)
+    int i = lane;
+    warp_sort(dd, i, lane);
+    const bool keep = lane < k && dd < inf_f();
+    d0 = keep ? dd : inf_f();
+    i0 = keep ? j0 + i : 0;
+    thr = __shfl_sync(kFull, E == 1 ? d0 : d1, (k - 1) & 31);
+    return;
+  }
+  unsigned cand = __ballot_sync(kFull, d < thr);
+  if (bn + __popc(cand) > 32) {  // warp-uniform
+    flush_buffer<E>(sd, si, bn, k, d0, i0, d1, i1, thr);
+    cand = __ballot_sync(kFull, d < thr);
+  }
+  if ((cand >> lane) & 1u) {
+    const int at = bn + __popc(cand & ((1u << lane) - 1u));
+    sd[at] = d;
+    si[at] = j0 + lane;
+  }
+  bn += __popc(cand);
+}
+
+// E = 1 at k <= 32, 2 at k <= 64; W = 3 keeps the query rows and a key's
+// channels in registers, W = 0 reads them from shared memory.
+template <int E, int W>
+__global__ void __launch_bounds__(kWarpThreads, kWarpMinBlocks)
+    knn_warp_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
+                    const float* __restrict__ bias, int m, int n, int c, int k, int tile,
+                    float* __restrict__ dist, int32_t* __restrict__ idx) {
+  extern __shared__ __align__(16) float smem[];
+  const int width = W > 0 ? W : c;
+  const int ld_k = tile + 1;
+  float* sq = smem;                     // [width][kWarpQS]
+  float* sqq = sq + width * kWarpQS;    // [kWarpQT]
+  float* skeys = sqq + kWarpQT;         // [width][tile + 1]
+  float* skk = skeys + width * ld_k;    // [tile]
+  float* sbias = skk + tile;            // [tile]
+  float* sbd = sbias + tile;            // [kWarpQT][32]: the rows' buffered candidates
+  int* sbi = reinterpret_cast<int*>(sbd + kWarpQT * 32);
+  const int b = blockIdx.y, q0 = blockIdx.x * kWarpQT;
+  const int qrows = min(kWarpQT, m - q0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* cq = queries + (static_cast<size_t>(b) * m + q0) * width;
+  for (int e = tid; e < kWarpQT * width; e += kWarpThreads) {
+    const int r = e / width, ch = e - r * width;
+    sq[ch * kWarpQS + r] = r < qrows ? cq[e] : 0.f;
+  }
+  __syncthreads();
+  if (tid < kWarpQT) {
+    float t = __fmul_rn(sq[tid], sq[tid]);
+    for (int ch = 1; ch < width; ++ch) t = __fadd_rn(t, __fmul_rn(sq[ch * kWarpQS + tid], sq[ch * kWarpQS + tid]));
+    sqq[tid] = t;
+  }
+  constexpr int QW = W > 0 ? W : 1;
+  float qv0[kWarpRows], qv1[kWarpRows], qv2[kWarpRows];  // W = 3: the rows' channels
+  float qq[kWarpRows], thr[kWarpRows];
+  float d0[kWarpRows], d1[kWarpRows];  // the lists (select_chunk)
+  int i0[kWarpRows], i1[kWarpRows];
+  int bn[kWarpRows];  // entries in each row's buffer
+  static_assert(QW == 1 || QW == 3, "the warp route keeps rows of width 3 in registers");
+  __syncthreads();
+#pragma unroll
+  for (int rr = 0; rr < kWarpRows; ++rr) {
+    const int r = warp * kWarpRows + rr;
+    qq[rr] = sqq[r];
+    qv0[rr] = sq[r];
+    qv1[rr] = W == 3 ? sq[kWarpQS + r] : 0.f;
+    qv2[rr] = W == 3 ? sq[2 * kWarpQS + r] : 0.f;
+    d0[rr] = d1[rr] = thr[rr] = inf_f();
+    i0[rr] = i1[rr] = bn[rr] = 0;
+  }
+  const float* cloud = keys + static_cast<size_t>(b) * n * width;
+  const float* cbias = bias != nullptr ? bias + static_cast<size_t>(b) * n : nullptr;
+
+  for (int base = 0; base < n; base += tile) {
+    const int count = min(tile, n - base);
+    __syncthreads();  // the last tile is no longer read
+    for (int e = tid; e < count * width; e += kWarpThreads) {
+      const int t = e / width, ch = e - t * width;
+      skeys[ch * ld_k + t] = cloud[static_cast<size_t>(base) * width + e];
+    }
+    if (cbias != nullptr) {
+      for (int t = tid; t < count; t += kWarpThreads) sbias[t] = cbias[base + t];
+    }
+    __syncthreads();
+    for (int t = tid; t < count; t += kWarpThreads) {
+      float kk = __fmul_rn(skeys[t], skeys[t]);
+      for (int ch = 1; ch < width; ++ch) kk = __fadd_rn(kk, __fmul_rn(skeys[ch * ld_k + t], skeys[ch * ld_k + t]));
+      skk[t] = kk;
+    }
+    __syncthreads();
+    for (int h = 0; h < count; h += 32) {
+      const int t = h + lane;
+      const bool valid = t < count;
+      const int tt = valid ? t : 0;
+      const float k0 = skeys[tt];
+      const float k1 = W == 3 ? skeys[ld_k + tt] : 0.f;
+      const float k2 = W == 3 ? skeys[2 * ld_k + tt] : 0.f;
+      const float kk = skk[tt];
+      const float kb = cbias != nullptr ? sbias[tt] : 0.f;
+      float inner[kWarpRows];  // each row's chain in ascending channel order
+#pragma unroll
+      for (int rr = 0; rr < kWarpRows; ++rr) inner[rr] = __fmul_rn(qv0[rr], k0);
+      if constexpr (W == 3) {
+#pragma unroll
+        for (int rr = 0; rr < kWarpRows; ++rr) {
+          inner[rr] = __fadd_rn(inner[rr], __fmul_rn(qv1[rr], k1));
+          inner[rr] = __fadd_rn(inner[rr], __fmul_rn(qv2[rr], k2));
+        }
+      } else {
+        for (int ch = 1; ch < width; ++ch) {  // a key channel read once for the warp's rows
+          const float kc = skeys[ch * ld_k + tt];
+          const float* qc = sq + ch * kWarpQS + warp * kWarpRows;
+#pragma unroll
+          for (int rr = 0; rr < kWarpRows; ++rr) inner[rr] = __fadd_rn(inner[rr], __fmul_rn(qc[rr], kc));
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < kWarpRows; ++rr) {
+        const int r = warp * kWarpRows + rr;
+        if (r < qrows) {  // warp-uniform
+          float d = expand(qq[rr], inner[rr], kk);
+          if (cbias != nullptr) d = __fadd_rn(d, kb);
+          const int row = warp * kWarpRows + rr;
+          select_chunk<E>(valid ? d : inf_f(), base + h, k, base + h == 0, sbd + row * 32, sbi + row * 32, bn[rr],
+                          d0[rr], i0[rr], d1[rr], i1[rr], thr[rr]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int rr = 0; rr < kWarpRows; ++rr) {
+    const int r = warp * kWarpRows + rr;
+    if (r < qrows) {
+      if (bn[rr] > 0) flush_buffer<E>(sbd + r * 32, sbi + r * 32, bn[rr], k, d0[rr], i0[rr], d1[rr], i1[rr], thr[rr]);
+      const size_t row = (static_cast<size_t>(b) * m + q0 + r) * k;
+      if (lane < k) {
+        dist[row + lane] = d0[rr];
+        idx[row + lane] = i0[rr];
+      }
+      if (E == 2 && 32 + lane < k) {
+        dist[row + 32 + lane] = d1[rr];
+        idx[row + 32 + lane] = i1[rr];
+      }
+    }
   }
 }
 
@@ -731,6 +1052,252 @@ __global__ void __launch_bounds__(kSortThreads)
   }
 }
 
+// The k > kMaxK route by selection (knn_select_kernel, knn_select_tiled_kernel):
+// the same words as the sort, but only the first min(k, count) of them are
+// sorted.  select_words finds the k-th smallest word by a radix select over
+// its 8-bit digits from the top (a block histogram of the digit among the
+// words that match the digits fixed so far, integer shared atomics added a
+// warp's equal digits at once; then the digit at which the running count
+// reaches the rank still wanted), stopping at the first digit whose words
+// are all wanted.  The words at or below the prefix found are compacted in
+// index order (a block scan of per-thread counts over contiguous runs):
+// exactly min(k, count) of them, the words being distinct; a bitonic sort of
+// those orders them.
+constexpr int kRadixBins = 256;
+constexpr int kSelectAux = 4 + kSortThreads / 32;  // ints: the digit found, and the warps' counts
+constexpr size_t kSmemMax = 232448;                // the most shared memory a block may use (227 KB)
+
+int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+// Shared bytes of a select block for clouds of n keys at k: the words of a
+// tile (at most kSortTile), the selected words padded to a power of two, the
+// histogram and the scratch ints.
+size_t select_smem_bytes(int n, int k) {
+  const int words = n < kSortTile ? n : kSortTile;
+  const int sel = pow2_at_least(k < words ? k : words);
+  return sizeof(unsigned long long) * (static_cast<size_t>(words) + sel) + sizeof(unsigned) * kRadixBins +
+         sizeof(int) * kSelectAux;
+}
+
+// The `take` smallest of the distinct words w[0, count) (1 <= take <= count)
+// sorted ascending into sel[0, take), sel[take, spow) = ~0 (spow a power of
+// two >= take).  hist: kRadixBins counters, aux: kSelectAux ints.  Every
+// thread of the block calls it; it returns after a barrier.
+__device__ void select_words(const unsigned long long* w, int count, int take, unsigned long long* sel, int spow,
+                             unsigned* hist, int* aux) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int shift = 64;                 // the words taken: (word >> shift) <= prefix (all at 64)
+  unsigned long long prefix = 0;  // the digits fixed so far
+  if (take < count) {
+    int remaining = take;  // the rank still wanted among the words that match the prefix
+    for (shift = 56;; shift -= 8) {
+      for (int i = tid; i < kRadixBins; i += kSortThreads) hist[i] = 0;
+      __syncthreads();
+      for (int j0 = warp * 32; j0 < count; j0 += kSortThreads) {  // every lane of a warp in step
+        const int j = j0 + lane;
+        int bin = -1;
+        if (j < count) {
+          const unsigned long long x = w[j];
+          if (shift == 56 || (x >> (shift + 8)) == prefix) bin = static_cast<int>((x >> shift) & 255u);
+        }
+        const unsigned peers = __match_any_sync(kFull, bin);
+        if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], static_cast<unsigned>(__popc(peers)));
+      }
+      __syncthreads();
+      if (warp == 0) {
+        unsigned cnt[kRadixBins / 32], own = 0;
+#pragma unroll
+        for (int u = 0; u < kRadixBins / 32; ++u) {
+          cnt[u] = hist[lane * (kRadixBins / 32) + u];
+          own += cnt[u];
+        }
+        unsigned incl = own;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned t = __shfl_up_sync(kFull, incl, o);
+          if (lane >= o) incl += t;
+        }
+        unsigned before = incl - own;
+        if (before < static_cast<unsigned>(remaining) && static_cast<unsigned>(remaining) <= incl) {
+          bool found = false;
+#pragma unroll
+          for (int u = 0; u < kRadixBins / 32; ++u) {
+            if (!found) {
+              if (before + cnt[u] >= static_cast<unsigned>(remaining)) {
+                found = true;
+                aux[0] = lane * (kRadixBins / 32) + u;
+                aux[1] = static_cast<int>(before);
+                aux[2] = static_cast<int>(cnt[u]);
+              } else {
+                before += cnt[u];
+              }
+            }
+          }
+        }
+      }
+      __syncthreads();
+      remaining -= aux[1];
+      prefix = (prefix << 8) | static_cast<unsigned>(aux[0]);
+      if (aux[2] == remaining) break;  // every word of this digit is wanted (always so at shift 0)
+    }
+  }
+  // Compaction in index order: thread t takes words [t * per, (t + 1) * per).
+  const int per = (count + kSortThreads - 1) / kSortThreads;
+  const int j0 = min(tid * per, count), j1 = min(j0 + per, count);
+  int mine = 0;
+  for (int j = j0; j < j1; ++j) mine += shift == 64 || (w[j] >> shift) <= prefix;
+  int incl = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) aux[4 + warp] = incl;
+  __syncthreads();
+  int at = incl - mine;
+  for (int i = 0; i < warp; ++i) at += aux[4 + i];
+  for (int j = j0; j < j1; ++j) {
+    const unsigned long long x = w[j];
+    if (shift == 64 || (x >> shift) <= prefix) sel[at++] = x;
+  }
+  for (int i = take + tid; i < spow; i += kSortThreads) sel[i] = ~0ull;
+  __syncthreads();
+  for (int size = 2; size <= spow; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < spow / 2; i += kSortThreads) {
+        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+        const unsigned long long a = sel[lo], z = sel[hi];
+        if ((a > z) == ((lo & size) == 0)) {
+          sel[lo] = z;
+          sel[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The word of query q's distance to key j of a cloud (knn_sort_kernel's).
+template <int W>
+__device__ __forceinline__ unsigned long long key_word(const float* q, float qq, const float* cloud,
+                                                       const float* cbias, int j, int width) {
+  const float* kp = cloud + static_cast<size_t>(j) * width;
+  float d = expand(qq, dot<W>(q, kp, width), dot<W>(kp, kp, width));
+  if (cbias != nullptr) d = __fadd_rn(d, cbias[j]);
+  return entry_word(d, j);
+}
+
+// Row p < k of a query's output from its sorted words (len of them).
+__device__ __forceinline__ void write_word(const unsigned long long* words, int len, int p, float* dist,
+                                           int32_t* idx) {
+  float d = inf_f();
+  int j = 0;
+  if (p < len) {
+    const float v = from_order_bits(static_cast<uint32_t>(words[p] >> 32));
+    if (v < inf_f()) {
+      d = v;
+      j = static_cast<int>(words[p] & 0xffffffffu);
+    }
+  }
+  *dist = d;
+  *idx = j;
+}
+
+// k nearest keys of one query (blockIdx.x of cloud blockIdx.y), n <= kSortTile:
+// its n words in shared memory, the first min(k, n) selected and sorted.
+template <int W>
+__global__ void __launch_bounds__(kSortThreads)
+    knn_select_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
+                      const float* __restrict__ bias, int m, int n, int c, int k, int spow,
+                      float* __restrict__ dist, int32_t* __restrict__ idx) {
+  extern __shared__ __align__(16) unsigned long long swords[];
+  unsigned long long* sel = swords + n;                          // [spow]
+  unsigned* hist = reinterpret_cast<unsigned*>(sel + spow);      // [kRadixBins]
+  int* aux = reinterpret_cast<int*>(hist + kRadixBins);          // [kSelectAux]
+  const int width = W > 0 ? W : c;
+  const int b = blockIdx.y, qi = blockIdx.x;
+  const float* q = queries + (static_cast<size_t>(b) * m + qi) * width;
+  const float qq = dot<W>(q, q, width);
+  const float* cloud = keys + static_cast<size_t>(b) * n * width;
+  const float* cbias = bias != nullptr ? bias + static_cast<size_t>(b) * n : nullptr;
+  for (int j = threadIdx.x; j < n; j += kSortThreads) swords[j] = key_word<W>(q, qq, cloud, cbias, j, width);
+  __syncthreads();
+  const int take = min(k, n);
+  select_words(swords, n, take, sel, spow, hist, aux);
+  const size_t row = (static_cast<size_t>(b) * m + qi) * k;
+  for (int p = threadIdx.x; p < k; p += kSortThreads) write_word(sel, take, p, dist + row + p, idx + row + p);
+}
+
+// knn_select_kernel for a cloud of more than kSortTile keys: each tile's
+// first min(k, tile) words selected and sorted, then merged into the running
+// list as knn_sort_tiled_kernel merges them.
+template <int W>
+__global__ void __launch_bounds__(kSortThreads)
+    knn_select_tiled_kernel(const float* __restrict__ queries, const float* __restrict__ keys,
+                            const float* __restrict__ bias, int m, int n, int c, int k, int spow,
+                            unsigned long long* __restrict__ scratch, float* __restrict__ dist,
+                            int32_t* __restrict__ idx) {
+  extern __shared__ __align__(16) unsigned long long swords[];
+  unsigned long long* sel = swords + kSortTile;                  // [spow]
+  unsigned* hist = reinterpret_cast<unsigned*>(sel + spow);      // [kRadixBins]
+  int* aux = reinterpret_cast<int*>(hist + kRadixBins);          // [kSelectAux]
+  const int width = W > 0 ? W : c;
+  const int b = blockIdx.y, qi = blockIdx.x;
+  const int keep = min(k, n);
+  const float* q = queries + (static_cast<size_t>(b) * m + qi) * width;
+  const float qq = dot<W>(q, q, width);
+  const float* cloud = keys + static_cast<size_t>(b) * n * width;
+  const float* cbias = bias != nullptr ? bias + static_cast<size_t>(b) * n : nullptr;
+  unsigned long long* run = scratch + (static_cast<size_t>(b) * m + qi) * 2 * keep;
+  unsigned long long* next = run + keep;
+  int cur = 0;  // words in run
+  for (int base = 0; base < n; base += kSortTile) {
+    const int count = min(kSortTile, n - base);
+    for (int jj = threadIdx.x; jj < count; jj += kSortThreads) {
+      swords[jj] = key_word<W>(q, qq, cloud, cbias, base + jj, width);
+    }
+    __syncthreads();
+    const int take = min(keep, count), len = min(keep, cur + take);
+    select_words(swords, count, take, sel, spow, hist, aux);
+    for (int i = threadIdx.x; i < take; i += kSortThreads) {
+      const int pos = i + count_below(run, cur, sel[i]);
+      if (pos < len) next[pos] = sel[i];
+    }
+    for (int i = threadIdx.x; i < cur; i += kSortThreads) {
+      const int pos = i + count_below(sel, take, run[i]);
+      if (pos < len) next[pos] = run[i];
+    }
+    __syncthreads();  // next is complete; swords, sel and run are free
+    unsigned long long* t = run;
+    run = next;
+    next = t;
+    cur = len;
+  }
+  const size_t row = (static_cast<size_t>(b) * m + qi) * k;
+  for (int p = threadIdx.x; p < k; p += kSortThreads) write_word(run, cur, p, dist + row + p, idx + row + p);
+}
+
+// The routes of knn_launch (knn_kernel.point_plan picks one for a call).
+enum Route { kGroupRoute = 0, kWarpRoute = 1, kSelectRoute = 2, kSortRoute = 3 };
+
+// A kernel of dynamic shared memory `smem` on grid x threads, the limit raised
+// above 48 KB.
+template <typename K, typename... A>
+cudaError_t run_kernel(K kernel, dim3 grid, int threads, size_t smem, cudaStream_t s, A... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, smem, s>>>(args...);
+  return cudaGetLastError();
+}
+
+// The full sort (knn_sort_kernel, knn_sort_tiled_kernel): any k.
 cudaError_t launch_sort(const float* q, const float* keys, const float* bias, int b, int m, int n,
                         int c, int k, float* dist, int32_t* idx, unsigned long long* scratch,
                         cudaStream_t s) {
@@ -738,43 +1305,109 @@ cudaError_t launch_sort(const float* q, const float* keys, const float* bias, in
   while (npow < n && npow < kSortTile) npow <<= 1;
   const size_t smem = sizeof(unsigned long long) * static_cast<size_t>(npow);
   const dim3 grid(m, b);
-  auto run = [&](auto kernel, auto... args) {
-    if (smem > 48 * 1024) {
-      const cudaError_t err =
-          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (err != cudaSuccess) return err;
-    }
-    kernel<<<grid, kSortThreads, smem, s>>>(args...);
-    return cudaGetLastError();
-  };
   if (n > kSortTile) {
-    if (scratch == nullptr) return cudaErrorInvalidValue;
-    return c == 3 ? run(knn_sort_tiled_kernel<3>, q, keys, bias, m, n, c, k, scratch, dist, idx)
-                  : run(knn_sort_tiled_kernel<0>, q, keys, bias, m, n, c, k, scratch, dist, idx);
+    return c == 3 ? run_kernel(knn_sort_tiled_kernel<3>, grid, kSortThreads, smem, s, q, keys, bias, m, n, c, k,
+                               scratch, dist, idx)
+                  : run_kernel(knn_sort_tiled_kernel<0>, grid, kSortThreads, smem, s, q, keys, bias, m, n, c, k,
+                               scratch, dist, idx);
   }
-  return c == 3 ? run(knn_sort_kernel<3>, q, keys, bias, m, n, c, k, npow, dist, idx)
-                : run(knn_sort_kernel<0>, q, keys, bias, m, n, c, k, npow, dist, idx);
+  return c == 3 ? run_kernel(knn_sort_kernel<3>, grid, kSortThreads, smem, s, q, keys, bias, m, n, c, k, npow, dist,
+                             idx)
+                : run_kernel(knn_sort_kernel<0>, grid, kSortThreads, smem, s, q, keys, bias, m, n, c, k, npow, dist,
+                             idx);
 }
 
-template <int KCAP, int W>
-cudaError_t launch(const float* q, const float* keys, const float* bias, int b, int m, int n,
-                   int c, int k, float* dist, int32_t* idx, cudaStream_t s) {
+// The selection (knn_select_kernel, knn_select_tiled_kernel): any k whose
+// select_smem_bytes fit a block.
+cudaError_t launch_select(const float* q, const float* keys, const float* bias, int b, int m, int n,
+                          int c, int k, float* dist, int32_t* idx, unsigned long long* scratch,
+                          cudaStream_t s) {
+  const size_t smem = select_smem_bytes(n, k);
+  const int spow = pow2_at_least(min(k, min(n, kSortTile)));
+  const dim3 grid(m, b);
+  if (n > kSortTile) {
+    return c == 3 ? run_kernel(knn_select_tiled_kernel<3>, grid, kSortThreads, smem, s, q, keys, bias, m, n, c, k,
+                               spow, scratch, dist, idx)
+                  : run_kernel(knn_select_tiled_kernel<0>, grid, kSortThreads, smem, s, q, keys, bias, m, n, c, k,
+                               spow, scratch, dist, idx);
+  }
+  return c == 3 ? run_kernel(knn_select_kernel<3>, grid, kSortThreads, smem, s, q, keys, bias, m, n, c, k, spow,
+                             dist, idx)
+                : run_kernel(knn_select_kernel<0>, grid, kSortThreads, smem, s, q, keys, bias, m, n, c, k, spow,
+                             dist, idx);
+}
+
+// Keys a tile of the group route, and its shared bytes.
+int group_tile(int n, int c) {
   const int fit = kSmemFloats / (c + 2);
-  const int tile = n < fit ? n : fit;
-  const size_t smem = sizeof(float) * static_cast<size_t>(tile) * (c + 2);
-  const dim3 grid((m + kThreads - 1) / kThreads, b);
-  knn_kernel<KCAP, W><<<grid, kThreads, smem, s>>>(q, keys, bias, m, n, c, k, tile, dist, idx);
+  return n < fit ? n : fit;
+}
+
+size_t group_smem_bytes(int tile, int c) { return sizeof(float) * static_cast<size_t>(tile) * (c + 2); }
+
+template <int KCAP, int W>
+cudaError_t launch_group(const float* q, const float* keys, const float* bias, int b, int m, int n,
+                         int c, int k, int g, float* dist, int32_t* idx, cudaStream_t s) {
+  const int tile = group_tile(n, c);
+  const int per_block = kThreads / g;
+  const dim3 grid((m + per_block - 1) / per_block, b);
+  knn_group_kernel<KCAP, W><<<grid, kThreads, group_smem_bytes(tile, c), s>>>(q, keys, bias, m, n, c, k, tile, g,
+                                                                              dist, idx);
   return cudaGetLastError();
 }
 
-// C = 3 (points) and C = 64 (DGCNN's EdgeConv 2-4 features, the graph
-// above k = 32) keep the query row in registers; other widths re-read it.
+// C = 3 (points) and C = 64 (DGCNN's EdgeConv 2-4 features) keep the query
+// row in registers; other widths re-read it.
 template <int KCAP>
-cudaError_t launch_c(const float* q, const float* keys, const float* bias, int b, int m, int n,
-                     int c, int k, float* dist, int32_t* idx, cudaStream_t s) {
-  if (c == 3) return launch<KCAP, 3>(q, keys, bias, b, m, n, c, k, dist, idx, s);
-  if (c == 64) return launch<KCAP, 64>(q, keys, bias, b, m, n, c, k, dist, idx, s);
-  return launch<KCAP, 0>(q, keys, bias, b, m, n, c, k, dist, idx, s);
+cudaError_t launch_group_c(const float* q, const float* keys, const float* bias, int b, int m, int n,
+                           int c, int k, int g, float* dist, int32_t* idx, cudaStream_t s) {
+  if (c == 3) return launch_group<KCAP, 3>(q, keys, bias, b, m, n, c, k, g, dist, idx, s);
+  if (c == 64) return launch_group<KCAP, 64>(q, keys, bias, b, m, n, c, k, g, dist, idx, s);
+  return launch_group<KCAP, 0>(q, keys, bias, b, m, n, c, k, g, dist, idx, s);
+}
+
+template <int E>
+cudaError_t launch_warp(const float* q, const float* keys, const float* bias, int b, int m, int n, int c, int k,
+                        float* dist, int32_t* idx, cudaStream_t s) {
+  const int tile = warp_tile(n, c);
+  const dim3 grid((m + kWarpQT - 1) / kWarpQT, b);
+  const size_t smem = warp_smem_bytes(c, tile);
+  return c == 3 ? run_kernel(knn_warp_kernel<E, 3>, grid, kWarpThreads, smem, s, q, keys, bias, m, n, c, k, tile,
+                             dist, idx)
+                : run_kernel(knn_warp_kernel<E, 0>, grid, kWarpThreads, smem, s, q, keys, bias, m, n, c, k, tile,
+                             dist, idx);
+}
+
+bool is_group_width(int g) { return g >= 1 && g <= 32 && (g & (g - 1)) == 0; }
+
+// Whether knn_launch can run a (route, group) plan at (n, c, k).
+bool plan_ok(int route, int group, int n, int c, int k) {
+  switch (route) {
+    case kGroupRoute: return k <= kGroupMaxK && is_group_width(group) && c + 2 <= kSmemFloats;
+    case kWarpRoute: return k <= kMaxK && warp_tile(n, c) >= 32;
+    case kSelectRoute: return select_smem_bytes(n, k) <= kSmemMax;
+    case kSortRoute: return true;
+    default: return false;
+  }
+}
+
+cudaError_t launch_point(const float* q, const float* kp, const float* bp, int b, int m, int n, int c, int k,
+                         int route, int g, float* d, int32_t* i, unsigned long long* scratch, cudaStream_t s) {
+  if (!plan_ok(route, g, n, c, k)) return cudaErrorInvalidValue;
+  if ((route == kSelectRoute || route == kSortRoute) && n > kSortTile && scratch == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  switch (route) {
+    case kGroupRoute:
+      if (k <= 4) return launch_group_c<4>(q, kp, bp, b, m, n, c, k, g, d, i, s);
+      if (k <= 8) return launch_group_c<8>(q, kp, bp, b, m, n, c, k, g, d, i, s);
+      return launch_group_c<16>(q, kp, bp, b, m, n, c, k, g, d, i, s);
+    case kWarpRoute:
+      return k <= 32 ? launch_warp<1>(q, kp, bp, b, m, n, c, k, d, i, s)
+                     : launch_warp<2>(q, kp, bp, b, m, n, c, k, d, i, s);
+    case kSelectRoute: return launch_select(q, kp, bp, b, m, n, c, k, d, i, scratch, s);
+    default: return launch_sort(q, kp, bp, b, m, n, c, k, d, i, scratch, s);
+  }
 }
 
 // C = 64 (DGCNN's EdgeConv 2-4) takes knn_graph_tile64_kernel where the
@@ -821,45 +1454,91 @@ cudaError_t launch_graph(const float* feats, float* norms, int b, int n, int c, 
 
 // queries [b, m, c], keys [b, n, c], bias [b, n] or null, all f32 and
 // contiguous -> dist [b, m, k] f32, idx [b, m, k] int32, ascending.  Any k
-// and N; scratch: 2 * b * m * min(k, n) 64-bit words when k > kMaxK and
-// n > kSortTile (the tiled sort's lists), else null.
+// and N, by the plan knn_kernel.point_plan makes: route 0, the group route
+// (k <= kMaxK; group lanes a query, a power of two up to 32), 1 the warp
+// route (k <= kMaxK), 2 the selection (its shared bytes within 227 KB), 3
+// the full sort; a plan the kernels cannot run is refused.  scratch: 2 * b *
+// m * min(k, n) 64-bit words on routes 2 and 3 when n > kSortTile (the
+// tiles' merged lists), else null.
 extern "C" int knn_launch(const void* queries, const void* keys, const void* bias, int b, int m,
-                          int n, int c, int k, void* dist, void* idx, void* scratch, void* stream) {
+                          int n, int c, int k, int route, int group, void* dist, void* idx, void* scratch,
+                          void* stream) {
   if (b < 1 || b > 65535 || m < 1 || n < 1 || c < 1 || c + 2 > kSmemFloats || k < 1) {
     return cudaErrorInvalidValue;
   }
-  auto* q = static_cast<const float*>(queries);
-  auto* kp = static_cast<const float*>(keys);
-  auto* bp = static_cast<const float*>(bias);
-  auto* d = static_cast<float*>(dist);
-  auto* i = static_cast<int32_t*>(idx);
-  auto s = static_cast<cudaStream_t>(stream);
-  if (k <= 4) return launch_c<4>(q, kp, bp, b, m, n, c, k, d, i, s);
-  if (k <= 8) return launch_c<8>(q, kp, bp, b, m, n, c, k, d, i, s);
-  if (k <= 16) return launch_c<16>(q, kp, bp, b, m, n, c, k, d, i, s);
-  if (k <= 32) return launch_c<32>(q, kp, bp, b, m, n, c, k, d, i, s);
-  if (k <= 48) return launch_c<48>(q, kp, bp, b, m, n, c, k, d, i, s);
-  if (k <= kMaxK) return launch_c<64>(q, kp, bp, b, m, n, c, k, d, i, s);
-  return launch_sort(q, kp, bp, b, m, n, c, k, d, i, static_cast<unsigned long long*>(scratch), s);
+  return launch_point(static_cast<const float*>(queries), static_cast<const float*>(keys),
+                      static_cast<const float*>(bias), b, m, n, c, k, route, group, static_cast<float*>(dist),
+                      static_cast<int32_t*>(idx), static_cast<unsigned long long*>(scratch),
+                      static_cast<cudaStream_t>(stream));
 }
 
 // feats [b, n, c] f32, contiguous -> idx [b, n, k] int32: each point's k
 // nearest points, itself included, ascending.  Up to kGraphMaxK: the tiled
-// graph kernel, dist [b, n] f32 scratch (the points' |x|^2).  Above it: the
-// general kernel (knn_launch) with the cloud as its queries, dist [b, n, k]
-// f32 scratch, and scratch as knn_launch's (null unless k > kMaxK and
-// n > kSortTile).
-extern "C" int knn_graph_launch(const void* feats, int b, int n, int c, int k, void* idx, void* dist,
-                                void* scratch, void* stream) {
+// graph kernel, dist [b, n] f32 scratch (the points' |x|^2), route and group
+// unused.  Above it: knn_launch with the cloud as its queries on the plan
+// (route, group), dist [b, n, k] f32 scratch, and scratch as knn_launch's.
+extern "C" int knn_graph_launch(const void* feats, int b, int n, int c, int k, int route, int group, void* idx,
+                                void* dist, void* scratch, void* stream) {
   if (b < 1 || b > 65535 || n < 1 || c < 1 || c + 1 > kSmemFloats || k < 1 || dist == nullptr) {
     return cudaErrorInvalidValue;
   }
-  if (k > kGraphMaxK) return knn_launch(feats, feats, nullptr, b, n, n, c, k, dist, idx, scratch, stream);
+  if (k > kGraphMaxK) {
+    return knn_launch(feats, feats, nullptr, b, n, n, c, k, route, group, dist, idx, scratch, stream);
+  }
   auto* f = static_cast<const float*>(feats);
   auto* norms = static_cast<float*>(dist);
   auto* i = static_cast<int32_t*>(idx);
   auto s = static_cast<cudaStream_t>(stream);
   return launch_graph(f, norms, b, n, c, k, i, s);
+}
+
+// The kernel knn_launch runs on the plan (route, group) at (n, c, k), as
+// kernel_info reads it: info = {registers, local bytes a thread, dynamic
+// shared bytes a block, resident blocks per SM}.
+extern "C" int knn_point_info(int route, int group, int n, int c, int k, int* info) {
+  if (n < 1 || c < 1 || c + 2 > kSmemFloats || k < 1 || !plan_ok(route, group, n, c, k)) {
+    return cudaErrorInvalidValue;
+  }
+  const bool c3 = c == 3;
+  switch (route) {
+    case kGroupRoute: {
+      const size_t smem = group_smem_bytes(group_tile(n, c), c);
+      auto pick = [&](auto k3, auto k64, auto k0) {
+        return c3 ? kernel_info(k3, smem, kThreads, info)
+                  : c == 64 ? kernel_info(k64, smem, kThreads, info) : kernel_info(k0, smem, kThreads, info);
+      };
+      if (k <= 4) return pick(knn_group_kernel<4, 3>, knn_group_kernel<4, 64>, knn_group_kernel<4, 0>);
+      if (k <= 8) return pick(knn_group_kernel<8, 3>, knn_group_kernel<8, 64>, knn_group_kernel<8, 0>);
+      return pick(knn_group_kernel<16, 3>, knn_group_kernel<16, 64>, knn_group_kernel<16, 0>);
+    }
+    case kWarpRoute: {
+      const size_t smem = warp_smem_bytes(c, warp_tile(n, c));
+      if (k <= 32) {
+        return c3 ? kernel_info(knn_warp_kernel<1, 3>, smem, kWarpThreads, info)
+                  : kernel_info(knn_warp_kernel<1, 0>, smem, kWarpThreads, info);
+      }
+      return c3 ? kernel_info(knn_warp_kernel<2, 3>, smem, kWarpThreads, info)
+                : kernel_info(knn_warp_kernel<2, 0>, smem, kWarpThreads, info);
+    }
+    case kSelectRoute: {
+      const size_t smem = select_smem_bytes(n, k);
+      if (n > kSortTile) {
+        return c3 ? kernel_info(knn_select_tiled_kernel<3>, smem, kSortThreads, info)
+                  : kernel_info(knn_select_tiled_kernel<0>, smem, kSortThreads, info);
+      }
+      return c3 ? kernel_info(knn_select_kernel<3>, smem, kSortThreads, info)
+                : kernel_info(knn_select_kernel<0>, smem, kSortThreads, info);
+    }
+    default: {
+      const size_t smem = sizeof(unsigned long long) * static_cast<size_t>(pow2_at_least(min(n, kSortTile)));
+      if (n > kSortTile) {
+        return c3 ? kernel_info(knn_sort_tiled_kernel<3>, smem, kSortThreads, info)
+                  : kernel_info(knn_sort_tiled_kernel<0>, smem, kSortThreads, info);
+      }
+      return c3 ? kernel_info(knn_sort_kernel<3>, smem, kSortThreads, info)
+                : kernel_info(knn_sort_kernel<0>, smem, kSortThreads, info);
+    }
+  }
 }
 
 // The tiled graph kernel as knn_graph_launch takes it at width c (a 16-byte

@@ -70,12 +70,16 @@ _SIGNATURES = {
     "count_sort_launch": (_P, _I, _I, _I, _P, _P, _P, _P),
     # idx, upd, b, n, r, c, offsets, perm, counts, out, stream
     "scatter_add_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    # queries, keys, bias (nullable), b, m, n, c, k, dist, idx, scratch (nullable), stream
-    "knn_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # feats, b, n, c, k, idx, dist (k <= 32: the norms), scratch (nullable), stream
-    "knn_graph_launch": (_P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # queries, keys, bias (nullable), b, m, n, c, k, route, group, dist, idx,
+    # scratch (nullable), stream
+    "knn_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # feats, b, n, c, k, route, group, idx, dist (k <= 32: the norms),
+    # scratch (nullable), stream
+    "knn_graph_launch": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # c, info* (int[4])
     "knn_graph_info": (_I, _P),
+    # route, group, n, c, k, info* (int[4])
+    "knn_point_info": (_I, _I, _I, _I, _I, _P),
     # n, info* (int[5])
     "fps_info": (_I, _P),
     # xyz, b, n, dup, stream
@@ -84,8 +88,8 @@ _SIGNATURES = {
     "dupmask_floor_launch": (_I, _I, _P),
     # info* (int[4])
     "dupmask_info": (_P,),
-    # vals, idx, b, n, k, cv, mmax, mmin, sum, sumsq, cntmax, cntmin, stream
-    "edge_reduce_fwd_launch": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    # vals, idx, b, n, k, cv, lanes, mmax, mmin, sum, sumsq, cntmax, cntmin, stream
+    "edge_reduce_fwd_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     # vals, idx, mmax, mmin, cntmax, cntmin, dmax, dmin, ds, dq2, b, n, k, cv,
     # slice, offsets, perm, counts, dvals, stream
     "edge_reduce_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),

@@ -27,8 +27,10 @@ Semantics:
     bf16 sum in the port and on the JAX lax path.
 
 On the card ``edge_reduce`` is the graph kernel (``knn_graph_kernel``)
-followed by ``edge_reduce_fwd_kernel``, one warp per point reading its k
-neighbours' rows in slot order; its backward is ``edge_reduce_bwd_kernel``,
+followed by ``edge_reduce_fwd_kernel``, ``fwd_lanes`` lanes a point (a
+half-warp up to 64 channels) reading its k neighbours' rows in slot order,
+four slots' rows loaded at once, its outputs written with streaming stores;
+its backward is ``edge_reduce_bwd_kernel``,
 which sums each point's incoming edge coefficients in ascending (query,
 slot) order over the graph's inverse index (``csrc/countsort.cuh``, shared
 with the scatter-add), re-reading ``vals`` where the TPU saved the gathered
@@ -72,6 +74,7 @@ __all__ = [
     "edge_reduce_bwd_ordered",
     "edge_reduce_fwd_kernel",
     "edge_reduce_plain",
+    "fwd_lanes",
     "kernel_info",
     "reduce_neighbors_plain",
 ]
@@ -80,6 +83,7 @@ REDUCTIONS = ("mmax", "mmin", "s", "q2", "cntmax", "cntmin")
 BWD_SMEM_BYTES = 232_448  # the most shared memory a block may use on an H100 (227 KB)
 BWD_STAGED_BYTES = 24  # the backward's staged bytes a (query, channel)
 BWD_MAX_SLICE = 8  # channels a block of the backward takes, at most
+FWD_LANES = (16, 32)  # lanes a query of the forward may take
 
 
 def bwd_slice_width(n: int, cv: int) -> int:
@@ -92,6 +96,13 @@ def bwd_slice_width(n: int, cv: int) -> int:
     while s > 1 and (BWD_STAGED_BYTES * n * s > BWD_SMEM_BYTES or s // 2 >= cv):
         s //= 2
     return s if BWD_STAGED_BYTES * n * s <= BWD_SMEM_BYTES else 0
+
+
+def fwd_lanes(cv: int) -> int:
+    """Lanes a query of the forward takes at ``cv`` channels: 16 (two
+    queries a warp) where 16 lanes of 4 floats hold every channel (``cv``
+    <= 64), else 32."""
+    return 16 if cv <= 64 else 32
 
 
 def _gather_plain(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -162,8 +173,8 @@ def edge_reduce_bwd_ordered(vals, idx, mmax, mmin, cntmax, cntmin, dmax, dmin, d
 def edge_reduce_fwd_kernel(vals: torch.Tensor, idx: torch.Tensor) -> tuple[torch.Tensor, ...]:
     """The forward reduce on the card: vals [B, N, Cv] f32, idx [B, N, k]
     int32 in [0, N) -> (mmax, mmin, s, q2, cntmax, cntmin), each [B, N, Cv]
-    f32.  Launches the kernel (counted in ``edge_reduce_fwd_kernel.launches``)
-    or raises."""
+    f32.  Launches the kernel at ``fwd_lanes`` lanes a query (counted in
+    ``edge_reduce_fwd_kernel.launches``) or raises."""
     fn = "edge_reduce_fwd_kernel"
     if vals.device.type != "cuda" or vals.dim() != 3 or idx.dim() != 3:
         raise ValueError(f"{fn}: need CUDA [B, N, Cv] and [B, N, k], got {tuple(vals.shape)} on {vals.device}")
@@ -177,7 +188,7 @@ def edge_reduce_fwd_kernel(vals: torch.Tensor, idx: torch.Tensor) -> tuple[torch
     lib = _build.library()
     with torch.cuda.device(vals.device):
         err = lib.edge_reduce_fwd_launch(
-            vals.data_ptr(), idx.data_ptr(), b, n, k, cv, *(o.data_ptr() for o in outs),
+            vals.data_ptr(), idx.data_ptr(), b, n, k, cv, fwd_lanes(cv), *(o.data_ptr() for o in outs),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, fn)
@@ -228,14 +239,20 @@ edge_reduce_bwd_kernel.routed_launches = 0  # of them, clouds of more than 9685 
 _INFO_KERNELS = {"bwd": 0, "bwd_edge": 1, "fwd": 2}
 
 
-def kernel_info(kernel: str, width: int, n: int = 1024) -> dict:
+def kernel_info(kernel: str, width: int, n: int = 1024, lanes: int = 32) -> dict:
     """Registers, local bytes a thread, dynamic shared bytes a block and
     resident blocks per SM of a build of ``csrc/edge.cu``: ``kernel`` "bwd"
     (the staged backward at slice width ``width`` for clouds of ``n``
-    points), "bwd_edge" (its per-edge route) or "fwd" (the forward), the
-    last two at ``width`` floats a lane (1, 2 or 4)."""
+    points), "bwd_edge" (its per-edge route) or "fwd" (the forward at
+    ``lanes`` lanes a query, 16 or 32), the last two at ``width`` floats a
+    lane (1, 2 or 4)."""
+    code = _INFO_KERNELS[kernel]
+    if kernel == "fwd":
+        if lanes not in FWD_LANES:
+            raise ValueError(f"edge kernel_info: the forward takes 16 or 32 lanes a query, got {lanes}")
+        code += lanes == 16
     info = (ctypes.c_int * 4)()
-    err = _build.library().edge_info(_INFO_KERNELS[kernel], width, n, ctypes.addressof(info))
+    err = _build.library().edge_info(code, width, n, ctypes.addressof(info))
     _build.check(err, "edge kernel_info")
     return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), info))
 

@@ -18,13 +18,19 @@ Semantics (the contract of ``knn_point_pallas``):
   * a slot that no key fills holds ``(+inf, 0)``: when N < k (the JAX
     ``three_nn`` pads so from one key), and for keys whose distance is +inf
     or NaN, which are never selected.
-Any C, M and N and any k >= 1, as ``knn_point_pallas``: up to ``MAX_K``
-(64; PointCNN's ``xdconv_4`` asks for k = 48) each query's list stays in
-registers, above it the kernel sorts every distance of the query in shared
-memory, a tile of at most ``SORT_TILE`` (16384) keys at a time; a larger
-cloud's tiles are merged into a running list of min(k, N) words a query in
-a scratch buffer that the wrapper allocates.  The outputs carry no
-gradient.
+Any C, M and N and any k >= 1, as ``knn_point_pallas``, on the route
+``point_plan`` picks (``ROUTES``; ``csrc/knn.cu`` refuses a plan it cannot
+run): up to ``GROUP_MAX_K`` the group route, ``group_lanes`` lanes a query
+each keeping a register list of its share of the keys, merged by a group
+minimum; up to ``MAX_K`` (64; PointCNN's ``xdconv_4`` asks for k = 48) the
+warp route, a warp a query holding its list one entry a lane; above it a
+block a query selects its first min(k, N) distances by a radix select and
+sorts only those (the selection), a tile of at most ``SORT_TILE`` (16384)
+keys at a time; a larger cloud's tiles are merged into a running list of
+min(k, N) words a query in a scratch buffer that the wrapper allocates.  A
+k whose selected words do not fit a block's shared memory
+(``select_smem_bytes``) sorts every word of a tile (the full sort).  The
+outputs carry no gradient.
 
 ``knn_graph_kernel(features [B, N, C], k) -> idx [B, N, k] int32`` is the
 self-kNN: every point is a query and a key, so each point's first neighbour
@@ -41,11 +47,13 @@ at fp3 (B=32, 1024 queries, 512 keys, C=3) about 2.5 us of f32 work against
 0.4 us of bytes, so in practice the launch.  DGCNN's C=64 graph at B=32,
 N=1024 is 33.6M pairs of about 132 operations: 66 us at the FMA rate, 132
 us at the rate of separate f32 instructions, which the contract's
-uncontracted sums need.  In the general kernel one thread per query scans
-its cloud's keys, staged in shared memory in tiles, in ascending index and
-keeps its k best in registers; above k = 64 one block per query sorts all
-its distances (a bitonic sort of (distance bits, index) keys), whose
-log2(N)²/2 steps, not the distances, then set the time.
+uncontracted sums need.  Beyond them the calls spend their time selecting
+(a list insertion, the radix passes) and, at small B·M, on an idle card,
+which the group lanes fill.  The launch choices are plain functions here
+(``point_plan``, ``group_lanes``, ``warp_tile``, ``select_smem_bytes``),
+held to the C source's constants by ``tests/test_torch_knn_plan.py``;
+``point_kernel_info`` reads each route's registers, local memory and
+blocks per SM on the card.
 """
 
 from __future__ import annotations
@@ -55,22 +63,85 @@ import ctypes
 import torch
 
 from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda.satrain_kernel import sm_count
 
 __all__ = [
     "GRAPH_MAX_K",
+    "GROUP_MAX_K",
     "MAX_K",
+    "ROUTES",
     "SORT_TILE",
     "graph_kernel_info",
+    "group_lanes",
     "knn_graph_kernel",
     "knn_graph_plain",
     "knn_point_kernel",
     "knn_point_plain",
+    "point_kernel_info",
+    "point_plan",
+    "select_smem_bytes",
     "squared_distance_plain",
+    "warp_tile",
 ]
 
-MAX_K = 64  # kMaxK in csrc/knn.cu: the largest k kept in registers
-SORT_TILE = 16384  # kSortTile in csrc/knn.cu: keys sorted at once above MAX_K
+MAX_K = 64  # kMaxK in csrc/knn.cu: the largest k of the list routes
+SORT_TILE = 16384  # kSortTile in csrc/knn.cu: keys selected (or sorted) at once above MAX_K
 GRAPH_MAX_K = 32  # kGraphMaxK in csrc/knn.cu: the largest k of the graph's own kernel
+ROUTES = ("group", "warp", "select", "sort")  # knn_launch's route codes 0..3
+GROUP_MAX_K = 16  # kGroupMaxK in csrc/knn.cu: the largest k of the group route (above it: the warp route)
+FILL_THREADS_PER_SM = 192  # threads a group-route launch aims for on each SM
+SMEM_FLOATS = 12 * 1024  # kSmemFloats in csrc/knn.cu: a list route's shared floats
+SMEM_MAX = 232_448  # kSmemMax: the most shared memory a block may use on an H100 (227 KB)
+WARP_QT = 16  # kWarpQT: queries a block of the warp route
+RADIX_BINS, SELECT_AUX_INTS = 256, 12  # kRadixBins, kSelectAux
+
+
+def group_lanes(queries: int, n: int, sms: int) -> int:
+    """Lanes a query takes on the group route, for ``queries`` queries (B·M)
+    on clouds of ``n`` keys on a card of ``sms`` SMs: the least power of two
+    that gives the launch ``FILL_THREADS_PER_SM`` threads an SM, at most 32
+    and at most ``n`` (a lane past the last key would scan nothing)."""
+    g = 1
+    while g < 32 and queries * g < sms * FILL_THREADS_PER_SM and 2 * g <= n:
+        g *= 2
+    return g
+
+
+def warp_tile(n: int, c: int) -> int:
+    """Keys a tile of the warp route at width ``c`` (``warp_tile`` in
+    csrc/knn.cu): the staged queries, the queries' candidate buffers (32
+    entries each) and the tile, channel-major, within ``SMEM_FLOATS``, a
+    multiple of 32 and no more than ``n`` rounded up to 32; 0 where the
+    width leaves no room for 32 keys."""
+    fit = (SMEM_FLOATS - c * (WARP_QT + 1) - WARP_QT - c - 2 * WARP_QT * 32) // (c + 2)
+    return max(min(fit, -(-n // 32) * 32) // 32 * 32, 0)
+
+
+def select_smem_bytes(n: int, k: int) -> int:
+    """Shared bytes of a block of the selection (``select_smem_bytes`` in
+    csrc/knn.cu): the words of a tile of at most ``SORT_TILE`` keys, the
+    selected words padded to a power of two, the radix histogram and its
+    scratch ints."""
+    words = min(n, SORT_TILE)
+    sel = 1
+    while sel < min(k, words):
+        sel *= 2
+    return 8 * (words + sel) + 4 * RADIX_BINS + 4 * SELECT_AUX_INTS
+
+
+def point_plan(b: int, m: int, n: int, c: int, k: int, sms: int) -> tuple[str, int]:
+    """The route of a kNN call and its group lanes: (route, lanes).
+
+    k <= ``GROUP_MAX_K``: "group", ``group_lanes(b·m, n, sms)`` lanes a
+    query.  Up to ``MAX_K``: "warp" (a warp a query), or where the width
+    leaves the warp route no tile "select".  Above: "select", or "sort" (the
+    full sort) where the selected words do not fit a block's shared memory.
+    Lanes is 1 off the group route."""
+    if k <= GROUP_MAX_K:
+        return "group", group_lanes(b * m, n, sms)
+    if k <= MAX_K and warp_tile(n, c) >= 32:
+        return "warp", 1
+    return ("select" if select_smem_bytes(n, k) <= SMEM_MAX else "sort"), 1
 
 
 def _sum_of_products(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -135,10 +206,11 @@ def knn_point_kernel(
     ascending.
 
     A CPU tensor takes ``knn_point_plain``; a CUDA tensor launches the kernel
-    (counted in ``knn_point_kernel.launches``, and above k = ``MAX_K`` in
-    ``knn_point_kernel.sort_launches`` too, and of those, on a cloud of more
-    than ``SORT_TILE`` keys, in ``knn_point_kernel.tiled_launches``) or
-    raises."""
+    on ``point_plan``'s route (counted in ``knn_point_kernel.launches``; at k
+    <= ``MAX_K`` on the warp route in ``.warp_launches`` too; above it in
+    ``.sort_launches``, and of those, on a cloud of more than ``SORT_TILE``
+    keys, in ``.tiled_launches``, and on the full sort in
+    ``.fullsort_launches``) or raises."""
     if queries.device.type == "cpu":
         return knn_point_plain(queries, keys, k, bias)
     if queries.device.type != "cuda":
@@ -160,30 +232,36 @@ def knn_point_kernel(
         raise ValueError(f"knn_point_kernel: empty input {tuple(queries.shape)}, {tuple(keys.shape)}")
     dist = torch.empty(b, m, k, dtype=torch.float32, device=dev)
     idx = torch.empty(b, m, k, dtype=torch.int32, device=dev)
-    scratch = _sort_scratch(b, m, n, k, dev)
+    route, lanes = point_plan(b, m, n, c, k, sm_count(dev))
+    scratch = _sort_scratch(b, m, n, k, route, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.knn_launch(
             queries.data_ptr(), keys.data_ptr(), None if bias is None else bias.data_ptr(),
-            b, m, n, c, k, dist.data_ptr(), idx.data_ptr(), None if scratch is None else scratch.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            b, m, n, c, k, ROUTES.index(route), lanes, dist.data_ptr(), idx.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "knn_point_kernel")
     knn_point_kernel.launches += 1
     knn_point_kernel.sort_launches += k > MAX_K
-    knn_point_kernel.tiled_launches += scratch is not None
+    knn_point_kernel.tiled_launches += k > MAX_K and scratch is not None
+    knn_point_kernel.warp_launches += route == "warp"
+    knn_point_kernel.fullsort_launches += k > MAX_K and route == "sort"
     return dist, idx
 
 
 knn_point_kernel.launches = 0
-knn_point_kernel.sort_launches = 0  # of them, k > MAX_K (the sort)
+knn_point_kernel.sort_launches = 0  # of them, k > MAX_K (the selection, or the full sort)
 knn_point_kernel.tiled_launches = 0  # of those, N > SORT_TILE (tiles merged)
+knn_point_kernel.warp_launches = 0  # of the k <= MAX_K launches, the warp route's
+knn_point_kernel.fullsort_launches = 0  # of the k > MAX_K launches, the full sort's (words past shared memory)
 
 
-def _sort_scratch(b: int, m: int, n: int, k: int, device) -> torch.Tensor | None:
-    """The tiled sort's two lists of min(k, N) words a query, where the
-    kernel takes that path (k > MAX_K and N > SORT_TILE), else None."""
-    if k <= MAX_K or n <= SORT_TILE:
+def _sort_scratch(b: int, m: int, n: int, k: int, route: str, device) -> torch.Tensor | None:
+    """The tiled selection's (or sort's) two lists of min(k, N) words a
+    query, where the kernel takes that path (route "select" or "sort" and N >
+    SORT_TILE), else None."""
+    if route not in ("select", "sort") or n <= SORT_TILE:
         return None
     return torch.empty(2 * b * m * min(k, n), dtype=torch.int64, device=device)
 
@@ -211,13 +289,14 @@ def knn_graph_kernel(features: torch.Tensor, k: int) -> torch.Tensor:
     dev = features.device
     idx = torch.empty(b, n, k, dtype=torch.int32, device=dev)
     routed = k > GRAPH_MAX_K
-    # Routed: the general kernel's distances; else the points' |x|².
+    # Routed: the general kernel's distances, on its plan; else the points' |x|².
     dist = torch.empty((b, n, k) if routed else (b, n), dtype=torch.float32, device=dev)
-    scratch = _sort_scratch(b, n, n, k, dev)
+    route, lanes = point_plan(b, n, n, c, k, sm_count(dev)) if routed else ("group", 1)
+    scratch = _sort_scratch(b, n, n, k, route, dev) if routed else None
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.knn_graph_launch(
-            features.data_ptr(), b, n, c, k, idx.data_ptr(), dist.data_ptr(),
+            features.data_ptr(), b, n, c, k, ROUTES.index(route), lanes, idx.data_ptr(), dist.data_ptr(),
             None if scratch is None else scratch.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "knn_graph_kernel")
@@ -237,4 +316,15 @@ def graph_kernel_info(c: int) -> dict:
     ``cudaFuncGetAttributes`` and the occupancy API (on the card)."""
     info = (ctypes.c_int * 4)()
     _build.check(_build.library().knn_graph_info(c, ctypes.addressof(info)), "graph_kernel_info")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), info))
+
+
+def point_kernel_info(route: str, n: int, c: int, k: int, lanes: int = 1) -> dict:
+    """The kernel ``knn_point_kernel`` runs on ``route`` (``ROUTES``; the
+    group route at ``lanes`` lanes a query) for clouds of ``n`` keys at width
+    ``c`` and this ``k``: registers and local-memory bytes a thread, dynamic
+    shared bytes a block, and resident blocks per SM (on the card)."""
+    info = (ctypes.c_int * 4)()
+    err = _build.library().knn_point_info(ROUTES.index(route), lanes, n, c, k, ctypes.addressof(info))
+    _build.check(err, "point_kernel_info")
     return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), info))

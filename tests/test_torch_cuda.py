@@ -32,10 +32,16 @@ and ``perm`` equal to a stable argsort's (``count_sort_plain``), so the
 EdgeConv backward, which shares it, keeps its bits.
 
 kNN: indices and squared distances equal to ``knn_point_plain`` (the same
-f32 operations in the same order, and the same tie rule), at any k: the
-register lists up to k = 64, the block-wide sort above (k = 65 to 128, a
-k above N, ties, a NaN key), and on more than 16384 keys its sorted tiles
-merged (N = 16385 to 50000, up to a k larger than a tile);
+f32 operations in the same order, and the same tie rule), at any k, on the
+route the plan picks and on every route a plan may give (the group route
+at 1, 4 and 32 lanes a query, the warp route, the selection, the full
+sort): k = 3 to 127 (31, 32, 33, 47, 64, 65 at a list's edges), M below a
+lane group and off the warp route's blocks, N below k and off the tiles,
+ties that straddle the k-th distance, every distance +inf, NaN keys inside
+a tie group, a bias with duplicated values, and on more than 16384 keys
+tiles merged (N = 16385 to 50000, up to a k larger than a tile, where the
+full sort takes over); a plan the kernels cannot run is refused, and no
+route's build uses local memory;
 ``SAModule(knn=True, nsample=72)`` on the card against the same layer on
 the CPU.  The self-kNN graph: indices equal to ``knn_graph_plain``, for the
 same reason, at k <= 32 in its own kernel (k = 1, 2, 31, 32; C = 1, 65,
@@ -52,7 +58,10 @@ equals its kernel branch run on the plain versions.
 
 DGCNN's edge reductions: every forward output equal to ``edge_reduce_plain``
 (the same neighbours, max and min exact, the sums in the same slot order
-without contraction).  The backward within 1e-5 x max(1, |ref|max) of
+without contraction), at k = 1, 7, 20, 33 and 40 and Cv = 1 to 256, at a
+half-warp and a warp a query and on rows off 16 bytes, on a 58113-point
+cloud, and with NaN and tied values bit for bit the slot-order rules
+(tie counts included); lanes it cannot take are refused.  The backward within 1e-5 x max(1, |ref|max) of
 autograd through the plain version (the same coefficients, summed in
 another order), bit-stable across two calls (no float atomics) and equal
 to ``edge_reduce_bwd_ordered`` (the same operations in the kernel's order),
@@ -143,13 +152,16 @@ from scanobjectnn_torch.ops.cuda.edge_kernel import (
     edge_reduce_bwd_ordered,
     edge_reduce_fwd_kernel,
     edge_reduce_plain,
+    reduce_neighbors_plain,
 )
+from scanobjectnn_torch.ops.cuda import knn_kernel
 from scanobjectnn_torch.ops.cuda.knn_kernel import (
     graph_kernel_info,
     knn_graph_kernel,
     knn_graph_plain,
     knn_point_kernel,
     knn_point_plain,
+    point_kernel_info,
 )
 from scanobjectnn_torch.ops.cuda.ranksort_kernel import rank_sort_points, rank_sort_points_plain
 from scanobjectnn_torch.ops.cuda.sabucket_kernel import (
@@ -718,24 +730,68 @@ KNN_CASES = {
     "k128_n50000_nan_key": (2, 16, 50000, 3, 128, False, "nan"),
     "k128_n50000_c7": (1, 64, 50000, 7, 128, False, "normal"),
     "k20000_n50000": (1, 3, 50000, 3, 20000, True, "normal"),
+    # The group lanes, the warp lists and the selection at their edges:
+    # k = 31, 32, 33, 47, 64 (a list's last lane and register), 65 and 127;
+    # M below one lane group (1 and 3 queries) and not a multiple of the
+    # lanes or of the warp route's 16 queries a block; N below k, and N not
+    # a multiple of the lanes or of a tile (2431 keys: two warp-route tiles
+    # of 2208 at C=3, the second ragged).
+    "k31": (2, 130, 257, 3, 31, False, "normal"),
+    "k32_c64": (2, 70, 300, 64, 32, False, "normal"),
+    "k33_bias": (2, 97, 301, 3, 33, True, "normal"),
+    "k47_c5": (2, 130, 257, 5, 47, False, "normal"),
+    "k64_n2431": (1, 45, 2431, 3, 64, False, "normal"),
+    "k65_bias_n2431": (1, 45, 2431, 3, 65, True, "normal"),
+    "k127": (2, 33, 1000, 3, 127, False, "normal"),
+    "m1_k3": (3, 1, 1000, 3, 3, False, "normal"),
+    "m3_k16": (2, 3, 77, 3, 16, False, "normal"),
+    "m33_k40": (2, 33, 500, 3, 40, True, "normal"),
+    "k8_few_keys": (2, 50, 5, 3, 8, False, "normal"),
+    "k40_few_keys": (2, 50, 39, 3, 40, True, "normal"),
+    "k127_few_keys": (2, 20, 100, 3, 127, False, "normal"),
+    # Ties that straddle the k-th distance (keys repeated on a coarse
+    # lattice), below and above k = 64; every distance +inf (an infinite
+    # bias); NaN keys inside a tie group; a bias with duplicated values on
+    # duplicated keys.
+    "k31_lattice": (2, 256, 512, 3, 31, False, "lattice"),
+    "k40_lattice": (2, 256, 512, 3, 40, False, "lattice"),
+    "k64_lattice": (2, 256, 1024, 3, 64, False, "lattice"),
+    "k127_lattice": (2, 256, 1024, 3, 127, False, "lattice"),
+    "k8_all_inf": (2, 64, 300, 3, 8, True, "inf_bias"),
+    "k40_all_inf": (2, 64, 300, 3, 40, True, "inf_bias"),
+    "k100_all_inf": (2, 64, 300, 3, 100, True, "inf_bias"),
+    "k8_nan_ties": (2, 128, 512, 3, 8, False, "nan_ties"),
+    "k40_nan_ties": (2, 128, 512, 3, 40, False, "nan_ties"),
+    "k100_nan_ties": (2, 128, 512, 3, 100, False, "nan_ties"),
+    "k24_bias_duplicates": (2, 384, 1024, 3, 24, True, "bias_dup"),
+    "k48_bias_duplicates": (2, 384, 1024, 3, 48, True, "bias_dup"),
+    "k100_bias_duplicates": (2, 128, 1024, 3, 100, True, "bias_dup"),
 }
 
 
 def knn_inputs(spec, rng):
     """numpy (queries [b, m, c], keys [b, n, c], bias [b, n] or None) of one
     kNN case: "subset" keys are queries (as FPS picks them), "lattice" keys
-    repeat coarse grid points, "nan" puts a NaN in one key."""
+    repeat coarse grid points, "nan" puts a NaN in one key, "inf_bias" makes
+    every distance +inf, "nan_ties" puts NaN in keys of lattice tie groups,
+    "bias_dup" repeats lattice keys with a bias of a few repeated values."""
     b, m, n, c, _, with_bias, cloud = spec
-    if cloud == "lattice":
-        keys = np.tile(rng.randint(-2, 3, (b, n // 8, c)).astype(np.float32) * 0.5, (1, 8, 1))
+    if cloud in ("lattice", "nan_ties", "bias_dup"):
+        keys = np.tile(rng.randint(-2, 3, (b, -(-n // 8), c)).astype(np.float32) * 0.5, (1, 8, 1))[:, :n]
         queries = keys[:, rng.choice(n, m, replace=m > n)] + np.float32(0.25)
     else:
         queries = (rng.rand(b, m, c) * 2 - 1).astype(np.float32)
         keys = queries[:, :n].copy() if cloud == "subset" else (rng.rand(b, n, c) * 2 - 1).astype(np.float32)
     if cloud == "nan":
         keys[1, 7, 0] = np.nan
+    if cloud == "nan_ties":  # some copies of a lattice point, the others left as they are
+        keys[:, 3::13, 1] = np.nan
     bias = (0.1 * rng.rand(b, n)).astype(np.float32) if with_bias else None
-    return np.ascontiguousarray(queries), keys, bias
+    if cloud == "inf_bias":
+        bias = np.full((b, n), np.inf, np.float32)
+    if cloud == "bias_dup":
+        bias = rng.choice(np.float32([0.0, 0.125, 0.25]), (b, n)).astype(np.float32)
+    return np.ascontiguousarray(queries), np.ascontiguousarray(keys), bias
 
 
 @pytest.mark.parametrize("case", sorted(KNN_CASES))
@@ -745,11 +801,14 @@ def test_knn_kernel_matches_plain(dev, case):
                      for a in knn_inputs(spec, np.random.RandomState(spec[1] + spec[2])))
     k = spec[4]
     before, tiled = knn_point_kernel.launches, knn_point_kernel.tiled_launches
+    fullsort = knn_point_kernel.fullsort_launches
     d, i = knn_point_kernel(q, keys, k, bias)
     ref_d, ref_i = knn_point_plain(q, keys, k, bias)
     torch.cuda.synchronize()
     assert knn_point_kernel.launches == before + 1
     assert knn_point_kernel.tiled_launches == tiled + (k > 64 and spec[2] > 16384)
+    fits = knn_kernel.select_smem_bytes(spec[2], k) <= knn_kernel.SMEM_MAX
+    assert knn_point_kernel.fullsort_launches == fullsort + (k > 64 and not fits)
     assert d.dtype == torch.float32 and i.dtype == torch.int32 and d.shape == (spec[0], spec[1], k)
     assert torch.equal(i, ref_i) and torch.equal(d, ref_d)
     if case == "fp1":
@@ -764,6 +823,76 @@ def test_knn_kernel_matches_plain(dev, case):
         assert bool(torch.isfinite(d[..., :n_keys]).all())
     if case in ("k80_c7_nan_key", "k128_n50000_nan_key"):
         assert not bool((i[1] == 7).any())
+    if case.endswith("all_inf"):
+        assert bool(torch.isinf(d).all()) and bool((i == 0).all())
+    nan_key = torch.isnan(keys).any(-1)  # [b, n]: never selected
+    assert not bool((torch.gather(nan_key, 1, i.long().flatten(1)).view_as(d) & torch.isfinite(d)).any())
+
+
+# Every route a plan may give, forced at cases of each kind: the group route
+# at 1, 4 and 32 lanes a query up to k = 16, the warp route up to k = 64,
+# the selection at any k and the full sort above k = 64.
+ROUTE_CASES = ("fp3", "k16_bias", "c64", "k31", "k32_c64", "k33_bias", "k48_duplicates", "k64_n2431",
+               "m1_k3", "m3_k16", "m33_k40", "k8_few_keys", "k40_few_keys", "k31_lattice", "k64_lattice",
+               "k40_all_inf", "k40_nan_ties", "k48_bias_duplicates", "k65", "k127", "k128_bias",
+               "k127_few_keys", "k127_lattice", "k100_all_inf", "k100_nan_ties", "k100_bias_duplicates",
+               "k65_bias_n2431", "k128_n20000_bias")
+
+
+def _routes_for(k):
+    if k <= 16:
+        return [("group", 1), ("group", 4), ("group", 32), ("warp", 1), ("select", 1)]
+    if k <= 64:
+        return [("warp", 1), ("select", 1)]
+    return [("select", 1), ("sort", 1)]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_knn_kernel_every_route_matches_plain(dev, case):
+    spec = KNN_CASES[case]
+    q, keys, bias = (None if a is None else torch.from_numpy(a).to(dev)
+                     for a in knn_inputs(spec, np.random.RandomState(spec[1] + spec[2])))
+    k = spec[4]
+    ref_d, ref_i = knn_point_plain(q, keys, k, bias)
+    for plan in _routes_for(k):
+        with mock.patch.object(knn_kernel, "point_plan", lambda *a, plan=plan: plan):
+            warp = knn_point_kernel.warp_launches
+            d, i = knn_point_kernel(q, keys, k, bias)
+            torch.cuda.synchronize()
+            assert knn_point_kernel.warp_launches == warp + (plan[0] == "warp")
+        assert torch.equal(i, ref_i) and torch.equal(d, ref_d), plan
+
+
+def test_knn_kernel_refuses_a_plan_it_cannot_run(dev):
+    # Group lanes that are no power of two or above 32; the group route
+    # above k = 16 and the warp route above k = 64; the selection past a
+    # block's shared memory (k = 20000 on 50000 keys: two tiles of words); a
+    # route that does not exist.
+    q = torch.zeros(1, 8, 3, device=dev)
+    big = torch.zeros(1, 50000, 3, device=dev)
+    for keys, k, plan in ((q, 3, ("group", 3)), (q, 3, ("group", 64)), (big, 17, ("group", 1)),
+                          (big, 65, ("warp", 1)), (big, 20000, ("select", 1))):
+        with mock.patch.object(knn_kernel, "point_plan", lambda *a, plan=plan: plan):
+            with pytest.raises(RuntimeError, match="cudaError_t"):
+                knn_point_kernel(q, keys, k)
+    with mock.patch.object(knn_kernel, "ROUTES", knn_kernel.ROUTES + ("none",)), \
+            mock.patch.object(knn_kernel, "point_plan", lambda *a: ("none", 1)):
+        with pytest.raises(RuntimeError, match="cudaError_t"):
+            knn_point_kernel(q, q, 3)
+    torch.cuda.synchronize()  # no error left behind
+
+
+@pytest.mark.parametrize("c", [3, 7, 64])
+def test_knn_point_kernels_use_no_local_memory(dev, c):
+    # Every list capacity of the group route, both warp lists, the selection
+    # (one tile and tiled) and the full sort.
+    builds = [("group", 1024, k) for k in (3, 8, 16)] + [("warp", 1024, 20), ("warp", 1024, 40)]
+    builds += [("select", 1024, 128), ("select", 50000, 128), ("sort", 1024, 128), ("sort", 50000, 20000)]
+    for route, n, k in builds:
+        if route == "warp" and knn_kernel.warp_tile(n, c) < 32:
+            continue
+        info = point_kernel_info(route, n, c, k, lanes=4 if route == "group" else 1)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, (route, n, c, k, info)
 
 
 def test_three_nn_launches_the_knn_kernel(dev):
@@ -945,6 +1074,23 @@ EDGE_CASES = {
     "slice2_n4842": (1, 4842, 3, 12, 20, False),
     "slice1_n9685": (1, 9685, 3, 5, 20, False),
     "route_n9686": (1, 9686, 3, 5, 20, False),
+    # The forward's batches and index chunks: k = 1, 7 (a ragged batch) and
+    # 33 (two chunks of 32 indices; the graph through the general kNN), at
+    # Cv = 1, 24, 64, 128 (4 floats a lane) and 256 (two passes).
+    "k1_cv1": (2, 300, 3, 1, 1, False),
+    "k1_cv24": (2, 300, 16, 24, 1, False),
+    "k1_cv128": (2, 300, 3, 128, 1, False),
+    "k1_cv256": (2, 300, 3, 256, 1, False),
+    "k7_cv1": (2, 300, 3, 1, 7, False),
+    "k7_cv24": (2, 300, 16, 24, 7, False),
+    "k7_cv64": (2, 300, 3, 64, 7, False),
+    "k7_cv128": (2, 300, 3, 128, 7, False),
+    "k7_cv256": (2, 300, 3, 256, 7, False),
+    "k33_cv1": (2, 300, 3, 1, 33, False),
+    "k33_cv24": (2, 300, 16, 24, 33, False),
+    "k33_cv64": (2, 300, 3, 64, 33, False),
+    "k33_cv128": (2, 300, 3, 128, 33, False),
+    "k33_cv256": (1, 300, 3, 256, 33, False),
 }
 
 
@@ -1014,6 +1160,90 @@ def test_edge_reduce_bwd_with_nan_values_matches_ordered(dev, n):
     assert bool(torch.isnan(grad).any()) and bool(torch.isfinite(grad).any())
 
 
+def _fwd_in_slot_order(vals, idx):
+    """The forward's six outputs by its rules, slot by slot: max and min
+    keep a NaN, a tie count grows by one where a slot equals the running
+    max (min), is reset to 1 where a slot exceeds it, and holds where a NaN
+    arrives or the max is NaN; the sums in slot order."""
+    rows = torch.arange(vals.shape[0], device=vals.device)[:, None, None]
+    g = vals[rows, idx.long()]  # [B, N, k, Cv]
+    mx = mn = s = g[:, :, 0]
+    q = g[:, :, 0] * g[:, :, 0]
+    cx = cn = torch.ones_like(s)
+    for r in range(1, idx.shape[-1]):
+        x = g[:, :, r]
+        cx = torch.where(x > mx, 1.0, cx + (x == mx).float())
+        mx = torch.where((x > mx) | torch.isnan(x), x, mx)
+        cn = torch.where(x < mn, 1.0, cn + (x == mn).float())
+        mn = torch.where((x < mn) | torch.isnan(x), x, mn)
+        s = s + x
+        q = q + x * x
+    return mx, mn, s, q, cx, cn
+
+
+@pytest.mark.parametrize("k,cv", [(7, 24), (20, 64), (33, 128), (20, 256)])
+def test_edge_reduce_fwd_nan_and_ties_follow_the_slot_order(dev, k, cv):
+    # Values that tie (a coarse lattice, a zero channel) with NaN in some
+    # neighbours' rows: all six outputs, the NaN tie counts included, bit
+    # for bit the slot-order rules.
+    feats, vals = _edge_inputs(dev, 2, 300, 3, cv, True, seed=k + cv)
+    vals[0, 5, : cv // 2] = float("nan")
+    vals[1, 17::29, 1] = float("nan")
+    idx = knn_graph_kernel(feats, k)
+    got = edge_reduce_fwd_kernel(vals, idx)
+    want = _fwd_in_slot_order(vals, idx)
+    torch.cuda.synchronize()
+    for name, a, b in zip(REDUCTIONS, got, want):
+        assert same_bits(a, b), name
+    assert bool(torch.isnan(got[0]).any()) and float(got[4].max()) > 1
+
+
+FWD_PLAN_CASES = ("ec2", "ec4", "cv24_k8", "ties", "cv1", "cv65", "cv256", "n1_k1", "n33", "k7_cv24",
+                  "k33_cv128", "k1_cv256")
+
+
+@pytest.mark.parametrize("case", FWD_PLAN_CASES)
+def test_edge_reduce_fwd_at_both_lane_counts_matches_plain(dev, case):
+    # A half-warp and a warp a query, and rows off 16 bytes (one float a
+    # lane), on the same inputs: every output equal to the plain version.
+    b, n, cf, cv, k, lattice = EDGE_CASES[case]
+    feats, vals = _edge_inputs(dev, b, n, cf, cv, lattice, seed=n + cv)
+    idx = knn_graph_kernel(feats, k)
+    want = reduce_neighbors_plain(vals, idx)
+    unaligned = torch.cat([vals.new_zeros(1), vals.flatten()])[1:].view(b, n, cv)
+    for lanes in (16, 32):
+        with mock.patch.object(edge_kernel, "fwd_lanes", lambda cv, lanes=lanes: lanes):
+            for v in (vals, unaligned):
+                got = edge_reduce_fwd_kernel(v, idx)
+                torch.cuda.synchronize()
+                for name, a in zip(REDUCTIONS, got):
+                    assert torch.equal(a, want[name]), (lanes, name)
+
+
+def test_edge_reduce_fwd_on_a_large_cloud(dev):
+    # 58113 points (more than one channel of a 227 KB shared slice holds)
+    # on a random graph (its own kNN would take long here).
+    rng = np.random.RandomState(12)
+    n, k = 58113, 20
+    vals = torch.from_numpy(rng.randn(1, n, 5).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.randint(0, n, (1, n, k)).astype(np.int32)).to(dev)
+    got = edge_reduce_fwd_kernel(vals, idx)
+    want = reduce_neighbors_plain(vals, idx)
+    torch.cuda.synchronize()
+    for name, a in zip(REDUCTIONS, got):
+        assert torch.equal(a, want[name]), name
+
+
+def test_edge_reduce_fwd_refuses_lanes_it_cannot_run(dev):
+    vals = torch.zeros(1, 8, 4, device=dev)
+    idx = torch.zeros(1, 8, 3, dtype=torch.int32, device=dev)
+    for lanes in (8, 24, 64):
+        with mock.patch.object(edge_kernel, "fwd_lanes", lambda cv, lanes=lanes: lanes):
+            with pytest.raises(RuntimeError, match="cudaError_t"):
+                edge_reduce_fwd_kernel(vals, idx)
+    torch.cuda.synchronize()
+
+
 def test_edge_reduce_bwd_refuses_a_slice_it_cannot_run(dev):
     # Eight channels of 2048 queries need 384 KB of shared memory; a slice
     # of 3 channels is not a width the kernel has.
@@ -1030,14 +1260,17 @@ def test_edge_reduce_bwd_refuses_a_slice_it_cannot_run(dev):
 def test_edge_and_dupmask_kernels_use_no_local_memory(dev):
     # Every build of edge.cu (the staged backward at each slice width, at the
     # largest cloud it takes; its per-edge route and the forward at 1, 2 and
-    # 4 floats a lane) and the duplicate mask's.
+    # 4 floats a lane, the forward at 16 and 32 lanes a query) and the
+    # duplicate mask's.
     for width, n in ((8, 1024), (8, 1210), (4, 2048), (2, 4842), (1, 9685)):
         info = edge_kernel_info("bwd", width, n)
         assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, (width, n, info)
-    for kernel in ("bwd_edge", "fwd"):
-        for width in (1, 2, 4):
-            info = edge_kernel_info(kernel, width)
-            assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, (kernel, width, info)
+    for width in (1, 2, 4):
+        info = edge_kernel_info("bwd_edge", width)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, ("bwd_edge", width, info)
+        for lanes in (16, 32):  # the forward at a half-warp and a warp a query
+            info = edge_kernel_info("fwd", width, lanes=lanes)
+            assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, ("fwd", width, lanes, info)
     info = dupmask_kernel_info()
     assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 2, info  # two 1024-thread blocks an SM
 
