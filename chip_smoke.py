@@ -16,7 +16,11 @@ Phases (any failure raises and the exit code is not 0):
      and DGCNN's k = 40 graph at C = 64, the selection at k = 128 on 1024
      and 50000 keys, the full sort at k = 20000),
      of the FPS kernels at N = 512, 1024, 2048, 8192 and 40000
-     (``fps_kernel.kernel_info``, with their threads), of every build of
+     (``fps_kernel.kernel_info``, with their threads), of the fused graph
+     and gather (#15: the graph kernel built with its gather epilogue, at
+     C = 3 and 64; ``knn_kernel.graph_kernel_info(c, gather=True)``), of the
+     ball query (#8/#9, ``ballgroup_kernel.kernel_info``) on the plans of
+     the SSG step's SA1 and SA2 calls and phase 10c's, of every build of
      ``edge.cu`` (``edge_kernel.kernel_info``: the staged backward at slice
      widths 8, 4, 2 and 1 at the largest cloud each takes, its per-edge
      route and the forward at 1, 2 and 4 floats a lane, the forward at a
@@ -90,9 +94,11 @@ Phases (any failure raises and the exit code is not 0):
         timed, and its device time split into the counting sort and the sum
         (a profiler trace), beside the bytes the sum moves and the per-edge
         kernel's 32 Cv bytes an edge;
-     d. the T-Net's neighbour gather (graph kernel + gather kernel) against
-        its plain version, forward equal and backward (the scatter-add);
-        timed;
+     d. the T-Net's neighbour gather (#15: one kernel, the graph kernel
+        with its gather epilogue) against its plain version, forward equal
+        and backward (the scatter-add); timed by CUDA events (its traces
+        lost kernels) and device time, and SpiderCNN's call (B=32, C = Cv =
+        3) beside it;
      e. ``dgcnn`` inference in f32 and bf16 from ``get_model``, counting
         launches, against the plain path on the same card; the forward
         timed;
@@ -218,8 +224,10 @@ Phases (any failure raises and the exit code is not 0):
      ``knn_point_kernel.tiled_launches``,
      ``knn_point_kernel.fullsort_launches``,
      ``knn_graph_kernel.routed_launches``,
-     ``edge_reduce_bwd_kernel.routed_launches``; recorded beside the
-     launches in the kernels line):
+     ``edge_reduce_bwd_kernel.routed_launches``,
+     ``edge_gather_knn.routed_launches``; recorded beside the launches in
+     the kernels line, with ``edge_gather_knn.fused_launches``, its calls
+     through the one fused kernel):
      a. FPS at B=8, N=40000 -> 512 through ``ops`` (with and without
         coordinates: the kernel for clouds above 8192 points), and on a
         lattice cloud with ties and a NaN row; timed with its bound;
@@ -232,7 +240,8 @@ Phases (any failure raises and the exit code is not 0):
         shapes (B=32, N=1024, C=3 and 64, and duplicated points), and at
         k=100 (the sort); device time with its bound;
      d. ``dgcnn`` with k=40: inference in f32 and bf16 and one training
-        step (B=32), each against the plain path by the DGCNN gates;
+        step (B=32), each against the plain path by the DGCNN gates (the
+        T-Net's gather through the general kNN and the gather kernel);
      e. the EdgeConv backward at B=2, N=9686, Cv=64 (a cloud whose one
         channel does not fit the staged kernel: the per-edge route), equal
         to ``edge_reduce_bwd_ordered``; device time.
@@ -495,21 +504,36 @@ KNN_BUILDS = (("group", 512, 3, 3, 1), ("group", 128, 3, 3, 2), ("group", 1024, 
               ("select", 50000, 3, 128, 1), ("sort", 50000, 3, 20000, 1))
 
 
+# The ball query's plans at the main paths' calls (B, N, M): the SSG step's
+# SA1 and SA2, phase 10c's.
+BALL_CALLS = ((16, 1024, 512), (16, 512, 128), (32, 1024, 512))
+
+
 def check_graph_fps_kernels(smi: str) -> None:
     """Registers, local memory and blocks per SM of the self-kNN graph
     kernel at DGCNN's widths (C = 3 takes the run-time width) and a wider
-    run-time width, of #13's kernels on each route as the main paths'
-    plans build them (``KNN_BUILDS``), and of the FPS kernels at the main
-    paths' N and above 8192 points; no local memory allowed."""
+    run-time width, alone and with #15's gather epilogue, of #13's kernels
+    on each route as the main paths' plans build them (``KNN_BUILDS``), of
+    the ball query's on the plans of ``BALL_CALLS``, and of the FPS kernels
+    at the main paths' N and above 8192 points; no local memory allowed."""
+    from scanobjectnn_torch.ops.cuda import ballgroup_kernel
     from scanobjectnn_torch.ops.cuda.fps_kernel import kernel_info as fps_info
     from scanobjectnn_torch.ops.cuda.knn_kernel import graph_kernel_info, point_kernel_info
 
-    for c in (3, 64, 128):
-        info = graph_kernel_info(c)
-        print(f"kernel #11 knn_graph_tile_kernel C={c}: {info['registers']} registers a thread, {info['local_bytes']} "
+    for c, gather in ((3, False), (64, False), (128, False), (3, True), (64, True)):
+        info = graph_kernel_info(c, gather)
+        label = f"#15 knn_graph_tile_kernel<gather> C={c}" if gather else f"#11 knn_graph_tile_kernel C={c}"
+        print(f"kernel {label}: {info['registers']} registers a thread, {info['local_bytes']} "
               f"local bytes, {info['smem_bytes']} shared bytes a block, {info['blocks_per_sm']} blocks per SM ({smi})")
-        require(info["local_bytes"] == 0, f"the graph kernel at C={c} uses local memory: {info}")
-        require(info["blocks_per_sm"] >= 1, f"the graph kernel at C={c} fits no block on an SM: {info}")
+        require(info["local_bytes"] == 0, f"{label} uses local memory: {info}")
+        require(info["blocks_per_sm"] >= 1, f"{label} fits no block on an SM: {info}")
+    for b, n, m in BALL_CALLS:
+        plan = ballgroup_kernel.ball_plan(b, n, m)
+        info = ballgroup_kernel.kernel_info(*plan)
+        label = f"#8/#9 ballgroup_kernel B={b} N={n} M={m}, plan (queries, a warp, unroll, tile) {plan}"
+        print(f"kernel {label}: {info['registers']} registers a thread, {info['local_bytes']} local bytes, "
+              f"{info['smem_bytes']} shared bytes a block, {info['blocks_per_sm']} blocks per SM ({smi})")
+        require(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, f"{label}: {info}")
     for route, n, c, k, lanes in KNN_BUILDS:
         info = point_kernel_info(route, n, c, k, lanes)
         label = f"kernel #13 {route} route N={n} C={c} k={k}" + (f" {lanes} lanes a query" if route == "group" else "")
@@ -813,9 +837,12 @@ SUBCOUNTS = {"index_launches": "_indices", "chunked_launches": "_chunked", "sort
 # through the warp lists ("knn_point_kernel.warp_launches"), above k = 64
 # over merged tiles ("knn_point_kernel.tiled_launches") and through the full
 # sort ("knn_point_kernel.fullsort_launches"), the EdgeConv backward's
-# per-edge kernel ("edge_reduce_bwd_kernel.routed_launches"), by
-# "counter.attribute".
-ROUTES = ("large_launches", "routed_launches", "tiled_launches", "warp_launches", "fullsort_launches")
+# per-edge kernel ("edge_reduce_bwd_kernel.routed_launches"), the T-Net's
+# gather above k = 32 through the graph and the gather kernel
+# ("edge_gather_knn.routed_launches") and at k <= 32 through the one fused
+# kernel ("edge_gather_knn.fused_launches"), by "counter.attribute".
+ROUTES = ("large_launches", "routed_launches", "tiled_launches", "warp_launches", "fullsort_launches",
+          "fused_launches")
 LAUNCH_ROUTES: dict[str, int] = {}
 
 
@@ -1422,20 +1449,30 @@ def dgcnn_phase(smi: str, dev) -> dict:
     print(f"edge_gather_knn T-Net B={b} N={n} k={k} Cv={c2.shape[-1]}: rows and idx equal to the plain version; "
           f"backward max abs err {err:.3e} (bound {tol:.3e})")
     require(err <= tol, f"the edge_gather_knn backward differs from the plain version: {err} > {tol}")
-    record("edge_gather_knn", "T-Net", lambda: edge_gather_knn(points, c2, k),
-           lambda: edge_gather_knn_plain(points, c2, k))
-    graph_work(work["edge_gather_knn"], points, k)
-    work["edge_gather_knn"].add(0.0, 4 * b * n * c2.shape[-1] + 4 * b * n * k * c2.shape[-1])
+    # CUDA events: this call's device-time traces have lost kernels.
+    for label, f, v, in_forward in (("T-Net", points, c2, True), ("SpiderCNN's call C=Cv=3", points, points, False)):
+        gathered = edge_gather_knn(f, v, k)[0]
+        require(torch.equal(gathered, edge_gather_knn_plain(f, v, k)[0]), f"edge_gather_knn differs ({label})")
+        ms, plain_ms = cuda_ms(lambda: edge_gather_knn(f, v, k)), cuda_ms(lambda: edge_gather_knn_plain(f, v, k),
+                                                                           iters=3)
+        call = Work()
+        for w in (call, work["edge_gather_knn"]) if in_forward else (call,):
+            graph_work(w, f, k)
+            w.add(0.0, 4 * b * n * v.shape[-1] * (1 + k))  # vals read once, the rows written
+        print(f"time edge_gather_knn {label} B={b} N={n} k={k} Cv={v.shape[-1]}: kernel {ms:.4f} ms by CUDA events "
+              f"(device {device_ms(lambda: edge_gather_knn(f, v, k)):.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{call.record()['bound_ms']:.4f} ms ({call.record()['bound_by']}) ({smi})")
+        if in_forward:
+            out["edge_gather_knn"]["ms"] += ms
+            out["edge_gather_knn"]["plain_ms"] += plain_ms
     for name in names:
         out[name].update(work[name].record())
 
     # 6e. dgcnn inference from get_model, f32 and bf16.
-    check_inference(models, x, (knn_graph_kernel, edge_reduce_fwd_kernel, edge_gather_knn, gather_rows), smi,
-                    "dgcnn")
+    check_inference(models, x, (knn_graph_kernel, edge_reduce_fwd_kernel, edge_gather_knn), smi, "dgcnn")
 
     # 6f. dgcnn training, f32: a few steps, one against the plain path, a step timed.
-    counters = (knn_graph_kernel, edge_reduce_fwd_kernel, edge_reduce_bwd_kernel, edge_gather_knn, gather_rows,
-                scatter_add_rows)
+    counters = (knn_graph_kernel, edge_reduce_fwd_kernel, edge_reduce_bwd_kernel, edge_gather_knn, scatter_add_rows)
     trainer = Trainer(TrainerConfig(model="dgcnn", batch_size=b, device=str(dev)))
     state = trainer.init_state(seed=0)
 
@@ -1451,7 +1488,7 @@ def dgcnn_phase(smi: str, dev) -> dict:
 
     # 6g. dgcnn_bga: inference (f32, bf16) and a training step, against the plain path.
     check_inference(eval_models("dgcnn_bga", np.random.RandomState(10)), x,
-                    (knn_graph_kernel, edge_reduce_fwd_kernel, edge_gather_knn, gather_rows), smi, "dgcnn_bga")
+                    (knn_graph_kernel, edge_reduce_fwd_kernel, edge_gather_knn), smi, "dgcnn_bga")
     trainer = Trainer(TrainerConfig(model="dgcnn_bga", batch_size=b, device=str(dev)))
     state = trainer.init_state(seed=0)
     losses, counts = counted_run(counters, lambda: [float(trainer.train_step(state, batches[0])[1]["loss"])])
@@ -1621,7 +1658,7 @@ def spider_phase(smi: str, dev) -> dict:
           f"(495 TFLOP/s; a 3xTF32 route)")
 
     # 7c. Inference from get_model, f32 and bf16.
-    inference = (knn_graph_kernel, edge_gather_knn, gather_rows, spider_conv_fwd_kernel)
+    inference = (edge_gather_knn, spider_conv_fwd_kernel)
     check_inference(models, x, inference, smi, "spidercnn", bf16_share=1.0)
     del models
     torch.cuda.empty_cache()
@@ -2717,7 +2754,9 @@ def range_phase(smi: str, dev) -> dict:
             "knn_point": {"warp_launches": LAUNCH_ROUTES["knn_point_kernel.warp_launches"]},
             "knn_point_sorted": {"tiled_launches": LAUNCH_ROUTES["knn_point_kernel.tiled_launches"],
                                  "fullsort_launches": LAUNCH_ROUTES["knn_point_kernel.fullsort_launches"]},
-            "edge_reduce_bwd": {"routed_launches": LAUNCH_ROUTES["edge_reduce_bwd_kernel.routed_launches"]}}
+            "edge_reduce_bwd": {"routed_launches": LAUNCH_ROUTES["edge_reduce_bwd_kernel.routed_launches"]},
+            "edge_gather_knn": {"fused_launches": LAUNCH_ROUTES["edge_gather_knn.fused_launches"],
+                                "routed_launches": LAUNCH_ROUTES["edge_gather_knn.routed_launches"]}}
 
 
 def main() -> None:
@@ -2922,8 +2961,7 @@ def main() -> None:
         "knn_graph": (csrc + "knn.cu", pallas + "knn_kernel.py:81", "knn_graph_kernel"),
         "edge_reduce": (csrc + "edge.cu", pallas + "edge_kernel.py:210", "edge_reduce_fwd_kernel"),
         "edge_reduce_bwd": (csrc + "edge.cu", pallas + "edge_kernel.py:280", "edge_reduce_bwd_kernel"),
-        "edge_gather_knn": ("scanobjectnn_torch/ops/cuda/edge_kernel.py", pallas + "edge_kernel.py:469",
-                            "edge_gather_knn"),
+        "edge_gather_knn": (csrc + "knn.cu", pallas + "edge_kernel.py:469", "edge_gather_knn"),
         "spider_conv": (csrc + "spider.cu", pallas + "spider_kernel.py:256", "spider_conv_fwd_kernel"),
         "spider_conv_bwd": (csrc + "spider.cu", pallas + "spider_kernel.py:281", "spider_conv_bwd_kernel"),
         "duplicate_mask": (csrc + "dupmask.cu", pallas + "knn_kernel.py:131", "duplicate_mask_kernel"),
@@ -2953,9 +2991,9 @@ def main() -> None:
           "(K=32, 128; CUDA events); fps_indices, ball group, gather and scatter-add over "
           "one f32 SSG training step's calls at B=16 (FPS both layers, ball group SA1+SA2, gather and scatter-add "
           "SA2; device time, torch.profiler); knn_point over one f32 BGA forward's calls at B=32 (fp1+fp2+fp3; "
-          "device time); knn_graph, edge_reduce, edge_reduce_bwd and edge_gather_knn over one f32 dgcnn "
-          "forward's (and its backward's) calls at B=32 (5 graphs, EdgeConv 1-4, the T-Net gather; device "
-          "time); spider_conv and spider_conv_bwd over one f32 spidercnn_cls_xyz forward's (and its "
+          "device time); knn_graph, edge_reduce and edge_reduce_bwd over one f32 dgcnn "
+          "forward's (and its backward's) calls at B=32 (5 graphs, EdgeConv 1-4; device time), edge_gather_knn "
+          "over its T-Net call there (the fused graph and gather; CUDA events); spider_conv and spider_conv_bwd over one f32 spidercnn_cls_xyz forward's (and its "
           "backward's) calls at B=32 (conv1-4; CUDA events); duplicate_mask over one f32 pointcnn_seg forward's "
           "calls at B=32 (xconv_1-4, xdconv_4, xdconv_5; CUDA events); knn_point_sorted (the kNN at k > 64) "
           "over the two f32 SAModule(knn, nsample=128) calls of phase 11 at B=32 (CUDA events); "
@@ -2965,11 +3003,12 @@ def main() -> None:
           "gather, index_add_ "
           "for the scatter-add (device time), torch.matmul of the materialised outer product for spider_conv "
           "(CUDA events); "
-          "launches: every main path's run together; fps, knn_graph, knn_point, knn_point_sorted and "
-          "edge_reduce_bwd also "
+          "launches: every main path's run together; fps, knn_graph, knn_point, knn_point_sorted, "
+          "edge_reduce_bwd and edge_gather_knn also "
           "carry the launches of their routes added in phase 13's ranges (large_launches: FPS above 8192 points; "
           "routed_launches: the graph above k = 32 through the general kNN kernel, the EdgeConv backward above "
-          "9685 points through its per-edge kernel; "
+          "9685 points through its per-edge kernel, edge_gather_knn above k = 32 through the graph and the gather "
+          "kernel; fused_launches: edge_gather_knn at k <= 32 through the one fused kernel; "
           "tiled_launches: the selection or sort over more than 16384 keys; fullsort_launches: the full sort, where "
           "the selected words do not fit a block; warp_launches: the kNN at 16 < k <= 64 through the warp lists)")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")

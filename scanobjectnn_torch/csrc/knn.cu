@@ -90,6 +90,21 @@
 // take two f32 instructions a channel, so the issue bound is 2C + 4
 // instructions a pair at 33.5 T instructions/s (10 us at C=3 and 132 us at
 // C=64 for that graph), not the FMA rate.
+//
+// The fused graph and gather (edge_gather_knn at k <= 32, replacing
+// scanobjectnn_tpu/ops/pallas/edge_kernel.py: edge_gather_knn, body
+// _knn_gather_kernel): the same graph kernels, built with an epilogue
+// (GATHER), which, once a warp's lists are final, copies each query's k
+// neighbour rows of a second tensor vals [b, n, Cv] (f32 or bf16, any Cv)
+// into out [b, n, k, Cv], its indices taken from the list by shuffle, as
+// well as writing idx.  The rows are copied as words of 8, 4 or 2 bytes (the
+// widest that divides a row and both pointers' alignment): a row of at
+// least 32 words a step, 32 words a lane at a time (Cv = 64 in f32: a float2
+// a lane); a shorter row's words as one contiguous run of the query's k
+// rows, a word a lane (Cv = 3 in f32: the k * 3 floats in order).  vals
+// (8 MB at DGCNN's T-Net) stays in L2, and the 168 MB of rows are written
+// without a second launch that rereads idx.  A null vals builds and launches
+// the graph alone, so #11's own calls keep their code.
 
 #include <cuda_runtime.h>
 
@@ -475,13 +490,86 @@ __device__ __forceinline__ void write_lists(int32_t* __restrict__ idx, int b, in
   }
 }
 
+// Stores of the fused gather's rows: streaming (__stcs), unless a build
+// defines KNN_GATHER_STREAM to 0 (plain stores, which studies/ball_edge.py
+// times beside them).  The rows (168 MB at the T-Net) pass through L2 once
+// either way; streamed, the T-Net's call took 0.2359 ms against 0.2578 by
+// CUDA events on an H100.
+#ifndef KNN_GATHER_STREAM
+#define KNN_GATHER_STREAM 1
+#endif
+template <typename T>
+__device__ __forceinline__ void store_word(T* p, T v) {
+  if constexpr (KNN_GATHER_STREAM) {
+    __stcs(p, v);
+  } else {
+    *p = v;
+  }
+}
+
+// The fused gather's epilogue: for each of the warp's queries, the rows of
+// vals [n, units] (the cloud's, in words of type T) at the k indices of its
+// list (lane s holding slot s's) into out [n, k, units], an exact copy.
+template <typename T>
+__device__ __forceinline__ void gather_lists(const T* __restrict__ vals, T* __restrict__ out, int b, int n, int q0,
+                                             int qrows, int k, int units, const int (&li)[kGraphRows]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const T* cloud = vals + static_cast<size_t>(b) * n * units;
+#pragma unroll
+  for (int t = 0; t < kGraphRows; ++t) {
+    const int r = warp * kGraphRows + t;
+    if (r >= qrows) break;  // warp-uniform
+    T* dst = out + (static_cast<size_t>(b) * n + q0 + r) * k * units;
+    if (units >= 32) {  // a row a step
+#pragma unroll 4
+      for (int s = 0; s < k; ++s) {
+        const T* src = cloud + static_cast<size_t>(__shfl_sync(kFull, li[t], s)) * units;
+        for (int u = lane; u < units; u += 32) store_word(dst + s * units + u, src[u]);
+      }
+    } else {  // the k rows' words in order, a word a lane
+      const int total = k * units;
+      for (int e0 = 0; e0 < total; e0 += 32) {
+        const int e = e0 + lane;
+        const int s = min(e / units, k - 1);
+        const int p = __shfl_sync(kFull, li[t], s);
+        if (e < total) store_word(dst + e, cloud[static_cast<size_t>(p) * units + (e - s * units)]);
+      }
+    }
+  }
+}
+
+// The fused gather's arguments: vals [b, n, row bytes] and out [b, n, k, row
+// bytes], copied in words of `word` bytes (8, 4 or 2), `units` words a row.
+struct GatherArgs {
+  const void* vals;
+  void* out;
+  int units, word;
+};
+
+template <bool GATHER>
+__device__ __forceinline__ void gather_epilogue(const GatherArgs& g, int b, int n, int q0, int qrows, int k,
+                                                const int (&li)[kGraphRows]) {
+  if constexpr (GATHER) {
+    if (g.word == 8) {
+      gather_lists(static_cast<const uint2*>(g.vals), static_cast<uint2*>(g.out), b, n, q0, qrows, k, g.units, li);
+    } else if (g.word == 4) {
+      gather_lists(static_cast<const unsigned*>(g.vals), static_cast<unsigned*>(g.out), b, n, q0, qrows, k, g.units,
+                   li);
+    } else {
+      gather_lists(static_cast<const unsigned short*>(g.vals), static_cast<unsigned short*>(g.out), b, n, q0, qrows,
+                   k, g.units, li);
+    }
+  }
+}
+
 // Self-kNN over a cloud [n, c] with its norms [n] (graph_norms_kernel):
-// writes the indices.  k <= 32; any width (in slices of kGraphSlice
-// channels above it).  A thread's pairs are queries 4tq.. x keys 4tk.. of
+// writes the indices (GATHER: and the rows, gather_epilogue).  k <= 32; any
+// width (in slices of kGraphSlice channels above it).  A thread's pairs are queries 4tq.. x keys 4tk.. of
 // the tile, and a warp's queries are the rows it selects from.
+template <bool GATHER>
 __global__ void __launch_bounds__(kGraphThreads, kGraphMinBlocks)
     knn_graph_tile_kernel(const float* __restrict__ feats, const float* __restrict__ norms, int n, int c, int k,
-                          int32_t* __restrict__ idx) {
+                          int32_t* __restrict__ idx, GatherArgs gather) {
   extern __shared__ __align__(16) float smem[];
   const int slice = min(c, kGraphSlice);
   float* sq = smem;                       // [slice][kGraphQT]
@@ -545,6 +633,7 @@ __global__ void __launch_bounds__(kGraphThreads, kGraphMinBlocks)
     select_tile(sd, base, count, qrows, k, ld, li);
   }
   write_lists(idx, b, n, q0, qrows, k, li);
+  gather_epilogue<GATHER>(gather, b, n, q0, qrows, k, li);
 }
 
 // A key tile of a cloud [n, 64] for knn_graph_tile64_kernel: keys [base,
@@ -575,9 +664,10 @@ constexpr size_t graph64_smem_bytes() {
 // expand and select; a thread's keys are tk, tk + 16, tk + 32 and tk + 48
 // of the tile, read four channels at a time from rows kGraph64Stride floats
 // apart (no bank conflicts), and the same chains in the same order.
+template <bool GATHER>
 __global__ void __launch_bounds__(kGraphThreads, kGraphMinBlocks)
     knn_graph_tile64_kernel(const float* __restrict__ feats, const float* __restrict__ norms, int n, int k,
-                            int32_t* __restrict__ idx) {
+                            int32_t* __restrict__ idx, GatherArgs gather) {
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                             // [64][kGraphQT] channel-major
   float* sk = sq + 64 * kGraphQT;               // [kGraphKT][kGraph64Stride] row-major
@@ -644,6 +734,7 @@ __global__ void __launch_bounds__(kGraphThreads, kGraphMinBlocks)
     __syncthreads();  // the next key tile is in
   }
   write_lists(idx, b, n, q0, qrows, k, li);
+  gather_epilogue<GATHER>(gather, b, n, q0, qrows, k, li);
 }
 
 // k nearest keys of one query (blockIdx.x of cloud blockIdx.y) for any k:
@@ -1419,36 +1510,56 @@ cudaError_t launch_point(const float* q, const float* kp, const float* bp, int b
 bool graph_c64(const void* feats, int c) { return c == 64 && reinterpret_cast<uintptr_t>(feats) % 16 == 0; }
 
 // |x|^2 of every point into norms [b, n], then the tiled graph kernel
-// (knn_graph_tile64_kernel at C = 64 when the cloud is 16-byte aligned).
-cudaError_t launch_graph(const float* feats, float* norms, int b, int n, int c, int k, int32_t* idx,
-                         cudaStream_t s) {
-  const long long total = static_cast<long long>(b) * n;
+// (knn_graph_tile64_kernel at C = 64 when the cloud is 16-byte aligned),
+// built with the fused gather where gather.vals is not null.
+template <bool GATHER>
+cudaError_t launch_graph_tiles(const float* feats, const float* norms, int b, int n, int c, int k, int32_t* idx,
+                               const GatherArgs& gather, cudaStream_t s) {
   const bool c64 = graph_c64(feats, c);
-  if (c64) {
-    graph_norms_kernel<64><<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(feats, total, c, norms);
-  } else {
-    graph_norms_kernel<0><<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(feats, total, c, norms);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
   const size_t smem = c64 ? graph64_smem_bytes() : graph_smem_bytes(c < kGraphSlice ? c : kGraphSlice);
   const dim3 grid((n + kGraphQT - 1) / kGraphQT, b);
+  cudaError_t err = cudaSuccess;
   if (c64) {
-    err = cudaFuncSetAttribute(knn_graph_tile64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(knn_graph_tile64_kernel<GATHER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    knn_graph_tile64_kernel<<<grid, kGraphThreads, smem, s>>>(feats, norms, n, k, idx);
+    knn_graph_tile64_kernel<GATHER><<<grid, kGraphThreads, smem, s>>>(feats, norms, n, k, idx, gather);
   } else {
     if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(knn_graph_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      err = cudaFuncSetAttribute(knn_graph_tile_kernel<GATHER>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(smem));
       if (err != cudaSuccess) return err;
     }
-    knn_graph_tile_kernel<<<grid, kGraphThreads, smem, s>>>(feats, norms, n, c, k, idx);
+    knn_graph_tile_kernel<GATHER><<<grid, kGraphThreads, smem, s>>>(feats, norms, n, c, k, idx, gather);
   }
   return cudaGetLastError();
 }
 
+cudaError_t launch_graph(const float* feats, float* norms, int b, int n, int c, int k, int32_t* idx,
+                         const GatherArgs& gather, cudaStream_t s) {
+  const long long total = static_cast<long long>(b) * n;
+  if (graph_c64(feats, c)) {
+    graph_norms_kernel<64><<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(feats, total, c, norms);
+  } else {
+    graph_norms_kernel<0><<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(feats, total, c, norms);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return gather.vals != nullptr ? launch_graph_tiles<true>(feats, norms, b, n, c, k, idx, gather, s)
+                                : launch_graph_tiles<false>(feats, norms, b, n, c, k, idx, gather, s);
+}
+
+// The widest word (8, 4 or 2 bytes, at least `esize`) that divides a row of
+// `row` bytes and both pointers' alignment.
+int gather_word(const void* vals, const void* out, int row, int esize) {
+  for (int word = 8; word > esize; word >>= 1) {
+    if (row % word == 0 && reinterpret_cast<uintptr_t>(vals) % word == 0 &&
+        reinterpret_cast<uintptr_t>(out) % word == 0) {
+      return word;
+    }
+  }
+  return esize;
+}
 
 }  // namespace
 
@@ -1475,21 +1586,33 @@ extern "C" int knn_launch(const void* queries, const void* keys, const void* bia
 // feats [b, n, c] f32, contiguous -> idx [b, n, k] int32: each point's k
 // nearest points, itself included, ascending.  Up to kGraphMaxK: the tiled
 // graph kernel, dist [b, n] f32 scratch (the points' |x|^2), route and group
-// unused.  Above it: knn_launch with the cloud as its queries on the plan
-// (route, group), dist [b, n, k] f32 scratch, and scratch as knn_launch's.
+// unused; with vals [b, n, cv] (esize bytes an element: 4, f32, or 2,
+// bf16), the same kernel with the fused gather, out [b, n, k, cv] the rows
+// of vals at idx.  Above it: knn_launch with the cloud as its queries on the
+// plan (route, group), dist [b, n, k] f32 scratch, and scratch as
+// knn_launch's; vals must then be null (the gather is launched apart).
 extern "C" int knn_graph_launch(const void* feats, int b, int n, int c, int k, int route, int group, void* idx,
-                                void* dist, void* scratch, void* stream) {
+                                void* dist, void* scratch, const void* vals, void* out, int cv, int esize,
+                                void* stream) {
   if (b < 1 || b > 65535 || n < 1 || c < 1 || c + 1 > kSmemFloats || k < 1 || dist == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  if (vals != nullptr && (out == nullptr || k > kGraphMaxK || cv < 1 || (esize != 2 && esize != 4))) {
     return cudaErrorInvalidValue;
   }
   if (k > kGraphMaxK) {
     return knn_launch(feats, feats, nullptr, b, n, n, c, k, route, group, dist, idx, scratch, stream);
   }
+  GatherArgs gather{nullptr, nullptr, 0, 0};
+  if (vals != nullptr) {
+    const int word = gather_word(vals, out, cv * esize, esize);
+    gather = GatherArgs{vals, out, cv * esize / word, word};
+  }
   auto* f = static_cast<const float*>(feats);
   auto* norms = static_cast<float*>(dist);
   auto* i = static_cast<int32_t*>(idx);
   auto s = static_cast<cudaStream_t>(stream);
-  return launch_graph(f, norms, b, n, c, k, i, s);
+  return launch_graph(f, norms, b, n, c, k, i, gather, s);
 }
 
 // The kernel knn_launch runs on the plan (route, group) at (n, c, k), as
@@ -1542,13 +1665,16 @@ extern "C" int knn_point_info(int route, int group, int n, int c, int k, int* in
 }
 
 // The tiled graph kernel as knn_graph_launch takes it at width c (a 16-byte
-// aligned cloud): info = {registers, local bytes a thread, dynamic shared
-// bytes a block, resident blocks per SM}.
-extern "C" int knn_graph_info(int c, int* info) {
+// aligned cloud), gather 0 the graph alone, else built with the fused
+// gather: info = {registers, local bytes a thread, dynamic shared bytes a
+// block, resident blocks per SM}.
+extern "C" int knn_graph_info(int c, int gather, int* info) {
   if (c < 1 || c + 1 > kSmemFloats) return cudaErrorInvalidValue;
+  const size_t smem = graph_smem_bytes(c < kGraphSlice ? c : kGraphSlice);
   if (graph_c64(reinterpret_cast<const void*>(16), c)) {
-    return kernel_info(knn_graph_tile64_kernel, graph64_smem_bytes(), kGraphThreads, info);
+    return gather ? kernel_info(knn_graph_tile64_kernel<true>, graph64_smem_bytes(), kGraphThreads, info)
+                  : kernel_info(knn_graph_tile64_kernel<false>, graph64_smem_bytes(), kGraphThreads, info);
   }
-  return kernel_info(knn_graph_tile_kernel, graph_smem_bytes(c < kGraphSlice ? c : kGraphSlice), kGraphThreads,
-                     info);
+  return gather ? kernel_info(knn_graph_tile_kernel<true>, smem, kGraphThreads, info)
+                : kernel_info(knn_graph_tile_kernel<false>, smem, kGraphThreads, info);
 }

@@ -58,10 +58,14 @@ _SIGNATURES = {
     "safused_info": (_I, _I, _I, _I, _P, _P),
     # bf16, k, cs, n, w, n_layers, widths*, info* (int[4])
     "sabucket_info": (_I, _I, _I, _I, _I, _I, _P, _P),
-    # xyz, new_xyz, b, n, m, k, r2, grouped, idx, cnt, stream
-    "ballgroup_launch": (_P, _P, _I, _I, _I, _I, _F, _P, _P, _P, _P),
-    # xyz, new_xyz, b, n, m, k, r2, idx, cnt, stream
-    "ballquery_launch": (_P, _P, _I, _I, _I, _I, _F, _P, _P, _P),
+    # xyz, new_xyz, b, n, m, k, r2, queries, per_warp, unroll, tile, grouped,
+    # idx, cnt, stream
+    "ballgroup_launch": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P, _P, _P),
+    # xyz, new_xyz, b, n, m, k, r2, queries, per_warp, unroll, tile, idx, cnt,
+    # stream
+    "ballquery_launch": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P, _P),
+    # queries, per_warp, unroll, tile, info* (int[4])
+    "ballgroup_info": (_I, _I, _I, _I, _P),
     # vals, idx, b, n, r, c, out, stream
     "gather_launch": (_P, _P, _I, _I, _I, _I, _P, _P),
     # n, r -> tiles of the counting sort (its scratch: b * tiles * n int32)
@@ -74,10 +78,11 @@ _SIGNATURES = {
     # scratch (nullable), stream
     "knn_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
     # feats, b, n, c, k, route, group, idx, dist (k <= 32: the norms),
-    # scratch (nullable), stream
-    "knn_graph_launch": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
-    # c, info* (int[4])
-    "knn_graph_info": (_I, _P),
+    # scratch (nullable), vals (nullable: the graph alone), out, cv, element
+    # bytes of vals, stream
+    "knn_graph_launch": (_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    # c, gather (0: the graph alone; else the element bytes of vals), info* (int[4])
+    "knn_graph_info": (_I, _I, _P),
     # route, group, n, c, k, info* (int[4])
     "knn_point_info": (_I, _I, _I, _I, _I, _P),
     # n, info* (int[5])

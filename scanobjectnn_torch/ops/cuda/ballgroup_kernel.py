@@ -21,23 +21,82 @@ Outputs: ``grouped_xyz [B, M, K, 3]`` f32 (``query_ball_group`` only),
 ``idx [B, M, K]`` int32 and ``cnt [B, M]`` int32.  None carries a gradient: in the SA stack the
 coordinates are data leaves.
 
-What bounds it on the H100: the scan of N points per query.  One warp
-scans a query's candidates 32 at a time in point order (a ballot keeps the
-order) and stops after K hits; the selection is the same device function
-as the fused SA layer's (``csrc/ballscan.cuh``).  The TPU kernel's rank
-cumsum matmuls and bf16 splits are not carried over: the coordinates are
-loads.  K may be up to 1024 (MSG uses 128).
+What bounds it on the H100: the scan of the points each query reaches
+(about nine f32 operations a point).  A block takes ``queries`` queries of
+one cloud, ``per_warp`` (1 or 2) a warp of 32 lanes, and stages the cloud's
+coordinates once in shared memory as float4, ``tile`` points at a time in
+point order, padded with +inf points (never hits) to whole steps; each step
+a lane loads ``unroll`` points and tests each against its warp's queries
+before the warp consumes the ballots in point order, and a hit below the
+K-th writes its index (and coordinates) straight to its place in the output
+row.  A query stops after K hits, a block once all its queries have.  The
+plan is ``ball_plan``'s, a plain function held to the C source's constants
+by ``tests/test_torch_ball_plan.py``; the C entry points refuse a plan they
+cannot run, and ``kernel_info`` reads a build's registers and local memory.
+The hit rule is one device function, ``ball_hit`` in ``csrc/ballscan.cuh``,
+which the fused SA layer's scan calls too.  The TPU kernel's rank cumsum
+matmuls and bf16 splits are not carried over: the coordinates are loads.
+K may be up to 1024 (MSG uses 128).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from scanobjectnn_torch.ops.cuda import _build
 
-__all__ = ["ball_query_plain", "query_ball_group", "query_ball_group_plain", "query_ball_point"]
+__all__ = [
+    "ball_plan",
+    "ball_query_plain",
+    "kernel_info",
+    "query_ball_group",
+    "query_ball_group_plain",
+    "query_ball_point",
+    "smem_bytes",
+]
 
 MAX_NSAMPLE = 1024  # kMaxK in csrc/ballgroup.cu
+MAX_TILE = 3072  # kMaxTile: points a block stages at once (16 bytes each)
+MAX_WARPS = 8  # kMaxWarps: warps a block
+PER_WARP = (1, 2)  # queries a warp the kernel takes
+UNROLLS = (4, 8)  # points a lane loads a step, which the kernel is built for
+PLAN_UNROLL = {1: 8, 2: 4}  # the plan's points a lane a step, by queries a warp
+PAIR_MIN_QUERIES = 8192  # B·M from which the plan gives a warp two queries
+
+
+def ball_plan(b: int, n: int, m: int) -> tuple[int, int, int, int]:
+    """The launch of a ball query over B clouds of ``n`` points with ``m``
+    queries each: (queries a block, queries a warp, unroll, tile).  Two
+    queries a warp (a loaded point tested against both) where B·M is at
+    least ``PAIR_MIN_QUERIES``, so that half as many warps still fill an
+    H100; else one.  Blocks of up to ``MAX_WARPS`` warps (fewer where M
+    needs fewer); ``PLAN_UNROLL`` points a lane a step (4 at two queries a
+    warp, where 8 needs more registers than four blocks an SM leave); the
+    whole cloud staged where it fits ``MAX_TILE`` points.  Each choice was
+    the fastest on an H100 at the main paths' calls
+    (``studies/ball_edge.py``)."""
+    per_warp = 2 if b * m >= PAIR_MIN_QUERIES else 1
+    warps = min(MAX_WARPS, -(-m // per_warp))
+    return warps * per_warp, per_warp, PLAN_UNROLL[per_warp], min(n, MAX_TILE)
+
+
+def smem_bytes(tile: int, unroll: int) -> int:
+    """Shared bytes of a block staging ``tile`` points (x, y, z, 0 in f32),
+    padded to whole steps of 32 x ``unroll`` points, whatever K."""
+    step = 32 * unroll
+    return 16 * (-(-tile // step) * step)
+
+
+def kernel_info(queries: int, per_warp: int, unroll: int, tile: int) -> dict:
+    """Registers, local bytes a thread, dynamic shared bytes a block and
+    resident blocks per SM of the kernel a launch on this plan builds (on
+    the card)."""
+    info = (ctypes.c_int * 4)()
+    err = _build.library().ballgroup_info(queries, per_warp, unroll, tile, ctypes.addressof(info))
+    _build.check(err, "ballgroup kernel_info")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), info))
 
 
 def ball_query_plain(
@@ -92,7 +151,8 @@ def query_ball_group(
     int32).
 
     A CPU tensor takes ``query_ball_group_plain``; a CUDA tensor launches
-    the kernel (counted in ``query_ball_group.launches``) or raises."""
+    the kernel on ``ball_plan``'s plan (counted in
+    ``query_ball_group.launches``) or raises."""
     if xyz.device.type == "cpu":
         return query_ball_group_plain(radius, nsample, xyz, new_xyz)
     if xyz.device.type != "cuda":
@@ -103,10 +163,11 @@ def query_ball_group(
     grouped = torch.empty(b, m, nsample, 3, dtype=torch.float32, device=xyz.device)
     idx = torch.empty(b, m, nsample, dtype=torch.int32, device=xyz.device)
     cnt = torch.empty(b, m, dtype=torch.int32, device=xyz.device)
+    plan = ball_plan(b, n, m)
     lib = _build.library()
     with torch.cuda.device(xyz.device):
         err = lib.ballgroup_launch(
-            xyz.data_ptr(), new_xyz.data_ptr(), b, n, m, nsample, radius * radius,
+            xyz.data_ptr(), new_xyz.data_ptr(), b, n, m, nsample, radius * radius, *plan,
             grouped.data_ptr(), idx.data_ptr(), cnt.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -125,7 +186,8 @@ def query_ball_point(
     K] int32, cnt [B, M] int32).
 
     A CPU tensor takes ``ball_query_plain``; a CUDA tensor launches the
-    kernel (counted in ``query_ball_point.launches``) or raises."""
+    kernel on ``ball_plan``'s plan (counted in ``query_ball_point.launches``)
+    or raises."""
     if xyz.device.type == "cpu":
         idx, cnt = ball_query_plain(radius, nsample, xyz, new_xyz)
         return idx.to(torch.int32), cnt.to(torch.int32)
@@ -136,10 +198,11 @@ def query_ball_point(
     m = new_xyz.shape[1]
     idx = torch.empty(b, m, nsample, dtype=torch.int32, device=xyz.device)
     cnt = torch.empty(b, m, dtype=torch.int32, device=xyz.device)
+    plan = ball_plan(b, n, m)
     lib = _build.library()
     with torch.cuda.device(xyz.device):
         err = lib.ballquery_launch(
-            xyz.data_ptr(), new_xyz.data_ptr(), b, n, m, nsample, radius * radius,
+            xyz.data_ptr(), new_xyz.data_ptr(), b, n, m, nsample, radius * radius, *plan,
             idx.data_ptr(), cnt.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "query_ball_point")

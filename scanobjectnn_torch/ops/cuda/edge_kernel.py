@@ -42,10 +42,14 @@ formed once a query), then walks each point's edges; a cloud of more than
 (counted in ``edge_reduce_bwd_kernel.routed_launches``).
 ``edge_reduce_bwd_ordered`` is the backward in the kernel's order, bit for
 bit; ``kernel_info`` reads each build's registers and local memory.
-``edge_gather_knn`` is the graph kernel followed by
-``gather_neighbors`` (the gather kernel #6; backward the scatter-add #7):
-the TPU fused the kNN and the gather only because its one-hot MXU gather
-cost nothing beside the argmin rounds.
+``edge_gather_knn`` at k <= ``FUSED_MAX_K`` (32) is one kernel: the graph
+kernel of ``csrc/knn.cu`` built with an epilogue that, once a warp's lists
+are final, copies each point's k neighbour rows of ``vals`` (f32 or bf16,
+an exact copy) to the output as well as writing ``idx``
+(``knn_kernel.graph_kernel_info(c, gather=True)`` reads its build); its
+backward is the scatter-add #7 over ``idx``.  Above it, the graph goes
+through the general kNN and the rows through ``gather_neighbors`` (the
+gather kernel #6), counted in ``edge_gather_knn.routed_launches``.
 
 What bounds them on the H100: bytes.  The forward reduce reads the values
 once and writes six [B, N, Cv] outputs (120 MB at B=32, N=1024, Cv=128);
@@ -61,10 +65,18 @@ import ctypes
 import torch
 
 from scanobjectnn_torch.ops.cuda import _build
-from scanobjectnn_torch.ops.cuda.gather_kernel import _check_cuda, gather_neighbors, gather_rows_plain, sort_buffers
-from scanobjectnn_torch.ops.cuda.knn_kernel import knn_graph_kernel, knn_graph_plain
+from scanobjectnn_torch.ops.cuda.gather_kernel import (
+    _check_cuda,
+    gather_neighbors,
+    gather_rows_plain,
+    scatter_add_rows,
+    sort_buffers,
+)
+from scanobjectnn_torch.ops.cuda.knn_kernel import GRAPH_MAX_K, knn_graph_kernel, knn_graph_plain
 
 __all__ = [
+    "FUSED_DTYPES",
+    "FUSED_MAX_K",
     "REDUCTIONS",
     "bwd_slice_width",
     "edge_gather_knn",
@@ -84,6 +96,8 @@ BWD_SMEM_BYTES = 232_448  # the most shared memory a block may use on an H100 (2
 BWD_STAGED_BYTES = 24  # the backward's staged bytes a (query, channel)
 BWD_MAX_SLICE = 8  # channels a block of the backward takes, at most
 FWD_LANES = (16, 32)  # lanes a query of the forward may take
+FUSED_MAX_K = GRAPH_MAX_K  # kGraphMaxK in csrc/knn.cu: the largest k of the fused graph and gather
+FUSED_DTYPES = (torch.float32, torch.bfloat16)  # the dtypes of vals the fused gather copies as they are
 
 
 def bwd_slice_width(n: int, cv: int) -> int:
@@ -296,19 +310,78 @@ def edge_gather_knn_plain(feats: torch.Tensor, vals: torch.Tensor, k: int) -> tu
     return _gather_plain(vals, idx), idx
 
 
+def _graph_gather_kernel(feats: torch.Tensor, vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused graph and gather on the card: feats [B, N, C] f32, vals
+    [B, N, Cv] in ``FUSED_DTYPES``, both contiguous, k <= ``FUSED_MAX_K`` ->
+    (rows [B, N, k, Cv] in ``vals.dtype``, idx [B, N, k] int32).  Launches
+    the kernel (counted in ``edge_gather_knn.fused_launches``) or raises."""
+    fn = "edge_gather_knn"
+    b, n, c = feats.shape
+    cv = vals.shape[-1]
+    _check_cuda(fn, "feats", feats, torch.float32, (b, n, c), feats.device)
+    _check_cuda(fn, "vals", vals, vals.dtype, (b, n, cv), feats.device)
+    if vals.dtype not in FUSED_DTYPES or not 1 <= k <= FUSED_MAX_K or min(b, n, c, cv) < 1:
+        raise ValueError(f"{fn}: the fused kernel takes {FUSED_DTYPES} vals and 1 <= k <= {FUSED_MAX_K}, "
+                         f"got {vals.dtype} {tuple(vals.shape)}, k={k}")
+    idx = torch.empty(b, n, k, dtype=torch.int32, device=feats.device)
+    norms = torch.empty(b, n, dtype=torch.float32, device=feats.device)
+    out = torch.empty(b, n, k, cv, dtype=vals.dtype, device=feats.device)
+    lib = _build.library()
+    with torch.cuda.device(feats.device):
+        err = lib.knn_graph_launch(
+            feats.data_ptr(), b, n, c, k, 0, 1, idx.data_ptr(), norms.data_ptr(), None, vals.data_ptr(),
+            out.data_ptr(), cv, vals.element_size(), torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, fn)
+    edge_gather_knn.fused_launches += 1
+    return out, idx
+
+
+class _GraphGather(torch.autograd.Function):
+    """The fused graph and gather: the rows forward, the scatter-add of
+    their cotangent over ``idx`` backward (as ``gather_neighbors``)."""
+
+    @staticmethod
+    def forward(ctx, feats: torch.Tensor, vals: torch.Tensor, k: int):
+        out, idx = _graph_gather_kernel(feats, vals, k)
+        ctx.save_for_backward(idx)
+        ctx.dtype = vals.dtype
+        ctx.mark_non_differentiable(idx)
+        return out, idx
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor, _didx):
+        (idx,) = ctx.saved_tensors
+        b, n, k = idx.shape
+        upd = dout.reshape(b, n * k, dout.shape[-1]).float().contiguous()
+        return None, scatter_add_rows(idx.reshape(b, n * k), upd, n).to(ctx.dtype), None
+
+
 def edge_gather_knn(feats: torch.Tensor, vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Self-kNN graph of ``feats`` and the neighbours' rows of ``vals``
     (module doc): (gathered [B, N, k, Cv] in ``vals.dtype``, idx [B, N, k]).
 
-    A CPU tensor takes ``edge_gather_knn_plain``; a CUDA tensor launches the
-    graph kernel and the gather kernel (counted together in
-    ``edge_gather_knn.launches``), or raises."""
+    A CPU tensor takes ``edge_gather_knn_plain``; a CUDA tensor launches,
+    at k <= ``FUSED_MAX_K``, the fused graph and gather kernel (``vals`` in
+    f32 or bf16 as they are, any other dtype through f32), above it the graph
+    kernel and the gather kernel; every call is counted in
+    ``edge_gather_knn.launches``, the fused ones also in ``.fused_launches``,
+    the others in ``.routed_launches``.  Raises where a kernel fails."""
     if vals.device.type == "cpu":
         return edge_gather_knn_plain(feats, vals, k)
-    idx = knn_graph_kernel(feats.detach().float().contiguous(), k)
-    out = gather_neighbors(vals.float().contiguous(), idx).to(vals.dtype)
+    points = feats.detach().float().contiguous()
+    if k <= FUSED_MAX_K:
+        rows = vals.contiguous() if vals.dtype in FUSED_DTYPES else vals.float().contiguous()
+        out, idx = _GraphGather.apply(points, rows, k)
+        out = out.to(vals.dtype)
+    else:
+        idx = knn_graph_kernel(points, k)
+        out = gather_neighbors(vals.float().contiguous(), idx).to(vals.dtype)
+        edge_gather_knn.routed_launches += 1
     edge_gather_knn.launches += 1
     return out, idx
 
 
 edge_gather_knn.launches = 0
+edge_gather_knn.fused_launches = 0  # of them, k <= FUSED_MAX_K: the one fused kernel
+edge_gather_knn.routed_launches = 0  # of them, k > FUSED_MAX_K: the general kNN, then the gather kernel

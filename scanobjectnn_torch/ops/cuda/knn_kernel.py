@@ -40,7 +40,10 @@ points' |x|² once a point, sums 64 x 64 tiles of inner products a block
 (4 x 4 a thread) and selects from each tile's rows a warp a query, the
 query's list held one entry a lane; above it the general kernel with the
 cloud as its queries (that very call).  ``graph_kernel_info`` reads its
-registers, local memory and blocks per SM on the card.
+registers, local memory and blocks per SM on the card.  Up to
+``GRAPH_MAX_K`` the same kernel, built with an epilogue, also copies a
+second tensor's rows at each point's neighbours
+(``edge_kernel.edge_gather_knn``).
 
 What bounds it on the H100: operations, about 2C + 4 per (query, key) pair;
 at fp3 (B=32, 1024 queries, 512 keys, C=3) about 2.5 us of f32 work against
@@ -297,7 +300,8 @@ def knn_graph_kernel(features: torch.Tensor, k: int) -> torch.Tensor:
     with torch.cuda.device(dev):
         err = lib.knn_graph_launch(
             features.data_ptr(), b, n, c, k, ROUTES.index(route), lanes, idx.data_ptr(), dist.data_ptr(),
-            None if scratch is None else scratch.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            None if scratch is None else scratch.data_ptr(), None, None, 0, 0,
+            torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "knn_graph_kernel")
     knn_graph_kernel.launches += 1
@@ -309,13 +313,14 @@ knn_graph_kernel.launches = 0
 knn_graph_kernel.routed_launches = 0  # of them, k > GRAPH_MAX_K (the general kernel)
 
 
-def graph_kernel_info(c: int) -> dict:
+def graph_kernel_info(c: int, gather: bool = False) -> dict:
     """The graph kernel (k <= ``GRAPH_MAX_K``) as a launch at width ``c``
-    builds it: registers and local-memory bytes a thread, dynamic shared
-    bytes a block, and resident blocks per SM, from
+    builds it, alone or (``gather``) with the fused gather of
+    ``edge_kernel.edge_gather_knn``: registers and local-memory bytes a
+    thread, dynamic shared bytes a block, and resident blocks per SM, from
     ``cudaFuncGetAttributes`` and the occupancy API (on the card)."""
     info = (ctypes.c_int * 4)()
-    _build.check(_build.library().knn_graph_info(c, ctypes.addressof(info)), "graph_kernel_info")
+    _build.check(_build.library().knn_graph_info(c, int(gather), ctypes.addressof(info)), "graph_kernel_info")
     return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), info))
 
 

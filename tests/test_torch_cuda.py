@@ -22,7 +22,11 @@ call gives the same bits twice.
 
 Training kernels: the ball group (``grouped``, ``idx``, ``cnt``), the ball
 query alone (#8: ``idx``, ``cnt``) and the row gather must be equal to their
-plain versions.  The scatter-add must be
+plain versions; the ball kernels at N off their chunks and tiles and at N =
+40000 (staged in tiles), K = 1 and 1024, no hit, every point a hit, pairs
+whose d2 is exactly r2 (never taken) and M = 1, at one and two queries a
+warp, every unroll and on tiles of 1, 33 and 1000 points; a plan they
+cannot run is refused and no build uses local memory.  The scatter-add must be
 within 1e-5 x max(1, |ref|max) of ``index_add_`` on the card (both sum
 exact f32, in other orders), equal bit for bit to the sequential
 ``index_add_`` on the CPU (``scatter_add_rows_plain``: ascending rows,
@@ -70,8 +74,12 @@ to 256, N = 1 to 9685, k = 1, 20, 40, ties, and on the per-edge route at
 N = 9686 (``routed_launches`` counted); with NaN values, NaN for NaN.  A
 slice the kernel cannot run is refused; no build of ``edge.cu`` or of the
 duplicate mask uses local memory.  The
-neighbour gather ``edge_gather_knn``: rows and indices equal; its backward
-is the scatter-add, held as above.
+neighbour gather ``edge_gather_knn``: rows and indices equal to the plain
+version and to the graph kernel followed by the gather kernel, in f32 and
+bf16, through the one fused kernel at k = 1, 20, 32 (one launch, no graph
+or gather launch of its own; no local memory) and routed at k = 33 and 40,
+at Cv = 1, 3, 5, 64 and 128, N off the 64-key tile, duplicated points and
+NaN feature rows; its backward is the scatter-add, held as above.
 
 SpiderConv (#16): the forward within ``SPIDER_FWD_TOL`` x max(1, |ref|max)
 of ``spider_conv_plain`` (the same f32 products feat·g, summed against the
@@ -119,12 +127,14 @@ import numpy as np
 import pytest
 import torch
 
+from scanobjectnn_torch.ops.cuda import ballgroup_kernel
 from scanobjectnn_torch.ops.cuda.ballgroup_kernel import (
     ball_query_plain,
     query_ball_group,
     query_ball_group_plain,
     query_ball_point,
 )
+from scanobjectnn_torch.ops.cuda.ballgroup_kernel import kernel_info as ball_kernel_info
 from scanobjectnn_torch.ops.cuda.dupmask_kernel import duplicate_mask_kernel, duplicate_mask_plain
 from scanobjectnn_torch.ops.cuda.dupmask_kernel import kernel_info as dupmask_kernel_info
 from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
@@ -406,6 +416,10 @@ def test_safused_kernel_refuses_what_it_does_not_take(dev):
 
 # (b, n, m, k, radius, cloud): the SSG training shapes, MSG's K=128, a ragged
 # one, an empty-ball case (queries far from the cloud) and duplicated points.
+# The kernel's plan: N off its steps of 32 x 8 points (1000) and off its
+# 3072-point tile (5000), N = 40000 (14 tiles, a query's hits in several),
+# K = 1 and 1024, no hit in any ball, every point a hit (K below and above
+# N), pairs whose d2 is exactly r2 (not hits), M = 1.
 BALL_CASES = {
     "sa1": (16, 1024, 512, 32, 0.2, "normal"),
     "sa2": (16, 512, 128, 64, 0.4, "normal"),
@@ -413,24 +427,57 @@ BALL_CASES = {
     "ragged": (3, 100, 37, 7, 0.5, "normal"),
     "empty_balls": (2, 256, 64, 16, 0.2, "far"),
     "duplicates": (4, 1024, 256, 32, 0.3, "lattice"),
+    "n_off_chunk": (3, 1000, 100, 32, 0.3, "normal"),
+    "n_off_tile": (2, 5000, 64, 64, 0.2, "normal"),
+    "n40000": (2, 40000, 128, 64, 0.05, "normal"),
+    "k1": (4, 1024, 256, 1, 0.2, "normal"),
+    "k1024": (2, 2048, 64, 1024, 0.8, "normal"),
+    "no_hit": (2, 512, 64, 32, 0.2, "none"),
+    "all_hits": (2, 300, 50, 128, 100.0, "normal"),
+    "all_hits_k_above_n": (2, 100, 20, 128, 100.0, "normal"),
+    "exact_r2": (2, 512, 64, 64, 0.5, "exact"),
+    "m1": (3, 1024, 1, 32, 0.3, "normal"),
 }
 
 
 def ball_inputs(spec, rng):
     """numpy (xyz [b, n, 3], new_xyz [b, m, 3]) of one ball-group case: the
     queries are cloud points moved off the points; "far" moves half of them
-    out of every ball, "lattice" repeats each point of a coarse grid."""
+    out of every ball and "none" all of them, "lattice" repeats each point
+    of a coarse grid, "exact" takes cloud points of a grid of 1/8 as the
+    queries themselves, so that many pairs lie at a d2 of exactly r2 = 0.25
+    (every square and sum exact in f32)."""
     b, n, m, _, _, cloud = spec
     if cloud == "lattice":
         base = rng.randint(-3, 4, (b, n // 8, 3)).astype(np.float32) * 0.25
         xyz = np.stack([c[rng.permutation(n)] for c in np.tile(base, (1, 8, 1))])
+    elif cloud == "exact":
+        xyz = rng.randint(-8, 9, (b, n, 3)).astype(np.float32) * 0.125
     else:
         xyz = (rng.randn(b, n, 3) * 0.5).astype(np.float32)
     new_xyz = np.stack([x[rng.choice(n, m, replace=False)] for x in xyz])
+    if cloud == "exact":
+        return xyz, new_xyz
     new_xyz += (0.05 * rng.randn(*new_xyz.shape)).astype(np.float32)
     if cloud == "far":
         new_xyz[:, ::2] += 100.0
+    if cloud == "none":
+        new_xyz += 100.0
     return xyz, new_xyz
+
+
+def _ball_case_check(case, got_idx, got_cnt, xyz, new_xyz):
+    """What a case sets up holds in the kernel's output (beyond equality)."""
+    b, n, m, k, radius, cloud = BALL_CASES[case]
+    if cloud == "none":
+        assert (got_cnt == 0).all() and (got_idx == 0).all()
+    if case.startswith("all_hits"):
+        assert (got_cnt == min(k, n)).all()
+    if cloud == "exact":  # boundary pairs exist, and none was taken
+        d2 = ((new_xyz[:, :, None, :] - xyz[:, None, :, :]) ** 2).sum(-1)
+        assert bool((d2 == radius * radius).any())
+        filled = torch.arange(k, device=got_idx.device) < got_cnt[..., None]
+        assert bool((torch.gather(d2, 2, got_idx.long())[filled] < radius * radius).all())
 
 
 @pytest.mark.parametrize("case", sorted(BALL_CASES))
@@ -447,6 +494,7 @@ def test_ballgroup_kernel_matches_plain(dev, case):
         assert g.dtype == w.dtype and torch.equal(g, w), name
     if case == "empty_balls":
         assert (got[2][:, ::2] == 0).all() and (got[1][:, ::2] == 0).all()
+    _ball_case_check(case, got[1], got[2], xyz, new_xyz)
 
 
 def test_ballgroup_kernel_refuses_what_it_does_not_take(dev):
@@ -471,6 +519,57 @@ def test_ball_query_kernel_matches_plain(dev, case):
     assert query_ball_point.launches == before + 1
     assert idx.dtype == cnt.dtype == torch.int32
     assert torch.equal(idx, want_idx.int()) and torch.equal(cnt, want_cnt.int())
+    _ball_case_check(case, idx, cnt, xyz, new_xyz)
+
+
+# Plans the kernel takes besides ball_plan's (queries a block, queries a
+# warp, unroll, tile): every queries a warp and unroll at two warps a block,
+# one query a block, eight warps of two, and tiles of 1, 33 and 1000 points
+# (a query's hits across many tiles, tiles off the steps).
+BALL_PLANS = [(2 * pw, pw, u, 3072) for pw in (1, 2) for u in (4, 8)]
+BALL_PLANS += [(1, 1, 8, 3072), (16, 2, 8, 3072), (8, 1, 8, 1), (4, 2, 4, 33), (6, 2, 4, 1000)]
+
+
+@pytest.mark.parametrize("plan", BALL_PLANS, ids=["q{}_w{}_u{}_t{}".format(*p) for p in BALL_PLANS])
+@pytest.mark.parametrize("case", ["ragged", "n_off_chunk", "k128", "duplicates", "all_hits_k_above_n"])
+def test_ball_kernels_on_every_plan_match_plain(dev, case, plan):
+    spec = BALL_CASES[case]
+    xyz, new_xyz = (torch.from_numpy(a).to(dev) for a in ball_inputs(spec, np.random.RandomState(spec[1])))
+    radius, k = spec[4], spec[3]
+    plan = (*plan[:3], min(plan[3], spec[1]))
+    with mock.patch.object(ballgroup_kernel, "ball_plan", lambda *a: plan):
+        got = query_ball_group(radius, k, xyz, new_xyz)
+        idx, cnt = query_ball_point(radius, k, xyz, new_xyz)
+    want = query_ball_group_plain(radius, k, xyz, new_xyz)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("grouped", "idx", "cnt"), got, want):
+        assert torch.equal(g, w), name
+    assert torch.equal(idx, want[1]) and torch.equal(cnt, want[2])
+
+
+@pytest.mark.parametrize("plan", [(8, 3, 8, 1024), (8, 1, 3, 1024), (8, 1, 2, 1024), (9, 1, 8, 1024),
+                                  (18, 2, 8, 1024), (3, 2, 8, 1024), (0, 1, 8, 1024), (8, 1, 8, 0),
+                                  (8, 1, 8, 3073)])
+def test_ball_kernels_refuse_a_plan_they_cannot_run(dev, plan):
+    xyz = torch.zeros(1, 1024, 3, device=dev)
+    with mock.patch.object(ballgroup_kernel, "ball_plan", lambda *a: plan):
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            query_ball_group(0.2, 32, xyz, xyz[:, :64].contiguous())
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            query_ball_point(0.2, 32, xyz, xyz[:, :64].contiguous())
+    with pytest.raises(RuntimeError, match="kernel_info"):
+        ball_kernel_info(*plan)
+
+
+@pytest.mark.parametrize("unroll", ballgroup_kernel.UNROLLS)
+def test_ball_and_graph_gather_kernels_use_no_local_memory(dev, unroll):
+    for queries, per_warp in ((8, 1), (16, 2), (1, 1), (2, 2)):
+        info = ball_kernel_info(queries, per_warp, unroll, 3072)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, (queries, per_warp, unroll, info)
+        assert info["smem_bytes"] == ballgroup_kernel.smem_bytes(3072, unroll)
+    for c in (3, 64, 65):
+        info = graph_kernel_info(c, gather=True)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, (c, info)
 
 
 # name: (b, n, m, k, feature channels, use the coordinates, mlp)
@@ -1279,7 +1378,8 @@ def test_edge_and_dupmask_kernels_use_no_local_memory(dev):
 def test_edge_gather_knn_matches_plain(dev, dtype):
     feats, vals = _edge_inputs(dev, 4, 1024, 3, 64, False, seed=9)
     vals = vals.to(dtype)
-    before = (edge_gather_knn.launches, knn_graph_kernel.launches, gather_rows.launches, scatter_add_rows.launches)
+    before = (edge_gather_knn.launches, edge_gather_knn.fused_launches, knn_graph_kernel.launches,
+              gather_rows.launches, scatter_add_rows.launches)
     v = vals.clone().requires_grad_()
     rows, idx = edge_gather_knn(feats, v, 20)
     vp = vals.clone().requires_grad_()
@@ -1289,11 +1389,78 @@ def test_edge_gather_knn_matches_plain(dev, dtype):
     (grad,) = torch.autograd.grad(rows, v, cot)
     (ref,) = torch.autograd.grad(want, vp, cot)
     torch.cuda.synchronize()
-    after = (edge_gather_knn.launches, knn_graph_kernel.launches, gather_rows.launches, scatter_add_rows.launches)
-    assert after == tuple(n + 1 for n in before)
+    after = (edge_gather_knn.launches, edge_gather_knn.fused_launches, knn_graph_kernel.launches,
+             gather_rows.launches, scatter_add_rows.launches)
+    # One fused launch (graph and gather), no graph or gather launch of their
+    # own, the scatter-add once for the backward.
+    assert after == (before[0] + 1, before[1] + 1, before[2], before[3], before[4] + 1)
     assert grad.dtype == dtype
     if dtype == torch.float32:
         assert float((grad - ref).abs().max()) <= SCATTER_TOL * max(1.0, float(ref.abs().max()))
+
+
+def _graph_then_gather(feats, vals, k):
+    """The two-kernel composition the fused kernel replaced at k <= 32: the
+    graph kernel, then the gather kernel over f32 rows, in vals.dtype."""
+    idx = knn_graph_kernel(feats.float().contiguous(), k)
+    b, n, _ = idx.shape
+    rows = gather_rows(vals.float().contiguous(), idx.reshape(b, n * k)).reshape(b, n, k, vals.shape[-1])
+    return rows.to(vals.dtype), idx
+
+
+# (b, n, cf, cv, k, cloud): the fused kernel at k = 1, 20 and 32 and the
+# routed composition at k = 33; Cv = 1, 3 (its rows a run of words), 64
+# (a float2 a lane), 128; N off the 64-key tile; duplicated points (ties);
+# NaN feature rows (never a neighbour).
+EDGE_GATHER_CASES = {
+    "k1_cv64": (2, 300, 3, 64, 1, "normal"),
+    "k20_cv1": (2, 1000, 3, 1, 20, "normal"),
+    "k20_cv3_spider": (4, 1024, 3, 3, 20, "normal"),
+    "k20_cv128_c64": (2, 257, 64, 128, 20, "normal"),
+    "k32_cv64": (2, 1000, 3, 64, 32, "normal"),
+    "k33_cv64": (2, 300, 3, 64, 33, "normal"),
+    "k20_cv64_duplicates": (2, 512, 3, 64, 20, "lattice"),
+    "k20_cv3_nan": (2, 300, 3, 3, 20, "nan"),
+    "k32_cv5_c64_nan": (2, 300, 64, 5, 32, "nan"),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(EDGE_GATHER_CASES))
+def test_edge_gather_knn_fused_and_routed_match_plain(dev, case, dtype):
+    b, n, cf, cv, k, cloud = EDGE_GATHER_CASES[case]
+    rng = np.random.RandomState(n + cv + k)
+    feats = torch.from_numpy(graph_cloud(rng, b, n, cf, cloud)).to(dev)
+    vals = torch.from_numpy(rng.randn(b, n, cv).astype(np.float32)).to(dev).to(dtype)
+    before = (edge_gather_knn.fused_launches, edge_gather_knn.routed_launches, gather_rows.launches)
+    v = vals.clone().requires_grad_()
+    rows, idx = edge_gather_knn(feats, v, k)
+    torch.cuda.synchronize()
+    fused = k <= edge_kernel.FUSED_MAX_K
+    after = (edge_gather_knn.fused_launches, edge_gather_knn.routed_launches, gather_rows.launches)
+    assert after == (before[0] + fused, before[1] + (not fused), before[2] + (not fused))
+    want, want_idx = edge_gather_knn_plain(feats, vals, k)
+    two, two_idx = _graph_then_gather(feats, vals, k)
+    assert rows.dtype == dtype and rows.shape == (b, n, k, cv)
+    assert torch.equal(idx, want_idx) and torch.equal(idx, two_idx)
+    assert torch.equal(rows, want) and torch.equal(rows, two)
+    cot = torch.from_numpy(np.random.RandomState(5).randn(*rows.shape).astype(np.float32)).to(dev).to(dtype)
+    (grad,) = torch.autograd.grad(rows, v, cot)
+    vp = vals.clone().requires_grad_()
+    (ref,) = torch.autograd.grad(edge_gather_knn_plain(feats, vp, k)[0], vp, cot)
+    assert grad.dtype == dtype
+    if dtype == torch.float32:
+        assert float((grad - ref).abs().max()) <= SCATTER_TOL * max(1.0, float(ref.abs().max()))
+
+
+def test_edge_gather_knn_fused_refuses_what_it_does_not_take(dev):
+    feats = torch.zeros(1, 64, 3, device=dev)
+    with pytest.raises(ValueError, match="fused kernel"):
+        edge_kernel._graph_gather_kernel(feats, torch.zeros(1, 64, 8, device=dev, dtype=torch.float16), 20)
+    with pytest.raises(ValueError, match="fused kernel"):
+        edge_kernel._graph_gather_kernel(feats, torch.zeros(1, 64, 8, device=dev), 33)
+    with pytest.raises(ValueError, match="contiguous"):
+        edge_kernel._graph_gather_kernel(feats, torch.zeros(1, 8, 64, device=dev).transpose(1, 2), 20)
 
 
 def test_edge_gather_knn_at_k40_matches_plain(dev):
