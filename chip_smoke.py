@@ -206,8 +206,11 @@ Phases (any failure raises and the exit code is not 0):
      a. #5 (``rank_sort_points``) at SSG SA1's two calls (B=128: the points,
         N=2048, and the queries, M=512, keyed by each cloud's widest axis),
         on a tie lattice with -0.0 and NaN keys, and carrying bf16 feature
-        rows: sorted rows, ids and rank equal to its plain version; timed
-        beside ``torch.argsort(stable=True)``;
+        rows; at B=8 on N = 1, 31, 32, 33, 257 and 2047 (the plan's edges)
+        and 16384, on ascending, descending, all-equal, all-NaN and signed-
+        zero keys, with f32 and odd-width bf16 rows: sorted rows, ids, rank
+        and rows equal to its plain version; the two SA1 calls timed beside
+        ``torch.argsort(stable=True)`` (device time and CUDA events);
      b. #4 (``sa_ball_mlp_pool_bucketed``) at the "auto" SA1 call (B=128,
         (W, T, G) = (896, 64, 128)), f32 and bf16: pooled bit-equal to the
         #3 kernel's and held to its plain version; the overflowed tiles
@@ -245,6 +248,25 @@ Phases (any failure raises and the exit code is not 0):
      e. the EdgeConv backward at B=2, N=9686, Cv=64 (a cloud whose one
         channel does not fit the staged kernel: the per-edge route), equal
         to ``edge_reduce_bwd_ordered``; device time.
+ 14. the data files, written by the port's writers in a temporary
+     directory and read by its loaders (``data/io.py``):
+     a. an h5 of the synthetic dataset with masks (15 classes x 4 clouds of
+        2048 points, ``synthetic.write_synthetic_h5``), read back by
+        ``io.load_withmask_h5``; on a machine without h5py (the loaders
+        import it when called) the line says so, and b and c take the
+        arrays that file would hold from ``make_synthetic_dataset``;
+     b. an SSG ``Trainer.evaluate`` of that file at N=2048 (batch 32, 3
+        votes, ``sa_bucket`` "auto"): #1, #5, #4 and #3 launched, the
+        predictions equal to the plain path's;
+     c. a BGA evaluation of the same file at N=1024 with its binary masks
+        (``io.convert_to_binary_mask``): predictions equal, and 99% of the
+        per-point argmaxes;
+     d. 30 raw ``.bin`` objects of 1500-2600 points (11 floats a point,
+        semantic labels 0, 1, 2 and -1 beside the object's) and a pickled
+        file list, read by ``io.load_data`` with and without background
+        (the clouds below 2048 points dropped), centred and normalised, and
+        evaluated by SSG as ragged input: ``total_seen`` the clouds loaded,
+        the predictions equal to the plain path's.
 
 Every kernel's line in the ``{"kernels": [...]}`` record carries its
 bound: the larger of the bytes it must move over 3.35 TB/s and the
@@ -350,6 +372,9 @@ PCNN_BATCH, PCNN_POINT = 32, 1024
 # query (phase 10) at SSG's SA1 and SA2 shapes: #10 to the fused SA
 # bounds, #8's idx and cnt equal to ball_query_plain.
 MSG_BATCH, MSG_POINT, MSG_TRAIN_BATCH = 32, 1024, 16
+# The data files (phase 14): an h5 of 4 clouds a class, evaluated at batch
+# DATA_BATCH, and DATA_CLOUDS raw .bin objects of their own sizes.
+DATA_BATCH, DATA_CLOUDS = 32, 30
 SA_LAYER_BATCH, SA_LAYER_POINT = 32, 1024
 # Mixed precision and the fused tail (phase 11), B=16, N=1024.  #18 must
 # equal its plain version bit for bit (the same r, the same op order without
@@ -553,10 +578,12 @@ def check_edge_dup_kernels(smi: str) -> None:
     """Registers, local memory and blocks per SM of every build of
     ``edge.cu`` (the staged backward at each slice width, at the largest
     cloud it takes; its per-edge route and the forward at 1, 2 and 4 floats
-    a lane, the forward at a warp and a half-warp a query) and of the
-    duplicate mask #12; no local memory allowed."""
+    a lane, the forward at a warp and a half-warp a query), of the
+    duplicate mask #12 and of the rank sort #5 at its plans from N = 1 to
+    16384; no local memory allowed."""
     from scanobjectnn_torch.ops.cuda.dupmask_kernel import kernel_info as dupmask_info
     from scanobjectnn_torch.ops.cuda.edge_kernel import kernel_info as edge_info
+    from scanobjectnn_torch.ops.cuda.ranksort_kernel import kernel_info as ranksort_info
 
     builds = [("#14 backward, staged", "bwd", w, n) for w, n in ((8, 1024), (8, 1210), (4, 2048), (2, 4842),
                                                                  (1, 9685))]
@@ -576,6 +603,13 @@ def check_edge_dup_kernels(smi: str) -> None:
     print(f"kernel #12 dupmask_kernel: {info['registers']} registers a thread, {info['local_bytes']} local bytes, "
           f"{info['blocks_per_sm']} blocks of 1024 threads per SM ({smi})")
     require(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, f"the duplicate mask kernel: {info}")
+    for n in (1, 64, 256, 512, 2048, 8192, 16384):
+        info = ranksort_info(n)
+        print(f"kernel #5 ranksort_kernel (N={n}: {info['threads']} threads x {info['per_thread']} words): "
+              f"{info['registers']} registers a thread, "
+              f"{info['local_bytes']} local bytes, {info['smem_bytes']} shared bytes a block, "
+              f"{info['blocks_per_sm']} blocks per SM ({smi})")
+        require(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, f"the rank sort kernel at N={n}: {info}")
 
 
 def kernel_split_ms(fn, groups: dict, iters: int = 10) -> dict:
@@ -1976,14 +2010,29 @@ def bucket_phase(smi: str, dev, models: dict, x0, sa1_xyz) -> dict:
     feats = torch.randn(BATCH, NUM_POINT, 64, generator=g).to(dev, torch.bfloat16)
     rec5 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     work5 = Work()
+    # The plan's edges and the orders a sort meets at its extremes, B=8.
+    edge_cases = []
+    for n, kind in ((1, "f32 rows"), (31, "ties"), (32, "ties"), (33, "ties"), (257, "ties"), (2047, "ties"),
+                    (2048, "ascending"), (2048, "descending"), (2048, "all equal"), (512, "all NaN"),
+                    (1500, "signed zeros"), (129, "f32 rows"), (257, "bf16 odd rows"), (16384, "ties")):
+        pts = torch.randn(8, n, 3, generator=g)
+        k = {"ascending": torch.arange(n).float().expand(8, n), "descending": -torch.arange(n).float().expand(8, n),
+             "all equal": torch.full((8, n), 1.5), "all NaN": torch.full((8, n), float("nan")),
+             "signed zeros": torch.where(torch.rand(8, n, generator=g) < 0.5, -0.0, 0.0)}.get(
+            kind, torch.round(pts[..., 0] * 4.0) / 4.0)
+        rows = {"f32 rows": torch.randn(8, n, 5, generator=g),
+                "bf16 odd rows": torch.randn(8, n, 5, generator=g).to(torch.bfloat16)}.get(kind)
+        edge_cases.append((f"{kind} B=8 N={n}", k.contiguous().to(dev), pts.to(dev),
+                           None if rows is None else rows.to(dev), False))
     for label, k, pts, rows, timed in (
         ("points B=128 N=2048", key, x0, None, True), ("queries B=128 M=512", qkey, sa1_xyz, None, True),
         ("tie lattice with -0.0 and NaN keys B=128 N=2048", lattice.to(dev), x0, None, False),
         ("points with bf16 feature rows B=128 N=2048 C=64", key, x0, feats, False),
+        *edge_cases,
     ):
         got, ref = rank_sort_points(k, pts, rows), rank_sort_points_plain(k, pts, rows)
         torch.cuda.synchronize()
-        require(all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got, ref)),
+        require(all((a is None and b is None) or (a.dtype == b.dtype and torch.equal(a, b)) for a, b in zip(got, ref)),
                 f"rank_sort_points differs from its plain version ({label})")
         print(f"rank_sort_points {label}: sorted rows, ids and rank equal to rank_sort_points_plain")
         if timed:  # calls of tens of µs: device time (CUDA events mostly time the launches)
@@ -2095,6 +2144,146 @@ def bucket_phase(smi: str, dev, models: dict, x0, sa1_xyz) -> dict:
           f"{sum(times['kernel']) / 2:.4f} ms, plain path {sum(times['plain']) / 2:.4f} ms "
           f"(rounds {', '.join(f'{v:.4f}' for v in times['kernel'] + times['plain'])}) ({smi})")
     return {"rank_sort_points": {**rec5, **work5.record()}, "sa_ball_mlp_pool_bucketed": {**rec4, **work4.record()}}
+
+
+def write_bin_clouds(root: str, rng) -> tuple[str, int, int]:
+    """Raw ScanObjectNN object files under ``root`` (phase 14): DATA_CLOUDS
+    clouds of 2048-2600 points, two of them below NUM_POINT (1500 and 2000),
+    11 floats a point after a count header: the coordinates of a synthetic
+    prototype's points (semantic label 3 + the class) among background
+    points (labels 0, 1, 2 and -1), normals, colours and an instance id.
+    The pickled file list names them with the ``objects_bin/`` prefix.
+    Returns (the list's path, the clouds of at least NUM_POINT points, of
+    which at least NUM_POINT foreground points)."""
+    import os
+    import pickle
+
+    import numpy as np
+
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+
+    shapes, labels = make_synthetic_dataset(num_per_class=2, num_classes=NUM_CLASSES, num_points=2600, seed=9)
+    sizes = rng.randint(2100, 2601, DATA_CLOUDS)
+    sizes[[3, 17]] = (1500, 2000)
+    entries, with_bg, fg_only = [], 0, 0
+    for i, (n, label) in enumerate(zip(sizes, labels[:DATA_CLOUDS])):
+        n_bg = rng.randint(0, 200)
+        n_minus = rng.randint(0, 30)
+        pts = np.concatenate([shapes[i][: n - n_bg - n_minus], 3.0 * rng.rand(n_bg + n_minus, 3) - 1.5])
+        sem = np.concatenate([np.full(n - n_bg - n_minus, 3.0 + label), rng.choice([0.0, 1.0, 2.0], n_bg),
+                              np.full(n_minus, -1.0)])
+        perm = rng.permutation(n)
+        rows = np.concatenate([pts, rng.randn(n, 3), rng.rand(n, 3), np.full((n, 1), float(i)), sem[:, None]], 1)
+        name = f"scene{i:03d}_{label}.bin"
+        np.concatenate([np.float32([n]), rows[perm].astype(np.float32).reshape(-1)]).tofile(os.path.join(root, name))
+        entries.append({"filename": "objects_bin/" + name, "label": int(label)})
+        with_bg += n >= NUM_POINT
+        fg_only += n - n_bg - n_minus >= NUM_POINT
+    path = os.path.join(root, "objects.pickle")
+    with open(path, "wb") as f:
+        pickle.dump(entries, f)
+    return path, with_bg, fg_only
+
+
+def data_phase(smi: str, dev) -> None:
+    """Phase 14 (module doc): the data loaders on files the phase writes."""
+    import importlib.util
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scanobjectnn_torch.data import io
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset, write_synthetic_h5
+    from scanobjectnn_torch.ops.cuda.fps_kernel import fps
+    from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows
+    from scanobjectnn_torch.ops.cuda.knn_kernel import knn_point_kernel
+    from scanobjectnn_torch.ops.cuda.ranksort_kernel import rank_sort_points
+    from scanobjectnn_torch.ops.cuda.sabucket_kernel import sa_ball_mlp_pool_bucketed
+    from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    rng = np.random.RandomState(24)
+
+    def trainer_of(model, num_point):
+        trainer = Trainer(TrainerConfig(model=model, num_point=num_point, batch_size=DATA_BATCH))
+        state = trainer.init_state(0)
+        with torch.no_grad():
+            for k_, buf in state.model.named_buffers():
+                vals = rng.randn(*buf.shape)
+                buf.copy_(torch.from_numpy(0.1 + 0.1 * np.abs(vals) if k_.endswith(".var") else 0.05 * np.abs(vals)))
+        return trainer, state
+
+    def evaluate(label, trainer, state, counters, data, labels, **kw):
+        """The kernel path (each kernel counted) and the plain path."""
+        def run():
+            return trainer.evaluate(state, data, labels, num_votes=3, shuffle=False, **kw)
+
+        t0 = time.perf_counter()
+        res, counts = counted_run(counters, run)
+        ms = (time.perf_counter() - t0) * 1e3
+        require(all(c > 0 for c in counts.values()), f"a kernel of the {label} evaluation never launched: {counts}")
+        with plain_path():
+            ref = run()
+        require(res["total_seen"] == ref["total_seen"] == len(labels), f"{label}: evaluate dropped a cloud")
+        require(np.array_equal(res["predictions"], ref["predictions"]),
+                f"{label}: the predictions differ from the plain path's")
+        print(f"evaluate {label}: {res['total_seen']} clouds, batch {DATA_BATCH}, 3 votes, launches {counts}; "
+              f"accuracy {res['accuracy']:.4f} (plain path {ref['accuracy']:.4f}), predictions equal; "
+              f"{ms:.1f} ms on the kernel path ({smi})")
+        return res, ref
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # a. An h5 of the synthetic dataset with masks, through the port's
+        #    writer and loader, where the machine has h5py; else the arrays
+        #    that file would hold.
+        kw = dict(num_per_class=4, num_classes=NUM_CLASSES, num_points=NUM_POINT, seed=7, with_mask=True)
+        if importlib.util.find_spec("h5py") is not None:
+            path = os.path.join(tmp, "synthetic_withmask.h5")
+            write_synthetic_h5(path, **kw)
+            data, labels, masks = io.load_withmask_h5(path)
+            source, origin = f"{path.rsplit('/', 1)[-1]} written and read", "the h5 file"
+        else:
+            data, labels, masks = make_synthetic_dataset(**kw)
+            source = ("h5py is not installed on this machine: no h5 file written or read; the arrays "
+                      "write_synthetic_h5 would write, from make_synthetic_dataset")
+            origin = "the synthetic arrays"
+        require(data.shape == (4 * NUM_CLASSES, NUM_POINT, 3) and data.dtype == np.float32
+                and labels.dtype == np.int64 and masks.shape == data.shape[:2], "the synthetic dataset")
+        print(f"data h5: {source}: data {data.shape} {data.dtype}, labels {labels.shape}, masks {masks.shape} "
+              f"({int((masks == -1).sum())} background points)")
+
+        # b. SSG at num_point 2048 under "auto": #1, #5, #4 and #3.
+        trainer, state = trainer_of("pointnet2_cls_ssg", NUM_POINT)
+        ssg_counters = (fps, rank_sort_points, sa_ball_mlp_pool_bucketed, sa_ball_mlp_pool)
+        evaluate(f"SSG on {origin} N={NUM_POINT}", trainer, state, ssg_counters, data, labels)
+
+        # c. BGA at num_point 1024 with the binary masks: §2's gate.
+        bga, bga_state = trainer_of("pointnet2_cls_bga", SEG_POINT)
+        bin_masks = io.convert_to_binary_mask(masks).astype(np.int64)
+        res, ref = evaluate(f"BGA on {origin} N={SEG_POINT}", bga, bga_state,
+                            (fps, sa_ball_mlp_pool, knn_point_kernel, gather_rows), data, labels, masks=bin_masks,
+                            keep_points=True)
+        agree = float((res["seg_predictions"] == ref["seg_predictions"]).mean())
+        print(f"evaluate BGA: per-point argmax agreement {agree:.4f}, seg accuracy {res['seg_accuracy']:.4f} "
+              f"(plain path {ref['seg_accuracy']:.4f})")
+        require(agree >= SEG_AGREEMENT, f"BGA per-point agreement {agree} below {SEG_AGREEMENT}")
+
+        # d. Ragged .bin clouds from a pickled file list, with and without background.
+        listing, want_bg, want_fg = write_bin_clouds(tmp, rng)
+        for with_bg, want in ((True, want_bg), (False, want_fg)):
+            clouds, cloud_labels = io.load_data(listing, num_points=NUM_POINT, with_bg=with_bg, data_dir=tmp)
+            require(len(clouds) == want and len(cloud_labels) == want,
+                    f"load_data(with_bg={with_bg}) kept {len(clouds)} clouds, not {want}")
+            sizes = [pc.shape[0] for pc in clouds]
+            clouds = io.normalize_data(io.center_data(clouds))
+            require(all(abs(float(np.sqrt((pc ** 2).sum(-1)).max()) - 1.0) < 1e-5 for pc in clouds),
+                    "normalize_data left a cloud off the unit sphere")
+            print(f"data .bin: load_data(with_bg={with_bg}) kept {len(clouds)} of {DATA_CLOUDS} clouds "
+                  f"({min(sizes)}-{max(sizes)} points), centred and normalised")
+            evaluate(f"SSG over the ragged clouds (with_bg={with_bg}) N={NUM_POINT}", trainer, state, ssg_counters,
+                     clouds, np.asarray(cloud_labels))
 
 
 def sa_layer_phase(smi: str, dev) -> dict:
@@ -2941,6 +3130,7 @@ def main() -> None:
     measured.update(mixed_phase(smi, dev))
     measured.update(bucket_phase(smi, dev, models, x0, sa1_xyz))
     routes = range_phase(smi, dev)
+    data_phase(smi, dev)
 
     require(not {"jax", "scanobjectnn_tpu"} & set(sys.modules), "JAX or the JAX package was imported")
 

@@ -1,16 +1,21 @@
 """Epoch and batch pipeline, numpy only (counterpart of
 ``scanobjectnn_tpu/data/pipeline.py``).
 
-Reference semantics (data_utils.py:171-233), kept exactly so that the port
+Reference semantics (data_utils.py:108-233), kept exactly so that the port
 visits clouds and points in the JAX package's order under the same seed:
-  * each epoch draws ONE point permutation shared by every cloud and keeps
-    its first ``num_points`` points; masks and parts take the same points;
-  * then the cloud order is shuffled;
+  * rectangular input (h5, ``[B, N, 3]``): each epoch draws ONE point
+    permutation shared by every cloud and keeps its first ``num_points``
+    points; masks and parts take the same points (data_utils.py:171-233);
+  * ragged input (the raw ``.bin`` clouds of ``io.load_data``, a list or an
+    object array of ``[n_i, 3]`` clouds, ``is_ragged``): each cloud draws its
+    own point permutation, in cloud order, and keeps its first
+    ``num_points``; its mask and parts take the same points; a cloud below
+    ``num_points`` raises (data_utils.py:108-131);
+  * then the cloud order is shuffled, and the per-cloud ``types``
+    (the discriminator's model-type labels) follow it;
   * training batches are fixed-size and drop the remainder
     (pointnet2/train.py:237); evaluation's ``padded_batches`` keeps it,
     padded by repeating its last row, with the count of real rows.
-Ported: rectangular point clouds with labels, masks and parts.  Types and
-ragged (per-cloud size) input wait for the slices that read them.
 """
 
 from __future__ import annotations
@@ -20,7 +25,13 @@ from typing import Iterator
 
 import numpy as np
 
-__all__ = ["Batches", "EpochSampler", "pad_or_trim_batch", "padded_batches"]
+__all__ = ["Batches", "EpochSampler", "is_ragged", "pad_or_trim_batch", "padded_batches"]
+
+
+def is_ragged(data) -> bool:
+    """Whether ``data`` is a list of clouds of their own sizes: a list, a
+    tuple or an object array."""
+    return isinstance(data, (list, tuple)) or (isinstance(data, np.ndarray) and data.dtype == object)
 
 
 @dataclass
@@ -29,35 +40,60 @@ class EpochSampler:
     fields come in the JAX order, so ``num_points`` and later are passed by
     keyword."""
 
-    data: np.ndarray  # [B, N_total, 3]
+    data: np.ndarray  # [B, N_total, 3], or ragged: B clouds [n_i, 3]
     labels: np.ndarray  # [B]
-    masks: np.ndarray | None = None  # [B, N_total]
-    parts: np.ndarray | None = None  # [B, N_total]
+    masks: np.ndarray | None = None  # [B, N_total], or ragged: [n_i] each
+    parts: np.ndarray | None = None  # [B, N_total], or ragged: [n_i] each
+    types: np.ndarray | None = None  # [B] (the discriminator's model-type labels)
     num_points: int = 1024
     shuffle: bool = True
     seed: int | None = None
 
     def __post_init__(self):
-        if not (isinstance(self.data, np.ndarray) and self.data.ndim == 3):
-            raise ValueError("EpochSampler takes rectangular clouds [B, N, 3]; ragged input is not ported yet")
         self._rng = np.random.RandomState(self.seed) if self.seed is not None else np.random
 
     def epoch(self) -> dict[str, np.ndarray]:
         """One epoch view: {"points" [B, num_points, 3], "labels" [B]} and,
-        where given, "masks" and "parts" [B, num_points]."""
-        idx_pts = np.arange(self.data.shape[1])
-        if self.shuffle:
-            self._rng.shuffle(idx_pts)
-        take = idx_pts[: self.num_points]
-        out = {"points": self.data[:, take, :]}
-        for key in ("masks", "parts"):
-            if getattr(self, key) is not None:
-                out[key] = getattr(self, key)[:, take]
+        where given, "masks" and "parts" [B, num_points] and "types" [B]."""
+        if is_ragged(self.data):
+            out = self._ragged_points()
+        else:
+            idx_pts = np.arange(self.data.shape[1])
+            if self.shuffle:
+                self._rng.shuffle(idx_pts)
+            take = idx_pts[: self.num_points]
+            out = {"points": self.data[:, take, :]}
+            for key in ("masks", "parts"):
+                if getattr(self, key) is not None:
+                    out[key] = getattr(self, key)[:, take]
         idx = np.arange(len(self.labels))
         if self.shuffle:
             self._rng.shuffle(idx)
         out = {k: v[idx] for k, v in out.items()}
-        out["labels"] = self.labels[idx]
+        out["labels"] = np.asarray(self.labels)[idx]
+        if self.types is not None:
+            out["types"] = np.asarray(self.types)[idx]
+        return out
+
+    def _ragged_points(self) -> dict[str, np.ndarray]:
+        """Each cloud's own permutation, its first ``num_points`` points kept
+        (float32), masks and parts co-sampled: stacked, in cloud order."""
+        picked = {"points": []}
+        for key in ("masks", "parts"):
+            if getattr(self, key) is not None:
+                picked[key] = []
+        for i, pc in enumerate(self.data):
+            if pc.shape[0] < self.num_points:
+                raise ValueError(f"cloud has {pc.shape[0]} < num_points={self.num_points}")
+            idx = np.arange(pc.shape[0])
+            if self.shuffle:
+                self._rng.shuffle(idx)
+            take = idx[: self.num_points]
+            picked["points"].append(pc[take])
+            for key in picked.keys() - {"points"}:
+                picked[key].append(np.asarray(getattr(self, key)[i])[take])
+        out = {k: np.stack(v) for k, v in picked.items()}
+        out["points"] = out["points"].astype(np.float32)
         return out
 
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["make_hard_synthetic_dataset", "make_synthetic_dataset"]
+__all__ = ["make_hard_synthetic_dataset", "make_synthetic_dataset", "write_synthetic_h5"]
 
 _PROTOTYPES = (
     "sphere", "cube", "plane", "line", "two_clusters", "cylinder", "torus", "cone",
@@ -187,3 +187,15 @@ def make_hard_synthetic_dataset(
             labels.append(label)
     out = (np.stack(data), np.array(labels, dtype=np.int64), np.stack(masks))
     return out + (np.stack(parts),) if return_parts else out
+
+
+def write_synthetic_h5(path: str, **kwargs) -> None:
+    """``make_synthetic_dataset(**kwargs)`` written as a ScanObjectNN h5
+    container (``io.save_h5``): data and labels, and masks and parts where
+    ``with_mask`` and ``with_parts`` ask for them."""
+    from scanobjectnn_torch.data import io
+
+    arrays = make_synthetic_dataset(**kwargs)
+    mask = arrays[2] if kwargs.get("with_mask") else None
+    parts = arrays[-1] if kwargs.get("with_parts") else None
+    io.save_h5(path, arrays[0], arrays[1], mask=mask, parts=parts)

@@ -49,8 +49,11 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
         _I, _F, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
     ),
-    # key, xyz, feats, b, n, row_units, xyz_s, ids, rank, feats_s, stream
-    "ranksort_launch": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P),
+    # key, xyz, feats, b, n, row_units, threads, per_thread, xyz_s, ids,
+    # rank, feats_s, stream
+    "ranksort_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # n, threads, per_thread, info* (int[4])
+    "ranksort_info": (_I, _I, _I, _P),
     # grouped, idx, src, b, n, m, cs, k, w0x, w0f, bf16, n_layers, widths*,
     # weights*, biases*, pooled, stream
     "samlp_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P),

@@ -26,8 +26,12 @@ scatter and its ``[B, 8, N]`` sublane padding are TPU mechanisms: the card
 moves f32 and ints exactly with plain loads.
 
 What bounds it on the H100: bytes.  One block a cloud sorts (key bits,
-index) words in shared memory with a bitonic sort (N <= ``MAX_N``); its
-barriers, not the bytes, set its time.
+index) words with a bitonic network (N <= ``MAX_N``): each thread holds
+``per_thread`` words in registers, strides below 32 x that many pair lanes
+of a warp by shuffles, and only the larger strides go through shared
+memory (``shared_steps``).  ``sort_plan`` picks the threads and the words a
+thread from N; the C entry point refuses a plan it cannot run.  The
+network's shuffles and compare-and-selects, not the bytes, set its time.
 """
 
 from __future__ import annotations
@@ -37,9 +41,65 @@ import torch
 from scanobjectnn_torch.ops.cuda import _build
 from scanobjectnn_torch.ops.cuda.gather_kernel import _check_cuda
 
-__all__ = ["rank_sort_points", "rank_sort_points_plain", "sort_order_key"]
+__all__ = [
+    "kernel_info", "rank_sort_points", "rank_sort_points_plain", "shared_steps", "sort_order_key",
+    "sort_plan", "sort_words",
+]
 
 MAX_N = 16384  # kMaxN in csrc/ranksort.cu
+MAX_THREADS = 1024  # kMaxThreads
+WARP = 32  # kWarp
+PER_THREAD = (1, 2, 4, 8, 16)  # the words a thread the kernel is built for
+TARGET_PER_THREAD = 8  # the plan's words a thread from LARGE_WORDS on, where the threads allow it
+SMALL_PER_THREAD = 4  # below LARGE_WORDS: more warps a block (M=512 on an H100: 4.4 µs against 5.3 at 8)
+LARGE_WORDS = 2048
+
+
+def sort_words(n: int, per_thread: int) -> int:
+    """The width a cloud of ``n`` keys is padded to: the least power of two
+    that holds ``n`` words and gives a block whole warps of ``per_thread``
+    words a thread (``plan_words`` in the C source)."""
+    p = WARP * per_thread
+    while p < n:
+        p *= 2
+    return p
+
+
+def sort_plan(n: int) -> tuple[int, int]:
+    """(threads a block, words a thread) of a sort of ``n`` keys:
+    ``TARGET_PER_THREAD`` words a thread from ``LARGE_WORDS`` padded words
+    on, ``SMALL_PER_THREAD`` below, fewer where a warp would hold more than
+    the padded cloud, more where the block would pass ``MAX_THREADS``."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"sort_plan: n must be in [1, {MAX_N}], got {n}")
+    per = TARGET_PER_THREAD if sort_words(n, TARGET_PER_THREAD) >= LARGE_WORDS else SMALL_PER_THREAD
+    while per > 1 and sort_words(n, per // 2) < WARP * per:  # a warp's share past the cloud: halve
+        per //= 2
+    while sort_words(n, per) // per > MAX_THREADS:
+        per *= 2
+    return sort_words(n, per) // per, per
+
+
+def shared_steps(threads: int) -> int:
+    """The network's steps that go through shared memory at a block of
+    ``threads`` (a stride of a warp's words or more), each followed by a
+    barrier."""
+    levels = (threads // WARP).bit_length() - 1  # log2(P / (32 E)) = log2(threads / 32)
+    return levels * (levels + 1) // 2
+
+
+def kernel_info(n: int) -> dict:
+    """The build a sort of ``n`` keys takes at ``sort_plan(n)``: registers and
+    local-memory bytes a thread, dynamic shared bytes a block, resident
+    blocks per SM, from ``cudaFuncGetAttributes`` and the occupancy API (on
+    the card)."""
+    import ctypes
+
+    threads, per = sort_plan(n)
+    info = (ctypes.c_int * 4)()
+    _build.check(_build.library().ranksort_info(n, threads, per, ctypes.addressof(info)), "rank_sort kernel_info")
+    return {**dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), info)), "threads": threads,
+            "per_thread": per}
 
 
 def sort_order_key(key: torch.Tensor) -> torch.Tensor:
@@ -89,10 +149,11 @@ def rank_sort_points(
     ids = torch.empty(b, n, dtype=torch.int32, device=dev)
     rank = torch.empty(b, n, dtype=torch.int32, device=dev)
     feats_s = None if feats is None else torch.empty_like(feats)
+    threads, per = sort_plan(n)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.ranksort_launch(
-            key.data_ptr(), xyz.data_ptr(), None if feats is None else feats.data_ptr(), b, n, units,
+            key.data_ptr(), xyz.data_ptr(), None if feats is None else feats.data_ptr(), b, n, units, threads, per,
             xyz_s.data_ptr(), ids.data_ptr(), rank.data_ptr(), None if feats_s is None else feats_s.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )

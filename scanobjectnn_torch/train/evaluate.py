@@ -14,8 +14,11 @@ Behavioural references:
 
 The cross-domain functions evaluate with ``Trainer.evaluate(...,
 shuffle=False)``, which the JAX package's device-resident evaluation is
-tested equal to.  ``dump_error_cases`` and ``dump_seg_masks`` (renders and
-PLY files) wait for the I/O slice.
+tested equal to, and which takes ragged clouds as JAX's ``evaluate_auto``
+routes them: an object array of ``[n_i, 3]`` clouds (``np.asarray`` keeps
+it, so the class filters index it like a rectangular array).
+``dump_error_cases`` and ``dump_seg_masks`` (renders and PLY files) wait
+for ``viz/``.
 """
 
 from __future__ import annotations

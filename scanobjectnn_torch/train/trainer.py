@@ -58,7 +58,7 @@ Evaluation, as the JAX ``Trainer``'s (``trainer.py:314-406``, ``:736-866``):
     vote and averaged (not the stacked mean), the logits summed over the
     votes;
   * ``evaluate(state, data, labels, ...)``: ``config.num_point`` points a
-    cloud (``EpochSampler``), ``padded_batches`` (the last batch padded,
+    cloud (``EpochSampler``; rectangular or ragged clouds), ``padded_batches`` (the last batch padded,
     its padded rows kept out of every tally), ``eval_votes`` per batch,
     overall and per-class accuracy, seg and per-part accuracy, and with
     ``keep_points`` the clouds in eval order.
@@ -69,7 +69,8 @@ the bucketed kernel (#4, after #5).  JAX's ``evaluate_device``,
 ``evaluate_auto`` and ``upload_dataset`` avoid TPU dispatch costs and are
 not ported: the JAX package holds ``evaluate_device`` equal to
 ``evaluate(shuffle=False)``, which the cross-domain protocols call
-(``train/evaluate.py``).  Checkpoints and ``fit`` wait for the CLI slice.
+(``train/evaluate.py``) for rectangular and ragged input alike.
+Checkpoints and ``fit`` wait for the CLI slice.
 """
 
 from __future__ import annotations
@@ -340,10 +341,10 @@ class Trainer:
     def evaluate(
         self,
         state: TrainState,
-        data: np.ndarray,
+        data: np.ndarray | list,
         labels: np.ndarray,
-        masks: np.ndarray | None = None,
-        parts: np.ndarray | None = None,
+        masks: np.ndarray | list | None = None,
+        parts: np.ndarray | list | None = None,
         num_votes: int = 1,
         shuffle: bool = True,
         seed: int | None = 0,
@@ -360,7 +361,11 @@ class Trainer:
         avg_class_accuracy, per_class_accuracy, predictions, labels;
         seg_accuracy; per_part_accuracy (-1.0 for unseen parts) and
         avg_part_accuracy; with ``keep_points`` the points (and masks,
-        seg_predictions) in eval order."""
+        seg_predictions) in eval order.  ``data`` is rectangular [B, N, 3] or
+        ragged (``pipeline.is_ragged``: the clouds of ``io.load_data``, with
+        ``masks`` and ``parts`` one row a cloud): ``EpochSampler`` then
+        subsamples each cloud to ``config.num_point`` points by its own
+        draw."""
         cfg = self.config
         sampler = EpochSampler(data, labels, masks=masks, parts=parts, num_points=cfg.num_point, shuffle=shuffle,
                                seed=seed)

@@ -109,7 +109,10 @@ the same gates to the plain backward with float64 sums.  A plan the kernel
 cannot run (chunk rows, dW slices, scratch, blocks an SM) is refused.
 
 The rank sort (#5): sorted coordinates, ids, rank and feature rows equal to
-``rank_sort_points_plain`` (ties, -0.0/0.0, NaN keys, ragged N).  The
+``rank_sort_points_plain`` (ties, -0.0/0.0, NaN keys, all keys equal or NaN,
+ascending and descending keys, 2- and 4-byte feature rows, the main path's
+B=128 calls, N at every boundary of ``sort_plan``), on every plan the kernel
+takes, its builds without local memory, and a plan it cannot run refused.  The
 bucketed SA layer (#4): ``pooled`` equal bit for bit to the #3 kernel's on
 the same inputs (the same selection, the same row code), held to
 ``sa_ball_mlp_pool_bucketed_plain`` as #3 to its plain version, and its
@@ -173,6 +176,7 @@ from scanobjectnn_torch.ops.cuda.knn_kernel import (
     knn_point_plain,
     point_kernel_info,
 )
+from scanobjectnn_torch.ops.cuda import ranksort_kernel
 from scanobjectnn_torch.ops.cuda.ranksort_kernel import rank_sort_points, rank_sort_points_plain
 from scanobjectnn_torch.ops.cuda.sabucket_kernel import (
     sa_ball_mlp_pool_bucketed,
@@ -2089,12 +2093,27 @@ def test_fused_tail_and_keys_layers_launch_their_kernels(dev, dtype):
 RANKSORT_CASES = {
     "points_2048": (4, 2048, 0, None, "random"),
     "queries_512": (4, 512, 0, None, "random"),
+    "main_path_points_b128": (128, 2048, 0, None, "random"),
+    "main_path_queries_b128": (128, 512, 0, None, "random"),
     "ties_and_zeros": (3, 1000, 0, None, "ties"),
     "nan_keys": (2, 777, 0, None, "nan"),
     "bf16_rows": (2, 300, 24, torch.bfloat16, "ties"),
+    "bf16_odd_rows": (2, 257, 5, torch.bfloat16, "random"),
     "f32_rows": (2, 129, 5, torch.float32, "random"),
+    "f32_rows_2048": (2, 2048, 7, torch.float32, "ties"),
     "one_point": (2, 1, 3, torch.float32, "random"),
     "large_n": (1, 16384, 0, None, "ties"),
+    "all_equal": (3, 2048, 0, None, "equal"),
+    "all_nan": (2, 512, 0, None, "allnan"),
+    "ascending": (2, 2048, 0, None, "ascending"),
+    "descending": (2, 2048, 0, None, "descending"),
+    "signed_zeros": (3, 1500, 0, None, "zeros"),
+    **{f"n_{n}": (2, n, 0, None, "ties") for n in (31, 32, 33, 257, 2047)},
+    # Every boundary of sort_plan: the words a thread and the block's threads
+    # change at the powers of two, the shared-memory steps from 257 on.
+    **{f"plan_edge_{n}": (2, n, 0, None, "ties")
+       for p in (64, 128, 256, 512, 1024, 2048, 4096, 8192) for n in (p, p + 1)},
+    "plan_edge_16383": (1, 16383, 0, None, "random"),
 }
 
 
@@ -2108,13 +2127,20 @@ def _ranksort_inputs(spec, dev):
         key[:, ::7] = -0.0
     if kind == "nan":
         key[:, 3::50] = np.nan
+    if kind == "equal":
+        key[:] = 1.5
+    if kind == "allnan":
+        key[:] = np.nan
+    if kind in ("ascending", "descending"):
+        key = np.broadcast_to(np.arange(n, dtype=np.float32) * (1.0 if kind == "ascending" else -1.0), (b, n)).copy()
+    if kind == "zeros":  # only -0.0 and +0.0, with a few negatives and positives among them
+        key = np.where(rng.rand(b, n) < 0.5, np.float32(-0.0), np.float32(0.0)).astype(np.float32)
+        key[:, ::97] = rng.randn(b, len(key[0, ::97]))
     feats = None if not c else torch.from_numpy(rng.randn(b, n, c).astype(np.float32)).to(dev, fdtype)
     return torch.from_numpy(key).to(dev), torch.from_numpy(xyz).to(dev), feats
 
 
-@pytest.mark.parametrize("case", sorted(RANKSORT_CASES))
-def test_rank_sort_kernel_matches_plain(dev, case):
-    key, xyz, feats = _ranksort_inputs(RANKSORT_CASES[case], dev)
+def _check_rank_sort(key, xyz, feats, dev):
     before = rank_sort_points.launches
     got = rank_sort_points(key, xyz, feats)
     ref = rank_sort_points_plain(key, xyz, feats)
@@ -2126,6 +2152,30 @@ def test_rank_sort_kernel_matches_plain(dev, case):
     assert torch.equal(torch.gather(ids, 1, rank), torch.arange(key.shape[1], device=dev).expand_as(ids))
 
 
+@pytest.mark.parametrize("case", sorted(RANKSORT_CASES))
+def test_rank_sort_kernel_matches_plain(dev, case):
+    _check_rank_sort(*_ranksort_inputs(RANKSORT_CASES[case], dev), dev)
+
+
+@pytest.mark.parametrize("n", [1, 33, 300, 512, 2048, 5000])
+def test_rank_sort_kernel_matches_plain_on_every_plan(dev, n):
+    """Every (threads, words a thread) the kernel takes at n, not only
+    sort_plan's, gives the plain version's bits."""
+    key, xyz, feats = _ranksort_inputs((2, n, 3, torch.bfloat16, "ties"), dev)
+    plans = [(ranksort_kernel.sort_words(n, e) // e, e) for e in ranksort_kernel.PER_THREAD
+             if ranksort_kernel.sort_words(n, e) // e <= ranksort_kernel.MAX_THREADS]
+    assert ranksort_kernel.sort_plan(n) in plans
+    for plan in plans:
+        with mock.patch.object(ranksort_kernel, "sort_plan", lambda _n, plan=plan: plan):
+            _check_rank_sort(key, xyz, feats, dev)
+
+
+def test_rank_sort_kernel_builds_use_no_local_memory(dev):
+    for n in (1, 64, 512, 2048, 16384):
+        info = ranksort_kernel.kernel_info(n)
+        assert info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, (n, info)
+
+
 def test_rank_sort_kernel_refuses_what_it_does_not_take(dev):
     key, xyz, _ = _ranksort_inputs(RANKSORT_CASES["f32_rows"], dev)
     with pytest.raises(ValueError):
@@ -2134,6 +2184,13 @@ def test_rank_sort_kernel_refuses_what_it_does_not_take(dev):
         rank_sort_points(key.double(), xyz)
     with pytest.raises(ValueError):
         rank_sort_points(key, xyz, torch.zeros(*key.shape, 2, dtype=torch.uint8, device=dev))
+    # The C entry point refuses a plan it cannot run: padding past the least
+    # power of two, too few threads for the cloud, a block past 1024 threads,
+    # a words-a-thread it is not built for.
+    for plan in ((64, 8), (32, 4), (2048, 8), (32, 3)):
+        with mock.patch.object(ranksort_kernel, "sort_plan", lambda _n, plan=plan: plan):
+            with pytest.raises(RuntimeError):
+                rank_sort_points(key, xyz)
 
 
 # (b, n, m, k, radius, src channels, mlp, cloud, (W, T, G), xyz_first)

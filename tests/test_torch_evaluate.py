@@ -141,6 +141,32 @@ def test_evaluate_matches_jax_with_a_padded_last_batch(pair, shuffle):
     np.testing.assert_array_equal(got["per_class_accuracy"], ref["per_class_accuracy"])
 
 
+def test_evaluate_matches_jax_on_ragged_clouds(pair):
+    """Clouds of their own sizes (1024 to 1100 points, masks a list of rows),
+    as ``io.load_data`` gives them: each subsampled by its own draw, the
+    last batch padded; the same predictions, tallies and points as JAX's."""
+    kind, _, (jtrainer, jstate), (trainer, state) = pair
+    out = make_synthetic_dataset(num_per_class=2, num_classes=CLASSES, num_points=1100, seed=6,
+                                 with_mask=kind == "seg")
+    sizes = POINTS + np.random.RandomState(2).randint(0, 77, len(out[1]))
+    sizes[0] = POINTS
+    clouds = [pc[:n] for pc, n in zip(out[0], sizes)]
+    masks = [io.convert_to_binary_mask(m[:n]).astype(np.int64) for m, n in zip(out[2], sizes)] if kind == "seg" \
+        else None
+    kw = dict(masks=masks, num_votes=VOTES, shuffle=True, seed=3, keep_points=True)
+    ref = jtrainer.evaluate(jstate, clouds, out[1], **kw)
+    got = trainer.evaluate(state, clouds, out[1], **kw)
+    assert set(got) == set(ref)
+    assert got["total_seen"] == ref["total_seen"] == len(clouds)
+    np.testing.assert_allclose(got["mean_loss"], ref["mean_loss"], rtol=LOSS_RTOL)
+    for key in ("predictions", "labels", "points", "masks", "seg_predictions"):
+        if key in ref:
+            np.testing.assert_array_equal(got[key], np.asarray(ref[key]), err_msg=key)
+    for key in ("accuracy", "avg_class_accuracy", "seg_accuracy"):
+        if key in ref:
+            assert got[key] == ref[key], key
+
+
 def _stub_votes(num_classes, seg_classes=None):
     """An ``eval_votes`` that both trainers can call: logits drawn from the
     batch's points (so padded rows repeat their source row)."""
@@ -206,7 +232,8 @@ class _StubTrainer:
 
     def evaluate(self, state, data, labels, num_votes=1, shuffle=False, **kw):
         assert not shuffle
-        preds = (np.abs(np.asarray(data)).sum((1, 2)) * 7).astype(np.int64) % self.num_classes
+        sums = np.array([np.abs(pc).sum() for pc in data])
+        preds = (sums * 7).astype(np.int64) % self.num_classes
         return {"total_seen": len(preds), "predictions": preds, "labels": np.asarray(labels),
                 "accuracy": float((preds == np.asarray(labels)).mean()) if len(preds) else 0.0}
 
@@ -222,9 +249,20 @@ def _same(got, want):
             assert got[key] == v, key
 
 
-def test_cross_domain_protocols_match_jax():
+def _ragged_clouds(rng, count):
+    """An object array of clouds of 16 to 23 points: JAX's protocols take
+    ragged clouds so (``np.asarray`` keeps it)."""
+    clouds = np.empty(count, dtype=object)
+    for i in range(count):
+        clouds[i] = rng.randn(16 + i % 8, 3).astype(np.float32)
+    return clouds
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["rectangular", "ragged"])
+def test_cross_domain_protocols_match_jax(ragged):
     rng = np.random.RandomState(0)
-    data, labels = rng.randn(40, 16, 3).astype(np.float32), rng.randint(0, 15, 40)
+    data = _ragged_clouds(rng, 40) if ragged else rng.randn(40, 16, 3).astype(np.float32)
+    labels = rng.randint(0, 15, 40)
     _same(evaluate.evaluate_real_trained_on_synthetic(_StubTrainer(40), None, data, labels, num_votes=2),
           jevaluate.evaluate_real_trained_on_synthetic(_StubTrainer(40), None, data, labels, num_votes=2))
     m40 = rng.randint(0, 40, 40)
@@ -232,7 +270,9 @@ def test_cross_domain_protocols_match_jax():
           jevaluate.evaluate_synthetic_trained_on_real(_StubTrainer(15), None, data, m40, num_votes=2))
     for got, want in zip(evaluate.filter_to_mappable_classes(data, labels, labels * 2),
                          jevaluate.filter_to_mappable_classes(data, labels, labels * 2)):
-        np.testing.assert_array_equal(got, want)
+        assert got.dtype == want.dtype and len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
 
 
 def test_confusion_matrix_and_tables_match_jax(tmp_path):
