@@ -267,6 +267,32 @@ Phases (any failure raises and the exit code is not 0):
         (the clouds below 2048 points dropped), centred and normalised, and
         evaluated by SSG as ragged input: ``total_seen`` the clouds loaded,
         the predictions equal to the plain path's.
+ 15. the command line: each command through
+     ``scanobjectnn_torch.train.cli.main(argv)`` in a temporary directory
+     made the working directory (the old one restored after a failure too),
+     its wall seconds printed, its launches counted and split into those of
+     ``Trainer.train_epoch`` and of ``Trainer.evaluate``:
+     a. 75 raw ``.bin`` objects (five a class, 1500-2600 points) and their
+        pickled listing, whose file names resolve against the working
+        directory;
+     b. ``train`` (SSG, N=1024, B=16, 2 epochs, ``--log_dir log``): two
+        epoch lines in ``log_train.txt``, ``metrics.jsonl`` epochs [0, 1],
+        ``checkpoint/``, ``checkpoint_best/``, ``best.json``, ``last.json``
+        at epoch 1; #2, #9, #6 and #7 launched in the training epochs, #1
+        and #3 in the evaluations; the epochs' seconds from the log and the
+        evaluations' from ``metrics.jsonl``;
+     c. ``train --resume --max_epoch 3``: exactly one more epoch, and a
+        best accuracy no lower;
+     d. ``evaluate --num_votes 3``, then the same with ``--ops_backend
+        lax``: the lax run launches nothing and both ``pred_label.txt``
+        files are equal byte for byte;
+     e. ``evaluate --num_point 2048 --num_votes 3`` (``sa_bucket`` "auto"):
+        #5 and #4 launched;
+     f. ``draw_cmat``: ``cmat.pdf``, or ``cmat.pdf.txt`` where matplotlib
+        is missing, and which one;
+     g. ``train --profile --max_epoch 1`` into a fresh log directory: the
+        trace (``torch.profiler``, Chrome format) names #2's and #9's
+        kernels (``fps_kernel``, ``ballgroup_kernel``).
 
 Every kernel's line in the ``{"kernels": [...]}`` record carries its
 bound: the larger of the bytes it must move over 3.35 TB/s and the
@@ -375,6 +401,8 @@ MSG_BATCH, MSG_POINT, MSG_TRAIN_BATCH = 32, 1024, 16
 # The data files (phase 14): an h5 of 4 clouds a class, evaluated at batch
 # DATA_BATCH, and DATA_CLOUDS raw .bin objects of their own sizes.
 DATA_BATCH, DATA_CLOUDS = 32, 30
+# The command line (phase 15): CLI_CLOUDS raw .bin objects, five a class.
+CLI_CLOUDS = 75
 SA_LAYER_BATCH, SA_LAYER_POINT = 32, 1024
 # Mixed precision and the fused tail (phase 11), B=16, N=1024.  #18 must
 # equal its plain version bit for bit (the same r, the same op order without
@@ -2146,9 +2174,9 @@ def bucket_phase(smi: str, dev, models: dict, x0, sa1_xyz) -> dict:
     return {"rank_sort_points": {**rec5, **work5.record()}, "sa_ball_mlp_pool_bucketed": {**rec4, **work4.record()}}
 
 
-def write_bin_clouds(root: str, rng) -> tuple[str, int, int]:
-    """Raw ScanObjectNN object files under ``root`` (phase 14): DATA_CLOUDS
-    clouds of 2048-2600 points, two of them below NUM_POINT (1500 and 2000),
+def write_bin_clouds(root: str, rng, count: int = DATA_CLOUDS) -> tuple[str, int, int]:
+    """Raw ScanObjectNN object files under ``root`` (phases 14 and 15):
+    ``count`` clouds of 2100-2600 points, two of them below NUM_POINT (1500 and 2000),
     11 floats a point after a count header: the coordinates of a synthetic
     prototype's points (semantic label 3 + the class) among background
     points (labels 0, 1, 2 and -1), normals, colours and an instance id.
@@ -2162,11 +2190,12 @@ def write_bin_clouds(root: str, rng) -> tuple[str, int, int]:
 
     from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
 
-    shapes, labels = make_synthetic_dataset(num_per_class=2, num_classes=NUM_CLASSES, num_points=2600, seed=9)
-    sizes = rng.randint(2100, 2601, DATA_CLOUDS)
+    per_class = -(-count // NUM_CLASSES)
+    shapes, labels = make_synthetic_dataset(num_per_class=per_class, num_classes=NUM_CLASSES, num_points=2600, seed=9)
+    sizes = rng.randint(2100, 2601, count)
     sizes[[3, 17]] = (1500, 2000)
     entries, with_bg, fg_only = [], 0, 0
-    for i, (n, label) in enumerate(zip(sizes, labels[:DATA_CLOUDS])):
+    for i, (n, label) in enumerate(zip(sizes, labels[:count])):
         n_bg = rng.randint(0, 200)
         n_minus = rng.randint(0, 30)
         pts = np.concatenate([shapes[i][: n - n_bg - n_minus], 3.0 * rng.rand(n_bg + n_minus, 3) - 1.5])
@@ -2284,6 +2313,162 @@ def data_phase(smi: str, dev) -> None:
                   f"({min(sizes)}-{max(sizes)} points), centred and normalised")
             evaluate(f"SSG over the ragged clouds (with_bg={with_bg}) N={NUM_POINT}", trainer, state, ssg_counters,
                      clouds, np.asarray(cloud_labels))
+
+
+def cli_phase(smi: str) -> None:
+    """Phase 15 (module doc): the command line, ``cli.main`` in a temporary
+    working directory, on raw ``.bin`` clouds; the old working directory
+    comes back even after a failure."""
+    import collections
+    import os
+    import re
+    import tempfile
+
+    import torch
+
+    from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group
+    from scanobjectnn_torch.ops.cuda.fps_kernel import fps
+    from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows, scatter_add_rows
+    from scanobjectnn_torch.ops.cuda.ranksort_kernel import rank_sort_points
+    from scanobjectnn_torch.ops.cuda.sabucket_kernel import sa_ball_mlp_pool_bucketed
+    from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool
+    from scanobjectnn_torch.train import cli
+    from scanobjectnn_torch.train.trainer import Trainer
+    from scanobjectnn_torch.utils.profiling import TRACE_FILE
+
+    import numpy as np
+
+    counters = (fps, query_ball_group, gather_rows, scatter_add_rows, sa_ball_mlp_pool, rank_sort_points,
+                sa_ball_mlp_pool_bucketed)
+
+    def snapshot():
+        out = {c.__name__: c.launches for c in counters}
+        out["fps"] -= fps.index_launches
+        out["fps_indices"] = fps.index_launches
+        return out
+
+    # Launches by the Trainer method they ran in: training epochs, evaluations.
+    by_part = {"train_epoch": collections.Counter(), "evaluate": collections.Counter()}
+
+    def tallied(name):
+        method = getattr(Trainer, name)
+
+        def run(self, *args, **kw):
+            before = snapshot()
+            out = method(self, *args, **kw)
+            for k, v in snapshot().items():
+                by_part[name][k] += v - before[k]
+            return out
+
+        return run
+
+    def run(label, argv):
+        for part in by_part.values():
+            part.clear()
+        t0 = time.perf_counter()
+        with mock.patch.object(Trainer, "train_epoch", tallied("train_epoch")), \
+                mock.patch.object(Trainer, "evaluate", tallied("evaluate")):
+            _, counts = counted_run(counters, lambda: cli.main(argv))
+        secs = time.perf_counter() - t0
+        def moved(d):
+            return {k: v for k, v in d.items() if v}
+
+        print(f"cli {label}: {' '.join(argv)}: {secs:.2f} s wall, launches {moved(counts)} (training "
+              f"{moved(by_part['train_epoch'])}, evaluations {moved(by_part['evaluate'])}) ({smi})")
+        return counts
+
+    def records(log_dir):
+        with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    def sidecar(name):
+        with open(os.path.join("log", name)) as f:
+            return json.load(f)
+
+    def epoch_seconds(log_dir):
+        with open(os.path.join(log_dir, "log_train.txt")) as f:
+            return [float(m.group(1)) for m in re.finditer(r"^epoch \d+ .*\((\d+\.\d)s\)$", f.read(), re.M)]
+
+    old_cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            # a. The clouds and their listing, in the working directory.
+            listing, kept, _ = write_bin_clouds(tmp, np.random.RandomState(15), count=CLI_CLOUDS)
+            require(kept == CLI_CLOUDS - 2, f"{kept} clouds of {NUM_POINT} points or more")
+            files = ["--train_file", os.path.basename(listing), "--test_file", os.path.basename(listing)]
+            ssg = ["--model", "pointnet2_cls_ssg", "--num_point", str(TRAIN_POINT), "--batch_size", str(TRAIN_BATCH)]
+            train = ["train"] + ssg + ["--log_dir", "log"] + files
+            print(f"cli data: {CLI_CLOUDS} raw .bin clouds (1500-2600 points) and {os.path.basename(listing)} "
+                  f"in the working directory")
+
+            # b. Train two epochs.
+            run("train", train + ["--max_epoch", "2"])
+            with open("log/log_train.txt") as f:
+                epochs = [line for line in f if line.startswith("epoch ")]
+            require(len(epochs) == 2, f"log_train.txt has {len(epochs)} epoch lines, not 2")
+            require([r["epoch"] for r in records("log")] == [0, 1], "metrics.jsonl epochs are not [0, 1]")
+            for name in ("checkpoint", "checkpoint_best", "best.json", "last.json"):
+                require(os.path.exists(os.path.join("log", name)), f"fit wrote no log/{name}")
+            require(sidecar("last.json")["epoch"] == 1, "last.json is not at epoch 1")
+            train_parts, eval_parts = by_part["train_epoch"], by_part["evaluate"]
+            for k in ("fps_indices", "query_ball_group", "gather_rows", "scatter_add_rows"):
+                require(train_parts[k] > 0, f"{k} never launched in the training epochs: {dict(train_parts)}")
+            for k in ("fps", "sa_ball_mlp_pool"):
+                require(eval_parts[k] > 0, f"{k} never launched in the evaluations: {dict(eval_parts)}")
+            best = sidecar("best.json")["accuracy"]
+            secs = epoch_seconds("log")
+            evals = [r["eval_seconds"] for r in records("log")]
+            print(f"cli train: epochs {', '.join(f'{v:.1f}' for v in secs)} s (log), evaluations "
+                  f"{', '.join(f'{v:.3f}' for v in evals)} s (metrics.jsonl), best accuracy {best:.4f} ({smi})")
+
+            # c. Resume for one more epoch.
+            run("train --resume", train + ["--max_epoch", "3", "--resume"])
+            require([r["epoch"] for r in records("log")] == [0, 1, 2], "the resumed run did not add exactly epoch 2")
+            resumed_best = sidecar("best.json")["accuracy"]
+            require(resumed_best >= best, f"best.json went from {best} to {resumed_best}")
+            print(f"cli train --resume: epoch 2 in {epoch_seconds('log')[-1]:.1f} s (log), evaluation "
+                  f"{records('log')[-1]['eval_seconds']:.3f} s, best accuracy {resumed_best:.4f} ({smi})")
+
+            # d. Evaluate on the kernel path, then on the plain path.
+            evaluate = ["evaluate", "--num_point", str(TRAIN_POINT), "--batch_size", str(TRAIN_BATCH),
+                        "--num_votes", "3", "--log_dir", "log"] + files
+            run("evaluate", evaluate)
+            os.replace("log/pred_label.txt", "pred_kernel.txt")
+            lax = run("evaluate --ops_backend lax", evaluate + ["--ops_backend", "lax"])
+            require(set(lax.values()) == {0}, f"the lax evaluation launched kernels: {lax}")
+            with open("pred_kernel.txt", "rb") as f, open("log/pred_label.txt", "rb") as g:
+                kernel_bytes, lax_bytes = f.read(), g.read()
+            require(kernel_bytes == lax_bytes, "pred_label.txt differs between the kernel and the lax path")
+            print(f"cli evaluate: pred_label.txt ({len(kernel_bytes.splitlines())} lines) equal byte for byte on "
+                  f"the kernel and the lax path")
+
+            # e. The bucketed path at 2048 points.
+            counts = run("evaluate N=2048", ["evaluate", "--num_point", str(NUM_POINT), "--batch_size",
+                                            str(TRAIN_BATCH), "--num_votes", "3", "--log_dir", "log"] + files)
+            for k in ("rank_sort_points", "sa_ball_mlp_pool_bucketed"):
+                require(counts[k] > 0, f"{k} never launched in the 2048-point evaluation: {counts}")
+
+            # f. The confusion matrix.
+            run("draw_cmat", ["draw_cmat", "--num_point", str(TRAIN_POINT), "--log_dir", "log"] + files)
+            wrote = [n for n in ("cmat.pdf", "cmat.pdf.txt") if os.path.isfile(os.path.join("log", n))]
+            require(len(wrote) == 1, f"draw_cmat wrote {wrote}")
+            print(f"cli draw_cmat: wrote log/{wrote[0]}"
+                  + ("" if wrote[0] == "cmat.pdf" else " (matplotlib is not installed: the text table)"))
+
+            # g. A profiled epoch into a fresh log directory.
+            run("train --profile", ["train"] + ssg + ["--log_dir", "log_profile", "--max_epoch", "1", "--profile"]
+                + files)
+            with open(os.path.join("log_profile", "profile", TRACE_FILE)) as f:
+                events = json.load(f)["traceEvents"]
+            kernels = collections.Counter(e["name"] for e in events if e.get("cat") == "kernel")
+            for want in ("fps_kernel", "ballgroup_kernel"):
+                require(any(want in name for name in kernels), f"the profile trace names no {want}")
+            named = {w: sum(n for name, n in kernels.items() if w in name) for w in ("fps_kernel", "ballgroup_kernel")}
+            print(f"cli train --profile: {sum(kernels.values())} kernel events in {TRACE_FILE}, {named}; "
+                  f"fit's epoch {epoch_seconds('log_profile')[-1]:.1f} s (log) ({smi})")
+        finally:
+            os.chdir(old_cwd)
 
 
 def sa_layer_phase(smi: str, dev) -> dict:
@@ -3131,6 +3316,7 @@ def main() -> None:
     measured.update(bucket_phase(smi, dev, models, x0, sa1_xyz))
     routes = range_phase(smi, dev)
     data_phase(smi, dev)
+    cli_phase(smi)
 
     require(not {"jax", "scanobjectnn_tpu"} & set(sys.modules), "JAX or the JAX package was imported")
 

@@ -6,8 +6,12 @@ find:
   nn/        Dense, eval BatchNorm, MLP; PointNet++ SA modules
   ops/       FPS and gathers; ``ops/cuda`` holds the hand-written CUDA
              kernels (sources in ``csrc/``) beside their plain versions
-  models/    PointNet2ClsSSG and the ``get_model`` registry
-  data/      seeded synthetic clouds (numpy)
+  models/    the ``get_model`` registry of the ported models
+  data/      loaders, splits, the epoch sampler, synthetic clouds (numpy)
+  train/     the trainer (steps, evaluation, ``fit``, checkpoints), the
+             evaluation protocols and the command line (``train/cli.py``)
+  utils/     the logger and the profiler trace
+  viz/       renders and the confusion-matrix plot
   convert.py JAX ``variables`` -> this package's ``state_dict``; init
 
 Nothing here imports JAX or the JAX package, so the port runs where

@@ -35,6 +35,7 @@ __all__ = [
     "load_withmask_h5",
     "normalize_data",
     "normalize_data_multiview",
+    "object_array",
     "save_h5",
     "save_ply",
 ]
@@ -142,9 +143,20 @@ def load_data(
     return pcs, labels
 
 
+def object_array(pcs: Sequence[np.ndarray]) -> np.ndarray:
+    """A 1-D object array of the clouds, also where they are all one size."""
+    out = np.empty(len(pcs), dtype=object)
+    for i, pc in enumerate(pcs):
+        out[i] = pc
+    return out
+
+
 def center_data(pcs: np.ndarray | Sequence[np.ndarray]):
     """Each cloud less its centroid (ref data_utils.py:162-169): an array
-    ``[..., N, 3]`` keeps its dtype; a list gives a list."""
+    ``[..., N, 3]`` keeps its dtype; a list gives a list, an object array
+    of clouds an object array (the JAX function raises on one)."""
+    if isinstance(pcs, np.ndarray) and pcs.dtype == object:
+        return object_array(center_data(list(pcs)))
     if isinstance(pcs, np.ndarray):
         return (pcs - pcs.mean(axis=-2, keepdims=True)).astype(pcs.dtype, copy=False)
     return [pc - pc.mean(axis=0, keepdims=True) for pc in pcs]
@@ -152,7 +164,11 @@ def center_data(pcs: np.ndarray | Sequence[np.ndarray]):
 
 def normalize_data(pcs: np.ndarray | Sequence[np.ndarray]):
     """Each cloud scaled by its largest point norm, into the unit sphere (ref
-    data_utils.py:133-143): an array keeps its dtype; a list gives a list."""
+    data_utils.py:133-143): an array keeps its dtype; a list gives a list,
+    an object array of clouds an object array (the JAX function raises on
+    one)."""
+    if isinstance(pcs, np.ndarray) and pcs.dtype == object:
+        return object_array(normalize_data(list(pcs)))
     if isinstance(pcs, np.ndarray):
         d = np.sqrt((pcs**2).sum(axis=-1)).max(axis=-1)
         return (pcs / d[..., None, None]).astype(pcs.dtype, copy=False)

@@ -31,8 +31,13 @@ is process-global):
   * ``fused_sa_train``: under modes "0" and "1", the layers after Dense 0
     run as ``ops.satrain.grouped_bn_mlp_pool`` (``_fused_train_tail``),
     whose backward recomputes them from Dense 0's output (#17 on the card).
-Eval ignores both; it reads ``sa_bucket``, which ``configure_eval`` gives
-(JAX's kernelconfig ``sa_bucket``, per model here): "auto" (the default)
+Eval ignores both; it reads ``fused_sa_eval`` and ``sa_bucket``, which
+``configure_eval`` gives (JAX's kernelconfig settings, per model here).
+``fused_sa_eval`` "on" (the default) runs an eval SA layer whose ``npoint``
+and point count are multiples of 8 fused (FPS with coordinates, then #3,
+#4 or #10); "off" sends every eval SA layer through the unfused branch
+(``sample_and_group`` and the MLP with the running-stat BN).  JAX's
+"interpret" is a Pallas mode and is not ported.  ``sa_bucket`` "auto" (the default)
 sends a fused ball-grouped scale whose (N, M) is in the bucketed kernel's
 table (``ops/cuda/sabucket_kernel.AUTO_BUCKET``: (2048, 512)) and that
 ``bucket_eligible`` takes to ``sa_ball_mlp_pool_bucketed`` (#4, with #5
@@ -75,15 +80,18 @@ __all__ = [
 
 
 POOL_MODES = ("0", "1", "keys")
+FUSED_SA_EVAL_SETTINGS = ("on", "off")
 
 
 class _PooledMLP(MLP):
     """A shared MLP that ends in a max-pool over the neighbour axis, with
     the training settings of the module doc (defaults: mode "0", unfused)
-    and the eval setting ``sa_bucket`` (default "auto")."""
+    and the eval settings ``fused_sa_eval`` (default "on") and
+    ``sa_bucket`` (default "auto")."""
 
     pool_mode = "0"
     fused_sa_train = False
+    fused_sa_eval = "on"
     sa_bucket = "auto"
 
     def fused_tail(self) -> bool:
@@ -111,15 +119,18 @@ def configure_training(model: nn.Module, pool_mode: str, fused_sa_train: bool) -
     return model
 
 
-def configure_eval(model: nn.Module, sa_bucket: str) -> nn.Module:
-    """Give every grouped MLP of ``model`` its eval setting (module doc):
+def configure_eval(model: nn.Module, sa_bucket: str, fused_sa_eval: str = "on") -> nn.Module:
+    """Give every grouped MLP of ``model`` its eval settings (module doc):
     ``sa_bucket`` "auto" (JAX's default: the bucketed kernel where
-    ``AUTO_BUCKET`` has the layer's shape) or "off"."""
+    ``AUTO_BUCKET`` has the layer's shape) or "off", and ``fused_sa_eval``
+    "on" or "off"."""
     if sa_bucket not in SA_BUCKET_SETTINGS:
         raise ValueError(f"sa_bucket must be one of {SA_BUCKET_SETTINGS}, got {sa_bucket!r}")
+    if fused_sa_eval not in FUSED_SA_EVAL_SETTINGS:
+        raise ValueError(f"fused_sa_eval must be one of {FUSED_SA_EVAL_SETTINGS}, got {fused_sa_eval!r}")
     for sub in model.modules():
         if isinstance(sub, _PooledMLP):
-            sub.sa_bucket = sa_bucket
+            sub.sa_bucket, sub.fused_sa_eval = sa_bucket, fused_sa_eval
     return model
 
 
@@ -232,10 +243,10 @@ def _gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return gather_neighbors(points.float().contiguous(), idx).to(points.dtype)
 
 
-def _fused_eval(npoint: int, xyz: torch.Tensor) -> bool:
-    """The JAX gate of the fused eval branches: ``npoint`` and the point
-    count multiples of 8."""
-    return npoint % 8 == 0 and xyz.shape[1] % 8 == 0
+def _fused_eval(mlp: _PooledMLP, npoint: int, xyz: torch.Tensor) -> bool:
+    """The JAX gate of the fused eval branches: ``fused_sa_eval`` "on" and
+    ``npoint`` and the point count multiples of 8."""
+    return mlp.fused_sa_eval == "on" and npoint % 8 == 0 and xyz.shape[1] % 8 == 0
 
 
 def _fused_ball_scale(
@@ -343,7 +354,7 @@ class SAModule(nn.Module):
         if self.group_all:
             new_xyz, new_points = sample_and_group_all(xyz, points, self.use_xyz)
             return new_xyz, self.mlp(new_points, bn_momentum)
-        if self.training or not _fused_eval(self.npoint, xyz):
+        if self.training or not _fused_eval(self.mlp, self.npoint, xyz):
             new_xyz, new_points = sample_and_group(
                 self.npoint, self.radius, self.nsample, xyz, points, self.knn, self.use_xyz
             )
@@ -405,7 +416,7 @@ class SAModuleMSG(nn.Module):
 
     def forward(self, xyz: torch.Tensor, points: torch.Tensor | None, bn_momentum: float | None = None):
         """Returns (new_xyz [B, npoint, 3], [B, npoint, sum of mlp[-1]])."""
-        fused = not self.training and _fused_eval(self.npoint, xyz)
+        fused = not self.training and _fused_eval(self.mlp_scale0, self.npoint, xyz)
         if fused:
             _, new_xyz = ops.farthest_point_sample_with_coords(xyz, self.npoint)
         else:

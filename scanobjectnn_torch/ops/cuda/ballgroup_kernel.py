@@ -45,7 +45,7 @@ import ctypes
 
 import torch
 
-from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda import _build, takes_plain
 
 __all__ = [
     "ball_plan",
@@ -153,7 +153,7 @@ def query_ball_group(
     A CPU tensor takes ``query_ball_group_plain``; a CUDA tensor launches
     the kernel on ``ball_plan``'s plan (counted in
     ``query_ball_group.launches``) or raises."""
-    if xyz.device.type == "cpu":
+    if takes_plain(xyz):
         return query_ball_group_plain(radius, nsample, xyz, new_xyz)
     if xyz.device.type != "cuda":
         raise ValueError(f"query_ball_group: unsupported device {xyz.device}")
@@ -188,7 +188,7 @@ def query_ball_point(
     A CPU tensor takes ``ball_query_plain``; a CUDA tensor launches the
     kernel on ``ball_plan``'s plan (counted in ``query_ball_point.launches``)
     or raises."""
-    if xyz.device.type == "cpu":
+    if takes_plain(xyz):
         idx, cnt = ball_query_plain(radius, nsample, xyz, new_xyz)
         return idx.to(torch.int32), cnt.to(torch.int32)
     if xyz.device.type != "cuda":

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda import _build, takes_plain
 
 __all__ = ["duplicate_mask_kernel", "duplicate_mask_plain", "kernel_info", "launch_floor"]
 
@@ -51,7 +51,7 @@ def duplicate_mask_kernel(xyz: torch.Tensor) -> torch.Tensor:
 
     A CPU tensor takes ``duplicate_mask_plain``; a CUDA tensor launches the
     kernel (counted in ``duplicate_mask_kernel.launches``) or raises."""
-    if xyz.device.type == "cpu":
+    if takes_plain(xyz):
         return duplicate_mask_plain(xyz)
     if xyz.device.type != "cuda":
         raise ValueError(f"duplicate_mask_kernel: unsupported device {xyz.device}")

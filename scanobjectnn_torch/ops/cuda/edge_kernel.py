@@ -64,7 +64,7 @@ import ctypes
 
 import torch
 
-from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda import _build, takes_plain
 from scanobjectnn_torch.ops.cuda.gather_kernel import (
     _check_cuda,
     gather_neighbors,
@@ -296,7 +296,7 @@ def edge_reduce(feats: torch.Tensor, vals: torch.Tensor, k: int) -> dict:
 
     A CPU tensor takes ``edge_reduce_plain``; a CUDA tensor launches the
     graph kernel and the reduce kernels, or raises."""
-    if vals.device.type == "cpu":
+    if takes_plain(vals):
         return edge_reduce_plain(feats, vals, k)
     idx = knn_graph_kernel(feats.detach().float().contiguous(), k)
     outs = _EdgeReduce.apply(vals.float().contiguous(), idx)
@@ -367,7 +367,7 @@ def edge_gather_knn(feats: torch.Tensor, vals: torch.Tensor, k: int) -> tuple[to
     kernel and the gather kernel; every call is counted in
     ``edge_gather_knn.launches``, the fused ones also in ``.fused_launches``,
     the others in ``.routed_launches``.  Raises where a kernel fails."""
-    if vals.device.type == "cpu":
+    if takes_plain(vals):
         return edge_gather_knn_plain(feats, vals, k)
     points = feats.detach().float().contiguous()
     if k <= FUSED_MAX_K:

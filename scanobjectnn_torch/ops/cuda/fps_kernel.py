@@ -41,7 +41,7 @@ import ctypes
 
 import torch
 
-from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda import _build, takes_plain
 
 __all__ = ["fps", "fps_plain", "kernel_info"]
 
@@ -84,7 +84,7 @@ def fps(xyz: torch.Tensor, npoint: int, with_coords: bool = True):
     ``fps_pallas``, also in ``fps.index_launches``, and one above
     ``REGISTER_MAX_POINTS`` points also in ``fps.large_launches``) or
     raises."""
-    if xyz.device.type == "cpu":
+    if takes_plain(xyz):
         idx, new_xyz = fps_plain(xyz, npoint)
         return (idx, new_xyz) if with_coords else idx
     if xyz.device.type != "cuda":

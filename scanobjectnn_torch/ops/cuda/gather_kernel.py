@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda import _build, takes_plain
 
 __all__ = [
     "count_sort_kernel",
@@ -81,7 +81,7 @@ def gather_rows(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
     A CPU tensor takes ``gather_rows_plain``; a CUDA tensor launches the
     kernel (counted in ``gather_rows.launches``) or raises."""
-    if vals.device.type == "cpu":
+    if takes_plain(vals):
         return gather_rows_plain(vals, idx)
     if vals.device.type != "cuda":
         raise ValueError(f"gather_rows: unsupported device {vals.device}")
@@ -155,7 +155,7 @@ def scatter_add_rows(idx: torch.Tensor, upd: torch.Tensor, n: int) -> torch.Tens
 
     A CPU tensor takes ``scatter_add_rows_plain``; a CUDA tensor launches
     the kernel (counted in ``scatter_add_rows.launches``) or raises."""
-    if upd.device.type == "cpu":
+    if takes_plain(upd):
         return scatter_add_rows_plain(idx, upd, n)
     if upd.device.type != "cuda":
         raise ValueError(f"scatter_add_rows: unsupported device {upd.device}")

@@ -65,7 +65,7 @@ import ctypes
 
 import torch
 
-from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda import _build, takes_plain
 from scanobjectnn_torch.ops.cuda.satrain_kernel import sm_count
 
 __all__ = [
@@ -214,7 +214,7 @@ def knn_point_kernel(
     ``.sort_launches``, and of those, on a cloud of more than ``SORT_TILE``
     keys, in ``.tiled_launches``, and on the full sort in
     ``.fullsort_launches``) or raises."""
-    if queries.device.type == "cpu":
+    if takes_plain(queries):
         return knn_point_plain(queries, keys, k, bias)
     if queries.device.type != "cuda":
         raise ValueError(f"knn_point_kernel: unsupported device {queries.device}")
@@ -277,7 +277,7 @@ def knn_graph_kernel(features: torch.Tensor, k: int) -> torch.Tensor:
     kernel (counted in ``knn_graph_kernel.launches``; above ``GRAPH_MAX_K``
     the general kernel, also counted in ``knn_graph_kernel.routed_launches``)
     or raises."""
-    if features.device.type == "cpu":
+    if takes_plain(features):
         return knn_graph_plain(features, k)
     if features.device.type != "cuda":
         raise ValueError(f"knn_graph_kernel: unsupported device {features.device}")

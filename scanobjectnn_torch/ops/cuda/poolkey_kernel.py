@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda import _build, takes_plain
 
 __all__ = ["bn_relu_exactkey_pool", "bn_relu_exactkey_pool_plain"]
 
@@ -68,7 +68,7 @@ def bn_relu_exactkey_pool(
     axis -2 (module doc).  A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel (counted in
     ``bn_relu_exactkey_pool.launches``) or raises."""
-    if z32.device.type == "cpu":
+    if takes_plain(z32):
         return bn_relu_exactkey_pool_plain(z32, gamma, beta, mean, r, cdtype)
     if z32.device.type != "cuda":
         raise ValueError(f"bn_relu_exactkey_pool: unsupported device {z32.device}")

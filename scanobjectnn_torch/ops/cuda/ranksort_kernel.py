@@ -38,7 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda import _build, takes_plain
 from scanobjectnn_torch.ops.cuda.gather_kernel import _check_cuda
 
 __all__ = [
@@ -128,7 +128,7 @@ def rank_sort_points(
 
     A CPU tensor takes ``rank_sort_points_plain``; a CUDA tensor launches the
     kernel (counted in ``rank_sort_points.launches``) or raises."""
-    if key.device.type == "cpu":
+    if takes_plain(key):
         return rank_sort_points_plain(key, xyz, feats)
     fn = "rank_sort_points"
     if key.device.type != "cuda":

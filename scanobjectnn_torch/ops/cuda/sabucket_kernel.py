@@ -50,7 +50,7 @@ from typing import Sequence
 
 import torch
 
-from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda import _build, takes_plain
 from scanobjectnn_torch.ops.cuda.ballgroup_kernel import ball_query_plain
 from scanobjectnn_torch.ops.cuda.gather_kernel import _check_cuda
 from scanobjectnn_torch.ops.cuda.ranksort_kernel import rank_sort_points, rank_sort_points_plain
@@ -224,7 +224,7 @@ def sa_ball_mlp_pool_bucketed(
     launches #5 twice and the kernel once (counted in
     ``sa_ball_mlp_pool_bucketed.launches``) or raises.  For inference: the
     output carries no gradient."""
-    if xyz.device.type == "cpu":
+    if takes_plain(xyz):
         pooled, ov = _bucketed_plain(
             radius, nsample, xyz, new_xyz, src_feats, weights, biases, use_xyz, xyz_first, dtype,
             window, qtile, gblk,

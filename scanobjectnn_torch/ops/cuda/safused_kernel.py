@@ -48,7 +48,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from scanobjectnn_torch.nn.layers import matmul_f32
-from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda import _build, takes_plain
 from scanobjectnn_torch.ops.cuda.ballgroup_kernel import ball_query_plain
 from scanobjectnn_torch.ops.cuda.gather_kernel import _check_cuda
 
@@ -200,7 +200,7 @@ def sa_ball_mlp_pool(
     ``sa_ball_mlp_pool.chunked_launches`` too) or raises, also
     for a K that ``fusable_nsample`` refuses.  The kernel is for inference:
     its outputs carry no gradient."""
-    if xyz.device.type == "cpu":
+    if takes_plain(xyz):
         return sa_ball_mlp_pool_plain(
             radius, nsample, xyz, new_xyz, src_feats, weights, biases,
             use_xyz, xyz_first, dtype,

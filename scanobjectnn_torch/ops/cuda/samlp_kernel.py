@@ -37,7 +37,7 @@ from typing import Sequence
 
 import torch
 
-from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda import _build, takes_plain
 from scanobjectnn_torch.ops.cuda.gather_kernel import _check_cuda
 from scanobjectnn_torch.ops.cuda.safused_kernel import (
     MAX_NSAMPLE,
@@ -117,7 +117,7 @@ def sa_mlp_pool(
     (counted in ``sa_mlp_pool.launches``) or raise.  For inference: the
     output carries no gradient."""
     ref = grouped_xyz if grouped_xyz is not None else idx
-    if ref is not None and ref.device.type == "cpu":
+    if ref is not None and takes_plain(ref):
         return sa_mlp_pool_plain(grouped_xyz, idx, src_feats, weights, biases, dtype)
     fn = "sa_mlp_pool"
     if ref is not None and ref.device.type != "cuda":

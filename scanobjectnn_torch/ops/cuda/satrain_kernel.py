@@ -50,7 +50,7 @@ from typing import Sequence
 
 import torch
 
-from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda import _build, takes_plain
 
 __all__ = [
     "EPS",
@@ -355,7 +355,7 @@ def grouped_bn_mlp_pool_bwd(
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     (counted in ``grouped_bn_mlp_pool_bwd.launches``) on ``plan``'s layout,
     or raises."""
-    if z1.device.type == "cpu":
+    if takes_plain(z1):
         return grouped_bn_mlp_pool_bwd_plain(z1, gammas, betas, ws, bs, means, variances, d_pooled, pool_mode)
     fn = "grouped_bn_mlp_pool_bwd"
     if z1.device.type != "cuda":

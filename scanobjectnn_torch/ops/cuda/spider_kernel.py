@@ -54,7 +54,7 @@ from __future__ import annotations
 import torch
 
 from scanobjectnn_torch.nn.layers import matmul_f32
-from scanobjectnn_torch.ops.cuda import _build
+from scanobjectnn_torch.ops.cuda import _build, takes_plain
 from scanobjectnn_torch.ops.cuda.gather_kernel import _check_cuda, gather_rows_plain, scatter_add_rows
 
 __all__ = [
@@ -209,7 +209,7 @@ def spider_conv(feat: torch.Tensor, idx: torch.Tensor, g: torch.Tensor, kernel: 
 
     A CPU tensor takes ``spider_conv_plain``; a CUDA tensor launches the
     kernels (forward, and backward through autograd), or raises."""
-    if feat.device.type == "cpu":
+    if takes_plain(feat):
         return spider_conv_plain(feat, idx, g, kernel)
     return _SpiderConv.apply(
         feat.float().contiguous(), idx.to(torch.int32).contiguous(), g.float().contiguous(),

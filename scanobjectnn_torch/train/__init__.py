@@ -1,1 +1,2 @@
-"""Training: schedules and the trainer (counterpart of ``scanobjectnn_tpu/train``)."""
+"""Training: schedules, the trainer, the evaluation protocols and the command
+line (counterpart of ``scanobjectnn_tpu/train``)."""

@@ -17,18 +17,24 @@ shuffle=False)``, which the JAX package's device-resident evaluation is
 tested equal to, and which takes ragged clouds as JAX's ``evaluate_auto``
 routes them: an object array of ``[n_i, 3]`` clouds (``np.asarray`` keeps
 it, so the class filters index it like a rectangular array).
-``dump_error_cases`` and ``dump_seg_masks`` (renders and PLY files) wait
-for ``viz/``.
+``dump_error_cases`` and ``dump_seg_masks`` write the ``--visu`` dumps (PNG
+renders through ``viz.render`` and PLY files through ``io.save_ply``), the
+JAX package's file names and bytes.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
+from scanobjectnn_torch.data import io as data_io
 from scanobjectnn_torch.data import mappings
 
 __all__ = [
     "confusion_matrix",
+    "dump_error_cases",
+    "dump_seg_masks",
     "evaluate_real_trained_on_synthetic",
     "evaluate_synthetic_trained_on_real",
     "filter_to_mappable_classes",
@@ -124,3 +130,38 @@ def confusion_matrix(labels, predictions, num_classes: int, normalize: bool = Tr
             cm = cm / cm.sum(axis=1, keepdims=True)
         cm = np.nan_to_num(cm)
     return cm
+
+
+def dump_error_cases(dump_dir: str, points, predictions, labels, class_names, max_dumps: int = 50) -> int:
+    """A three-view depth PNG and a PLY for each misclassified cloud, at
+    most ``max_dumps`` (evaluate_scenennobjects.py:211-222 writes JPEG);
+    returns how many were written."""
+    from scanobjectnn_torch.viz.render import point_cloud_three_views, save_image
+
+    os.makedirs(dump_dir, exist_ok=True)
+    error_cnt = 0
+    for i, (p, l) in enumerate(zip(predictions, labels)):
+        if p == l or error_cnt >= max_dumps:
+            continue
+        stem = f"{error_cnt}_label_{class_names[int(l)]}_pred_{class_names[int(p)]}"
+        save_image(os.path.join(dump_dir, stem + ".png"), point_cloud_three_views(points[i]))
+        data_io.save_ply(points[i], os.path.join(dump_dir, stem + ".ply"))
+        error_cnt += 1
+    return error_cnt
+
+
+_MASK_COLORS = np.array([[1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])  # background red, foreground blue
+
+
+def dump_seg_masks(dump_dir: str, points, gt_masks, pred_masks, max_dumps: int = 20) -> int:
+    """The ground-truth and predicted binary masks of the first
+    ``max_dumps`` clouds as coloured PLY files (evaluate_seg_scenennobjects.py:
+    104-137 writes .bin/.obj with the same colours); returns the clouds
+    written."""
+    os.makedirs(dump_dir, exist_ok=True)
+    n = min(len(points), max_dumps)
+    for i in range(n):
+        for tag, mask in (("gt", gt_masks[i]), ("pred", pred_masks[i])):
+            colors = _MASK_COLORS[np.asarray(mask).astype(int).clip(0, 1)]
+            data_io.save_ply(points[i], os.path.join(dump_dir, f"{i}_{tag}_mask.ply"), colors=colors)
+    return n

@@ -70,57 +70,124 @@ the bucketed kernel (#4, after #5).  JAX's ``evaluate_device``,
 not ported: the JAX package holds ``evaluate_device`` equal to
 ``evaluate(shuffle=False)``, which the cross-domain protocols call
 (``train/evaluate.py``) for rectangular and ragged input alike.
-Checkpoints and ``fit`` wait for the CLI slice.
+
+The config's other JAX fields (``trainer.py:54-104``):
+  * ``optimizer`` "adam" (above) or "momentum": ``torch.optim.SGD`` with
+    ``momentum`` at the same LR schedule, the weight decay added to the
+    gradient before the momentum (``optax.sgd`` behind
+    ``add_decayed_weights``);
+  * ``model_kwargs`` go to ``get_model`` as overrides; ``seg_weight`` and
+    ``reg_weight`` go to a loss whose signature declares them;
+  * ``augment_rotate`` and ``augment_jitter``: the standard recipe rotates
+    and jitters only where asked, PointCNN's skips its transform when both
+    are off;
+  * ``ops_backend`` "auto" and "pallas" are the port's path (a CUDA tensor
+    launches the kernels, a CPU tensor takes the plain versions); "lax"
+    runs ``train_step``, ``eval_step`` and ``eval_votes`` inside
+    ``ops.cuda.plain_ops()``, the plain versions on any device;
+  * ``fused_sa_eval`` "on" or "off" goes to the model's SA layers with
+    ``sa_bucket`` (``configure_eval``); "interpret" is a Pallas mode and is
+    refused;
+  * ``max_epoch``, ``log_dir`` and ``checkpoint_every`` drive ``fit``.
+
+``fit`` follows the JAX ``Trainer.fit`` (``trainer.py:868-985``): the
+model line, the recipe line, the sources copied into
+``log_dir/src_snapshot``, an ``EpochSampler`` over the training clouds,
+each epoch's line and its evaluation's (``evaluate`` with ``shuffle=True``
+and ``seed=0``: JAX's host protocol, which JAX runs for ragged input and
+replaces by ``evaluate_device`` for dense input), the best-so-far
+accuracy (``accuracy``, else ``seg_accuracy``) saved to
+``checkpoint_best`` with ``best.json``, ``metrics.jsonl`` through the
+``Logger``, ``checkpoint`` with ``last.json`` every ``checkpoint_every``
+epochs, and with ``resume`` the sidecars read back so that no epoch trains
+twice and ``checkpoint_best`` is not overwritten by a worse state.  It adds
+one line, the kernel backend it runs.  A checkpoint is a directory
+(JAX's names) holding one ``torch.save`` file of the model's
+``state_dict`` (BN running stats included), the optimizer's, the step and
+the step generator's state, beside ``config.json`` and the sidecars;
+``restore`` loads it with ``weights_only=True``.  The generator's state
+is restored where the checkpoint's generator lived on the same device type
+(a CUDA generator's state is not a CPU generator's); elsewhere the
+template's generator stays as seeded and ``restore`` logs so.  The
+``EpochSampler``'s state is not saved: a resumed run's shuffles restart
+from ``seed``, as in JAX.  JAX's orbax checkpoints are not read here;
+``convert.load_jax_variables`` takes JAX weights.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import inspect
-from dataclasses import dataclass
+import json
+import os
+import shutil
+import time
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 from torch import nn
 
-from scanobjectnn_torch.augment.transforms import pointcnn_augment, standard_train_augment
+from scanobjectnn_torch.augment.transforms import (
+    jitter_point_cloud, pointcnn_augment, rotate_point_cloud, standard_train_augment,
+)
 from scanobjectnn_torch.data.pipeline import Batches, EpochSampler, padded_batches
 from scanobjectnn_torch.models import MODEL_REGISTRY, get_model, get_recipe
-from scanobjectnn_torch.nn.pointnet_modules import configure_eval, configure_training
+from scanobjectnn_torch.nn.pointnet_modules import FUSED_SA_EVAL_SETTINGS, configure_eval, configure_training
+from scanobjectnn_torch.ops.cuda import plain_ops
 from scanobjectnn_torch.ops.cuda.sabucket_kernel import SA_BUCKET_SETTINGS
 from scanobjectnn_torch.train import schedules
+from scanobjectnn_torch.utils.logging import Logger
 
 __all__ = ["TrainState", "Trainer", "TrainerConfig"]
 
 ADAM_EPS = 1e-8
 DTYPES = {"float32": None, "bfloat16": torch.bfloat16}  # None: the model's f32 default
 POOL_MODES = {"native": "0", "f32": "1", "keys": "keys"}
+OPTIMIZERS = ("adam", "momentum")
+OPS_BACKENDS = ("auto", "pallas", "lax")
+CHECKPOINT_FILE = "state.pt"  # in log_dir/checkpoint and log_dir/checkpoint_best
 
 
 @dataclass
 class TrainerConfig:
-    """The fields of the JAX ``TrainerConfig`` that this path reads
-    (reference flags: pointnet2/train.py:25-47), and the device."""
+    """The JAX ``TrainerConfig``'s fields in its order, but
+    ``device_resident`` (a TPU dispatch saving), and the device (reference
+    flags: pointnet2/train.py:25-47)."""
 
     model: str = "pointnet2_cls_ssg"
     num_classes: int = 15
     num_point: int = 1024  # points a cloud at evaluation
     batch_size: int = 16
+    max_epoch: int = 250
     learning_rate: float = 1e-3
+    momentum: float = 0.9
+    optimizer: str = "adam"  # or "momentum" (module doc)
     decay_step: int = 200_000
     decay_rate: float = 0.7
     seg_weight: float = 0.5
+    reg_weight: float = 0.001
     weight_decay: float = 0.0
     dtype: str = "float32"
+    seed: int = 0
+    log_dir: str | None = None
+    augment_rotate: bool = True
+    augment_jitter: bool = True
     # Honour the training recipe the model ships with (module doc).
     use_model_recipe: bool = True
-    # SA pool mode, "auto" | "native" | "f32" | "keys", and the fused SA
-    # training tail (module doc).
-    pool_precision: str = "auto"
+    model_kwargs: dict = field(default_factory=dict)
+    checkpoint_every: int = 1
+    # "auto" | "pallas" | "lax", and the fused eval SA layer "on" | "off"
+    # (module doc).
+    ops_backend: str = "auto"
+    fused_sa_eval: str = "on"
+    # The fused SA training tail, the bucketed eval SA kernel ("auto" |
+    # "off") and the SA pool mode, "auto" | "native" | "f32" | "keys"
+    # (module doc).
     fused_sa_train: bool = False
-    # The bucketed eval SA kernel: "auto" | "off" (module doc).
     sa_bucket: str = "auto"
-    seed: int = 0
+    pool_precision: str = "auto"
     device: str = "cuda"
 
 
@@ -133,9 +200,10 @@ class TrainState:
 
 
 class Trainer:
-    """Builds and trains a registered model on one device."""
+    """Builds, trains, evaluates and checkpoints a registered model on one
+    device."""
 
-    def __init__(self, config: TrainerConfig):
+    def __init__(self, config: TrainerConfig, logger: Logger | None = None):
         if config.dtype not in DTYPES:
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {config.dtype!r}")
         if config.model not in MODEL_REGISTRY:
@@ -153,14 +221,25 @@ class Trainer:
         self.pool_mode, self.fused_sa_train = POOL_MODES[pool], bool(config.fused_sa_train)
         if config.sa_bucket not in SA_BUCKET_SETTINGS:
             raise ValueError(f"sa_bucket must be one of {SA_BUCKET_SETTINGS}, got {config.sa_bucket!r}")
+        if config.fused_sa_eval == "interpret":
+            raise ValueError("fused_sa_eval='interpret' is a Pallas interpret mode and is not ported: use 'on' or 'off'")
+        if config.fused_sa_eval not in FUSED_SA_EVAL_SETTINGS:
+            raise ValueError(f"fused_sa_eval must be one of {FUSED_SA_EVAL_SETTINGS}, got {config.fused_sa_eval!r}")
+        if config.ops_backend not in OPS_BACKENDS:
+            raise ValueError(f"ops_backend must be one of {OPS_BACKENDS}, got {config.ops_backend!r}")
+        if config.optimizer not in OPTIMIZERS:
+            raise ValueError(f"unknown optimizer {config.optimizer!r}")
         self.dtype = DTYPES[config.dtype]
         self.config = config
         self.device = torch.device(config.device)
+        self.logger = logger or Logger(config.log_dir)
         model_cls = MODEL_REGISTRY[config.model]
         self.kind = model_cls.kind
-        self.loss_fn = model_cls.loss
-        if "seg_weight" in inspect.signature(model_cls.loss).parameters:
-            self.loss_fn = functools.partial(model_cls.loss, seg_weight=config.seg_weight)
+        # The config's loss flags reach a loss only where its signature
+        # declares them (JAX trainer.py:147-155).
+        loss_params = inspect.signature(model_cls.loss).parameters
+        overrides = {k: getattr(config, k) for k in ("seg_weight", "reg_weight") if k in loss_params}
+        self.loss_fn = functools.partial(model_cls.loss, **overrides) if overrides else model_cls.loss
         self.recipe = get_recipe(config.model) if config.use_model_recipe else None
         recipe = self.recipe
         self.adam_eps, self.weight_decay = ADAM_EPS, config.weight_decay
@@ -180,25 +259,33 @@ class Trainer:
 
     def init_state(self, seed: int | None = None) -> TrainState:
         """Model in the compute dtype with the reference init drawn from
-        ``seed`` (default ``config.seed``) and the trainer's SA settings
-        (training and ``sa_bucket``), its Adam optimizer, and the step's
-        generator."""
-        seed = self.config.seed if seed is None else seed
-        width = "num_parts" if self.kind == "partseg" else "num_classes"
-        model = get_model(
-            self.config.model, generator=torch.Generator().manual_seed(seed), device=self.device,
-            dtype=self.dtype, **{width: self.config.num_classes},
-        )
+        ``seed`` (default ``config.seed``), ``model_kwargs`` as overrides,
+        and the trainer's SA settings (training, ``fused_sa_eval`` and
+        ``sa_bucket``), its optimizer, and the step's generator."""
+        cfg = self.config
+        seed = cfg.seed if seed is None else seed
+        kwargs = dict(cfg.model_kwargs)
+        kwargs.setdefault("num_parts" if self.kind == "partseg" else "num_classes", cfg.num_classes)
+        kwargs.setdefault("dtype", self.dtype)
+        model = get_model(cfg.model, generator=torch.Generator().manual_seed(seed), device=self.device, **kwargs)
         configure_training(model, self.pool_mode, self.fused_sa_train)
-        configure_eval(model, self.config.sa_bucket)
+        configure_eval(model, cfg.sa_bucket, cfg.fused_sa_eval)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         return TrainState(0, model, self.make_optimizer(model.parameters()), generator)
 
+    def param_count(self, state: TrainState) -> int:
+        return sum(p.numel() for p in state.model.parameters())
+
     def make_optimizer(self, params) -> torch.optim.Optimizer:
+        """Adam, or SGD with momentum (module doc), at LR ``schedule(0)``."""
+        if self.config.optimizer == "momentum":
+            return torch.optim.SGD(
+                params, lr=self.lr_schedule(0), momentum=self.config.momentum, weight_decay=self.weight_decay
+            )
         return torch.optim.Adam(params, lr=self.lr_schedule(0), eps=self.adam_eps, weight_decay=self.weight_decay)
 
     def optimizer_step(self, optimizer: torch.optim.Optimizer, step: int) -> None:
-        """One Adam update at LR ``schedule(step)`` (optax's count)."""
+        """One update at LR ``schedule(step)`` (optax's count)."""
         for group in optimizer.param_groups:
             group["lr"] = self.lr_schedule(step)
         optimizer.step()
@@ -206,12 +293,26 @@ class Trainer:
     # ------------------------------------------------------------- train step
 
     def augment(self, points: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-        """The step's augmentation: the recipe's PointCNN transform, or
-        y-rotation then jitter."""
-        recipe = self.recipe
+        """The step's augmentation: the recipe's PointCNN transform (none
+        when both flags are off), or y-rotation then jitter, each where its
+        flag asks for it."""
+        cfg, recipe = self.config, self.recipe
         if recipe is not None:
+            if not (cfg.augment_rotate or cfg.augment_jitter):
+                return points
             return pointcnn_augment(points, generator, recipe.jitter, recipe.rotation_range, recipe.scaling_range)
-        return standard_train_augment(points, generator)
+        if cfg.augment_rotate and cfg.augment_jitter:
+            return standard_train_augment(points, generator)
+        if cfg.augment_rotate:
+            return rotate_point_cloud(points, generator)
+        if cfg.augment_jitter:
+            return jitter_point_cloud(points, generator)
+        return points
+
+    def _ops(self):
+        """The kernel switch around this trainer's steps: ``plain_ops()``
+        under ``ops_backend`` "lax", else nothing."""
+        return plain_ops() if self.config.ops_backend == "lax" else contextlib.nullcontext()
 
     def train_step(self, state: TrainState, batch: dict) -> tuple[TrainState, dict]:
         """One step on ``batch`` ({"points" [B, N, 3], "labels" [B], and
@@ -219,18 +320,19 @@ class Trainer:
         torch).  Updates ``state`` in place and returns it with the step's
         metrics as device tensors (the loss's terms, then ``correct`` and
         ``count`` and/or ``seg_correct`` and ``seg_count``)."""
-        points, targets = self._on_device(batch)
-        points = self.augment(points, state.generator)
-        model = state.model.train()
-        outputs = model(points, bn_momentum=self.bn_schedule(state.step), generator=state.generator)
-        loss, metrics = self.loss_fn(outputs, targets)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        self.optimizer_step(state.optimizer, state.step)
-        state.step += 1
-        with torch.no_grad():
-            metrics = {k: v.detach() for k, v in metrics.items()}
-            metrics.update(self._metrics(outputs, targets))
+        with self._ops():
+            points, targets = self._on_device(batch)
+            points = self.augment(points, state.generator)
+            model = state.model.train()
+            outputs = model(points, bn_momentum=self.bn_schedule(state.step), generator=state.generator)
+            loss, metrics = self.loss_fn(outputs, targets)
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            self.optimizer_step(state.optimizer, state.step)
+            state.step += 1
+            with torch.no_grad():
+                metrics = {k: v.detach() for k, v in metrics.items()}
+                metrics.update(self._metrics(outputs, targets))
         return state, metrics
 
     def _on_device(self, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -308,7 +410,7 @@ class Trainer:
         c, s = np.cos(float(rotate_angle)), np.sin(float(rotate_angle))
         rot = np.asarray([[[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]]], np.float32)
         model = state.model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), self._ops():
             outputs = model(self._rotate(points, rot)[0])
             loss, _ = self.loss_fn(outputs, targets)
             out = {"loss": loss, **{k: v for k, v in outputs.items() if k != "end_points"}}
@@ -323,7 +425,7 @@ class Trainer:
         points, targets = self._on_device(batch)
         b, n, _ = points.shape
         model = state.model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), self._ops():
             stacked = self._rotate(points, self._vote_rotations(num_votes)).reshape(num_votes * b, n, 3)
             outputs = {k: v for k, v in model(stacked).items() if k != "end_points"}
             per_vote = {k: v.reshape(num_votes, b, *v.shape[1:]) for k, v in outputs.items()}
@@ -433,3 +535,150 @@ class Trainer:
             if all_seg_pred:
                 results["seg_predictions"] = np.concatenate(all_seg_pred)
         return results
+
+    # ------------------------------------------------------------------- fit
+
+    def fit(
+        self,
+        train_data: dict,
+        test_data: dict | None = None,
+        state: TrainState | None = None,
+        num_votes: int = 1,
+        resume: bool = False,
+    ) -> TrainState:
+        """Train ``config.max_epoch`` epochs (module doc): ``train_data``
+        and ``test_data`` are {"points" (rectangular or ragged), "labels",
+        and "masks" or "parts" where the model reads them}."""
+        cfg = self.config
+        resumed = False
+        if state is None:
+            state = self.init_state()
+            if resume and cfg.log_dir:
+                restored = self.restore(state)
+                if restored is not None:
+                    state, resumed = restored, True
+        self.logger.log(f"model={cfg.model} params={self.param_count(state):,} devices=1")
+        plain = cfg.ops_backend == "lax" or self.device.type == "cpu"
+        self.logger.log(f"ops_backend={cfg.ops_backend} device={self.device} "
+                        f"({'the plain versions' if plain else 'the CUDA kernels'})")
+        if self.recipe is not None:
+            self.logger.log(f"recipe={self.recipe}")
+        if cfg.log_dir:
+            self.snapshot_sources()
+        sampler = EpochSampler(
+            train_data["points"], train_data["labels"],
+            masks=train_data.get("masks"), parts=train_data.get("parts"),
+            num_points=cfg.num_point, seed=cfg.seed,
+        )
+        best_acc = -1.0  # best-so-far tracking (3DmFV-Net/train.py:232-237)
+        best_avg_cls = -1.0
+        start_epoch = 0
+        if resumed:
+            # The sidecars: a resumed run neither overwrites checkpoint_best
+            # with a worse state nor trains a finished epoch again.
+            bj = self._load_sidecar("best.json")
+            best_acc = float(bj.get("accuracy", best_acc))
+            best_avg_cls = float(bj.get("avg_class_accuracy", best_avg_cls))
+            lj = self._load_sidecar("last.json")
+            start_epoch = int(lj.get("epoch", -1)) + 1
+            self.logger.log(f"resumed at epoch {start_epoch} (best_acc={best_acc:.4f})")
+        for epoch in range(start_epoch, cfg.max_epoch):
+            t0 = time.time()
+            state, summary = self.train_epoch(state, sampler)
+            msg = f"epoch {epoch:03d} " + " ".join(f"{k}={v:.4f}" for k, v in summary.items())
+            self.logger.log(f"{msg} ({time.time() - t0:.1f}s)")
+            scalars = {f"train_{k}": v for k, v in summary.items()}
+            if test_data is not None:
+                t_ev = time.time()
+                ev = self.evaluate(
+                    state, test_data["points"], test_data["labels"],
+                    masks=test_data.get("masks"), parts=test_data.get("parts"), num_votes=num_votes,
+                )
+                scalars["eval_seconds"] = time.time() - t_ev
+                numbers = {k: v for k, v in ev.items() if isinstance(v, (int, float))}
+                self.logger.log("  eval " + " ".join(f"{k}={v:.4f}" for k, v in numbers.items()))
+                scalars.update({f"eval_{k}": v for k, v in numbers.items()})
+                acc = ev.get("accuracy", ev.get("seg_accuracy", -1.0))
+                if acc > best_acc:
+                    best_acc = acc
+                    best_avg_cls = ev.get("avg_class_accuracy", -1.0)
+                    if cfg.log_dir:
+                        self.save(state, best=True, meta={
+                            "accuracy": float(best_acc), "avg_class_accuracy": float(best_avg_cls),
+                        })
+                scalars["best_accuracy"] = best_acc
+            self.logger.scalars(int(state.step), epoch=epoch, **scalars)
+            if cfg.log_dir and (epoch + 1) % cfg.checkpoint_every == 0:
+                self.save(state, meta={"epoch": epoch})
+        if test_data is not None:
+            self.logger.log(f"Best test accuracy: {best_acc:f}")
+            if best_avg_cls >= 0:  # partseg has no per-class cls accuracy
+                self.logger.log(f"Best test class accuracy: {best_avg_cls:f}")
+        return state
+
+    # ------------------------------------------------------------ checkpoints
+
+    def _ckpt_dir(self, best: bool = False) -> str:
+        assert self.config.log_dir
+        return os.path.join(os.path.abspath(self.config.log_dir), "checkpoint_best" if best else "checkpoint")
+
+    def save(self, state: TrainState, best: bool = False, meta: dict | None = None) -> None:
+        """``state`` into ``checkpoint`` (or ``checkpoint_best``), then
+        ``config.json`` and the sidecar ``last.json`` (``best.json``):
+        {"step", **meta}."""
+        path = self._ckpt_dir(best=best)
+        os.makedirs(path, exist_ok=True)
+        payload = {
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step),
+            "generator": state.generator.get_state(),
+            "generator_device": state.generator.device.type,
+        }
+        tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+        with open(os.path.join(os.path.dirname(path), "config.json"), "w") as f:
+            json.dump({k: v for k, v in self.config.__dict__.items() if not callable(v)}, f, default=str, indent=2)
+        sidecar = "best.json" if best else "last.json"
+        with open(os.path.join(os.path.dirname(path), sidecar), "w") as f:
+            json.dump({"step": int(state.step), **(meta or {})}, f)
+
+    def _load_sidecar(self, name: str) -> dict:
+        path = os.path.join(os.path.abspath(self.config.log_dir), name)
+        if os.path.isfile(path):
+            with open(path) as f:
+                return json.load(f)
+        return {}
+
+    def snapshot_sources(self) -> None:
+        """Copy the model's source module and this trainer's into
+        ``log_dir/src_snapshot`` (pointnet2/train.py:72-74)."""
+        dst = os.path.join(os.path.abspath(self.config.log_dir), "src_snapshot")
+        os.makedirs(dst, exist_ok=True)
+        for obj in (MODEL_REGISTRY[self.config.model], Trainer):
+            src = inspect.getsourcefile(obj)
+            if src and os.path.isfile(src):
+                shutil.copy2(src, dst)
+
+    def restore(self, template: TrainState, best: bool = False) -> TrainState | None:
+        """The checkpoint loaded into ``template``'s model, optimizer, step
+        and generator (module doc); None where there is no checkpoint."""
+        path = self._ckpt_dir(best=best)
+        if not os.path.isdir(path):
+            return None
+        ckpt = torch.load(os.path.join(path, CHECKPOINT_FILE), map_location=self.device, weights_only=True)
+        template.model.load_state_dict(ckpt["model"])
+        template.optimizer.load_state_dict(ckpt["optimizer"])
+        for st in template.optimizer.state.values():
+            if torch.is_tensor(st.get("step")):
+                st["step"] = st["step"].cpu()  # where a new optimizer keeps it
+        template.step = int(ckpt["step"])
+        if ckpt["generator_device"] == template.generator.device.type:
+            template.generator.set_state(ckpt["generator"].cpu())
+        else:
+            self.logger.log(
+                f"restore: the checkpoint's {ckpt['generator_device']} generator state does not apply to a "
+                f"{template.generator.device.type} generator; its draws restart from the template's seed"
+            )
+        return template

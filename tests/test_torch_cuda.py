@@ -120,6 +120,14 @@ per-tile overflow flags equal to the plain version's, in the sparse, dense
 and overflow regimes, with and without features, prelifted, f32 and bf16;
 an eval-mode SSG forward at N = 2048 launches #5 twice and #4 once under
 ``sa_bucket="auto"``, with logits equal to the "off" forward's.
+
+The training loop: an ``ops_backend="auto"`` trainer's SSG ``train_step``
+launches #2, #9, #6 and #7 and its ``eval_votes`` #1 and #3, a "lax"
+trainer's launch nothing, and the next "auto" call launches again; a
+checkpoint saved on the card restores onto the CPU and back bit for bit
+(model, buffers, optimizer), the card's own restore also the generator and
+the next step; ``cli.main`` with the default ``--device`` builds its model
+on the card.
 """
 
 
@@ -2288,3 +2296,106 @@ def test_ssg_eval_takes_the_bucketed_layer_at_2048_points(dev, dtype):
         torch.cuda.synchronize()
         assert tuple(c.launches - b for c, b in zip(counters, before)) == want, setting
     assert torch.equal(logits["auto"], logits["off"])
+
+
+# The training loop: the trainer's kernel switch, checkpoints across
+# devices and the command line on the card.
+
+def _ssg_batch(seed, b=4, n=1024, classes=4):
+    rng = np.random.RandomState(seed)
+    return {"points": rng.randn(b, n, 3).astype(np.float32), "labels": rng.randint(0, classes, b)}
+
+
+TRAINER_COUNTERS = {"fps": fps, "query_ball_group": query_ball_group, "gather_rows": gather_rows,
+                    "scatter_add_rows": scatter_add_rows, "sa_ball_mlp_pool": sa_ball_mlp_pool}
+
+
+def _counts():
+    out = {k: c.launches for k, c in TRAINER_COUNTERS.items()}
+    out["fps_indices"] = fps.index_launches
+    return out
+
+
+def _moved(before):
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in _counts().items()}
+
+
+def test_trainer_launches_its_kernels_and_lax_launches_none(dev):
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    trainers = {b: Trainer(TrainerConfig(num_classes=4, batch_size=4, ops_backend=b)) for b in ("auto", "lax")}
+    states = {b: t.init_state() for b, t in trainers.items()}
+    for round_ in range(2):  # auto, lax, then auto again: nothing left set
+        before = _counts()
+        trainers["auto"].train_step(states["auto"], _ssg_batch(round_))
+        step = _moved(before)
+        assert step["fps_indices"] == 2 and step["fps"] == 2  # #2 at SA1 and SA2, no #1
+        assert step["query_ball_group"] == 2 and step["gather_rows"] > 0 and step["scatter_add_rows"] > 0
+        before = _counts()
+        trainers["auto"].eval_votes(states["auto"], _ssg_batch(5), num_votes=2)
+        votes = _moved(before)
+        assert votes["fps"] == 2 and votes["fps_indices"] == 0 and votes["sa_ball_mlp_pool"] == 2  # #1, #3
+        before = _counts()
+        trainers["lax"].train_step(states["lax"], _ssg_batch(round_))
+        trainers["lax"].eval_votes(states["lax"], _ssg_batch(5), num_votes=2)
+        assert set(_moved(before).values()) == {0}
+
+
+def test_checkpoint_from_the_card_restores_on_the_cpu_and_back(dev, tmp_path):
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    def trainer(device, log):
+        return Trainer(TrainerConfig(num_classes=4, batch_size=4, device=device, log_dir=str(tmp_path / log)))
+
+    card = trainer("cuda", "card")
+    state = card.init_state()
+    for seed in (0, 1):
+        state, _ = card.train_step(state, _ssg_batch(seed))
+    card.save(state)
+    cpu = trainer("cpu", "card")
+    on_cpu = cpu.restore(cpu.init_state(seed=3))
+    for (k, a), (_, b) in zip(state.model.state_dict().items(), on_cpu.model.state_dict().items()):
+        assert b.device.type == "cpu" and torch.equal(a.cpu(), b), k
+    sa, sb = state.optimizer.state_dict()["state"], on_cpu.optimizer.state_dict()["state"]
+    for i in sa:
+        for k in sa[i]:
+            assert torch.equal(sa[i][k].cpu(), sb[i][k].cpu()), (i, k)
+    assert on_cpu.step == state.step == 2
+    trainer("cpu", "cpu").save(on_cpu)
+    back_trainer = trainer("cuda", "cpu")
+    back = back_trainer.restore(back_trainer.init_state(seed=4))
+    for (k, a), (_, b) in zip(state.model.state_dict().items(), back.model.state_dict().items()):
+        assert b.device.type == "cuda" and torch.equal(a, b), k
+    sb = back.optimizer.state_dict()["state"]
+    for i in sa:
+        for k in sa[i]:
+            assert torch.equal(sa[i][k], sb[i][k]) and sa[i][k].device == sb[i][k].device, (i, k)
+    # The generator crossed no device type on the card's own restore.
+    again = card.restore(card.init_state(seed=5))
+    assert torch.equal(again.generator.get_state(), state.generator.get_state())
+    a, _ = card.train_step(state, _ssg_batch(2))
+    b, _ = card.train_step(again, _ssg_batch(2))
+    for (k, x), (_, y) in zip(a.model.state_dict().items(), b.model.state_dict().items()):
+        assert torch.equal(x, y), k
+
+
+def test_cli_device_cuda_builds_the_model_on_the_card(dev, tmp_path, monkeypatch):
+    from scanobjectnn_torch.train import cli
+    from scanobjectnn_torch.train.trainer import Trainer
+
+    monkeypatch.chdir(tmp_path)
+    data = _ssg_batch(0, b=8)  # no h5 file: the card's machine has no h5py
+    seen = []
+    init_state = Trainer.init_state
+
+    def recording(self, *a, **kw):
+        state = init_state(self, *a, **kw)
+        seen.append({p.device.type for p in state.model.parameters()})
+        return state
+
+    monkeypatch.setattr(Trainer, "init_state", recording)
+    monkeypatch.setattr(cli, "_load", lambda path, with_bg, num_point, mode="cls": (
+        data["points"], data["labels"], None))
+    cli.main(["evaluate", "--num_class", "4", "--batch_size", "4", "--log_dir", "log"])
+    assert seen == [{"cuda"}]
