@@ -293,6 +293,49 @@ Phases (any failure raises and the exit code is not 0):
      g. ``train --profile --max_epoch 1`` into a fresh log directory: the
         trace (``torch.profiler``, Chrome format) names #2's and #9's
         kernels (``fps_kernel``, ``ballgroup_kernel``).
+ 16. the PointNet family and 3DmFV-Net, on a 15-class synthetic dataset
+     with background masks and parts (N=1024), its wall seconds printed:
+     a. inference: ``pointnet_cls``, ``pointnet_cls_basic``,
+        ``pointnet_seg`` and ``pointnet_partseg`` at B=32 in f32 and bf16,
+        and ``3dmfv_net_cls`` (the 5³ grid) at B=32 in f32, each built on
+        the CPU from one seeded draw (weights, random positive BN running
+        stats) and copied to the card: the card's logits held to the CPU
+        forward's (f32 within F32_LOGIT_TOL x max(1, |ref|max), the classes
+        equal; bf16 by the bf16 rule at PN_BF16_ULPS on any share of the
+        elements, the classes to BF16_CLASS_AGREEMENT), ``seg_logits`` also
+        by their per-point argmaxes (SEG_AGREEMENT); each forward timed;
+     b. ``3dmfv_net_cls``'s f32 forward again with
+        ``torch.backends.cudnn.allow_tf32`` True for the call: its logits
+        equal to (a)'s bit for bit (the model runs its convolutions without
+        TF32 whatever the flag); the flag restored; one of its convolutions
+        called unscoped with TF32 on, for the size of what the scope keeps
+        out;
+     c. bf16 training (exact-key pooling): one ``pointnet_cls`` and one
+        ``pointnet_seg`` step at B=32: #18 launches 3 times a step, each
+        call equal to ``bn_relu_exactkey_pool_plain`` bit for bit and the
+        ``pointnet_cls`` step's calls timed by CUDA events beside their
+        bound; each step against the plain path (``compare_steps``), and
+        timed beside the f32 step;
+     d. f32 training at B=64: one step each of ``pointnet_cls``,
+        ``pointnet_partseg`` and ``3dmfv_net_cls`` (the static 5³ GMM, and
+        ``learnable_gmm=True`` on the 3³ grid, PN_LEARNABLE_GMM, with no
+        Fisher vector feature exactly 0), no augmentation and no dropout, held to
+        the same step on the CPU from the same weights and batch: the loss
+        within PN_STEP_LOSS_RTOL, every gradient and BN running stat within
+        TRAIN_GRAD_TOL x max(1, |ref|max) (the Dense and conv biases before
+        a training BN, true gradient 0, within ZERO_GRAD_TOL); the card's
+        relu gates and 3DmFV's max-pool winners are fed to the CPU step (a
+        gate whose input lies within rounding of 0, or a window whose two
+        largest values do, would otherwise decide otherwise on one side and
+        move a whole row's or cell's gradient), each where they differ
+        within PN_GATE_MARGIN there; the busy ms and idle share of each card
+        step (``profile_forward.profile_one``); whether two equal 3DmFV
+        steps give equal bits (cuDNN's weight gradients may use atomics),
+        and the 3DmFV forward's peak memory;
+     e. the command line on phase 15's ``.bin`` clouds: ``train --model
+        pointnet_cls --dtype bfloat16 --max_epoch 1`` and ``train --model
+        3dmfv_net_cls --max_epoch 1``: each writes its epoch line,
+        ``metrics.jsonl`` and ``checkpoint/``; the bf16 run launches #18.
 
 Every kernel's line in the ``{"kernels": [...]}`` record carries its
 bound: the larger of the bytes it must move over 3.35 TB/s and the
@@ -308,6 +351,7 @@ a ``{"kernels": [...]}`` line, and as its last line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -430,6 +474,25 @@ SA_LAYER_BATCH, SA_LAYER_POINT = 32, 1024
 MIXED_BATCH, MIXED_POINT = 16, 1024
 FUSED_TOL, FUSED_FLIP_SHARE, FUSED_SUM_TOL, FUSED_ZERO_TOL = 1e-5, 1e-3, TRAIN_GRAD_TOL, 1e-3
 BF16_STEP_GRAD_TOL, FUSED_STEP_GRAD_TOL = 2e-2, 1e-4
+# The PointNet family and 3DmFV-Net (phase 16): inference at the JAX
+# package's B=32, f32 training at its training table's B=64 (3DmFV; PointNet
+# at the same batch), bf16 PointNet steps at B=32.  Card against CPU: the
+# same f32 operations summed in other orders (cuBLAS, cuDNN against MKL and
+# oneDNN): the loss within PN_STEP_LOSS_RTOL, the rest at the f32 bounds.
+# In bf16 the two sides' f32 sums of the same bf16 products, in other
+# orders, move a bf16 rounding now and then, and the moves grow through
+# PointNet's 10-14 layers: the logits within PN_BF16_ULPS bf16 ulps of the
+# scale on any share of the elements (read on an H100 against the CPU: up to
+# 2.25, pointnet_partseg's seg_logits), the classes and the per-point
+# argmaxes by the agreement bounds.
+PN_BATCH, PN_POINT, PN_TRAIN_BATCH = 32, 1024, 64
+PN_STEP_LOSS_RTOL, PN_GATE_MARGIN, PN_BF16_ULPS = 1e-5, 1e-4, 4
+# The learnable GMM's step on the 3³ grid: on the 5³ grid a gaussian that
+# no point of a cloud reaches (its posteriors underflow to 0) gives an
+# exactly-0 Fisher vector feature, whose sign·sqrt gradient is NaN, in JAX
+# as here (read at B=64 on an H100: the GMM's gradients NaN).
+PN_LEARNABLE_GMM = {"learnable_gmm": True, "subdivisions": (3, 3, 3)}
+PN_NAMES = ("pointnet_cls", "pointnet_cls_basic", "pointnet_seg", "pointnet_partseg")
 # Peak rates of one H100 SXM (NVIDIA's data sheet), for the bounds: f32 on
 # the CUDA cores, TF32 and bf16 on the tensor cores (dense).
 HBM_BYTES_PER_S, F32_OPS_PER_S, TF32_OPS_PER_S, BF16_OPS_PER_S = 3.35e12, 67e12, 495e12, 989e12
@@ -828,6 +891,13 @@ def feeds_train_bn(param_name: str) -> bool:
     (``dense_i``: SA, FP, seg_fc1) and the class heads' fc1 and fc2."""
     *_, layer, leaf = param_name.split(".")
     return leaf == "bias" and (layer.startswith("dense_") or layer in ("fc1", "fc2"))
+
+
+def fv_feeds_train_bn(param_name: str) -> bool:
+    """3DmFV-Net's biases before a training BatchNorm: every convolution's
+    (``Conv_0``) and fc1-fc3's."""
+    *_, layer, leaf = ["", *param_name.split(".")]
+    return leaf == "bias" and layer in ("Conv_0", "fc1", "fc2", "fc3")
 
 
 def fps_plain_entry(xyz, npoint, with_coords=True):
@@ -2990,6 +3060,345 @@ def mixed_phase(smi: str, dev) -> dict:
     return records
 
 
+class CardDecisions:
+    """The card's relu gates and max-pool winners, fed to the CPU.  Inside
+    ``with``, ``torch.relu`` records each call's mask (x > 0, on the CPU)
+    and ``F.max_pool3d`` its winners' indices; or, given ``feed`` (a
+    recording), ``torch.relu`` applies the recorded masks and
+    ``F.max_pool3d`` takes the recorded winners, call by call, and each
+    gate or winner where the two differ must lie within PN_GATE_MARGIN x
+    max(1, |x|max of the call) of 0 or of the CPU's own winner (their
+    count in ``flips``)."""
+
+    def __init__(self, feed: "CardDecisions | None" = None):
+        self.feeding = feed is not None
+        self.masks, self.winners = (feed.masks, feed.winners) if feed is not None else ([], [])
+        self.flips = self.relus = self.pools = 0
+
+    def _near(self, differ, gap, x) -> None:
+        if bool(differ.any()):
+            self.flips += int(differ.sum())
+            worst, scale = float(gap[differ].abs().max()), max(1.0, float(x.abs().max()))
+            require(worst <= PN_GATE_MARGIN * scale, f"a decision differs by {worst} between the card and the CPU")
+
+    def relu(self, x):
+        import torch
+
+        if not self.feeding:
+            self.masks.append((x.detach() > 0).cpu())
+            return self.real_relu(x)
+        mask = self.masks[self.relus]
+        self.relus += 1
+        require(mask.shape == x.shape, f"relu gates: the call shapes differ, {tuple(mask.shape)} {tuple(x.shape)}")
+        self._near(mask != (x.detach() > 0), x.detach(), x.detach())
+        return torch.where(mask, x, torch.zeros((), dtype=x.dtype))
+
+    def max_pool3d(self, x, kernel_size, stride=None):
+        if not self.feeding:
+            out, idx = self.real_pool(x, kernel_size, stride, return_indices=True)
+            self.winners.append(idx.cpu())
+            return out
+        idx = self.winners[self.pools]
+        self.pools += 1
+        out = x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        own = self.real_pool(x.detach(), kernel_size, stride)
+        self._near(own != out.detach(), own - out.detach(), x.detach())
+        return out
+
+    def __enter__(self):
+        import torch
+
+        self.real_relu, self.real_pool = torch.relu, torch.nn.functional.max_pool3d
+        self.patches = [mock.patch.object(torch, "relu", self.relu),
+                        mock.patch.object(torch.nn.functional, "max_pool3d", self.max_pool3d)]
+        for patch in self.patches:
+            patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        for patch in self.patches:
+            patch.stop()
+        if self.feeding and exc[0] is None:
+            require((self.relus, self.pools) == (len(self.masks), len(self.winners)),
+                    f"card decisions: {self.relus} relus and {self.pools} pools fed {len(self.masks)} and "
+                    f"{len(self.winners)}")
+
+
+def random_stats(model, rng) -> None:
+    """Random positive BN running stats (phase 3's draw) into ``model``."""
+    import numpy as np
+    import torch
+
+    with torch.no_grad():
+        for key, buf in model.named_buffers():
+            if key.endswith((".mean", ".var")):
+                vals = rng.randn(*buf.shape)
+                buf.copy_(torch.from_numpy(0.1 + 0.1 * np.abs(vals) if key.endswith(".var") else 0.05 * np.abs(vals)))
+
+
+def pointnet_phase(smi: str, dev) -> None:
+    """Phase 16 (module doc): the PointNet family and 3DmFV-Net."""
+    import copy
+    import os
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from profile_forward import profile_one
+    from scanobjectnn_torch.data.io import convert_to_binary_mask
+    from scanobjectnn_torch.data.pipeline import EpochSampler
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.models import ThreeDmFVNet, get_model
+    from scanobjectnn_torch.nn.fisher import fisher_vector
+    from scanobjectnn_torch.ops import exactpool
+    from scanobjectnn_torch.ops.cuda.poolkey_kernel import bn_relu_exactkey_pool, bn_relu_exactkey_pool_plain
+    from scanobjectnn_torch.train import cli
+    from scanobjectnn_torch.train import trainer as trainer_module
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    # Clouds in the unit cube (with parts), and the same with a quarter of
+    # each cloud moved to background points 2-3 away (with masks) for
+    # pointnet_seg.  3DmFV takes only the first: a point beyond its grid
+    # GMM's reach (every posterior underflowing to 0) makes the Fisher
+    # vector 0/0, in the JAX package as here.
+    view, masked = (EpochSampler(*arrays[:2], num_points=PN_POINT, seed=0, parts=arrays[-1],
+                                 masks=convert_to_binary_mask(arrays[2]).astype(np.int64) if bg else None).epoch()
+                    for bg in (False, True)
+                    for arrays in [make_synthetic_dataset(num_per_class=5, num_classes=NUM_CLASSES,
+                                                          num_points=2 * PN_POINT, seed=16, with_mask=bg,
+                                                          with_parts=True)])
+    require(len(view["points"]) >= PN_TRAIN_BATCH, "too few clouds for phase 16")
+    x_cpu = torch.from_numpy(view["points"][:PN_BATCH])
+    x = x_cpu.to(dev)
+
+    # 16a. Inference: the card against the CPU on the same weights.
+    stats_rng = np.random.RandomState(17)
+    card_fv = None
+    for name in PN_NAMES + ("3dmfv_net_cls",):
+        dtypes = {"f32": None} if name == "3dmfv_net_cls" else {"f32": None, "bf16": torch.bfloat16}
+        stats_state = None
+        for dname, dtype in dtypes.items():
+            cpu = get_model(name, generator=torch.Generator().manual_seed(0), device="cpu", dtype=dtype).eval()
+            if stats_state is None:
+                random_stats(cpu, stats_rng)
+                stats_state = {k: v.clone() for k, v in cpu.state_dict().items()}
+            cpu.load_state_dict(stats_state)
+            card = copy.deepcopy(cpu).to(dev)
+            xc = torch.from_numpy(masked["points"][:PN_BATCH]) if name == "pointnet_seg" else x_cpu
+            xd = xc.to(dev)
+            with torch.no_grad():
+                want, got = cpu(xc), card(xd)
+            for key in ("logits", "seg_logits"):
+                if key not in want:
+                    continue
+                g, w = got[key].cpu(), want[key]
+                require(g.shape == w.shape and g.dtype == w.dtype and bool(torch.isfinite(g.float()).all()),
+                        f"{name} {dname} {key}: {tuple(g.shape)} {g.dtype}")
+                require(float(w.float().abs().max()) > 0.1, f"{name} {dname} {key} vanished")
+                if dname == "bf16":
+                    check_bf16(g, w, PN_BF16_ULPS, f"{name} bf16 card against the CPU: {key}", share=1.0)
+                else:
+                    err, tol = float((g - w).abs().max()), F32_LOGIT_TOL * scale_of(w)
+                    print(f"{name} f32 card against the CPU: {key} max abs err {err:.3e} (bound {tol:.3e})")
+                    require(err <= tol, f"{name} f32 {key} on the card differs from the CPU: {err} > {tol}")
+                agree = float((g.float().argmax(-1) == w.float().argmax(-1)).float().mean())
+                need = SEG_AGREEMENT if key == "seg_logits" else (1.0 if dname == "f32" else BF16_CLASS_AGREEMENT)
+                print(f"{name} {dname}: {key} argmax agreement with the CPU {agree:.4f} (bound {need})")
+                require(agree >= need, f"{name} {dname} {key} agreement {agree}")
+            with torch.no_grad():
+                ms = cuda_ms(lambda: card(xd))
+            print(f"time forward {name} {dname} B={PN_BATCH} N={PN_POINT}: {ms:.4f} ms "
+                  f"({PN_BATCH / ms * 1e3:.1f} clouds/s) ({smi})")
+            if name == "3dmfv_net_cls":
+                card_fv, fv_logits = card, got["logits"]
+
+    marks = {"a": time.perf_counter()}
+    # 16b. TF32: 3DmFV's f32 logits do not change with cuDNN's TF32 flag on.
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            again = card_fv(x)["logits"]
+        require(torch.backends.cudnn.allow_tf32, "the model did not put cuDNN's TF32 flag back")
+        conv = card_fv.inception3.conv3.Conv_0
+        probe = torch.randn(PN_BATCH, 5, 5, 5, conv.kernel.shape[3], generator=torch.Generator().manual_seed(3)).to(dev)
+        with torch.no_grad():
+            scoped = conv(probe)
+            w = conv.kernel.permute(4, 3, 0, 1, 2)
+            pad = conv.kernel.shape[0] // 2
+            unscoped = torch.nn.functional.conv3d(probe.permute(0, 4, 1, 2, 3), w, conv.bias, padding=pad)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        exact = torch.nn.functional.conv3d(probe.permute(0, 4, 1, 2, 3), w, conv.bias, padding=pad)
+    require(torch.equal(again, fv_logits), "3dmfv_net_cls's f32 logits changed with cuDNN's TF32 flag on")
+    require(torch.equal(scoped.permute(0, 4, 1, 2, 3), exact), "_Conv ran differently from an f32 conv3d")
+    print(f"3dmfv_net_cls f32 logits with cudnn.allow_tf32 True: equal bit for bit to the flag off; an unscoped "
+          f"conv3d (inception3.conv3, 5^3 kernel, {conv.kernel.shape[3]} -> {conv.kernel.shape[4]}) with TF32 on "
+          f"differs from f32 by {float((unscoped - exact).abs().max()):.3e} (scale {scale_of(exact):.3e})")
+
+    marks["b"] = time.perf_counter()
+    # 16c. bf16 PointNet steps, exact-key pooling: #18 three times a step.
+    calls = []
+
+    def recorder(*args):
+        calls.append(clone_args(args))
+        return bn_relu_exactkey_pool(*args)
+
+    batch = {k: masked[k][:PN_BATCH] for k in ("points", "labels", "masks")}
+    batch2 = {k: masked[k][PN_BATCH:2 * PN_BATCH] for k in ("points", "labels", "masks")}
+    work, pooled_ms, pooled_plain_ms = Work(), 0.0, 0.0
+    for name, n_zero in (("pointnet_cls", 17), ("pointnet_seg", 21)):
+        trainer = Trainer(TrainerConfig(model=name, batch_size=PN_BATCH, dtype="bfloat16", device=str(dev)))
+        require(trainer.pool_mode == "keys", f"bf16 pool_precision 'auto' resolved to {trainer.pool_mode}")
+        state = trainer.init_state(seed=0)
+        calls.clear()
+        with mock.patch.object(exactpool, "bn_relu_exactkey_pool", recorder):
+            (_, metrics), counts = counted_run((bn_relu_exactkey_pool,), lambda: trainer.train_step(state, batch))
+        loss = float(metrics["loss"])
+        print(f"{name} bf16 (keys) training step B={PN_BATCH}: loss {loss:.6f}, launches {counts}")
+        require(counts["bn_relu_exactkey_pool"] == 3 and math.isfinite(loss), f"{name} bf16 step: {counts}, {loss}")
+        for i, args in enumerate(calls):
+            got, want = bn_relu_exactkey_pool(*args), bn_relu_exactkey_pool_plain(*args)
+            torch.cuda.synchronize()
+            label = f"{name} bf16 call {i} z32 {list(args[0].shape)}"
+            require(all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)),
+                    f"#18 differs from its plain version ({label})")
+            if name != "pointnet_cls":
+                continue
+            ms = cuda_ms(lambda: bn_relu_exactkey_pool(*args))
+            plain_ms = cuda_ms(lambda: bn_relu_exactkey_pool_plain(*args), iters=3)
+            one = Work()
+            poolkey_work(one, args[0], args[5])
+            poolkey_work(work, args[0], args[5])
+            pooled_ms, pooled_plain_ms = pooled_ms + ms, pooled_plain_ms + plain_ms
+            print(f"#18 {label}: pooled, kmax and cnt equal to the plain version ({float((got[2] > 1).float().mean()):.4f} "
+                  f"of the columns tie); time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{one.record()['bound_ms']:.4f} ms ({one.record()['bound_by']}) ({smi})")
+        calls.clear()
+        compare_steps(trainer, batch2, n_zero, f"{name} bf16 keys B={PN_BATCH}", grad_tol=BF16_STEP_GRAD_TOL,
+                      zero_tol=None)
+        f32 = Trainer(TrainerConfig(model=name, batch_size=PN_BATCH, device=str(dev)))
+        time_trainers({"bf16 keys": trainer, "f32": f32}, [batch, batch2, batch], smi,
+                      f"{name} B={PN_BATCH} N={PN_POINT}")
+    print(f"#18 over one bf16 pointnet_cls step's three calls (B={PN_BATCH}, K=N={PN_POINT}, C=1024): kernel "
+          f"{pooled_ms:.4f} ms, plain {pooled_plain_ms:.4f} ms, bound {work.record()['bound_ms']:.4f} ms "
+          f"({work.record()['bound_by']}) ({smi})")
+
+    marks["c"] = time.perf_counter()
+    # 16d. f32 steps at B=64, the card against the CPU.
+    def step(where: str, name: str, kw: dict, tbatch: dict, gates):
+        trainer = Trainer(TrainerConfig(model=name, batch_size=PN_TRAIN_BATCH, model_kwargs=kw,
+                                        device=str(dev) if where == "card" else "cpu"))
+        st = trainer.init_state(seed=1)
+        for module in st.model.modules():
+            if hasattr(module, "dropout_keep"):
+                module.dropout_keep = 1.0
+        with gates:
+            st, metrics = trainer.train_step(st, tbatch)
+        persistent = st.model.state_dict()
+        return trainer, st, (float(metrics["loss"]),
+                             {n: None if p.grad is None else p.grad.float().cpu() for n, p in st.model.named_parameters()},
+                             {n: b.cpu() for n, b in st.model.named_buffers() if n in persistent})
+
+    with mock.patch.object(trainer_module, "standard_train_augment", lambda points, generator: points):
+        for name, kw, n_zero in (("pointnet_cls", {}, 17), ("pointnet_partseg", {}, 19), ("3dmfv_net_cls", {}, 23),
+                                 ("3dmfv_net_cls", PN_LEARNABLE_GMM, 23)):
+            label = f"{name}{' learnable_gmm 3^3' if kw else ''} f32 B={PN_TRAIN_BATCH}"
+            keys = ("points", "parts") if name == "pointnet_partseg" else ("points", "labels")
+            tbatch = {k: view[k][:PN_TRAIN_BATCH] for k in keys}
+            if name == "3dmfv_net_cls":
+                gmm = ThreeDmFVNet(**kw).gmm_params()
+                zeros = int((fisher_vector(torch.from_numpy(tbatch["points"]), *gmm) == 0).sum())
+                print(f"{label}: {zeros} Fisher vector features exactly 0 (sign·sqrt has a NaN gradient at 0)")
+                require(zeros == 0 or not kw, f"{label}: a zero Fisher vector feature would make the GMM's gradient NaN")
+            record = CardDecisions()
+            card_trainer, card_state, (loss_c, grads_c, stats_c) = step("card", name, kw, tbatch, record)
+            torch.cuda.synchronize()
+            feed = CardDecisions(feed=record)
+            _, _, (loss_p, grads_p, stats_p) = step("cpu", name, kw, tbatch, feed)
+            del record
+            rule = fv_feeds_train_bn if name == "3dmfv_net_cls" else feeds_train_bn
+            no_grad = [n for n in grads_p if grads_p[n] is None]
+            zero = [n for n in grads_p if rule(n) and n not in no_grad]
+            require(len(zero) == n_zero, f"{label}: expected {n_zero} biases before a BN, found {len(zero)}")
+            require(all(grads_c[n] is None for n in no_grad), f"{label}: gradients on the card where the CPU has none")
+            loss_err = abs(loss_c - loss_p) / abs(loss_p)
+            grad_err, worst = max((float((grads_c[n] - grads_p[n]).abs().max()) / scale_of(grads_p[n]), n)
+                                  for n in grads_p if n not in zero and n not in no_grad)
+            zero_max = max(float(g[n].abs().max()) for g in (grads_c, grads_p) for n in zero)
+            stat_err = max(float((stats_c[n] - stats_p[n]).abs().max()) / scale_of(stats_p[n]) for n in stats_p)
+            print(f"train step {label}, card against the CPU: loss {loss_c:.7f} vs {loss_p:.7f} (rel err "
+                  f"{loss_err:.3e}, bound {PN_STEP_LOSS_RTOL}); largest error / scale: gradients {grad_err:.3e} "
+                  f"({worst}), BN stats {stat_err:.3e} (bound {TRAIN_GRAD_TOL}); the {n_zero} biases before a BN: "
+                  f"max |grad| {zero_max:.3e} (bound {ZERO_GRAD_TOL}); {len(no_grad)} parameters without a "
+                  f"gradient on both; the card's relu gates and max-pool winners fed to the CPU, {feed.flips} "
+                  f"differing within rounding")
+            require(loss_err <= PN_STEP_LOSS_RTOL, f"{label}: the loss differs from the CPU's")
+            require(grad_err <= TRAIN_GRAD_TOL and stat_err <= TRAIN_GRAD_TOL,
+                    f"{label}: gradients or BN stats differ from the CPU's")
+            require(zero_max <= ZERO_GRAD_TOL, f"{label}: a bias before a BN has a gradient far from 0")
+            res = profile_one(lambda: card_trainer.train_step(card_state, tbatch), 3)
+            print(f"time train step {label}: host wall {res['host_wall_ms']:.4f} ms, {res['kernels']:.0f} kernels, "
+                  f"device busy {res['device_busy_ms']:.4f} ms, idle share {res['idle_share_of_window']:.4f} ({smi})")
+            if name == "3dmfv_net_cls":
+                grads = []
+                for _ in range(2):
+                    _, st, (_, g, _) = step("card", name, kw, tbatch, contextlib.nullcontext())
+                    grads.append(g)
+                differing = [n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n])]
+                print(f"{label}: two equal card steps give "
+                      + ("equal bits" if not differing else
+                         f"different bits ({len(differing)} gradients differ, e.g. {differing[:3]})"))
+                model = card_state.model.eval()
+                points = torch.from_numpy(view["points"][:PN_TRAIN_BATCH]).to(dev)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                with torch.no_grad():
+                    model(points)
+                torch.cuda.synchronize()
+                print(f"{label}: eval forward peak memory {(torch.cuda.max_memory_allocated() - base) / 2 ** 20:.1f} "
+                      f"MiB above the {base / 2 ** 20:.1f} MiB held ({smi})")
+            del card_trainer, card_state
+
+    marks["d"] = time.perf_counter()
+    # 16e. The command line on raw .bin clouds.
+    old_cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            listing, _, _ = write_bin_clouds(tmp, np.random.RandomState(15), count=CLI_CLOUDS)
+            files = ["--train_file", os.path.basename(listing), "--test_file", os.path.basename(listing)]
+            for model, extra in (("pointnet_cls", ["--dtype", "bfloat16"]), ("3dmfv_net_cls", [])):
+                log = f"log_{model}"
+                argv = (["train", "--model", model, "--num_point", str(PN_POINT), "--batch_size", str(TRAIN_BATCH),
+                         "--max_epoch", "1", "--log_dir", log] + extra + files)
+                t0 = time.perf_counter()
+                _, counts = counted_run((bn_relu_exactkey_pool,), lambda: cli.main(argv))
+                secs = time.perf_counter() - t0
+                with open(os.path.join(log, "log_train.txt")) as f:
+                    epochs = re.findall(r"^epoch \d+ .*$", f.read(), re.M)
+                with open(os.path.join(log, "metrics.jsonl")) as f:
+                    records = [json.loads(line) for line in f]
+                require(len(epochs) == 1 and [r["epoch"] for r in records] == [0]
+                        and os.path.isdir(os.path.join(log, "checkpoint")),
+                        f"cli {model}: epochs {epochs}, metrics {records}, {os.listdir(log)}")
+                if "bfloat16" in extra:
+                    require(counts["bn_relu_exactkey_pool"] > 0, f"the bf16 pointnet_cls run never launched #18")
+                print(f"cli {' '.join(argv)}: {secs:.2f} s wall, {epochs[0]!r}, metrics.jsonl epoch 0 (eval "
+                      f"{records[0]['eval_seconds']:.3f} s), checkpoint/ written, #18 launches "
+                      f"{counts['bn_relu_exactkey_pool']} ({smi})")
+        finally:
+            os.chdir(old_cwd)
+    marks["e"] = time.perf_counter()
+    starts = [t_phase] + list(marks.values())[:-1]
+    print(f"phase 16: {marks['e'] - t_phase:.1f} s (" + ", ".join(
+        f"{k} {t - t0:.1f} s" for (k, t), t0 in zip(marks.items(), starts)) + f") ({smi})")
+
+
 def range_phase(smi: str, dev) -> dict:
     """Phase 13 (module doc): the ranges the card once refused.  Returns
     the new routes' launches on their main paths, by counter and route."""
@@ -3317,6 +3726,7 @@ def main() -> None:
     routes = range_phase(smi, dev)
     data_phase(smi, dev)
     cli_phase(smi)
+    pointnet_phase(smi, dev)
 
     require(not {"jax", "scanobjectnn_tpu"} & set(sys.modules), "JAX or the JAX package was imported")
 
@@ -3373,7 +3783,8 @@ def main() -> None:
           "backward's) calls at B=32 (conv1-4; CUDA events); duplicate_mask over one f32 pointcnn_seg forward's "
           "calls at B=32 (xconv_1-4, xdconv_4, xdconv_5; CUDA events); knn_point_sorted (the kNN at k > 64) "
           "over the two f32 SAModule(knn, nsample=128) calls of phase 11 at B=32 (CUDA events); "
-          "bn_relu_exactkey_pool over one bf16 SSG step's three calls at B=16 (CUDA events); "
+          "bn_relu_exactkey_pool over one bf16 SSG step's three calls at B=16 (CUDA events; its launches include "
+          "phase 16's bf16 PointNet steps and command line, whose calls phase 16 times apart); "
           "grouped_bn_mlp_pool_bwd over one f32 fused-tail SSG step's SA1 and SA2 calls at B=16 (CUDA events). "
           "library_ms: torch.argsort(stable=True) for rank_sort_points (device time), torch.gather for the "
           "gather, index_add_ "

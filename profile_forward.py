@@ -11,19 +11,24 @@ GPU.
     python3 profile_forward.py --model dgcnn [--train]
     python3 profile_forward.py --model spidercnn_cls_xyz [--train]
     python3 profile_forward.py --model pointcnn_cls|pointcnn_seg [--train]
+    python3 profile_forward.py --model pointnet_cls [--train [--dtype bfloat16]]
+    python3 profile_forward.py --model 3dmfv_net_cls [--train]
 
 ``--model`` is ``pointnet2_cls_ssg`` (default), ``pointnet2_cls_msg``,
 ``pointnet2_cls_bga``, ``dgcnn``, ``dgcnn_bga``, ``spidercnn_cls_xyz``,
-``pointcnn_cls`` or ``pointcnn_seg``.  The defaults are each model's
-configurations: SSG B=128, N=2048 for the forward and B=16, N=1024 for
-``--train``; MSG and BGA B=32, N=1024 and B=16; both DGCNNs, SpiderCNN and
-both PointCNNs B=32, N=1024 for both.
+``pointcnn_cls``, ``pointcnn_seg``, ``pointnet_cls``, ``pointnet_cls_basic``,
+``pointnet_seg``, ``pointnet_partseg`` or ``3dmfv_net_cls``.  The defaults
+are each model's configurations: SSG B=128, N=2048 for the forward and
+B=16, N=1024 for ``--train``; MSG and BGA B=32, N=1024 and B=16; both
+DGCNNs, SpiderCNN, both PointCNNs and the four PointNets B=32, N=1024 for
+both; 3DmFV-Net B=32 for the forward and B=64 for ``--train``, N=1024, in
+f32 only (the port refuses it in bf16).
 Forward: for bf16 and f32 in turn, builds the model with ``get_model``
 (seed 0, on the card) and answers one batch of the 15-class synthetic
 dataset (seed 0; with background points and binary masks for the models
-of kind "seg"), under ``--sa-bucket`` ("auto", the default: an SA layer at
-N=2048, M=512, such as SSG's SA1, runs the bucketed kernel #4 after two
-rank sorts #5; "off": the fused kernel #3).  ``--train``: a ``Trainer`` (seed 0, its default
+of kind "seg", part ids for "partseg"), under ``--sa-bucket`` ("auto",
+the default: an SA layer at N=2048, M=512, such as SSG's SA1, runs the
+bucketed kernel #4 after two rank sorts #5; "off": the fused kernel #3).  ``--train``: a ``Trainer`` (seed 0, its default
 augmentation, dropout and Adam, or the model's recipe: PointCNN's step LR,
 Adam eps 1e-2, L2 1e-5 and augmentation; seg_weight 0.5) takes
 ``train_step``s on one such batch, in f32 or with ``--dtype bfloat16``
@@ -56,6 +61,11 @@ DEFAULTS = {
     "spidercnn_cls_xyz": ((32, 1024), (32, 1024)),
     "pointcnn_cls": ((32, 1024), (32, 1024)),
     "pointcnn_seg": ((32, 1024), (32, 1024)),
+    "pointnet_cls": ((32, 1024), (32, 1024)),
+    "pointnet_cls_basic": ((32, 1024), (32, 1024)),
+    "pointnet_seg": ((32, 1024), (32, 1024)),
+    "pointnet_partseg": ((32, 1024), (32, 1024)),
+    "3dmfv_net_cls": ((32, 1024), (64, 1024)),
 }
 
 
@@ -146,9 +156,11 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
-    seg = MODEL_REGISTRY[args.model].kind == "seg"
+    kind = MODEL_REGISTRY[args.model].kind
+    seg = kind == "seg"
     arrays = make_synthetic_dataset(
-        num_per_class=-(-args.batch // 15), num_classes=15, num_points=args.num_point, seed=0, with_mask=seg
+        num_per_class=-(-args.batch // 15), num_classes=15, num_points=args.num_point, seed=0, with_mask=seg,
+        with_parts=kind == "partseg",
     )
     data, labels = arrays[:2]
     out = {"card": card, "model": args.model, "batch": args.batch, "num_point": args.num_point, "iters": args.iters,
@@ -164,11 +176,15 @@ def main() -> None:
         batch = {"points": data[: args.batch], "labels": labels[: args.batch]}
         if seg:
             batch["masks"] = convert_to_binary_mask(arrays[2][: args.batch]).astype("int64")
+        if kind == "partseg":
+            batch = {"points": batch["points"], "parts": arrays[2][: args.batch]}
         name = {"float32": "train_f32", "bfloat16": "train_bf16"}[args.dtype]
         runs[name + ("_fused_tail" if args.fused_sa_train else "")] = lambda: trainer.train_step(state, batch)
     else:
         points = torch.from_numpy(data[: args.batch]).cuda()
-        for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        # 3DmFV-Net refuses bf16 in the port.
+        dtypes = (("f32", None),) if args.model == "3dmfv_net_cls" else (("bf16", torch.bfloat16), ("f32", None))
+        for name, dtype in dtypes:
             model = configure_eval(get_model(args.model, dtype=dtype), args.sa_bucket).eval()
             runs[name] = torch.no_grad()(lambda model=model: model(points))
     for name, run in runs.items():

@@ -1,17 +1,19 @@
 """Model registry (counterpart of ``scanobjectnn_tpu/models/__init__.py``).
 
-Ported: ``pointnet2_cls_ssg`` ("cls"), ``pointnet2_cls_msg`` ("cls"),
-``pointnet2_cls_bga`` ("seg"), ``pointnet2_cls_partseg`` ("partseg"),
-``dgcnn`` ("cls"), ``dgcnn_bga`` ("seg"), ``spidercnn_cls_xyz`` ("cls"),
-``pointcnn_cls`` ("cls") and ``pointcnn_seg`` ("seg"), for inference and
-f32 training, and the four ``pointnet2_*`` for bf16 training (their
-``trains_in_bf16``); every other name
-raises ``KeyError`` saying it is not ported yet.  The registry maps a name
-to its class; the class carries the model's ``kind``, its static
-``loss(outputs, batch)`` (the JAX ``get_model`` returns the module, the loss
-and the kind) and, where the family ships one, its training ``recipe``
-(``get_recipe``; PointCNN's).  ``get_model`` returns the module alone, on
-``device``.
+Every name of the JAX registry is ported: ``pointnet_cls``,
+``pointnet_cls_basic``, ``pointnet2_cls_ssg``, ``pointnet2_cls_msg``,
+``dgcnn``, ``spidercnn_cls_xyz``, ``3dmfv_net_cls`` and ``pointcnn_cls``
+("cls"), ``pointnet_seg``, ``pointnet2_cls_bga``, ``dgcnn_bga`` and
+``pointcnn_seg`` ("seg"), ``pointnet_partseg`` and ``pointnet2_cls_partseg``
+("partseg"), for inference and f32 training; bf16 training for the PointNet
+and PointNet++ families (their ``trains_in_bf16``).  Any other name raises
+``KeyError``.  The registry maps a name to its class; the class carries the
+model's ``kind``, its static ``loss(outputs, batch)`` (the JAX
+``get_model`` returns the module, the loss and the kind) and, where the
+family ships one, its training ``recipe`` (``get_recipe``; PointCNN's).
+JAX's (class, defaults) entries become classes: ``pointnet_cls_basic`` is
+``PointNetClsBasic``, ``PointNetCls`` without T-Nets.  ``get_model``
+returns the module alone, on ``device``.
 """
 
 from __future__ import annotations
@@ -21,9 +23,11 @@ import torch
 from scanobjectnn_torch.convert import init_params
 from scanobjectnn_torch.models.dgcnn import DGCNN, DGCNNBGA
 from scanobjectnn_torch.models.pointcnn import PointCNNCls, PointCNNSeg
+from scanobjectnn_torch.models.pointnet import PointNetCls, PointNetClsBasic, PointNetPartSeg, PointNetSeg
 from scanobjectnn_torch.models.pointnet2 import PointNet2BGA, PointNet2ClsMSG, PointNet2ClsSSG, PointNet2PartSeg
 from scanobjectnn_torch.models.recipes import TrainRecipe
 from scanobjectnn_torch.models.spidercnn import SpiderCNNCls
+from scanobjectnn_torch.models.threedmfv import ThreeDmFVNet
 
 __all__ = [
     "DGCNN",
@@ -35,13 +39,22 @@ __all__ = [
     "PointNet2ClsMSG",
     "PointNet2ClsSSG",
     "PointNet2PartSeg",
+    "PointNetCls",
+    "PointNetClsBasic",
+    "PointNetPartSeg",
+    "PointNetSeg",
     "SpiderCNNCls",
+    "ThreeDmFVNet",
     "TrainRecipe",
     "get_model",
     "get_recipe",
 ]
 
 MODEL_REGISTRY = {
+    "pointnet_cls": PointNetCls,
+    "pointnet_cls_basic": PointNetClsBasic,
+    "pointnet_seg": PointNetSeg,
+    "pointnet_partseg": PointNetPartSeg,
     "pointnet2_cls_ssg": PointNet2ClsSSG,
     "pointnet2_cls_msg": PointNet2ClsMSG,
     "pointnet2_cls_bga": PointNet2BGA,
@@ -49,6 +62,7 @@ MODEL_REGISTRY = {
     "dgcnn": DGCNN,
     "dgcnn_bga": DGCNNBGA,
     "spidercnn_cls_xyz": SpiderCNNCls,
+    "3dmfv_net_cls": ThreeDmFVNet,
     "pointcnn_cls": PointCNNCls,
     "pointcnn_seg": PointCNNSeg,
 }
@@ -56,10 +70,7 @@ MODEL_REGISTRY = {
 
 def _check_name(name: str) -> None:
     if name not in MODEL_REGISTRY:
-        raise KeyError(
-            f"model {name!r} is not ported to scanobjectnn_torch yet; "
-            f"available: {sorted(MODEL_REGISTRY)}"
-        )
+        raise KeyError(f"unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}")
 
 
 def get_model(

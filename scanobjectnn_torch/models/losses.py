@@ -1,7 +1,8 @@
 """Loss components (counterpart of ``scanobjectnn_tpu/models/losses.py``).
 
 Ported: the classification loss, DGCNN's label-smoothed loss, the
-per-point segmentation loss and the BGA joint loss.
+per-point segmentation loss, the BGA joint loss and the T-Net
+orthogonality penalty.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ __all__ = [
     "label_smoothed_cross_entropy",
     "per_point_cross_entropy",
     "softmax_cross_entropy",
+    "transform_regularizer",
 ]
 
 
@@ -53,3 +55,14 @@ def joint_cls_seg_loss(
     seg_loss = per_point_cross_entropy(seg_logits, masks)
     total = (1.0 - seg_weight) * classify_loss + seg_weight * seg_loss
     return total, classify_loss, seg_loss
+
+
+def transform_regularizer(transform: torch.Tensor) -> torch.Tensor:
+    """Orthogonality penalty ``0.5·Σ(T·Tᵀ − I)²`` over the batch of [B, K,
+    K] transforms, in f32 (tf.nn.l2_loss; pointnet_cls.py:86-91).  The
+    product is written out as f32 multiplies and sums, so it never runs in
+    TF32 whatever the matmul flags say."""
+    t = transform.float()
+    gram = (t[:, :, None, :] * t[:, None, :, :]).sum(-1)  # [B, K, K]
+    diff = gram - torch.eye(t.shape[-1], dtype=torch.float32, device=t.device)
+    return 0.5 * torch.square(diff).sum()

@@ -34,6 +34,9 @@ Semantics kept from the JAX package, which ``torch.nn`` does not give:
   * The max-pool is ``torch.amax``, which splits the gradient evenly across
     ties as ``jnp.max`` does.  In training, ``mlp_final_max`` honours the
     pool modes of the module it pools for (module doc of the function).
+    ``MaxPoolMLP`` is the JAX ``MLP(final_max_axis=dim)``: a stack whose
+    last layer pools through ``mlp_final_max`` (PointNet's three global
+    pools).
   * Init is Glorot-uniform kernels and zero biases (``reset_parameters``
     with an explicit ``torch.Generator``); ``Dense(zero_init=True)`` starts
     its kernel at zero too (the JAX ``kernel_init=zeros``, DGCNN's T-Net
@@ -49,7 +52,7 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["BatchNorm", "Dense", "GroupNorm", "MLP", "matmul_f32", "mlp_final_max"]
+__all__ = ["BatchNorm", "Dense", "GroupNorm", "MLP", "MaxPoolMLP", "matmul_f32", "mlp_final_max"]
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -224,6 +227,25 @@ class MLP(nn.Module):
         for i in range(len(self.features)):
             x = self.layer(i, x, bn_momentum)
         return x
+
+
+class MaxPoolMLP(MLP):
+    """``MLP`` that ends in a max-pool over ``dim`` (the JAX
+    ``MLP(final_max_axis=dim)``): layers 0..n-2, then the last layer and
+    the pool through ``mlp_final_max`` in the module's ``pool_mode`` ("0"
+    unless ``nn.pointnet_modules.configure_training`` gives another)."""
+
+    pool_mode = "0"
+
+    def __init__(self, in_features: int, features: Sequence[int], dim: int, dtype: torch.dtype | None = None):
+        super().__init__(in_features, features, dtype)
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor, bn_momentum: float | None = None) -> torch.Tensor:
+        n = len(self.features)
+        for i in range(n - 1):
+            x = self.layer(i, x, bn_momentum)
+        return mlp_final_max(self, x, n - 1, self.dim, bn_momentum)
 
 
 def mlp_final_max(

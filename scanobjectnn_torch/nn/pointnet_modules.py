@@ -57,7 +57,7 @@ import torch
 from torch import nn
 
 from scanobjectnn_torch import ops
-from scanobjectnn_torch.nn.layers import MLP, matmul_f32, mlp_final_max
+from scanobjectnn_torch.nn.layers import MLP, MaxPoolMLP, matmul_f32, mlp_final_max
 from scanobjectnn_torch.ops.cuda.gather_kernel import gather_neighbors
 from scanobjectnn_torch.ops.cuda.sabucket_kernel import (
     SA_BUCKET_SETTINGS, bucket_eligible, resolve_bucket_config, sa_ball_mlp_pool_bucketed,
@@ -110,12 +110,15 @@ class _PooledMLP(MLP):
 def configure_training(model: nn.Module, pool_mode: str, fused_sa_train: bool) -> nn.Module:
     """Give every grouped MLP of ``model`` its training settings (module
     doc): ``pool_mode`` "0", "1" or "keys" (JAX's pool_f32 modes), and
-    whether the fused tail runs."""
+    whether the fused tail runs.  A ``MaxPoolMLP`` (PointNet's global
+    pools) takes the pool mode; it has no fused tail."""
     if pool_mode not in POOL_MODES:
         raise ValueError(f"pool_mode must be one of {POOL_MODES}, got {pool_mode!r}")
     for sub in model.modules():
         if isinstance(sub, _PooledMLP):
             sub.pool_mode, sub.fused_sa_train = pool_mode, bool(fused_sa_train)
+        elif isinstance(sub, MaxPoolMLP):
+            sub.pool_mode = pool_mode
     return model
 
 

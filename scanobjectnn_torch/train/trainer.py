@@ -41,12 +41,12 @@ dtype the model is built with (parameters stay f32); ``pool_precision``
 and "native", "f32", "keys" are the SA pool modes "0", "1", "keys";
 ``fused_sa_train`` runs the SA layers' fused training tail under the
 native and f32 modes (never under keys).
-Ported: f32 training of ``pointnet2_cls_ssg``, ``pointnet2_cls_msg``,
-``pointnet2_cls_bga``, ``pointnet2_cls_partseg``, ``dgcnn``,
-``dgcnn_bga`` and ``spidercnn_cls_xyz`` (no recipe: plain Adam, as the JAX
-``Trainer`` gives them), and ``pointcnn_cls`` and ``pointcnn_seg`` (with
-PointCNN's recipe); bf16 training of the four ``pointnet2_*`` models.  The
-other families raise ``NotImplementedError`` for bf16.
+Ported: f32 training of every registered model (PointCNN's two with its
+recipe, the others plain Adam, as the JAX ``Trainer`` gives them); bf16
+training of the four ``pointnet_*`` and the four ``pointnet2_*`` models.
+The other families (DGCNN, SpiderCNN, PointCNN, 3DmFV-Net) raise
+``NotImplementedError`` for bf16.  The PointNet losses take the config's
+``reg_weight`` (the T-Nets' orthogonality penalty).
 
 Evaluation, as the JAX ``Trainer``'s (``trainer.py:314-406``, ``:736-866``):
   * ``eval_step(state, batch, rotate_angle)``: the batch turned about the
@@ -207,11 +207,12 @@ class Trainer:
         if config.dtype not in DTYPES:
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {config.dtype!r}")
         if config.model not in MODEL_REGISTRY:
-            raise KeyError(f"model {config.model!r} is not ported to scanobjectnn_torch yet")
+            raise KeyError(f"unknown model {config.model!r}; available: {sorted(MODEL_REGISTRY)}")
         if config.dtype == "bfloat16" and not getattr(MODEL_REGISTRY[config.model], "trains_in_bf16", False):
             raise NotImplementedError(
-                f"bf16 training of {config.model!r} is not ported: its backward kernels (#7, #14, #16) have not "
-                "been held in bf16 (ROADMAP.md queue 1, 'bf16 training of DGCNN, SpiderCNN and PointCNN')"
+                f"bf16 training of {config.model!r} is not ported: DGCNN's, SpiderCNN's and PointCNN's backward "
+                "kernels (#7, #14, #16) and 3DmFV-Net's bf16 have not been held against JAX's bf16 step "
+                "(ROADMAP.md queue 1, 'bf16 training of DGCNN, SpiderCNN and PointCNN')"
             )
         pool = config.pool_precision
         if pool == "auto":
@@ -427,13 +428,19 @@ class Trainer:
         model = state.model.eval()
         with torch.no_grad(), self._ops():
             stacked = self._rotate(points, self._vote_rotations(num_votes)).reshape(num_votes * b, n, 3)
-            outputs = {k: v for k, v in model(stacked).items() if k != "end_points"}
-            per_vote = {k: v.reshape(num_votes, b, *v.shape[1:]) for k, v in outputs.items()}
-            # Per vote, then averaged: a loss with a sum reduction would read
-            # V times too large on the stacked batch.
-            loss = torch.stack(
-                [self.loss_fn({k: v[i] for k, v in per_vote.items()}, targets)[0] for i in range(num_votes)]
-            ).mean()
+
+            def by_vote(tree):  # every tensor, end_points' too, [V·B, ...] -> [V, B, ...]
+                return {k: by_vote(v) if isinstance(v, dict) else v.reshape(num_votes, b, *v.shape[1:])
+                        for k, v in tree.items()}
+
+            def vote(tree, i):
+                return {k: vote(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+            per_vote = by_vote(model(stacked))
+            # Per vote, then averaged: a loss with a sum reduction (PointNet's
+            # orthogonality penalty) would read V times too large on the
+            # stacked batch.
+            loss = torch.stack([self.loss_fn(vote(per_vote, i), targets)[0] for i in range(num_votes)]).mean()
             out = {"loss": loss}
             for key in ("logits", "seg_logits"):
                 if key in per_vote:

@@ -1,7 +1,15 @@
-"""Rendering and the confusion-matrix plot (counterpart of
-``scanobjectnn_tpu/viz``: ``render.py`` and ``cmat.py``)."""
+"""Rendering, the confusion-matrix plot and the 3DmFV plots (counterpart of
+``scanobjectnn_tpu/viz``: ``render.py``, ``cmat.py`` and ``fvplots.py``)."""
 
 from scanobjectnn_torch.viz.cmat import plot_confusion_matrix  # noqa: F401
+from scanobjectnn_torch.viz.fvplots import (  # noqa: F401
+    MINMAX_DERIVATIVE_LABELS,
+    draw_gaussians,
+    visualize_fv,
+    visualize_pc,
+    visualize_pc_seg,
+    visualize_pc_seg_diff,
+)
 from scanobjectnn_torch.viz.render import (  # noqa: F401
     draw_point_cloud,
     point_cloud_three_views,

@@ -128,6 +128,14 @@ checkpoint saved on the card restores onto the CPU and back bit for bit
 (model, buffers, optimizer), the card's own restore also the generator and
 the next step; ``cli.main`` with the default ``--device`` builds its model
 on the card.
+
+The PointNet family and 3DmFV-Net: #18 at PointNet's shape (the three
+global pools of a bf16 step at B=32, N=1024, C=1024) equal bit for bit;
+3DmFV's convolution gives the same f32 bits, forward and backward, with
+cuDNN's TF32 flag off and on (the model holds it off for its convolutions)
+and puts the flag back; ``pointnet_seg`` and ``3dmfv_net_cls`` on the card
+against the same models on the CPU (f32 forward within 1e-4 x max(1,
+|ref|max), the classes and 99% of the per-point argmaxes equal).
 """
 
 
@@ -1687,7 +1695,8 @@ def test_knn_indices_general_takes_the_kernels_up_to_k64(dev, monkeypatch, q_cou
 
 # #18, the exact-key pool forward: (lead dims, K, C, compute dtype, inputs).
 # The bf16 SSG step's three SA shapes and MSG SA1's scale 1 (C = 64) at
-# B=16, then a ragged width, an f32 compute dtype, exact ties and a NaN.
+# B=16, then a ragged width, an f32 compute dtype, exact ties and a NaN,
+# and PointNet's global pools (B=32 rows of K = N = 1024, C = 1024).
 POOLKEY_CASES = {
     "ssg_sa1": ((16, 512), 32, 128, torch.bfloat16, "normal"),
     "ssg_sa2": ((16, 128), 64, 256, torch.bfloat16, "normal"),
@@ -1697,6 +1706,7 @@ POOLKEY_CASES = {
     "f32": ((4, 8), 12, 40, torch.float32, "normal"),
     "ties": ((4, 16), 8, 24, torch.bfloat16, "ties"),
     "nan": ((2, 4), 6, 10, torch.bfloat16, "nan"),
+    "pointnet": ((32,), 1024, 1024, torch.bfloat16, "normal"),  # each global pool of a bf16 PointNet step
 }
 
 
@@ -2399,3 +2409,62 @@ def test_cli_device_cuda_builds_the_model_on_the_card(dev, tmp_path, monkeypatch
         data["points"], data["labels"], None))
     cli.main(["evaluate", "--num_class", "4", "--batch_size", "4", "--log_dir", "log"])
     assert seen == [{"cuda"}]
+
+
+@pytest.mark.parametrize("k,cin,cout", [(5, 256, 128), (3, 512, 256), (1, 20, 64)])
+def test_3dmfv_conv_ignores_cudnn_tf32(dev, k, cin, cout):
+    # 3DmFV's inception convolutions (the 5³ and 3³ of inception3 and
+    # inception5, a 1³ on the Fisher vector): the same f32 bits, output and
+    # both gradients, with TF32 allowed, and the caller's flag put back.
+    # cuDNN's weight gradient may sum with atomics (two equal calls then
+    # differ in the last bits): the test takes its deterministic algorithms.
+    from scanobjectnn_torch.models.threedmfv import _Conv
+
+    g = torch.Generator().manual_seed(k * cin)
+    conv = _Conv(cin, cout, k)
+    conv.reset_parameters(g)
+    conv = conv.to(dev)
+    x = torch.randn(8, 5, 5, 5, cin, generator=g).to(dev).requires_grad_()
+    dy = torch.randn(8, 5, 5, 5, cout, generator=g).to(dev)
+    runs = []
+    deterministic = torch.backends.cudnn.deterministic
+    for flag in (False, True, False):
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = flag, True
+        try:
+            y = conv(x)
+            dx, dw = torch.autograd.grad(y, (x, conv.kernel), dy)
+            assert torch.backends.cudnn.allow_tf32 == flag
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = False, deterministic
+        runs.append((y.detach(), dx, dw))
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    want = torch.nn.functional.conv3d(x.detach().permute(0, 4, 1, 2, 3), conv.kernel.detach().permute(4, 3, 0, 1, 2),
+                                      conv.bias.detach(), padding=k // 2)
+    torch.testing.assert_close(runs[0][0].permute(0, 4, 1, 2, 3), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["pointnet_seg", "3dmfv_net_cls"])
+def test_pointnet_and_3dmfv_forward_on_the_card_match_the_cpu(dev, name):
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.models import get_model
+
+    points, _ = make_synthetic_dataset(num_per_class=1, num_classes=4, num_points=1024, seed=3)
+    cpu = get_model(name, generator=torch.Generator().manual_seed(0), device="cpu").eval()
+    rng = np.random.RandomState(1)
+    with torch.no_grad():
+        for key, buf in cpu.named_buffers():
+            if key.endswith((".mean", ".var")):
+                vals = rng.randn(*buf.shape)
+                buf.copy_(torch.from_numpy(0.1 + 0.1 * np.abs(vals) if key.endswith(".var") else 0.05 * np.abs(vals)))
+        card = get_model(name, device="cuda").eval()
+        card.load_state_dict(cpu.state_dict())
+        want = cpu(torch.from_numpy(points))
+        got = card(torch.from_numpy(points).to(dev))
+    for key in ("logits", "seg_logits"):
+        if key not in want:
+            continue
+        g, w = got[key].cpu(), want[key]
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
+        agree = float((g.argmax(-1) == w.argmax(-1)).float().mean())
+        assert agree >= (0.99 if key == "seg_logits" else 1.0), (key, agree)

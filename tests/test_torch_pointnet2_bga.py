@@ -116,6 +116,8 @@ def test_registry_kinds():
         "pointnet2_cls_partseg": "partseg",
         "dgcnn": "cls", "dgcnn_bga": "seg", "spidercnn_cls_xyz": "cls",
         "pointcnn_cls": "cls", "pointcnn_seg": "seg",
+        "pointnet_cls": "cls", "pointnet_cls_basic": "cls", "pointnet_seg": "seg", "pointnet_partseg": "partseg",
+        "3dmfv_net_cls": "cls",
     }
     for name, cls in MODEL_REGISTRY.items():
         assert jzoo.MODEL_REGISTRY[name].kind == cls.kind

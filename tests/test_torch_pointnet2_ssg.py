@@ -114,9 +114,9 @@ def test_state_dict_names_match_jax_tree(variables):
     assert tmodel.sa2.mlp.dense_0.kernel.shape == (131, 128)
 
 
-def test_get_model_refuses_unported_names():
-    with pytest.raises(KeyError, match="not ported"):
-        get_model("pointnet_cls", device="cpu")
+def test_get_model_refuses_unknown_names():
+    with pytest.raises(KeyError, match="unknown model 'pointnet3'; available"):
+        get_model("pointnet3", device="cpu")
 
 
 def test_training_mode_raises(points):
