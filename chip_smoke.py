@@ -25,8 +25,9 @@ Phases (any failure raises and the exit code is not 0):
      widths 8, 4, 2 and 1 at the largest cloud each takes, its per-edge
      route and the forward at 1, 2 and 4 floats a lane, the forward at a
      warp and a half-warp a query) and of the
-     duplicate mask (``dupmask_kernel.kernel_info``), and require no local
-     memory;
+     duplicate mask (``dupmask_kernel.kernel_info``) and of #18 at the plans
+     of its main paths' calls (``poolkey_kernel.kernel_info``), and require
+     no local memory;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes of the main path (FPS 2048->512 and 512->128; the fused SA1 and
      SA2 layers at B=128 in f32 and bf16), and time both with CUDA events;
@@ -182,7 +183,8 @@ Phases (any failure raises and the exit code is not 0):
         counting launches and recording the inputs of #18
         (``bn_relu_exactkey_pool``: SSG's three SA layers, MSG's six scales
         and group-all); each call bit-equal to its plain version (pooled,
-        kmax, cnt); timed, with its bound;
+        kmax, cnt); timed beside its bound, with its launch plan
+        (``poolkey_kernel.plan``);
      b. f32 and bf16 steps with ``fused_sa_train=True`` (pool mode native),
         recording the inputs of #17 (``grouped_bn_mlp_pool_bwd``); at SSG's
         SA1, SA2 and group-all and MSG's two K = 128 scales each call held
@@ -312,10 +314,10 @@ Phases (any failure raises and the exit code is not 0):
         out;
      c. bf16 training (exact-key pooling): one ``pointnet_cls`` and one
         ``pointnet_seg`` step at B=32: #18 launches 3 times a step, each
-        call equal to ``bn_relu_exactkey_pool_plain`` bit for bit and the
-        ``pointnet_cls`` step's calls timed by CUDA events beside their
-        bound; each step against the plain path (``compare_steps``), and
-        timed beside the f32 step;
+        call equal to ``bn_relu_exactkey_pool_plain`` bit for bit and
+        timed by CUDA events beside its bound and its launch plan (the
+        record sums the ``pointnet_cls`` step's three); each step against
+        the plain path (``compare_steps``), and timed beside the f32 step;
      d. f32 training at B=64: one step each of ``pointnet_cls``,
         ``pointnet_partseg`` and ``3dmfv_net_cls`` (the static 5³ GMM, and
         ``learnable_gmm=True`` on the 3³ grid, PN_LEARNABLE_GMM, with no
@@ -329,9 +331,10 @@ Phases (any failure raises and the exit code is not 0):
         largest values do, would otherwise decide otherwise on one side and
         move a whole row's or cell's gradient), each where they differ
         within PN_GATE_MARGIN there; the busy ms and idle share of each card
-        step (``profile_forward.profile_one``); whether two equal 3DmFV
-        steps give equal bits (cuDNN's weight gradients may use atomics),
-        and the 3DmFV forward's peak memory;
+        step (``profile_forward.profile_one``); two equal 3DmFV steps (each
+        GMM) equal bit for bit in the loss, every gradient and every BN
+        statistic, and cuDNN's ``allow_tf32`` and ``deterministic`` flags as
+        they were; the 3DmFV forward's peak memory;
      e. the command line on phase 15's ``.bin`` clouds: ``train --model
         pointnet_cls --dtype bfloat16 --max_epoch 1`` and ``train --model
         3dmfv_net_cls --max_epoch 1``: each writes its epoch line,
@@ -670,11 +673,21 @@ def check_edge_dup_kernels(smi: str) -> None:
     ``edge.cu`` (the staged backward at each slice width, at the largest
     cloud it takes; its per-edge route and the forward at 1, 2 and 4 floats
     a lane, the forward at a warp and a half-warp a query), of the
-    duplicate mask #12 and of the rank sort #5 at its plans from N = 1 to
-    16384; no local memory allowed."""
+    duplicate mask #12, of the rank sort #5 at its plans from N = 1 to
+    16384 and of #18 at its main paths' plans; no local memory allowed."""
+    import torch
+
     from scanobjectnn_torch.ops.cuda.dupmask_kernel import kernel_info as dupmask_info
     from scanobjectnn_torch.ops.cuda.edge_kernel import kernel_info as edge_info
+    from scanobjectnn_torch.ops.cuda.poolkey_kernel import kernel_info as poolkey_info
     from scanobjectnn_torch.ops.cuda.ranksort_kernel import kernel_info as ranksort_info
+
+    # #18's builds at the plans of PointNet's global pool, SSG's SA1 (the
+    # column route), SA2 and group-all, one row, an f32 pool and
+    # a width of 33 (one channel a lane).
+    poolkey_builds = ((32, 1024, 1024, torch.bfloat16), (8192, 32, 128, torch.bfloat16),
+                      (2048, 64, 256, torch.bfloat16), (16, 128, 1024, torch.bfloat16),
+                      (1, 1024, 1024, torch.bfloat16), (32, 12, 40, torch.float32), (21, 5, 33, torch.bfloat16))
 
     builds = [("#14 backward, staged", "bwd", w, n) for w, n in ((8, 1024), (8, 1210), (4, 2048), (2, 4842),
                                                                  (1, 9685))]
@@ -701,6 +714,13 @@ def check_edge_dup_kernels(smi: str) -> None:
               f"{info['local_bytes']} local bytes, {info['smem_bytes']} shared bytes a block, "
               f"{info['blocks_per_sm']} blocks per SM ({smi})")
         require(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, f"the rank sort kernel at N={n}: {info}")
+    for rows, k, c, cdtype in poolkey_builds:
+        info = poolkey_info(rows, k, c, cdtype)
+        plan = {key: info[key] for key in ("vec", "lanes", "teams")}
+        print(f"kernel #18 poolkey_kernel (rows {rows}, K={k}, C={c}, {str(cdtype)[6:]}: plan {plan}): "
+              f"{info['registers']} registers a thread, {info['local_bytes']} local bytes, "
+              f"{info['blocks_per_sm']} blocks per SM ({smi})")
+        require(info["local_bytes"] == 0 and info["blocks_per_sm"] >= 1, f"#18 at ({rows}, {k}, {c}): {info}")
 
 
 def kernel_split_ms(fn, groups: dict, iters: int = 10) -> dict:
@@ -2662,6 +2682,15 @@ def poolkey_work(work: Work, z32, cdtype) -> None:
     work.add(14.0 * z32.numel(), 4 * z32.numel() + rows * c * (elt + 8) + 16 * c)
 
 
+def poolkey_plan(z32) -> dict:
+    """#18's launch plan for a call on ``z32`` (``poolkey_kernel.plan``)."""
+    from scanobjectnn_torch.ops.cuda.poolkey_kernel import plan
+    from scanobjectnn_torch.ops.cuda.satrain_kernel import sm_count
+
+    k, c = z32.shape[-2:]
+    return plan(z32.numel() // (k * c), k, c, sm_count(z32.device), z32.data_ptr() % 16 == 0)._asdict()
+
+
 def satrain_work(work: Work, z1, widths) -> None:
     """#17, the least work of the backward: one forward recompute of the
     layers' products, the dW and dy products (2 C_{i-1} C_i operations a row
@@ -2918,7 +2947,8 @@ def mixed_phase(smi: str, dev) -> dict:
             poolkey_work(one, z32, args[5])
             print(f"#18 {label}: pooled, kmax and cnt equal to the plain version (min cnt {float(got[2].min()):.0f}, "
                   f"{float((got[2] > 1).float().mean()):.4f} of the columns tie); time kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {one.record()['bound_ms']:.4f} ms ({smi})")
+                  f"{plain_ms:.4f} ms, bound {one.record()['bound_ms']:.4f} ms ({one.record()['bound_by']}), plan "
+                  f"{poolkey_plan(z32)} ({smi})")
             if short == "SSG":
                 records["bn_relu_exactkey_pool"]["ms"] += ms
                 records["bn_relu_exactkey_pool"]["plain_ms"] += plain_ms
@@ -3266,17 +3296,16 @@ def pointnet_phase(smi: str, dev) -> None:
             label = f"{name} bf16 call {i} z32 {list(args[0].shape)}"
             require(all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)),
                     f"#18 differs from its plain version ({label})")
-            if name != "pointnet_cls":
-                continue
             ms = cuda_ms(lambda: bn_relu_exactkey_pool(*args))
             plain_ms = cuda_ms(lambda: bn_relu_exactkey_pool_plain(*args), iters=3)
             one = Work()
             poolkey_work(one, args[0], args[5])
-            poolkey_work(work, args[0], args[5])
-            pooled_ms, pooled_plain_ms = pooled_ms + ms, pooled_plain_ms + plain_ms
+            if name == "pointnet_cls":
+                poolkey_work(work, args[0], args[5])
+                pooled_ms, pooled_plain_ms = pooled_ms + ms, pooled_plain_ms + plain_ms
             print(f"#18 {label}: pooled, kmax and cnt equal to the plain version ({float((got[2] > 1).float().mean()):.4f} "
                   f"of the columns tie); time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-                  f"{one.record()['bound_ms']:.4f} ms ({one.record()['bound_by']}) ({smi})")
+                  f"{one.record()['bound_ms']:.4f} ms ({one.record()['bound_by']}), plan {poolkey_plan(args[0])} ({smi})")
         calls.clear()
         compare_steps(trainer, batch2, n_zero, f"{name} bf16 keys B={PN_BATCH}", grad_tol=BF16_STEP_GRAD_TOL,
                       zero_tol=None)
@@ -3344,14 +3373,25 @@ def pointnet_phase(smi: str, dev) -> None:
             print(f"time train step {label}: host wall {res['host_wall_ms']:.4f} ms, {res['kernels']:.0f} kernels, "
                   f"device busy {res['device_busy_ms']:.4f} ms, idle share {res['idle_share_of_window']:.4f} ({smi})")
             if name == "3dmfv_net_cls":
-                grads = []
-                for _ in range(2):
-                    _, st, (_, g, _) = step("card", name, kw, tbatch, contextlib.nullcontext())
-                    grads.append(g)
-                differing = [n for n in grads[0] if not torch.equal(grads[0][n], grads[1][n])]
-                print(f"{label}: two equal card steps give "
-                      + ("equal bits" if not differing else
-                         f"different bits ({len(differing)} gradients differ, e.g. {differing[:3]})"))
+                # Two equal steps on the card: equal bits in the loss, every
+                # gradient and every BN statistic (cuDNN's deterministic
+                # algorithms, the pool's backward without atomics), and the
+                # caller's cuDNN flags as they were.
+                cudnn = torch.backends.cudnn
+                flags = (cudnn.allow_tf32, cudnn.deterministic)
+                (loss_a, grads_a, stats_a), (loss_b, grads_b, stats_b) = (
+                    step("card", name, kw, tbatch, contextlib.nullcontext())[2] for _ in range(2))
+                differing = (["loss"] if loss_a != loss_b else []) + [
+                    n for n in grads_a if (grads_a[n] is None) != (grads_b[n] is None)
+                    or (grads_a[n] is not None and not torch.equal(grads_a[n], grads_b[n]))] + [
+                    n for n in stats_a if not torch.equal(stats_a[n], stats_b[n])]
+                print(f"{label}: two equal card steps: the loss, {len(grads_a)} gradients and {len(stats_a)} BN "
+                      f"statistics " + ("equal bit for bit" if not differing else
+                                        f"DIFFER ({len(differing)}, e.g. {differing[:3]})")
+                      + f"; cuDNN allow_tf32, deterministic {flags} before and "
+                        f"{(cudnn.allow_tf32, cudnn.deterministic)} after")
+                require(not differing, f"{label}: two equal card steps differ in {differing}")
+                require((cudnn.allow_tf32, cudnn.deterministic) == flags, f"{label}: the cuDNN flags changed")
                 model = card_state.model.eval()
                 points = torch.from_numpy(view["points"][:PN_TRAIN_BATCH]).to(dev)
                 torch.cuda.synchronize()
@@ -3416,7 +3456,6 @@ def range_phase(smi: str, dev) -> dict:
     from scanobjectnn_torch.ops.cuda.knn_kernel import (
         knn_graph_kernel, knn_graph_plain, knn_point_kernel, knn_point_plain,
     )
-    from scanobjectnn_torch.train import trainer as trainer_mod
     from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
 
     g = torch.Generator(device=dev).manual_seed(13)
@@ -3501,22 +3540,17 @@ def range_phase(smi: str, dev) -> dict:
     models = eval_models("dgcnn", np.random.RandomState(13), k=kg)
     graph_counters = (knn_graph_kernel, edge_reduce_fwd_kernel, edge_gather_knn, gather_rows)
     check_inference(models, x, graph_counters, smi, f"dgcnn k={kg}")
-    # TODO: the Trainer takes no model overrides yet (ROADMAP.md queue 1
-    # item 3); once TrainerConfig.model_kwargs exists, pass {"k": kg} there
-    # in place of this patch of the Trainer's get_model.
-    get_model = trainer_mod.get_model
-    with mock.patch.object(trainer_mod, "get_model", lambda *a, **kw: get_model(*a, **kw, k=kg)):
-        trainer = Trainer(TrainerConfig(model="dgcnn", batch_size=bg, device=str(dev)))
-        state = trainer.init_state(seed=0)
-        counters = graph_counters + (edge_reduce_bwd_kernel, scatter_add_rows)
-        losses, counts = counted_run(counters, lambda: [float(trainer.train_step(state, batches[0])[1]["loss"])])
-        routed = knn_graph_kernel.routed_launches
-        print(f"dgcnn k={kg} training main path: loss {losses}, launches {counts}, of the graph's {routed} "
-              f"through the general kNN kernel")
-        require(all(c > 0 for c in counts.values()) and routed == counts["knn_graph_kernel"],
-                f"a kernel of the dgcnn k={kg} training path never launched: {counts}")
-        require(all(math.isfinite(v) for v in losses), f"non-finite dgcnn k={kg} training loss: {losses}")
-        compare_steps(trainer, batches[1], 12, f"dgcnn k={kg} B={bg}")
+    trainer = Trainer(TrainerConfig(model="dgcnn", batch_size=bg, model_kwargs={"k": kg}, device=str(dev)))
+    state = trainer.init_state(seed=0)
+    counters = graph_counters + (edge_reduce_bwd_kernel, scatter_add_rows)
+    losses, counts = counted_run(counters, lambda: [float(trainer.train_step(state, batches[0])[1]["loss"])])
+    routed = knn_graph_kernel.routed_launches
+    print(f"dgcnn k={kg} training main path: loss {losses}, launches {counts}, of the graph's {routed} "
+          f"through the general kNN kernel")
+    require(all(c > 0 for c in counts.values()) and routed == counts["knn_graph_kernel"],
+            f"a kernel of the dgcnn k={kg} training path never launched: {counts}")
+    require(all(math.isfinite(v) for v in losses), f"non-finite dgcnn k={kg} training loss: {losses}")
+    compare_steps(trainer, batches[1], 12, f"dgcnn k={kg} B={bg}")
 
     # 13e. The EdgeConv backward on clouds one point too large for one
     # channel's staged slice: the per-edge route.

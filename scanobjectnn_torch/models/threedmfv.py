@@ -18,10 +18,17 @@ out·k³) and zero biases.  Padding is flax's "SAME": the convolutions pad
 (flax's ``count_include_pad``); the 2³ max-pool pads an odd side with -inf
 at its high end only (5 → 3 → 2).  ``fc1`` reads the channels-last flatten (d, h, w, c).
 
-The f32 convolutions never run in TF32: each call, forward and backward,
-holds ``torch.backends.cudnn.allow_tf32`` False while it runs on the card
-and puts the caller's value back (``_Conv3dNoTF32``), whatever the global
-flag.
+The f32 convolutions never run in TF32 and always take cuDNN's
+deterministic algorithms: each call, forward and backward, holds
+``torch.backends.cudnn.allow_tf32`` False and
+``torch.backends.cudnn.deterministic`` True while it runs on the card and
+puts the caller's values back (``_Conv3dExact``), whatever the global
+flags; ``cudnn.benchmark`` is left as it is.  The average pool's backward
+is the same pool applied to the incoming gradient (``_AvgPoolSame``: the
+zero-padded stride-1 pool of an odd window is self-adjoint), so it sums
+without atomics by construction, where PyTorch's backward is one that
+``torch.use_deterministic_algorithms`` refuses on the card.  So two equal
+training steps on the card give equal bits.
 
 GMM: the static grid GMM (``nn.fisher.get_3d_grid_gmm``) lives in
 non-persistent buffers (not in the ``state_dict``, as it is not in the JAX
@@ -55,36 +62,38 @@ INCEPTION_WIDTHS = (64, 128, 256, 256, 512)  # a max-pool after the third and th
 
 
 @contextmanager
-def _no_cudnn_tf32(on_card: bool):
-    """``torch.backends.cudnn.allow_tf32`` False inside, the caller's value
-    after (nothing changes off the card)."""
+def _cudnn_exact(on_card: bool):
+    """cuDNN's ``allow_tf32`` False and ``deterministic`` True inside, the
+    caller's values after, also when the body raises (nothing changes off
+    the card)."""
     if not on_card:
         yield
         return
-    before = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32, cudnn.deterministic = False, True
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = before
+        cudnn.allow_tf32, cudnn.deterministic = before
 
 
-class _Conv3dNoTF32(torch.autograd.Function):
+class _Conv3dExact(torch.autograd.Function):
     """``F.conv3d(x, w, b, padding=p)`` (stride 1) whose forward and
-    backward both run with cuDNN's TF32 off."""
+    backward both run under ``_cudnn_exact``."""
 
     @staticmethod
     def forward(ctx, x, w, b, padding: int):
         ctx.save_for_backward(x, w)
         ctx.padding = padding
-        with _no_cudnn_tf32(x.is_cuda):
+        with _cudnn_exact(x.is_cuda):
             return F.conv3d(x, w, b, padding=padding)
 
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         p = ctx.padding
-        with _no_cudnn_tf32(x.is_cuda):
+        with _cudnn_exact(x.is_cuda):
             dx, dw, db = torch.ops.aten.convolution_backward(
                 dy, x, w, [w.shape[0]], [1, 1, 1], [p, p, p], [1, 1, 1], False, [0, 0, 0], 1,
                 [ctx.needs_input_grad[0], ctx.needs_input_grad[1], ctx.needs_input_grad[2]],
@@ -122,7 +131,7 @@ class _Conv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Channels last in and out, f32."""
         w = self.kernel.permute(4, 3, 0, 1, 2)
-        y = _Conv3dNoTF32.apply(_channels_first(x), w, self.bias, self.kernel.shape[0] // 2)
+        y = _Conv3dExact.apply(_channels_first(x), w, self.bias, self.kernel.shape[0] // 2)
         return _channels_last(y)
 
 
@@ -160,12 +169,36 @@ class _Inception(nn.Module):
         return torch.cat([one, three, five, pooled], dim=-1)
 
 
-def _avg_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
-    """flax ``nn.avg_pool(x, (k, k, k), (1, 1, 1), "SAME")``, channels last:
-    zero padding of (k-1)/2 a side, counted in every window's k³."""
+def _pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Channels first: the k³ average pool at stride 1 over x zero-padded by
+    k // 2 a side, the padding counted in every window."""
     p = k // 2
-    padded = F.pad(_channels_first(x), (p, p) * 3)
-    return _channels_last(F.avg_pool3d(padded, k, stride=1))
+    return F.avg_pool3d(F.pad(x, (p, p) * 3), k, stride=1)
+
+
+class _AvgPoolSame(torch.autograd.Function):
+    """``_pool_same`` whose backward is ``_pool_same`` of the gradient: for
+    an odd k, output cell i averages the input cells within k // 2 of i
+    along each axis, so input cell j receives 1/k³ of the gradient of every
+    output cell within k // 2 of j, which is the same pool.  No atomics."""
+
+    @staticmethod
+    def forward(ctx, x, k: int):
+        ctx.k = k
+        return _pool_same(x, k)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _pool_same(dy, ctx.k), None
+
+
+def _avg_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
+    """flax ``nn.avg_pool(x, (k, k, k), (1, 1, 1), "SAME")``, channels last,
+    for an odd k: zero padding of (k-1)/2 a side, counted in every window's
+    k³."""
+    if k % 2 != 1:
+        raise ValueError(f"_avg_pool_same takes an odd window, got {k}")
+    return _channels_last(_AvgPoolSame.apply(_channels_first(x), k))
 
 
 def _max_pool2(x: torch.Tensor) -> torch.Tensor:

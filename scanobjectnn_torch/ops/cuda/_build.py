@@ -115,8 +115,11 @@ _SIGNATURES = {
     "spider_bwd_weight_slices": (_I, _I, _I, _I, _I),
     # feat, idx, g, dout, b, n, k, c, t, o, slices, part, dw, stream
     "spider_bwd_weight_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-    # z32, gamma, beta, mean, r, rows, k, c, bf16, pooled, kmax, cnt, stream
-    "poolkey_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
+    # z32, gamma, beta, mean, r, rows, k, c, bf16, vec, lanes, teams, pooled,
+    # kmax, cnt, stream
+    "poolkey_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+    # bf16, vec, threads, columns (the column route's build), info* (int[4])
+    "poolkey_info": (_I, _I, _I, _I, _P),
     # z1, d_pooled, groups, k, bf16, pool_f32, n_layers, widths*, ptrs*, plan*,
     # plan_len, pooled, share, table, partial, partial_floats, dz1, stream
     "satrain_bwd_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P),

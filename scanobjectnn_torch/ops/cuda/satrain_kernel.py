@@ -146,8 +146,10 @@ def _blocks_per_sm(rows: int, smem: int) -> int:
     return 2 if rows >= 32 and 2 * (smem + _BLOCK_RESERVED) <= _SM_SMEM else 1
 
 
+@functools.lru_cache(maxsize=None)
 def sm_count(device) -> int:
-    """The SMs of the card ``device`` names (``plan``'s ``sms``)."""
+    """The SMs of the card ``device`` names (``plan``'s ``sms``), read once
+    a device."""
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 

@@ -199,7 +199,11 @@ from scanobjectnn_torch.ops.cuda.sabucket_kernel import (
     sa_ball_mlp_pool_bucketed_plain,
 )
 from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool, sa_ball_mlp_pool_plain
+from scanobjectnn_torch.ops.cuda import poolkey_kernel
+from scanobjectnn_torch.ops.cuda.poolkey_kernel import Plan as PoolkeyPlan
 from scanobjectnn_torch.ops.cuda.poolkey_kernel import bn_relu_exactkey_pool, bn_relu_exactkey_pool_plain
+from scanobjectnn_torch.ops.cuda.poolkey_kernel import plan as poolkey_plan
+from scanobjectnn_torch.ops.cuda.poolkey_kernel import runs as poolkey_runs
 from scanobjectnn_torch.ops.cuda.samlp_kernel import sa_mlp_pool, sa_mlp_pool_plain
 from scanobjectnn_torch.ops.cuda.satrain_kernel import (
     fwd_chain,
@@ -1694,10 +1698,17 @@ def test_knn_indices_general_takes_the_kernels_up_to_k64(dev, monkeypatch, q_cou
 
 
 # #18, the exact-key pool forward: (lead dims, K, C, compute dtype, inputs).
-# The bf16 SSG step's three SA shapes and MSG SA1's scale 1 (C = 64) at
-# B=16, then a ragged width, an f32 compute dtype, exact ties and a NaN,
-# and PointNet's global pools (B=32 rows of K = N = 1024, C = 1024).
+# The bf16 SSG step's three SA shapes (group-all: 16 teams of a block split
+# K) and MSG SA1's scale 1 (C = 64) at B=16, then a ragged width, an f32
+# compute dtype, exact ties and a NaN, PointNet's global pools (B=32 rows
+# of K = N = 1024, C = 1024), also with every column's winner tied across
+# the plan's run boundaries ("straddle"), a NaN key in the last slot of the
+# last team's run ("nan_last"), and one row.
 POOLKEY_CASES = {
+    "pointnet_straddle": ((32,), 1024, 1024, torch.bfloat16, "straddle"),
+    "nan_last_run": ((2, 8), 128, 64, torch.bfloat16, "nan_last"),
+    "rows1": ((1,), 1024, 1024, torch.bfloat16, "straddle"),
+    "rows1_k_ragged_f32": ((1,), 1023, 72, torch.float32, "straddle"),
     "ssg_sa1": ((16, 512), 32, 128, torch.bfloat16, "normal"),
     "ssg_sa2": ((16, 128), 64, 256, torch.bfloat16, "normal"),
     "ssg_group_all": ((16, 1), 128, 1024, torch.bfloat16, "normal"),
@@ -1721,6 +1732,14 @@ def poolkey_inputs(case, dev):
         z[..., k // 2:, :] = z[..., : k - k // 2, :]
     if kind == "nan":
         z[0, 1, 3, 2] = np.nan
+    if kind == "nan_last":
+        z[0, 0, k - 1, c - 1] = np.nan
+    if kind == "straddle":  # channel ch's winner: the two slots either side of one run boundary
+        p = poolkey_plan(int(np.prod(lead)), k, c)
+        starts = sorted({j0 for j0, j1 in poolkey_runs(k, p.teams) if 0 < j0 < j1})
+        for ch in range(c if starts else 0):
+            j = starts[ch % len(starts)]
+            z[..., j - 1:j + 1, ch] = z[..., :, ch].max(-1)[..., None] + 1.0
     z32 = torch.from_numpy(z).to(dev)
     zbf = z32.to(cdtype).float()
     axes = tuple(range(z32.dim() - 1))
@@ -1744,10 +1763,68 @@ def test_poolkey_kernel_matches_plain(dev, case):
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
         torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
-    if case == "ties":
+    kind = POOLKEY_CASES[case][4]
+    if kind in ("ties", "straddle"):
         assert bool((got[2] >= 2).all())  # every column's winner is duplicated
-    if case == "nan":
+    if kind == "nan":
         assert bool(torch.isnan(got[1][0, 1, 2])) and float(got[2][0, 1, 2]) == 0.0
+    if kind == "nan_last":
+        assert int(torch.isnan(got[1]).sum()) == 1 and bool(torch.isnan(got[1][0, 0, -1]))
+        assert poolkey_plan(16, 128, 64).teams > 1
+
+
+# Plans other than plan()'s own: a 128-channel tile a warp with eight
+# teams, half-warp teams, one channel a lane, 32 teams of eight lanes, one
+# warp of one team, and one team of 64 and of 128 lanes (each thread walks
+# all of K).
+POOLKEY_PLANS = [PoolkeyPlan(4, 32, 8), PoolkeyPlan(4, 16, 16), PoolkeyPlan(1, 32, 8), PoolkeyPlan(4, 8, 32),
+                 PoolkeyPlan(4, 32, 1), PoolkeyPlan(4, 64, 1), PoolkeyPlan(1, 128, 1)]
+
+
+@pytest.mark.parametrize("case", ["pointnet_straddle", "nan_last_run", "ssg_sa2"])
+@pytest.mark.parametrize("forced", POOLKEY_PLANS, ids=lambda p: "x".join(map(str, p)))
+def test_poolkey_kernel_on_every_plan_matches_plain(dev, monkeypatch, case, forced):
+    args = poolkey_inputs(case, dev)
+    monkeypatch.setattr(poolkey_kernel, "plan", lambda *a, **kw: forced)
+    got = bn_relu_exactkey_pool(*args)
+    want = bn_relu_exactkey_pool_plain(*args)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+def test_poolkey_kernel_on_a_misaligned_z32_reads_a_channel_a_lane(dev):
+    # z32 a view 4 bytes past a 16-byte boundary: the plan takes vec 1.
+    z32, gamma, beta, mean, r, cdtype = poolkey_inputs("ssg_group_all", dev)
+    buf = torch.empty(z32.numel() + 1, device=dev)
+    shifted = buf[1:].view(z32.shape)
+    shifted.copy_(z32)
+    assert shifted.data_ptr() % 16 == 4
+    got = bn_relu_exactkey_pool(shifted, gamma, beta, mean, r, cdtype)
+    want = bn_relu_exactkey_pool_plain(z32, gamma, beta, mean, r, cdtype)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("case,bad", [
+    ("ties", PoolkeyPlan(4, 3, 32)), ("ties", PoolkeyPlan(4, 32, 16)), ("ties", PoolkeyPlan(4, 8, 2)),
+    ("ties", PoolkeyPlan(4, 8, 0)), ("ties", PoolkeyPlan(4, 0, 32)), ("ties", PoolkeyPlan(2, 8, 4)),
+    ("ties", PoolkeyPlan(1, 8, 64)), ("ties", PoolkeyPlan(4, 64, 2)), ("ties", PoolkeyPlan(4, 64, 4)),
+    ("ties", PoolkeyPlan(4, 16, 1)), ("ties", PoolkeyPlan(4, 512, 1)), ("nan", PoolkeyPlan(4, 8, 4)),
+], ids=lambda v: v if isinstance(v, str) else "x".join(map(str, v)))
+def test_poolkey_kernel_refuses_a_plan_it_cannot_run(dev, monkeypatch, case, bad):
+    # On K = 8, C = 24: lanes not a power of two; 512 threads; threads not
+    # whole warps; no team; no lane; vec 2; 512 threads of one channel a
+    # lane; lanes above a warp with two or four teams; the column route at
+    # half a warp or 512 threads a block.  On C = 10: 16-byte loads.
+    z32, gamma, beta, mean, r, cdtype = poolkey_inputs(case, dev)
+    monkeypatch.setattr(poolkey_kernel, "plan", lambda *a, **kw: bad)
+    before = bn_relu_exactkey_pool.launches
+    with pytest.raises(RuntimeError, match="cudaError_t"):
+        bn_relu_exactkey_pool(z32, gamma, beta, mean, r, cdtype)
+    assert bn_relu_exactkey_pool.launches == before
+    torch.cuda.synchronize()  # no error left behind
 
 
 def test_poolkey_kernel_refuses_what_it_does_not_take(dev):
@@ -2442,6 +2519,42 @@ def test_3dmfv_conv_ignores_cudnn_tf32(dev, k, cin, cout):
     want = torch.nn.functional.conv3d(x.detach().permute(0, 4, 1, 2, 3), conv.kernel.detach().permute(4, 3, 0, 1, 2),
                                       conv.bias.detach(), padding=k // 2)
     torch.testing.assert_close(runs[0][0].permute(0, 4, 1, 2, 3), want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("kw", [{}, {"subdivisions": (3, 3, 3), "learnable_gmm": True}], ids=["static5", "learnable3"])
+def test_3dmfv_f32_steps_are_bit_stable(dev, kw):
+    # Two equal f32 steps (B=8, the 5³ static and the 3³ learnable GMM):
+    # the same bits in the loss, every gradient and every BN statistic
+    # (cuDNN's deterministic algorithms inside the model's convolutions,
+    # the average pool's backward without atomics), with the caller's cuDNN
+    # flags (TF32 on, determinism off) as they were, inside and after.
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.models import get_model
+
+    points, labels = make_synthetic_dataset(num_per_class=2, num_classes=4, num_points=1024, seed=5)
+    x, y = torch.from_numpy(points).to(dev), torch.from_numpy(labels).to(dev)
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32, cudnn.deterministic
+    steps = []
+    try:
+        cudnn.allow_tf32, cudnn.deterministic = True, False
+        for _ in range(2):
+            model = get_model("3dmfv_net_cls", generator=torch.Generator().manual_seed(0), num_classes=4, **kw).train()
+            out = model(x, bn_momentum=0.9, generator=torch.Generator(device=dev).manual_seed(1))
+            loss, _ = model.loss(out, {"labels": y})
+            loss.backward()
+            torch.cuda.synchronize()
+            assert (cudnn.allow_tf32, cudnn.deterministic) == (True, False)
+            steps.append((loss.detach(), {n: q.grad for n, q in model.named_parameters()},
+                          {n: b.clone() for n, b in model.named_buffers()}))
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = before
+    (loss_a, grads_a, stats_a), (loss_b, grads_b, stats_b) = steps
+    assert bool(torch.isfinite(loss_a)) and same_bits(loss_a, loss_b)
+    assert all(g is not None for g in grads_a.values())
+    differ = [n for n in grads_a if not same_bits(grads_a[n], grads_b[n])]
+    differ += [n for n in stats_a if not same_bits(stats_a[n], stats_b[n])]
+    assert not differ, differ
 
 
 @pytest.mark.parametrize("name", ["pointnet_seg", "3dmfv_net_cls"])

@@ -47,6 +47,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from scanobjectnn_tpu import models as jzoo
 from scanobjectnn_tpu.models import threedmfv as jthreedmfv
@@ -54,7 +55,7 @@ from scanobjectnn_tpu.nn import fisher as jfisher
 from scanobjectnn_tpu.viz import fvplots as jfvplots
 from scanobjectnn_torch import convert
 from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
-from scanobjectnn_torch.models import ThreeDmFVNet, get_model
+from scanobjectnn_torch.models import ThreeDmFVNet, get_model, threedmfv
 from scanobjectnn_torch.nn import fisher
 from scanobjectnn_torch.nn.layers import BatchNorm
 from scanobjectnn_torch.viz import fvplots
@@ -225,6 +226,86 @@ def test_f32_step_matches_jax_f64(batch, variables, key):
     pn.hold_f32_step((metrics, grads, stats), ref, n_zero, feeds=feeds_train_bn)
     if key == "learnable3":
         assert all(np.abs(grads[n]).max() > 0 for n in ("gmm_w_logits", "gmm_mu", "gmm_sigma_raw"))
+
+
+# ------------------------------------------- the deterministic backward
+
+
+POOL_GRAD_TOL = 1e-6  # x max(1, |ref|max): the same sums of 27 or 125 terms in another order
+
+
+@pytest.mark.parametrize("grid,k", [((5, 5, 5), 3), ((3, 3, 3), 3), ((2, 2, 2), 3), ((2, 3, 4), 3), ((3, 3, 3), 5)])
+def test_avg_pool_backward_is_the_pool_of_the_gradient(grid, k):
+    # _AvgPoolSame's backward (the same pool applied to dy) against autograd
+    # through PyTorch's own avg_pool3d backward; the forward is unchanged.
+    g = torch.Generator().manual_seed(sum(grid) + k)
+    x = torch.randn(2, *grid, 6, generator=g, requires_grad=True)
+    dy = torch.randn(2, *grid, 6, generator=g)
+    got = threedmfv._avg_pool_same(x, k)
+    (dx,) = torch.autograd.grad(got, x, dy)
+    ref_x = x.detach().clone().requires_grad_()
+    p = k // 2
+    want = F.avg_pool3d(F.pad(ref_x.permute(0, 4, 1, 2, 3), (p, p) * 3), k, stride=1).permute(0, 2, 3, 4, 1)
+    (want_dx,) = torch.autograd.grad(want, ref_x, dy)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(dx, want_dx, rtol=0, atol=POOL_GRAD_TOL * max(1.0, float(want_dx.abs().max())))
+
+
+def test_avg_pool_refuses_an_even_window():
+    with pytest.raises(ValueError, match="odd window"):
+        threedmfv._avg_pool_same(torch.zeros(1, 3, 3, 3, 2), 2)
+
+
+@pytest.mark.parametrize("fails", [None, "forward", "backward"])
+def test_cudnn_scope_puts_both_flags_back(monkeypatch, fails):
+    # The scope as it runs on the card, forced on here: inside the
+    # convolution and its backward TF32 is off and the deterministic
+    # algorithms on; after them, also when one raises, the caller's values.
+    cudnn = torch.backends.cudnn
+    real_scope, real_conv, real_bwd = threedmfv._cudnn_exact, F.conv3d, torch.ops.aten.convolution_backward
+    seen = []
+
+    def conv3d(*args, **kw):
+        seen.append(("forward", cudnn.allow_tf32, cudnn.deterministic))
+        if fails == "forward":
+            raise RuntimeError("forward failed")
+        return real_conv(*args, **kw)
+
+    def convolution_backward(*args):
+        seen.append(("backward", cudnn.allow_tf32, cudnn.deterministic))
+        if fails == "backward":
+            raise RuntimeError("backward failed")
+        return real_bwd(*args)
+
+    monkeypatch.setattr(threedmfv, "_cudnn_exact", lambda on_card: real_scope(True))
+    monkeypatch.setattr(threedmfv.F, "conv3d", conv3d)
+    monkeypatch.setattr(torch.ops.aten, "convolution_backward", convolution_backward)
+    conv = threedmfv._Conv(4, 5, 3)
+    x = torch.randn(2, 3, 3, 3, 4, requires_grad=True)
+    before = cudnn.allow_tf32, cudnn.deterministic
+    try:
+        for flags in ((True, False), (False, True)):
+            cudnn.allow_tf32, cudnn.deterministic = flags
+            seen.clear()
+            try:
+                conv(x).sum().backward()
+            except RuntimeError as err:
+                assert fails is not None and str(err) == f"{fails} failed"
+            else:
+                assert fails is None
+            assert (cudnn.allow_tf32, cudnn.deterministic) == flags
+            want = ["forward"] if fails == "forward" else ["forward", "backward"]
+            assert seen == [(where, False, True) for where in want]
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = before
+    assert x.grad is None or fails is None
+
+
+def test_cudnn_scope_changes_nothing_off_the_card():
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32, cudnn.deterministic
+    with threedmfv._cudnn_exact(False):
+        assert (cudnn.allow_tf32, cudnn.deterministic) == before
 
 
 def test_bf16_is_refused_naming_the_roadmap_item():
