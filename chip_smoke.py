@@ -106,9 +106,12 @@ Phases (any failure raises and the exit code is not 0):
      f. ``dgcnn`` training, f32 (``TrainerConfig(model="dgcnn",
         batch_size=32)``): three steps with finite losses, counting
         launches; one step on the kernel path against the plain path; a
-        step timed;
+        step timed; then bf16 training (``bf16_steps``: one step counting
+        #11, #14's forward and backward, #15 and #7, each required to
+        launch; one against the plain path by the bf16 step bounds; two
+        equal steps bit-equal; timed beside the f32 step);
      g. ``dgcnn_bga``: inference in f32 and bf16 and one training step, each
-        against the plain path; timed;
+        against the plain path; timed; then its bf16 steps as in f;
   7. SpiderCNN (``spidercnn_cls_xyz``: one xyz kNN, k=20, SpiderConv 32, 64,
      128, 256 with T=5, GroupNorm, top-2 pooling, fc 1024, 512), B=32 clouds
      of N=1024 points of the synthetic dataset:
@@ -130,6 +133,10 @@ Phases (any failure raises and the exit code is not 0):
      d. training, f32 (``TrainerConfig(model="spidercnn_cls_xyz",
         batch_size=32)``): three steps with finite losses, counting launches;
         one step on the kernel path against the plain path; a step timed;
+        then bf16 training as in 6f (#15, #16's forward and backward, #7),
+        held to the plain path by ``spider_bf16_gate``: the loss within
+        SPIDER_BF16_LOSS_RTOL, each tensor within the bf16 step bound or
+        three times what a float64 contraction moves it on the plain path;
   8. PointCNN (``pointcnn_cls``: ``modelnet_x3_l4``, ``pointcnn_seg``:
      ``object_dataset_x3``, x=3), B=32 clouds of N=1024 points of the
      synthetic dataset with background masks, with exact copies of earlier
@@ -153,7 +160,8 @@ Phases (any failure raises and the exit code is not 0):
         batch_size=32)``: step LR, Adam eps 1e-2, L2 1e-5, the PointCNN
         augmentation): three steps of ``pointcnn_cls`` with finite losses
         and one of ``pointcnn_seg``, counting launches; one step of each on
-        the kernel path against the plain path; a step timed.
+        the kernel path against the plain path; a step timed; then bf16
+        training of each as in 6f (#12, #13, #6 and #7).
   9. PointNet++ MSG (``pointnet2_cls_msg``: SA-MSG 512 with K = 16, 32,
      128, SA-MSG 128 with K = 32, 64, 128, group-all, the SSG head), clouds
      of N=1024 points of the synthetic dataset:
@@ -299,12 +307,14 @@ Phases (any failure raises and the exit code is not 0):
      with background masks and parts (N=1024), its wall seconds printed:
      a. inference: ``pointnet_cls``, ``pointnet_cls_basic``,
         ``pointnet_seg`` and ``pointnet_partseg`` at B=32 in f32 and bf16,
-        and ``3dmfv_net_cls`` (the 5³ grid) at B=32 in f32, each built on
+        and ``3dmfv_net_cls`` (the 5³ grid) at B=32 in f32 and bf16, each built on
         the CPU from one seeded draw (weights, random positive BN running
         stats) and copied to the card: the card's logits held to the CPU
         forward's (f32 within F32_LOGIT_TOL x max(1, |ref|max), the classes
         equal; bf16 by the bf16 rule at PN_BF16_ULPS on any share of the
-        elements, the classes to BF16_CLASS_AGREEMENT), ``seg_logits`` also
+        elements, the classes to BF16_CLASS_AGREEMENT, 3DmFV's on every
+        cloud whose top two CPU logits lie more than twice the largest
+        error apart), ``seg_logits`` also
         by their per-point argmaxes (SEG_AGREEMENT); each forward timed;
      b. ``3dmfv_net_cls``'s f32 forward again with
         ``torch.backends.cudnn.allow_tf32`` True for the call: its logits
@@ -334,7 +344,10 @@ Phases (any failure raises and the exit code is not 0):
         step (``profile_forward.profile_one``); two equal 3DmFV steps (each
         GMM) equal bit for bit in the loss, every gradient and every BN
         statistic, and cuDNN's ``allow_tf32`` and ``deterministic`` flags as
-        they were; the 3DmFV forward's peak memory;
+        they were; the 3DmFV forward's peak memory; then each GMM's bf16
+        step at B=64 as in 6f (against the plain path, which runs the same
+        cuDNN calls; two equal steps bit-equal with cuDNN's flags as they
+        were; timed beside the f32 step);
      e. the command line on phase 15's ``.bin`` clouds: ``train --model
         pointnet_cls --dtype bfloat16 --max_epoch 1`` and ``train --model
         3dmfv_net_cls --max_epoch 1``: each writes its epoch line,
@@ -433,6 +446,24 @@ EDGE_BWD_TOL = 1e-5
 # to TRAIN_GRAD_TOL as above.
 SPIDER_BATCH, SPIDER_POINT, SPIDER_K = 32, 1024, 20
 SPIDER_FWD_TOL, SPIDER_BWD_TOL, SPIDER_LOSS_RTOL = 1e-5, 1e-5, 1e-5
+# A bf16 SpiderCNN step, kernel path against plain path: the f32 outputs'
+# last-bit differences move the bf16 roundings of each layer's output, and
+# those grow through four layers and the head's BNs, so the loss is held to
+# the bf16 step bound, SPIDER_BF16_LOSS_RTOL = BF16_STEP_GRAD_TOL (2e-2),
+# as every gradient and BN stat (phase 11's bf16 steps).
+SPIDER_BF16_LOSS_RTOL = 2e-2
+# Its gradients and BN stats: a last-bit change of the f32 contraction alone
+# (the float64 product rounded to f32 in place of the f32 one, on the plain
+# path) moved the bf16 step's tensors by up to 0.31 of their scale (read on
+# an H100 at B=32, printed by ``spider_bf16_gate``; the kernel path read
+# 0.034): the bf16 roundings of each layer's output, GroupNorm and the
+# top-2 picks amplify it.
+# The kernel path's forward sums in another order than cuBLAS, so it is held
+# per tensor to the larger of BF16_STEP_GRAD_TOL x max(1, |ref|max) and
+# BF16_TENSOR_RATIO times that change's own distance from the plain step in
+# the same run (``spider_bf16_gate``; 3: two independent roundings, the CPU
+# tests' mixed-train rule).
+BF16_TENSOR_RATIO = 3.0
 # PointCNN (phase 8): inference and training at the JAX package's B=32,
 # N=1024.  #12 and #13 must equal their plain versions (float == on both
 # sides; the same f32 operations in the same order, the same tie rule), so
@@ -488,6 +519,12 @@ BF16_STEP_GRAD_TOL, FUSED_STEP_GRAD_TOL = 2e-2, 1e-4
 # scale on any share of the elements (read on an H100 against the CPU: up to
 # 2.25, pointnet_partseg's seg_logits), the classes and the per-point
 # argmaxes by the agreement bounds.
+# 3DmFV's bf16 forward (seeded weights, random BN stats) gives logits up to
+# 26, where a bf16 ulp is 0.125, and some clouds' top two logits lie within
+# an ulp or two of each other (phase 16a prints how many): a class may flip
+# between the card and the CPU within the bf16 rule, so its classes must
+# agree on the clouds whose top two CPU logits lie more than twice the
+# largest logit error apart.
 PN_BATCH, PN_POINT, PN_TRAIN_BATCH = 32, 1024, 64
 PN_STEP_LOSS_RTOL, PN_GATE_MARGIN, PN_BF16_ULPS = 1e-5, 1e-4, 4
 # The learnable GMM's step on the 3³ grid: on the 5³ grid a gaussian that
@@ -909,7 +946,7 @@ def check_pooled(pooled, ref, dtype, what: str) -> float:
 def feeds_train_bn(param_name: str) -> bool:
     """A Dense bias followed by a training BatchNorm: every MLP layer
     (``dense_i``: SA, FP, seg_fc1) and the class heads' fc1 and fc2."""
-    *_, layer, leaf = param_name.split(".")
+    *_, layer, leaf = ["", *param_name.split(".")]
     return leaf == "bias" and (layer.startswith("dense_") or layer in ("fc1", "fc2"))
 
 
@@ -1084,6 +1121,116 @@ def compare_steps(trainer, batch, n_zero: int, label: str, loss_rtol: float = TR
     require(grad_err <= grad_tol and stat_err <= grad_tol,
             f"training gradients or BN stats differ from the {other} ({label})")
     require(not zero or zero_max <= zero_tol, f"a Dense bias before a BN has a gradient far from 0 ({label})")
+
+
+def bf16_steps(name: str, batches, dev, smi: str, counters, n_zero: int, label: str,
+               loss_rtol: float = TRAIN_LOSS_RTOL, gate=None, **config) -> None:
+    """bf16 training of ``name`` (``TrainerConfig(dtype="bfloat16", **config)``;
+    the families without SA layers, whose pool mode reaches no layer): two
+    equal steps on the kernel path, the first counting ``counters``'
+    launches (each must launch), one step against the plain path
+    (``compare_steps``: the loss within ``loss_rtol``, every gradient and
+    BN stat within BF16_STEP_GRAD_TOL x max(1, |ref|max), the ``n_zero`` Dense biases
+    before a BN held as the rest; ``gate(trainer, batch, label)`` in its
+    place where given), the two equal steps equal bit for bit in the
+    loss, every gradient and every BN statistic (fixed summation orders in
+    every backward kernel), and the step timed beside the f32 step of the
+    same config (``time_trainers``: bf16, f32, f32, bf16)."""
+    import torch
+
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    trainer = Trainer(TrainerConfig(model=name, dtype="bfloat16", device=str(dev), **config))
+    require(trainer.dtype == torch.bfloat16, f"{label}: not a bf16 trainer")
+    cudnn = torch.backends.cudnn
+    flags = (cudnn.allow_tf32, cudnn.deterministic)
+    runs = []
+    for i in range(2):
+        state = trainer.init_state(seed=1)
+        if i == 0:
+            (state, metrics), counts = counted_run(counters, lambda: trainer.train_step(state, batches[1]))
+        else:
+            state, metrics = trainer.train_step(state, batches[1])
+        runs.append((metrics["loss"].detach().clone(), {n: p.grad.clone() for n, p in state.model.named_parameters()},
+                     {n: b.clone() for n, b in state.model.named_buffers()}))
+    loss = float(runs[0][0])
+    print(f"{label} bf16 training main path: loss {loss:.6f}, launches {counts}")
+    require(all(c > 0 for c in counts.values()), f"a kernel of the {label} bf16 training path never launched: {counts}")
+    require(math.isfinite(loss), f"non-finite {label} bf16 training loss: {loss}")
+    if gate is None:
+        compare_steps(trainer, batches[1], n_zero, f"{label} bf16", loss_rtol=loss_rtol,
+                      grad_tol=BF16_STEP_GRAD_TOL, zero_tol=None)
+    else:
+        gate(trainer, batches[1], f"{label} bf16")
+    (loss_a, grads_a, stats_a), (loss_b, grads_b, stats_b) = runs
+    differing = (["loss"] if not torch.equal(loss_a, loss_b) else []) + [
+        n for n in grads_a if not torch.equal(grads_a[n], grads_b[n])] + [
+        n for n in stats_a if not torch.equal(stats_a[n], stats_b[n])]
+    print(f"{label} bf16: two equal steps: the loss, {len(grads_a)} gradients and {len(stats_a)} BN statistics "
+          + ("equal bit for bit" if not differing else f"DIFFER ({len(differing)}, e.g. {differing[:3]})")
+          + f"; cuDNN allow_tf32, deterministic {flags} before and {(cudnn.allow_tf32, cudnn.deterministic)} after")
+    require(not differing, f"{label}: two equal bf16 steps differ in {differing}")
+    require((cudnn.allow_tf32, cudnn.deterministic) == flags, f"{label}: the cuDNN flags changed")
+    f32 = Trainer(TrainerConfig(model=name, device=str(dev), **config))
+    time_trainers({"bf16": trainer, "f32": f32}, batches, smi, label, n=1)
+
+
+def spider_conv_f64(feat, idx, g, kernel):
+    """The SpiderConv contraction with its product summed in float64 and
+    rounded to f32: ``spider_conv_plain`` but for the last bits."""
+    import torch
+
+    from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows_plain
+
+    b, n, k = idx.shape
+    c, t = feat.shape[-1], g.shape[-1]
+    grouped = gather_rows_plain(feat.float(), idx.reshape(b, n * k)).reshape(b, n, k, c)
+    prod = (grouped[..., :, None] * g.float()[..., None, :]).reshape(b, n, k * c * t)
+    return torch.matmul(prod.double(), kernel.double()).float()
+
+
+def spider_bf16_gate(trainer, batch, label: str) -> None:
+    """The bf16 SpiderCNN step on the kernel path against the plain path
+    (SPIDER_BF16_LOSS_RTOL's comment): the loss within
+    SPIDER_BF16_LOSS_RTOL; each gradient and BN stat within the larger of
+    BF16_STEP_GRAD_TOL x max(1, |ref|max) and BF16_TENSOR_RATIO times the
+    distance of the plain step taken with ``spider_conv_f64`` from the plain
+    step, from the same weights, batch and draws."""
+    import torch
+
+    from scanobjectnn_torch.models import spidercnn
+
+    steps = {}
+    for path in ("kernel", "plain", "plain, the contraction in float64"):
+        s = trainer.init_state(seed=1)
+        with contextlib.ExitStack() as stack:
+            if path != "kernel":
+                stack.enter_context(plain_path())
+            if path.endswith("float64"):
+                stack.enter_context(mock.patch.object(spidercnn, "spider_conv", spider_conv_f64))
+            s, metrics = trainer.train_step(s, batch)
+        steps[path] = {"loss": metrics["loss"].detach().float().reshape(1),
+                       **{n: p.grad.float() for n, p in s.model.named_parameters()},
+                       **{n: b.float() for n, b in s.model.named_buffers()}}
+    kernel, plain, moved = steps.values()
+    loss_err = float((kernel["loss"] - plain["loss"]).abs() / plain["loss"].abs())
+    readings = []
+    for n, ref in plain.items():
+        if n == "loss":
+            continue
+        scale = scale_of(ref)
+        err, own = float((kernel[n] - ref).abs().max()), float((moved[n] - ref).abs().max())
+        readings.append((err / max(BF16_STEP_GRAD_TOL * scale, BF16_TENSOR_RATIO * own), n, err / scale, own / scale))
+    readings.sort(reverse=True)
+    beyond = sum(r[2] > BF16_STEP_GRAD_TOL for r in readings)
+    print(f"train step {label}, kernel path against plain path: loss rel err {loss_err:.3e} (bound "
+          f"{SPIDER_BF16_LOSS_RTOL}); largest error / bound {readings[0][0]:.3f} ({readings[0][1]}: error / scale "
+          f"{readings[0][2]:.3e}, the float64 contraction's {readings[0][3]:.3e}); {beyond} of {len(readings)} "
+          f"tensors beyond {BF16_STEP_GRAD_TOL} of their scale; the float64 contraction moves the plain step's "
+          f"loss by {float((moved['loss'] - plain['loss']).abs() / plain['loss'].abs()):.3e} and its tensors by up "
+          f"to {max(r[3] for r in readings):.3e} of their scale")
+    require(loss_err <= SPIDER_BF16_LOSS_RTOL, f"training loss differs from the plain path ({label})")
+    require(readings[0][0] <= 1.0, f"training gradients or BN stats differ from the plain path ({label})")
 
 
 def eval_models(name: str, stats_rng, **overrides) -> dict:
@@ -1637,6 +1784,7 @@ def dgcnn_phase(smi: str, dev) -> dict:
     require(all(math.isfinite(v) for v in losses), f"non-finite dgcnn training loss: {losses}")
     compare_steps(trainer, batches[TRAIN_STEPS], 12, f"dgcnn B={b}")
     time_steps(trainer, state, batches, smi, f"dgcnn B={b} N={n} f32")
+    bf16_steps("dgcnn", batches, dev, smi, counters, 12, f"dgcnn B={b} N={n}", batch_size=b)
 
     # 6g. dgcnn_bga: inference (f32, bf16) and a training step, against the plain path.
     check_inference(eval_models("dgcnn_bga", np.random.RandomState(10)), x,
@@ -1649,6 +1797,7 @@ def dgcnn_phase(smi: str, dev) -> dict:
     require(all(math.isfinite(v) for v in losses), f"non-finite dgcnn_bga training loss: {losses}")
     compare_steps(trainer, batches[1], 14, f"dgcnn_bga B={b}")
     time_steps(trainer, state, batches, smi, f"dgcnn_bga B={b} N={n} f32", n=1)
+    bf16_steps("dgcnn_bga", batches, dev, smi, counters, 14, f"dgcnn_bga B={b} N={n}", batch_size=b)
     return out
 
 
@@ -1830,6 +1979,8 @@ def spider_phase(smi: str, dev) -> dict:
     require(all(math.isfinite(v) for v in losses), f"non-finite spidercnn training loss: {losses}")
     compare_steps(trainer, batches[TRAIN_STEPS], 2, f"spidercnn B={b}", SPIDER_LOSS_RTOL)
     time_steps(trainer, state, batches, smi, f"spidercnn B={b} N={n} f32", n=1)
+    bf16_steps("spidercnn_cls_xyz", batches, dev, smi, counters, 2, f"spidercnn B={b} N={n}",
+               gate=spider_bf16_gate, batch_size=b)
     return out
 
 
@@ -1987,6 +2138,7 @@ def pointcnn_phase(smi: str, dev) -> dict:
         require(all(math.isfinite(v) for v in losses), f"non-finite {name} training loss: {losses}")
         compare_steps(trainer, batches[TRAIN_STEPS], 0, f"{name} B={b}")
         time_steps(trainer, state, batches, smi, f"{name} B={b} N={n} f32", n=1)
+        bf16_steps(name, batches, dev, smi, counters, 0, f"{name} B={b} N={n}", batch_size=b)
     return dup
 
 
@@ -3208,7 +3360,7 @@ def pointnet_phase(smi: str, dev) -> None:
     stats_rng = np.random.RandomState(17)
     card_fv = None
     for name in PN_NAMES + ("3dmfv_net_cls",):
-        dtypes = {"f32": None} if name == "3dmfv_net_cls" else {"f32": None, "bf16": torch.bfloat16}
+        dtypes = {"f32": None, "bf16": torch.bfloat16}
         stats_state = None
         for dname, dtype in dtypes.items():
             cpu = get_model(name, generator=torch.Generator().manual_seed(0), device="cpu", dtype=dtype).eval()
@@ -3229,12 +3381,24 @@ def pointnet_phase(smi: str, dev) -> None:
                         f"{name} {dname} {key}: {tuple(g.shape)} {g.dtype}")
                 require(float(w.float().abs().max()) > 0.1, f"{name} {dname} {key} vanished")
                 if dname == "bf16":
-                    check_bf16(g, w, PN_BF16_ULPS, f"{name} bf16 card against the CPU: {key}", share=1.0)
+                    err, _ = check_bf16(g, w, PN_BF16_ULPS, f"{name} bf16 card against the CPU: {key}", share=1.0)
                 else:
                     err, tol = float((g - w).abs().max()), F32_LOGIT_TOL * scale_of(w)
                     print(f"{name} f32 card against the CPU: {key} max abs err {err:.3e} (bound {tol:.3e})")
                     require(err <= tol, f"{name} f32 {key} on the card differs from the CPU: {err} > {tol}")
                 agree = float((g.float().argmax(-1) == w.float().argmax(-1)).float().mean())
+                if name == "3dmfv_net_cls" and dname == "bf16":
+                    # The module's note above PN_BATCH: the classes agree
+                    # where the CPU's top two logits lie farther apart than
+                    # both sides moved.
+                    top2 = w.float().topk(2, dim=-1).values
+                    clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+                    same = g.float().argmax(-1) == w.float().argmax(-1)
+                    print(f"{name} bf16: logits argmax agreement with the CPU {agree:.4f}; {int((~clear).sum())} of "
+                          f"{len(clear)} clouds' top two logits within twice the largest error {err:.3e}, the "
+                          f"others all agreeing: {bool(same[clear].all())}")
+                    require(bool(same[clear].all()), f"{name} bf16 classes differ where the top two logits are clear")
+                    continue
                 need = SEG_AGREEMENT if key == "seg_logits" else (1.0 if dname == "f32" else BF16_CLASS_AGREEMENT)
                 print(f"{name} {dname}: {key} argmax agreement with the CPU {agree:.4f} (bound {need})")
                 require(agree >= need, f"{name} {dname} {key} agreement {agree}")
@@ -3242,7 +3406,7 @@ def pointnet_phase(smi: str, dev) -> None:
                 ms = cuda_ms(lambda: card(xd))
             print(f"time forward {name} {dname} B={PN_BATCH} N={PN_POINT}: {ms:.4f} ms "
                   f"({PN_BATCH / ms * 1e3:.1f} clouds/s) ({smi})")
-            if name == "3dmfv_net_cls":
+            if name == "3dmfv_net_cls" and dname == "f32":
                 card_fv, fv_logits = card, got["logits"]
 
     marks = {"a": time.perf_counter()}
@@ -3403,6 +3567,12 @@ def pointnet_phase(smi: str, dev) -> None:
                 print(f"{label}: eval forward peak memory {(torch.cuda.max_memory_allocated() - base) / 2 ** 20:.1f} "
                       f"MiB above the {base / 2 ** 20:.1f} MiB held ({smi})")
             del card_trainer, card_state
+            if name == "3dmfv_net_cls":
+                # The bf16 step (no kernel of the repo's on this path):
+                # against the plain path, two equal steps bit-equal, timed
+                # beside the f32 step.
+                bf16_steps(name, [tbatch, tbatch], dev, smi, (), 2, label.replace(" f32", ""),
+                           batch_size=PN_TRAIN_BATCH, model_kwargs=kw)
 
     marks["d"] = time.perf_counter()
     # 16e. The command line on raw .bin clouds.
@@ -3748,19 +3918,35 @@ def main() -> None:
             **work[k].record(), "library_ms": None}
         for k in ("fps", "sa_ball_mlp_pool")
     }
+    marks = [("1-3", time.perf_counter())]
     measured.update(train_phase(smi, dev))
+    marks.append(("4", time.perf_counter()))
     measured["knn_point"] = seg_phase(smi, dev)
+    marks.append(("5", time.perf_counter()))
     measured.update(dgcnn_phase(smi, dev))
+    marks.append(("6", time.perf_counter()))
     measured.update(spider_phase(smi, dev))
+    marks.append(("7", time.perf_counter()))
     measured["duplicate_mask"] = pointcnn_phase(smi, dev)
+    marks.append(("8", time.perf_counter()))
     measured["sa_ball_mlp_pool_chunked"] = msg_phase(smi, dev)
+    marks.append(("9", time.perf_counter()))
     measured.update(sa_layer_phase(smi, dev))
+    marks.append(("10", time.perf_counter()))
     measured.update(mixed_phase(smi, dev))
+    marks.append(("11", time.perf_counter()))
     measured.update(bucket_phase(smi, dev, models, x0, sa1_xyz))
+    marks.append(("12", time.perf_counter()))
     routes = range_phase(smi, dev)
+    marks.append(("13", time.perf_counter()))
     data_phase(smi, dev)
+    marks.append(("14", time.perf_counter()))
     cli_phase(smi)
+    marks.append(("15", time.perf_counter()))
     pointnet_phase(smi, dev)
+    marks.append(("16", time.perf_counter()))
+    print("seconds by phase: " + ", ".join(f"{label} {t - t0:.1f}" for (label, t), t0 in
+                                           zip(marks, [t_start] + [t for _, t in marks[:-1]])))
 
     require(not {"jax", "scanobjectnn_tpu"} & set(sys.modules), "JAX or the JAX package was imported")
 

@@ -7,22 +7,23 @@ GPU.
     python3 profile_forward.py --train [--batch 16] [--num-point 1024]
     python3 profile_forward.py --train --dtype bfloat16 [--model pointnet2_cls_msg]
     python3 profile_forward.py --train --fused-sa-train [--dtype bfloat16]
-    python3 profile_forward.py --model pointnet2_cls_msg|pointnet2_cls_bga [--train]
-    python3 profile_forward.py --model dgcnn [--train]
-    python3 profile_forward.py --model spidercnn_cls_xyz [--train]
-    python3 profile_forward.py --model pointcnn_cls|pointcnn_seg [--train]
+    python3 profile_forward.py --model pointnet2_cls_msg|pointnet2_cls_bga|pointnet2_cls_partseg [--train]
+    python3 profile_forward.py --model dgcnn [--train [--dtype bfloat16]]
+    python3 profile_forward.py --model spidercnn_cls_xyz [--train [--dtype bfloat16]]
+    python3 profile_forward.py --model pointcnn_cls|pointcnn_seg [--train [--dtype bfloat16]]
     python3 profile_forward.py --model pointnet_cls [--train [--dtype bfloat16]]
-    python3 profile_forward.py --model 3dmfv_net_cls [--train]
+    python3 profile_forward.py --model 3dmfv_net_cls [--train [--dtype bfloat16]]
 
 ``--model`` is ``pointnet2_cls_ssg`` (default), ``pointnet2_cls_msg``,
-``pointnet2_cls_bga``, ``dgcnn``, ``dgcnn_bga``, ``spidercnn_cls_xyz``,
-``pointcnn_cls``, ``pointcnn_seg``, ``pointnet_cls``, ``pointnet_cls_basic``,
-``pointnet_seg``, ``pointnet_partseg`` or ``3dmfv_net_cls``.  The defaults
+``pointnet2_cls_bga``, ``pointnet2_cls_partseg``, ``dgcnn``, ``dgcnn_bga``,
+``spidercnn_cls_xyz``, ``pointcnn_cls``, ``pointcnn_seg``, ``pointnet_cls``,
+``pointnet_cls_basic``, ``pointnet_seg``, ``pointnet_partseg`` or
+``3dmfv_net_cls``; every one trains in f32 and in bf16.  The defaults
 are each model's configurations: SSG B=128, N=2048 for the forward and
-B=16, N=1024 for ``--train``; MSG and BGA B=32, N=1024 and B=16; both
-DGCNNs, SpiderCNN, both PointCNNs and the four PointNets B=32, N=1024 for
-both; 3DmFV-Net B=32 for the forward and B=64 for ``--train``, N=1024, in
-f32 only (the port refuses it in bf16).
+B=16, N=1024 for ``--train``; MSG and BGA B=32, N=1024 and B=16; part
+segmentation B=32 and B=8, N=1024; both DGCNNs, SpiderCNN, both PointCNNs
+and the four PointNets B=32, N=1024 for both; 3DmFV-Net B=32 for the
+forward and B=64 for ``--train``, N=1024.
 Forward: for bf16 and f32 in turn, builds the model with ``get_model``
 (seed 0, on the card) and answers one batch of the 15-class synthetic
 dataset (seed 0; with background points and binary masks for the models
@@ -32,8 +33,9 @@ bucketed kernel #4 after two rank sorts #5; "off": the fused kernel #3).  ``--tr
 augmentation, dropout and Adam, or the model's recipe: PointCNN's step LR,
 Adam eps 1e-2, L2 1e-5 and augmentation; seg_weight 0.5) takes
 ``train_step``s on one such batch, in f32 or with ``--dtype bfloat16``
-(exact-key pooling, the PointNet++ models), and with ``--fused-sa-train``
-the SA layers' fused training tail (pool mode native in bf16).
+(exact-key pooling in the PointNet and PointNet++ models), and with
+``--fused-sa-train`` the SA layers' fused training tail (pool mode native
+in bf16).
 Each runs a few times to warm up, then ``--iters`` runs are traced with
 ``torch.profiler``.  Prints, per run: host wall time, the number of device
 kernels, device busy time (the union of kernel intervals), the kernel window
@@ -56,6 +58,7 @@ DEFAULTS = {
     "pointnet2_cls_ssg": ((128, 2048), (16, 1024)),
     "pointnet2_cls_msg": ((32, 1024), (16, 1024)),
     "pointnet2_cls_bga": ((32, 1024), (16, 1024)),
+    "pointnet2_cls_partseg": ((32, 1024), (8, 1024)),
     "dgcnn": ((32, 1024), (32, 1024)),
     "dgcnn_bga": ((32, 1024), (32, 1024)),
     "spidercnn_cls_xyz": ((32, 1024), (32, 1024)),
@@ -182,9 +185,7 @@ def main() -> None:
         runs[name + ("_fused_tail" if args.fused_sa_train else "")] = lambda: trainer.train_step(state, batch)
     else:
         points = torch.from_numpy(data[: args.batch]).cuda()
-        # 3DmFV-Net refuses bf16 in the port.
-        dtypes = (("f32", None),) if args.model == "3dmfv_net_cls" else (("bf16", torch.bfloat16), ("f32", None))
-        for name, dtype in dtypes:
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
             model = configure_eval(get_model(args.model, dtype=dtype), args.sa_bucket).eval()
             runs[name] = torch.no_grad()(lambda model=model: model(points))
     for name, run in runs.items():

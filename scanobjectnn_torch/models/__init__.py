@@ -5,10 +5,9 @@ Every name of the JAX registry is ported: ``pointnet_cls``,
 ``dgcnn``, ``spidercnn_cls_xyz``, ``3dmfv_net_cls`` and ``pointcnn_cls``
 ("cls"), ``pointnet_seg``, ``pointnet2_cls_bga``, ``dgcnn_bga`` and
 ``pointcnn_seg`` ("seg"), ``pointnet_partseg`` and ``pointnet2_cls_partseg``
-("partseg"), for inference and f32 training; bf16 training for the PointNet
-and PointNet++ families (their ``trains_in_bf16``).  Any other name raises
-``KeyError``.  The registry maps a name to its class; the class carries the
-model's ``kind``, its static ``loss(outputs, batch)`` (the JAX
+("partseg"), for inference and training in f32 and in bf16.  Any other
+name raises ``KeyError``.  The registry maps a name to its class; the class
+carries the model's ``kind``, its static ``loss(outputs, batch)`` (the JAX
 ``get_model`` returns the module, the loss and the kind) and, where the
 family ships one, its training ``recipe`` (``get_recipe``; PointCNN's).
 JAX's (class, defaults) entries become classes: ``pointnet_cls_basic`` is

@@ -19,8 +19,8 @@ Parameter and buffer names follow the JAX tree
 (``trunk.input_tnet.mlp.dense_0.kernel``, ``trunk.feature_tnet.transform.kernel``,
 ``fc_bn1.mean``, ``seg_mlp.dense_3.bias``, under part segmentation
 ``net.*``), so ``convert.load_jax_variables`` loads a JAX ``variables`` tree
-unchanged.  Each class carries ``kind`` and ``trains_in_bf16`` (the
-``Trainer`` takes ``dtype="bfloat16"`` for all three).
+unchanged.  Each class carries ``kind``; in bf16 training the three global
+pools take exact-key pooling.
 """
 
 from __future__ import annotations
@@ -114,7 +114,6 @@ class PointNetCls(nn.Module):
     ``{"logits": [B, num_classes], "end_points"}``."""
 
     kind = "cls"
-    trains_in_bf16 = True
 
     def __init__(self, num_classes: int = 15, use_tnet: bool = True, dtype: torch.dtype | None = None):
         super().__init__()
@@ -161,7 +160,6 @@ class PointNetSeg(nn.Module):
     "seg_logits", "end_points"}``."""
 
     kind = "seg"
-    trains_in_bf16 = True
     SEG_DIMS = (512, 256, 128, 128)
 
     def __init__(self, num_classes: int = 15, seg_classes: int = 2, dtype: torch.dtype | None = None):
@@ -205,7 +203,6 @@ class PointNetPartSeg(nn.Module):
     ``{"seg_logits", "end_points"}``."""
 
     kind = "partseg"
-    trains_in_bf16 = True
 
     def __init__(self, num_parts: int = 6, dtype: torch.dtype | None = None):
         super().__init__()

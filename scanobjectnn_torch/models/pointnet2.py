@@ -6,9 +6,9 @@ pointnet2_cls_partseg.py:18-87, and the upstream PointNet++ MSG config
 through pointnet_sa_module_msg (pointnet2/utils/pointnet_util.py:156-196).
 
 Each model class carries ``kind``, the targets its loss reads: "cls"
-(labels), "seg" (labels and background masks) or "partseg" (part ids), and
-``trains_in_bf16``: the ``Trainer`` takes ``dtype="bfloat16"`` for these
-four (exact-key pooling, ``nn/layers.mlp_final_max``).
+(labels), "seg" (labels and background masks) or "partseg" (part ids).  In
+bf16 training the ``Trainer`` gives these four exact-key pooling
+(``nn/layers.mlp_final_max``).
 """
 
 from __future__ import annotations
@@ -82,7 +82,6 @@ class PointNet2ClsSSG(nn.Module):
     with ``bn_momentum``, and the head's dropout draws from ``generator``."""
 
     kind = "cls"
-    trains_in_bf16 = True
     # (npoint, radius, nsample, mlp, group_all) per SA layer, in order.
     SA_CONFIGS = (
         (512, 0.2, 32, (64, 64, 128), False),
@@ -121,7 +120,6 @@ class PointNet2ClsMSG(nn.Module):
     it changes no value."""
 
     kind = "cls"
-    trains_in_bf16 = True
     # (npoint, radius_list, nsample_list, mlp_list) per MSG layer, in order.
     MSG_CONFIGS = (
         (512, (0.1, 0.2, 0.4), (16, 32, 128), ((32, 32, 64), (64, 64, 128), (64, 96, 128))),
@@ -161,7 +159,6 @@ class _PointNet2Seg(nn.Module):
     dropout → seg_fc2.  A subclass adds the head and ``fp1_source``, the
     width of what fp1 interpolates."""
 
-    trains_in_bf16 = True
     SA_CONFIGS = (
         (512, 0.2, 64, (64, 64, 128), False),
         (128, 0.4, 64, (128, 128, 256), False),

@@ -36,8 +36,16 @@ tree); with ``learnable_gmm`` the parameters ``gmm_w_logits`` (softmax:
 the weights), ``gmm_mu`` and ``gmm_sigma_raw`` (softplus: the stddevs)
 start at log(w), the means and log(expm1(σ)).
 
-bf16 is not ported for this model (``dtype=torch.bfloat16`` raises; ROADMAP
-queue 1, item 6).
+In bf16 (``dtype=torch.bfloat16``, the JAX ``dtype``) the Fisher vector is
+computed in f32 and the grid cast to bf16, as JAX does (``models/threedmfv.py``
+there casts the grid to the compute dtype); each convolution takes bf16
+operands and bias (flax's ``promote_dtype``) and returns bf16 from cuDNN's
+deterministic algorithms in the same scope; the BatchNorms, the fc layers
+and the logits are bf16 as ``nn.layers``' are.  The average pool sums its
+window in f32 and rounds once (``_pool_same``), where JAX's ``nn.avg_pool``
+on the XLA CPU adds the 27 bf16 values one at a time in bf16 and divides
+in bf16 (``tests/test_torch_mixed_threedmfv_train.py`` pins both): the
+f32 sum is the more exact of the two, as the EdgeConv VJPs' f32 sums are.
 """
 
 from __future__ import annotations
@@ -111,11 +119,12 @@ def _channels_last(x: torch.Tensor) -> torch.Tensor:
 
 
 class _Conv(nn.Module):
-    """flax ``nn.Conv(features, (k, k, k), padding="SAME")``: ``kernel``
-    [k, k, k, in, out], ``bias`` [out]."""
+    """flax ``nn.Conv(features, (k, k, k), padding="SAME", dtype=dtype)``:
+    ``kernel`` [k, k, k, in, out], ``bias`` [out]."""
 
-    def __init__(self, in_features: int, features: int, k: int):
+    def __init__(self, in_features: int, features: int, k: int, dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.kernel = nn.Parameter(torch.empty(k, k, k, in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.reset_parameters()
@@ -129,9 +138,10 @@ class _Conv(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Channels last in and out, f32."""
-        w = self.kernel.permute(4, 3, 0, 1, 2)
-        y = _Conv3dExact.apply(_channels_first(x), w, self.bias, self.kernel.shape[0] // 2)
+        """Channels last in and out, in the compute dtype (else x's)."""
+        dtype = self.dtype or x.dtype
+        w = self.kernel.permute(4, 3, 0, 1, 2).to(dtype)
+        y = _Conv3dExact.apply(_channels_first(x.to(dtype)), w, self.bias.to(dtype), self.kernel.shape[0] // 2)
         return _channels_last(y)
 
 
@@ -139,10 +149,10 @@ class _Conv3D(nn.Module):
     """Conv → BN → relu (3dmfv_net_cls.py's conv3d with bn), children
     ``Conv_0`` and ``BatchNorm_0`` as flax names them."""
 
-    def __init__(self, in_features: int, features: int, k: int):
+    def __init__(self, in_features: int, features: int, k: int, dtype: torch.dtype | None = None):
         super().__init__()
-        self.Conv_0 = _Conv(in_features, features, k)
-        self.BatchNorm_0 = BatchNorm(features)
+        self.Conv_0 = _Conv(in_features, features, k, dtype)
+        self.BatchNorm_0 = BatchNorm(features, dtype)
 
     def forward(self, x: torch.Tensor, bn_momentum: float | None = None) -> torch.Tensor:
         return torch.relu(self.BatchNorm_0(self.Conv_0(x), bn_momentum))
@@ -152,14 +162,16 @@ class _Inception(nn.Module):
     """1³ ‖ 3³ (of the 1³) ‖ 5³ (of the 1³) ‖ avg-pool 3³ + 1³, concatenated:
     n + n/2 + n/2 + n = 3n channels."""
 
-    def __init__(self, in_features: int, n: int, kernel_sizes: tuple[int, int] = (3, 5)):
+    def __init__(
+        self, in_features: int, n: int, kernel_sizes: tuple[int, int] = (3, 5), dtype: torch.dtype | None = None
+    ):
         super().__init__()
         k1, k2 = kernel_sizes
         self.pool_size = k1
-        self.conv1 = _Conv3D(in_features, n, 1)
-        self.conv2 = _Conv3D(n, n // 2, k1)
-        self.conv3 = _Conv3D(n, n // 2, k2)
-        self.conv4 = _Conv3D(in_features, n, 1)
+        self.conv1 = _Conv3D(in_features, n, 1, dtype)
+        self.conv2 = _Conv3D(n, n // 2, k1, dtype)
+        self.conv3 = _Conv3D(n, n // 2, k2, dtype)
+        self.conv4 = _Conv3D(in_features, n, 1, dtype)
 
     def forward(self, x: torch.Tensor, bn_momentum: float | None = None) -> torch.Tensor:
         one = self.conv1(x, bn_momentum)
@@ -171,9 +183,10 @@ class _Inception(nn.Module):
 
 def _pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
     """Channels first: the k³ average pool at stride 1 over x zero-padded by
-    k // 2 a side, the padding counted in every window."""
+    k // 2 a side, the padding counted in every window; each window summed
+    and divided in f32 and rounded once to x's dtype (module doc)."""
     p = k // 2
-    return F.avg_pool3d(F.pad(x, (p, p) * 3), k, stride=1)
+    return F.avg_pool3d(F.pad(x.float(), (p, p) * 3), k, stride=1).to(x.dtype)
 
 
 class _AvgPoolSame(torch.autograd.Function):
@@ -214,7 +227,6 @@ class ThreeDmFVNet(nn.Module):
     ``{"logits": [B, num_classes], "end_points": {}}``."""
 
     kind = "cls"
-    trains_in_bf16 = False
 
     def __init__(
         self,
@@ -225,11 +237,7 @@ class ThreeDmFVNet(nn.Module):
         dtype: torch.dtype | None = None,
     ):
         super().__init__()
-        if dtype not in (None, torch.float32):
-            raise NotImplementedError(
-                f"3dmfv_net_cls in {dtype} is not ported: the port runs it in f32 only (ROADMAP.md queue 1, "
-                "item 6, 'bf16 training of DGCNN, SpiderCNN and PointCNN', which holds 3DmFV-Net's bf16)"
-            )
+        self.dtype = dtype
         self.subdivisions, self.learnable_gmm = tuple(subdivisions), learnable_gmm
         self.dropout_keep = 0.7
         self.gmm = get_3d_grid_gmm(self.subdivisions, variance)
@@ -244,14 +252,14 @@ class ThreeDmFVNet(nn.Module):
                 self.register_buffer(name, torch.tensor(arr, dtype=torch.float32), persistent=False)
         channels = FV_FEATURES
         for i, n in enumerate(INCEPTION_WIDTHS):
-            self.add_module(f"inception{i + 1}", _Inception(channels, n))
+            self.add_module(f"inception{i + 1}", _Inception(channels, n, dtype=dtype))
             channels = 3 * n
         channels *= int(np.prod([math.ceil(math.ceil(s / 2) / 2) for s in self.subdivisions]))  # two pools
         for i, f in enumerate(FC_DIMS):
-            self.add_module(f"fc{i + 1}", Dense(channels, f))
-            self.add_module(f"bn{i + 1}", BatchNorm(f))
+            self.add_module(f"fc{i + 1}", Dense(channels, f, dtype))
+            self.add_module(f"bn{i + 1}", BatchNorm(f, dtype))
             channels = f
-        self.fc4 = Dense(channels, num_classes)
+        self.fc4 = Dense(channels, num_classes, dtype)
         self.reset_parameters()
 
     def reset_parameters(self, generator: torch.Generator | None = None) -> None:
@@ -275,6 +283,7 @@ class ThreeDmFVNet(nn.Module):
         b = points.shape[0]
         fv = fisher_vector(points, *self.gmm_params()).float()  # [B, 20, G]
         net = _channels_last(fv.reshape(b, FV_FEATURES, *self.subdivisions))  # [B, r, r, r, 20]
+        net = net.to(self.dtype or torch.float32)
         for i in range(len(INCEPTION_WIDTHS)):
             net = getattr(self, f"inception{i + 1}")(net, bn_momentum)
             if i in (2, 4):

@@ -24,7 +24,10 @@ Semantics:
     differentiable in ``vals``.  It returns rows in the dtype of ``vals``, as
     the JAX package's lax path (``gather_neighbors``) does, where its Pallas
     kernel returns f32 rows: with bf16 ``vals`` the T-Net's ``a + bj`` is a
-    bf16 sum in the port and on the JAX lax path.
+    bf16 sum in the port and on the JAX lax path.  Its backward sums each
+    point's row cotangents in f32 and casts the sum to the dtype of ``vals``
+    once, as the Pallas VJP does (the lax path sums in bf16);
+    ``edge_reduce``'s backward likewise.
 
 On the card ``edge_reduce`` is the graph kernel (``knn_graph_kernel``)
 followed by ``edge_reduce_fwd_kernel``, ``fwd_lanes`` lanes a point (a
@@ -305,9 +308,11 @@ def edge_reduce(feats: torch.Tensor, vals: torch.Tensor, k: int) -> dict:
 
 def edge_gather_knn_plain(feats: torch.Tensor, vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch ``edge_gather_knn``: ``knn_graph_plain`` and an indexing
-    gather."""
+    gather of ``vals`` cast to f32, the rows cast back (exact copies), so
+    the backward sums each point's row cotangents in f32 and casts once, as
+    the kernel's scatter-add does."""
     idx = knn_graph_plain(feats.detach().float(), k)
-    return _gather_plain(vals, idx), idx
+    return _gather_plain(vals.float(), idx).to(vals.dtype), idx
 
 
 def _graph_gather_kernel(feats: torch.Tensor, vals: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

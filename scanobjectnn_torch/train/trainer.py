@@ -41,12 +41,14 @@ dtype the model is built with (parameters stay f32); ``pool_precision``
 and "native", "f32", "keys" are the SA pool modes "0", "1", "keys";
 ``fused_sa_train`` runs the SA layers' fused training tail under the
 native and f32 modes (never under keys).
-Ported: f32 training of every registered model (PointCNN's two with its
-recipe, the others plain Adam, as the JAX ``Trainer`` gives them); bf16
-training of the four ``pointnet_*`` and the four ``pointnet2_*`` models.
-The other families (DGCNN, SpiderCNN, PointCNN, 3DmFV-Net) raise
-``NotImplementedError`` for bf16.  The PointNet losses take the config's
-``reg_weight`` (the T-Nets' orthogonality penalty).
+Every registered model trains in f32 and in bf16 (PointCNN's two with its
+recipe, the others plain Adam, as the JAX ``Trainer`` gives them).  The
+pool mode reaches only the layers that pool through ``mlp_final_max`` (the
+PointNet and PointNet++ families); DGCNN, SpiderCNN, PointCNN and 3DmFV-Net
+have none, as in JAX, and their bf16 backward kernels (#14's, the
+scatter-add #7, #16's) sum in f32 and cast once, as the JAX Pallas VJPs do.
+The PointNet losses take the config's ``reg_weight`` (the T-Nets'
+orthogonality penalty).
 
 Evaluation, as the JAX ``Trainer``'s (``trainer.py:314-406``, ``:736-866``):
   * ``eval_step(state, batch, rotate_angle)``: the batch turned about the
@@ -208,12 +210,6 @@ class Trainer:
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {config.dtype!r}")
         if config.model not in MODEL_REGISTRY:
             raise KeyError(f"unknown model {config.model!r}; available: {sorted(MODEL_REGISTRY)}")
-        if config.dtype == "bfloat16" and not getattr(MODEL_REGISTRY[config.model], "trains_in_bf16", False):
-            raise NotImplementedError(
-                f"bf16 training of {config.model!r} is not ported: DGCNN's, SpiderCNN's and PointCNN's backward "
-                "kernels (#7, #14, #16) and 3DmFV-Net's bf16 have not been held against JAX's bf16 step "
-                "(ROADMAP.md queue 1, 'bf16 training of DGCNN, SpiderCNN and PointCNN')"
-            )
         pool = config.pool_precision
         if pool == "auto":
             pool = "keys" if config.dtype == "bfloat16" else "native"

@@ -2581,3 +2581,126 @@ def test_pointnet_and_3dmfv_forward_on_the_card_match_the_cpu(dev, name):
         torch.testing.assert_close(g, w, rtol=0, atol=1e-4 * max(1.0, float(w.abs().max())))
         agree = float((g.argmax(-1) == w.argmax(-1)).float().mean())
         assert agree >= (0.99 if key == "seg_logits" else 1.0), (key, agree)
+
+
+# ------------------------------------------------- bf16 training's backward
+
+
+def _bf16_cast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 values, kept in f32."""
+    return t.to(torch.bfloat16).float()
+
+
+@pytest.mark.parametrize("case", ["ec2", "ec4"])
+def test_edge_reduce_bwd_on_bf16_values_and_cotangents(dev, case):
+    # A bf16 EdgeConv hands #14 bf16 values (cast to f32 by the wrapper)
+    # and f32 cotangents of bf16-rounded products: the gradient comes back
+    # in bf16, the kernel's f32 sum cast once, bit-stable and equal to
+    # edge_reduce_bwd_ordered.
+    b, n, cf, cv, k, lattice = EDGE_CASES[case]
+    feats, vals = _edge_inputs(dev, b, n, cf, cv, lattice, seed=n + cv + 1)
+    v = vals.to(torch.bfloat16).requires_grad_()
+    before = edge_reduce_bwd_kernel.launches
+    red = edge_reduce(_bf16_cast(feats), v, k)
+    rng = np.random.RandomState(3)
+    cot = [_bf16_cast(torch.from_numpy(rng.randn(b, n, cv).astype(np.float32)).to(dev)) for _ in range(4)]
+    (grad,) = torch.autograd.grad([red[key] for key in ("mmax", "mmin", "s", "q2")], v, cot)
+    saved = (v.detach().float(), red["idx"], red["mmax"], red["mmin"], red["cntmax"], red["cntmin"])
+    again = edge_reduce_bwd_kernel(*saved, *cot)
+    ordered = edge_reduce_bwd_ordered(*saved, *cot)
+    torch.cuda.synchronize()
+    assert edge_reduce_bwd_kernel.launches == before + 2
+    assert grad.dtype == torch.bfloat16 and again.dtype == torch.float32
+    assert torch.equal(again, ordered), "the backward differs from edge_reduce_bwd_ordered"
+    assert torch.equal(grad, again.to(torch.bfloat16)), "the bf16 gradient is not the kernel's sum cast once"
+
+
+def test_scatter_add_on_bf16_cotangents_is_the_cpu_index_order_sum(dev):
+    # The T-Net's rows (#15, backward #7) and X-Conv's gather (#6, backward
+    # #7) in a bf16 step: bf16 cotangents, summed in f32 by the scatter-add
+    # and cast once, bit for bit the CPU's index-order sum cast, twice.
+    b, n, k, cv = 4, 1024, 20, 64
+    g = torch.Generator().manual_seed(5)
+    points = torch.randn(b, n, 3, generator=g).to(dev)
+    c2 = torch.randn(b, n, cv, generator=g).to(torch.bfloat16).to(dev)
+    cot = torch.randn(b, n, k, cv, generator=g).to(torch.bfloat16).to(dev)
+    for label in ("edge_gather_knn", "gather_neighbors"):
+        grads = []
+        for _ in range(2):
+            v = c2.clone().requires_grad_()
+            if label == "edge_gather_knn":
+                rows, idx = edge_gather_knn(points, v, k)
+            else:
+                idx = knn_graph_kernel(points, k)
+                rows = gather_neighbors(v.float().contiguous(), idx).to(torch.bfloat16)
+            assert rows.dtype == torch.bfloat16
+            (grad,) = torch.autograd.grad(rows, v, cot)
+            grads.append(grad)
+        torch.cuda.synchronize()
+        assert grads[0].dtype == torch.bfloat16 and torch.equal(grads[0], grads[1]), label
+        flat = idx.reshape(b, n * k)
+        want = _index_order_sum(flat, cot.float().reshape(b, n * k, cv), n).to(torch.bfloat16)
+        assert torch.equal(grads[0].cpu(), want), label
+
+
+@pytest.mark.parametrize("case", ["conv2", "conv4"])
+def test_spider_conv_backward_on_bf16_inputs_is_bit_stable(dev, case):
+    # A bf16 SpiderConv hands #16 its bf16 layer input cast to f32 and the
+    # cotangent of its f32 output cast to bf16: dfeat comes back in bf16
+    # (the kernels' f32 gradient cast once), dg and dkernel in f32; two
+    # calls give the same bits, within SPIDER_BWD_TOL of the plain version.
+    feat, idx, g, kernel, dout = _spider_inputs(dev, SPIDER_CASES[case], seed=7)
+    fb = feat.to(torch.bfloat16).requires_grad_()
+    dout = _bf16_cast(dout)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (g, kernel)]
+        out = spider_conv(fb.float(), idx, leaves[0], leaves[1])
+        runs.append(torch.autograd.grad(out, [fb, *leaves], dout))
+    plain = [t.clone().requires_grad_() for t in (fb.detach().float(), g, kernel)]
+    ref = torch.autograd.grad(spider_conv_plain(plain[0], idx, plain[1], plain[2]), plain, dout)
+    torch.cuda.synchronize()
+    assert runs[0][0].dtype == torch.bfloat16 and runs[0][1].dtype == runs[0][2].dtype == torch.float32
+    for name, a, twice, want in zip(("dfeat", "dg", "dkernel"), runs[0], runs[1], ref):
+        assert torch.equal(a, twice), f"{name}: the backward is not bit-stable"
+        err = float((a.float() - want).abs().max())
+        tol = SPIDER_BWD_TOL * max(1.0, float(want.abs().max()))
+        if name == "dfeat":  # plus the bf16 rounding of the f32 gradient
+            tol += float(want.abs().max()) * 2.0 ** -8
+        assert err <= tol, (name, err)
+
+
+@pytest.mark.parametrize("kw", [{}, {"subdivisions": (3, 3, 3), "learnable_gmm": True}], ids=["static5", "learnable3"])
+def test_3dmfv_bf16_steps_are_bit_stable(dev, kw):
+    # Two equal bf16 steps (B=8): the same bits in the loss, every gradient
+    # and every BN statistic (cuDNN's deterministic bf16 algorithms inside
+    # the model's convolutions), with the caller's cuDNN flags kept.
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.models import get_model
+
+    points, labels = make_synthetic_dataset(num_per_class=2, num_classes=4, num_points=1024, seed=5)
+    x, y = torch.from_numpy(points).to(dev), torch.from_numpy(labels).to(dev)
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32, cudnn.deterministic
+    steps = []
+    try:
+        cudnn.allow_tf32, cudnn.deterministic = True, False
+        for _ in range(2):
+            model = get_model("3dmfv_net_cls", generator=torch.Generator().manual_seed(0), num_classes=4,
+                              dtype=torch.bfloat16, **kw).train()
+            out = model(x, bn_momentum=0.9, generator=torch.Generator(device=dev).manual_seed(1))
+            assert out["logits"].dtype == torch.bfloat16
+            loss, _ = model.loss(out, {"labels": y})
+            loss.backward()
+            torch.cuda.synchronize()
+            assert (cudnn.allow_tf32, cudnn.deterministic) == (True, False)
+            steps.append((loss.detach(), {n: q.grad for n, q in model.named_parameters()},
+                          {n: b.clone() for n, b in model.named_buffers()}))
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = before
+    (loss_a, grads_a, stats_a), (loss_b, grads_b, stats_b) = steps
+    assert bool(torch.isfinite(loss_a)) and same_bits(loss_a, loss_b)
+    assert all(g is not None and g.dtype == torch.float32 for g in grads_a.values())
+    differ = [n for n in grads_a if not same_bits(grads_a[n], grads_b[n])]
+    differ += [n for n in stats_a if not same_bits(stats_a[n], stats_b[n])]
+    assert not differ, differ

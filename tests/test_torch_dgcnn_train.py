@@ -113,10 +113,10 @@ def variables(batch):
     return out
 
 
-def _jax_step_f64(monkeypatch, name, batch, variables, graphs):
+def _jax_step_f64(monkeypatch, name, batch, variables, graphs, margin=MARGIN):
     """JAX losses, gradients and updated BN stats of one training forward in
-    float64, on the port's ``graphs`` (module doc); and the shares of rows
-    whose graph was checked."""
+    float64, on the port's ``graphs`` (module doc), each checked on the rows
+    that clear ``margin``; and the shares of rows whose graph was checked."""
     monkeypatch.setattr(fnn, "Dropout", lambda rate, deterministic: (lambda h: h))
     for module in (jlayers, jlosses, jdgcnn, jedge):
         monkeypatch.setattr(module, "jnp", _Jnp64("jnp"))
@@ -126,9 +126,9 @@ def _jax_step_f64(monkeypatch, name, batch, variables, graphs):
     with jax.enable_x64(True):
         model = jzoo.get_model(name, num_classes=CLASSES, dtype=jnp.float64)[0]
         v64 = jax.tree_util.tree_map(lambda a: jnp.asarray(np.asarray(a, np.float64)), variables)
-        feed_jax(monkeypatch, graphs, MARGIN, shares)
+        feed_jax(monkeypatch, graphs, margin, shares)
         model.apply(v64, points, train=True, bn_momentum=MOMENTUM, mutable=["batch_stats"])
-        feed_jax(monkeypatch, graphs, MARGIN, shares, checked=False)
+        feed_jax(monkeypatch, graphs, margin, shares, checked=False)
 
         def loss_fn(params):
             out, mut = model.apply(

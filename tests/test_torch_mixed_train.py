@@ -41,9 +41,11 @@ at the f32 step tests' bounds: loss rtol 1e-5, every gradient 1e-4 x max(1,
 |ref|max), the Dense biases that feed a training BN (true gradient 0)
 |g| <= 2e-4, BN running stats 1e-5 x max(1, |ref|max).
 
-Also: the families whose backward kernels have not been held in bf16
-refuse ``dtype="bfloat16"``, naming the ROADMAP item; a JAX bf16 model's
-variables load strictly (``convert.py``: the fused ops own no parameters).
+Also: every other family (DGCNN, SpiderCNN, PointCNN, 3DmFV-Net) builds
+a bf16 ``Trainer`` and takes a finite step at a tiny size (their bf16
+steps are held in ``test_torch_mixed_{dgcnn,spidercnn,pointcnn,threedmfv}_
+train.py``); a JAX bf16 model's variables load strictly (``convert.py``:
+the fused ops own no parameters).
 """
 
 import flax.linen as fnn
@@ -57,12 +59,14 @@ from scanobjectnn_tpu import ops as jops
 from scanobjectnn_tpu.models import pointnet2 as jpointnet2
 from scanobjectnn_tpu.ops.pallas import satrain_kernel as jsatrain
 from scanobjectnn_torch import convert, models
+from scanobjectnn_torch.models import pointcnn
 from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
 from scanobjectnn_torch.nn.layers import BatchNorm
 from scanobjectnn_torch.nn.pointnet_modules import GroupMLPPool, LiftedGroupMLP
 from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group_plain
 from scanobjectnn_torch.train import trainer as trainer_module
 from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+from tests import test_torch_pointcnn_train as pcnn
 from tests import test_torch_pointnet2_msg_train as msg
 from tests import test_torch_seg_train as seg
 from tests import test_torch_train_step as ssg
@@ -238,11 +242,31 @@ def test_msg_fused_tail_step_matches_jax(monkeypatch, cls_batch, msg_variables):
     _hold_f32_step(loss, grads, stats, *ref, n_zero=23)
 
 
-@pytest.mark.parametrize("name", ["dgcnn", "dgcnn_bga", "spidercnn_cls_xyz", "pointcnn_cls", "pointcnn_seg"])
+TINY_BF16 = {"dgcnn": {"k": 8}, "dgcnn_bga": {"k": 8}, "spidercnn_cls_xyz": {"nsample": 8},
+             "pointcnn_cls": {"setting": pcnn.narrow(pointcnn, "pointcnn_cls")},
+             "pointcnn_seg": {"setting": pcnn.narrow(pointcnn, "pointcnn_seg")},
+             "3dmfv_net_cls": {"subdivisions": (2, 2, 2)}}
+
+
+@pytest.mark.parametrize("name", sorted(TINY_BF16))
 def test_other_families_refuse_bf16_training(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        Trainer(TrainerConfig(model=name, dtype="bfloat16", device="cpu"))
-    Trainer(TrainerConfig(model=name, device="cpu"))  # f32 trains
+    # The families that refused bf16 until their backward kernels were held
+    # in bf16 (tests/test_torch_mixed_{dgcnn,spidercnn,pointcnn,threedmfv}_
+    # train.py) now build a bf16 Trainer and take a finite step, at a tiny
+    # size: B=2 clouds of N=128 points in the unit ball (3DmFV's Fisher
+    # vector is 0/0 beyond its GMM's reach), PointCNN's narrow settings.
+    trainer = Trainer(TrainerConfig(model=name, dtype="bfloat16", batch_size=2, num_classes=3, device="cpu",
+                                    model_kwargs=TINY_BF16[name]))
+    assert trainer.dtype == torch.bfloat16
+    state = trainer.init_state()
+    points = np.random.RandomState(len(name)).randn(2, 128, 3)
+    points = (0.9 * points / np.linalg.norm(points, axis=-1, keepdims=True).max()).astype(np.float32)
+    batch = {"points": points, "labels": np.array([0, 2]), "masks": np.random.RandomState(1).randint(0, 2, (2, 128))}
+    state, metrics = trainer.train_step(state, batch)
+    assert state.step == 1 and np.isfinite(float(metrics["loss"]))
+    grads = [p.grad for p in state.model.parameters()]
+    assert all(g is not None and g.dtype == torch.float32 and bool(torch.isfinite(g).all()) for g in grads)
+    assert any(m.dtype == torch.bfloat16 for m in state.model.modules() if hasattr(m, "dtype") and m.dtype)
 
 
 @pytest.mark.parametrize("pool_precision,fused,mode", [("auto", False, "keys"), ("native", True, "0"),

@@ -377,10 +377,14 @@ def test_bf16_cls_step_no_farther_from_f64_than_jax_bf16(monkeypatch, batch, var
 
 
 def test_pointnet_refuses_nothing_in_bf16_and_3dmfv_refuses_bf16():
+    # Since 3DmFV-Net's bf16 was ported, neither family refuses bf16: the
+    # PointNets pool by exact keys, 3DmFV builds its layers in bf16.
     for name in NAMES:
         assert Trainer(TrainerConfig(model=name, dtype="bfloat16", device="cpu")).pool_mode == "keys"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        Trainer(TrainerConfig(model="3dmfv_net_cls", dtype="bfloat16", device="cpu"))
+    trainer = Trainer(TrainerConfig(model="3dmfv_net_cls", dtype="bfloat16", device="cpu",
+                                    model_kwargs={"subdivisions": (2, 2, 2)}))
+    model = trainer.init_state().model
+    assert model.dtype == model.inception1.conv1.Conv_0.dtype == model.fc4.dtype == torch.bfloat16
     with pytest.raises(KeyError, match="unknown model"):
         Trainer(TrainerConfig(model="pointnet3", device="cpu"))
 

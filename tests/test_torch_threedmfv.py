@@ -16,7 +16,9 @@ The model: weights drawn with numpy on the JAX tree (as
 ``tests/test_torch_pointnet.py``; the learnable GMM's parameters near
 their start: log(w) + 0.1·N(0, 1), the means + 0.05·N(0, 1), the raw
 stddevs + 0.1·N(0, 1)).  f32 forwards (eval) at B=2 within SSG's rtol 2e-4
-and atol 2e-5 x max(1, |ref|max), the classes equal.  One f32
+and atol 2e-5 x max(1, |ref|max), the classes equal; bf16 forwards
+within 0.05 x max(1, |ref|max) of JAX's bf16 forward (the SSG and DGCNN
+bf16 bound), the classes equal.  One f32
 ``Trainer.train_step`` each of the static and the learnable GMM at the 3³
 grid (the same layers as the 5³ grid's, at a third of the JAX compile
 time; ``chip_smoke.py`` phase 16 holds the 5³ step on the card to the CPU)
@@ -67,6 +69,7 @@ SEED = 3
 B_FWD, B, N, CLASSES = 2, 4, 128, 4
 FV_RTOL, FV_ATOL = 1e-5, 2e-6  # module doc
 FWD_RTOL, FWD_ATOL = 2e-4, 2e-5
+BF16_FWD_TOL = 0.05  # x max(1, |ref|max): test_bf16_forward_matches_jax
 NAME = "3dmfv_net_cls"
 CONFIGS = {"static5": {}, "static3": {"subdivisions": (3, 3, 3)},
            "learnable3": {"subdivisions": (3, 3, 3), "learnable_gmm": True}}
@@ -309,9 +312,38 @@ def test_cudnn_scope_changes_nothing_off_the_card():
 
 
 def test_bf16_is_refused_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        ThreeDmFVNet(dtype=torch.bfloat16)
-    assert not ThreeDmFVNet.trains_in_bf16
+    # The model once refused bf16; it now builds in bf16 (parameters f32)
+    # and answers bf16 logits (held to JAX's by test_bf16_forward_matches_jax).
+    model = ThreeDmFVNet(subdivisions=(3, 3, 3), num_classes=CLASSES, dtype=torch.bfloat16).eval()
+    with torch.no_grad():
+        logits = model(torch.rand(2, 64, 3) - 0.5)["logits"]
+    assert logits.dtype == torch.bfloat16 and logits.shape == (2, CLASSES) and bool(torch.isfinite(logits).all())
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+@pytest.mark.parametrize("key", ["static5", "learnable3"])
+def test_bf16_forward_matches_jax(batch, variables, key):
+    # The bf16 forward (eval) against JAX's bf16 forward on the same weights:
+    # both round at their layers' outputs, in other orders (cuDNN / oneDNN
+    # against XLA; the average pool's window sum in f32 against XLA's bf16
+    # adds, tests/test_torch_mixed_threedmfv_train.py): within BF16_FWD_TOL
+    # x max(1, |ref|max), the bf16 bound of the SSG, BGA and DGCNN
+    # forwards, and the same classes.
+    points = batch["points"][:B_FWD]
+    jmodel = jzoo.get_model(NAME, num_classes=CLASSES, dtype=jnp.bfloat16, **CONFIGS[key])[0]
+    want = jax.jit(lambda v, x: jmodel.apply(v, x, train=False)["logits"])(variables[key], jnp.asarray(points))
+    assert want.dtype == jnp.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    model = convert.load_jax_variables(get_model(NAME, device="cpu", num_classes=CLASSES, dtype=torch.bfloat16,
+                                                 **CONFIGS[key]), variables[key]).eval()
+    with torch.no_grad():
+        got = model(torch.from_numpy(points))["logits"]
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    err = float(np.abs(got - want).max()) / max(1.0, float(np.abs(want).max()))
+    print(f"3dmfv {key} bf16 logits: max err / scale {err:.3e}")
+    assert err <= BF16_FWD_TOL
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
 
 
 # ----------------------------------------------------------------- the plots

@@ -241,10 +241,12 @@ def test_train_epoch_runs_and_updates(monkeypatch, batch):
 
 def test_bf16_training_is_the_next_slice():
     # bf16 training of PointNet++ came with exact-key pooling: "auto" takes
-    # keys; the other families still refuse bf16 (tests/test_torch_mixed_train.py).
+    # keys; the other families train in bf16 too, where the pool mode reaches
+    # no layer (tests/test_torch_mixed_train.py and the
+    # test_torch_mixed_*_train.py files).
     trainer = Trainer(TrainerConfig(dtype="bfloat16", device="cpu"))
     assert trainer.pool_mode == "keys" and trainer.dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(TrainerConfig(model="dgcnn", dtype="bfloat16", device="cpu"))
+    other = Trainer(TrainerConfig(model="dgcnn", dtype="bfloat16", device="cpu"))
+    assert other.pool_mode == "keys" and other.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="dtype"):
         Trainer(TrainerConfig(dtype="float16", device="cpu"))
