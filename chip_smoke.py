@@ -352,6 +352,27 @@ Phases (any failure raises and the exit code is not 0):
         pointnet_cls --dtype bfloat16 --max_epoch 1`` and ``train --model
         3dmfv_net_cls --max_epoch 1``: each writes its epoch line,
         ``metrics.jsonl`` and ``checkpoint/``; the bf16 run launches #18.
+ 17. data parallelism (``parallel/mesh.py``, ``Trainer(mesh=...)``), at the
+     SSG step's global batch (B=16, N=1024), two momentum steps each:
+     a. a group of one rank (NCCL, ``cuda:0``): ``pointnet2_cls_ssg`` in
+        f32 with the fused SA tail (#17's backward a pass a call) and in
+        bf16 (exact keys, #18), ``dgcnn_bga`` in f32, every step's loss,
+        parameters and BN statistics bit-equal to the no-group trainer's,
+        the same launches;
+     b. two gloo ranks sharing the card (spawned, joined within
+        DP_JOIN_TIMEOUT; NCCL refuses two ranks on one device), each B=8,
+        the same three cases against one process on B=16 by the rules
+        beside DP_CASES (each step's update and loss), and three planted
+        faults (DP_CONTROLS) that must fail them; the ranks' states equal;
+        each rank's launches (#2, #9, #6, #7, #17; #18; #11, #14 both
+        ways, #15) equal to the one process's, its step ms by CUDA events
+        and the collectives' share of a step with each ``all_reduce``
+        between synchronizes;
+     c. ``python -m torch.distributed.run --standalone --nproc_per_node 1
+        -m scanobjectnn_torch.train.cli train --device cuda`` on phase 15's
+        kind of raw ``.bin`` clouds, one epoch, within DP_CLI_TIMEOUT (the
+        launcher and its worker killed together past it): exit 0, the log
+        line ``devices=1``, one epoch, a checkpoint.
 
 Every kernel's line in the ``{"kernels": [...]}`` record carries its
 bound: the larger of the bytes it must move over 3.35 TB/s and the
@@ -3746,6 +3767,403 @@ def range_phase(smi: str, dev) -> dict:
                                 "routed_launches": LAUNCH_ROUTES["edge_gather_knn.routed_launches"]}}
 
 
+# Data parallelism (phase 17): the global batch of the SSG and BGA steps
+# (phase 4's and 5's B=16, N=1024), two momentum steps; SSG f32 with the
+# fused SA training tail (#17's backward), SSG bf16 with exact-key pooling
+# (#18), so both kernels run under the group.  17a: a group of one rank
+# (NCCL) against no group: bit for bit.  17b: two gloo ranks on the one
+# card (NCCL refuses two ranks on one device), each B/2, against one
+# process on B; every kernel launches on the ranks as often as in the one
+# process.  A step is read by its update (``dp_update_reading``): the
+# change it made to the parameters, and to the BN statistics, each as one
+# vector against the one process's change, the distance's L2 norm over the
+# reference change's, and the loss over its magnitude.  Rounding moves a few
+# channels far (E[x²] - E[x]² cancels where a channel's mean is large
+# against its spread: a 2-ulp nudge of the moments moved the largest entry
+# of some step-1 updates by half their largest), so no entry is held alone;
+# a fault moves the whole update.  f32: each step's loss and updates within
+# DP_STEP_LIMITS; step 2's are loose: it starts from states that already
+# differ by that rounding, which ``dgcnn_bga``'s BNs over 16 clouds amplify
+# (on an H100 a nudge moved its step-2 update by 0.67 of its norm), so the
+# gate bites at step 1.
+# bf16: the ranks' moments round otherwise than one process's,
+# which moves bf16 roundings, so each step's update and loss are held
+# against the one-process f32 step, no farther from it than
+# BF16_TENSOR_RATIO times the one-process bf16 step (the mixed-train rule),
+# or within DP_STEP_LIMITS.  Printed beside every limit: the reading of the
+# one process with its BN moments nudged by DP_NUDGE (two f32 ulps,
+# ``dp_nudged_moments``), what a rounding of the moments alone moves; and
+# of three planted faults on the same two ranks (``DP_CONTROLS``): the
+# BatchNorms' group taken away (local moments), no gradient average, each
+# rank's own draws (no ``global_batch``).  Each control must fail the
+# comparison of its case.  A rank that has not finished within
+# DP_JOIN_TIMEOUT seconds is killed and fails the phase; 17c's command
+# within DP_CLI_TIMEOUT.
+DP_BATCH, DP_POINT, DP_STEPS, DP_WORLD = 16, 1024, 2, 2
+DP_CASES = (("pointnet2_cls_ssg", "float32"), ("pointnet2_cls_ssg", "bfloat16"), ("dgcnn_bga", "float32"))
+DP_CONTROLS = {"local_bn": ("pointnet2_cls_ssg float32", "pointnet2_cls_ssg bfloat16", "dgcnn_bga float32"),
+               "no_average": ("pointnet2_cls_ssg float32", "dgcnn_bga float32"),
+               "local_draws": ("pointnet2_cls_ssg float32", "dgcnn_bga float32")}
+DP_STEP_LIMITS = ((1e-3, 0.2), (1e-2, 1.0))  # (loss, update) relative distances, steps 1 and 2
+DP_JOIN_TIMEOUT, DP_CLI_TIMEOUT = 420, 300
+DP_TIMED_STEPS = 3
+DP_NUDGE = 2.0 ** -22
+
+
+def dp_counters():
+    from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group
+    from scanobjectnn_torch.ops.cuda.edge_kernel import edge_gather_knn, edge_reduce_bwd_kernel, edge_reduce_fwd_kernel
+    from scanobjectnn_torch.ops.cuda.fps_kernel import fps
+    from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows, scatter_add_rows
+    from scanobjectnn_torch.ops.cuda.knn_kernel import knn_graph_kernel
+    from scanobjectnn_torch.ops.cuda.poolkey_kernel import bn_relu_exactkey_pool
+    from scanobjectnn_torch.ops.cuda.satrain_kernel import grouped_bn_mlp_pool_bwd
+
+    return (fps, query_ball_group, gather_rows, scatter_add_rows, knn_graph_kernel, edge_reduce_fwd_kernel,
+            edge_reduce_bwd_kernel, edge_gather_knn, bn_relu_exactkey_pool, grouped_bn_mlp_pool_bwd)
+
+
+def dp_spec() -> dict:
+    """Phase 17's batches (the global batch of each step, with masks) and
+    trainer configurations."""
+    import numpy as np
+
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+
+    data, labels, masks = make_synthetic_dataset(num_per_class=3, num_classes=NUM_CLASSES, num_points=DP_POINT,
+                                                 seed=17, with_mask=True)
+    order = np.random.RandomState(17).permutation(len(data))
+    batches = []
+    for i in range(DP_STEPS):
+        rows = order[i * DP_BATCH:(i + 1) * DP_BATCH]
+        batches.append({"points": data[rows], "labels": labels[rows], "masks": (masks[rows] >= 0).astype(np.int64)})
+    configs = {f"{m} {d}": dict(model=m, dtype=d, num_classes=NUM_CLASSES, num_point=DP_POINT, batch_size=DP_BATCH,
+                                optimizer="momentum", fused_sa_train=(m, d) == ("pointnet2_cls_ssg", "float32"))
+               for m, d in DP_CASES}
+    return {"batches": batches, "configs": configs}
+
+
+def dp_nudged_moments(nudge: float):
+    """``BatchNorm.global_moments`` (DGCNN's pair BN's too) with each
+    channel's E[x] and E[x²] scaled by 1 ± ``nudge``, the signs alternating
+    over the channels and opposite for the two: a rounding of the moments
+    in another order, as two ranks' averaged shard moments give."""
+    import torch
+
+    from scanobjectnn_torch.nn.layers import BatchNorm
+
+    real = BatchNorm.global_moments
+
+    def nudged(self, mean, mean2):
+        mean, mean2 = real(self, mean, mean2)
+        sign = 1.0 - 2.0 * (torch.arange(mean.shape[0], device=mean.device) % 2)
+        return mean * (1.0 + nudge * sign), mean2 * (1.0 - nudge * sign)
+
+    return mock.patch.object(BatchNorm, "global_moments", nudged)
+
+
+@contextlib.contextmanager
+def dp_control(name: str | None, model):
+    """A planted fault of the two-rank step (``DP_CONTROLS``); None: none."""
+    from scanobjectnn_torch.nn.layers import configure_parallel
+    from scanobjectnn_torch.train import trainer as trainer_lib
+
+    with contextlib.ExitStack() as stack:
+        if name == "local_bn":
+            configure_parallel(model, None)
+        elif name == "no_average":
+            stack.enter_context(mock.patch.object(trainer_lib.Trainer, "_average_gradients", lambda self, m: None))
+        elif name == "local_draws":
+            stack.enter_context(mock.patch.object(trainer_lib, "global_batch", lambda mesh: contextlib.nullcontext()))
+        elif name is not None:
+            raise ValueError(f"unknown control {name!r}")
+        yield
+
+
+def dp_steps(config: dict, batches, mesh=None, timed: bool = False, nudge: float = 0.0,
+             control: str | None = None) -> dict:
+    """``DP_STEPS`` momentum steps of a ``Trainer`` (on ``mesh``; with
+    ``nudge``, its BN moments nudged by ``dp_nudged_moments``; with a
+    ``control``'s fault): the losses, the state before and after each step,
+    the launches by kernel; with ``timed``, then the step's time by CUDA
+    events and the collectives' share of it."""
+    import torch
+
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    trainer = Trainer(TrainerConfig(**config), mesh=mesh)
+    state = trainer.init_state()
+
+    def snapshot():
+        return {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+
+    def run():
+        losses, states = [], [snapshot()]
+        for b in batches:
+            losses.append(float(trainer.train_step(state, b)[1]["loss"]))
+            states.append(snapshot())
+        return losses, states
+
+    before = dict(LAUNCHES)
+    with dp_nudged_moments(nudge) if nudge else contextlib.nullcontext(), dp_control(control, state.model):
+        (losses, states), _ = counted_run(dp_counters(), run)
+    launches = {k: v - before.get(k, 0) for k, v in LAUNCHES.items() if v > before.get(k, 0)}
+    out = {"losses": losses, "launches": launches, "states": states}
+    if timed:
+        batch = batches[0]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        trainer.train_step(state, batch)  # warm
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(DP_TIMED_STEPS):
+            trainer.train_step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        out["step_ms"] = start.elapsed_time(end) / DP_TIMED_STEPS
+        # The collectives timed apart: each all_reduce between synchronizes,
+        # by the host clock, over the same steps, against those steps' wall.
+        spent = [0.0]
+        real = torch.distributed.all_reduce
+
+        def timed_all_reduce(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            work = real(*args, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return work
+
+        with mock.patch.object(torch.distributed, "all_reduce", timed_all_reduce):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(DP_TIMED_STEPS):
+                trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out["collective_share"], out["instrumented_ms"] = spent[0] / wall, wall * 1e3 / DP_TIMED_STEPS
+    return out
+
+
+def dp_update_reading(got: dict, want: dict, f32: dict | None = None) -> list:
+    """Per step, the largest reading of ``got`` against ``want`` over its
+    limit (at most 1 passes) and where it is (module doc): the update of
+    the parameters and that of the BN statistics, each as one vector, by
+    the distance's L2 norm over the reference update's, and the loss; with
+    ``f32`` (a bf16 case), each held against the f32 step by the
+    BF16_TENSOR_RATIO rule."""
+    import torch
+
+    def update(run, i, buffers):
+        keys = [k for k, v in want["states"][i + 1].items() if v.is_floating_point()
+                and k.endswith((".mean", ".var")) == buffers]
+        return torch.cat([(run["states"][i + 1][k].float() - run["states"][i][k].float()).reshape(-1) for k in keys])
+
+    out = []
+    for i in range(DP_STEPS):
+        worst = [0.0, "nothing"]
+
+        def read(err, limit, what):
+            if err / limit > worst[0]:
+                worst[:] = [err / limit, f"{what} {err:.3e} against {limit:.3e}"]
+
+        loss_tol, update_tol = DP_STEP_LIMITS[i]
+        ref_run = want if f32 is None else f32
+        ref = ref_run["losses"][i]
+        far, near = (abs(x["losses"][i] - ref) / abs(ref) for x in (got, want))
+        if f32 is None:
+            read(far, loss_tol, "loss")
+        else:
+            read(far, max(BF16_TENSOR_RATIO * near, loss_tol), "loss from f32")
+        for buffers, what in ((False, "parameter update"), (True, "BN statistics update")):
+            ref = update(ref_run, i, buffers)
+            norm = float(ref.norm())
+            far, near = (float((update(x, i, buffers) - ref).norm()) / norm for x in (got, want))
+            if f32 is None:
+                read(far, update_tol, what)
+            else:
+                read(far, max(BF16_TENSOR_RATIO * near, update_tol), f"{what} from f32")
+        out.append(tuple(worst))
+    return out
+
+
+def dp_rank(rank: int, init_file: str, spec_path: str, out_path: str) -> None:
+    """Phase 17b's rank ``rank`` of DP_WORLD gloo ranks on cuda:0: the
+    cases, then the controls."""
+    import torch
+    import torch.distributed as dist
+
+    from scanobjectnn_torch.parallel import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    spec = torch.load(spec_path, weights_only=False)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank, world_size=DP_WORLD)
+    try:
+        mesh = make_mesh("cuda:0")
+        out = {label: dp_steps(cfg, spec["batches"], mesh, timed=True) for label, cfg in spec["configs"].items()}
+        out["controls"] = {(c, label): dp_steps(spec["configs"][label], spec["batches"], mesh, control=c)
+                           for c, labels in DP_CONTROLS.items() for label in labels}
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, out_path)
+
+
+def dp_phase(smi: str, dev) -> None:
+    """Phase 17 (module doc): data parallelism."""
+    import multiprocessing
+    import os
+    import signal
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from scanobjectnn_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    spec = dp_spec()
+
+    # a. A group of one rank: every collective a copy.
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1, device_id=dev)
+    try:
+        mesh = make_mesh(str(dev))
+        for label, cfg in spec["configs"].items():
+            grouped = dp_steps(cfg, spec["batches"], mesh)
+            alone = dp_steps(cfg, spec["batches"])
+            require(grouped["launches"] == alone["launches"], f"17a {label}: launches {grouped['launches']} "
+                    f"with the group, {alone['launches']} without")
+            differ = [k for i, st in enumerate(alone["states"]) for k, v in st.items()
+                      if not torch.equal(grouped["states"][i][k], v)]
+            require(grouped["losses"] == alone["losses"] and not differ,
+                    f"17a {label}: the world-one group's steps differ from the no-group steps: {differ[:5]}")
+            print(f"dp 17a {label} B={DP_BATCH} N={DP_POINT}: {DP_STEPS} momentum steps on a group of one rank "
+                  f"(NCCL) bit-equal to the no-group trainer's (losses {grouped['losses']}, "
+                  f"{len(alone['states'][-1])} tensors a step); launches {grouped['launches']}")
+    finally:
+        dist.destroy_process_group()
+
+    # b. Two gloo ranks on the one card against one process on the global batch.
+    with tempfile.TemporaryDirectory() as tmp:
+        spec_path = os.path.join(tmp, "spec.pt")
+        torch.save(spec, spec_path)
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=dp_rank, args=(r, os.path.join(tmp, "init"), spec_path,
+                                                   os.path.join(tmp, f"rank{r}.pt"))) for r in range(DP_WORLD)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(max(0.0, DP_JOIN_TIMEOUT - (time.perf_counter() - t0)))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for r in hung:
+            procs[r].kill()
+            procs[r].join(30)
+        require(not hung, f"17b: rank(s) {hung} still running after {DP_JOIN_TIMEOUT} s: killed")
+        require([p.exitcode for p in procs] == [0] * DP_WORLD, f"17b: rank exit codes {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
+        print(f"dp 17b: {DP_WORLD} gloo ranks on {dev} finished in {time.perf_counter() - t0:.1f} s")
+
+    one = {label: dp_steps(cfg, spec["batches"]) for label, cfg in spec["configs"].items()}
+    nudged = {label: dp_steps(cfg, spec["batches"], nudge=DP_NUDGE)
+              for label, cfg in spec["configs"].items() if label.endswith("float32")}
+    f32_ref = dp_steps(dict(spec["configs"]["pointnet2_cls_ssg bfloat16"], dtype="float32"), spec["batches"])
+
+    def two_ranks(results):
+        return {"losses": [float(np.mean([r["losses"][i] for r in results])) for i in range(DP_STEPS)],
+                "states": results[0]["states"]}
+
+    def shown(readings):
+        return "; ".join(f"step {i + 1} {ratio:.3e} ({where})" for i, (ratio, where) in enumerate(readings))
+
+    failures = []
+    for label in spec["configs"]:
+        want = one[label]
+        f32 = f32_ref if label.endswith("bfloat16") else None
+        for r in ranks[1:]:
+            differ = [k for k, v in ranks[0][label]["states"][-1].items()
+                      if not torch.equal(r[label]["states"][-1][k], v)]
+            require(not differ, f"17b {label}: the ranks' states differ: {differ[:5]}")
+        got = two_ranks([r[label] for r in ranks])
+        readings = dp_update_reading(got, want, f32)
+        if max(ratio for ratio, _ in readings) > 1.0:
+            failures.append(f"17b {label}: {shown(readings)}")
+        print(f"dp 17b {label} global B={DP_BATCH} N={DP_POINT}, {DP_STEPS} momentum steps on {DP_WORLD} ranks "
+              f"against one process, largest reading over its limit: {shown(readings)}; losses {got['losses']}, "
+              f"one process {want['losses']}" + (f", f32 {f32['losses']}" if f32 else ""))
+        if label in nudged:
+            print(f"dp 17b {label} reference: the one process with its BN moments nudged by {DP_NUDGE:.3e}: "
+                  f"{shown(dp_update_reading(nudged[label], want))}")
+        for control, labels in DP_CONTROLS.items():
+            if label in labels:
+                bad = dp_update_reading(two_ranks([r["controls"][(control, label)] for r in ranks]), want, f32)
+                if max(ratio for ratio, _ in bad) <= 1.0:
+                    failures.append(f"17b {label}: the {control} control passes the comparison: {shown(bad)}")
+                print(f"dp 17b {label} control {control} (must fail): {shown(bad)}")
+        for r, res in enumerate(ranks):
+            res = res[label]
+            print(f"dp 17b {label} rank {r}: launches {res['launches']}; step {res['step_ms']:.4f} ms (CUDA "
+                  f"events, {DP_TIMED_STEPS} steps on B={DP_BATCH // DP_WORLD}), collectives "
+                  f"{100 * res['collective_share']:.1f}% of {res['instrumented_ms']:.4f} ms with each all_reduce "
+                  f"between synchronizes ({smi})")
+        need = {"pointnet2_cls_ssg float32": ("fps_indices", "query_ball_group", "gather_rows", "scatter_add_rows",
+                                              "grouped_bn_mlp_pool_bwd"),
+                "pointnet2_cls_ssg bfloat16": ("fps_indices", "query_ball_group", "gather_rows", "scatter_add_rows",
+                                               "bn_relu_exactkey_pool"),
+                "dgcnn_bga float32": ("knn_graph_kernel", "edge_reduce_fwd_kernel", "edge_reduce_bwd_kernel",
+                                      "edge_gather_knn")}[label]
+        for r in ranks:
+            require(all(r[label]["launches"].get(k, 0) > 0 for k in need),
+                    f"17b {label}: a kernel of the path never launched: {r[label]['launches']}")
+            require(r[label]["launches"] == want["launches"],
+                    f"17b {label}: launches {r[label]['launches']} on a rank, {want['launches']} in one process")
+    require(not failures, "; ".join(failures))
+
+    # c. The command line under torch.distributed.run, one rank, NCCL.
+    old_cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            listing, _, _ = write_bin_clouds(tmp, np.random.RandomState(15), count=CLI_CLOUDS)
+            repo = os.path.dirname(os.path.abspath(__file__))
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join([repo, os.environ.get("PYTHONPATH", "")]))
+            argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+                    "-m", "scanobjectnn_torch.train.cli", "train", "--device", "cuda", "--model",
+                    "pointnet2_cls_ssg", "--num_point", str(TRAIN_POINT), "--batch_size", str(TRAIN_BATCH),
+                    "--max_epoch", "1", "--log_dir", "log", "--train_file", os.path.basename(listing),
+                    "--test_file", os.path.basename(listing)]
+            t0 = time.perf_counter()
+            # Its own session, so a hung launcher goes with its workers.
+            proc = subprocess.Popen(argv, cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True, start_new_session=True)
+            try:
+                _, err = proc.communicate(timeout=DP_CLI_TIMEOUT)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+                require(False, f"17c: torch.distributed.run did not finish within {DP_CLI_TIMEOUT} s: killed")
+            secs = time.perf_counter() - t0
+            require(proc.returncode == 0, f"17c: exit {proc.returncode}: {err[-3000:]}")
+            with open("log/log_train.txt") as f:
+                log = f.read()
+            epochs = sum(line.startswith("epoch 000") for line in log.splitlines())
+            require("devices=1" in log and epochs == 1, f"17c: log_train.txt {log[-2000:]}")
+            require(os.path.isfile("log/checkpoint/state.pt"), "17c: no checkpoint")
+            with open("log/metrics.jsonl") as f:
+                require(len(f.read().splitlines()) == 1, "17c: metrics.jsonl does not hold one epoch")
+            print(f"dp 17c: python -m torch.distributed.run --nproc_per_node 1 -m scanobjectnn_torch.train.cli train "
+                  f"--device cuda (NCCL, {CLI_CLOUDS} raw .bin clouds, 1 epoch): exit 0 in {secs:.1f} s wall, "
+                  f"log line 'devices=1', checkpoint written ({smi})")
+        finally:
+            os.chdir(old_cwd)
+    print(f"dp phase 17: {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+
 def main() -> None:
     import torch
 
@@ -3945,6 +4363,8 @@ def main() -> None:
     marks.append(("15", time.perf_counter()))
     pointnet_phase(smi, dev)
     marks.append(("16", time.perf_counter()))
+    dp_phase(smi, dev)
+    marks.append(("17", time.perf_counter()))
     print("seconds by phase: " + ", ".join(f"{label} {t - t0:.1f}" for (label, t), t0 in
                                            zip(marks, [t_start] + [t for _, t in marks[:-1]])))
 

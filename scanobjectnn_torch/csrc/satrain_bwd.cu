@@ -930,14 +930,15 @@ struct WalkLaunch {
   }
 };
 
-// The passes of one call at `Rows` rows a chunk, as the plan (checked by
-// the caller) lays them out.
+// Walk passes [begin, end) of one call at `Rows` rows a chunk, as the plan
+// (checked by the caller) lays them out; the constants table and the pool
+// pass with the first.
 template <int Rows>
-cudaError_t run(const Net& n, const int* plan, cudaStream_t s) {
+cudaError_t run(const Net& n, const int* plan, int begin, int end, cudaStream_t s) {
   const int consts_smem = plan[6], top = n.layers - 1;
   const int* w = n.width;
-  consts_kernel<<<ceil_div(n.sum_c, kThreads), kThreads, 0, s>>>(n);
-  if (!n.pool_in_pass) {
+  if (begin == 0) consts_kernel<<<ceil_div(n.sum_c, kThreads), kThreads, 0, s>>>(n);
+  if (begin == 0 && !n.pool_in_pass) {
     const int segs = plan[3], seg_rows = plan[4], blocks = plan[5];
     const size_t bytes = sizeof(float) * smem_floats(Rows, n.layers, w, 0, consts_smem);
     const Pass p = make_pass(n, Rows, top, 1, 0, 0, 0, 0, consts_smem);
@@ -947,7 +948,7 @@ cudaError_t run(const Net& n, const int* plan, cudaStream_t s) {
       combine_kernel<<<ceil_div(n.rows / n.k * w[top], kThreads), kThreads, 0, s>>>(n, segs, n.partial);
     }
   }
-  for (int j = 0; j <= n.layers; ++j) {
+  for (int j = begin; j < end; ++j) {
     const int* q = plan + kPlanHead + kPlanPass * j;
     const int target = top - j, blocks_x = q[0], slices = q[2];
     const bool with_dw = target >= 0 && target < top;
@@ -1028,13 +1029,20 @@ bool plan_ok(const Net& n, const int* plan, int plan_len, int64_t groups, int pa
 // if this file cannot run it.  pooled, share: scratch [groups, C_{L-1}]
 // f32; table: scratch [7, sum of the widths] f32; partial: scratch of
 // partial_floats f32.  Writes dz1 [groups * k, C0] in the compute dtype.
+// Runs walk passes [pass_begin, pass_end) of the L + 1 (pass j sums layer
+// L-1-j's S1, S2; pass L writes dz1), the constants and the pool pass with
+// pass 0: a caller that runs the passes one call at a time keeps pooled,
+// share, table and partial between the calls and may rewrite the table's
+// S1/R and S2/R rows of the layer a call summed (a process group's sums).
 extern "C" int satrain_bwd_launch(const void* z1, const void* d_pooled, int groups, int k, int bf16,
                                   int pool_f32, int n_layers, const int* widths, const void* const* ptrs,
                                   const int* plan, int plan_len, void* pooled, void* share, void* table,
-                                  void* partial, int partial_floats, void* dz1, void* stream) {
+                                  void* partial, int partial_floats, void* dz1, int pass_begin, int pass_end,
+                                  void* stream) {
   if (groups < 1 || k < 1 || n_layers < 1 || n_layers > kMaxLayers || plan_len < kPlanHead) {
     return cudaErrorInvalidValue;
   }
+  if (pass_begin < 0 || pass_begin >= pass_end || pass_end > n_layers + 1) return cudaErrorInvalidValue;
   Net n{};
   n.layers = n_layers;
   n.bf16 = bf16;
@@ -1075,11 +1083,11 @@ extern "C" int satrain_bwd_launch(const void* z1, const void* d_pooled, int grou
   if (!plan_ok(n, plan, plan_len, groups, partial_floats)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   switch (plan[0]) {
-    case 64: return run<64>(n, plan, s);
-    case 32: return run<32>(n, plan, s);
-    case 16: return run<16>(n, plan, s);
-    case 8: return run<8>(n, plan, s);
-    default: return run<4>(n, plan, s);
+    case 64: return run<64>(n, plan, pass_begin, pass_end, s);
+    case 32: return run<32>(n, plan, pass_begin, pass_end, s);
+    case 16: return run<16>(n, plan, pass_begin, pass_end, s);
+    case 8: return run<8>(n, plan, pass_begin, pass_end, s);
+    default: return run<4>(n, plan, pass_begin, pass_end, s);
   }
 }
 

@@ -72,7 +72,10 @@ class _PairBN(BatchNorm):
     def pair(self, a: torch.Tensor, red: dict, k: int, bn_momentum: float | None = None) -> torch.Tensor:
         """bn of the max-selected edge pre-activation ``a + M`` (module
         doc); in training the statistics are those of all B·N·k edges,
-        ``count = B·N·k`` and ``var = max(E[e²] − E[e]², 0)``."""
+        ``count = B·N·k`` and ``var = max(E[e²] − E[e]², 0)``.  Under a
+        group (``configure_parallel``) E[e] and E[e²] are averaged over it
+        before the variance; the count stays this rank's, since the mean of
+        equal shards' means is the global mean."""
         af = a.float()
         if self.training:
             if bn_momentum is None:
@@ -80,6 +83,7 @@ class _PairBN(BatchNorm):
             count = af.shape[0] * af.shape[1] * k
             mean = (k * af.sum(dim=(0, 1)) + red["s"].sum(dim=(0, 1))) / count
             mean2 = (k * torch.square(af) + 2.0 * af * red["s"] + red["q2"]).sum(dim=(0, 1)) / count
+            mean, mean2 = self.global_moments(mean, mean2)
             var = torch.clamp(mean2 - torch.square(mean), min=0.0)
             self.update_running(mean, var, bn_momentum)
         else:

@@ -19,6 +19,7 @@ from torch import nn
 from scanobjectnn_torch.models import losses
 from scanobjectnn_torch.nn.layers import MLP, BatchNorm, Dense
 from scanobjectnn_torch.nn.pointnet_modules import FPModule, SAModule, SAModuleMSG
+from scanobjectnn_torch.parallel.mesh import draw_rows
 
 __all__ = ["PointNet2BGA", "PointNet2ClsMSG", "PointNet2ClsSSG", "PointNet2PartSeg", "dropout"]
 
@@ -26,13 +27,18 @@ __all__ = ["PointNet2BGA", "PointNet2ClsMSG", "PointNet2ClsSSG", "PointNet2PartS
 def dropout(h: torch.Tensor, keep: float, training: bool, generator: torch.Generator | None) -> torch.Tensor:
     """Keep each value with probability ``keep`` and scale kept values by
     1/keep, as flax ``nn.Dropout`` does, drawing the mask from ``generator``;
-    the identity at eval."""
+    the identity at eval.  Inside ``parallel.global_batch`` the mask is this
+    rank's rows of the global batch's mask."""
     if not training:
         return h
     if generator is None:
         raise ValueError("training draws the dropout mask: pass a torch.Generator")
-    probs = torch.full(h.shape, keep, device=generator.device)
-    mask = torch.bernoulli(probs, generator=generator).to(device=h.device, dtype=torch.bool)
+
+    def draw(rows: int, mine: slice) -> torch.Tensor:
+        probs = torch.full((rows, *h.shape[1:]), keep, device=generator.device)
+        return torch.bernoulli(probs, generator=generator)
+
+    mask = draw_rows(draw, h.shape[0]).to(device=h.device, dtype=torch.bool)
     return torch.where(mask, h / keep, torch.zeros((), dtype=h.dtype, device=h.device))
 
 

@@ -24,6 +24,19 @@ Semantics kept from the JAX package, which ``torch.nn`` does not give:
     momentum convention, so it is not used).  ``f32_key_input`` (exact-key
     pooling) also returns an f32 normalization of that unrounded copy of
     ``x`` under the same statistics, with no gradient.
+  * Cross-replica BatchNorm, JAX's ``BatchNorm(axis_name=...)``: where
+    ``configure_parallel`` gave a module a process group, training takes
+    ``E[x]`` and ``E[x²]`` of this rank's rows and averages them over the
+    group (``parallel.all_reduce_mean``, one collective a call, with its
+    gradient) before ``var = max(E[x²] - E[x]², 0)``, so the statistics,
+    and the running ones updated from them, are the global batch's on
+    every rank.  Eval reads the running stats and calls no collective.
+    The fused ops that take a BN's training statistics take its group too
+    and reduce the same way inside (``dense_bn_exactkey_pool`` here, the
+    SA training tail in ``nn/pointnet_modules.py``), so a group leaves the
+    kernels on the path.  The name ``configure_parallel`` follows
+    ``configure_training``: the group is set on the built model, not passed
+    through every constructor as JAX's ``bn_axis_name`` is.
   * ``GroupNorm`` is flax's ``nn.GroupNorm`` on channels-last [B, N, C]
     input (``torch.nn.GroupNorm`` wants channels first and takes the
     two-pass variance): each of G groups of C/G channels takes its
@@ -52,7 +65,11 @@ import numpy as np
 import torch
 from torch import nn
 
-__all__ = ["BatchNorm", "Dense", "GroupNorm", "MLP", "MaxPoolMLP", "matmul_f32", "mlp_final_max"]
+from scanobjectnn_torch.parallel.mesh import all_reduce_mean
+
+__all__ = [
+    "BatchNorm", "Dense", "GroupNorm", "MLP", "MaxPoolMLP", "configure_parallel", "matmul_f32", "mlp_final_max",
+]
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -111,9 +128,12 @@ class BatchNorm(nn.Module):
     momentum in training (module doc).
 
     ``scale``/``bias`` are parameters and ``mean``/``var`` buffers, named as
-    the JAX ``params``/``batch_stats`` leaves."""
+    the JAX ``params``/``batch_stats`` leaves.  ``group``: the process group
+    whose global batch the training statistics cover (module doc; None: this
+    process's batch)."""
 
     epsilon = 1e-3
+    group = None
 
     def __init__(self, features: int, dtype: torch.dtype | None = None):
         super().__init__()
@@ -143,6 +163,14 @@ class BatchNorm(nn.Module):
             self.mean.copy_(self.mean * m + mean * rest)
             self.var.copy_(self.var * m + var * rest)
 
+    def global_moments(self, mean: torch.Tensor, mean2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(E[x], E[x²]) of the group's global batch from this rank's: their
+        mean over ``group`` in one collective; as given without a group."""
+        if self.group is None:
+            return mean, mean2
+        both = all_reduce_mean(torch.cat([mean, mean2]), self.group)
+        return both[: mean.shape[0]], both[mean.shape[0]:]
+
     def forward(
         self,
         x: torch.Tensor,
@@ -157,8 +185,8 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp(torch.square(xf).mean(dim=axes) - torch.square(mean), min=0.0)
+            mean, mean2 = self.global_moments(xf.mean(dim=axes), torch.square(xf).mean(dim=axes))
+            var = torch.clamp(mean2 - torch.square(mean), min=0.0)
             self.update_running(mean, var, bn_momentum)
         else:
             mean, var = self.mean, self.var
@@ -171,6 +199,17 @@ class BatchNorm(nn.Module):
             key = (f32_key_input.float() - mean) * r
             key = key * self.scale + self.bias
         return y, key
+
+
+def configure_parallel(model: nn.Module, group) -> nn.Module:
+    """Give every ``BatchNorm`` of ``model`` (``_PairBN`` too) the process
+    ``group`` whose global batch its training statistics cover (module
+    doc); None takes them over this process's batch again.  Parameter and
+    buffer names do not change."""
+    for sub in model.modules():
+        if isinstance(sub, BatchNorm):
+            sub.group = group
+    return model
 
 
 class GroupNorm(nn.Module):
@@ -270,7 +309,8 @@ def mlp_final_max(
              (``ops.exactpool.exact_key_max_pool``); with a Dense and a bf16
              compute dtype the step is one op,
              ``ops.exactpool.dense_bn_exactkey_pool`` (#18 on the card),
-             whose batch statistics update the BN's running ones.
+             whose batch statistics (over the BN's group) update the BN's
+             running ones.
 
     ``mdl`` owns ``dense_{index}`` and ``bn_{index}``.  ``skip_dense``: the
     layer has no Dense of its own (``LiftedGroupMLP``'s layer 0, whose
@@ -286,7 +326,7 @@ def mlp_final_max(
     if mode == "keys":
         if dense is not None and cdtype == torch.bfloat16:
             pooled, mean, var = dense_bn_exactkey_pool(
-                x.to(cdtype), dense.kernel, dense.bias, bn.scale, bn.bias, dim
+                x.to(cdtype), dense.kernel, dense.bias, bn.scale, bn.bias, dim, bn.group
             )
             bn.update_running(mean, var, bn_momentum)
             return pooled

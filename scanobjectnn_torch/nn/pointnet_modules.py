@@ -30,7 +30,9 @@ is process-global):
     ``ops.exactpool.dense_bn_exactkey_pool``, #18 on the card);
   * ``fused_sa_train``: under modes "0" and "1", the layers after Dense 0
     run as ``ops.satrain.grouped_bn_mlp_pool`` (``_fused_train_tail``),
-    whose backward recomputes them from Dense 0's output (#17 on the card).
+    whose backward recomputes them from Dense 0's output (#17 on the card);
+    its statistics are those of the BatchNorms' group
+    (``nn.layers.configure_parallel``), reduced inside the op.
 Eval ignores both; it reads ``fused_sa_eval`` and ``sa_bucket``, which
 ``configure_eval`` gives (JAX's kernelconfig settings, per model here).
 ``fused_sa_eval`` "on" (the default) runs an eval SA layer whose ``npoint``
@@ -140,13 +142,14 @@ def configure_eval(model: nn.Module, sa_bucket: str, fused_sa_eval: str = "on") 
 def _fused_train_tail(mdl: _PooledMLP, z1: torch.Tensor, bn_momentum: float | None) -> torch.Tensor:
     """BN0 -> relu -> (Dense -> BN -> relu)* -> max over K as one op
     (``ops.satrain.grouped_bn_mlp_pool``) on ``mdl``'s own parameters, its
-    BatchNorms taking the op's batch statistics into their running ones."""
+    BatchNorms taking the op's batch statistics (over their group) into
+    their running ones."""
     n = len(mdl.features)
     bns = [getattr(mdl, f"bn_{i}") for i in range(n)]
     denses = [getattr(mdl, f"dense_{i}") for i in range(1, n)]
     pooled, means, variances = grouped_bn_mlp_pool(
         z1, [m.scale for m in bns], [m.bias for m in bns], [d.kernel for d in denses], [d.bias for d in denses],
-        mdl.pool_mode,
+        mdl.pool_mode, bns[0].group,
     )
     for m, mean, var in zip(bns, means, variances):
         m.update_running(mean, var, bn_momentum)

@@ -56,6 +56,7 @@ from scanobjectnn_torch.nn.layers import BatchNorm, matmul_f32
 from scanobjectnn_torch.ops.cuda.dupmask_kernel import duplicate_mask_kernel, duplicate_mask_plain
 from scanobjectnn_torch.ops.cuda.gather_kernel import gather_neighbors
 from scanobjectnn_torch.ops.cuda.knn_kernel import MAX_K, knn_point_kernel, squared_distance_plain
+from scanobjectnn_torch.parallel.mesh import draw_rows
 
 __all__ = [
     "PCNN_BN_MOMENTUM",
@@ -163,9 +164,19 @@ def inverse_density_sample(
 ) -> torch.Tensor:
     """``sample_num`` indices per cloud, drawn with replacement with
     probability proportional to the mean kNN distance (pointfly.py:284-296):
-    [B, N, 3] -> int32 [B, sample_num]."""
+    [B, N, 3] -> int32 [B, sample_num].  Inside ``parallel.global_batch``
+    the draw is the global batch's (``parallel.draw_rows``): the other
+    ranks' clouds stand in as uniform rows, whose probabilities do not move
+    the draws of this rank's rows (``torch.multinomial`` takes each row's
+    uniforms by its position, not by its values)."""
     probs = torch.softmax(inverse_density_logits(points.detach().float(), k), dim=-1)
-    return torch.multinomial(probs, sample_num, replacement=True, generator=generator).to(torch.int32)
+
+    def draw(rows: int, mine: slice) -> torch.Tensor:
+        full = probs.new_ones((rows, probs.shape[1]))
+        full[mine] = probs
+        return torch.multinomial(full, sample_num, replacement=True, generator=generator)
+
+    return draw_rows(draw, probs.shape[0]).to(torch.int32)
 
 
 class _Layer(nn.Module):

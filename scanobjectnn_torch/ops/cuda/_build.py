@@ -121,8 +121,8 @@ _SIGNATURES = {
     # bf16, vec, threads, columns (the column route's build), info* (int[4])
     "poolkey_info": (_I, _I, _I, _I, _P),
     # z1, d_pooled, groups, k, bf16, pool_f32, n_layers, widths*, ptrs*, plan*,
-    # plan_len, pooled, share, table, partial, partial_floats, dz1, stream
-    "satrain_bwd_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P),
+    # plan_len, pooled, share, table, partial, partial_floats, dz1, pass_begin, pass_end, stream
+    "satrain_bwd_launch": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _P),
     # rows, n_layers, widths*, dw_floats, consts_smem, walk, info* (int[4])
     "satrain_info": (_I, _I, _P, _I, _I, _I, _P),
 }

@@ -24,6 +24,16 @@ du_i = dy_i·(u_i > 0):
 and dz1 = dz_0 rounded to the compute dtype.  db_i is the true sum: 0 up to
 rounding, since it feeds a training BN.
 
+Under a process ``group`` (the BatchNorms', ``nn.layers.configure_parallel``)
+the chain is the global batch's: ``fwd_chain`` averages each layer's E[h]
+and E[h²] over the group before its variance, and the backward sums each
+layer's S1_i, S2_i over the group for dz_i, over R times the world size;
+dgamma_i and dbeta_i stay this rank's sums, as dW_i and db_i do (the
+``Trainer`` averages every gradient over the ranks).  The kernel then runs
+its passes one call each and, between them, rewrites the layer's S1/R and
+S2/R in its constants table from the group's sums; a group of one rank
+gives the no-group bits.
+
 ``grouped_bn_mlp_pool_bwd`` on a CUDA tensor launches the kernel: a pass
 per layer's sums and a final pass for dz1, each recomputing the chain from
 z1 (register-tiled f32 FMA products, W staged in shared memory), plus a
@@ -48,9 +58,12 @@ import functools
 from dataclasses import dataclass
 from typing import Sequence
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from scanobjectnn_torch.ops.cuda import _build, takes_plain
+from scanobjectnn_torch.parallel.mesh import sum_parts
 
 __all__ = [
     "EPS",
@@ -249,11 +262,13 @@ def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(_acc(a), _acc(b))
 
 
-def _stats(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _stats(h: torch.Tensor, group=None) -> tuple[torch.Tensor, torch.Tensor]:
     axes = tuple(range(h.dim() - 1))
     hf = _acc(h)
-    mean = hf.mean(dim=axes)
-    return mean, torch.clamp(torch.square(hf).mean(dim=axes) - torch.square(mean), min=0.0)
+    mean, mean2 = hf.mean(dim=axes), torch.square(hf).mean(dim=axes)
+    if group is not None:
+        mean, mean2 = (t / dist.get_world_size(group) for t in sum_parts((mean, mean2), group))
+    return mean, torch.clamp(mean2 - torch.square(mean), min=0.0)
 
 
 def fwd_chain(
@@ -265,9 +280,11 @@ def fwd_chain(
     pool_mode: str = "0",
     means: Sequence[torch.Tensor] | None = None,
     variances: Sequence[torch.Tensor] | None = None,
+    group=None,
 ):
     """The tail's forward (module doc): (zhats, ys, pooled, means, vars),
-    per layer, with the batch statistics or the given ones."""
+    per layer, with the batch statistics (over ``group``) or the given
+    ones."""
     cdtype = z1.dtype
     n_layers = len(gammas)
     f32_last = pool_mode == "1"
@@ -279,7 +296,7 @@ def fwd_chain(
             h = _mm(ys[-1], ws[i - 1].to(cdtype)) + bs[i - 1]
             if not keep_f32:
                 h = h.to(cdtype)
-        mean, var = _stats(h) if means is None else (means[i], variances[i])
+        mean, var = _stats(h, group) if means is None else (means[i], variances[i])
         out_means.append(mean)
         out_vars.append(var)
         zhat = (_acc(h) - mean) * torch.rsqrt(var + EPS)
@@ -299,12 +316,16 @@ def grouped_bn_mlp_pool_bwd_plain(
     variances: Sequence[torch.Tensor],
     d_pooled: torch.Tensor,
     pool_mode: str = "0",
+    group=None,
 ):
     """Plain PyTorch backward (module doc; JAX ``_bwd_xla``): (dz1,
-    dgammas, dbetas, dws, dbs), the tuples in layer order."""
+    dgammas, dbetas, dws, dbs), the tuples in layer order; S1, S2 over
+    ``group``."""
     n_layers = len(gammas)
     zhats, ys, pooled, _, _ = fwd_chain(z1, gammas, betas, ws, bs, pool_mode, means, variances)
     r_count = float(z1.shape[0] * z1.shape[1] * z1.shape[2])
+    if group is not None:
+        r_count *= dist.get_world_size(group)
     axes = tuple(range(z1.dim() - 1))
     eq = _acc(ys[-1] == pooled.unsqueeze(-2))
     cnt = eq.sum(-2, keepdim=True)
@@ -317,6 +338,8 @@ def grouped_bn_mlp_pool_bwd_plain(
         s2 = (du * zhats[i]).sum(dim=axes)
         dgammas.append(s2)
         dbetas.append(s1)
+        if group is not None:
+            s1, s2 = sum_parts((s1, s2), group)
         r = torch.rsqrt(variances[i] + EPS)
         dz = r * gammas[i] * (du - s1 / r_count - zhats[i] * (s2 / r_count))
         if i > 0:
@@ -351,14 +374,16 @@ def grouped_bn_mlp_pool_bwd(
     variances: Sequence[torch.Tensor],
     d_pooled: torch.Tensor,
     pool_mode: str = "0",
+    group=None,
 ):
-    """The tail's backward (module doc): (dz1, dgammas, dbetas, dws, dbs).
+    """The tail's backward (module doc): (dz1, dgammas, dbetas, dws, dbs);
+    S1, S2 over ``group``.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``grouped_bn_mlp_pool_bwd.launches``) on ``plan``'s layout,
-    or raises."""
+    (counted once a call in ``grouped_bn_mlp_pool_bwd.launches``) on
+    ``plan``'s layout, or raises."""
     if takes_plain(z1):
-        return grouped_bn_mlp_pool_bwd_plain(z1, gammas, betas, ws, bs, means, variances, d_pooled, pool_mode)
+        return grouped_bn_mlp_pool_bwd_plain(z1, gammas, betas, ws, bs, means, variances, d_pooled, pool_mode, group)
     fn = "grouped_bn_mlp_pool_bwd"
     if z1.device.type != "cuda":
         raise ValueError(f"{fn}: unsupported device {z1.device}")
@@ -410,14 +435,33 @@ def grouped_bn_mlp_pool_bwd(
     ints = layout.ints()
     c_plan = (ctypes.c_int * len(ints))(*ints)
     lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.satrain_bwd_launch(
-            z1.data_ptr(), dp.data_ptr(), groups, k, int(z1.dtype == torch.bfloat16), int(pool_mode == "1"),
-            n_layers, ctypes.addressof(c_widths), ctypes.addressof(c_ptrs), ctypes.addressof(c_plan), len(ints),
-            pooled.data_ptr(), share.data_ptr(), table.data_ptr(), partial.data_ptr(), layout.partial_floats,
-            dz1.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, fn)
+
+    def launch(begin: int, end: int) -> None:
+        with torch.cuda.device(dev):
+            err = lib.satrain_bwd_launch(
+                z1.data_ptr(), dp.data_ptr(), groups, k, int(z1.dtype == torch.bfloat16), int(pool_mode == "1"),
+                n_layers, ctypes.addressof(c_widths), ctypes.addressof(c_ptrs), ctypes.addressof(c_plan), len(ints),
+                pooled.data_ptr(), share.data_ptr(), table.data_ptr(), partial.data_ptr(), layout.partial_floats,
+                dz1.data_ptr(), begin, end, torch.cuda.current_stream().cuda_stream,
+            )
+        _build.check(err, fn)
+
+    if group is None:
+        launch(0, n_layers + 1)
+    else:
+        # A pass a call; after pass j, layer L-1-j's S1/R and S2/R in the
+        # table (rows 5 and 6 of [7, sum_c]) are the group's sums over its
+        # rows, divided as the kernel divides (module doc).
+        rows = table.view(7, sum(widths))
+        count = torch.tensor(np.float32(groups * k * dist.get_world_size(group)), device=dev)
+        for j in range(n_layers + 1):
+            launch(j, j + 1)
+            t = n_layers - 1 - j
+            if t >= 0:
+                s1, s2 = sum_parts((dbetas[t], dgammas[t]), group)
+                lo = sum(widths[:t])
+                rows[5, lo:lo + widths[t]] = s1 / count
+                rows[6, lo:lo + widths[t]] = s2 / count
     grouped_bn_mlp_pool_bwd.launches += 1
     return dz1, tuple(dgammas), tuple(dbetas), tuple(dws), tuple(dbs)
 

@@ -11,9 +11,9 @@ activations before any bf16 rounding, picks the winners and the tie split:
     dy     = (key == max key) / count · d_pooled
 
   * ``exact_key_max_pool(y, key, dim)``: that op; no gradient to ``key``.
-  * ``dense_bn_exactkey_pool(x, w, b, gamma, beta, dim)``: the final SA
-    layer in bf16 training under exact keys as one op, Dense -> training BN
-    -> relu -> exact-key pool, returning (pooled, mean, var).
+  * ``dense_bn_exactkey_pool(x, w, b, gamma, beta, dim, group=None)``: the
+    final SA layer in bf16 training under exact keys as one op, Dense ->
+    training BN -> relu -> exact-key pool, returning (pooled, mean, var).
     Forward: ``z32 = x·cd(w) + b`` (compute-dtype operands, f32 sums and
     bias), batch statistics of ``cd(z32)``, rounded explicitly (XLA does
     not fold JAX's ``astype(bf16).astype(f32)`` either), then
@@ -26,13 +26,23 @@ activations before any bf16 rounding, picks the winners and the tie split:
     keys, and dz is rounded to the compute dtype before the dx and dW
     products.  The statistics' cotangents are ignored: they only feed the
     running averages.  db is the true sum, 0 up to rounding.
+    Under a process ``group`` (the BN's, ``nn.layers.configure_parallel``)
+    the statistics are the global batch's: E[z] and E[z²] averaged over the
+    group before the variance, as ``BatchNorm`` takes them; the backward's
+    batch sums S1 = Σ du and S2 = Σ du·zhat are summed over the group for
+    dz, over the global row count, while dgamma and dbeta stay this rank's
+    sums (the ``Trainer`` averages every gradient over the ranks).  A group
+    of one rank gives the no-group bits.
 """
 
 from __future__ import annotations
 
 import torch
 
+import torch.distributed as dist
+
 from scanobjectnn_torch.nn.layers import matmul_f32
+from scanobjectnn_torch.parallel.mesh import sum_parts
 from scanobjectnn_torch.ops.cuda.poolkey_kernel import bn_relu_exactkey_pool
 
 __all__ = ["dense_bn_exactkey_pool", "exact_key_max_pool"]
@@ -71,22 +81,25 @@ def _z32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return matmul_f32(x, w.to(x.dtype)) + b
 
 
-def _stats(zbf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _stats(zbf: torch.Tensor, group) -> tuple[torch.Tensor, torch.Tensor]:
     axes = tuple(range(zbf.dim() - 1))
-    mean = zbf.mean(dim=axes)
-    return mean, torch.clamp(torch.square(zbf).mean(dim=axes) - torch.square(mean), min=0.0)
+    mean, mean2 = zbf.mean(dim=axes), torch.square(zbf).mean(dim=axes)
+    if group is not None:
+        mean, mean2 = (t / dist.get_world_size(group) for t in sum_parts((mean, mean2), group))
+    return mean, torch.clamp(mean2 - torch.square(mean), min=0.0)
 
 
 class _DenseBnExactkeyPool(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, b, gamma, beta):
+    def forward(ctx, x, w, b, gamma, beta, group):
         z32 = _z32(x, w, b)
-        mean, var = _stats(z32.to(x.dtype).float())
+        mean, var = _stats(z32.to(x.dtype).float(), group)
         pooled, _, _ = bn_relu_exactkey_pool(
             z32.contiguous(), gamma.detach().contiguous(), beta.detach().contiguous(), mean,
             torch.rsqrt(var + EPS), x.dtype,
         )
         ctx.save_for_backward(x, w, b, gamma, beta, mean, var)
+        ctx.group = group
         ctx.mark_non_differentiable(mean, var)
         return pooled, mean, var
 
@@ -105,20 +118,27 @@ class _DenseBnExactkeyPool(torch.autograd.Function):
         n_rows = float(x[..., 0].numel())
         s1 = du.sum(dim=axes)
         s2 = (du * zhat).sum(dim=axes)
-        dz = r * gamma * (du - s1 / n_rows - zhat * (s2 / n_rows))
+        g1, g2 = s1, s2
+        if ctx.group is not None:  # the global batch's sums and rows (module doc)
+            g1, g2 = sum_parts((s1, s2), ctx.group)
+            n_rows *= dist.get_world_size(ctx.group)
+        dz = r * gamma * (du - g1 / n_rows - zhat * (g2 / n_rows))
         dzc = dz.to(cdtype)
         dx = matmul_f32(dzc, w.to(cdtype).t()).to(cdtype)
         dw = matmul_f32(x.reshape(-1, x.shape[-1]).t(), dzc.reshape(-1, dz.shape[-1]))
-        return dx, dw, dz.sum(dim=axes), s2, s1
+        return dx, dw, dz.sum(dim=axes), s2, s1, None
 
 
 def dense_bn_exactkey_pool(
-    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, dim: int
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, dim: int,
+    group=None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused Dense -> training BN -> relu -> exact-key max-pool (module
     doc).  x [..., K, C_in] in the compute dtype, w [C_in, C] and b, gamma,
     beta [C] f32; pools over ``dim``, which must be the K axis (-2).
-    Returns (pooled [..., C] in x's dtype, batch mean, batch var)."""
+    ``group``: the process group whose global batch the statistics cover
+    (None: this process's).  Returns (pooled [..., C] in x's dtype, batch
+    mean, batch var)."""
     if dim not in (-2, x.dim() - 2):
         raise ValueError(f"dense_bn_exactkey_pool pools over the K axis (-2), got dim {dim} of {x.dim()}")
-    return _DenseBnExactkeyPool.apply(x, w, b, gamma, beta)
+    return _DenseBnExactkeyPool.apply(x, w, b, gamma, beta, group)

@@ -6,7 +6,9 @@
 the compute dtype), and runs BN0 -> relu -> (Dense_i -> BN_i -> relu)* ->
 max over K with training batch statistics.  It returns (pooled [B, M, C]
 in z1's dtype, means, vars): the statistics feed the caller's
-``BatchNorm.update_running``, and their cotangents are ignored.
+``BatchNorm.update_running``, and their cotangents are ignored.  With a
+process ``group`` the statistics, and the batch sums of the BN backward,
+are the global batch's (``ops/cuda/satrain_kernel``'s module doc).
 
 The forward is the plain chain (``ops/cuda/satrain_kernel.fwd_chain``);
 only z1, the parameters and the per-channel statistics are saved, nothing
@@ -31,11 +33,11 @@ __all__ = ["grouped_bn_mlp_pool"]
 
 class _GroupedBnMlpPool(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, z1, pool_mode, n_layers, *params):
+    def forward(ctx, z1, pool_mode, group, n_layers, *params):
         gammas, betas = params[:n_layers], params[n_layers:2 * n_layers]
         ws, bs = params[2 * n_layers:3 * n_layers - 1], params[3 * n_layers - 1:]
-        _, _, pooled, means, variances = fwd_chain(z1, gammas, betas, ws, bs, pool_mode)
-        ctx.pool_mode, ctx.n_layers = pool_mode, n_layers
+        _, _, pooled, means, variances = fwd_chain(z1, gammas, betas, ws, bs, pool_mode, group=group)
+        ctx.pool_mode, ctx.group, ctx.n_layers = pool_mode, group, n_layers
         ctx.save_for_backward(z1, *params, *means, *variances)
         ctx.mark_non_differentiable(*means, *variances)
         return (pooled.to(z1.dtype), *means, *variances)
@@ -47,9 +49,9 @@ class _GroupedBnMlpPool(torch.autograd.Function):
         gammas, betas, ws, bs = saved[:n], saved[n:2 * n], saved[2 * n:3 * n - 1], saved[3 * n - 1:4 * n - 2]
         means, variances = saved[4 * n - 2:5 * n - 2], saved[5 * n - 2:]
         dz1, dgammas, dbetas, dws, dbs = grouped_bn_mlp_pool_bwd(
-            z1.contiguous(), gammas, betas, ws, bs, means, variances, d_pooled, ctx.pool_mode
+            z1.contiguous(), gammas, betas, ws, bs, means, variances, d_pooled, ctx.pool_mode, ctx.group
         )
-        return (dz1, None, None, *dgammas, *dbetas, *dws, *dbs)
+        return (dz1, None, None, None, *dgammas, *dbetas, *dws, *dbs)
 
 
 def grouped_bn_mlp_pool(
@@ -59,10 +61,12 @@ def grouped_bn_mlp_pool(
     ws: Sequence[torch.Tensor],
     bs: Sequence[torch.Tensor],
     pool_mode: str = "0",
+    group=None,
 ) -> tuple[torch.Tensor, tuple[torch.Tensor, ...], tuple[torch.Tensor, ...]]:
     """Fused BN -> relu -> (Dense -> BN -> relu)* -> max over K (module
     doc): gammas/betas per layer [C_i] f32, ws/bs of layers 1..L-1 (kernels
-    [C_{i-1}, C_i] f32).  Returns (pooled, means, vars)."""
+    [C_{i-1}, C_i] f32); statistics over ``group`` (None: this process's
+    batch).  Returns (pooled, means, vars)."""
     n = len(gammas)
     if pool_mode not in ("0", "1"):
         raise ValueError(f"grouped_bn_mlp_pool: pool modes '0' and '1' only, got {pool_mode!r}")
@@ -71,5 +75,5 @@ def grouped_bn_mlp_pool(
             f"grouped_bn_mlp_pool: need z1 [B, M, K, C0] and {n} BN layers with {n - 1} Dense, "
             f"got {tuple(z1.shape)}, {len(betas)} betas, {len(ws)} kernels, {len(bs)} biases"
         )
-    out = _GroupedBnMlpPool.apply(z1, pool_mode, n, *gammas, *betas, *ws, *bs)
+    out = _GroupedBnMlpPool.apply(z1, pool_mode, group, n, *gammas, *betas, *ws, *bs)
     return out[0], tuple(out[1:1 + n]), tuple(out[1 + n:])

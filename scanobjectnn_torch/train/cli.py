@@ -25,11 +25,22 @@ JAX CLI's ``_prepare`` raises on them); h5 files need ``h5py``.
 Checkpoints are the port's ``torch.save`` files (``Trainer.save``), not
 JAX's orbax directories.  Evaluation is ``Trainer.evaluate`` where JAX calls
 ``evaluate_auto``.
+
+Several ranks (data parallelism, ``Trainer``'s module doc): started by
+``python -m torch.distributed.run --nproc_per_node R -m
+scanobjectnn_torch.train.cli ...`` (``WORLD_SIZE``, ``RANK`` and
+``LOCAL_RANK`` set), each process joins the default group, NCCL on
+``--device cuda`` (device ``cuda:LOCAL_RANK``) and gloo on ``--device
+cpu``, and its trainer takes the mesh of that group; ``--batch_size`` is
+the global batch.  Rank 0 writes the logs, checkpoints and outputs.
+Without those variables nothing changes.  The JAX CLI has no such flag
+either: JAX takes every local device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -130,6 +141,36 @@ def _prepare(data, args):
     return data
 
 
+def _mesh(args):
+    """The mesh of a run started by ``torch.distributed.run`` (module doc),
+    the default group joined; None without ``WORLD_SIZE``."""
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    import torch
+    import torch.distributed as dist
+
+    from scanobjectnn_torch.parallel import make_mesh
+
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("--device cuda under torch.distributed.run, but torch.cuda.is_available() is False")
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        if device.type == "cuda":
+            dist.init_process_group("nccl", device_id=device)
+        else:
+            dist.init_process_group("gloo")
+    return make_mesh(devices=[device])
+
+
+def _is_main(args) -> bool:
+    """Whether this process writes the outputs: rank 0, or no group."""
+    mesh = getattr(args, "mesh", None)
+    return mesh is None or mesh.rank == 0
+
+
 def _make_trainer(args, kind: str):
     from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
 
@@ -159,7 +200,7 @@ def _make_trainer(args, kind: str):
         pool_precision=args.pool_precision,
         device=args.device,
     )
-    return Trainer(cfg)
+    return Trainer(cfg, mesh=getattr(args, "mesh", None))
 
 
 def _train(args, mode: str):
@@ -186,7 +227,7 @@ def _train(args, mode: str):
             num_points=args.num_point, seed=args.seed,
         )
         state, _ = trainer.train_epoch(state, sampler)  # warm-up: builds the kernels
-        with trace(os.path.join(args.log_dir, "profile")):
+        with trace(os.path.join(args.log_dir, "profile")) if _is_main(args) else contextlib.nullcontext():
             state, _ = trainer.train_epoch(state, sampler)
         trainer.logger.log(f"profile trace written to {args.log_dir}/profile")
         trainer.fit(train_dict, test_dict, state=state, num_votes=args.num_votes)
@@ -230,7 +271,7 @@ def _evaluate(args, mode: str):
         log.log(f"eval avg class acc: {results['avg_class_accuracy']:.6f}")
         names = SCANOBJECTNN_CLASSES[: args.num_class]
         log.log(ev.format_per_class_table(results["per_class_accuracy"], names))
-        if args.log_dir:
+        if args.log_dir and _is_main(args):
             ev.write_pred_labels(
                 os.path.join(args.log_dir, "pred_label.txt"),
                 results["predictions"], results["labels"], names,
@@ -247,7 +288,7 @@ def _evaluate(args, mode: str):
         part_names += [f"part_{i}" for i in range(len(part_names), len(per_part))]
         for name, acc in zip(part_names, per_part):
             log.log(f"{name:>10s}:\t{acc:0.3f}")
-    if args.visu and args.log_dir and "points" in results:
+    if args.visu and args.log_dir and "points" in results and _is_main(args):
         dump_dir = os.path.join(args.log_dir, "dump")
         if "predictions" in results:
             n_err = ev.dump_error_cases(
@@ -281,6 +322,8 @@ def _draw_cmat(args):
     from scanobjectnn_torch.viz.cmat import plot_confusion_matrix
 
     results = _evaluate(args, "cls")
+    if not _is_main(args):
+        return
     cm = ev.confusion_matrix(results["labels"], results["predictions"], args.num_class)
     out = args.output or os.path.join(args.log_dir or ".", "cmat.pdf")
     plot_confusion_matrix(cm, out, num_classes=args.num_class)
@@ -302,22 +345,29 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.command == "train":
-        _train(args, "cls")
-    elif args.command == "train_seg":
-        _train(args, "seg")
-    elif args.command == "train_partseg":
-        _train(args, "partseg")
-    elif args.command == "evaluate":
-        _evaluate(args, "cls")
-    elif args.command == "evaluate_seg":
-        _evaluate(args, "seg")
-    elif args.command == "evaluate_partseg":
-        _evaluate(args, "partseg")
-    elif args.command == "evaluate_cross_domain":
-        _evaluate_cross_domain(args)
-    elif args.command == "draw_cmat":
-        _draw_cmat(args)
+    args.mesh = _mesh(args)  # the trainer's (None: one process)
+    try:
+        if args.command == "train":
+            _train(args, "cls")
+        elif args.command == "train_seg":
+            _train(args, "seg")
+        elif args.command == "train_partseg":
+            _train(args, "partseg")
+        elif args.command == "evaluate":
+            _evaluate(args, "cls")
+        elif args.command == "evaluate_seg":
+            _evaluate(args, "seg")
+        elif args.command == "evaluate_partseg":
+            _evaluate(args, "partseg")
+        elif args.command == "evaluate_cross_domain":
+            _evaluate_cross_domain(args)
+        elif args.command == "draw_cmat":
+            _draw_cmat(args)
+    finally:
+        if args.mesh is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

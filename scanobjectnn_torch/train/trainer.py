@@ -114,6 +114,45 @@ template's generator stays as seeded and ``restore`` logs so.  The
 ``EpochSampler``'s state is not saved: a resumed run's shuffles restart
 from ``seed``, as in JAX.  JAX's orbax checkpoints are not read here;
 ``convert.load_jax_variables`` takes JAX weights.
+
+Data parallelism, ``Trainer(config, mesh=parallel.make_mesh(...))``: the
+step of the global batch that JAX's GSPMD runs over its ``('data',)``
+mesh, on the ranks of a process group, one device each (the mesh's, whose
+type must be ``config.device``'s).  Without a mesh, or on a mesh without a
+group, nothing below happens and no collective is called; a group of one
+rank calls every collective, each a copy, so its steps are the no-group
+steps bit for bit.  ``batch_size`` is the global batch and must split
+evenly over the ranks.
+  * The step: every rank passes the same global batch (the same seeded
+    sampler), augments all of it from its generator, which stays in step
+    with the other ranks', and keeps its own contiguous rows.  Its forward
+    runs inside ``parallel.global_batch``: the BatchNorms average their
+    moments over the group (``nn.layers.configure_parallel``, set by
+    ``init_state``; DGCNN's pair BN too), and so do the fused ops that take
+    their statistics (#18's ``dense_bn_exactkey_pool`` and the fused SA
+    tail with #17's backward), inside; dropout masks and PointCNN's "ids"
+    sampling are this rank's rows of the global batch's draw.  After the
+    backward the gradients are averaged over the ranks in one flat
+    ``all_reduce`` in parameter order (a parameter without a gradient has
+    none on any rank), then the optimizer steps.  A mean loss over equal
+    shards averages to the global mean, so the step is the global batch's:
+    the CE and per-point means, BGA's ``seg_weight`` term, PointCNN's tiled
+    mean, and the weight decay, which the optimizer adds to the averaged
+    gradient.  The T-Net penalty is a sum over the batch: a rank's loss
+    weighs its shard's sum by ``reg_weight`` times the world size, so the
+    ranks' average is the global sum's weight and gradient.
+  * ``train_step``'s metrics are this rank's (its shard's loss terms and
+    counts; ``mat_diff_loss`` its shard's sum); ``train_epoch`` sums its
+    totals over the ranks before it reads them, the loss terms divided by
+    the world size.
+  * Evaluation: ``eval_step`` and ``eval_votes`` take the global batch,
+    run this rank's rows of the (vote-stacked) batch and gather every
+    rank's outputs (``parallel.gather_rows``), so every rank computes the
+    loss, sums and tallies one process computes; eval BN reads the running
+    statistics and needs no collective.
+  * Side effects are rank 0's: its logger writes the files and prints
+    (the others' log nothing), and ``save`` and ``snapshot_sources`` write
+    on rank 0 only; ``restore`` loads on every rank.
 """
 
 from __future__ import annotations
@@ -136,9 +175,11 @@ from scanobjectnn_torch.augment.transforms import (
 )
 from scanobjectnn_torch.data.pipeline import Batches, EpochSampler, padded_batches
 from scanobjectnn_torch.models import MODEL_REGISTRY, get_model, get_recipe
+from scanobjectnn_torch.nn.layers import configure_parallel
 from scanobjectnn_torch.nn.pointnet_modules import FUSED_SA_EVAL_SETTINGS, configure_eval, configure_training
 from scanobjectnn_torch.ops.cuda import plain_ops
 from scanobjectnn_torch.ops.cuda.sabucket_kernel import SA_BUCKET_SETTINGS
+from scanobjectnn_torch.parallel.mesh import Mesh, batch_sharding, gather_rows, global_batch
 from scanobjectnn_torch.train import schedules
 from scanobjectnn_torch.utils.logging import Logger
 
@@ -150,6 +191,7 @@ POOL_MODES = {"native": "0", "f32": "1", "keys": "keys"}
 OPTIMIZERS = ("adam", "momentum")
 OPS_BACKENDS = ("auto", "pallas", "lax")
 CHECKPOINT_FILE = "state.pt"  # in log_dir/checkpoint and log_dir/checkpoint_best
+COUNT_METRICS = ("correct", "count", "seg_correct", "seg_count")  # summed over ranks; the rest averaged
 
 
 @dataclass
@@ -203,9 +245,9 @@ class TrainState:
 
 class Trainer:
     """Builds, trains, evaluates and checkpoints a registered model on one
-    device."""
+    device, or as one rank of ``mesh`` (module doc)."""
 
-    def __init__(self, config: TrainerConfig, logger: Logger | None = None):
+    def __init__(self, config: TrainerConfig, logger: Logger | None = None, mesh: Mesh | None = None):
         if config.dtype not in DTYPES:
             raise ValueError(f"dtype must be 'float32' or 'bfloat16', got {config.dtype!r}")
         if config.model not in MODEL_REGISTRY:
@@ -229,7 +271,16 @@ class Trainer:
         self.dtype = DTYPES[config.dtype]
         self.config = config
         self.device = torch.device(config.device)
-        self.logger = logger or Logger(config.log_dir)
+        self.mesh = mesh
+        self.world = 1 if mesh is None else mesh.size
+        self.is_main = mesh is None or mesh.rank == 0
+        if mesh is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh's device {mesh.device} is not config.device {config.device!r}")
+            if config.batch_size % mesh.size:
+                raise ValueError(f"batch_size {config.batch_size} does not split over {mesh.size} ranks")
+            self.device = mesh.device
+        self.logger = logger or (Logger(config.log_dir) if self.is_main else Logger(None, echo=False))
         model_cls = MODEL_REGISTRY[config.model]
         self.kind = model_cls.kind
         # The config's loss flags reach a loss only where its signature
@@ -237,6 +288,9 @@ class Trainer:
         loss_params = inspect.signature(model_cls.loss).parameters
         overrides = {k: getattr(config, k) for k in ("seg_weight", "reg_weight") if k in loss_params}
         self.loss_fn = functools.partial(model_cls.loss, **overrides) if overrides else model_cls.loss
+        # A rank's shard's T-Net penalty weighs world times (module doc).
+        self.train_loss_kw = ({"reg_weight": config.reg_weight * self.world}
+                              if "reg_weight" in overrides and self.world > 1 else {})
         self.recipe = get_recipe(config.model) if config.use_model_recipe else None
         recipe = self.recipe
         self.adam_eps, self.weight_decay = ADAM_EPS, config.weight_decay
@@ -267,6 +321,7 @@ class Trainer:
         model = get_model(cfg.model, generator=torch.Generator().manual_seed(seed), device=self.device, **kwargs)
         configure_training(model, self.pool_mode, self.fused_sa_train)
         configure_eval(model, cfg.sa_bucket, cfg.fused_sa_eval)
+        configure_parallel(model, None if self.mesh is None else self.mesh.group)
         generator = torch.Generator(device=self.device).manual_seed(seed)
         return TrainState(0, model, self.make_optimizer(model.parameters()), generator)
 
@@ -316,21 +371,61 @@ class Trainer:
         "masks" or "parts" [B, N] as the model's kind needs}, numpy or
         torch).  Updates ``state`` in place and returns it with the step's
         metrics as device tensors (the loss's terms, then ``correct`` and
-        ``count`` and/or ``seg_correct`` and ``seg_count``)."""
+        ``count`` and/or ``seg_correct`` and ``seg_count``; on a mesh, this
+        rank's: module doc)."""
         with self._ops():
             points, targets = self._on_device(batch)
             points = self.augment(points, state.generator)
+            if self.mesh is not None:
+                rows = self._rows(points.shape[0])
+                points, targets = points[rows], {k: v[rows] for k, v in targets.items()}
             model = state.model.train()
-            outputs = model(points, bn_momentum=self.bn_schedule(state.step), generator=state.generator)
-            loss, metrics = self.loss_fn(outputs, targets)
+            with global_batch(self.mesh):
+                outputs = model(points, bn_momentum=self.bn_schedule(state.step), generator=state.generator)
+            loss, metrics = self.loss_fn(outputs, targets, **self.train_loss_kw)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            self._average_gradients(state.model)
             self.optimizer_step(state.optimizer, state.step)
             state.step += 1
             with torch.no_grad():
                 metrics = {k: v.detach() for k, v in metrics.items()}
                 metrics.update(self._metrics(outputs, targets))
         return state, metrics
+
+    def _grouped(self) -> bool:
+        return self.mesh is not None and self.mesh.group is not None
+
+    def _rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n``."""
+        return batch_sharding(self.mesh, self.mesh.axis_name).rows(n)
+
+    def _average_gradients(self, model: nn.Module) -> None:
+        """Every gradient averaged over the mesh's ranks: one flat f32
+        ``all_reduce`` in parameter order, divided by the world size."""
+        if not self._grouped():
+            return
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        torch.distributed.all_reduce(flat, group=self.mesh.group)
+        flat /= self.world
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+            offset += g.numel()
+
+    def _eval_forward(self, model: nn.Module, points: torch.Tensor) -> dict:
+        """``model(points)`` in eval mode; on a mesh, this rank's rows of
+        ``points`` and then every rank's outputs gathered (module doc)."""
+        if not self._grouped():
+            return model(points)
+        with global_batch(self.mesh):
+            outputs = model(points[self._rows(points.shape[0])])
+
+        def gather(tree):
+            return {k: gather(v) if isinstance(v, dict) else gather_rows(v, self.mesh) for k, v in tree.items()}
+
+        return gather(outputs)
 
     def _on_device(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """A batch's f32 points and its integer targets on the device."""
@@ -361,7 +456,8 @@ class Trainer:
         """One epoch of ``sampler`` in fixed-size batches (every key of its
         view, masks and parts included, goes to ``train_step``); returns the
         state and {"mean_loss", "accuracy", "seg_accuracy"}, each where the
-        model gives it (read back once, at the end)."""
+        model gives it (read back once, at the end; on a mesh, of every
+        rank's rows)."""
         totals: dict[str, torch.Tensor] = {}
         n_batches = 0
         for batch in Batches(sampler.epoch(), self.config.batch_size):
@@ -369,6 +465,11 @@ class Trainer:
             n_batches += 1
             for k, v in metrics.items():
                 totals[k] = totals.get(k, 0) + v.float()
+        if self._grouped() and totals:
+            keys = sorted(totals)
+            summed = torch.stack([totals[k] for k in keys])
+            torch.distributed.all_reduce(summed, group=self.mesh.group)
+            totals = {k: v if k in COUNT_METRICS else v / self.world for k, v in zip(keys, summed)}
         totals = {k: float(v) for k, v in totals.items()}
         summary = {"mean_loss": totals.get("loss", 0.0) / max(n_batches, 1)}
         if "correct" in totals:
@@ -408,7 +509,7 @@ class Trainer:
         rot = np.asarray([[[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]]], np.float32)
         model = state.model.eval()
         with torch.no_grad(), self._ops():
-            outputs = model(self._rotate(points, rot)[0])
+            outputs = self._eval_forward(model, self._rotate(points, rot)[0])
             loss, _ = self.loss_fn(outputs, targets)
             out = {"loss": loss, **{k: v for k, v in outputs.items() if k != "end_points"}}
             out.update(self._metrics(outputs, targets))
@@ -432,7 +533,7 @@ class Trainer:
             def vote(tree, i):
                 return {k: vote(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
-            per_vote = by_vote(model(stacked))
+            per_vote = by_vote(self._eval_forward(model, stacked))
             # Per vote, then averaged: a loss with a sum reduction (PointNet's
             # orthogonality penalty) would read V times too large on the
             # stacked batch.
@@ -560,7 +661,7 @@ class Trainer:
                 restored = self.restore(state)
                 if restored is not None:
                     state, resumed = restored, True
-        self.logger.log(f"model={cfg.model} params={self.param_count(state):,} devices=1")
+        self.logger.log(f"model={cfg.model} params={self.param_count(state):,} devices={self.world}")
         plain = cfg.ops_backend == "lax" or self.device.type == "cpu"
         self.logger.log(f"ops_backend={cfg.ops_backend} device={self.device} "
                         f"({'the plain versions' if plain else 'the CUDA kernels'})")
@@ -628,7 +729,9 @@ class Trainer:
     def save(self, state: TrainState, best: bool = False, meta: dict | None = None) -> None:
         """``state`` into ``checkpoint`` (or ``checkpoint_best``), then
         ``config.json`` and the sidecar ``last.json`` (``best.json``):
-        {"step", **meta}."""
+        {"step", **meta}.  Rank 0's alone on a mesh."""
+        if not self.is_main:
+            return
         path = self._ckpt_dir(best=best)
         os.makedirs(path, exist_ok=True)
         payload = {
@@ -656,7 +759,10 @@ class Trainer:
 
     def snapshot_sources(self) -> None:
         """Copy the model's source module and this trainer's into
-        ``log_dir/src_snapshot`` (pointnet2/train.py:72-74)."""
+        ``log_dir/src_snapshot`` (pointnet2/train.py:72-74); rank 0 alone
+        on a mesh."""
+        if not self.is_main:
+            return
         dst = os.path.join(os.path.abspath(self.config.log_dir), "src_snapshot")
         os.makedirs(dst, exist_ok=True)
         for obj in (MODEL_REGISTRY[self.config.model], Trainer):

@@ -15,8 +15,12 @@ __all__ = ["Logger"]
 
 
 class Logger:
-    def __init__(self, log_dir: str | None = None, filename: str = "log_train.txt"):
+    """``log`` writes ``log_dir/filename`` (where there is a ``log_dir``)
+    and, with ``echo``, prints to stderr."""
+
+    def __init__(self, log_dir: str | None = None, filename: str = "log_train.txt", echo: bool = True):
         self.log_dir = log_dir
+        self.echo = echo
         self._fout = None
         self._metrics_path = None
         if log_dir:
@@ -28,7 +32,8 @@ class Logger:
         if self._fout is not None:
             self._fout.write(msg + "\n")
             self._fout.flush()
-        print(msg, file=sys.stderr)
+        if self.echo:
+            print(msg, file=sys.stderr)
 
     def scalars(self, step: int, **values) -> None:
         """One record {"step", "time", **values as floats} in

@@ -1,5 +1,7 @@
 """Rendering, the confusion-matrix plot and the 3DmFV plots (counterpart of
-``scanobjectnn_tpu/viz``: ``render.py``, ``cmat.py`` and ``fvplots.py``)."""
+``scanobjectnn_tpu/viz``: ``render.py``, ``cmat.py`` and ``fvplots.py``;
+the viewer ``show3d.py`` and the interpolation check ``interp_check.py``
+are imported by name, as in JAX)."""
 
 from scanobjectnn_torch.viz.cmat import plot_confusion_matrix  # noqa: F401
 from scanobjectnn_torch.viz.fvplots import (  # noqa: F401

@@ -136,9 +136,18 @@ cuDNN's TF32 flag off and on (the model holds it off for its convolutions)
 and puts the flag back; ``pointnet_seg`` and ``3dmfv_net_cls`` on the card
 against the same models on the CPU (f32 forward within 1e-4 x max(1,
 |ref|max), the classes and 99% of the per-point argmaxes equal).
+
+Data parallelism and the last modules: a ``Trainer`` on a group of one
+rank (NCCL) takes two momentum steps of SSG (f32; f32 with the fused SA
+tail, whose #17 backward then runs a pass a call with the table's sums
+rewritten between; bf16 with #18) and of ``dgcnn_bga`` equal to the
+no-group trainer's bit for bit; ``auction_match`` on the card equals its
+CPU run (the same elementwise d² expansion; ``emd_loss`` within 1e-6);
+``interp_check.main`` on the card launches the kNN and gather kernels and
+writes the CPU run's three PNGs byte for byte.
 """
 
-
+import os
 from dataclasses import replace
 from unittest import mock
 
@@ -2704,3 +2713,76 @@ def test_3dmfv_bf16_steps_are_bit_stable(dev, kw):
     differ = [n for n in grads_a if not same_bits(grads_a[n], grads_b[n])]
     differ += [n for n in stats_a if not same_bits(stats_a[n], stats_b[n])]
     assert not differ, differ
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("name,kw", [("pointnet2_cls_ssg", {}), ("dgcnn_bga", {}),
+                                     ("pointnet2_cls_ssg", {"fused_sa_train": True}),
+                                     ("pointnet2_cls_ssg", {"dtype": "bfloat16"})],
+                         ids=["pointnet2_cls_ssg", "dgcnn_bga", "pointnet2_cls_ssg-fused", "pointnet2_cls_ssg-bf16"])
+def test_world_one_group_steps_are_the_no_group_steps_bit_for_bit(dev, name, kw):
+    # A group of one rank (NCCL) calls every collective, each a copy: two
+    # momentum steps equal the no-group trainer's bit for bit, the fused
+    # ops (#17's backward a pass a call, #18) included.
+    import torch.distributed as dist
+
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.parallel import make_mesh
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    data, labels, masks = make_synthetic_dataset(num_per_class=2, num_classes=4, num_points=1024, seed=7,
+                                                 with_mask=True)
+    batches = [{"points": data[i::2], "labels": labels[i::2], "masks": (masks[i::2] >= 0).astype(np.int64)}
+               for i in range(2)]
+    cfg = TrainerConfig(model=name, num_classes=4, batch_size=4, optimizer="momentum", **kw)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        runs = []
+        for mesh in (make_mesh(f"cuda:{torch.cuda.current_device()}"), None):
+            trainer = Trainer(cfg, mesh=mesh)
+            state = trainer.init_state()
+            losses = [trainer.train_step(state, b)[1]["loss"] for b in batches]
+            runs.append((torch.stack(losses), state.model.state_dict()))
+    finally:
+        dist.destroy_process_group()
+    (loss_g, sd_g), (loss_1, sd_1) = runs
+    assert same_bits(loss_g, loss_1)
+    differ = [k for k in sd_1 if not same_bits(sd_g[k], sd_1[k])]
+    assert not differ, differ
+
+
+def test_auction_match_on_the_card_equals_the_cpu(dev):
+    from scanobjectnn_torch import ops
+
+    rng = np.random.RandomState(3)
+    a, b = (torch.from_numpy(rng.rand(3, 64, 3).astype(np.float32)) for _ in range(2))
+    cpu = ops.auction_match(a, b)
+    card = ops.auction_match(a.to(dev), b.to(dev))
+    for got, want in zip(card, cpu):
+        assert torch.equal(got.cpu(), want)
+    np.testing.assert_allclose(float(ops.emd_loss(a.to(dev), b.to(dev))), float(ops.emd_loss(a, b)), rtol=1e-6)
+
+
+def test_interp_check_main_writes_its_three_frames_on_the_card(dev, tmp_path):
+    # three_nn and three_interpolate through the kNN and gather kernels, equal
+    # to their plain versions: the PNGs are the CPU run's byte for byte.
+    from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows
+    from scanobjectnn_torch.ops.cuda.knn_kernel import knn_point_kernel
+    from scanobjectnn_torch.viz import interp_check
+
+    before = knn_point_kernel.launches, gather_rows.launches
+    card = interp_check.main(str(tmp_path / "card"))
+    assert knn_point_kernel.launches > before[0] and gather_rows.launches > before[1]
+    cpu = interp_check.main(str(tmp_path / "cpu"), device="cpu")
+    assert [os.path.basename(p) for p in card] == ["interp_known.png", "interp_queries.png", "interp_all.png"]
+    for p, q in zip(card, cpu):
+        with open(p, "rb") as f, open(q, "rb") as g:
+            assert f.read() == g.read()
