@@ -372,7 +372,33 @@ Phases (any failure raises and the exit code is not 0):
         -m scanobjectnn_torch.train.cli train --device cuda`` on phase 15's
         kind of raw ``.bin`` clouds, one epoch, within DP_CLI_TIMEOUT (the
         launcher and its worker killed together past it): exit 0, the log
-        line ``devices=1``, one epoch, a checkpoint.
+        line ``devices=1``, one epoch, a checkpoint;
+     d. one device-resident epoch (``train_epoch_device``) of SSG f32 with
+        the fused SA tail over 45 uploaded clouds (two global batches of
+        16) on 17b's two ranks against one process, each step held by 17b's
+        f32 rules; the ranks' states equal, their launches (#2, #9, #6, #7,
+        #17) the one process's; the epochs' seconds printed.
+ 18. the device-resident path (``Trainer.upload_dataset``,
+     ``train_epoch_device``, ``evaluate_device``; rules beside
+     RESIDENT_CLOUDS), on 240 synthetic clouds of 2048 points, its seconds
+     printed:
+     a. two resident epochs of SSG f32 at B=16, N=1024, each bit-equal to
+        ``train_epoch`` over the view it drew from the same state (every
+        parameter, BN statistic, optimizer moment, the step, the step
+        generator and the summary); the first counting #2, #9, #6 and #7,
+        the second up to its readback under
+        ``torch.cuda.set_sync_debug_mode("error")``, its one readback named;
+     b. one ``pointnet2_cls_bga`` bf16 epoch with masks, held the same way
+        (#18 and #13 launched too);
+     c. ``evaluate_device(shuffle=False)`` against ``evaluate(shuffle=
+        False)``: SSG at phase 12d's configuration (#1, #3, #4, #5
+        launched), BGA with masks (N=1024, #1, #3, #13) and
+        ``pointnet_partseg`` with parts (N=1024, 5 parts, 2 never seen):
+        every key, prediction and tally equal, the mean loss within
+        RESIDENT_LOSS_RTOL; each path timed, in turns;
+     d. one Table-5 row through ``table5.train_and_evaluate``
+        (``pointnet_cls``, one epoch, the best checkpoint restored, 12
+        votes).
 
 Every kernel's line in the ``{"kernels": [...]}`` record carries its
 bound: the larger of the bytes it must move over 3.35 TB/s and the
@@ -3840,7 +3866,7 @@ def dp_spec() -> dict:
     configs = {f"{m} {d}": dict(model=m, dtype=d, num_classes=NUM_CLASSES, num_point=DP_POINT, batch_size=DP_BATCH,
                                 optimizer="momentum", fused_sa_train=(m, d) == ("pointnet2_cls_ssg", "float32"))
                for m, d in DP_CASES}
-    return {"batches": batches, "configs": configs}
+    return {"batches": batches, "configs": configs, "resident": {"points": data, "labels": labels}}
 
 
 def dp_nudged_moments(nudge: float):
@@ -3944,6 +3970,39 @@ def dp_steps(config: dict, batches, mesh=None, timed: bool = False, nudge: float
     return out
 
 
+def dp_resident_epoch(spec: dict, mesh=None) -> dict:
+    """17d: one resident epoch (``train_epoch_device``) of SSG f32, 17b's
+    configuration, over ``spec["resident"]`` (DP_STEPS global batches):
+    each step's loss and the state around it, the launches, the summary and
+    the epoch's seconds (host clock to a synchronize)."""
+    import torch
+
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    trainer = Trainer(TrainerConfig(**spec["configs"]["pointnet2_cls_ssg float32"]), mesh=mesh)
+    state = trainer.init_state()
+    device_data = trainer.upload_dataset(spec["resident"])
+
+    def snapshot():
+        return {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+
+    losses, states = [], [snapshot()]
+    real_step = trainer.train_step
+
+    def step(st, batch):
+        st, metrics = real_step(st, batch)
+        losses.append(float(metrics["loss"]))
+        states.append(snapshot())
+        return st, metrics
+
+    trainer.train_step = step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (state, summary), counts = counted_run(dp_counters(), lambda: trainer.train_epoch_device(state, device_data))
+    return {"losses": losses, "states": states, "launches": {k: v for k, v in counts.items() if v},
+            "summary": summary, "seconds": time.perf_counter() - t0}
+
+
 def dp_update_reading(got: dict, want: dict, f32: dict | None = None) -> list:
     """Per step, the largest reading of ``got`` against ``want`` over its
     limit (at most 1 passes) and where it is (module doc): the update of
@@ -4004,6 +4063,7 @@ def dp_rank(rank: int, init_file: str, spec_path: str, out_path: str) -> None:
         out = {label: dp_steps(cfg, spec["batches"], mesh, timed=True) for label, cfg in spec["configs"].items()}
         out["controls"] = {(c, label): dp_steps(spec["configs"][label], spec["batches"], mesh, control=c)
                            for c, labels in DP_CONTROLS.items() for label in labels}
+        out["resident"] = dp_resident_epoch(spec, mesh)
     finally:
         dist.destroy_process_group()
     torch.save(out, out_path)
@@ -4124,6 +4184,30 @@ def dp_phase(smi: str, dev) -> None:
                     f"17b {label}: launches {r[label]['launches']} on a rank, {want['launches']} in one process")
     require(not failures, "; ".join(failures))
 
+    # d. A resident epoch on the two ranks against one process.
+    t_d = time.perf_counter()
+    alone = dp_resident_epoch(spec)
+    for r in ranks[1:]:
+        differ = [k for k, v in ranks[0]["resident"]["states"][-1].items()
+                  if not torch.equal(r["resident"]["states"][-1][k], v)]
+        require(not differ, f"17d: the ranks' states differ after the resident epoch: {differ[:5]}")
+    require(len(alone["losses"]) == DP_STEPS, f"17d: {len(alone['losses'])} steps in the epoch")
+    readings = dp_update_reading(two_ranks([r["resident"] for r in ranks]), alone)
+    require(max(ratio for ratio, _ in readings) <= 1.0, f"17d: {shown(readings)}")
+    for r in ranks:
+        require(r["resident"]["launches"] == alone["launches"], f"17d: launches {r['resident']['launches']} on a "
+                f"rank, {alone['launches']} in one process")
+    require(all(alone["launches"].get(k, 0) > 0 for k in ("fps", "query_ball_group", "gather_rows", "scatter_add_rows",
+                                                          "grouped_bn_mlp_pool_bwd")),
+            f"17d: a kernel of the epoch never launched: {alone['launches']}")
+    print(f"dp 17d pointnet2_cls_ssg float32: one resident epoch ({len(spec['resident']['labels'])} clouds of "
+          f"{DP_POINT} points, {DP_STEPS} global batches of {DP_BATCH}) on {DP_WORLD} ranks against one process, "
+          f"largest reading over its limit: {shown(readings)}; summaries "
+          f"{[r['resident']['summary'] for r in ranks]}, one process {alone['summary']}; launches "
+          f"{alone['launches']} on each; the ranks' epochs "
+          f"{', '.join('%.2f' % r['resident']['seconds'] for r in ranks)} s, one process {alone['seconds']:.2f} s; "
+          f"17d {time.perf_counter() - t_d:.1f} s in this process ({smi})")
+
     # c. The command line under torch.distributed.run, one rank, NCCL.
     old_cwd = os.getcwd()
     with tempfile.TemporaryDirectory() as tmp:
@@ -4163,6 +4247,210 @@ def dp_phase(smi: str, dev) -> None:
             os.chdir(old_cwd)
     print(f"dp phase 17: {time.perf_counter() - t_phase:.1f} s ({smi})")
 
+
+
+# The device-resident path (phase 18): RESIDENT_CLOUDS synthetic clouds of
+# RESIDENT_STORED points uploaded once (``Trainer.upload_dataset``).  A
+# resident epoch against ``train_epoch`` over the view it drew
+# (``Trainer._epoch_view``: the same step, so the same draws), from the same
+# initial state: bit for bit, every parameter, BN statistic, optimizer
+# moment, the step, the step generator's state and the summary.  The second
+# SSG epoch runs ``Trainer._epoch_impl`` (the epoch up to its readback)
+# under ``torch.cuda.set_sync_debug_mode("error")``: no synchronising call
+# may be made; the epoch's one readback (``_epoch_summary``'s ``tolist``,
+# named by its line) follows outside.  ``evaluate_device(shuffle=False)``
+# against ``evaluate(shuffle=False)``: the same keys, predictions, labels
+# and every tally equal, the mean loss within RESIDENT_LOSS_RTOL.
+RESIDENT_CLOUDS, RESIDENT_STORED = 240, 2048
+RESIDENT_EVAL_CLOUDS, RESIDENT_PARTS = 60, 5
+RESIDENT_LOSS_RTOL = 1e-5
+
+
+def state_tensors(state) -> dict:
+    """A ``TrainState``'s tensors: the model's state dict, the optimizer's
+    state, the step (as a tensor) and the generator's state."""
+    import torch
+
+    out = {f"model {k}": v for k, v in state.model.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        out.update({f"optimizer {i} {k}": torch.as_tensor(v) for k, v in st.items()})
+    out["step"] = torch.tensor(state.step)
+    out["generator"] = state.generator.get_state()
+    return out
+
+
+def named_readback() -> str:
+    """``file:line`` of the resident epoch's one readback."""
+    import inspect
+
+    from scanobjectnn_torch.train import trainer as trainer_lib
+
+    lines, first = inspect.getsourcelines(trainer_lib.Trainer._epoch_summary)
+    line = first + next(i for i, text in enumerate(lines) if ".tolist()" in text)
+    return f"scanobjectnn_torch/train/trainer.py:{line}"
+
+
+def resident_epochs(trainer, counters, data: dict, epochs: int, label: str, smi: str) -> None:
+    """Phase 18a/18b: ``epochs`` resident epochs of ``trainer`` on ``data``,
+    the first counting ``counters``' launches, the second under the sync
+    debug mode; each bit-equal to ``train_epoch`` over its view."""
+    import torch
+
+    device_data = trainer.upload_dataset(data)
+    resident, host = trainer.init_state(), trainer.init_state()
+    for epoch in range(epochs):
+        view = trainer._epoch_view(resident.step, device_data)
+        host_view = {k: v.cpu().numpy() for k, v in view.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if epoch == 0:
+            (resident, summary), counts = counted_run(counters,
+                                                      lambda: trainer.train_epoch_device(resident, device_data))
+            require(all(n > 0 for n in counts.values()), f"18 {label}: a kernel of the epoch never launched: {counts}")
+            how = f"launches {counts}"
+        else:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                resident, totals, n_batches = trainer._epoch_impl(resident, device_data)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            summary = trainer._epoch_summary(totals, n_batches)
+            how = (f"the epoch up to its readback under set_sync_debug_mode('error'): nothing raised; its one "
+                   f"readback {named_readback()} after it")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        host, host_summary = trainer.train_epoch(host, mock.Mock(epoch=lambda: host_view))
+        got, want = state_tensors(resident), state_tensors(host)
+        differ = [k for k in want if not torch.equal(got[k], want[k])]
+        require(not differ and summary == host_summary,
+                f"18 {label} epoch {epoch}: the resident epoch differs from train_epoch over its view: {differ[:5]}, "
+                f"{summary} against {host_summary}")
+        print(f"resident 18 {label} epoch {epoch} ({len(data['labels'])} clouds of {RESIDENT_STORED} points, "
+              f"{resident.step} steps so far): bit-equal to train_epoch over the view it drew ({len(want)} tensors, "
+              f"the summary {summary}); {how}; {secs:.4f} s wall ({smi})")
+
+
+def resident_evaluation(trainer, state, data: dict, counters, votes: int, label: str, smi: str) -> None:
+    """Phase 18c: ``evaluate_device(shuffle=False)`` against
+    ``evaluate(shuffle=False)``; both timed by the host clock to a
+    synchronize, in turns."""
+    import numpy as np
+    import torch
+
+    def host():
+        return trainer.evaluate(state, data["points"], data["labels"], masks=data.get("masks"), parts=data.get("parts"),
+                                num_votes=votes, shuffle=False)
+
+    def device():
+        return trainer.evaluate_device(state, trainer.upload_dataset(data), num_votes=votes, shuffle=False)
+
+    got, counts = counted_run(counters, device)
+    require(all(n > 0 for n in counts.values()), f"18c {label}: a kernel of the evaluation never launched: {counts}")
+    want = host()
+    require(list(got) == list(want), f"18c {label}: keys {list(got)} against {list(want)}")
+    for key, value in want.items():
+        if key == "mean_loss":
+            require(abs(got[key] - value) <= RESIDENT_LOSS_RTOL * abs(value), f"18c {label}: mean_loss {got[key]} "
+                    f"against {value}")
+        elif isinstance(value, np.ndarray):
+            require(np.array_equal(got[key], value, equal_nan=True), f"18c {label}: {key} differs")
+        else:
+            require(got[key] == value, f"18c {label}: {key} {got[key]} against {value}")
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    times = {"host": [], "device": []}
+    for path in ("host", "device", "device", "host"):
+        times[path].append(wall_ms(host if path == "host" else device))
+    numbers = {k: v for k, v in got.items() if isinstance(v, (int, float))}
+    print(f"resident 18c {label}: evaluate_device(shuffle=False) equal to evaluate(shuffle=False) ({numbers}); "
+          f"launches {counts}; host evaluate {sum(times['host']) / 2:.4f} ms, evaluate_device (the upload included) "
+          f"{sum(times['device']) / 2:.4f} ms (rounds host, device, device, host: "
+          f"{', '.join(f'{v:.4f}' for v in times['host'][:1] + times['device'] + times['host'][1:])}) ({smi})")
+
+
+def resident_phase(smi: str, dev) -> None:
+    """Phase 18 (module doc): the device-resident path."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scanobjectnn_torch.data.io import convert_to_binary_mask
+    from scanobjectnn_torch.data.synthetic import make_synthetic_dataset
+    from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_group
+    from scanobjectnn_torch.ops.cuda.fps_kernel import fps
+    from scanobjectnn_torch.ops.cuda.gather_kernel import gather_rows, scatter_add_rows
+    from scanobjectnn_torch.ops.cuda.knn_kernel import knn_point_kernel
+    from scanobjectnn_torch.ops.cuda.poolkey_kernel import bn_relu_exactkey_pool
+    from scanobjectnn_torch.ops.cuda.ranksort_kernel import rank_sort_points
+    from scanobjectnn_torch.ops.cuda.sabucket_kernel import sa_ball_mlp_pool_bucketed
+    from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool
+    from scanobjectnn_torch.train import table5
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    t_phase = time.perf_counter()
+    points, labels, masks, parts = make_synthetic_dataset(
+        num_per_class=RESIDENT_CLOUDS // NUM_CLASSES, num_classes=NUM_CLASSES, num_points=RESIDENT_STORED, seed=18,
+        with_mask=True, with_parts=True)
+    masks = convert_to_binary_mask(masks).astype(np.int64)
+    train_counters = (fps, query_ball_group, gather_rows, scatter_add_rows)
+
+    # a. SSG f32, B=16, N=1024: two epochs.
+    ssg = Trainer(TrainerConfig(num_point=TRAIN_POINT, batch_size=TRAIN_BATCH))
+    resident_epochs(ssg, train_counters, {"points": points, "labels": labels}, 2, "a pointnet2_cls_ssg f32", smi)
+    # b. BGA bf16 with masks (exact keys, #18; the FP decoder's kNN).
+    bga = Trainer(TrainerConfig(model="pointnet2_cls_bga", dtype="bfloat16", num_point=TRAIN_POINT,
+                                batch_size=TRAIN_BATCH))
+    resident_epochs(bga, (*train_counters, bn_relu_exactkey_pool, knn_point_kernel),
+                    {"points": points, "labels": labels, "masks": masks}, 1, "b pointnet2_cls_bga bf16", smi)
+
+    # c. evaluate_device against evaluate: SSG at phase 12's configuration
+    # (60 clouds of N=2048, batch 32, 3 votes, random BN statistics), BGA
+    # with masks and part segmentation with parts at N=1024.
+    data, ssg_labels = make_synthetic_dataset(num_per_class=4, num_classes=NUM_CLASSES, num_points=NUM_POINT, seed=5)
+    trainer = Trainer(TrainerConfig(num_point=NUM_POINT, batch_size=32))
+    state = trainer.init_state(0)
+    stats_rng = np.random.RandomState(23)
+    with torch.no_grad():
+        for key, buf in state.model.named_buffers():
+            vals = stats_rng.randn(*buf.shape)
+            buf.copy_(torch.from_numpy(0.1 + 0.1 * np.abs(vals) if key.endswith(".var") else 0.05 * np.abs(vals)))
+    resident_evaluation(trainer, state, {"points": data, "labels": ssg_labels},
+                        (fps, sa_ball_mlp_pool, sa_ball_mlp_pool_bucketed, rank_sort_points), 3,
+                        f"pointnet2_cls_ssg N={NUM_POINT}, {len(ssg_labels)} clouds, batch 32, 3 votes", smi)
+    rows = np.random.RandomState(18).permutation(RESIDENT_CLOUDS)[:RESIDENT_EVAL_CLOUDS]
+    bga = Trainer(TrainerConfig(model="pointnet2_cls_bga", num_point=TRAIN_POINT, batch_size=32))
+    resident_evaluation(bga, bga.init_state(0), {"points": points[rows], "labels": labels[rows], "masks": masks[rows]},
+                        (fps, sa_ball_mlp_pool, knn_point_kernel), 3,
+                        f"pointnet2_cls_bga N={TRAIN_POINT} with masks, {RESIDENT_EVAL_CLOUDS} clouds, batch 32, "
+                        f"3 votes", smi)
+    partseg = Trainer(TrainerConfig(model="pointnet_partseg", num_classes=RESIDENT_PARTS, num_point=TRAIN_POINT,
+                                    batch_size=32))
+    resident_evaluation(partseg, partseg.init_state(0),
+                        {"points": points[rows], "labels": labels[rows], "parts": parts[rows]}, (), 3,
+                        f"pointnet_partseg N={TRAIN_POINT} with parts 0-2 of {RESIDENT_PARTS}, "
+                        f"{RESIDENT_EVAL_CLOUDS} clouds, batch 32, 3 votes", smi)
+
+    # d. One Table-5 row through the harness's array function.
+    test_rows = np.setdiff1d(np.arange(RESIDENT_CLOUDS), rows)[:RESIDENT_EVAL_CLOUDS]
+    with tempfile.TemporaryDirectory() as tmp:
+        args = table5.build_parser().parse_args(["--epochs", "1", "--log_root", tmp, "--device", "cuda"])
+        row = table5.train_and_evaluate("pointnet_cls", "cls", {"points": points, "labels": labels},
+                                        {"points": points[test_rows], "labels": labels[test_rows]}, args)
+        require(0.0 <= row["accuracy"] <= 1.0 and os.path.isfile(os.path.join(tmp, "pointnet_cls", "checkpoint_best",
+                                                                               "state.pt")),
+                f"18d: the Table-5 row {row}")
+    print(f"resident 18d: table5.train_and_evaluate('pointnet_cls', 1 epoch on {RESIDENT_CLOUDS} clouds, batch 32, "
+          f"the best checkpoint restored, {args.votes} votes on {RESIDENT_EVAL_CLOUDS} clouds at N={args.num_point}): "
+          f"{row} ({smi})")
+    print(f"resident phase 18: {time.perf_counter() - t_phase:.1f} s ({smi})")
 
 def main() -> None:
     import torch
@@ -4365,6 +4653,8 @@ def main() -> None:
     marks.append(("16", time.perf_counter()))
     dp_phase(smi, dev)
     marks.append(("17", time.perf_counter()))
+    resident_phase(smi, dev)
+    marks.append(("18", time.perf_counter()))
     print("seconds by phase: " + ", ".join(f"{label} {t - t0:.1f}" for (label, t), t0 in
                                            zip(marks, [t_start] + [t for _, t in marks[:-1]])))
 

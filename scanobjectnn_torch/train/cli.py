@@ -23,8 +23,10 @@ versions of the kernels on the device.  A ``.bin`` listing's file names
 resolve against the working directory and are prepared cloud by cloud (the
 JAX CLI's ``_prepare`` raises on them); h5 files need ``h5py``.
 Checkpoints are the port's ``torch.save`` files (``Trainer.save``), not
-JAX's orbax directories.  Evaluation is ``Trainer.evaluate`` where JAX calls
-``evaluate_auto``.
+JAX's orbax directories.  The ``evaluate*`` commands route through
+``Trainer.evaluate_auto``, as JAX's do: dense input through the
+device-resident evaluation, ragged input and ``--visu`` through the host
+loop.
 
 Several ranks (data parallelism, ``Trainer``'s module doc): started by
 ``python -m torch.distributed.run --nproc_per_node R -m
@@ -262,7 +264,7 @@ def _evaluate(args, mode: str):
         kwargs["parts"] = extra
     if args.visu:
         kwargs["keep_points"] = True
-    results = trainer.evaluate(state, data, labels, num_votes=args.num_votes, **kwargs)
+    results = trainer.evaluate_auto(state, data, labels, num_votes=args.num_votes, **kwargs)
     log = trainer.logger
     log.log(f"total seen: {results['total_seen']}")
     log.log(f"eval mean loss: {results['mean_loss']:.6f}")

@@ -12,11 +12,12 @@ Behavioural references:
     ground truth is in ``OBJECTDATASET_TO_MODELNET[pred]``;
   * pointnet2/draw_cmat.py:26-30: the row-normalised confusion matrix.
 
-The cross-domain functions evaluate with ``Trainer.evaluate(...,
-shuffle=False)``, which the JAX package's device-resident evaluation is
-tested equal to, and which takes ragged clouds as JAX's ``evaluate_auto``
-routes them: an object array of ``[n_i, 3]`` clouds (``np.asarray`` keeps
-it, so the class filters index it like a rectangular array).
+The cross-domain functions evaluate through ``_eval_no_shuffle``, JAX's
+``Trainer.evaluate_auto(..., shuffle=False)``: dense clouds through
+``evaluate_device``, ragged ones (an object array of ``[n_i, 3]`` clouds,
+which ``np.asarray`` keeps, so the class filters index it like a
+rectangular array) through ``evaluate``; with ``shuffle=False`` the two
+give the same results.
 ``dump_error_cases`` and ``dump_seg_masks`` write the ``--visu`` dumps (PNG
 renders through ``viz.render`` and PLY files through ``io.save_ply``), the
 JAX package's file names and bytes.
@@ -68,13 +69,19 @@ def filter_to_mappable_classes(data, labels, *extra):
     return tuple(out)
 
 
+def _eval_no_shuffle(trainer, state, data, labels, num_votes: int) -> dict:
+    """The cross-domain protocols' voting evaluation without shuffling
+    (``Trainer.evaluate_auto``)."""
+    return trainer.evaluate_auto(state, data, labels, num_votes=num_votes, shuffle=False)
+
+
 def evaluate_real_trained_on_synthetic(trainer, state, data, labels, num_votes: int = 1) -> dict:
     """A ModelNet40-trained (40-way) model evaluated on ScanObjectNN.
 
     Predictions over the 40 ModelNet classes are mapped to ScanObjectNN
     labels (many-to-one); unmappable predictions count as wrong."""
     data, labels = filter_to_mappable_classes(data, labels)
-    results = trainer.evaluate(state, data, labels, num_votes=num_votes, shuffle=False)
+    results = _eval_no_shuffle(trainer, state, data, labels, num_votes)
     preds_scan = mappings.modelnet_pred_to_scanobjectnn(results["predictions"])
     gts = results["labels"]
     correct = preds_scan == gts
@@ -100,7 +107,7 @@ def evaluate_synthetic_trained_on_real(trainer, state, modelnet_data, modelnet_l
     data = np.asarray(modelnet_data)[keep]
     gt_modelnet = np.asarray(modelnet_labels)[keep]
     # Dummy ScanObjectNN labels: only the predictions are read.
-    results = trainer.evaluate(state, data, np.zeros(len(data), np.int64), num_votes=num_votes, shuffle=False)
+    results = _eval_no_shuffle(trainer, state, data, np.zeros(len(data), np.int64), num_votes)
     preds = results["predictions"]
     correct = mappings.is_correct_on_modelnet(preds, gt_modelnet)
     out = {

@@ -67,11 +67,36 @@ Evaluation, as the JAX ``Trainer``'s (``trainer.py:314-406``, ``:736-866``):
 ``sa_bucket`` ("auto", JAX's default, or "off") goes to the model's SA
 layers (``nn.pointnet_modules.configure_eval``): under "auto" an eval SA
 layer at (N=2048, M=512), such as SSG's SA1 at ``num_point=2048``, runs
-the bucketed kernel (#4, after #5).  JAX's ``evaluate_device``,
-``evaluate_auto`` and ``upload_dataset`` avoid TPU dispatch costs and are
-not ported: the JAX package holds ``evaluate_device`` equal to
-``evaluate(shuffle=False)``, which the cross-domain protocols call
-(``train/evaluate.py``) for rectangular and ragged input alike.
+the bucketed kernel (#4, after #5).
+
+The device-resident path, JAX's default (``device_resident``;
+``trainer.py:419-734``): a dense dataset is uploaded once and no step of
+an epoch or an evaluation copies from the host or reads back to it.
+  * ``upload_dataset(data)``: {"points" f32, "labels", and "masks" /
+    "parts" where given} as device tensors, the integer dtype of
+    ``train_step``'s batches; on a mesh every rank holds the whole set.
+  * ``train_epoch_device(state, device_data)``: the epoch's point
+    permutation (its first ``num_point`` entries, shared by every cloud)
+    and cloud order come from a generator of their own on the device,
+    seeded by (``seed``, EPOCH_TAG, ``state.step``) as JAX folds
+    ``0xE70C`` and the step into its key, never from ``state.generator``;
+    so every rank draws the same, and a resumed run the same epoch.  The
+    view ``data[order][:, pt_perm]`` (masks and parts alike) goes in
+    ``n_total // batch_size`` slices through the same ``train_step``; the
+    metric sums stay on the device and are read back once.  The draws on
+    the card are not the CPU's (``randperm`` differs by device), as JAX's
+    device draws are not its host sampler's.
+  * ``evaluate_device(state, device_data, num_votes, seed, shuffle)``:
+    the first ``num_point`` points (``shuffle=False``) or a permutation
+    from a generator seeded by ``seed`` (None: a draw of ``np.random``),
+    batches padded by repeating the last cloud, ``eval_votes``' arithmetic
+    with the vote matrices uploaded once, and every tally on the device
+    with padded rows masked out (the loss as the padded batch's mean times
+    its valid rows); one readback, JAX's keys and conventions.
+  * ``evaluate_auto``: ragged input or ``keep_points`` to ``evaluate``,
+    anything else to ``evaluate_device(upload_dataset(...))``; ``fit``,
+    the command line and the cross-domain protocols route through it (or
+    ``fit``'s own uploads) as JAX's do.
 
 The config's other JAX fields (``trainer.py:54-104``):
   * ``optimizer`` "adam" (above) or "momentum": ``torch.optim.SGD`` with
@@ -94,10 +119,12 @@ The config's other JAX fields (``trainer.py:54-104``):
 
 ``fit`` follows the JAX ``Trainer.fit`` (``trainer.py:868-985``): the
 model line, the recipe line, the sources copied into
-``log_dir/src_snapshot``, an ``EpochSampler`` over the training clouds,
-each epoch's line and its evaluation's (``evaluate`` with ``shuffle=True``
-and ``seed=0``: JAX's host protocol, which JAX runs for ragged input and
-replaces by ``evaluate_device`` for dense input), the best-so-far
+``log_dir/src_snapshot``; with ``device_resident`` a dense training set
+uploaded once and trained by ``train_epoch_device``, else an
+``EpochSampler`` over the training clouds and ``train_epoch``; each
+epoch's line and its evaluation's (with ``device_resident`` a dense test
+set uploaded once and evaluated by ``evaluate_device``, else ``evaluate``;
+both ``shuffle=True`` and ``seed=0``), the best-so-far
 accuracy (``accuracy``, else ``seg_accuracy``) saved to
 ``checkpoint_best`` with ``best.json``, ``metrics.jsonl`` through the
 ``Logger``, ``checkpoint`` with ``last.json`` every ``checkpoint_every``
@@ -111,8 +138,9 @@ the step generator's state, beside ``config.json`` and the sidecars;
 is restored where the checkpoint's generator lived on the same device type
 (a CUDA generator's state is not a CPU generator's); elsewhere the
 template's generator stays as seeded and ``restore`` logs so.  The
-``EpochSampler``'s state is not saved: a resumed run's shuffles restart
-from ``seed``, as in JAX.  JAX's orbax checkpoints are not read here;
+``EpochSampler``'s state is not saved: a resumed run's host shuffles
+restart from ``seed``, as in JAX; the resident epoch's draws follow the
+restored step.  JAX's orbax checkpoints are not read here;
 ``convert.load_jax_variables`` takes JAX weights.
 
 Data parallelism, ``Trainer(config, mesh=parallel.make_mesh(...))``: the
@@ -142,14 +170,14 @@ evenly over the ranks.
     weighs its shard's sum by ``reg_weight`` times the world size, so the
     ranks' average is the global sum's weight and gradient.
   * ``train_step``'s metrics are this rank's (its shard's loss terms and
-    counts; ``mat_diff_loss`` its shard's sum); ``train_epoch`` sums its
-    totals over the ranks before it reads them, the loss terms divided by
-    the world size.
+    counts; ``mat_diff_loss`` its shard's sum); ``train_epoch`` and
+    ``train_epoch_device`` sum their totals over the ranks before they read
+    them, the loss terms divided by the world size.
   * Evaluation: ``eval_step`` and ``eval_votes`` take the global batch,
     run this rank's rows of the (vote-stacked) batch and gather every
     rank's outputs (``parallel.gather_rows``), so every rank computes the
-    loss, sums and tallies one process computes; eval BN reads the running
-    statistics and needs no collective.
+    loss, sums and tallies one process computes (``evaluate_device`` too);
+    eval BN reads the running statistics and needs no collective.
   * Side effects are rank 0's: its logger writes the files and prints
     (the others' log nothing), and ``save`` and ``snapshot_sources`` write
     on rank 0 only; ``restore`` loads on every rank.
@@ -173,7 +201,7 @@ from torch import nn
 from scanobjectnn_torch.augment.transforms import (
     jitter_point_cloud, pointcnn_augment, rotate_point_cloud, standard_train_augment,
 )
-from scanobjectnn_torch.data.pipeline import Batches, EpochSampler, padded_batches
+from scanobjectnn_torch.data.pipeline import Batches, EpochSampler, is_ragged, padded_batches
 from scanobjectnn_torch.models import MODEL_REGISTRY, get_model, get_recipe
 from scanobjectnn_torch.nn.layers import configure_parallel
 from scanobjectnn_torch.nn.pointnet_modules import FUSED_SA_EVAL_SETTINGS, configure_eval, configure_training
@@ -192,13 +220,13 @@ OPTIMIZERS = ("adam", "momentum")
 OPS_BACKENDS = ("auto", "pallas", "lax")
 CHECKPOINT_FILE = "state.pt"  # in log_dir/checkpoint and log_dir/checkpoint_best
 COUNT_METRICS = ("correct", "count", "seg_correct", "seg_count")  # summed over ranks; the rest averaged
+EPOCH_TAG = 0xE70C  # the resident epoch's draws, apart from the steps' (JAX trainer.py:439-445)
 
 
 @dataclass
 class TrainerConfig:
-    """The JAX ``TrainerConfig``'s fields in its order, but
-    ``device_resident`` (a TPU dispatch saving), and the device (reference
-    flags: pointnet2/train.py:25-47)."""
+    """The JAX ``TrainerConfig``'s fields in its order, then the device
+    (reference flags: pointnet2/train.py:25-47)."""
 
     model: str = "pointnet2_cls_ssg"
     num_classes: int = 15
@@ -222,6 +250,9 @@ class TrainerConfig:
     use_model_recipe: bool = True
     model_kwargs: dict = field(default_factory=dict)
     checkpoint_every: int = 1
+    # Keep a dense dataset on the device and run each epoch and evaluation
+    # without host traffic a step (module doc).
+    device_resident: bool = True
     # "auto" | "pallas" | "lax", and the fused eval SA layer "on" | "off"
     # (module doc).
     ops_backend: str = "auto"
@@ -458,25 +489,79 @@ class Trainer:
         state and {"mean_loss", "accuracy", "seg_accuracy"}, each where the
         model gives it (read back once, at the end; on a mesh, of every
         rank's rows)."""
+        state, totals, n_batches = self._epoch_totals(state, Batches(sampler.epoch(), self.config.batch_size))
+        return state, self._epoch_summary(totals, n_batches)
+
+    def _epoch_totals(self, state: TrainState, batches) -> tuple[TrainState, dict, int]:
+        """``train_step`` over ``batches``: the state, each metric's sum as
+        a device tensor, and the number of batches."""
         totals: dict[str, torch.Tensor] = {}
         n_batches = 0
-        for batch in Batches(sampler.epoch(), self.config.batch_size):
+        for batch in batches:
             state, metrics = self.train_step(state, batch)
             n_batches += 1
             for k, v in metrics.items():
                 totals[k] = totals.get(k, 0) + v.float()
-        if self._grouped() and totals:
-            keys = sorted(totals)
+        return state, totals, n_batches
+
+    def _epoch_summary(self, totals: dict, n_batches: int) -> dict:
+        """An epoch's summary from its metric sums (on a mesh summed over
+        the ranks, the loss terms averaged): one readback."""
+        keys = sorted(totals)
+        values = []
+        if keys:
             summed = torch.stack([totals[k] for k in keys])
-            torch.distributed.all_reduce(summed, group=self.mesh.group)
-            totals = {k: v if k in COUNT_METRICS else v / self.world for k, v in zip(keys, summed)}
-        totals = {k: float(v) for k, v in totals.items()}
+            if self._grouped():
+                torch.distributed.all_reduce(summed, group=self.mesh.group)
+                summed = torch.stack([v if k in COUNT_METRICS else v / self.world for k, v in zip(keys, summed)])
+            values = summed.tolist()  # the epoch's one readback
+        totals = dict(zip(keys, values))
         summary = {"mean_loss": totals.get("loss", 0.0) / max(n_batches, 1)}
         if "correct" in totals:
             summary["accuracy"] = totals["correct"] / max(totals["count"], 1.0)
         if "seg_correct" in totals:
             summary["seg_accuracy"] = totals["seg_correct"] / max(totals["seg_count"], 1.0)
-        return state, summary
+        return summary
+
+    # ------------------------------------------------ device-resident epochs
+
+    def upload_dataset(self, data: dict) -> dict:
+        """A dense dataset on the device, once (module doc): {"points" f32,
+        "labels", and "masks" / "parts" where given and not None}."""
+        points, targets = self._on_device({k: v for k, v in data.items() if v is not None})
+        return {"points": points, **targets}
+
+    def _epoch_permutations(self, step: int, n_points: int, n_total: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The resident epoch at ``step``: the points kept (the first
+        ``num_point`` of a permutation of ``n_points``) and the clouds'
+        order, drawn from a generator of their own (module doc)."""
+        seed = int(np.random.SeedSequence([self.config.seed, EPOCH_TAG, step]).generate_state(1, np.uint64)[0])
+        generator = torch.Generator(device=self.device).manual_seed(seed >> 1)
+        pt_perm = torch.randperm(n_points, generator=generator, device=self.device)[: self.config.num_point]
+        order = torch.randperm(n_total, generator=generator, device=self.device)
+        return pt_perm, order
+
+    def _epoch_view(self, step: int, data: dict) -> dict:
+        """The resident epoch's view of ``data`` (``upload_dataset``'s):
+        ``data[order][:, pt_perm]``, masks and parts alike."""
+        pt_perm, order = self._epoch_permutations(step, data["points"].shape[1], data["labels"].shape[0])
+        view = {"points": data["points"][order][:, pt_perm], "labels": data["labels"][order]}
+        for k in ("masks", "parts"):
+            if k in data:
+                view[k] = data[k][order][:, pt_perm]
+        return view
+
+    def _epoch_impl(self, state: TrainState, data: dict) -> tuple[TrainState, dict, int]:
+        """The resident epoch up to its readback: ``train_step`` over the
+        view's ``n_total // batch_size`` slices, the metric sums on the
+        device."""
+        return self._epoch_totals(state, Batches(self._epoch_view(state.step, data), self.config.batch_size))
+
+    def train_epoch_device(self, state: TrainState, device_data: dict) -> tuple[TrainState, dict]:
+        """One epoch over ``upload_dataset``'s tensors (module doc); returns
+        the state and ``train_epoch``'s summary."""
+        state, totals, n_batches = self._epoch_impl(state, device_data)
+        return state, self._epoch_summary(totals, n_batches)
 
     # ------------------------------------------------------------- evaluation
 
@@ -493,10 +578,12 @@ class Trainer:
         )
         return mats.astype(np.float32)
 
-    def _rotate(self, points: torch.Tensor, rots: np.ndarray) -> torch.Tensor:
-        """points [B, N, 3] times each matrix of ``rots`` [V, 3, 3]: [V, B, N,
-        3], each row ``(x·R0 + y·R1) + z·R2`` in f32 (no TF32)."""
-        r = torch.from_numpy(rots).to(self.device)[:, None, None]  # [V, 1, 1, 3, 3]
+    @staticmethod
+    def _rotate(points: torch.Tensor, rots: torch.Tensor) -> torch.Tensor:
+        """points [B, N, 3] times each matrix of ``rots`` [V, 3, 3] (on the
+        device): [V, B, N, 3], each row ``(x·R0 + y·R1) + z·R2`` in f32 (no
+        TF32)."""
+        r = rots[:, None, None]  # [V, 1, 1, 3, 3]
         p = points[None]
         return (p[..., 0:1] * r[..., 0, :] + p[..., 1:2] * r[..., 1, :]) + p[..., 2:3] * r[..., 2, :]
 
@@ -506,7 +593,7 @@ class Trainer:
         the metrics of ``train_step``}, device tensors."""
         points, targets = self._on_device(batch)
         c, s = np.cos(float(rotate_angle)), np.sin(float(rotate_angle))
-        rot = np.asarray([[[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]]], np.float32)
+        rot = torch.tensor([[[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]]], dtype=torch.float32, device=self.device)
         model = state.model.eval()
         with torch.no_grad(), self._ops():
             outputs = self._eval_forward(model, self._rotate(points, rot)[0])
@@ -521,10 +608,20 @@ class Trainer:
         over votes of each vote's loss, "logits_sum" [B, classes] and/or
         "seg_logits_sum" [B, N, classes], f32 sums over the votes}."""
         points, targets = self._on_device(batch)
+        return self._votes(state, points, targets, self._rotations(num_votes))
+
+    def _rotations(self, num_votes: int) -> torch.Tensor:
+        """``_vote_rotations`` on the device."""
+        return torch.from_numpy(self._vote_rotations(num_votes)).to(self.device)
+
+    def _votes(self, state: TrainState, points: torch.Tensor, targets: dict, rots: torch.Tensor) -> dict:
+        """``eval_votes`` on device tensors, the vote matrices ``rots``
+        [V, 3, 3] given."""
+        num_votes = rots.shape[0]
         b, n, _ = points.shape
         model = state.model.eval()
         with torch.no_grad(), self._ops():
-            stacked = self._rotate(points, self._vote_rotations(num_votes)).reshape(num_votes * b, n, 3)
+            stacked = self._rotate(points, rots).reshape(num_votes * b, n, 3)
 
             def by_vote(tree):  # every tensor, end_points' too, [V·B, ...] -> [V, B, ...]
                 return {k: by_vote(v) if isinstance(v, dict) else v.reshape(num_votes, b, *v.shape[1:])
@@ -615,15 +712,128 @@ class Trainer:
                         part_correct += np.bincount(flat_t, weights=hit, minlength=num_parts).astype(np.int64)
             total_seen += valid
 
+        results = self._tally_results(
+            total_seen, loss_sum, total_correct, seen_class, correct_class,
+            np.concatenate(all_pred) if all_pred else np.array([]),
+            np.concatenate(all_label) if all_label else np.array([]), seg_correct, seg_seen, part_seen, part_correct,
+        )
+        if keep_points:
+            results["points"] = view["points"]
+            if "masks" in view:
+                results["masks"] = view["masks"]
+            if all_seg_pred:
+                results["seg_predictions"] = np.concatenate(all_seg_pred)
+        return results
+
+    def _eval_points(self, n_points: int, seed: int | None) -> torch.Tensor:
+        """The points ``evaluate_device`` keeps of ``n_points``: all of
+        them up to ``num_point``; else the first ``num_point`` (``seed``
+        None: no shuffle) or those of a permutation drawn from ``seed``."""
+        num_point = self.config.num_point
+        if num_point >= n_points:
+            return torch.arange(n_points, device=self.device)
+        if seed is None:
+            return torch.arange(num_point, device=self.device)
+        generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        return torch.randperm(n_points, generator=generator, device=self.device)[:num_point]
+
+    def _eval_epoch_impl(self, state: TrainState, data: dict, rots: torch.Tensor,
+                         pt_perm: torch.Tensor) -> tuple[dict, int]:
+        """``evaluate_device`` up to its readback: every tally, the
+        predictions and the labels as device tensors, and the points
+        segmented (an int the shapes give)."""
+        cfg, dev = self.config, self.device
+        n_total, bsz, num_classes = data["labels"].shape[0], cfg.batch_size, cfg.num_classes
+        n_batches = -(-n_total // bsz)
+        view = {"points": data["points"][:, pt_perm], "labels": data["labels"]}
+        for k in ("masks", "parts"):
+            if k in data:
+                view[k] = data[k][:, pt_perm]
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int64, device=dev)
+
+        sums = {"loss_sum": torch.zeros((), device=dev), "correct": zeros(), "seen_class": zeros(num_classes),
+                "correct_class": zeros(num_classes), "seg_correct": zeros(), "predictions": zeros(n_batches * bsz)}
+        seg_count = 0
+        for i in range(n_batches):
+            start = i * bsz
+            valid = min(bsz, n_total - start)
+            take = torch.arange(start, start + bsz, device=dev).clamp_(max=n_total - 1)  # pad: the last cloud
+            targets = {k: v[take] for k, v in view.items()}
+            out = self._votes(state, targets.pop("points"), targets, rots)
+            is_valid = torch.arange(bsz, device=dev) < valid
+            sums["loss_sum"] += out["loss"].float() * valid  # the padded batch's mean x its valid rows
+            if "logits_sum" in out:
+                pred = out["logits_sum"].argmax(1)
+                hit = (pred == targets["labels"]) & is_valid
+                onehot = self._one_hot(targets["labels"], num_classes) & is_valid[:, None]
+                sums["correct"] += hit.sum()
+                sums["seen_class"] += onehot.sum(0)
+                sums["correct_class"] += (onehot & hit[:, None]).sum(0)
+                sums["predictions"][start:start + bsz] = pred
+            target = targets.get("masks", targets.get("parts"))
+            if "seg_logits_sum" in out and target is not None:
+                seg_pred = out["seg_logits_sum"].argmax(-1)
+                seg_hit = (seg_pred == target) & is_valid[:, None]
+                sums["seg_correct"] += seg_hit.sum()
+                seg_count += valid * target.shape[1]
+                if "parts" in targets:  # per-part-id tallies at the seg head's width
+                    onehot = self._one_hot(target, out["seg_logits_sum"].shape[-1]) & is_valid[:, None, None]
+                    sums["part_seen"] = sums.get("part_seen", 0) + onehot.sum((0, 1))
+                    sums["part_correct"] = sums.get("part_correct", 0) + (onehot & seg_hit[..., None]).sum((0, 1))
+        sums["labels"] = data["labels"]
+        return sums, seg_count
+
+    @staticmethod
+    def _one_hot(ids: torch.Tensor, width: int) -> torch.Tensor:
+        """``ids``' one-hot rows as booleans, an id outside [0, width) a row
+        of zeros (``jax.nn.one_hot``'s rule; no check that reads the ids
+        back)."""
+        return ids[..., None] == torch.arange(width, device=ids.device)
+
+    def evaluate_device(
+        self,
+        state: TrainState,
+        device_data: dict,
+        num_votes: int = 1,
+        seed: int | None = 0,
+        shuffle: bool = True,
+    ) -> dict:
+        """Voting evaluation over ``upload_dataset``'s tensors (module doc):
+        the dict of ``evaluate`` without ``keep_points``' keys, NaN for an
+        unseen class, -1.0 for an unseen part, from one readback."""
+        if shuffle and seed is None:
+            seed = np.random.randint(0, 2**31 - 1)  # a fresh subsample a call, as evaluate's
+        pt_perm = self._eval_points(device_data["points"].shape[1], seed if shuffle else None)
+        sums, seg_count = self._eval_epoch_impl(state, device_data, self._rotations(num_votes), pt_perm)
+        keys = sorted(sums)
+        flat = torch.cat([sums[k].double().reshape(-1) for k in keys]).cpu().numpy()  # the one readback
+        got = dict(zip(keys, np.split(flat, np.cumsum([sums[k].numel() for k in keys])[:-1])))
+        n_total = int(device_data["labels"].shape[0])
+        return self._tally_results(
+            n_total, float(got["loss_sum"][0]), float(got["correct"][0]), got["seen_class"], got["correct_class"],
+            got["predictions"][:n_total].astype(np.int64), got["labels"].astype(np.int64),
+            float(got["seg_correct"][0]), seg_count, got.get("part_seen"), got.get("part_correct"),
+        )
+
+    @staticmethod
+    def _tally_results(total_seen, loss_sum, correct, seen_class, correct_class, predictions, labels, seg_correct,
+                       seg_seen, part_seen=None, part_correct=None) -> dict:
+        """The results dict of ``evaluate`` and ``evaluate_device`` from
+        their tallies (numpy per-class and per-part counts): the class keys
+        where some class was seen (NaN for an unseen class), seg accuracy
+        where points were, the per-part table where parts were tallied
+        (-1.0 for an unseen part, the mean over the seen ones)."""
         results = {"total_seen": total_seen, "mean_loss": loss_sum / max(total_seen, 1)}
         if total_seen and seen_class.sum() > 0:
-            results["accuracy"] = total_correct / total_seen
+            results["accuracy"] = correct / total_seen
             with np.errstate(divide="ignore", invalid="ignore"):
                 per_class = np.where(seen_class > 0, correct_class / np.maximum(seen_class, 1), np.nan)
             results["avg_class_accuracy"] = float(np.nanmean(per_class))
             results["per_class_accuracy"] = per_class
-            results["predictions"] = np.concatenate(all_pred) if all_pred else np.array([])
-            results["labels"] = np.concatenate(all_label) if all_label else np.array([])
+            results["predictions"] = predictions
+            results["labels"] = labels
         if seg_seen:
             results["seg_accuracy"] = seg_correct / seg_seen
         if part_seen is not None:
@@ -632,13 +842,28 @@ class Trainer:
             results["per_part_accuracy"] = per_part
             seen = part_seen > 0
             results["avg_part_accuracy"] = float(per_part[seen].mean()) if seen.any() else 0.0
-        if keep_points:
-            results["points"] = view["points"]
-            if "masks" in view:
-                results["masks"] = view["masks"]
-            if all_seg_pred:
-                results["seg_predictions"] = np.concatenate(all_seg_pred)
         return results
+
+    def evaluate_auto(
+        self,
+        state: TrainState,
+        data,
+        labels,
+        masks=None,
+        parts=None,
+        num_votes: int = 1,
+        shuffle: bool = True,
+        seed: int | None = 0,
+        keep_points: bool = False,
+    ) -> dict:
+        """One voting evaluation, routed as JAX's (``trainer.py:702-734``):
+        ragged input or ``keep_points`` to ``evaluate``, anything else to
+        ``evaluate_device`` over ``upload_dataset``."""
+        if keep_points or is_ragged(data):
+            return self.evaluate(state, data, labels, masks=masks, parts=parts, num_votes=num_votes, shuffle=shuffle,
+                                 seed=seed, keep_points=keep_points)
+        device_data = self.upload_dataset({"points": data, "labels": labels, "masks": masks, "parts": parts})
+        return self.evaluate_device(state, device_data, num_votes=num_votes, shuffle=shuffle, seed=seed)
 
     # ------------------------------------------------------------------- fit
 
@@ -669,11 +894,18 @@ class Trainer:
             self.logger.log(f"recipe={self.recipe}")
         if cfg.log_dir:
             self.snapshot_sources()
-        sampler = EpochSampler(
-            train_data["points"], train_data["labels"],
-            masks=train_data.get("masks"), parts=train_data.get("parts"),
-            num_points=cfg.num_point, seed=cfg.seed,
-        )
+        device_data = sampler = None
+        if cfg.device_resident and not is_ragged(train_data["points"]):
+            device_data = self.upload_dataset(train_data)
+        else:
+            sampler = EpochSampler(
+                train_data["points"], train_data["labels"],
+                masks=train_data.get("masks"), parts=train_data.get("parts"),
+                num_points=cfg.num_point, seed=cfg.seed,
+            )
+        device_test = None
+        if test_data is not None and cfg.device_resident and not is_ragged(test_data["points"]):
+            device_test = self.upload_dataset(test_data)
         best_acc = -1.0  # best-so-far tracking (3DmFV-Net/train.py:232-237)
         best_avg_cls = -1.0
         start_epoch = 0
@@ -688,16 +920,22 @@ class Trainer:
             self.logger.log(f"resumed at epoch {start_epoch} (best_acc={best_acc:.4f})")
         for epoch in range(start_epoch, cfg.max_epoch):
             t0 = time.time()
-            state, summary = self.train_epoch(state, sampler)
+            if sampler is None:
+                state, summary = self.train_epoch_device(state, device_data)
+            else:
+                state, summary = self.train_epoch(state, sampler)
             msg = f"epoch {epoch:03d} " + " ".join(f"{k}={v:.4f}" for k, v in summary.items())
             self.logger.log(f"{msg} ({time.time() - t0:.1f}s)")
             scalars = {f"train_{k}": v for k, v in summary.items()}
             if test_data is not None:
                 t_ev = time.time()
-                ev = self.evaluate(
-                    state, test_data["points"], test_data["labels"],
-                    masks=test_data.get("masks"), parts=test_data.get("parts"), num_votes=num_votes,
-                )
+                if device_test is not None:
+                    ev = self.evaluate_device(state, device_test, num_votes=num_votes)
+                else:
+                    ev = self.evaluate(
+                        state, test_data["points"], test_data["labels"],
+                        masks=test_data.get("masks"), parts=test_data.get("parts"), num_votes=num_votes,
+                    )
                 scalars["eval_seconds"] = time.time() - t_ev
                 numbers = {k: v for k, v in ev.items() if isinstance(v, (int, float))}
                 self.logger.log("  eval " + " ".join(f"{k}={v:.4f}" for k, v in numbers.items()))

@@ -15,9 +15,8 @@ Held equal to the JAX CLI:
     JAX's error);
   * ``_evaluate`` (cls, seg, partseg, with ``--visu``),
     ``_evaluate_cross_domain`` (both directions) and ``_draw_cmat`` fed one
-    scripted results dict through a stubbed ``_restore_for_eval`` (JAX's
-    ``evaluate_auto`` and the port's ``evaluate`` stubbed alike, their
-    arguments held equal): the logged lines, the bytes of
+    scripted results dict through a stubbed ``_restore_for_eval`` (both
+    trainers' ``evaluate_auto`` stubbed alike, their arguments held equal): the logged lines, the bytes of
     ``pred_label.txt``, of the dumps and, with ``matplotlib`` hidden, of
     the text confusion matrix;
   * ``point_cloud_three_views`` and the PNG bytes of ``save_image``;
@@ -234,7 +233,7 @@ def _stub_restore(module, logger_module, calls, num_classes):
 
     def restore(args, mode):
         trainer = types.SimpleNamespace(logger=logger_module.Logger(args.log_dir))
-        setattr(trainer, "evaluate_auto" if module is jcli else "evaluate", evaluate_fn)
+        trainer.evaluate_auto = evaluate_fn
         return trainer, None
 
     return restore

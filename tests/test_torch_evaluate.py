@@ -19,8 +19,8 @@ The tallies of ``evaluate`` (masked padded rows, per class, seg and
 per-part) are held exactly against JAX's on identical logits: both
 trainers' ``eval_votes`` are replaced by one stub.  The cross-domain
 protocols and the confusion matrix are held exactly against JAX's on stub
-trainers; the port's protocols call ``evaluate(shuffle=False)`` where JAX's
-call ``evaluate_auto``.
+trainers, which answer ``evaluate_auto(shuffle=False)`` alone, the call
+both packages' protocols make.
 """
 
 import jax
@@ -224,20 +224,18 @@ def test_padded_batches_match_jax(n, bs):
 
 
 class _StubTrainer:
-    """A trainer whose predictions come from the data: ``evaluate`` for the
-    port's protocols, ``evaluate_auto`` for JAX's, the same results."""
+    """A trainer whose predictions come from the data, through
+    ``evaluate_auto`` alone (the routing both packages' protocols take)."""
 
     def __init__(self, num_classes):
         self.num_classes = num_classes
 
-    def evaluate(self, state, data, labels, num_votes=1, shuffle=False, **kw):
-        assert not shuffle
+    def evaluate_auto(self, state, data, labels, num_votes=1, shuffle=True, **kw):
+        assert not shuffle and not kw
         sums = np.array([np.abs(pc).sum() for pc in data])
         preds = (sums * 7).astype(np.int64) % self.num_classes
         return {"total_seen": len(preds), "predictions": preds, "labels": np.asarray(labels),
                 "accuracy": float((preds == np.asarray(labels)).mean()) if len(preds) else 0.0}
-
-    evaluate_auto = evaluate
 
 
 def _same(got, want):

@@ -5,15 +5,19 @@ optimizer and loss flags, the augmentation flags, ``utils/logging.py``,
 
 ``fit``'s control flow is held line for line against JAX ``Trainer.fit``
 on scripted epochs: both trainers' ``train_epoch``, ``evaluate``,
+``upload_dataset``, ``train_epoch_device``, ``evaluate_device``,
 ``init_state``, ``save``, ``restore`` and ``snapshot_sources`` are stubs
-(``monkeypatch`` on each trainer object; the JAX config has
-``device_resident=False``, so its ``fit`` takes the ``EpochSampler`` and
-``evaluate``), while ``param_count``, the sidecars and the ``Logger`` are
-real.  Equal: the log lines with the seconds masked (the port adds one
-line, the kernel backend, which the test takes out and checks), the
-``metrics.jsonl`` records with ``time`` and ``eval_seconds`` masked, the
-sequence of ``save(best, meta)`` calls, the evaluations' arguments and the
-labels of each epoch the sampler drew.
+(``monkeypatch`` on each trainer object), while ``param_count``, the
+sidecars and the ``Logger`` are real.  Each case runs with
+``device_resident=False`` on both sides (the ``EpochSampler`` and
+``evaluate``), and with ``device_resident=True`` on dense data (the
+uploads, ``train_epoch_device`` and ``evaluate_device``) and on ragged
+clouds (the host path again).  Equal: the log lines with the seconds
+masked (the port adds one line, the kernel backend, which the test takes
+out and checks), the ``metrics.jsonl`` records with ``time`` and
+``eval_seconds`` masked, the sequence of ``save(best, meta)`` calls, the
+uploads, the evaluations' arguments, the labels of each epoch the sampler
+drew and the uploads each resident epoch took.
 
 The momentum optimizer is held to ``optax.sgd`` behind
 ``add_decayed_weights`` (the JAX ``Trainer``'s ``tx``) over three steps to
@@ -70,13 +74,14 @@ def _one_device_trainer(cfg):
     return jtrainer.Trainer(cfg, mesh=mesh_lib.make_mesh(jax.devices()[:1]))
 
 
-def test_config_fields_are_jaxs_but_device_resident_plus_device():
-    jax_fields = [f for f in dataclasses.fields(jtrainer.TrainerConfig) if f.name != "device_resident"]
+def test_config_fields_are_jaxs_plus_device():
+    jax_fields = dataclasses.fields(jtrainer.TrainerConfig)
     fields = dataclasses.fields(TrainerConfig)
     assert [f.name for f in fields] == [f.name for f in jax_fields] + ["device"]
     jcfg, cfg = jtrainer.TrainerConfig(), TrainerConfig()
     for f in jax_fields:
         assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert cfg.device_resident is True
     assert cfg.device == "cuda"
 
 
@@ -106,7 +111,8 @@ def _scripted_eval(epoch: int, acc: float, seg_only: bool) -> dict:
 
 def _stub_fit(trainer, is_jax: bool, accs, seg_only: bool, monkeypatch) -> dict:
     """Stubs on ``trainer`` (module doc); returns the record of calls."""
-    rec = {"save": [], "evaluate": [], "epoch_labels": [], "snapshots": 0, "restores": 0}
+    rec = {"save": [], "evaluate": [], "epoch_labels": [], "snapshots": 0, "restores": 0, "uploads": [],
+           "evaluate_device": [], "device_epochs": []}
     epoch_of = {"n": 0}
 
     def state_at(step):
@@ -114,8 +120,7 @@ def _stub_fit(trainer, is_jax: bool, accs, seg_only: bool, monkeypatch) -> dict:
             return types.SimpleNamespace(step=step, params={"w": np.zeros((3, 4)), "b": np.zeros(3)})
         return types.SimpleNamespace(step=step, model=torch.nn.Linear(4, 3))
 
-    def train_epoch(state, sampler, *rng):
-        rec["epoch_labels"].append(sampler.epoch()["labels"].tolist())
+    def summary_of_epoch(state):
         n = epoch_of["n"]
         epoch_of["n"] += 1
         summary = {"mean_loss": 2.0 / (n + 1), "accuracy": 0.125 * (n + 1)}
@@ -123,9 +128,29 @@ def _stub_fit(trainer, is_jax: bool, accs, seg_only: bool, monkeypatch) -> dict:
             summary = {"mean_loss": 2.0 / (n + 1), "seg_accuracy": 0.25 + 0.0625 * n}
         return state_at(state.step + STEPS_AN_EPOCH), summary
 
+    def train_epoch(state, sampler, *rng):
+        rec["epoch_labels"].append(sampler.epoch()["labels"].tolist())
+        return summary_of_epoch(state)
+
+    def train_epoch_device(state, device_data, *rng):
+        rec["device_epochs"].append(device_data["upload"])
+        return summary_of_epoch(state)
+
+    def scripted():
+        n = len(rec["evaluate"]) + len(rec["evaluate_device"])
+        return _scripted_eval(n, accs[n - 1], seg_only)
+
     def evaluate(state, points, labels, masks=None, parts=None, num_votes=1, **kw):
         rec["evaluate"].append((state.step, len(points), masks is None, parts is None, num_votes, kw))
-        return _scripted_eval(len(rec["evaluate"]), accs[len(rec["evaluate"]) - 1], seg_only)
+        return scripted()
+
+    def upload_dataset(data):
+        rec["uploads"].append((sorted(k for k, v in data.items() if v is not None), len(data["labels"])))
+        return {"upload": len(rec["uploads"]) - 1}
+
+    def evaluate_device(state, device_data, num_votes=1, **kw):
+        rec["evaluate_device"].append((state.step, device_data["upload"], num_votes, kw))
+        return scripted()
 
     def save(state, best=False, meta=None):
         rec["save"].append((state.step, best, meta))
@@ -138,7 +163,8 @@ def _stub_fit(trainer, is_jax: bool, accs, seg_only: bool, monkeypatch) -> dict:
         rec["snapshots"] += 1
 
     for name, fn in (("train_epoch", train_epoch), ("evaluate", evaluate), ("save", save), ("restore", restore),
-                     ("snapshot_sources", snapshot_sources)):
+                     ("snapshot_sources", snapshot_sources), ("upload_dataset", upload_dataset),
+                     ("train_epoch_device", train_epoch_device), ("evaluate_device", evaluate_device)):
         monkeypatch.setattr(trainer, name, fn)
     monkeypatch.setattr(trainer, "init_state", lambda *seed: state_at(0))
     return rec
@@ -158,27 +184,44 @@ def _masked_metrics(log_dir):
     return records
 
 
-@pytest.mark.parametrize("case", sorted(EPOCHS))
-def test_fit_flow_matches_jax(case, tmp_path, monkeypatch):
+# (case, data): the host path ("host", device_resident False on both sides;
+# its id is the case's), and device_resident True on dense and ragged data.
+FLOWS = [(case, data) for case in sorted(EPOCHS) for data in ("host", "resident", "resident_ragged")]
+
+
+def _ragged(points):
+    """The clouds cut to sizes of their own (an object array)."""
+    clouds = np.empty(len(points), dtype=object)
+    for i, pc in enumerate(points):
+        clouds[i] = pc[: 70 + i % 11]
+    return clouds
+
+
+@pytest.mark.parametrize("case,data", FLOWS, ids=[c if d == "host" else f"{c}-{d}" for c, d in FLOWS])
+def test_fit_flow_matches_jax(case, data, tmp_path, monkeypatch):
     model, accs, max_epoch, every, sidecars = EPOCHS[case]
     seg_only = model.endswith("partseg")
     rng = np.random.RandomState(5)
     train = {"points": rng.randn(12, 80, 3).astype(np.float32), "labels": rng.randint(0, 3, 12)}
     if seg_only:
         train["parts"] = rng.randint(0, 2, (12, 80))
+    if data == "resident_ragged":
+        train["points"] = _ragged(train["points"])
+        if seg_only:
+            train["parts"] = [p[:len(c)] for p, c in zip(train["parts"], train["points"])]
     test = None if accs is None else {k: v[:8] for k, v in train.items()}
     records = {}
     for side in ("jax", "port"):
         log_dir = str(tmp_path / side)
         kw = dict(model=model, num_point=64, batch_size=4, max_epoch=max_epoch, checkpoint_every=every,
-                  log_dir=log_dir, seed=3)
+                  log_dir=log_dir, seed=3, device_resident=data != "host")
         if sidecars:
             os.makedirs(log_dir)
             for name, content in sidecars.items():
                 with open(os.path.join(log_dir, name), "w") as f:
                     json.dump(content, f)
         if side == "jax":
-            trainer = _one_device_trainer(jtrainer.TrainerConfig(device_resident=False, **kw))
+            trainer = _one_device_trainer(jtrainer.TrainerConfig(**kw))
         else:
             trainer = Trainer(TrainerConfig(device="cpu", **kw))
         rec = _stub_fit(trainer, side == "jax", accs, seg_only, monkeypatch)
@@ -191,8 +234,14 @@ def test_fit_flow_matches_jax(case, tmp_path, monkeypatch):
     assert backend == "ops_backend=auto device=cpu (the plain versions)"
     assert rec["log"] == jax_rec["log"]
     assert rec["metrics"] == jax_rec["metrics"]
-    for key in ("save", "evaluate", "epoch_labels", "snapshots", "restores", "final_step"):
+    for key in ("save", "evaluate", "epoch_labels", "snapshots", "restores", "final_step", "uploads",
+                "evaluate_device", "device_epochs"):
         assert rec[key] == jax_rec[key], key
+    resident = data == "resident"
+    assert bool(rec["uploads"]) == resident and bool(rec["device_epochs"]) == resident
+    assert bool(rec["epoch_labels"]) != resident
+    if accs is not None:
+        assert bool(rec["evaluate_device"]) == resident and bool(rec["evaluate"]) != resident
     first = 2 if sidecars else 0
     assert [r["epoch"] for r in rec["metrics"]] == list(range(first, max_epoch))
     assert rec["log"][0] == "model=" + model + " params=15 devices=1"
