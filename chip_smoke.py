@@ -398,7 +398,34 @@ Phases (any failure raises and the exit code is not 0):
         RESIDENT_LOSS_RTOL; each path timed, in turns;
      d. one Table-5 row through ``table5.train_and_evaluate``
         (``pointnet_cls``, one epoch, the best checkpoint restored, 12
-        votes).
+        votes);
+ 19. the synthetic-hard harness (``train/synth_hard.py``) at its shapes,
+     N=128 clouds of its own data (``synth_hard.build_data``), where SA1
+     of the PointNet++ family asks FPS for 512 centroids; its seconds
+     printed:
+     a. #1 and #2 at M > N (B=2, N = 128 and 100, M = 512) against
+        ``fps_plain``: indices and coordinates equal, index 0 once every
+        point is taken; timed;
+     b. #3 at the harness's eval calls (B=24, N=128: SSG's SA1 and SA2 and
+        MSG's six scales, K = 128 = N through the chunked path), recorded
+        from f32 forwards, each against its plain version; timed;
+     c. ``synth_hard.main`` in a temporary directory: ``pointnet2_cls_bga``
+        f32, then ``pointnet2_cls_ssg:bfloat16 --pool_f32 keys --merge``,
+        SYNTH_EPOCHS epochs each, counting launches (#1, #2, #3, #6, #7,
+        #9 and #13, then #18, required); both rows in the json with the
+        JAX script's keys, accuracies in [0, 1], the markdown naming the
+        card;
+     d. every row of ``synth_hard.ROWS`` through ``run_row`` on
+        SYNTH_ROW_CLOUDS training and SYNTH_BATCH test clouds, one epoch,
+        its launches counted and printed by kernel (the harness's kernels
+        by family); each row's accuracies in [0, 1];
+     e. one training step of ``pointnet2_cls_bga`` f32 and one of
+        ``pointnet2_cls_ssg`` bf16 with exact keys at B=24, N=128: every
+        kernel call of the step (#1/#2, #6, #7, #9, and #13 or #18)
+        recorded and held to its plain version on the same inputs (equal;
+        #7 bit-stable and equal to the CPU's index-order sum), then the
+        step to the plain path's (``compare_steps``, the bounds of phases 4
+        and 11).
 
 Every kernel's line in the ``{"kernels": [...]}`` record carries its
 bound: the larger of the bytes it must move over 3.35 TB/s and the
@@ -1021,11 +1048,9 @@ def ball_query_plain_entry(radius, nsample, xyz, new_xyz):
     return idx.int(), cnt.int()
 
 
-def plain_path():
-    """Patches that swap every kernel's wrapper for its plain version, at
-    the names the model paths call them by."""
-    from contextlib import ExitStack
-
+def kernel_sites():
+    """(module, name, plain version) of every kernel's wrapper, at the names
+    the model paths call it by."""
     from scanobjectnn_torch.models import dgcnn, spidercnn
     from scanobjectnn_torch.nn import pointnet_modules, xconv
     from scanobjectnn_torch.ops import exactpool, satrain
@@ -1035,8 +1060,7 @@ def plain_path():
         safused_kernel, samlp_kernel, satrain_kernel, spider_kernel,
     )
 
-    stack = ExitStack()
-    for module, name, plain in (
+    return (
         (ops_fps, "fps", fps_plain_entry),
         (pointnet_modules, "sa_ball_mlp_pool", safused_kernel.sa_ball_mlp_pool_plain),
         (pointnet_modules, "sa_ball_mlp_pool_bucketed", sabucket_kernel.sa_ball_mlp_pool_bucketed_plain),
@@ -1055,8 +1079,51 @@ def plain_path():
         (xconv, "knn_point_kernel", knn_kernel.knn_point_plain),
         (exactpool, "bn_relu_exactkey_pool", poolkey_kernel.bn_relu_exactkey_pool_plain),
         (satrain, "grouped_bn_mlp_pool_bwd", satrain_kernel.grouped_bn_mlp_pool_bwd_plain),
-    ):
+    )
+
+
+def plain_path():
+    """Patches that swap every kernel's wrapper for its plain version, at
+    the names the model paths call them by."""
+    stack = contextlib.ExitStack()
+    for module, name, plain in kernel_sites():
         stack.enter_context(mock.patch.object(module, name, plain))
+    return stack
+
+
+class _Recorded:
+    """A kernel's wrapper that appends (name, wrapper, plain version, args,
+    kwargs) to ``calls``, its tensors cloned, before it runs.  Attributes
+    read and written go to the wrapper, so its launch counts, which it
+    keeps through its own module-level name, stay its own."""
+
+    def __init__(self, name, wrapper, plain, calls: list):
+        object.__setattr__(self, "spec", (name, wrapper, plain, calls))
+
+    def __call__(self, *args, **kw):
+        import torch
+
+        name, wrapper, plain, calls = self.spec
+
+        def copy(value):
+            return value.detach().clone() if isinstance(value, torch.Tensor) else value
+
+        calls.append((name, wrapper, plain, tuple(copy(a) for a in args), {k: copy(v) for k, v in kw.items()}))
+        return wrapper(*args, **kw)
+
+    def __getattr__(self, attr):
+        return getattr(self.spec[1], attr)
+
+    def __setattr__(self, attr, value):
+        setattr(self.spec[1], attr, value)
+
+
+def recording(calls: list):
+    """Patches that make every kernel's wrapper, at the names the model
+    paths call it by, record its calls into ``calls`` (``_Recorded``)."""
+    stack = contextlib.ExitStack()
+    for module, name, plain in kernel_sites():
+        stack.enter_context(mock.patch.object(module, name, _Recorded(name, getattr(module, name), plain, calls)))
     return stack
 
 
@@ -4452,6 +4519,190 @@ def resident_phase(smi: str, dev) -> None:
           f"{row} ({smi})")
     print(f"resident phase 18: {time.perf_counter() - t_phase:.1f} s ({smi})")
 
+
+# The synthetic-hard harness (phase 19): its clouds of 2 x SYNTH_POINT points
+# subsampled to SYNTH_POINT, its batch SYNTH_BATCH; SYNTH_EPOCHS epochs of
+# the whole training set in 19c; SYNTH_ROW_CLOUDS training clouds (two steps)
+# a row in 19d.  FPS at M > N equal to its plain version; #3 held as in
+# phase 2 (f32: ``check_pooled``'s bound).
+SYNTH_POINT, SYNTH_BATCH, SYNTH_EPOCHS, SYNTH_ROW_CLOUDS = 128, 24, 2, 48
+SYNTH_ROW_KEYS = {"model", "dtype", "bga", "accuracy", "seg_accuracy", "avg_part_accuracy", "wall_sec"}
+
+
+def harness_counters():
+    """Every kernel wrapper the harness's rows can launch."""
+    from scanobjectnn_torch.ops.cuda.ballgroup_kernel import query_ball_point
+    from scanobjectnn_torch.ops.cuda.dupmask_kernel import duplicate_mask_kernel
+    from scanobjectnn_torch.ops.cuda.knn_kernel import knn_point_kernel
+    from scanobjectnn_torch.ops.cuda.ranksort_kernel import rank_sort_points
+    from scanobjectnn_torch.ops.cuda.sabucket_kernel import sa_ball_mlp_pool_bucketed
+    from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool
+    from scanobjectnn_torch.ops.cuda.samlp_kernel import sa_mlp_pool
+    from scanobjectnn_torch.ops.cuda.spider_kernel import spider_conv_bwd_kernel, spider_conv_fwd_kernel
+
+    return (*dp_counters(), query_ball_point, sa_ball_mlp_pool, sa_mlp_pool, knn_point_kernel, duplicate_mask_kernel,
+            spider_conv_fwd_kernel, spider_conv_bwd_kernel, rank_sort_points, sa_ball_mlp_pool_bucketed)
+
+
+def synth_phase(smi: str, dev) -> None:
+    """Phase 19 (module doc): the synthetic-hard harness at its shapes."""
+    import argparse
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from scanobjectnn_torch.nn import pointnet_modules
+    from scanobjectnn_torch.ops.cuda.fps_kernel import fps, fps_plain
+    from scanobjectnn_torch.ops.cuda.safused_kernel import sa_ball_mlp_pool, sa_ball_mlp_pool_plain
+    from scanobjectnn_torch.train import synth_hard
+
+    t_phase = time.perf_counter()
+    # a. FPS at M > N: once every point is taken, index 0 (all distances 0).
+    rng = np.random.RandomState(19)
+    for n in (128, 100):
+        xyz = torch.from_numpy(rng.randn(2, n, 3).astype(np.float32)).to(dev)
+        label = f"B=2 {n}->512 (M > N)"
+        check_fps(xyz, 512, label, fps, fps_plain)
+        idx = fps(xyz, 512, with_coords=False)
+        require(torch.equal(idx, fps_plain(xyz, 512)[0]), f"FPS indices without coordinates differ ({label})")
+        require(not bool(idx[:, n:].any()) and all(len(set(r[:n].tolist())) == n for r in idx),
+                f"FPS at M > N: every point once, then index 0 ({label})")
+        work = Work()
+        fps_work(work, 2, n, 512)
+        print(f"time fps {label}: kernel {cuda_ms(lambda: fps(xyz, 512)):.4f} ms, indices only "
+              f"{cuda_ms(lambda: fps(xyz, 512, with_coords=False)):.4f} ms, plain "
+              f"{cuda_ms(lambda: fps_plain(xyz, 512), iters=3):.4f} ms, bound {work.record()} ({smi})")
+
+    # b. #3 at the harness's eval calls, recorded from f32 forwards.
+    train, test = synth_hard.build_data(2 * SYNTH_POINT)
+    view = np.random.RandomState(19).permutation(2 * SYNTH_POINT)[:SYNTH_POINT]
+    x = torch.from_numpy(test["points"][:SYNTH_BATCH][:, view]).to(dev)
+    calls = []
+
+    def recorder(*args, **kw):
+        calls.append((args, {k: v for k, v in kw.items() if k != "dtype"}))
+        return sa_ball_mlp_pool(*args, **kw)
+
+    for name in ("pointnet2_cls_ssg", "pointnet2_cls_msg"):
+        model = eval_models(name, np.random.RandomState(19), num_classes=6)["f32"]
+        calls.clear()
+        with torch.no_grad(), mock.patch.object(pointnet_modules, "sa_ball_mlp_pool", recorder):
+            logits = model(x)["logits"]
+        require(logits.shape == (SYNTH_BATCH, 6) and bool(torch.isfinite(logits).all()), f"{name} logits at N=128")
+        require([(a[2].shape[1], a[3].shape[1]) for a, _ in calls][0] == (SYNTH_POINT, 512),
+                f"{name}: SA1 is not 512 centroids from {SYNTH_POINT} points")
+        with torch.no_grad():
+            for i, (args, kw) in enumerate(calls):
+                label = (f"{name} call {i} B={SYNTH_BATCH} N={args[2].shape[1]} M={args[3].shape[1]} K={args[1]} "
+                         f"r{args[0]}")
+                check_sa(args, torch.float32, label, sa_ball_mlp_pool, sa_ball_mlp_pool_plain, **kw)
+                work = Work()
+                sa_work(work, args, torch.float32, kw.get("use_xyz", True))
+                print(f"time sa_ball_mlp_pool {label}: kernel "
+                      f"{cuda_ms(lambda: sa_ball_mlp_pool(*args, dtype=torch.float32, **kw)):.4f} ms, plain "
+                      f"{cuda_ms(lambda: sa_ball_mlp_pool_plain(*args, dtype=torch.float32, **kw), iters=3):.4f} "
+                      f"ms, bound {work.record()} ({smi})")
+    require(any(a[1] == SYNTH_POINT for a, _ in calls), "MSG's K = 128 = N call never ran")
+
+    # c. The harness's command: two rows, the second merged into the first's files.
+    counters = harness_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        md, js = os.path.join(tmp, "synth.md"), os.path.join(tmp, "synth.json")
+        base = ["--epochs", str(SYNTH_EPOCHS), "--output", md, "--json", js]
+        for argv, need in ((["--models", "pointnet2_cls_bga"],
+                            ("fps", "query_ball_group", "gather_rows", "scatter_add_rows", "sa_ball_mlp_pool",
+                             "knn_point_kernel")),
+                           (["--models", "pointnet2_cls_ssg:bfloat16", "--pool_f32", "keys", "--merge"],
+                            ("fps", "query_ball_group", "gather_rows", "scatter_add_rows", "sa_ball_mlp_pool",
+                             "bn_relu_exactkey_pool"))):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                _, launches = counted_run(counters, lambda: synth_hard.main(base + argv))
+            print(f"synth 19c: synth_hard.main {' '.join(argv)} ({SYNTH_EPOCHS} epochs): "
+                  f"{time.perf_counter() - t0:.1f} s, launches {launches}, of them indices-only FPS "
+                  f"{fps.index_launches}, chunked #3 {sa_ball_mlp_pool.chunked_launches} ({smi})")
+            require(all(launches[k] > 0 for k in need), f"19c: a kernel of the harness never launched: {launches}")
+        with open(js) as f:
+            rows = json.load(f)
+        with open(md) as f:
+            lines = f.read().splitlines()
+    print(f"synth 19c: rows {rows}")
+    require([(r["model"], r["dtype"]) for r in rows] == [("pointnet2_cls_bga", "float32"),
+                                                        ("pointnet2_cls_ssg", "bfloat16+poolkeys")],
+            f"19c: the json's rows {rows}")
+    require(all(set(r) == SYNTH_ROW_KEYS and 0.0 <= r["accuracy"] <= 1.0 for r in rows)
+            and 0.0 <= rows[0]["seg_accuracy"] <= 1.0, f"19c: the rows' keys or accuracies {rows}")
+    require(lines[1].startswith(f"Device: {smi.splitlines()[0]}") and len(lines) == 9,
+            f"19c: the markdown {lines[:2]}")
+
+    # d. Every row through run_row on a slice of the data: launches by kernel.
+    args = argparse.Namespace(epochs=1, num_point=SYNTH_POINT, pool_f32=None, device="cuda")
+    small = {k: v[:SYNTH_ROW_CLOUDS] for k, v in train.items()}
+    small_test = {k: v[:SYNTH_BATCH] for k, v in test.items()}
+    for model, supervision, dtype in synth_hard.ROWS:
+        t0 = time.perf_counter()
+        row, launches = counted_run(counters, lambda: synth_hard.run_row(model, supervision, dtype, small,
+                                                                         small_test, args))
+        accs = [row[k] for k in ("accuracy", "avg_part_accuracy") if row[k] is not None]
+        require(set(row) == SYNTH_ROW_KEYS and all(0.0 <= a <= 1.0 for a in accs), f"19d: {model} {dtype}: {row}")
+        print(f"synth 19d: {model} {dtype}: {time.perf_counter() - t0:.2f} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} } ({smi})")
+
+    synth_step_checks(train, smi, dev)
+    print(f"synth phase 19: {time.perf_counter() - t_phase:.1f} s ({smi})")
+
+def synth_step_checks(train: dict, smi: str, dev) -> None:
+    """Phase 19e: one training step of BGA f32 and of SSG bf16 with exact
+    keys at the harness's shapes (B=SYNTH_BATCH clouds of its training set
+    at SYNTH_POINT points).  Every kernel call of the step is recorded and
+    held to its plain version on the same inputs (equal; #7 bit-stable and
+    equal to the CPU's index-order sum), then the step to the plain path's
+    (``compare_steps``)."""
+    import torch
+
+    from scanobjectnn_torch.data.pipeline import Batches, EpochSampler
+    from scanobjectnn_torch.train.trainer import Trainer, TrainerConfig
+
+    view = EpochSampler(train["points"], train["labels"], masks=train["masks"], num_points=SYNTH_POINT,
+                        seed=0).epoch()
+    batch = next(iter(Batches(view, SYNTH_BATCH)))
+    for model, dtype, pool, n_zero, step_tol in (
+        ("pointnet2_cls_bga", "float32", "auto", 19, TRAIN_GRAD_TOL),
+        ("pointnet2_cls_ssg", "bfloat16", "keys", 11, BF16_STEP_GRAD_TOL),
+    ):
+        trainer = Trainer(TrainerConfig(model=model, num_classes=6, num_point=SYNTH_POINT, batch_size=SYNTH_BATCH,
+                                        dtype=dtype, augment_rotate=False, pool_precision=pool, device=str(dev)))
+        step_batch = batch if trainer.kind != "cls" else {k: batch[k] for k in ("points", "labels")}
+        calls = []
+        with recording(calls):
+            trainer.train_step(trainer.init_state(seed=0), step_batch)
+        torch.cuda.synchronize()
+        need = {"fps", "query_ball_group", "gather_rows", "scatter_add_rows",
+                "knn_point_kernel" if dtype == "float32" else "bn_relu_exactkey_pool"}
+        require({name for name, *_ in calls} == need, f"19e: {model} {dtype} called {[c[0] for c in calls]}")
+        for i, (name, wrapper, plain, args, kw) in enumerate(calls):
+            label = f"{model} {dtype} call {i} {name} {[list(a.shape) for a in args if hasattr(a, 'shape')]}"
+            got = wrapper(*args, **kw)
+            if name == "scatter_add_rows":
+                # Bit-stable, and the CPU's index-order sum bit for bit.
+                want = plain(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args), **kw)
+                require(torch.equal(got, wrapper(*args, **kw)) and torch.equal(got.cpu(), want),
+                        f"19e: #7 differs from the CPU's index-order sum ({label})")
+                continue
+            want = plain(*args, **kw)
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            require(len(got) == len(want) and all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want)),
+                    f"19e: {name} differs from its plain version ({label})")
+        print(f"synth 19e: {model} {dtype} one step at B={SYNTH_BATCH} N={SYNTH_POINT}: "
+              f"{len(calls)} kernel calls equal to their plain versions "
+              f"{ {n: sum(c[0] == n for c in calls) for n in sorted(need)} } ({smi})")
+        compare_steps(trainer, step_batch, n_zero, f"synth {model} {dtype} B={SYNTH_BATCH} N={SYNTH_POINT}",
+                      grad_tol=step_tol, zero_tol=ZERO_GRAD_TOL if dtype == "float32" else None)
+
+
 def main() -> None:
     import torch
 
@@ -4655,6 +4906,8 @@ def main() -> None:
     marks.append(("17", time.perf_counter()))
     resident_phase(smi, dev)
     marks.append(("18", time.perf_counter()))
+    synth_phase(smi, dev)
+    marks.append(("19", time.perf_counter()))
     print("seconds by phase: " + ", ".join(f"{label} {t - t0:.1f}" for (label, t), t0 in
                                            zip(marks, [t_start] + [t for _, t in marks[:-1]])))
 

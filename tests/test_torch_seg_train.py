@@ -270,6 +270,13 @@ def test_inputs_are_pinned_off_ball_boundaries(levels):
     "name,bn", [("pointnet2_cls_bga", "f32"), ("pointnet2_cls_bga", "f64"), ("pointnet2_cls_partseg", "f32")]
 )
 def test_train_step_matches_jax(monkeypatch, batch, variables, reference, name, bn):
+    check_train_step(monkeypatch, batch, variables, reference, name, bn)
+
+
+def check_train_step(monkeypatch, batch, variables, reference, name, bn):
+    """One port step of ``name`` (its BN in ``bn``: "f32", or "f64" by
+    ``_bn_forward_f64``) on ``batch`` from ``variables``, against the float64
+    JAX step ``reference`` (module doc's bounds)."""
     trainer = _trainer(monkeypatch, name)
     assert trainer.kind == PORT[name].kind and trainer.bn_schedule(0) == MOMENTUM
     state = trainer.init_state()
